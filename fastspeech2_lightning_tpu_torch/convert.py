@@ -1,0 +1,198 @@
+"""Weight bridge: JAX parameter pytrees -> the port's torch state_dicts.
+
+``state_dict_from_jax`` is the port's own copy of the mapping in the JAX
+package's ``models/torch_export.py:34-243``: flax (params, batch_stats,
+constants) -> the reference/torchaudio state_dict layout the port's modules
+are named after, so the result loads with ``load_state_dict(strict=True)``.
+``hifigan_state_from_jax`` is the inverse of ``models/hifigan.py::
+load_torch_hifigan``. Both take nested dicts of array-likes (numpy arrays,
+or anything ``np.asarray`` reads) and return numpy arrays."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _lin(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = _f32(p["kernel"]).T
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _ln(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = _f32(p["scale"])
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _conv1d(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = np.transpose(_f32(p["kernel"]), (2, 1, 0))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _bn(out: dict, prefix: str, p: dict, s: Optional[dict]) -> None:
+    out[f"{prefix}.weight"] = _f32(p["scale"])
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+    n = _f32(p["scale"]).shape[0]
+    out[f"{prefix}.running_mean"] = _f32(s["mean"] if s else np.zeros(n))
+    out[f"{prefix}.running_var"] = _f32(s["var"] if s else np.ones(n))
+    out[f"{prefix}.num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+
+
+def _conformer_layer(out: dict, prefix: str, p: dict, s: dict) -> None:
+    def ffn(tp, fp):
+        _ln(out, f"{tp}.sequential.0", fp["norm"])
+        _lin(out, f"{tp}.sequential.1", fp["linear1"])
+        _lin(out, f"{tp}.sequential.4", fp["linear2"])
+
+    ffn(f"{prefix}.ffn1", p["ffn1"])
+    _ln(out, f"{prefix}.self_attn_layer_norm", p["attn"]["norm"])
+    out[f"{prefix}.self_attn.in_proj_weight"] = _f32(p["attn"]["qkv"]["kernel"]).T
+    out[f"{prefix}.self_attn.in_proj_bias"] = _f32(p["attn"]["qkv"]["bias"])
+    _lin(out, f"{prefix}.self_attn.out_proj", p["attn"]["out"])
+    cm = f"{prefix}.conv_module"
+    conv = p["conv"]
+    _ln(out, f"{cm}.layer_norm", conv["norm"])
+    # pointwise convs are Dense in the flax tree: kernel [in, out] -> [out, in, 1]
+    out[f"{cm}.sequential.0.weight"] = _f32(conv["pointwise1"]["kernel"]).T[:, :, None]
+    out[f"{cm}.sequential.0.bias"] = _f32(conv["pointwise1"]["bias"])
+    out[f"{cm}.sequential.2.weight"] = np.transpose(_f32(conv["depthwise"]["kernel"]), (2, 1, 0))
+    out[f"{cm}.sequential.2.bias"] = _f32(conv["depthwise"]["bias"])
+    _bn(out, f"{cm}.sequential.3", conv["bn"], s.get("conv", {}).get("bn"))
+    out[f"{cm}.sequential.5.weight"] = _f32(conv["pointwise2"]["kernel"]).T[:, :, None]
+    out[f"{cm}.sequential.5.bias"] = _f32(conv["pointwise2"]["bias"])
+    ffn(f"{prefix}.ffn2", p["ffn2"])
+    _ln(out, f"{prefix}.final_layer_norm", p["final_norm"])
+
+
+def _variance_predictor(out: dict, prefix: str, p: dict, depthwise: bool) -> None:
+    i = 0
+    while f"conv_{i}" in p:
+        layer = p[f"conv_{i}"]
+        lp = f"{prefix}.conv.{i}.layers"
+        if depthwise:
+            dsc = layer["DepthwiseSeparableConv1d_0"]
+            _conv1d(out, f"{lp}.0.module.model.0", dsc["depthwise"])
+            _conv1d(out, f"{lp}.0.module.model.1", dsc["pointwise"])
+        else:
+            _conv1d(out, f"{lp}.0.module", layer["Conv_0"])
+        _ln(out, f"{lp}.2", layer["LayerNorm_0"])
+        i += 1
+    _lin(out, f"{prefix}.linear", p["linear"])
+
+
+def _conv_attention(out: dict, prefix: str, p: dict) -> None:
+    _conv1d(out, f"{prefix}.key_proj.0.conv", p["key_proj_0"]["Conv_0"])
+    _conv1d(out, f"{prefix}.key_proj.2.conv", p["key_proj_1"]["Conv_0"])
+    _conv1d(out, f"{prefix}.query_proj.0.conv", p["query_proj_0"]["Conv_0"])
+    _conv1d(out, f"{prefix}.query_proj.2.conv", p["query_proj_1"]["Conv_0"])
+    _conv1d(out, f"{prefix}.query_proj.4.conv", p["query_proj_2"]["Conv_0"])
+
+
+def state_dict_from_jax(
+    params: dict,
+    batch_stats: Optional[dict],
+    constants: Optional[dict],
+    config,
+    stats=None,
+) -> Dict[str, np.ndarray]:
+    """flax (params, batch_stats, constants) -> reference state_dict (numpy).
+
+    Pitch/energy bins come from the 'constants' collection when present and
+    from ``np.linspace`` over the stats' normalized range otherwise, as the
+    JAX exporter writes them."""
+    mcfg = config.model
+    if mcfg.use_global_style_token_module:
+        raise NotImplementedError("global style tokens are not ported yet (later slice: GST)")
+    batch_stats = batch_stats or {}
+    sd: Dict[str, np.ndarray] = {}
+
+    tl = params["text_input_layer"]
+    if "embedding" not in tl:
+        raise NotImplementedError(
+            "phonological-feature input is not ported yet (later slice: phones/pfs input)"
+        )
+    sd["text_input_layer.weight"] = _f32(tl["embedding"])
+    d = mcfg.encoder.input_dim
+    sd["position_embedding.inv_freq"] = (
+        1.0 / (10000.0 ** (np.arange(0.0, d, 2.0, dtype=np.float32) / d))
+    ).astype(np.float32)
+
+    for name, n_layers in (("encoder", mcfg.encoder.layers), ("decoder", mcfg.decoder.layers)):
+        for i in range(n_layers):
+            _conformer_layer(
+                sd, f"{name}.conformer_layers.{i}", params[name][f"layer_{i}"],
+                (batch_stats.get(name) or {}).get(f"layer_{i}", {}),
+            )
+
+    va = params["variance_adaptor"]
+    vp = mcfg.variance_predictors
+    for name, cfgv in (("duration", vp.duration), ("pitch", vp.pitch), ("energy", vp.energy)):
+        _variance_predictor(
+            sd, f"variance_adaptor.{name}_predictor", va[f"{name}_predictor"], cfgv.depthwise
+        )
+    sd["variance_adaptor.pitch_embedding.weight"] = _f32(va["pitch_embedding"]["embedding"])
+    sd["variance_adaptor.energy_embedding.weight"] = _f32(va["energy_embedding"]["embedding"])
+    cva = (constants or {}).get("variance_adaptor", {})
+    for name, cfgv, st in (("pitch", vp.pitch, getattr(stats, "pitch", None)),
+                           ("energy", vp.energy, getattr(stats, "energy", None))):
+        if f"{name}_bins" in cva:
+            sd[f"variance_adaptor.{name}_bins"] = _f32(cva[f"{name}_bins"])
+        elif st is not None:
+            sd[f"variance_adaptor.{name}_bins"] = np.linspace(
+                st.norm_min, st.norm_max, cfgv.n_bins - 1, dtype=np.float32
+            )
+    if mcfg.learn_alignment:
+        _conv_attention(sd, "variance_adaptor.attention", va["attention"])
+
+    _lin(sd, "mel_linear", params["mel_linear"])
+    if mcfg.use_postnet:
+        pn = params["postnet"]
+        pn_s = batch_stats.get("postnet", {})
+        for i in range(5):
+            _conv1d(sd, f"postnet.convolutions.{i}.0.conv", pn[f"conv_{i}"])
+            _bn(sd, f"postnet.convolutions.{i}.1", pn[f"bn_{i}"], pn_s.get(f"bn_{i}"))
+    if mcfg.multispeaker and "speaker_embedding" in params:
+        sd["speaker_embedding.weight"] = _f32(params["speaker_embedding"]["embedding"])
+    if mcfg.multilingual and "language_embedding" in params:
+        sd["language_embedding.weight"] = _f32(params["language_embedding"]["embedding"])
+    return sd
+
+
+def hifigan_state_from_jax(params: dict, config) -> Dict[str, np.ndarray]:
+    """JAX HiFiGAN generator pytree -> torch HiFiGAN state_dict (numpy):
+    conv [K, Cin, Cout] -> [Cout, Cin, K], transposed conv [K, Cin, Cout] ->
+    [Cin, Cout, K], ``res_{i}_{j}`` -> ``resblocks.{i * n + j}``."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(prefix, w, b):
+        sd[f"{prefix}.weight"] = np.ascontiguousarray(np.transpose(_f32(w), (2, 1, 0)))
+        sd[f"{prefix}.bias"] = _f32(b)
+
+    conv("conv_pre", params["conv_pre_w"], params["conv_pre_b"])
+    n = len(config.resblock_kernel_sizes)
+    for i in range(len(config.upsample_rates)):
+        sd[f"ups.{i}.weight"] = np.ascontiguousarray(
+            np.transpose(_f32(params[f"up_{i}_w"]), (1, 2, 0))
+        )
+        sd[f"ups.{i}.bias"] = _f32(params[f"up_{i}_b"])
+        for j in range(n):
+            block = params[f"res_{i}_{j}"]
+            r = i * n + j
+            for di in range(len(config.resblock_dilation_sizes[j])):
+                if config.resblock == "1":
+                    conv(f"resblocks.{r}.convs1.{di}", block[f"convs1_{di}_w"],
+                         block[f"convs1_{di}_b"])
+                    conv(f"resblocks.{r}.convs2.{di}", block[f"convs2_{di}_w"],
+                         block[f"convs2_{di}_b"])
+                else:
+                    conv(f"resblocks.{r}.convs.{di}", block[f"convs_{di}_w"],
+                         block[f"convs_{di}_b"])
+    conv("conv_post", params["conv_post_w"], params["conv_post_b"])
+    return sd

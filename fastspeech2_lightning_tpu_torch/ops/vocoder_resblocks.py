@@ -1,0 +1,207 @@
+"""The HiFiGAN multi-receptive-field (MRF) resblock stage.
+
+    y = mean_j RB_j(x),   RB_j: for each dilation i,
+                           x += conv_{k_j,1}(lrelu(conv_{k_j,d_i}(lrelu(x))))
+
+over x [B, T, C] (the JAX package's layout), with SAME padding: positions
+outside [0, T) count as zero before every conv.
+
+``fused_mrf_stage`` runs a stage as launches of ``mrf_conv``, one per conv
+(18 for a V1 stage). ``mrf_conv`` launches the CUDA kernel in
+``csrc/mrf_conv.cu`` on a CUDA tensor (or raises) and runs its plain version
+``mrf_conv_reference`` on a CPU tensor. ``mrf_stage_reference`` is the
+unfused resblock group written with ``F.conv1d``, for the CPU and for
+comparison only.
+
+Replaces ``fastspeech2_lightning_tpu/ops/vocoder_resblocks.py:168
+fused_mrf_stage``; the kernel's bound and design are in its source header.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+LRELU_SLOPE = 0.1
+HALO = 64  # the JAX kernel's halo; kept for the same routing gate
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p]
+)
+
+# epilogue modes of mrf_conv
+WRITE, ACCUMULATE, FINISH = 0, 1, 2
+
+
+def mrf_stage_supported(C: int, kernel_sizes, dilation_sizes) -> bool:
+    """The routing gate of the JAX package (``vocoder_resblocks.py:214``):
+    the low-channel stages, C <= 128, whose deepest chain's receptive field
+    fits the TPU kernel's halo."""
+    if C > 128:
+        return False
+    worst = max(
+        sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
+        for k, dils in zip(kernel_sizes, dilation_sizes)
+    )
+    return worst <= HALO
+
+
+def prepare_stage_weights(
+    stage_params: Sequence[Dict[str, torch.Tensor]],
+    kernel_sizes: Sequence[int],
+    dilation_sizes: Sequence[Sequence[int]],
+    dtype: torch.dtype,
+) -> List[torch.Tensor]:
+    """Flatten one stage's resblocks, given in torch Conv1d layout
+    (``convs1.{i}.weight`` [C, C, k], ``convs1.{i}.bias`` [C], ...), into
+    the kernel's order: for each resblock j, for each dilation i:
+    W1 [k, C, C] (tap, in, out), b1 [C], W2, b2 — contiguous, in `dtype`."""
+    flat: List[torch.Tensor] = []
+    for j, dils in enumerate(dilation_sizes):
+        p = stage_params[j]
+        for i in range(len(dils)):
+            for name in (f"convs1.{i}", f"convs2.{i}"):
+                w = p[f"{name}.weight"]  # [Cout, Cin, k]
+                flat.append(w.permute(2, 1, 0).contiguous().to(dtype))
+                flat.append(p[f"{name}.bias"].contiguous().to(dtype))
+    return flat
+
+
+def mrf_conv_reference(
+    x, w, bias, dilation: int, residual=None, out=None, acc=None,
+    mode: int = WRITE, scale: float = 1.0,
+):
+    """Plain version of one ``mrf_conv``: y = bias + conv(lrelu(x)) [+ res],
+    then the epilogue `mode` into `out` / `acc`, computed in f32."""
+    xt = F.leaky_relu(x.float(), LRELU_SLOPE).transpose(1, 2)
+    y = F.conv1d(
+        xt, w.float().permute(2, 1, 0), bias.float(),
+        padding="same", dilation=dilation,
+    ).transpose(1, 2)
+    if residual is not None:
+        y = y + residual.float()
+    if mode == WRITE:
+        out.copy_(y)
+    elif mode == ACCUMULATE:
+        acc.add_(y, alpha=scale)
+    else:
+        out.copy_(acc + scale * y)
+
+
+def mrf_conv(
+    x, w, bias, dilation: int, residual=None, out=None, acc=None,
+    mode: int = WRITE, scale: float = 1.0,
+) -> None:
+    """One conv of the stage with its epilogue, in place into `out` / `acc`:
+    y = bias + sum_tap lrelu(x shifted by (tap - half) * dilation) @ w[tap]
+    [+ residual]; WRITE: out = y; ACCUMULATE: acc += scale * y; FINISH:
+    out = acc + scale * y. x, residual, out: [B, T, C] contiguous; w
+    [K, C, C]; bias [C]; acc [B, T, C] f32. `residual` may be `out`."""
+    if x.device.type == "cpu":
+        mrf_conv_reference(x, w, bias, dilation, residual, out, acc, mode, scale)
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_conv: unsupported device {x.device}")
+    B, T, C = x.shape
+    K = w.shape[0]
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"mrf_conv: dtype {x.dtype} not supported")
+    if w.shape != (K, C, C) or bias.shape != (C,):
+        raise ValueError(f"mrf_conv: weights {tuple(w.shape)}/{tuple(bias.shape)} for C={C}")
+    tensors = {"x": x, "w": w, "bias": bias, "residual": residual, "out": out}
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"mrf_conv: {name} must be contiguous {x.dtype} on {x.device}")
+    for name, t in (("residual", residual), ("out", out), ("acc", acc)):
+        if t is not None and t.shape != x.shape:
+            raise ValueError(f"mrf_conv: {name} must be [B, T, C] = {tuple(x.shape)}")
+    if mode != ACCUMULATE and out is None:
+        raise ValueError("mrf_conv: this mode writes `out`")
+    if mode != WRITE:
+        if acc is None or acc.dtype != torch.float32 or not acc.is_contiguous():
+            raise ValueError("mrf_conv: this mode needs a contiguous f32 `acc`")
+
+    from ..kernels import build
+
+    lib = build.load("mrf_conv", {"mrf_conv": _ARGTYPES})
+    err = lib.mrf_conv(
+        _DTYPE_CODES[x.dtype],
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if residual is not None else None,
+        out.data_ptr() if out is not None else None,
+        acc.data_ptr() if acc is not None else None,
+        B, T, C, K, dilation, mode, scale,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "mrf_conv")
+    mrf_conv.launches += 1
+
+
+mrf_conv.launches = 0
+
+
+def fused_mrf_stage(
+    x: torch.Tensor,
+    flat_weights: Sequence[torch.Tensor],
+    kernel_sizes: Sequence[int] = (3, 7, 11),
+    dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+) -> torch.Tensor:
+    """A whole stage, x [B, T, C] -> mean_j RB_j(x) [B, T, C], as one
+    ``mrf_conv`` per conv. Buffers: t (the inner conv's output), s (the
+    running resblock state, updated in place) and an f32 accumulator of the
+    resblock average, which the last conv of the last resblock writes out."""
+    x = x.contiguous()
+    t = torch.empty_like(x)
+    s_buf = torch.empty_like(x)
+    out = torch.empty_like(x)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    n = len(kernel_sizes)
+    scale = 1.0 / n
+    pos = 0
+    for j, dils in enumerate(dilation_sizes):
+        s = x
+        for i, d in enumerate(dils):
+            w1, b1, w2, b2 = flat_weights[pos : pos + 4]
+            pos += 4
+            mrf_conv(s, w1, b1, d, out=t)
+            if i < len(dils) - 1:
+                mrf_conv(t, w2, b2, 1, residual=s, out=s_buf)
+                s = s_buf
+            elif j < n - 1:
+                mrf_conv(t, w2, b2, 1, residual=s, acc=acc, mode=ACCUMULATE, scale=scale)
+            else:
+                mrf_conv(t, w2, b2, 1, residual=s, out=out, acc=acc, mode=FINISH,
+                         scale=scale)
+    return out
+
+
+def mrf_stage_reference(
+    x: torch.Tensor,
+    stage_params: Sequence[Dict[str, torch.Tensor]],
+    kernel_sizes: Sequence[int] = (3, 7, 11),
+    dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+) -> torch.Tensor:
+    """Plain version of a stage: the unfused resblock group with F.conv1d,
+    in x's dtype, over x [B, T, C] and torch-layout resblock params."""
+    h = x.transpose(1, 2)
+    acc = None
+    for j, dils in enumerate(dilation_sizes):
+        p = stage_params[j]
+        s = h
+        for i, d in enumerate(dils):
+            r = F.leaky_relu(s, LRELU_SLOPE)
+            r = F.conv1d(r, p[f"convs1.{i}.weight"].to(h.dtype),
+                         p[f"convs1.{i}.bias"].to(h.dtype), padding="same", dilation=d)
+            r = F.leaky_relu(r, LRELU_SLOPE)
+            r = F.conv1d(r, p[f"convs2.{i}.weight"].to(h.dtype),
+                         p[f"convs2.{i}.bias"].to(h.dtype), padding="same")
+            s = s + r
+        acc = s if acc is None else acc + s
+    return (acc / len(kernel_sizes)).transpose(1, 2)

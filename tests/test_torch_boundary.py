@@ -1,0 +1,108 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import fastspeech2_lightning_tpu_torch as port
+from fastspeech2_lightning_tpu_torch.checkpoint import write_checkpoint
+from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
+from fastspeech2_lightning_tpu_torch.text import TextProcessor
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_DIR = REPO / "fastspeech2_lightning_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "yaml",
+             "fastspeech2_lightning_tpu")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."))
+
+
+def test_importing_every_module_loads_no_jax():
+    """A fresh interpreter (this one already holds jax: tests/conftest.py)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m.split(".")[0] in FORBIDDEN and m.split(".")[0] != "fastspeech2_lightning_tpu_torch"]
+    assert not bad, bad
+    assert "fastspeech2_lightning_tpu_torch.serving.server" in loaded
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+@pytest.fixture
+def tiny_ckpt(tmp_path):
+    cfg = {
+        "model": {
+            "encoder": {"layers": 1, "heads": 2, "input_dim": 32, "feedforward_dim": 64},
+            "decoder": {"layers": 1, "heads": 2, "input_dim": 32, "feedforward_dim": 64},
+            "variance_predictors": {
+                k: {"input_dim": 32, "n_layers": 1, "n_bins": 16}
+                for k in ("energy", "pitch", "duration")
+            },
+        },
+        "preprocessing": {"audio": {"n_mels": 20}},
+        "text": {"symbols": {"letters": list("abc")}},
+    }
+    config = FastSpeech2Config.from_dict(cfg)
+    model = FastSpeech2(config, n_symbols=len(TextProcessor(config.text).symbols))
+    si = dict(min=-1.0, max=1.0, std=1.0, mean=0.0, norm_min=-1.0, norm_max=1.0)
+    return write_checkpoint(tmp_path / "m.ckpt", model.state_dict(), cfg,
+                            {"pitch": si, "energy": si})
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(tiny_ckpt):
+    from fastspeech2_lightning_tpu_torch.serving import serve
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Synthesizer.from_checkpoint(tiny_ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(tiny_ckpt, port=0)
+    syn = Synthesizer.from_checkpoint(tiny_ckpt, device="cpu")
+    assert syn.device.type == "cpu"
+    assert syn.synthesize(["abc"]).wavs is None
+
+
+def test_cli_serve_refuses_without_card(tiny_ckpt):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    out = subprocess.run(
+        [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", "serve", str(tiny_ckpt),
+         "--port", "0"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
