@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one CUDA card and check it.
+"""Run the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,21 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     HiFiGAN V1, written as a .ckpt and an .npz and served by ``serve()``;
     8 concurrent /synthesize requests (4 wav, 4 mel), with both kernels'
     launch counts read around this phase;
- 6. card against CPU: one f32 batch of the same weights on both.
+ 6. card against CPU: one f32 batch of the same weights on both;
+ 7-8. the training attention kernels (forward with dropout, backward)
+    against their plain version at (16, 2, 1024 and 2048, 128), bf16 and f32,
+    p = 0 and 0.2 with the same seed; the kept share of the mask; times of
+    kernel, plain version and F.scaled_dot_product_attention;
+ 9. MAS against its plain version, bit for bit, at B = 16, T 1024/2048,
+    L 160/1000;
+ 10. the CTC alpha and beta-gradient kernels against their plain version at
+    B = 16, T = 1024, L = 160, with F.ctc_loss as the yardstick;
+ 11. training: a seeded 64-utterance corpus, the default config at full width
+    and depth in bf16 with batch 16, 8 steps through the ``train`` CLI entry,
+    the four training kernels' launch counts read around it, and the final
+    checkpoint served one sentence;
+ 12. card against CPU: one f32 train step (2+2 layers, no dropout) from the
+    same weights and batch.
 
 f32 comparisons run with TF32 off. Prints a line for every check and
 timing, the kernels' JSON line, the card's name and power limit, and last the
@@ -127,7 +142,8 @@ def phase_build() -> None:
 
     t0 = time.time()
     names = build.all_sources()
-    check(names == ["attention_fwd", "mrf_conv"], f"unexpected kernel sources {names}")
+    check(names == ["attention_bwd", "attention_fwd", "ctc_banded_lse", "mas_width1", "mrf_conv"],
+          f"unexpected kernel sources {names}")
     logs = build.build(names)
     seconds = time.time() - t0
     for name, out in logs.items():
@@ -481,10 +497,9 @@ def phase_card_vs_cpu(sd: dict) -> None:
     import torch
 
     from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import PAD_MULT_TEXT, _round_up
     from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
-    from fastspeech2_lightning_tpu_torch.synthesis.prepare import (
-        PAD_MULT_TEXT, _round_up, encode_texts_for_model,
-    )
+    from fastspeech2_lightning_tpu_torch.synthesis.prepare import encode_texts_for_model
     from fastspeech2_lightning_tpu_torch.text import TextProcessor
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -516,6 +531,418 @@ def phase_card_vs_cpu(sd: dict) -> None:
         f"mel max-abs {mel_err:.3e}")
 
 
+# -- phases 7-8: training attention (kernels A and A') ----------------------
+
+TRAIN_SHAPES = ((16, 2, 1024, 128), (16, 2, 2048, 128))
+DROPOUT_P = (0.0, 0.2)
+
+
+def _ragged_bias(B, T, g):
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import NEG_INF
+
+    lens = torch.randint(T // 3, T + 1, (B,), device="cuda", generator=g)
+    lens[0], lens[1] = T, T - 37
+    valid = torch.arange(T, device="cuda")[None, :] < lens[:, None]
+    return torch.where(valid, 0.0, NEG_INF).float(), lens
+
+
+def phase_attention_train() -> dict:
+    """Kernels A (forward with dropout and log-sum-exp) and A' (backward)
+    against the plain version in f32 on the same bf16-rounded inputs, with
+    the same seed, so the same mask; returns the rows at the decoder's
+    training shape (16, 2, 2048, 128) bf16, p = 0.2."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        attention_bwd, attention_bwd_reference, attention_dropout_reference, attention_fwd,
+        dropout_keep_mask,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    seed = torch.tensor([123457], dtype=torch.int32, device="cuda")
+    keep_rows = {}
+    for B, H, T, dh in TRAIN_SHAPES:
+        bias, lens = _ragged_bias(B, T, g)
+        q32, k32, v32, do32 = (torch.randn(B, H, T, dh, device="cuda", generator=g)
+                               for _ in range(4))
+        scale = 1.0 / math.sqrt(dh)
+        for p in DROPOUT_P:
+            if p > 0:
+                keep = dropout_keep_mask(int(seed), B, H, T, p, device="cuda")
+                kept, n = int(keep.sum()), keep.numel()
+                sigma = math.sqrt(n * p * (1 - p))
+                check(abs(kept - n * (1 - p)) <= 5 * sigma,
+                      f"kept share {kept / n:.6f} not within 5 sigma of {1 - p}")
+                del keep
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+                dt = str(dtype).split(".")[-1]
+                out, lse = attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
+                grads = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+                torch.cuda.synchronize()
+                qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+                want = attention_dropout_reference(qf, kf, vf, bias, seed, p, scale)
+                f_abs, f_rel = errors(out, want)
+                del want
+                want_grads = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, dof)
+                b_errs = [errors(gt, wt) for gt, wt in zip(grads, want_grads)]
+                del want_grads
+                limit = 1e-5 if dtype == torch.float32 else 2e-2
+                check(f_rel <= limit, f"attention_fwd {B, H, T, dh} {dt} p={p}: rel-L2 {f_rel}")
+                for name, (_, rel) in zip(("dQ", "dK", "dV"), b_errs):
+                    check(rel <= limit, f"attention_bwd {name} {B, H, T, dh} {dt} p={p}: "
+                                        f"rel-L2 {rel} > {limit}")
+
+                mask = bias[:, None, None, :].to(dtype)
+                fwd_ms = time_ms(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                                       with_lse=True), iters=10)
+                bwd_ms = time_ms(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out, lse,
+                                                       do), iters=10)
+                fwd_plain = time_ms(lambda: attention_dropout_reference(
+                    q, k, v, bias, seed, p, scale), warmup=1, iters=3)
+                bwd_plain = time_ms(lambda: attention_bwd_reference(
+                    q, k, v, bias, seed, p, scale, do), warmup=1, iters=3)
+                fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, dropout_p=p, scale=scale), iters=10)
+                qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+                def sdpa_fwd_bwd():
+                    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                                       dropout_p=p, scale=scale)
+                    torch.autograd.grad(o, (qg, kg, vg), do)
+
+                bwd_lib = time_ms(sdpa_fwd_bwd, iters=10)
+                keys = float(lens.sum()) * H * T * dh  # query rows x kept keys x dh
+                f_bound = bound_ms(4.0 * keys, (4 * B * H * T * dh) * q.element_size()
+                                   + B * T * 4 + B * H * T * 4, dt)
+                b_bound = bound_ms(10.0 * keys, (8 * B * H * T * dh) * q.element_size()
+                                   + B * T * 4 + 2 * B * H * T * 4, dt)
+                full = B * H * T * T * dh  # every key, masked ones included
+                log(f"attention_fwd+dropout {B, H, T, dh} {dt} p={p}: max_abs={f_abs:.3e} "
+                    f"rel_l2={f_rel:.3e} kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain:.4f} "
+                    f"library_ms={fwd_lib:.4f} bound_ms={f_bound[0]:.4f} ({f_bound[1]}; "
+                    f"4BHT^2dh = {4 * full:.3e} FLOP)")
+                log(f"attention_bwd {B, H, T, dh} {dt} p={p}: max_abs dQ/dK/dV="
+                    f"{'/'.join(f'{e[0]:.3e}' for e in b_errs)} rel_l2="
+                    f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={bwd_ms:.4f} "
+                    f"plain_ms={bwd_plain:.4f} library_ms={bwd_lib:.4f} (SDPA fwd+bwd) "
+                    f"bound_ms={b_bound[0]:.4f} ({b_bound[1]}; 10BHT^2dh = {10 * full:.3e} FLOP)")
+                if (T, dt, p) == (2048, "bfloat16", 0.2):
+                    common = dict(shape=[B, H, T, dh], dtype=dt, p=p)
+                    keep_rows["fwd"] = dict(common, max_abs_err=f_abs, rel_l2=f_rel, ms=fwd_ms,
+                                            plain_ms=fwd_plain, library_ms=fwd_lib,
+                                            bound_ms=f_bound[0], bound_by=f_bound[1])
+                    keep_rows["bwd"] = dict(common, max_abs_err=max(e[0] for e in b_errs),
+                                            rel_l2=max(e[1] for e in b_errs), ms=bwd_ms,
+                                            plain_ms=bwd_plain, library_ms=bwd_lib,
+                                            bound_ms=b_bound[0], bound_by=b_bound[1])
+                del out, lse, grads
+        torch.cuda.empty_cache()
+    return keep_rows
+
+
+# -- phase 9: MAS (kernel B) -------------------------------------------------
+
+
+def phase_mas() -> dict:
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    row = None
+    B = 16
+    for T in (1024, 2048):
+        for L in (160, 1000):
+            la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+            in_lens = torch.randint(max(L // 4, 1), L + 1, (B,), device="cuda", generator=g)
+            out_lens = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
+            in_lens[0], out_lens[0] = L, T
+            hard, dur = mas_width1(la, in_lens, out_lens)
+            torch.cuda.synchronize()
+            want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+            check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+                  f"mas_width1 B={B} T={T} L={L}: path differs from the plain version")
+            check(torch.equal(dur.sum(1), out_lens.int()), "mas durations do not sum to out_lens")
+            kernel = time_ms(lambda: mas_width1(la, in_lens, out_lens), iters=10)
+            plain = time_ms(lambda: mas_width1_reference(la, in_lens, out_lens), warmup=1,
+                            iters=2)
+            bound = bound_ms(0.0, 2 * B * T * L * 4 + B * L * 4, "float32")
+            log(f"mas_width1 B={B} T={T} L={L}: bit-exact, kernel_ms={kernel:.4f} "
+                f"plain_ms={plain:.2f} bound_ms={bound[0]:.4f} ({bound[1]})")
+            if (T, L) == (2048, 1000):
+                row = dict(shape=[B, T, L], dtype="float32", max_abs_err=0.0, ms=kernel,
+                           plain_ms=plain, library_ms=None, bound_ms=bound[0],
+                           bound_by=bound[1])
+    return row
+
+
+# -- phase 10: CTC (kernel C) ------------------------------------------------
+
+
+def phase_ctc() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_lightning_tpu_torch.ops import ctc
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    B, T, L = 16, 1024, 160
+    S = 2 * L + 1
+    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    attn = torch.randn(B, T, L, device="cuda", generator=g)
+    logits = torch.cat([torch.full((B, T, 1), -1.0, device="cuda"), attn], -1)
+    logits = torch.where(torch.arange(L + 1, device="cuda") > in_lens[:, None, None],
+                         ctc.NEG_INF, logits)
+    lp = torch.log_softmax(logits, -1)
+    gvec = torch.rand(B, device="cuda", generator=g)
+
+    alphas = ctc.ctc_alpha(lp, out_lens)
+    ll = ctc._final_ll(alphas[:, -1], in_lens)
+    grad = ctc.ctc_beta_grad(lp, alphas, in_lens, out_lens, ll, gvec)
+    torch.cuda.synchronize()
+    want_alphas = ctc.ctc_alpha_reference(lp, out_lens)
+    want_ll = ctc._final_ll(want_alphas[:, -1], in_lens)
+    want_grad = ctc.ctc_beta_grad_reference(lp, want_alphas, in_lens, out_lens, want_ll, gvec)
+    loss_rel = float(((ll - want_ll).abs() / want_ll.abs()).max())
+    grad_abs = float((grad - want_grad).abs().max())
+    check(loss_rel <= 1e-5, f"ctc loss rel {loss_rel} > 1e-5")
+    check(grad_abs <= 1e-5, f"ctc grad_y max-abs {grad_abs} > 1e-5")
+
+    targets = torch.arange(1, L + 1, device="cuda").expand(B, L)
+    lp_tbc = lp.transpose(0, 1).contiguous()
+
+    def lib_forward():
+        return F.ctc_loss(lp_tbc, targets, out_lens, in_lens, blank=0, reduction="none",
+                          zero_infinity=True)
+
+    lib_rel = float(((lib_forward() - (-ll)).abs() / ll.abs()).max())
+    lp_g = lp_tbc.clone().requires_grad_(True)
+
+    def lib_fwd_bwd():
+        loss = F.ctc_loss(lp_g, targets, out_lens, in_lens, blank=0, reduction="none",
+                          zero_infinity=True)
+        torch.autograd.grad(loss, lp_g, gvec)
+
+    a_ms = time_ms(lambda: ctc.ctc_alpha(lp, out_lens), iters=10)
+    b_ms = time_ms(lambda: ctc.ctc_beta_grad(lp, alphas, in_lens, out_lens, ll, gvec), iters=10)
+    a_plain = time_ms(lambda: ctc.ctc_alpha_reference(lp, out_lens), warmup=1, iters=3)
+    b_plain = time_ms(lambda: ctc.ctc_beta_grad_reference(lp, alphas, in_lens, out_lens, ll,
+                                                          gvec), warmup=1, iters=3)
+    a_lib = time_ms(lib_forward, iters=10)
+    b_lib = time_ms(lib_fwd_bwd, iters=10)
+    a_bound = bound_ms(0.0, B * T * ((L + 1) + S) * 4, "float32")
+    b_bound = bound_ms(0.0, B * T * (2 * (L + 1) + S) * 4, "float32")
+    log(f"ctc B={B} T={T} L={L}: loss rel={loss_rel:.3e} grad_y max_abs={grad_abs:.3e} "
+        f"(F.ctc_loss against ours: rel {lib_rel:.3e})")
+    log(f"ctc_alpha: kernel_ms={a_ms:.4f} plain_ms={a_plain:.3f} library_ms={a_lib:.4f} "
+        f"(F.ctc_loss forward) bound_ms={a_bound[0]:.4f} ({a_bound[1]})")
+    log(f"ctc_beta_grad: kernel_ms={b_ms:.4f} plain_ms={b_plain:.3f} library_ms={b_lib:.4f} "
+        f"(F.ctc_loss forward+backward) bound_ms={b_bound[0]:.4f} ({b_bound[1]})")
+    common = dict(shape=[B, T, L], dtype="float32")
+    return {
+        "alpha": dict(common, max_abs_err=float((ll - want_ll).abs().max()), loss_rel=loss_rel,
+                      ms=a_ms, plain_ms=a_plain, library_ms=a_lib, bound_ms=a_bound[0],
+                      bound_by=a_bound[1]),
+        "beta": dict(common, max_abs_err=grad_abs, ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
+                     bound_ms=b_bound[0], bound_by=b_bound[1]),
+    }
+
+
+# -- phase 11: training through the CLI --------------------------------------
+
+N_UTTS = 64
+
+
+def write_corpus(root: Path, cfg: dict, rng) -> None:
+    """A seeded preprocessed corpus in the layout the dataset reads: per
+    utterance a mel spec [n_mels, T], frame-level pitch and energy, a
+    diagonal attention prior [T, L]; stats.json and the filelists. Texts of
+    20-200 characters, mels of 100-2000 frames (one of exactly 2000, so a
+    bucket pads above 1536 frames)."""
+    import numpy as np
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.text import TextProcessor
+
+    config = FastSpeech2Config.from_dict(cfg)
+    tp = TextProcessor(config.text)
+    n_mels = config.preprocessing.audio.n_mels
+    spec_name = f"spec-{config.preprocessing.audio.input_sampling_rate}-" \
+                f"{config.preprocessing.audio.spec_type}.npy"
+    for kind in ("spec", "pitch", "energy", "attn"):
+        (root / kind).mkdir(parents=True, exist_ok=True)
+    rows = []
+    for i in range(N_UTTS):
+        n_chars = int(rng.integers(20, 201))
+        words = []
+        while len(" ".join(words)) < n_chars:
+            words.append(str(rng.choice(WORDS)))
+        text = " ".join(words)[:n_chars].strip()
+        L = len(tp.encode_text(text))
+        T = 2000 if i == 0 else int(np.clip(L * rng.uniform(6, 10), 100, 2000))
+        name = f"utt{i:03d}--default--default--"
+        mel = (rng.standard_normal((n_mels, T)) - 4.0).astype(np.float32)
+        np.save(root / "spec" / (name + spec_name), mel)
+        voiced = rng.random(T) > 0.2
+        np.save(root / "pitch" / (name + "pitch.npy"),
+                (rng.standard_normal(T) * voiced).astype(np.float32))
+        np.save(root / "energy" / (name + "energy.npy"),
+                rng.standard_normal(T).astype(np.float32))
+        centre = np.arange(T)[:, None] / max(T - 1, 1) * (L - 1)
+        prior = np.exp(-((np.arange(L)[None, :] - centre) ** 2) / (2 * (L / 8 + 1) ** 2))
+        np.save(root / "attn" / (name + "characters-attn-prior.npy"),
+                (prior / prior.sum(1, keepdims=True)).astype(np.float32))
+        rows.append(f"utt{i:03d}|default|default|{text}")
+    header = "basename|speaker|language|characters"
+    (root / "training_filelist.psv").write_text("\n".join([header] + rows) + "\n")
+    (root / "validation_filelist.psv").write_text("\n".join([header] + rows[:2]) + "\n")
+    (root / "stats.json").write_text(json.dumps(STATS))
+
+
+TRAIN_STEPS = 8
+
+
+def phase_train(workdir: Path) -> dict:
+    """Train the default config (full width and depth, bf16, batch 16) for
+    8 steps through the port's CLI entry; returns the launches, ms/step and
+    peak memory, after serving one sentence from the final checkpoint."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_bwd, attention_fwd
+    from fastspeech2_lightning_tpu_torch.ops.ctc import ctc_alpha, ctc_beta_grad
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+
+    cfg = model_config("bfloat16")
+    corpus = workdir / "corpus"
+    t0 = time.time()
+    write_corpus(corpus, cfg, np.random.default_rng(SEED + 7))
+    cfg["preprocessing"]["save_dir"] = "corpus"
+    cfg["training"].update(batch_size=16, training_filelist="corpus/training_filelist.psv",
+                           validation_filelist="corpus/validation_filelist.psv")
+    cfg["training"]["logger"].update(save_dir="logs", name="smoke", version="train")
+    config_path = workdir / "config.json"
+    config_path.write_text(json.dumps(cfg))
+    log(f"train: corpus of {N_UTTS} utterances written in {time.time() - t0:.1f} s")
+
+    counters = (attention_fwd, attention_bwd, mas_width1, ctc_alpha, ctc_beta_grad)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cli.main(["train", str(config_path), "--max-steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    log_dir = workdir / "logs" / "smoke" / "train"
+    rows = [json.loads(line) for line in (log_dir / "train_log.jsonl").read_text().splitlines()]
+    check(len(rows) == TRAIN_STEPS, f"{len(rows)} steps logged, want {TRAIN_STEPS}")
+    loss_keys = ("total", "spec", "postnet", "pitch", "energy", "duration", "attn_ctc",
+                 "attn_bin", "grad_norm")
+    for r in rows:
+        check(all(k in r and math.isfinite(r[k]) for k in loss_keys), f"step {r['step']}: {r}")
+        log(f"train step {r['step']}: B x L x T = {' x '.join(map(str, r['shape']))}, "
+            f"{r['ms']:.1f} ms, total {r['total']:.4f}, attn_ctc {r['attn_ctc']:.4f}, "
+            f"grad_norm {r['grad_norm']:.3f}")
+    check(max(r["shape"][2] for r in rows) > 1536, "no bucket above 1536 frames was trained")
+    want = {"attention_fwd": 8 * TRAIN_STEPS, "attention_bwd": 8 * TRAIN_STEPS,
+            "mas_width1": TRAIN_STEPS, "ctc_alpha": TRAIN_STEPS, "ctc_beta_grad": TRAIN_STEPS}
+    check(launches == want, f"training launches {launches}, predicted {want}")
+    ms_step = statistics.median(r["ms"] for r in rows[2:])
+
+    syn = Synthesizer.from_checkpoint(log_dir / "checkpoints" / "last.ckpt")
+    check(syn.device.type == "cuda", f"the trained checkpoint loaded on {syn.device}")
+    mel = syn.synthesize(["the trained model speaks."]).mels[0]
+    check(mel.ndim == 2 and mel.shape[1] == 80 and bool(np.isfinite(mel).all()),
+          f"synthesis from the trained checkpoint gave {mel.shape}")
+    log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s (model build, loader and first-step "
+        f"set-up included); median step after step 2 {ms_step:.1f} ms; peak memory "
+        f"{peak_gib:.2f} GiB; launches {launches}; last.ckpt synthesized {mel.shape[0]} frames")
+    return dict(launches=launches, ms_per_step=ms_step, peak_gib=peak_gib,
+                shapes=[r["shape"] for r in rows])
+
+
+# -- phase 12: card against CPU, one train step ------------------------------
+
+
+def phase_train_card_vs_cpu(workdir: Path) -> None:
+    """One f32 train step (2+2 layers, full width, every dropout 0, no
+    PostNet) from the same weights and batch on the card and on the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import (
+        PAD_MULT_MEL, PAD_MULT_TEXT, FastSpeechDataset, _round_up, collate,
+    )
+    from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_lightning_tpu_torch.text import TextProcessor
+    from fastspeech2_lightning_tpu_torch.text.lookups import load_filelist
+    from fastspeech2_lightning_tpu_torch.training.state import (
+        AdamWNoam, init_like_flax,
+    )
+    from fastspeech2_lightning_tpu_torch.training.step import (
+        batch_to_device, step_generator, train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model_config("float32")
+    for part in ("encoder", "decoder"):
+        cfg["model"][part].update(layers=2, dropout=0.0)
+    for kind in ("pitch", "energy", "duration"):
+        cfg["model"]["variance_predictors"][kind]["dropout"] = 0.0
+    cfg["model"]["use_postnet"] = False
+    cfg["preprocessing"]["save_dir"] = str(workdir / "corpus")
+    config = FastSpeech2Config.from_dict(cfg)
+    items = load_filelist(workdir / "corpus" / "training_filelist.psv")
+    ds = FastSpeechDataset(items, config, {"default": 0}, {"default": 0})
+    samples = sorted((ds[i] for i in range(8)), key=lambda s: s["mel"].shape[0])[:4]
+    batch = collate(samples, _round_up(max(len(s["text"]) for s in samples), PAD_MULT_TEXT),
+                    _round_up(max(s["mel"].shape[0] for s in samples), PAD_MULT_MEL))
+    batch["sample_weight"] = np.array([1, 1, 1, 0], np.float32)
+
+    model = FastSpeech2(config, n_symbols=len(TextProcessor(config.text).symbols))
+    init_like_flax(model, SEED)
+    with torch.no_grad():
+        for kind in ("pitch", "energy"):
+            st = STATS[kind]
+            getattr(model.variance_adaptor, f"{kind}_bins").copy_(
+                torch.linspace(st["norm_min"], st["norm_max"], 255))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        db = batch_to_device(batch, dev)
+        durations = m.forward_train(db, step_generator(0, 0, dev))["duration_target"].cpu()
+        m.load_state_dict(model.state_dict())
+        opt = AdamWNoam(list(m.named_parameters()), config.training)
+        losses = train_step(m, opt, config, db, 0, 50)
+        results[dev] = (durations, {k: float(v) for k, v in losses.items()},
+                        {k: v.detach().cpu() for k, v in m.state_dict().items()})
+    (d_gpu, l_gpu, p_gpu), (d_cpu, l_cpu, p_cpu) = results["cuda"], results["cpu"]
+    check(torch.equal(d_gpu, d_cpu), "MAS durations differ between card and CPU")
+    worst_loss = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-8) for k in l_cpu)
+    check(worst_loss <= 1e-4, f"card vs CPU losses differ: {l_gpu} vs {l_cpu}")
+    worst_param = max(float((p_gpu[k].float() - p_cpu[k].float()).abs().max()) for k in p_cpu)
+    check(worst_param <= 1e-5, f"card vs CPU parameters after a step differ by {worst_param}")
+    log(f"card vs CPU train step (f32, TF32 off, 2+2 layers, B=4, T={batch['mel'].shape[1]}): "
+        f"durations equal, worst loss rel {worst_loss:.3e}, worst parameter max-abs "
+        f"{worst_param:.3e}")
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -534,27 +961,47 @@ def main() -> None:
     phase_build()
     att = phase_attention()[0]
     mrf = phase_mrf()[0]
+    train_att = phase_attention_train()
+    mas = phase_mas()
+    ctc = phase_ctc()
     cfg = model_config("bfloat16")
     sd = random_state_dict(cfg, np.random.default_rng(SEED))
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_serving(Path(workdir), sd, cfg)
-    phase_card_vs_cpu(sd)
+        phase_card_vs_cpu(sd)
+        train = phase_train(Path(workdir))
+        phase_train_card_vs_cpu(Path(workdir))
+    tl = train["launches"]
+
+    def entry(name, row, source, replaces, n, **extra):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                "dtype")
+        return dict(name=name, route="cuda", source=f"{PORT}/csrc/{source}",
+                    replaces=f"fastspeech2_lightning_tpu/{replaces}", launches=n,
+                    **{k: row[k] for k in keys}, **extra)
 
     kernels = [
-        dict(name="attention_fwd", route="cuda",
-             source=f"{PORT}/csrc/attention_fwd.cu",
-             replaces="fastspeech2_lightning_tpu/models/conformer.py:142",
-             launches=launches["attention_fwd"], max_abs_err=att["max_abs_err"],
-             ms=att["ms"], plain_ms=att["plain_ms"], bound_ms=att["bound_ms"],
-             bound_by=att["bound_by"], library_ms=att["library_ms"],
-             shape=att["shape"], dtype=att["dtype"]),
-        dict(name="mrf_conv", route="cuda", source=f"{PORT}/csrc/mrf_conv.cu",
-             replaces="fastspeech2_lightning_tpu/ops/vocoder_resblocks.py:168",
-             launches=launches["mrf_conv"], max_abs_err=mrf["max_abs_err"],
-             ms=mrf["ms"], plain_ms=mrf["plain_ms"], bound_ms=mrf["bound_ms"],
-             bound_by=mrf["bound_by"], library_ms=None, shape=mrf["shape"],
-             dtype=mrf["dtype"], timed="one MRF stage: 18 launches"),
+        entry("attention_fwd", att, "attention_fwd.cu", "models/conformer.py:142",
+              launches["attention_fwd"] + tl["attention_fwd"],
+              launches_by_path={"serving": launches["attention_fwd"],
+                                "training": tl["attention_fwd"]},
+              also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
+                             "fastspeech2_lightning_tpu/ops/attention_dropout.py:461"],
+              training=train_att["fwd"]),
+        entry("attention_bwd", train_att["bwd"], "attention_bwd.cu",
+              "ops/attention_dropout.py:190", tl["attention_bwd"],
+              also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:494"],
+              p=train_att["bwd"]["p"], library="SDPA forward+backward"),
+        entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94", tl["mas_width1"]),
+        entry("ctc_alpha", ctc["alpha"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
+              tl["ctc_alpha"], library="F.ctc_loss forward"),
+        entry("ctc_beta_grad", ctc["beta"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
+              tl["ctc_beta_grad"], library="F.ctc_loss forward+backward"),
+        entry("mrf_conv", mrf, "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
+              launches["mrf_conv"], timed="one MRF stage: 18 launches"),
     ]
+    log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "
+        f"({smi})")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,6 +2,7 @@
 not a dependency here).
 
     python -m fastspeech2_lightning_tpu_torch serve MODEL.ckpt -v VOCODER.npz --port 8777
+    python -m fastspeech2_lightning_tpu_torch train CONFIG.json --max-steps 1000
 """
 
 from __future__ import annotations
@@ -35,12 +36,30 @@ def _parser() -> argparse.ArgumentParser:
                    help="Build the kernels before accepting requests.")
     s.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    t = sub.add_parser(
+        "train",
+        help="Train the acoustic model on a preprocessed corpus. CONFIG is a JSON "
+        "config file (the JAX package's CLI reads the same file); the run writes "
+        "train_log.jsonl and checkpoints/last.ckpt under the logger's directory.",
+    )
+    t.add_argument("config")
+    t.add_argument("--max-steps", type=int, default=None,
+                   help="Stop after this many steps (default: training.max_steps).")
+    t.add_argument("--device", default=None,
+                   help="'cuda' (default, the current card) or 'cpu'.")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
-    if args.command == "serve":
+    if args.command == "train":
+        from .config import FastSpeech2Config
+        from .training.loop import Trainer
+
+        trainer = Trainer(FastSpeech2Config.from_file(args.config), device=args.device)
+        rows = trainer.fit(max_steps=args.max_steps)
+        print(f"trained {len(rows)} steps; checkpoint {trainer.ckpt_path}", flush=True)
+    elif args.command == "serve":
         from .serving import serve
 
         server = serve(

@@ -1,16 +1,22 @@
-"""The configuration fields the serving path reads, as plain dataclasses.
+"""The configuration fields the serving and training paths read, as plain
+dataclasses.
 
-A copy of what this slice needs of the JAX package's ``config/__init__.py``
-(model, preprocessing.audio and text), with the same defaults
-(``config/__init__.py:85-266``). ``from_dict`` reads the JSON config dict a
+A copy of what the port needs of the JAX package's ``config/__init__.py``
+(model, preprocessing, text and training), with the same defaults
+(``config/__init__.py:85-440``). ``from_dict`` reads the JSON config dict a
 checkpoint stores (``config.model_checkpoint_dump()``) and ignores every field
-the slice does not read, so a full training config loads unchanged."""
+the port does not read, so a full config loads unchanged. ``from_file``
+reads a config file as the JAX CLI does (``:483-535``): JSON only (this
+package does not read YAML; the JAX CLI reads the same JSON file), partial
+files merged, relative paths resolved against the file's folder."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import typing
-from typing import Any, Dict, List, Optional
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 
 def _from_dict(cls, data: Optional[dict]):
@@ -121,6 +127,7 @@ class AudioConfig(_FromDict):
 @dataclasses.dataclass
 class PreprocessingConfig(_FromDict):
     audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
+    save_dir: str = "./preprocessed"
 
 
 @dataclasses.dataclass
@@ -142,9 +149,107 @@ class TextConfig(_FromDict):
 
 
 @dataclasses.dataclass
+class NoamOptimizerConfig(_FromDict):
+    learning_rate: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 1e-6
+    warmup_steps: int = 1000
+
+
+@dataclasses.dataclass
+class LoggerConfig(_FromDict):
+    name: str = "BaseExperiment"
+    save_dir: str = "./logs_and_checkpoints"
+    version: str = "base"
+
+
+@dataclasses.dataclass
+class TrainingConfig(_FromDict):
+    batch_size: int = 16
+    bucket_count: int = 4
+    seed: int = 0
+    max_steps: int = 100000
+    max_epochs: int = 1000
+    use_weighted_sampler: bool = False
+    optimizer: NoamOptimizerConfig = dataclasses.field(default_factory=NoamOptimizerConfig)
+    mel_loss_weight: float = 1.0
+    postnet_loss_weight: float = 1.0
+    pitch_loss_weight: float = 0.1
+    energy_loss_weight: float = 0.1
+    duration_loss_weight: float = 0.1
+    attn_ctc_loss_weight: float = 0.1
+    attn_bin_loss_weight: float = 0.1
+    attn_bin_loss_warmup_epochs: int = 100
+    gradient_clip_val: float = 1.0
+    ema_decay: float = 0.0
+    freeze_components: List[str] = dataclasses.field(default_factory=list)
+    halt_on_non_finite: bool = True
+    training_filelist: str = "./preprocessed/training_filelist.psv"
+    validation_filelist: str = "./preprocessed/validation_filelist.psv"
+    logger: LoggerConfig = dataclasses.field(default_factory=LoggerConfig)
+
+    def __post_init__(self):
+        if self.attn_bin_loss_warmup_epochs < 1:
+            raise ValueError("training.attn_bin_loss_warmup_epochs must be >= 1")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError("training.ema_decay must lie in [0, 1)")
+
+
+_PARTIAL_KEYS = ("model", "training", "preprocessing", "text")
+
+
+def _read_json(path: Path) -> dict:
+    if path.suffix in (".yaml", ".yml"):
+        raise ValueError(
+            f"{path}: this package reads JSON configs only; write the config as "
+            "JSON (the JAX package's CLI reads the same .json file)"
+        )
+    if not path.exists():
+        raise FileNotFoundError(f"Config file not found: {path}")
+    return json.loads(path.read_text(encoding="utf8"))
+
+
+def _relative_to(base: Path, value: Optional[str]) -> Optional[str]:
+    if value is None or Path(value).is_absolute():
+        return value
+    return str((base / value).resolve())
+
+
+@dataclasses.dataclass
 class FastSpeech2Config(_FromDict):
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     preprocessing: PreprocessingConfig = dataclasses.field(
         default_factory=PreprocessingConfig
     )
     text: TextConfig = dataclasses.field(default_factory=TextConfig)
+    training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
+
+    @classmethod
+    def from_file(cls, path: Union[str, Path]) -> "FastSpeech2Config":
+        """Read a JSON config file: ``path_to_<key>_config_file`` partials are
+        the base that the file's inline section overrides
+        (``load_partials``, ``config/__init__.py:507-535``), and the relative
+        data, log and filelist paths resolve against the file's folder
+        (``:483-494``)."""
+        path = Path(path)
+        data = _read_json(path)
+        for key in _PARTIAL_KEYS:
+            rel = data.get(f"path_to_{key}_config_file")
+            if not rel:
+                continue
+            partial_path = Path(rel)
+            if not partial_path.is_absolute():
+                partial_path = (path.parent / partial_path).resolve()
+            merged = _read_json(partial_path)
+            if isinstance(data.get(key), dict):
+                merged.update(data[key])
+            data[key] = merged
+        config = cls.from_dict(data)
+        base = path.parent
+        config.preprocessing.save_dir = _relative_to(base, config.preprocessing.save_dir)
+        t = config.training
+        t.training_filelist = _relative_to(base, t.training_filelist)
+        t.validation_filelist = _relative_to(base, t.validation_filelist)
+        t.logger.save_dir = _relative_to(base, t.logger.save_dir)
+        return config

@@ -1,23 +1,36 @@
-// Attention forward with an additive key bias, for the conformer's eval path.
+// Attention forward with an additive key bias and optional dropout on the
+// attention probabilities, for the conformer's eval and training paths.
 //
-//   O = softmax(sm_scale * Q K^T + key_bias[b, None, :]) V
+//   O = dropout_p(softmax(sm_scale * Q K^T + key_bias[b, None, :])) V
 //   q, k, v, o: [B, H, T, dh] (any strides over B, H, T; dh contiguous)
 //   key_bias:   [B, T] f32, 0 for a valid key and -1e9 for padding
+//   lse:        optional [B, H, T] f32 output, m + log(l) per query row, for
+//               the backward kernel (attention_bwd.cu)
 //
-// Replaces two TPU kernels of the JAX package:
+// Dropout follows fastspeech2_lightning_tpu/ops/attention_dropout.py:264-273:
+// the normalizer sums the UNMASKED exponentials, the numerator keeps only the
+// kept entries, O = sum(keep * e * v) / ((1 - p) * sum(e)). keep iff the
+// element's 32 hash bits >= thresh (common.cuh dropout_bits; thresh =
+// min(floor(p * 2^32), 2^32 - 1), 0 at p = 0, where no bit is drawn and the
+// result equals the dropout-free kernel bit for bit).
+//
+// Replaces three TPU kernels of the JAX package:
 //   - the library Pallas flash_attention the eval conformer calls on TPU
 //     (fastspeech2_lightning_tpu/models/conformer.py:142), whose segment ids
 //     mask valid<->valid; on valid query rows the key-bias form is equal, and
 //     padded rows are masked away downstream;
 //   - fastspeech2_lightning_tpu/ops/attention_dropout.py:167
-//     _attention_fwd_impl (_fwd_kernel :53) at dropout p = 0.
+//     _attention_fwd_impl (_fwd_kernel :53), the full-row dropout forward;
+//   - attention_dropout.py:461 _stream_fwd_impl (_sfwd_kernel :283), the
+//     streaming dropout forward for T > 1536. One flash-style kernel covers
+//     every T, so the TPU's full-row/streaming split has no counterpart.
 // A row whose keys are all masked gets the uniform average, as the plain
 // version (ops/attention.py attention_reference) does: -1e9 is a finite bias.
 //
 // Bound: 4*B*H*T^2*dh operations against 4*B*H*T*dh elements moved; at the
-// decoder's serving shape (B=8, H=2, T=1024, dh=128, bf16) that is 8.6 GFLOP
-// (about 9 us at the 989 TFLOP/s bf16 tensor-core peak) against 16.8 MB
-// (about 5 us at 3.35 TB/s): compute-bound.
+// decoder's training shape (B=16, H=2, T=2048, dh=128, bf16) that is 68.7
+// GFLOP (about 69 us at the 989 TFLOP/s bf16 tensor-core peak) against
+// 33.6 MB (about 10 us at 3.35 TB/s): compute-bound.
 //
 // Design (a simple first kernel): one block of 256 threads per
 // (64-row query tile, head, batch), four threads per query row. The block
@@ -42,6 +55,12 @@ struct Strides {
   long long b, h, t;
 };
 
+struct Dropout {
+  const int* seed;  // device scalar; unread when thresh == 0
+  uint32_t thresh;
+  float keep_scale;  // 1 / (1 - p)
+};
+
 template <int DH>
 constexpr size_t smem_floats() {
   // Q and K tiles padded to DH + 1 columns (conflict-free column reads),
@@ -53,8 +72,9 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ key_bias,
-                     T* __restrict__ o, int T_len, Strides qs, Strides ks,
-                     Strides vs, Strides os, float sm_scale) {
+                     T* __restrict__ o, float* __restrict__ lse, int T_len,
+                     Strides qs, Strides ks, Strides vs, Strides os, float sm_scale,
+                     Dropout drop) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 1;
   constexpr int LP = BK + 1;
@@ -72,6 +92,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
+  const uint32_t key = drop.thresh ? fs2::dropout_key(*drop.seed, b * gridDim.y + h) : 0u;
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + h * ks.h;
@@ -131,8 +152,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const float p = expf(s[j] - m_new);
-      Ps[row * LP + part + 4 * j] = p;
       psum += p;
+      float kept = p;
+      if (drop.thresh && fs2::dropout_bits(key, q0 + row, k0 + part + 4 * j) < drop.thresh)
+        kept = 0.f;
+      Ps[row * LP + part + 4 * j] = kept;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -154,17 +178,20 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int t = q0 + row;
   if (t < T_len) {
-    const float inv = 1.f / l_run;
+    const float inv = (1.f / l_run) * drop.keep_scale;
     T* orow = o + b * os.b + h * os.h + t * os.t + part;
 #pragma unroll
     for (int m = 0; m < NO; ++m) orow[4 * m] = fs2::from_f32<T>(acc[m] * inv);
+    if (lse != nullptr && part == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * T_len + t] = m_run + logf(l_run);
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   void* o, int B, int H, int T_len, Strides qs, Strides ks,
-                   Strides vs, Strides os, float sm_scale, cudaStream_t stream) {
+                   void* o, float* lse, int B, int H, int T_len, Strides qs, Strides ks,
+                   Strides vs, Strides os, float sm_scale, Dropout drop,
+                   cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -173,8 +200,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
   attention_fwd_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<T*>(o), T_len, qs, ks, vs, os,
-      sm_scale);
+      static_cast<const float*>(bias), static_cast<T*>(o), lse, T_len, qs, ks, vs, os,
+      sm_scale, drop);
   return cudaGetLastError();
 }
 
@@ -182,27 +209,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 
 FS2_EXPORT_ERROR_STRING
 
-// Strides are in elements. Returns a cudaError_t code (0 on success).
+// Strides are in elements. `lse` may be null (no log-sum-exp output);
+// `seed` may be null when thresh == 0. Returns a cudaError_t code (0 on
+// success).
 extern "C" int attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                             const void* key_bias, void* o, int B, int H, int T_len,
-                             int dh, long long q_sb, long long q_sh, long long q_st,
+                             const void* key_bias, void* o, void* lse, const void* seed,
+                             int B, int H, int T_len, int dh,
+                             long long q_sb, long long q_sh, long long q_st,
                              long long k_sb, long long k_sh, long long k_st,
                              long long v_sb, long long v_sh, long long v_st,
                              long long o_sb, long long o_sh, long long o_st,
-                             float sm_scale, void* stream) {
+                             float sm_scale, long long thresh, float keep_scale,
+                             void* stream) {
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st};
   const Strides vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || T_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || T_len <= 0 || T_len > 65536 || thresh < 0 || thresh > 0xffffffffLL ||
+      (thresh > 0 && seed == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale};
+  float* l = static_cast<float*>(lse);
   if (dtype == fs2::kFloat32 && dh == 64)
-    return launch<float, 64>(q, k, v, key_bias, o, B, H, T_len, qs, ks, vs, os, sm_scale, st);
+    return launch<float, 64>(q, k, v, key_bias, o, l, B, H, T_len, qs, ks, vs, os, sm_scale,
+                             drop, st);
   if (dtype == fs2::kFloat32 && dh == 128)
-    return launch<float, 128>(q, k, v, key_bias, o, B, H, T_len, qs, ks, vs, os, sm_scale, st);
+    return launch<float, 128>(q, k, v, key_bias, o, l, B, H, T_len, qs, ks, vs, os, sm_scale,
+                              drop, st);
   if (dtype == fs2::kBFloat16 && dh == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, key_bias, o, B, H, T_len, qs, ks, vs, os,
-                                     sm_scale, st);
+    return launch<__nv_bfloat16, 64>(q, k, v, key_bias, o, l, B, H, T_len, qs, ks, vs, os,
+                                     sm_scale, drop, st);
   if (dtype == fs2::kBFloat16 && dh == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, key_bias, o, B, H, T_len, qs, ks, vs, os,
-                                      sm_scale, st);
+    return launch<__nv_bfloat16, 128>(q, k, v, key_bias, o, l, B, H, T_len, qs, ks, vs, os,
+                                      sm_scale, drop, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-"""Conformer encoder/decoder, eval mode (counterpart of the JAX package's
+"""Conformer encoder/decoder (counterpart of the JAX package's
 ``models/conformer.py``).
 
 Per layer: half-step FFN, self-attention, convolution module (pointwise ->
@@ -6,7 +6,13 @@ GLU -> depthwise -> BatchNorm -> SiLU -> pointwise), half-step FFN, final
 LayerNorm; activations [B, T, C]. Padding is zeroed before the depthwise conv
 and the stack's output is masked, so outputs do not depend on bucket padding.
 Self-attention runs through ``ops.attention.attention_fwd`` (the CUDA kernel
-on the card) with key bias 0 / -1e9. Module names follow torchaudio's
+on the card) with key bias 0 / -1e9. In training (a generator ``gen`` is
+given) dropout acts at the JAX package's sites: twice in each FFN, on the
+attention output, on the conv module's output, and on the attention
+probabilities at ``attention_dropout`` (None follows ``dropout``) through
+``ops.attention.attention_with_dropout`` at any p, 0 included; the conv
+module's BatchNorm takes the valid frames' batch statistics. Module names
+follow torchaudio's
 Conformer as the reference state_dict has them (``in_proj_weight`` holds
 q;k;v, each head-major)."""
 
@@ -18,20 +24,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import NEG_INF, attention_fwd
-from .layers import BatchNorm1d, Conv1d, LayerNorm, Linear
+from ..ops.attention import NEG_INF, attention_fwd, attention_with_dropout
+from .layers import BatchNorm1d, Conv1d, LayerNorm, Linear, fast_dropout
 
 
 class FeedForwardModule(nn.Module):
-    def __init__(self, d, ffn_dim, dtype):
+    def __init__(self, d, ffn_dim, dtype, dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.sequential = nn.Sequential(
             LayerNorm(d, dtype=dtype), Linear(d, ffn_dim, dtype=dtype), nn.SiLU(),
             nn.Identity(), Linear(ffn_dim, d, dtype=dtype), nn.Identity(),
         )
 
-    def forward(self, x):
-        return self.sequential(x)
+    def forward(self, x, gen=None):
+        s = self.sequential
+        x = fast_dropout(F.silu(s[1](s[0](x))), self.dropout, gen)
+        return fast_dropout(s[4](x), self.dropout, gen)
 
 
 class SelfAttention(nn.Module):
@@ -39,16 +48,18 @@ class SelfAttention(nn.Module):
     parameter names; its input LayerNorm lives in the layer
     (``self_attn_layer_norm``)."""
 
-    def __init__(self, d, heads, dtype):
+    def __init__(self, d, heads, dtype, dropout=0.0, attention_dropout=None):
         super().__init__()
         self.heads = heads
         self.compute_dtype = dtype
+        self.dropout = dropout
+        self.attention_dropout = dropout if attention_dropout is None else attention_dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj = Linear(d, d, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         B, T, d = x.shape
         h = self.heads
         dh = d // h
@@ -58,15 +69,25 @@ class SelfAttention(nn.Module):
         qkv = qkv.view(B, T, 3, h, dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         key_bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
-        out = attention_fwd(q, k, v, key_bias, 1.0 / math.sqrt(dh))
+        scale = 1.0 / math.sqrt(dh)
+        if gen is None:
+            out = attention_fwd(q, k, v, key_bias, scale)
+        else:
+            # one int32 seed per call from the step's generator, as the JAX
+            # conformer draws it from its dropout rng (conformer.py:163-166)
+            seed = torch.randint(-(2**31), 2**31 - 1, (1,), generator=gen,
+                                 device=x.device, dtype=torch.int32)
+            out = attention_with_dropout(q, k, v, key_bias, seed,
+                                         float(self.attention_dropout), scale)
         out = out.transpose(1, 2).reshape(B, T, d)
-        return self.out_proj(out)
+        return fast_dropout(self.out_proj(out), self.dropout, gen)
 
 
 class ConvolutionModule(nn.Module):
-    def __init__(self, d, kernel_size, dtype):
+    def __init__(self, d, kernel_size, dtype, dropout=0.0):
         super().__init__()
         self.compute_dtype = dtype
+        self.dropout = dropout
         self.layer_norm = LayerNorm(d, dtype=dtype)
         self.sequential = nn.Sequential(
             Conv1d(d, 2 * d, 1, dtype=dtype),
@@ -78,7 +99,7 @@ class ConvolutionModule(nn.Module):
             nn.Identity(),
         )
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         s = self.sequential
         x = self.layer_norm(x)
         x = s[0](x.transpose(1, 2))  # pointwise, [B, 2d, T]
@@ -86,42 +107,46 @@ class ConvolutionModule(nn.Module):
         # keep padding out of the depthwise receptive field
         x = x * mask[:, None, :].to(x.dtype)
         x = s[2](x)
-        x = s[3](x.transpose(1, 2))  # eval BatchNorm over [B, T, C]
+        # BatchNorm over [B, T, C]: valid frames' batch statistics in training
+        x = s[3](x.transpose(1, 2), mask=mask, use_running_average=gen is None)
         x = F.silu(x)
         x = s[5](x.transpose(1, 2)).transpose(1, 2)
-        return x
+        return fast_dropout(x, self.dropout, gen)
 
 
 class ConformerLayer(nn.Module):
-    def __init__(self, d, heads, ffn_dim, kernel_size, dtype):
+    def __init__(self, d, heads, ffn_dim, kernel_size, dtype, dropout=0.0,
+                 attention_dropout=None):
         super().__init__()
-        self.ffn1 = FeedForwardModule(d, ffn_dim, dtype)
+        self.ffn1 = FeedForwardModule(d, ffn_dim, dtype, dropout)
         self.self_attn_layer_norm = LayerNorm(d, dtype=dtype)
-        self.self_attn = SelfAttention(d, heads, dtype)
-        self.conv_module = ConvolutionModule(d, kernel_size, dtype)
-        self.ffn2 = FeedForwardModule(d, ffn_dim, dtype)
+        self.self_attn = SelfAttention(d, heads, dtype, dropout, attention_dropout)
+        self.conv_module = ConvolutionModule(d, kernel_size, dtype, dropout)
+        self.ffn2 = FeedForwardModule(d, ffn_dim, dtype, dropout)
         self.final_layer_norm = LayerNorm(d, dtype=dtype)
 
-    def forward(self, x, mask):
-        x = x + 0.5 * self.ffn1(x)
-        x = x + self.self_attn(self.self_attn_layer_norm(x), mask)
-        x = x + self.conv_module(x, mask)
-        x = x + 0.5 * self.ffn2(x)
+    def forward(self, x, mask, gen=None):
+        x = x + 0.5 * self.ffn1(x, gen)
+        x = x + self.self_attn(self.self_attn_layer_norm(x), mask, gen)
+        x = x + self.conv_module(x, mask, gen)
+        x = x + 0.5 * self.ffn2(x, gen)
         return self.final_layer_norm(x)
 
 
 class Conformer(nn.Module):
     """Stack of ConformerLayers over [B, T, C] with a [B, T] validity mask."""
 
-    def __init__(self, d, layers, heads, ffn_dim, kernel_size, dtype=torch.float32):
+    def __init__(self, d, layers, heads, ffn_dim, kernel_size, dtype=torch.float32,
+                 dropout=0.0, attention_dropout=None):
         super().__init__()
         self.compute_dtype = dtype
         self.conformer_layers = nn.ModuleList(
-            ConformerLayer(d, heads, ffn_dim, kernel_size, dtype) for _ in range(layers)
+            ConformerLayer(d, heads, ffn_dim, kernel_size, dtype, dropout, attention_dropout)
+            for _ in range(layers)
         )
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, gen=None):
         x = x.to(self.compute_dtype)
         for layer in self.conformer_layers:
-            x = layer(x, mask)
+            x = layer(x, mask, gen)
         return x * mask[:, :, None].to(x.dtype)

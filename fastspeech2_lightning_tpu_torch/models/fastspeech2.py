@@ -1,6 +1,7 @@
-"""FastSpeech2 text-to-mel model, inference forward (counterpart of the JAX
-package's ``models/fastspeech2.py:125-239`` with ``inference=True,
-deterministic=True``).
+"""FastSpeech2 text-to-mel model (counterpart of the JAX package's
+``models/fastspeech2.py:125-239``): ``forward`` with ``inference=True,
+deterministic=True``, and ``forward_train``, the training forward
+(``inference=False, deterministic=False``) over a batch of tensors.
 
 Text embedding + FastPitch positions -> Conformer encoder -> speaker /
 language embeddings -> variance adaptor -> Conformer decoder -> mel linear
@@ -49,10 +50,13 @@ class FastSpeech2(nn.Module):
         self.position_embedding = _PositionEmbedding(d)
         enc, dec = mcfg.encoder, mcfg.decoder
         self.encoder = Conformer(d, enc.layers, enc.heads, enc.feedforward_dim,
-                                 enc.conv_kernel_size, dtype=dt)
+                                 enc.conv_kernel_size, dtype=dt, dropout=enc.dropout,
+                                 attention_dropout=enc.attention_dropout)
         self.variance_adaptor = VarianceAdaptor(config, dtype=dt)
         self.decoder = Conformer(dec.input_dim, dec.layers, dec.heads,
-                                 dec.feedforward_dim, dec.conv_kernel_size, dtype=dt)
+                                 dec.feedforward_dim, dec.conv_kernel_size, dtype=dt,
+                                 dropout=dec.dropout,
+                                 attention_dropout=dec.attention_dropout)
         self.mel_linear = Linear(dec.input_dim, n_mels, dtype=dt)
         if mcfg.use_postnet:
             self.postnet = PostNet(n_mels=n_mels, dtype=dt)
@@ -71,36 +75,12 @@ class FastSpeech2(nn.Module):
         speaker_id: Optional[torch.Tensor] = None,
         language_id: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        mcfg = self.config.model
         if control is None:
             control = {"pitch": 1.0, "energy": 1.0, "duration": 1.0}
-        L = text.shape[1]
-        src_mask = mask_from_lens(src_lens, L)
-
-        inputs = self.text_input_layer(text)
-        positions = torch.arange(L, dtype=torch.float32, device=text.device)
-        enc_pos = fastpitch_positional_embedding(positions, mcfg.encoder.input_dim,
-                                                 dtype=inputs.dtype)
-        enc_pos = enc_pos[None] * src_mask[:, :, None].to(inputs.dtype)
-        x = self.encoder(inputs + enc_pos, src_mask)
-
-        if mcfg.multispeaker:
-            x = x + self.speaker_embedding(speaker_id)[:, None, :]
-        if mcfg.multilingual:
-            x = x + self.language_embedding(language_id)[:, None, :]
-
+        _, x, src_mask = self._encode(text, src_lens, speaker_id, language_id)
         va = self.variance_adaptor(x, src_mask, control, max_target_len)
         tgt_mask = va["target_mask"]
-        T = va["output"].shape[1]
-        dec_positions = torch.arange(T, dtype=torch.float32, device=text.device)
-        dec_pos = fastpitch_positional_embedding(dec_positions, mcfg.decoder.input_dim,
-                                                 dtype=x.dtype)
-        dec_pos = dec_pos[None] * tgt_mask[:, :, None].to(x.dtype)
-        x = self.decoder(va["output"] + dec_pos, tgt_mask)
-        output = self.mel_linear(x).float()
-        postnet_output = None
-        if mcfg.use_postnet:
-            postnet_output = output + self.postnet(output).float()
+        output, postnet_output = self._decode(va["output"], tgt_mask, x.dtype)
         return {
             "output": output,
             "postnet_output": postnet_output,
@@ -112,6 +92,73 @@ class FastSpeech2(nn.Module):
             "pitch_prediction": va["pitch_prediction"],
             "energy_prediction": va["energy_prediction"],
         }
+
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Training forward: `batch` holds the loader's arrays as tensors on
+        the model's device (text, src_lens, mel, mel_lens, pitch, energy,
+        attn_prior or duration, speaker_id, language_id); `gen` draws every
+        dropout mask and attention seed. Returns the keys ``compute_loss``
+        reads."""
+        inputs, x, src_mask = self._encode(batch["text"], batch["src_lens"],
+                                           batch.get("speaker_id"),
+                                           batch.get("language_id"), gen)
+        va = self.variance_adaptor.forward_train(inputs, x, batch, src_mask, gen)
+        tgt_mask = va["target_mask"]
+        output, postnet_output = self._decode(va["output"], tgt_mask, x.dtype, gen)
+        return {
+            "output": output,
+            "postnet_output": postnet_output,
+            "src_mask": src_mask,
+            "src_lens": batch["src_lens"],
+            "tgt_mask": tgt_mask,
+            "tgt_lens": batch["mel_lens"],
+            "attn_logprob": va["attn_logprob"],
+            "attn_soft": va["attn_soft"],
+            "attn_hard": va["attn_hard"],
+            "duration_prediction": va["duration_prediction"],
+            "duration_target": va["duration_target"],
+            "duration_rounded": va["duration_target"],
+            "energy_prediction": va["energy_prediction"],
+            "energy_target": va["energy_target"],
+            "pitch_prediction": va["pitch_prediction"],
+            "pitch_target": va["pitch_target"],
+        }
+
+    def _encode(self, text, src_lens, speaker_id, language_id, gen=None):
+        """(text embeddings, encoder output with the speaker and language
+        embeddings added, source mask)."""
+        mcfg = self.config.model
+        L = text.shape[1]
+        src_mask = mask_from_lens(src_lens, L)
+        inputs = self.text_input_layer(text)
+        positions = torch.arange(L, dtype=torch.float32, device=text.device)
+        enc_pos = fastpitch_positional_embedding(positions, mcfg.encoder.input_dim,
+                                                 dtype=inputs.dtype)
+        enc_pos = enc_pos[None] * src_mask[:, :, None].to(inputs.dtype)
+        x = self.encoder(inputs + enc_pos, src_mask, gen)
+        if mcfg.multispeaker:
+            x = x + self.speaker_embedding(speaker_id)[:, None, :]
+        if mcfg.multilingual:
+            x = x + self.language_embedding(language_id)[:, None, :]
+        return inputs, x, src_mask
+
+    def _decode(self, frames, tgt_mask, pos_dtype, gen=None):
+        """(mel, PostNet mel or None) in f32 from the variance adaptor's
+        frame-rate output; the decoder positions take `pos_dtype`, the
+        encoder output's."""
+        mcfg = self.config.model
+        T = frames.shape[1]
+        dec_positions = torch.arange(T, dtype=torch.float32, device=frames.device)
+        dec_pos = fastpitch_positional_embedding(dec_positions, mcfg.decoder.input_dim,
+                                                 dtype=pos_dtype)
+        dec_pos = dec_pos[None] * tgt_mask[:, :, None].to(pos_dtype)
+        x = self.decoder(frames + dec_pos, tgt_mask, gen)
+        output = self.mel_linear(x).float()
+        postnet_output = None
+        if mcfg.use_postnet:
+            postnet_output = output + self.postnet(output, gen).float()
+        return output, postnet_output
 
 
 class _PositionEmbedding(nn.Module):

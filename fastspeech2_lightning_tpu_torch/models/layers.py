@@ -9,13 +9,37 @@ BatchNorm normalize in f32 and cast the result to the compute dtype.
 
 Activations are [B, T, C]; submodule names follow the reference state_dict
 layout (``models/torch_export.py``), so an exported checkpoint loads with
-``load_state_dict(strict=True)``."""
+``load_state_dict(strict=True)``.
+
+Training randomness comes from an explicit ``torch.Generator`` passed down the
+forward (``gen``); ``gen=None`` is the JAX package's ``deterministic=True``:
+no dropout, and normalization from the running statistics."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def fast_dropout(x: torch.Tensor, rate: float,
+                 gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout with the JAX package's FastDropout semantics
+    (``layers.py:17-44``): the rate is quantized to t = round(256 * rate),
+    one uint8 of random bits per element, keep iff bits >= t, kept values
+    scaled by 256 / (256 - t) in x's dtype. Identity when `gen` is None."""
+    if gen is None or rate == 0.0:
+        return x
+    t = int(round(rate * 256.0))
+    if t <= 0:
+        return x
+    if t >= 256:
+        return torch.zeros_like(x)
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, generator=gen, device=x.device)
+    scale = torch.tensor(256.0 / (256 - t), dtype=x.dtype, device=x.device)
+    return torch.where(bits >= t, x * scale, torch.zeros_like(x))
 
 
 def fastpitch_positional_embedding(
@@ -78,21 +102,47 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm1d(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the channels of [B, T, C] with the running
-    statistics, normalized in f32 and cast to the compute dtype. Training
-    statistics come with the training slice."""
+    """BatchNorm over the channels of [B, T, C], normalized by the running
+    statistics or by one of the JAX package's two batch-statistics forms;
+    the result is cast to the compute dtype.
+
+    - running statistics (``use_running_average=True``), normalized in f32;
+    - ``mask`` given: the conformer's MaskedBatchNorm (``conformer.py:28-55``),
+      statistics over the valid frames only, computed in x's dtype, biased
+      variance;
+    - no mask: flax ``nn.BatchNorm`` (the PostNet), statistics in f32 over
+      all B*T positions, padding included, variance E[x^2] - E[x]^2.
+
+    Batch statistics update the running ones as running = 0.9 * running +
+    0.1 * batch, with the biased variance (``nn.BatchNorm1d``'s own update
+    takes the unbiased one, so it is written out here)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, channels, eps=1e-5, dtype=torch.float32):
         super().__init__(channels, eps=eps)
         self.compute_dtype = dtype
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "batch statistics are not ported yet (later slice: training)"
-            )
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-        return (y * self.weight + self.bias).to(self.compute_dtype)
+    def forward(self, x, mask=None, use_running_average: bool = True):
+        if use_running_average:
+            y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            return (y * self.weight + self.bias).to(self.compute_dtype)
+        if mask is not None:
+            m = mask[:, :, None].to(x.dtype)
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum((0, 1)) / count
+            var = (((x - mean) ** 2) * m).sum((0, 1)) / count
+            y = ((x - mean) * torch.rsqrt(var + self.eps)).float() * self.weight + self.bias
+        else:
+            x32 = x.float()
+            mean = x32.mean((0, 1))
+            var = torch.clamp((x32 * x32).mean((0, 1)) - mean * mean, min=0.0)
+            y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        with torch.no_grad():
+            k = self.MOMENTUM
+            self.running_mean.copy_(k * self.running_mean + (1 - k) * mean.float())
+            self.running_var.copy_(k * self.running_var + (1 - k) * var.float())
+        return y.to(self.compute_dtype)
 
 
 class TransposedConv(nn.Module):
@@ -121,23 +171,25 @@ class DepthwiseSeparableConv1d(nn.Module):
 
 
 class VarianceConvolutionLayer(nn.Module):
-    """Conv (plain or depthwise-separable) + ReLU + LayerNorm (+ dropout,
-    identity at inference)."""
+    """Conv (plain or depthwise-separable) + ReLU + LayerNorm + dropout."""
 
-    def __init__(self, in_ch, out_ch, kernel_size, depthwise, dtype=torch.float32):
+    def __init__(self, in_ch, out_ch, kernel_size, depthwise, dropout=0.0,
+                 dtype=torch.float32):
         super().__init__()
         conv = (
             DepthwiseSeparableConv1d(in_ch, out_ch, kernel_size, dtype=dtype)
             if depthwise
             else Conv1d(in_ch, out_ch, kernel_size, dtype=dtype)
         )
+        self.dropout = dropout
         self.layers = nn.Sequential(
             TransposedConv(conv), nn.ReLU(), LayerNorm(out_ch, dtype=dtype),
             nn.Identity(),
         )
 
-    def forward(self, x):
-        return self.layers(x)
+    def forward(self, x, gen=None):
+        s = self.layers
+        return fast_dropout(s[2](torch.relu(s[0](x))), self.dropout, gen)
 
 
 class VariancePredictor(nn.Module):
@@ -145,22 +197,22 @@ class VariancePredictor(nn.Module):
     masked (``layers.py:133-166``)."""
 
     def __init__(self, in_dim, n_layers, n_channels, kernel_size, depthwise,
-                 dtype=torch.float32):
+                 dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.compute_dtype = dtype
         self.conv = nn.ModuleList(
             VarianceConvolutionLayer(
                 in_dim if i == 0 else n_channels, n_channels, kernel_size,
-                depthwise, dtype=dtype,
+                depthwise, dropout=dropout, dtype=dtype,
             )
             for i in range(n_layers)
         )
         self.linear = Linear(n_channels, 1, dtype=dtype)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, gen=None):
         x = x.to(self.compute_dtype)
         for layer in self.conv:
-            x = layer(x)
+            x = layer(x, gen)
         out = self.linear(x).squeeze(-1).float()
         if mask is not None:
             out = out * mask.to(out.dtype)
@@ -177,8 +229,12 @@ class ConvNorm(nn.Module):
 
 
 class PostNet(nn.Module):
-    """Five convs (512 channels, kernel 5), each with eval BatchNorm, tanh on
-    all but the last (``layers.py:169-212``); the caller adds the residual."""
+    """Five convs (512 channels, kernel 5), each with BatchNorm and a fixed
+    dropout of 0.5 (no config switches it off), tanh on all but the last
+    (``layers.py:169-212``); the caller adds the residual. Batch statistics
+    unless `use_running_average` (default: when `gen` is None)."""
+
+    DROPOUT = 0.5
 
     def __init__(self, n_mels=80, dim=512, kernel_size=5, n_convs=5,
                  dtype=torch.float32):
@@ -195,12 +251,15 @@ class PostNet(nn.Module):
                 )
             )
 
-    def forward(self, x):
+    def forward(self, x, gen=None, use_running_average=None):
+        if use_running_average is None:
+            use_running_average = gen is None
         x = x.to(self.compute_dtype).transpose(1, 2)  # [B, C, T]
         n = len(self.convolutions)
         for i, (conv, bn) in enumerate(self.convolutions):
             x = conv(x)
-            x = bn(x.transpose(1, 2)).transpose(1, 2)
+            x = bn(x.transpose(1, 2), use_running_average=use_running_average)
             if i < n - 1:
                 x = torch.tanh(x)
+            x = fast_dropout(x, self.DROPOUT, gen).transpose(1, 2)
         return x.transpose(1, 2)

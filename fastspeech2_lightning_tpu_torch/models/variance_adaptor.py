@@ -1,7 +1,12 @@
-"""Variance adaptor, inference branch (counterpart of the JAX package's
-``models/variance_adaptor.py:178-228``): pitch/energy predictors with
-bucketized embeddings, the duration predictor, rounding of the predicted
-durations and the length regulator."""
+"""Variance adaptor (counterpart of the JAX package's
+``models/variance_adaptor.py``): pitch/energy predictors with bucketized
+embeddings, the duration predictor and the length regulator.
+
+``forward`` is the inference branch (``:178-228``): embeddings of the
+predictions, rounded predicted durations. ``forward_train`` is the training
+branch (``:151-213``): the alignment attention and MAS give the durations,
+the frame targets are averaged over them, and the embeddings and the length
+regulator take the targets."""
 
 from __future__ import annotations
 
@@ -11,7 +16,8 @@ import torch
 from torch import nn
 
 from ..ops.length_regulator import length_regulate
-from ..ops.variance import bucketize
+from ..ops.mas import mas_width1
+from ..ops.variance import average_variance, bucketize
 from .attention import ConvAttention
 from .layers import Embedding, VariancePredictor
 
@@ -26,7 +32,8 @@ class VarianceAdaptor(nn.Module):
 
         def predictor(c):
             return VariancePredictor(
-                d, c.n_layers, c.input_dim, c.kernel_size, c.depthwise, dtype=dtype
+                d, c.n_layers, c.input_dim, c.kernel_size, c.depthwise,
+                dropout=c.dropout, dtype=dtype,
             )
 
         self.duration_predictor = predictor(vp.duration)
@@ -94,6 +101,79 @@ class VarianceAdaptor(nn.Module):
             "duration_rounded": duration_rounded,
             "pitch_prediction": pitch_prediction,
             "energy_prediction": energy_prediction,
+            "target_mask": tgt_mask,
+            "mel_lens": mel_lens,
+        }
+
+    def forward_train(
+        self,
+        text_emb: torch.Tensor,  # [B, L, D] raw text embeddings (aligner keys)
+        x: torch.Tensor,  # [B, L, D] encoder output (+ speaker/language)
+        batch: Dict[str, torch.Tensor],
+        src_mask: torch.Tensor,  # [B, L] bool
+        gen: torch.Generator,
+    ) -> Dict[str, torch.Tensor]:
+        mcfg = self.config.model
+        vp = mcfg.variance_predictors
+        energy_target, pitch_target = batch["energy"], batch["pitch"]
+        duration_target = batch.get("duration")
+        attn_logprob = attn_soft = attn_hard = None
+        if mcfg.learn_alignment:
+            attn_soft, attn_logprob = self.attention(
+                batch["mel"], text_emb, key_mask=src_mask,
+                attn_prior=batch.get("attn_prior"),
+            )
+            # the search takes no gradient (reference: under no_grad)
+            attn_hard, duration_target = mas_width1(
+                torch.log(torch.clamp(attn_soft.detach(), min=1e-20)),
+                batch["src_lens"], batch["mel_lens"],
+            )
+            if vp.energy.level == "phone":
+                energy_target = average_variance(energy_target, duration_target)
+            if vp.pitch.level == "phone":
+                pitch_target = average_variance(pitch_target, duration_target)
+
+        def variance(x, target, mask, predictor, embedding, bins):
+            return predictor(x, mask, gen), embedding(bucketize(target, bins))
+
+        energy_prediction = pitch_prediction = None
+        if vp.energy.level == "phone":
+            energy_prediction, emb = variance(
+                x, energy_target, src_mask, self.energy_predictor,
+                self.energy_embedding, self.energy_bins,
+            )
+            x = x + emb
+        if vp.pitch.level == "phone":
+            pitch_prediction, emb = variance(
+                x, pitch_target, src_mask, self.pitch_predictor,
+                self.pitch_embedding, self.pitch_bins,
+            )
+            x = x + emb
+        log_duration_prediction = self.duration_predictor(x, src_mask, gen)
+        x, tgt_mask, mel_lens = length_regulate(x, duration_target, batch["mel"].shape[1])
+        if vp.energy.level == "frame":
+            energy_prediction, emb = variance(
+                x, energy_target, tgt_mask, self.energy_predictor,
+                self.energy_embedding, self.energy_bins,
+            )
+            x = x + emb
+        if vp.pitch.level == "frame":
+            pitch_prediction, emb = variance(
+                x, pitch_target, tgt_mask, self.pitch_predictor,
+                self.pitch_embedding, self.pitch_bins,
+            )
+            x = x + emb
+        return {
+            "output": x,
+            "attn_logprob": attn_logprob,
+            "attn_soft": attn_soft,
+            "attn_hard": attn_hard,
+            "duration_prediction": log_duration_prediction,
+            "duration_target": duration_target,
+            "pitch_prediction": pitch_prediction,
+            "pitch_target": pitch_target,
+            "energy_prediction": energy_prediction,
+            "energy_target": energy_target,
             "target_mask": tgt_mask,
             "mel_lens": mel_lens,
         }

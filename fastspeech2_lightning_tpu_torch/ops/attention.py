@@ -1,16 +1,32 @@
-"""Attention forward with an additive key bias: the conformer's eval path.
+"""Attention with an additive key bias, and with dropout on the attention
+probabilities for training.
 
-    O = softmax(sm_scale * Q K^T + key_bias[b, None, :]) V
+    O = dropout_p(softmax(sm_scale * Q K^T + key_bias[b, None, :])) V
 
-``attention_fwd`` takes q, k, v [B, H, T, dh] (any strides with dh
-contiguous) and key_bias [B, T] (0 valid, NEG_INF padded). A CUDA tensor
-launches the kernel in ``csrc/attention_fwd.cu`` (or raises); a CPU tensor
-goes to ``attention_reference``, its plain PyTorch version.
+q, k, v are [B, H, T, dh] (any strides with dh contiguous), key_bias [B, T]
+(0 valid, NEG_INF padded). Each wrapper launches its CUDA kernel for CUDA
+tensors (or raises) and runs its plain PyTorch version for CPU tensors:
 
-The kernel replaces the library Pallas flash attention the JAX package's eval
-conformer calls on TPU (``models/conformer.py:142``) and
-``ops/attention_dropout.py:167 _attention_fwd_impl`` at p = 0. Its bound and
-design are in the CUDA source's header.
+- ``attention_fwd``: ``csrc/attention_fwd.cu``, the eval conformer's
+  attention (p = 0) and the training forward (p > 0, optional log-sum-exp
+  output). Plain versions: ``attention_reference``,
+  ``attention_dropout_reference``.
+- ``attention_bwd``: ``csrc/attention_bwd.cu``, dQ, dK and dV with the same
+  dropout mask regenerated. Plain version: autograd through
+  ``attention_dropout_reference``.
+- ``attention_with_dropout``: the training entry, a ``torch.autograd.Function``
+  over the two kernels on the card; on the CPU autograd runs through the
+  plain version.
+
+The dropout mask is a pure function of (seed, b*H + h, query row, key
+column): ``dropout_keep_mask`` computes it in int64 tensors exactly as
+``csrc/common.cuh`` does in 32-bit arithmetic, so the kernels and their plain
+versions agree at p > 0 element for element. The JAX package draws its mask
+from the TPU's hardware generator, so the two packages agree in distribution
+only. The kernels replace ``ops/attention_dropout.py`` (rows 1-5 of PERF.md's
+kernel table) and the library flash attention of the JAX eval conformer
+(``models/conformer.py:142``); their bounds and designs are in the CUDA
+sources' headers.
 """
 
 from __future__ import annotations
@@ -23,59 +39,227 @@ NEG_INF = -1e9
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SUPPORTED_DH = (64, 128)
+_MAX_T = 1 << 16  # the mask hash packs (row, col) into 32 bits
+_M32 = 0xFFFFFFFF
 
 
 def attention_reference(q, k, v, key_bias, sm_scale: float) -> torch.Tensor:
-    """Plain version: f32 scores, softmax, probabilities cast to the input
-    dtype, then P V (the JAX einsum path, ``conformer.py:177-186``)."""
+    """Plain version at p = 0: f32 scores, softmax, probabilities cast to the
+    input dtype, then P V (the JAX einsum path, ``conformer.py:177-186``)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     s = s + key_bias.float()[:, None, None, :]
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p, v)
 
 
-_ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
+def dropout_threshold(p: float) -> int:
+    """keep iff the 32 hash bits >= this (``attention_dropout.py:39-44``)."""
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"attention dropout p={p} must lie in [0, 1)")
+    return min(int(p * (1 << 32)), (1 << 32) - 1)
+
+
+def _mul32(x, c: int):
+    """x * c mod 2^32 for 0 <= x < 2^32, with every product below 2^49."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _mix32(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_keep_mask(seed: int, B: int, H: int, T: int, p: float,
+                      device=None) -> torch.Tensor:
+    """[B, H, T, T] bool keep mask of ``csrc/common.cuh`` (dropout_key,
+    dropout_bits) for int32 `seed`: entry (b, h, i, j) depends on nothing
+    but (seed, b*H + h, i, j), so padding T leaves it unchanged."""
+    if T > _MAX_T:
+        raise ValueError(f"attention dropout supports T <= {_MAX_T}, got {T}")
+    thresh = dropout_threshold(p)
+    bh = torch.arange(B * H, dtype=torch.int64, device=device)
+    key = _mix32((int(seed) & _M32) ^ _mix32((_mul32(bh, 0x9E3779B9) + 0x632BE5AB) & _M32))
+    pos = torch.arange(T, dtype=torch.int64, device=device)
+    cell = (pos[:, None] << 16) | pos[None, :]
+    bits = _mix32(cell[None] ^ key[:, None, None])
+    return (bits >= thresh).view(B, H, T, T)
+
+
+def attention_dropout_reference(q, k, v, key_bias, seed, p: float,
+                                sm_scale: float) -> torch.Tensor:
+    """Plain version with dropout: f32 softmax, kept entries scaled by
+    1/(1-p), cast to v's dtype, then P V. At p = 0 it is
+    ``attention_reference``."""
+    if p == 0.0:
+        return attention_reference(q, k, v, key_bias, sm_scale)
+    B, H, T, _ = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = s + key_bias.float()[:, None, None, :]
+    prob = torch.softmax(s, dim=-1)
+    keep = dropout_keep_mask(int(seed.reshape(-1)[0]), B, H, T, p, device=q.device)
+    keep_scale = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
+    prob = torch.where(keep, prob * keep_scale.to(prob.device), 0.0)
+    return torch.matmul(prob.to(v.dtype), v)
+
+
+def _check(name: str, q, k, v, key_bias) -> None:
+    B, H, T, dh = q.shape
+    if dh not in _SUPPORTED_DH:
+        raise ValueError(f"{name}: head dim {dh} not in {_SUPPORTED_DH}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported")
+    if T > _MAX_T:
+        raise ValueError(f"{name}: T = {T} > {_MAX_T}")
+    for tname, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {tname} must match q in shape/dtype/device")
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: {tname} needs a contiguous head dim")
+    if key_bias.shape != (B, T):
+        raise ValueError(f"{name}: key_bias must be [B, T] = {(B, T)}")
+
+
+def _seed_arg(seed, p: float, device):
+    """(the seed as an int32 device tensor, its pointer) for the kernels,
+    which read it on the device; (None, None) at p = 0. The caller holds the
+    tensor until the launch is queued."""
+    if p == 0.0:
+        return None, None
+    seed = seed.reshape(1).to(device=device, dtype=torch.int32)
+    return seed, seed.data_ptr()
+
+
+_FWD_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
+                                  ctypes.c_void_p]
 )
 
 
-def attention_fwd(q, k, v, key_bias, sm_scale: float) -> torch.Tensor:
-    """[B, H, T, dh] attention output in q's dtype."""
+def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
+                  with_lse: bool = False):
+    """[B, H, T, dh] attention output in q's dtype (laid out [B, T, H, dh]
+    so the caller's merge of heads is a view); with `with_lse` also the
+    [B, H, T] f32 log-sum-exp of the scaled, biased scores. `seed` is an
+    int32 tensor of one element, read only when p > 0."""
+    thresh = dropout_threshold(p)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_bias, sm_scale)
+        o = attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale)
+        if not with_lse:
+            return o
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        return o, torch.logsumexp(s + key_bias.float()[:, None, None, :], dim=-1)
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
+    _check("attention_fwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
-    if dh not in _SUPPORTED_DH:
-        raise ValueError(f"attention_fwd: head dim {dh} not in {_SUPPORTED_DH}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"attention_fwd: dtype {q.dtype} not supported")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"attention_fwd: {name} must match q in shape/dtype/device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"attention_fwd: {name} needs a contiguous head dim")
-    if key_bias.shape != (B, T):
-        raise ValueError(f"attention_fwd: key_bias must be [B, T] = {(B, T)}")
     key_bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
-    # output laid out [B, T, H, dh] so the caller's merge of heads is a view
     o = torch.empty((B, T, H, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
+    seed_t, seed_ptr = _seed_arg(seed, p, q.device)
 
     from ..kernels import build
 
-    lib = build.load("attention_fwd", {"attention_fwd": _ARGTYPES})
+    lib = build.load("attention_fwd", {"attention_fwd": _FWD_ARGTYPES})
     err = lib.attention_fwd(
         _DTYPE_CODES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), seed_ptr,
         B, H, T, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        sm_scale, torch.cuda.current_stream(q.device).cuda_stream,
+        sm_scale, thresh, 1.0 / (1.0 - p), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(lib, err, "attention_fwd")
     attention_fwd.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 attention_fwd.launches = 0
+
+
+def attention_bwd_reference(q, k, v, key_bias, seed, p: float, sm_scale: float, do):
+    """Plain version of the backward: autograd through the plain forward."""
+    with torch.enable_grad():
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = attention_dropout_reference(qr, kr, vr, key_bias, seed, p, sm_scale)
+        return torch.autograd.grad(o, (qr, kr, vr), do)
+
+
+_BWD_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
+                                  ctypes.c_void_p]
+)
+
+
+def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do):
+    """(dQ, dK, dV) in q's dtype for the forward's output `o` and
+    log-sum-exp `lse` (``attention_fwd(..., with_lse=True)``) and the output
+    gradient `do`; the key bias gets none."""
+    thresh = dropout_threshold(p)
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, key_bias, seed, p, sm_scale, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd: unsupported device {q.device}")
+    _check("attention_bwd", q, k, v, key_bias)
+    B, H, T, dh = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or lse.shape != (B, H, T):
+        raise ValueError("attention_bwd: do must match q, lse must be [B, H, T]")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    key_bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
+    lse = lse.float().contiguous()
+    dsum = (do.float() * o.float()).sum(-1).contiguous()  # D = rowsum(dO * O)
+    dq_acc = torch.zeros((B, H, T, dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, H, T, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    seed_t, seed_ptr = _seed_arg(seed, p, q.device)
+
+    from ..kernels import build
+
+    lib = build.load("attention_bwd", {"attention_bwd": _BWD_ARGTYPES})
+    err = lib.attention_bwd(
+        _DTYPE_CODES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), seed_ptr, dq_acc.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, H, T, dh,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        sm_scale, thresh, 1.0 / (1.0 - p), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(lib, err, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+attention_bwd.launches = 0
+
+
+class _AttentionWithDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seed, p, sm_scale):
+        o, lse = attention_fwd(q, k, v, key_bias, sm_scale, p=p, seed=seed, with_lse=True)
+        ctx.save_for_backward(q, k, v, key_bias, seed, o, lse)
+        ctx.p, ctx.sm_scale = p, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_bias, seed, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, key_bias, seed, ctx.p, ctx.sm_scale, o, lse, do)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_with_dropout(q, k, v, key_bias, seed, p: float, sm_scale: float):
+    """Training attention, differentiable in q, k and v (JAX
+    ``ops/attention_dropout.py::attention_with_dropout``): the kernels on the
+    card, autograd through the plain version on the CPU. `seed` is an int32
+    tensor of one element (the JAX package's seed array)."""
+    if q.device.type == "cpu":
+        return attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_with_dropout: unsupported device {q.device}")
+    return _AttentionWithDropout.apply(q, k, v, key_bias, seed, p, sm_scale)

@@ -23,13 +23,9 @@ import numpy as np
 import torch
 
 from ..checkpoint import load_model_from_checkpoint
+from ..dataset import PAD_MULT_TEXT, _round_up
 from ..text import TextProcessor
-from .prepare import (
-    PAD_MULT_TEXT,
-    _round_up,
-    chunk_text_for_model,
-    encode_texts_for_model,
-)
+from .prepare import chunk_text_for_model, encode_texts_for_model
 
 
 @dataclasses.dataclass

@@ -3,25 +3,16 @@
 A copy of what the serving path needs of the JAX package's
 ``synthesis/prepare.py`` (``get_text_split_params``,
 ``representation_for_model``, ``chunk_text_for_model`` and the character
-branch of ``encode_texts_for_model``) and of ``dataset.py``'s text padding
-(``_round_up``, ``PAD_MULT_TEXT``)."""
+branch of ``encode_texts_for_model``)."""
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional
 
 import numpy as np
 
 from ..config import CHARACTERS, PHONES
 from ..text.textsplit import chunk_text
-
-# text batches are padded to a multiple of this many symbols (dataset.py:33)
-PAD_MULT_TEXT = 16
-
-
-def _round_up(n: int, mult: int) -> int:
-    return max(mult, int(math.ceil(n / mult)) * mult)
 
 
 def get_text_split_params(

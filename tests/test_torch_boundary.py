@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax():
     bad = [m for m in loaded
            if m.split(".")[0] in FORBIDDEN and m.split(".")[0] != "fastspeech2_lightning_tpu_torch"]
     assert not bad, bad
-    assert "fastspeech2_lightning_tpu_torch.serving.server" in loaded
+    for module in ("serving.server", "training.loop", "training.step", "dataset", "ops.mas",
+                   "ops.ctc", "ops.attention"):
+        assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 
 @pytest.mark.parametrize(
@@ -102,6 +104,23 @@ def test_cli_serve_refuses_without_card(tiny_ckpt):
     out = subprocess.run(
         [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", "serve", str(tiny_ckpt),
          "--port", "0"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_cli_train_refuses_without_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    (tmp_path / "pre").mkdir()
+    (tmp_path / "pre" / "stats.json").write_text(json.dumps(
+        {k: dict(min=-1.0, max=1.0, std=1.0, mean=0.0, norm_min=-1.0, norm_max=1.0)
+         for k in ("pitch", "energy")}))
+    (tmp_path / "config.json").write_text(json.dumps({"preprocessing": {"save_dir": "pre"}}))
+    out = subprocess.run(
+        [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", "train",
+         str(tmp_path / "config.json"), "--max-steps", "1"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode != 0
