@@ -10,8 +10,9 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  1. device: the card's name and power limit, as nvidia-smi reports them;
  2. build: one nvcc per ``csrc/*.cu`` for sm_90a, all started together;
  3. attention_fwd against its plain version at the decoder's serving shape
-    and two others, with a ragged key mask; times of the kernel, the plain
-    version and F.scaled_dot_product_attention (a yardstick only);
+    (with a ragged and with a full key mask) and two others; wall times of
+    the kernel, the plain version and F.scaled_dot_product_attention (a
+    yardstick only), and device times of kernel and SDPA;
  4. the MRF stage (18 mrf_conv launches) against its plain version for the
     HiFiGAN V1 stages C = 128/64/32 at B = 8 and 256 mel frames;
  5. serving: the default FastSpeech2 config at full width and depth (4+4
@@ -22,8 +23,11 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  6. card against CPU: one f32 batch of the same weights on both;
  7-8. the training attention kernels (forward with dropout, backward)
     against their plain version at (16, 2, 1024 and 2048, 128), bf16 and f32,
-    p = 0 and 0.2 with the same seed; the kept share of the mask; times of
-    kernel, plain version and F.scaled_dot_product_attention;
+    p = 0 and 0.2 with the same seed, on ragged masks with an item that has
+    no valid key and one with a hole; the kept share of the mask; times of
+    kernel, plain version and F.scaled_dot_product_attention (forward,
+    forward+backward, and its backward alone), and in bf16 the device times
+    of both kernels and of SDPA;
  9. MAS against its plain version, bit for bit, at B = 16, T 1024/2048,
     L 160/1000;
  10. the CTC alpha and beta-gradient kernels against their plain version at
@@ -33,11 +37,19 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     the four training kernels' launch counts read around it, and the final
     checkpoint served one sentence;
  12. card against CPU: one f32 train step (2+2 layers, no dropout) from the
-    same weights and batch.
+    same weights and batch;
+ 13. kernels A and A' at each length bucket the trainer cut in phase 11,
+    bf16, p = 0 and 0.2, on the bucket's own key mask and on a full one:
+    against the plain version; wall and device times beside SDPA's; the
+    share of key tiles each skips. The kernels' JSON line takes its
+    training rows from the top bucket with its own mask at p = 0.2.
 
-f32 comparisons run with TF32 off. Prints a line for every check and
-timing, the kernels' JSON line, the card's name and power limit, and last the
-result line.
+f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
+timings of single calls (host time included where the call is shorter than
+it); device times are per call of calls queued back to back behind a spin
+kernel (``device_ms``). Prints a line for every check and timing, the
+kernels' JSON line, the card's name and power limit, and last the result
+line.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import struct
 import subprocess
@@ -106,6 +119,32 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Milliseconds per call of fn() on the card alone, the host's time per
+    call left out: `iters` calls are queued behind a spin kernel
+    (torch.cuda._sleep), so they run back to back once it ends, between two
+    CUDA events. The spin grows until the host has queued every call before
+    the first one starts."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 25
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail("device_ms: the card reached the timed calls before the host had queued them")
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -148,7 +187,11 @@ def phase_build() -> None:
     seconds = time.time() - t0
     for name, out in logs.items():
         for line in out.splitlines():
-            if "Used" in line or "spill" in line:
+            entry = re.search(r"entry function '(\S+)'", line)
+            if entry:  # the mangled kernel name, without its file's anonymous namespace
+                kernel = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", entry[1])
+                log(f"build {name}: {kernel[:40]}")
+            elif "Used" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
     log(f"build: {names} in {seconds:.1f} s")
 
@@ -167,13 +210,16 @@ def phase_attention() -> list:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for (B, H, T, dh), dtype in (((8, 2, 1024, 128), torch.bfloat16),
-                                 ((8, 2, 1000, 128), torch.float32),
-                                 ((8, 4, 160, 64), torch.float32)):
+    for (B, H, T, dh), dtype, masked in (((8, 2, 1024, 128), torch.bfloat16, True),
+                                         ((8, 2, 1024, 128), torch.bfloat16, False),
+                                         ((8, 2, 1000, 128), torch.float32, True),
+                                         ((8, 4, 160, 64), torch.float32, True)):
         q, k, v = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(dtype)
                    for _ in range(3))
         lens = torch.linspace(T, T // 3, B, device="cuda").round().long()
         lens[1] = T - 37  # ragged, off any tile boundary
+        if not masked:  # every key valid: no tile to skip
+            lens[:] = T
         valid = torch.arange(T, device="cuda")[None, :] < lens[:, None]
         bias = torch.where(valid, 0.0, NEG_INF).float()
         scale = 1.0 / math.sqrt(dh)
@@ -186,19 +232,26 @@ def phase_attention() -> list:
         check(rel <= limit, f"attention_fwd {B, H, T, dh} {dtype}: rel-L2 {rel} > {limit}")
 
         mask = bias[:, None, None, :].to(dtype)
-        kernel = time_ms(lambda: attention_fwd(q, k, v, bias, scale))
+        def kernel_fn():
+            return attention_fwd(q, k, v, bias, scale)
+
+        def library_fn():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+        kernel, kernel_dev = time_ms(kernel_fn), device_ms(kernel_fn)
         plain = time_ms(lambda: attention_reference(q, k, v, bias, scale))
-        library = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                                 scale=scale))
+        library, library_dev = time_ms(library_fn), device_ms(library_fn)
         dt = str(dtype).split(".")[-1]
         flops = 4.0 * H * T * dh * float(lens.sum())  # keys the mask keeps
         nbytes = 4 * B * H * T * dh * q.element_size() + B * T * 4
         bound, bound_by = bound_ms(flops, nbytes, dt)
-        row = dict(shape=[B, H, T, dh], dtype=dt, max_abs_err=max_abs, rel_l2=rel,
-                   ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bound,
-                   bound_by=bound_by)
-        log(f"attention_fwd {B, H, T, dh} {dt}: max_abs={max_abs:.3e} rel_l2={rel:.3e} "
-            f"kernel_ms={kernel:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
+        row = dict(shape=[B, H, T, dh], dtype=dt, mask="ragged" if masked else "full",
+                   max_abs_err=max_abs, rel_l2=rel, ms=kernel, device_ms=kernel_dev,
+                   plain_ms=plain, library_ms=library, library_device_ms=library_dev,
+                   bound_ms=bound, bound_by=bound_by)
+        log(f"attention_fwd {B, H, T, dh} {dt} {row['mask']} mask: max_abs={max_abs:.3e} "
+            f"rel_l2={rel:.3e} kernel_ms={kernel:.4f} (device {kernel_dev:.4f}) "
+            f"plain_ms={plain:.4f} library_ms={library:.4f} (device {library_dev:.4f}) "
             f"bound_ms={bound:.4f} ({bound_by})")
         rows.append(row)
     return rows
@@ -538,21 +591,28 @@ DROPOUT_P = (0.0, 0.2)
 
 
 def _ragged_bias(B, T, g):
+    """[B, T] key bias: lengths drawn from [T/3, T], item 0 full, item 1
+    T - 37, item 2 with no valid key, item 3 with a hole of a quarter of its
+    length in the middle; and [B] the keys each item's attention needs (all
+    T for item 2, whose rows average every key)."""
     import torch
 
     from fastspeech2_lightning_tpu_torch.ops.attention import NEG_INF
 
     lens = torch.randint(T // 3, T + 1, (B,), device="cuda", generator=g)
-    lens[0], lens[1] = T, T - 37
+    lens[0], lens[1], lens[2] = T, T - 37, 0
     valid = torch.arange(T, device="cuda")[None, :] < lens[:, None]
-    return torch.where(valid, 0.0, NEG_INF).float(), lens
+    quarter = int(lens[3]) // 4
+    valid[3, quarter:2 * quarter] = False
+    needed = torch.where(valid.any(1), valid.sum(1), T)
+    return torch.where(valid, 0.0, NEG_INF).float(), needed
 
 
-def phase_attention_train() -> dict:
+def phase_attention_train() -> None:
     """Kernels A (forward with dropout and log-sum-exp) and A' (backward)
     against the plain version in f32 on the same bf16-rounded inputs, with
-    the same seed, so the same mask; returns the rows at the decoder's
-    training shape (16, 2, 2048, 128) bf16, p = 0.2."""
+    the same seed, so the same mask, on masks with the edge cases (phase 13
+    times them on the training buckets' own masks)."""
     import torch
     import torch.nn.functional as F
 
@@ -564,9 +624,8 @@ def phase_attention_train() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     seed = torch.tensor([123457], dtype=torch.int32, device="cuda")
-    keep_rows = {}
     for B, H, T, dh in TRAIN_SHAPES:
-        bias, lens = _ragged_bias(B, T, g)
+        bias, needed = _ragged_bias(B, T, g)
         q32, k32, v32, do32 = (torch.randn(B, H, T, dh, device="cuda", generator=g)
                                for _ in range(4))
         scale = 1.0 / math.sqrt(dh)
@@ -616,7 +675,28 @@ def phase_attention_train() -> dict:
                     torch.autograd.grad(o, (qg, kg, vg), do)
 
                 bwd_lib = time_ms(sdpa_fwd_bwd, iters=10)
-                keys = float(lens.sum()) * H * T * dh  # query rows x kept keys x dh
+                # the backward alone, like for like with kernel A': one graph, its
+                # backward run again and again (the same dropout mask each time)
+                o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=p,
+                                                       scale=scale)
+                bwd_lib_only = time_ms(lambda: torch.autograd.grad(
+                    o_lib, (qg, kg, vg), do, retain_graph=True), iters=10)
+                dev = {}
+                if dtype == torch.bfloat16:  # the kernels alone, host time out
+                    dev = dict(
+                        fwd=device_ms(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                                            with_lse=True)),
+                        bwd=device_ms(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out,
+                                                            lse, do)),
+                        fwd_lib=device_ms(lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, dropout_p=p, scale=scale)),
+                        bwd_lib=device_ms(lambda: torch.autograd.grad(
+                            o_lib, (qg, kg, vg), do, retain_graph=True)))
+                    log(f"attention {B, H, T, dh} {dt} p={p} device ms: A {dev['fwd']:.4f}, "
+                        f"SDPA {dev['fwd_lib']:.4f}; A' {dev['bwd']:.4f}, SDPA backward "
+                        f"{dev['bwd_lib']:.4f}")
+                del o_lib
+                keys = float(needed.sum()) * H * T * dh  # query rows x needed keys x dh
                 f_bound = bound_ms(4.0 * keys, (4 * B * H * T * dh) * q.element_size()
                                    + B * T * 4 + B * H * T * 4, dt)
                 b_bound = bound_ms(10.0 * keys, (8 * B * H * T * dh) * q.element_size()
@@ -629,18 +709,152 @@ def phase_attention_train() -> dict:
                 log(f"attention_bwd {B, H, T, dh} {dt} p={p}: max_abs dQ/dK/dV="
                     f"{'/'.join(f'{e[0]:.3e}' for e in b_errs)} rel_l2="
                     f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={bwd_ms:.4f} "
-                    f"plain_ms={bwd_plain:.4f} library_ms={bwd_lib:.4f} (SDPA fwd+bwd) "
+                    f"plain_ms={bwd_plain:.4f} library_bwd_ms={bwd_lib_only:.4f} (SDPA backward "
+                    f"alone) library_fwd_bwd_ms={bwd_lib:.4f} (SDPA fwd+bwd) "
                     f"bound_ms={b_bound[0]:.4f} ({b_bound[1]}; 10BHT^2dh = {10 * full:.3e} FLOP)")
-                if (T, dt, p) == (2048, "bfloat16", 0.2):
-                    common = dict(shape=[B, H, T, dh], dtype=dt, p=p)
-                    keep_rows["fwd"] = dict(common, max_abs_err=f_abs, rel_l2=f_rel, ms=fwd_ms,
-                                            plain_ms=fwd_plain, library_ms=fwd_lib,
-                                            bound_ms=f_bound[0], bound_by=f_bound[1])
-                    keep_rows["bwd"] = dict(common, max_abs_err=max(e[0] for e in b_errs),
-                                            rel_l2=max(e[1] for e in b_errs), ms=bwd_ms,
-                                            plain_ms=bwd_plain, library_ms=bwd_lib,
-                                            bound_ms=b_bound[0], bound_by=b_bound[1])
                 del out, lse, grads
+        torch.cuda.empty_cache()
+
+
+# -- phase 13: kernels A and A' on the training buckets' masks ---------------
+
+
+def _bucket_lengths(workdir: Path) -> list:
+    """[(T, [B] mel lengths)] of each length bucket that the trainer's
+    loader cuts from the smoke corpus (phase 11): the decoder attention's
+    key masks in training. A bucket of fewer than B utterances is filled
+    from its own, as the loader fills it."""
+    import numpy as np
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import BucketedLoader, FastSpeechDataset
+    from fastspeech2_lightning_tpu_torch.text.lookups import load_filelist
+
+    config = FastSpeech2Config.from_file(workdir / "config.json")
+    tcfg = config.training
+    ds = FastSpeechDataset(load_filelist(tcfg.training_filelist), config, {"default": 0},
+                           {"default": 0})
+    loader = BucketedLoader(ds, tcfg.batch_size, n_buckets=tcfg.bucket_count,
+                            max_mel_length=config.model.max_mel_length)
+    return [(b.max_mel, np.resize(loader.mel_lens[b.indices], tcfg.batch_size))
+            for b in loader.buckets]
+
+
+def _skipped_share(ends, T: int, tile: int) -> float:
+    """The share of a kernel's key tiles of `tile` keys that lie at or past
+    kv_end, which it skips."""
+    tiles = -(-T // tile)
+    return 1.0 - float((-(-ends // tile)).sum()) / (len(ends) * tiles)
+
+
+def phase_attention_buckets(workdir: Path) -> dict:
+    """Kernels A (forward with dropout and log-sum-exp) and A' (backward) at
+    the decoder's training shape of each bucket the trainer cuts, (16, 2,
+    T, 128) bf16 as fused views, p = 0 and 0.2: on the bucket's own key mask
+    and on a full mask (nothing to skip). Each against the plain version;
+    wall and device ms of both kernels and of SDPA (forward, backward alone);
+    the share of key tiles each kernel skips. Returns the rows at the top
+    bucket with its own mask, p = 0.2."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        NEG_INF, attention_bwd, attention_bwd_reference, attention_dropout_reference,
+        attention_fwd, kv_end,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    seed = torch.tensor([98765], dtype=torch.int32, device="cuda")
+    H, dh = 2, 128
+    keep_rows = {}
+    for T, lens in _bucket_lengths(workdir):
+        B = len(lens)
+        qkv = torch.randn(B, T, 3, H, dh, device="cuda", generator=g).to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn(B, H, T, dh, device="cuda", generator=g).to(torch.bfloat16)
+        scale = 1.0 / math.sqrt(dh)
+        for mask_kind in ("bucket", "full"):
+            n = torch.as_tensor(lens if mask_kind == "bucket" else [T] * B, device="cuda")
+            bias = torch.where(torch.arange(T, device="cuda")[None] < n[:, None], 0.0,
+                               NEG_INF).float()
+            ends = kv_end(bias).long()
+            fwd_skip, bwd_skip = _skipped_share(ends, T, 64), _skipped_share(ends, T, 128)
+            mask = bias[:, None, None, :].to(torch.bfloat16)
+            for p in DROPOUT_P:
+                out, lse = attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
+                grads = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+                torch.cuda.synchronize()
+                qf, kf, vf = q.float(), k.float(), v.float()
+                f_abs, f_rel = errors(out, attention_dropout_reference(qf, kf, vf, bias, seed,
+                                                                       p, scale))
+                b_errs = [errors(gt, wt) for gt, wt in zip(
+                    grads, attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, do.float()))]
+                del qf, kf, vf
+                check(max([f_rel] + [e[1] for e in b_errs]) <= 2e-2,
+                      f"attention {B, H, T, dh} {mask_kind} mask p={p}: rel-L2 {f_rel}, "
+                      f"{[e[1] for e in b_errs]} > 2e-2")
+
+                def fwd():
+                    return attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
+
+                def bwd():
+                    return attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+
+                def fwd_lib():
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p,
+                                                          scale=scale)
+
+                qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+                o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=p,
+                                                       scale=scale)
+
+                def bwd_lib():
+                    return torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True)
+
+                def fwd_bwd_lib():
+                    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=p,
+                                                       scale=scale)
+                    return torch.autograd.grad(o, (qg, kg, vg), do)
+
+                ms = {name: (time_ms(fn, iters=10), device_ms(fn)) for name, fn in
+                      (("fwd", fwd), ("bwd", bwd), ("fwd_lib", fwd_lib), ("bwd_lib", bwd_lib),
+                       ("fwd_bwd_lib", fwd_bwd_lib))}
+                del o_lib, qg, kg, vg
+                fwd_plain = time_ms(lambda: attention_dropout_reference(
+                    q, k, v, bias, seed, p, scale), warmup=1, iters=3)
+                bwd_plain = time_ms(lambda: attention_bwd_reference(
+                    q, k, v, bias, seed, p, scale, do), warmup=1, iters=3)
+                keys = float(torch.where(n > 0, n, T).sum()) * H * T * dh
+                f_bound = bound_ms(4.0 * keys, 4 * B * H * T * dh * 2 + B * T * 4 + B * H * T * 4,
+                                   "bfloat16")
+                b_bound = bound_ms(10.0 * keys, 8 * B * H * T * dh * 2 + B * T * 4
+                                   + 2 * B * H * T * 4, "bfloat16")
+                log(f"attention bucket T={T} {mask_kind} mask p={p}: lengths "
+                    f"{int(n.min())}-{int(n.max())}, key tiles skipped A {fwd_skip:.1%} "
+                    f"A' {bwd_skip:.1%}; rel_l2 {f_rel:.2e} / "
+                    f"{'/'.join(f'{e[1]:.2e}' for e in b_errs)}; ms wall (device): "
+                    + ", ".join(f"{name} {w:.4f} ({d:.4f})" for name, (w, d) in ms.items())
+                    + f"; plain A {fwd_plain:.3f}, A' {bwd_plain:.3f}; bound A "
+                    f"{f_bound[0]:.4f}, A' {b_bound[0]:.4f}")
+                if mask_kind == "bucket" and p == 0.2:  # the last bucket is the top one
+                    common = dict(shape=[B, H, T, dh], dtype="bfloat16", p=p,
+                                  mask="the bucket's mel lengths")
+                    keep_rows = dict(
+                        fwd=dict(common, max_abs_err=f_abs, rel_l2=f_rel, ms=ms["fwd"][0],
+                                 device_ms=ms["fwd"][1], plain_ms=fwd_plain,
+                                 library_ms=ms["fwd_lib"][0], library_device_ms=ms["fwd_lib"][1],
+                                 bound_ms=f_bound[0], bound_by=f_bound[1],
+                                 skipped_tile_share=fwd_skip),
+                        bwd=dict(common, max_abs_err=max(e[0] for e in b_errs),
+                                 rel_l2=max(e[1] for e in b_errs), ms=ms["bwd"][0],
+                                 device_ms=ms["bwd"][1], plain_ms=bwd_plain,
+                                 library_ms=ms["bwd_lib"][0], library_device_ms=ms["bwd_lib"][1],
+                                 library_fwd_bwd_ms=ms["fwd_bwd_lib"][0],
+                                 bound_ms=b_bound[0], bound_by=b_bound[1],
+                                 skipped_tile_share=bwd_skip))
+                del out, lse, grads
+        del qkv, q, k, v, do
         torch.cuda.empty_cache()
     return keep_rows
 
@@ -961,7 +1175,7 @@ def main() -> None:
     phase_build()
     att = phase_attention()[0]
     mrf = phase_mrf()[0]
-    train_att = phase_attention_train()
+    phase_attention_train()
     mas = phase_mas()
     ctc = phase_ctc()
     cfg = model_config("bfloat16")
@@ -971,6 +1185,7 @@ def main() -> None:
         phase_card_vs_cpu(sd)
         train = phase_train(Path(workdir))
         phase_train_card_vs_cpu(Path(workdir))
+        train_att = phase_attention_buckets(Path(workdir))
     tl = train["launches"]
 
     def entry(name, row, source, replaces, n, **extra):
@@ -980,6 +1195,10 @@ def main() -> None:
                     replaces=f"fastspeech2_lightning_tpu/{replaces}", launches=n,
                     **{k: row[k] for k in keys}, **extra)
 
+    def device_keys(row):
+        keys = ("mask", "device_ms", "library_device_ms", "skipped_tile_share")
+        return {k: row[k] for k in keys if k in row}
+
     kernels = [
         entry("attention_fwd", att, "attention_fwd.cu", "models/conformer.py:142",
               launches["attention_fwd"] + tl["attention_fwd"],
@@ -987,11 +1206,13 @@ def main() -> None:
                                 "training": tl["attention_fwd"]},
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
                              "fastspeech2_lightning_tpu/ops/attention_dropout.py:461"],
-              training=train_att["fwd"]),
+              **device_keys(att), training=train_att["fwd"]),
         entry("attention_bwd", train_att["bwd"], "attention_bwd.cu",
               "ops/attention_dropout.py:190", tl["attention_bwd"],
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:494"],
-              p=train_att["bwd"]["p"], library="SDPA forward+backward"),
+              p=train_att["bwd"]["p"], library="SDPA backward alone",
+              library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
+              **device_keys(train_att["bwd"])),
         entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94", tl["mas_width1"]),
         entry("ctc_alpha", ctc["alpha"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
               tl["ctc_alpha"], library="F.ctc_loss forward"),

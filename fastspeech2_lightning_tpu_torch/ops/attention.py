@@ -18,6 +18,14 @@ tensors (or raises) and runs its plain PyTorch version for CPU tensors:
   over the two kernels on the card; on the CPU autograd runs through the
   plain version.
 
+The dtype picks the kernel inside each source: bf16 tensors go to the
+tensor-core kernels, f32 tensors to the CUDA-core f32 kernels (which the f32
+card-vs-CPU checks hold to rel-L2 1e-5). bf16 q, k, v (and dO) need rows on
+16-byte boundaries (the fused [B, T, 3, H, dh] projection's views have them);
+the wrappers raise otherwise. Both kernels skip key tiles past ``kv_end``
+(one past each item's last unmasked key), which a pre-pass kernel of the same
+C entry computes on the device.
+
 The dropout mask is a pure function of (seed, b*H + h, query row, key
 column): ``dropout_keep_mask`` computes it in int64 tensors exactly as
 ``csrc/common.cuh`` does in 32-bit arithmetic, so the kernels and their plain
@@ -34,6 +42,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ..kernels import build
 
 NEG_INF = -1e9
 
@@ -105,7 +115,9 @@ def attention_dropout_reference(q, k, v, key_bias, seed, p: float,
     return torch.matmul(prob.to(v.dtype), v)
 
 
-def _check(name: str, q, k, v, key_bias) -> None:
+def _check(name: str, q, k, v, key_bias) -> list:
+    """Raise on what the kernels do not take; return the [B, H, T] strides
+    of q, k and v, flat (the C entries' stride arguments)."""
     B, H, T, dh = q.shape
     if dh not in _SUPPORTED_DH:
         raise ValueError(f"{name}: head dim {dh} not in {_SUPPORTED_DH}")
@@ -113,14 +125,52 @@ def _check(name: str, q, k, v, key_bias) -> None:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
     if T > _MAX_T:
         raise ValueError(f"{name}: T = {T} > {_MAX_T}")
-    for tname, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name}: {tname} must match q in shape/dtype/device")
-    for tname, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: {tname} needs a contiguous head dim")
+    if (k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype
+            or k.get_device() != q.get_device() or v.get_device() != q.get_device()):
+        raise ValueError(f"{name}: k and v must match q in shape/dtype/device")
+    (qb, qh, qt, qd), (kb, kh, kt, kd), (vb, vh, vt, vd) = q.stride(), k.stride(), v.stride()
+    if qd != 1 or kd != 1 or vd != 1:
+        raise ValueError(f"{name}: q, k and v need a contiguous head dim")
     if key_bias.shape != (B, T):
         raise ValueError(f"{name}: key_bias must be [B, T] = {(B, T)}")
+    if q.dtype == torch.bfloat16 and not all(map(_rows_aligned, (q, k, v))):
+        raise ValueError(f"{name}: bf16 q, k, v need 16-byte aligned rows "
+                         f"(strides over B, H, T in multiples of 8)")
+    return [qb, qh, qt, kb, kh, kt, vb, vh, vt]
+
+
+def _rows_aligned(t) -> bool:
+    """Whether every [.., .., t, :] row of `t` starts on 16 bytes, as the
+    bf16 kernels' 16-byte asynchronous copies need."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _f32_bias(key_bias, device):
+    if key_bias.dtype == torch.float32 and key_bias.device == device and key_bias.is_contiguous():
+        return key_bias
+    return key_bias.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _stream(device) -> int:
+    """The current CUDA stream of `device` as an integer handle: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without building
+    a Stream object on every launch (the accessor Triton's and Inductor's
+    launchers use)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def kv_end(key_bias) -> torch.Tensor:
+    """[B] int32: one past the last key of each item whose bias is above
+    NEG_INF / 2, and T for an item with no such key (it keeps every key: the
+    uniform average). The plain version of the pre-pass kernel that each
+    attention C entry launches before its kernel (``csrc/attention_common.cuh``),
+    which skips key tiles at or past it; on the device, no host sync.
+    ``chip_smoke.py`` counts the skipped tiles of the training buckets with
+    it, and the card tests place keys that no kernel may read with it."""
+    B, T = key_bias.shape
+    pos = torch.arange(1, T + 1, dtype=torch.int32, device=key_bias.device)
+    last = torch.where(key_bias > NEG_INF / 2, pos, 0).amax(dim=1)
+    return torch.where(last > 0, last, T).to(torch.int32).contiguous()
 
 
 def _seed_arg(seed, p: float, device):
@@ -129,12 +179,13 @@ def _seed_arg(seed, p: float, device):
     tensor until the launch is queued."""
     if p == 0.0:
         return None, None
-    seed = seed.reshape(1).to(device=device, dtype=torch.int32)
+    if seed.dtype != torch.int32 or seed.device != device:
+        seed = seed.to(device=device, dtype=torch.int32)
     return seed, seed.data_ptr()
 
 
 _FWD_ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
     + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
                                   ctypes.c_void_p]
 )
@@ -155,23 +206,23 @@ def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
         return o, torch.logsumexp(s + key_bias.float()[:, None, None, :], dim=-1)
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
-    _check("attention_fwd", q, k, v, key_bias)
+    strides = _check("attention_fwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
-    key_bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
-    o = torch.empty((B, T, H, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
-    seed_t, seed_ptr = _seed_arg(seed, p, q.device)
-
-    from ..kernels import build
+    device = q.device
+    key_bias = _f32_bias(key_bias, device)
+    ends = torch.empty(B, dtype=torch.int32, device=device)  # the kernel's kv_end pre-pass
+    o = torch.empty_strided((B, H, T, dh), (T * H * dh, dh, H * dh, 1), dtype=q.dtype,
+                            device=device)  # laid out [B, T, H, dh]
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=device) if with_lse else None
+    seed_t, seed_ptr = _seed_arg(seed, p, device)
 
     lib = build.load("attention_fwd", {"attention_fwd": _FWD_ARGTYPES})
     err = lib.attention_fwd(
         _DTYPE_CODES[q.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), seed_ptr,
-        B, H, T, dh,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        sm_scale, thresh, 1.0 / (1.0 - p), torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), ends.data_ptr(),
+        o.data_ptr(), None if lse is None else lse.data_ptr(), seed_ptr,
+        B, H, T, dh, *strides, *o.stride()[:3],
+        sm_scale, thresh, 1.0 / (1.0 - p), _stream(device),
     )
     build.check(lib, err, "attention_fwd")
     attention_fwd.launches += 1
@@ -190,8 +241,8 @@ def attention_bwd_reference(q, k, v, key_bias, seed, p: float, sm_scale: float, 
 
 
 _BWD_ARGTYPES = (
-    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
+    [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+    + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
                                   ctypes.c_void_p]
 )
 
@@ -205,30 +256,37 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
         return attention_bwd_reference(q, k, v, key_bias, seed, p, sm_scale, do)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
-    _check("attention_bwd", q, k, v, key_bias)
+    strides = _check("attention_bwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or lse.shape != (B, H, T):
-        raise ValueError("attention_bwd: do must match q, lse must be [B, H, T]")
-    if do.stride(3) != 1:
+    device = q.device
+    for name, t in (("do", do), ("o", o)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != device:
+            raise ValueError(f"attention_bwd: {name} must match q in shape/dtype/device")
+    if lse.shape != (B, H, T):
+        raise ValueError("attention_bwd: lse must be [B, H, T]")
+    if do.stride(3) != 1 or (do.dtype == torch.bfloat16 and not _rows_aligned(do)):
         do = do.contiguous()
-    key_bias = key_bias.to(device=q.device, dtype=torch.float32).contiguous()
+    if o.stride(3) != 1:
+        o = o.contiguous()
+    key_bias = _f32_bias(key_bias, device)
     lse = lse.float().contiguous()
-    dsum = (do.float() * o.float()).sum(-1).contiguous()  # D = rowsum(dO * O)
-    dq_acc = torch.zeros((B, H, T, dh), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, H, T, dh), dtype=q.dtype, device=q.device)
+    # scratch the C entry's pre-pass kernels fill: kv_end, D = rowsum(dO * O),
+    # and the f32 dQ buffer (zeroed) that the kernel sums into
+    ends = torch.empty(B, dtype=torch.int32, device=device)
+    dsum = torch.empty((B, H, T), dtype=torch.float32, device=device)
+    dq_acc = torch.empty((B, H, T, dh), dtype=torch.float32, device=device)
+    dk = torch.empty((B, H, T, dh), dtype=q.dtype, device=device)
     dv = torch.empty_like(dk)
-    seed_t, seed_ptr = _seed_arg(seed, p, q.device)
-
-    from ..kernels import build
+    seed_t, seed_ptr = _seed_arg(seed, p, device)
 
     lib = build.load("attention_bwd", {"attention_bwd": _BWD_ARGTYPES})
     err = lib.attention_bwd(
         _DTYPE_CODES[q.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), seed_ptr, dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, T, dh,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        sm_scale, thresh, 1.0 / (1.0 - p), torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+        key_bias.data_ptr(), ends.data_ptr(), lse.data_ptr(), dsum.data_ptr(), seed_ptr,
+        dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, dh,
+        *strides, *do.stride()[:3], *o.stride()[:3],
+        sm_scale, thresh, 1.0 / (1.0 - p), _stream(device),
     )
     build.check(lib, err, "attention_bwd")
     attention_bwd.launches += 1

@@ -5,10 +5,19 @@ Python wrapper declares (a mismatch would cut pointers or shift arguments,
 and no compiler checks a ctypes call), and a wrapper given a tensor on a
 device it has no kernel for raises instead of falling back.
 
+On any host also: ``kv_end`` (the last unmasked key the attention kernels
+stop at) on CPU tensors, the row alignment the bf16 attention kernels need,
+and that the NaN keys the card tests place past ``kv_end`` would show a
+kernel that read them.
+
 On a CUDA card (marked ``gpu``; they skip elsewhere): each kernel agrees with
 its plain version, in f32 within relative-L2 1e-5 and in bf16 within 2e-2 of
 the plain version run in f32 on the same bf16-rounded inputs (attention
-forward and backward, dropout included: the same seed gives the same mask);
+forward and backward, dropout included: the same seed gives the same mask;
+masks with no valid key, with holes and at tile edges, T off the tiles,
+dh 64 and 128, q, k, v as views of the fused projection; NaN keys and
+values in the tiles past kv_end, which the kernels must not read, and dK and
+dV exactly 0 there);
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5. Each counts one launch per kernel launch, and each wrapper raises on a
 shape its kernel does not take. This file imports no JAX, so it also runs on a
@@ -21,6 +30,7 @@ import ctypes
 import math
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +43,7 @@ from fastspeech2_lightning_tpu_torch.ops.attention import (
     attention_fwd,
     attention_reference,
     attention_with_dropout,
+    kv_end,
 )
 from fastspeech2_lightning_tpu_torch.ops.ctc import (
     ctc_alpha,
@@ -106,6 +117,62 @@ def test_wrappers_raise_on_a_device_without_kernel():
                  out=torch.empty_like(x))
 
 
+def _bias(valid):
+    return torch.where(torch.as_tensor(valid), 0.0, attention.NEG_INF).float()
+
+
+def _segments(T, *ranges):
+    """[T] bool, True on the given [start, stop) ranges."""
+    valid = np.zeros(T, bool)
+    for start, stop in ranges:
+        valid[start:stop] = True
+    return valid
+
+
+KV_END_CASES = {
+    "full": (_segments(100, (0, 100)), 100),
+    "ragged": (_segments(100, (0, 37)), 37),
+    "no_valid_key": (_segments(100), 100),
+    "hole": (_segments(100, (0, 10), (50, 60)), 60),
+    "hole_at_start": (_segments(100, (70, 80)), 80),
+    "T_not_a_tile_multiple": (_segments(37, (0, 5), (36, 37)), 37),
+}
+
+
+@pytest.mark.parametrize("case", list(KV_END_CASES))
+def test_kv_end_is_one_past_the_last_valid_key(case):
+    valid, want = KV_END_CASES[case]
+    other = np.arange(valid.size) < 3  # a second item, so rows are not mixed up
+    ends = kv_end(_bias(np.stack([valid, other])))
+    assert ends.dtype == torch.int32 and ends.tolist() == [want, 3]
+
+
+def test_rows_aligned_accepts_fused_views_and_refuses_offsets():
+    qkv = torch.zeros(2, 40, 3, 2, 64, dtype=torch.bfloat16)
+    assert all(attention._rows_aligned(qkv[:, :, i].transpose(1, 2)) for i in range(3))
+    shifted = torch.zeros(2 * 2 * 40 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 2, 40, 64)
+    assert not attention._rows_aligned(shifted)
+    odd_stride = torch.zeros(2, 40, 2, 68, dtype=torch.bfloat16)[..., :64].transpose(1, 2)
+    assert not attention._rows_aligned(odd_stride)
+
+
+def test_no_valid_key_rows_need_the_division_by_T():
+    """An item with no valid key: m + log(l) rounds to m = -1e9 in f32, so
+    exp(s - lse) is 1, not the plain version's 1/T; the backward kernels
+    divide by T where lse < -5e8."""
+    T, dh = 48, 64
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 1, T, dh, generator=g) for _ in range(3))
+    bias = _bias(np.zeros((1, T), bool))
+    _, lse = attention_fwd(q, k, v, bias, 0.125, with_lse=True)
+    assert float(lse.max()) < -5e8
+    x = torch.matmul(q, k.transpose(-1, -2)) * 0.125 + bias[:, None, None, :]
+    prob = torch.softmax(x, dim=-1)
+    assert torch.equal(torch.exp(x - lse[..., None]), torch.ones_like(prob))
+    torch.testing.assert_close(torch.exp(x - lse[..., None] - math.log(T)), prob,
+                               rtol=1e-6, atol=0)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -153,6 +220,142 @@ def test_attention_kernel_takes_strided_views_and_refuses_other_head_dims(cuda):
     assert _rel(out, want) <= 1e-5
     x = torch.randn(1, 2, 16, 32, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
+        attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
+
+
+# items of one batch for the masks the tile skipping must get right; at
+# T = 400 every item but the one with no valid key (which keeps every tile)
+# leaves whole key tiles past kv_end
+EDGE_MASKS = {
+    "no_valid_key": [_segments(200), _segments(200, (0, 150)), _segments(200, (0, 200))],
+    "hole": [_segments(200, (0, 40), (90, 170)), _segments(200, (130, 140)),
+             _segments(200, (0, 64), (127, 129))],
+    "tile_edges": [_segments(200, (0, n)) for n in (63, 64, 65, 127, 128, 129)],
+    "skipped_tiles": ([_segments(400, (0, n)) for n in (1, 63, 64, 65, 127, 128, 129, 200)]
+                      + [_segments(400), _segments(400, (0, 40), (90, 170)),
+                         _segments(400, (130, 140))]),
+}
+
+
+def _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=None):
+    """Both kernels against the plain version in f32 on the same inputs
+    (or on `ref_kv` in place of k and v), the same seed (so the same dropout
+    mask)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    do = torch.randn(q.shape, device=cuda, generator=g).to(dtype)
+    seed = torch.tensor([4321], dtype=torch.int32, device=cuda)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
+    grads = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+    torch.cuda.synchronize()
+    k, v = ref_kv or (k, v)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    assert _rel(out, attention_dropout_reference(qf, kf, vf, bias, seed, p, scale)) <= _tol(dtype)
+    want = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, do.float())
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype
+        assert _rel(got, ref) <= _tol(dtype)
+    return grads
+
+
+def _fused_qkv(cuda, B, T, H, dh, dtype, seed=0):
+    """q, k, v as the conformer passes them: strided [B, H, T, dh] views of
+    one [B, T, 3, H, dh] projection."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(B, T, 3, H, dh, device=cuda, generator=g).to(dtype)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+WIDEST_KEY_TILE = 128  # the bf16 backward's; the other kernels' tiles divide it
+
+
+def _poison_past_kv_end(k, v, bias) -> tuple:
+    """Write NaN, in place, into every key and value of a tile that lies
+    wholly past kv_end for every kernel (from kv_end rounded up to the widest
+    key tile); returns clean copies of k and v and how many keys per head
+    were poisoned. The bias is additive, so a kernel that read such a tile
+    would turn its outputs NaN."""
+    clean = k.clone(), v.clone()
+    poisoned = 0
+    for b, end in enumerate(kv_end(bias.cpu()).tolist()):
+        start = -(-end // WIDEST_KEY_TILE) * WIDEST_KEY_TILE
+        k[b, :, start:] = float("nan")
+        v[b, :, start:] = float("nan")
+        poisoned += max(k.shape[2] - start, 0)
+    return clean, poisoned
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(EDGE_MASKS))
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_attention_kernels_on_mask_edges(cuda, case, dh, dtype, p):
+    """Both kernels against the plain version on clean inputs, with NaN in
+    the keys and values of every tile past kv_end: the kernels must skip
+    those tiles (and the device's kv_end must not lie past the plain
+    kv_end) for the outputs to match."""
+    bias = _bias(np.stack(EDGE_MASKS[case])).to(cuda)
+    q, k, v = _fused_qkv(cuda, bias.shape[0], bias.shape[1], 2, dh, dtype)
+    clean, poisoned = _poison_past_kv_end(k, v, bias)
+    if case == "skipped_tiles":
+        assert poisoned == 6 * (400 - 128) + 4 * (400 - 256)
+    _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [37, 1000, 2047])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_attention_kernels_on_T_off_the_tiles(cuda, T, dh, dtype, p):
+    lens = [T, max(T - 37, 1)]
+    bias = _bias(np.stack([_segments(T, (0, n)) for n in lens])).to(cuda)
+    q, k, v = _fused_qkv(cuda, 2, T, 2, dh, dtype, seed=T)
+    _check_fwd_bwd(cuda, q, k, v, bias, dtype, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_zeroes_dk_dv_past_kv_end(cuda, dtype):
+    """Item 0 keeps 65 of 300 keys: its keys from 128 on (NaN here) lie in
+    tiles past kv_end (65) for every kernel's tile width, and its dK, dV are
+    exactly 0 from 65 on."""
+    bias = _bias(np.stack([_segments(300, (0, 65)), _segments(300, (0, 300))])).to(cuda)
+    assert kv_end(bias).tolist() == [65, 300]
+    q, k, v = _fused_qkv(cuda, 2, 300, 2, 64, dtype)
+    clean, poisoned = _poison_past_kv_end(k, v, bias)
+    assert poisoned == 300 - 128
+    _, dk, dv = _check_fwd_bwd(cuda, q, k, v, bias, dtype, 0.2, ref_kv=clean)
+    for grad in (dk, dv):
+        assert torch.count_nonzero(grad[0, :, 65:]) == 0
+        assert torch.count_nonzero(grad[1, :, 128:]) > 0
+
+
+def test_poisoned_key_tiles_turn_a_reader_nan():
+    """The poison of the card tests has teeth: the plain version, which
+    reads every key, turns NaN on each item with poisoned keys, while
+    attention over the keys before the poison (what a kernel that skips
+    those tiles computes) equals the plain version on clean inputs."""
+    T = 400
+    bias = _bias(np.stack(EDGE_MASKS["skipped_tiles"]))
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(len(bias), 2, T, 64, generator=g) for _ in range(3))
+    (k_clean, v_clean), _ = _poison_past_kv_end(k, v, bias)
+    read_all = attention_reference(q, k, v, bias, 0.125)
+    want = attention_reference(q, k_clean, v_clean, bias, 0.125)
+    for b, end in enumerate(kv_end(bias).tolist()):
+        start = -(-end // WIDEST_KEY_TILE) * WIDEST_KEY_TILE
+        assert bool(read_all[b].isnan().all()) == (start < T)
+        cut = slice(b, b + 1), slice(None), slice(0, start)
+        skipped = attention_reference(q[b:b + 1], k[cut], v[cut], bias[b:b + 1, :start], 0.125)
+        torch.testing.assert_close(skipped, want[b:b + 1])
+
+
+@pytest.mark.gpu
+def test_bf16_attention_refuses_unaligned_rows(cuda):
+    x = torch.randn(1, 2, 16, 68, device=cuda, dtype=torch.bfloat16)[..., 1:65]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
         attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
 
 
