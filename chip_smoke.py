@@ -14,12 +14,15 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     the kernel, the plain version and F.scaled_dot_product_attention (a
     yardstick only), and device times of kernel and SDPA;
  4. the MRF stage (18 mrf_conv launches) against its plain version for the
-    HiFiGAN V1 stages C = 128/64/32 at B = 8 and 256 mel frames;
+    HiFiGAN V1 stages C = 128/64/32 at B = 8 and 256 mel frames, in bf16 and
+    in f32 (what serving launches): wall and device times of the stage and
+    the wall time of its plain version (36 cuDNN convolutions, TF32 off);
  5. serving: the default FastSpeech2 config at full width and depth (4+4
     Conformer layers, d = 256, bf16) with seeded random weights and a seeded
     HiFiGAN V1, written as a .ckpt and an .npz and served by ``serve()``;
     8 concurrent /synthesize requests (4 wav, 4 mel), with both kernels'
-    launch counts read around this phase;
+    launch counts read around this phase (mrf_conv: 18 for every fused
+    stage the vocoder ran);
  6. card against CPU: one f32 batch of the same weights on both;
  7-8. the training attention kernels (forward with dropout, backward)
     against their plain version at (16, 2, 1024 and 2048, 128), bf16 and f32,
@@ -29,7 +32,8 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     forward+backward, and its backward alone), and in bf16 the device times
     of both kernels and of SDPA;
  9. MAS against its plain version, bit for bit, at B = 16, T 1024/2048,
-    L 160/1000;
+    L 160/1000 and at the training corpus's top bucket (16, 2016, 192), with
+    wall and device times;
  10. the CTC alpha and beta-gradient kernels against their plain version at
     B = 16, T = 1024, L = 160, with F.ctc_loss as the yardstick;
  11. training: a seeded 64-utterance corpus, the default config at full width
@@ -142,7 +146,8 @@ def device_ms(fn, iters: int = 20) -> float:
         if queued_ahead:
             return start.elapsed_time(end) / iters
         cycles *= 4
-    fail("device_ms: the card reached the timed calls before the host had queued them")
+    fail(f"device_ms({getattr(fn, '__name__', fn)}): the card reached the timed calls before "
+         f"the host had queued them")
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
@@ -278,7 +283,17 @@ def _stage_blocks(C: int, g) -> list:
     return blocks
 
 
+# f32 inputs are multiplied as pairs of bf16 parts (a_hi w_hi + a_lo w_hi +
+# a_hi w_lo; a_lo w_lo, 2^-16 of the sum, is dropped), so a conv keeps about
+# 16 bits of each factor: the stage is held to 5e-5 against the f32 plain
+# version with TF32 off, not to the 1e-5 of an f32 FMA kernel (measured on an
+# H100: 3.8e-6 to 5.5e-6 a stage).
+MRF_LIMIT = {"float32": 5e-5, "bfloat16": 2e-2}
+MRF_LAUNCHES = 2 * len(KS) * len(DILS[0])  # per stage: one per conv
+
+
 def phase_mrf() -> list:
+    """Rows for C = 128, 64, 32 x bf16, f32, in that order."""
     import torch
 
     from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
@@ -293,6 +308,7 @@ def phase_mrf() -> list:
         blocks = _stage_blocks(C, g)
         x32 = torch.randn(BATCH, T, C, device="cuda", generator=g)
         for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).split(".")[-1]
             x = x32.to(dtype)
             flat = prepare_stage_weights(blocks, KS, DILS, dtype)
             out = fused_mrf_stage(x, flat, KS, DILS)
@@ -300,23 +316,40 @@ def phase_mrf() -> list:
             ref_blocks = [{n: w.to(dtype).float() for n, w in p.items()} for p in blocks]
             want = mrf_stage_reference(x.float(), ref_blocks, KS, DILS)
             max_abs, rel = errors(out, want)
-            limit = 1e-5 if dtype == torch.float32 else 2e-2
-            check(rel <= limit, f"mrf stage C={C} {dtype}: rel-L2 {rel} > {limit}")
+            check(rel <= MRF_LIMIT[dt], f"mrf stage C={C} {dt}: rel-L2 {rel} > {MRF_LIMIT[dt]}")
+            del out, want
 
-            dt = str(dtype).split(".")[-1]
             typed_blocks = [{n: w.to(dtype) for n, w in p.items()} for p in blocks]
-            kernel = time_ms(lambda: fused_mrf_stage(x, flat, KS, DILS))
-            plain = time_ms(lambda: mrf_stage_reference(x, typed_blocks, KS, DILS))
-            flops = 2.0 * BATCH * T * C * C * 2 * sum(KS) * len(DILS[0])
-            nbytes = (2 * BATCH * T * C + 2 * sum(KS) * len(DILS[0]) * C * C) * x.element_size()
-            bound, bound_by = bound_ms(flops, nbytes, dt)
-            row = dict(shape=[BATCH, T, C], dtype=dt, launches_per_stage=18,
-                       max_abs_err=max_abs, rel_l2=rel, ms=kernel, plain_ms=plain,
-                       library_ms=None, bound_ms=bound, bound_by=bound_by)
+
+            def kernel_fn():
+                return fused_mrf_stage(x, flat, KS, DILS)
+
+            def plain_fn():
+                return mrf_stage_reference(x, typed_blocks, KS, DILS)
+
+            # 10 stages are 180 launches: well inside CUDA's launch queue, which
+            # the plain version's hundreds of small kernels would fill
+            kernel, kernel_dev = time_ms(kernel_fn), device_ms(kernel_fn, iters=10)
+            plain = time_ms(plain_fn, iters=10)
+            # every product runs on the bf16 tensor cores: one per
+            # multiply-add for bf16 inputs, three (the bf16 pairs) for f32
+            products = 3 if dtype == torch.float32 else 1
+            flops = products * 2.0 * BATCH * T * C * C * 2 * sum(KS) * len(DILS[0])
+            nbytes = (2 * BATCH * T * C * x.element_size()
+                      + sum(t.numel() * t.element_size() for t in flat))
+            bound, bound_by = bound_ms(flops, nbytes, "bfloat16")
+            row = dict(shape=[BATCH, T, C], dtype=dt, launches_per_stage=MRF_LAUNCHES,
+                       max_abs_err=max_abs, rel_l2=rel, ms=kernel, device_ms=kernel_dev,
+                       plain_ms=plain, library_ms=None,
+                       bound_ms=bound, bound_by=bound_by,
+                       bound_counts=f"{products} bf16 tensor-core product(s) per multiply-add")
             log(f"mrf stage [B={BATCH}, T={T}, C={C}] {dt}: max_abs={max_abs:.3e} "
-                f"rel_l2={rel:.3e} kernel_ms={kernel:.3f} plain_ms={plain:.3f} "
-                f"bound_ms={bound:.3f} ({bound_by})")
+                f"rel_l2={rel:.3e} kernel_ms={kernel:.3f} (device {kernel_dev:.3f}) "
+                f"plain_ms={plain:.3f} bound_ms={bound:.3f} "
+                f"({bound_by}, {row['bound_counts']})")
             rows.append(row)
+        del x32
+        torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     return rows
 
@@ -451,13 +484,49 @@ def _get(address, path: str):
         return r.status, json.loads(r.read())
 
 
+def vocoder_share(syn, stages: list) -> dict:
+    """Device ms of the vocoder alone on the largest batch it served (random
+    mel of that shape), and of that batch's fused MRF stages alone (random
+    weights, the served dtype): how much of the vocoder the kernel is."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
+        fused_mrf_stage, prepare_stage_weights,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    hop = syn.vocoder.hop
+    (B, T, _), dtype_name = max(stages, key=lambda s: s[0][1])  # the full-rate stage
+    dtype = getattr(torch, dtype_name.split(".")[-1])
+    frames = T // hop
+    mel = torch.randn(B, frames, syn.config.preprocessing.audio.n_mels, device="cuda",
+                      generator=g)
+    whole = device_ms(lambda: syn.vocoder.device_fn(mel), iters=3)
+    by_stage = {}
+    for shape in sorted({s[0] for s in stages if s[0][1] * s[0][2] == T * 32}):
+        C = shape[2]
+        x = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+        flat = prepare_stage_weights(_stage_blocks(C, g), KS, DILS, dtype)
+        by_stage[C] = device_ms(lambda: fused_mrf_stage(x, flat, KS, DILS), iters=5)
+        del x
+    mrf = sum(by_stage.values())
+    log(f"vocoder alone at the largest served batch [{B}, {frames} frames] {dtype_name}: "
+        f"device {whole:.2f} ms, of which the fused MRF stages {mrf:.2f} ms ("
+        + ", ".join(f"C={C}: {ms:.2f}" for C, ms in sorted(by_stage.items(), reverse=True))
+        + f"): {mrf / whole:.0%}")
+    return dict(shape=[B, frames], dtype=dtype_name, vocoder_device_ms=whole,
+                mrf_stages_device_ms=mrf)
+
+
 def phase_serving(workdir: Path, sd: dict, cfg: dict) -> dict:
     """Serve 8 concurrent requests and check them; returns each kernel's
-    launch count during the requests."""
+    launch count during the requests, and under "vocoder" the device time of
+    the vocoder alone beside its MRF stages' (``vocoder_share``)."""
     import numpy as np
     import torch
 
     from fastspeech2_lightning_tpu_torch.checkpoint import write_checkpoint
+    from fastspeech2_lightning_tpu_torch.models import hifigan
     from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
     from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
     from fastspeech2_lightning_tpu_torch.serving import serve
@@ -489,6 +558,14 @@ def phase_serving(workdir: Path, sd: dict, cfg: dict) -> dict:
         return result
 
     syn.synthesize = recording
+    stages = []  # one entry for every MRF stage the vocoder ran fused
+    run_stage = hifigan.fused_mrf_stage
+
+    def counting_stage(x, *args):
+        stages.append((tuple(x.shape), str(x.dtype)))
+        return run_stage(x, *args)
+
+    hifigan.fused_mrf_stage = counting_stage
     texts = request_texts(rng)
     attention_fwd.launches = 0
     mrf_conv.launches = 0
@@ -507,6 +584,7 @@ def phase_serving(workdir: Path, sd: dict, cfg: dict) -> dict:
         _, stats = _get(server.address, "/stats")
     finally:
         server.shutdown()
+        hifigan.fused_mrf_stage = run_stage
 
     for i, (text, (status, body, seconds)) in enumerate(zip(texts, responses)):
         fmt = "wav" if i % 2 == 0 else "mel"
@@ -536,9 +614,13 @@ def phase_serving(workdir: Path, sd: dict, cfg: dict) -> dict:
     check(stats.get("batch_errors", 0) == 0, f"/stats counted batch errors: {stats}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched while serving")
+    check(launches["mrf_conv"] == MRF_LAUNCHES * len(stages),
+          f"mrf_conv launched {launches['mrf_conv']} times for {len(stages)} fused stages")
     log(f"serving: {len(texts)} concurrent requests in {wall:.3f} s (server load + warmup "
         f"{load_s:.1f} s); batches {stats['batches_dispatched']}, batch_ms {stats.get('batch_ms')}; "
-        f"launches {launches}")
+        f"launches {launches}; fused MRF stages ([B, T, C], dtype): {sorted(set(stages))}, "
+        f"{len(stages)} in all")
+    launches["vocoder"] = vocoder_share(syn, stages)
     return launches
 
 
@@ -863,36 +945,45 @@ def phase_attention_buckets(workdir: Path) -> dict:
 
 
 def phase_mas() -> dict:
+    """The row at (16, 2048, 1000), with the training corpus's top bucket
+    (16, 2016, 192) beside it as `training_shape`."""
     import torch
 
     from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    row = None
+    rows = {}
     B = 16
-    for T in (1024, 2048):
-        for L in (160, 1000):
-            la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
-            in_lens = torch.randint(max(L // 4, 1), L + 1, (B,), device="cuda", generator=g)
-            out_lens = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
-            in_lens[0], out_lens[0] = L, T
-            hard, dur = mas_width1(la, in_lens, out_lens)
-            torch.cuda.synchronize()
-            want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
-            check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
-                  f"mas_width1 B={B} T={T} L={L}: path differs from the plain version")
-            check(torch.equal(dur.sum(1), out_lens.int()), "mas durations do not sum to out_lens")
-            kernel = time_ms(lambda: mas_width1(la, in_lens, out_lens), iters=10)
-            plain = time_ms(lambda: mas_width1_reference(la, in_lens, out_lens), warmup=1,
-                            iters=2)
-            bound = bound_ms(0.0, 2 * B * T * L * 4 + B * L * 4, "float32")
-            log(f"mas_width1 B={B} T={T} L={L}: bit-exact, kernel_ms={kernel:.4f} "
-                f"plain_ms={plain:.2f} bound_ms={bound[0]:.4f} ({bound[1]})")
-            if (T, L) == (2048, 1000):
-                row = dict(shape=[B, T, L], dtype="float32", max_abs_err=0.0, ms=kernel,
-                           plain_ms=plain, library_ms=None, bound_ms=bound[0],
-                           bound_by=bound[1])
-    return row
+    for T, L in ((1024, 160), (1024, 1000), (2048, 160), (2048, 1000), (2016, 192)):
+        la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+        in_lens = torch.randint(max(L // 4, 1), L + 1, (B,), device="cuda", generator=g)
+        out_lens = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
+        in_lens[0], out_lens[0] = L, T
+        hard, dur = mas_width1(la, in_lens, out_lens)
+        torch.cuda.synchronize()
+        want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+        check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+              f"mas_width1 B={B} T={T} L={L}: path differs from the plain version")
+        check(torch.equal(dur.sum(1), out_lens.int()), "mas durations do not sum to out_lens")
+        del hard, dur, want_hard, want_dur
+
+        def kernel_fn():
+            return mas_width1(la, in_lens, out_lens)
+
+        kernel, kernel_dev = time_ms(kernel_fn, iters=10), device_ms(kernel_fn)
+        plain = time_ms(lambda: mas_width1_reference(la, in_lens, out_lens), warmup=1,
+                        iters=2)
+        # bytes these lengths need: the valid part of log_attn read once,
+        # both outputs written once whole (the zeros too)
+        nbytes = 4 * (int((in_lens * out_lens).sum()) + B * T * L + B * L)
+        bound = bound_ms(0.0, nbytes, "float32")
+        log(f"mas_width1 B={B} T={T} L={L}: bit-exact, kernel_ms={kernel:.4f} "
+            f"(device {kernel_dev:.4f}) plain_ms={plain:.2f} bound_ms={bound[0]:.4f} "
+            f"({bound[1]})")
+        rows[T, L] = dict(shape=[B, T, L], dtype="float32", max_abs_err=0.0, ms=kernel,
+                          device_ms=kernel_dev, plain_ms=plain, library_ms=None,
+                          bound_ms=bound[0], bound_by=bound[1])
+    return dict(rows[2048, 1000], training_shape=rows[2016, 192])
 
 
 # -- phase 10: CTC (kernel C) ------------------------------------------------
@@ -1174,7 +1265,7 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     att = phase_attention()[0]
-    mrf = phase_mrf()[0]
+    mrf_rows = phase_mrf()
     phase_attention_train()
     mas = phase_mas()
     ctc = phase_ctc()
@@ -1213,13 +1304,18 @@ def main() -> None:
               p=train_att["bwd"]["p"], library="SDPA backward alone",
               library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
               **device_keys(train_att["bwd"])),
-        entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94", tl["mas_width1"]),
+        entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94", tl["mas_width1"],
+              device_ms=mas["device_ms"], training_shape=mas["training_shape"]),
         entry("ctc_alpha", ctc["alpha"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
               tl["ctc_alpha"], library="F.ctc_loss forward"),
         entry("ctc_beta_grad", ctc["beta"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
               tl["ctc_beta_grad"], library="F.ctc_loss forward+backward"),
-        entry("mrf_conv", mrf, "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
-              launches["mrf_conv"], timed="one MRF stage: 18 launches"),
+        # serving's vocoder is f32: that row (C = 128) on top; `stages` holds all six,
+        # the bf16 C = 128 row first
+        entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
+              launches["mrf_conv"], timed=f"one MRF stage: {MRF_LAUNCHES} launches",
+              device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
+              stages=mrf_rows, serving_vocoder=launches["vocoder"]),
     ]
     log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "
         f"({smi})")

@@ -11,7 +11,7 @@
 //
 // log_attn [B, T, L] f32 contiguous; in_lens, out_lens [B] int32; outputs
 // attn_hard [B, T, L] f32 (one-hot rows) and durations [B, L] int32; scratch
-// bits [B, T, ceil(L/32)] uint32.
+// bits [B, ceil(L/32), T] uint32.
 //
 // Replaces fastspeech2_lightning_tpu/ops/mas_pallas.py:94 mas_width1_pallas
 // (_mas_kernel :34), with the semantics of ops/mas.py:93-147. Adds and maxes
@@ -21,89 +21,254 @@
 // Bound: read B*T*L*4 bytes and write B*T*L*4 bytes (plus B*L*4); at B=16,
 // T=2048, L=1000 that is 262 MB, about 78 us at 3.35 TB/s: memory-bound.
 //
-// Design (a simple first kernel): one block per batch item, one thread per
-// text position (L <= 1024). The DP row lives double-buffered in shared
-// memory, one __syncthreads per mel frame. When row i is formed, each warp
-// stores its 32 move decisions as one ballot word in global memory (T*L/8
-// bytes per item): the DP table itself never reaches device memory. The
-// block then zeroes its output and one thread walks the decision bits back
-// from (out_len - 1, in_len - 1), writing the one-hot rows and the
-// durations. The sequential frame loop and the one-thread backtrack, not
-// the bytes, set this kernel's time.
+// Design. What sets this kernel's time is latency, not bytes: out_len
+// dependent steps forward and out_len dependent steps back, one block per
+// batch item. So each step is made short.
+//  - The outputs are zeroed by cudaMemsetAsync on the same stream, at the
+//    card's bandwidth; the kernel writes only the ones and the counts.
+//  - Forward: only the rows below out_len, only the warps that cover in_len.
+//    A lane of a search warp holds one, two or four columns (for L up to
+//    256, 512, 1024), 32 apart (so a ballot over the warp is one word of 32
+//    neighbouring columns), and keeps their P[i-1, j] in registers: at most
+//    eight warps step a row. The left neighbour comes by shuffle.
+//  - No barrier a row. A warp also carries the 32 columns left of its own
+//    (a halo, recomputed with the same adds and maxes, so bit-equal where
+//    valid). A halo column stays valid one row less for every column it
+//    lies further left, so the halo serves 32 rows; every 16 rows the warps
+//    meet at one named barrier and take the halo afresh from their
+//    neighbour's registers through shared memory.
+//  - The log_attn rows arrive in blocks of 16 rows through a ring of three
+//    blocks in shared memory, filled by four copy warps with cp.async a block
+//    or more ahead and handed over at the same barrier, so the search warps'
+//    loop holds no address arithmetic and no wait on device memory. Rows
+//    that start on 16 bytes (L % 4 == 0) are copied four columns a cp.async.
+//    What bounds a step now is the row's own chain: shuffle, select, max,
+//    add, max, at one search warp a scheduler. Tried on the way (PERF.md):
+//    loads kept in registers 8 or 16 rows ahead, one column a thread and a
+//    barrier a row, took as long as no prefetch; each lane copying its own
+//    columns with 4-byte cp.async took half of a step; reading the ring one
+//    row ahead into registers made it slower.
+//  - A warp's 32 move decisions of a row are one ballot word (T*L/8 bytes
+//    per item: the DP table never reaches device memory), and the words of
+//    32 rows leave in one store.
+//  - Backtrack: warp 0 takes 32 rows at a time. From column c the path falls
+//    by at most one a row, so the 32 rows' decisions all lie in columns
+//    c - 31 .. c: two words a row, loaded by the 32 lanes together and
+//    shifted into one 32-bit window each (ops/mas.py backtrack_window is the
+//    same arithmetic). The lanes then walk the 32 rows in registers, one
+//    shuffle a row, write their 32 ones together, and add each run of equal
+//    columns to the durations as one count.
+
+#include <math.h>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e9f;
 constexpr int MAX_L = 1024;
+constexpr int MAX_WARPS = 8;              // search warps, each over 32 * COLS columns
+constexpr int COPY_WARPS = 4;
+constexpr int BLOCK = 16;                 // rows between two barriers; at most the halo's 32
+constexpr int SLOTS = 3;                  // row blocks in the shared-memory ring
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(MAX_L)
+// barrier `id` over n threads of the block (n a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// COLS: column groups a lane owns, 32 k + lane of its warp's 32 * COLS
+// columns. Fewer for shorter texts: the same eight warps at most, and fewer
+// instructions a row for each.
+template <int COLS>
+__global__ void __launch_bounds__((MAX_WARPS + COPY_WARPS) * 32)
 mas_width1_kernel(const float* __restrict__ log_attn, const int* __restrict__ in_lens,
                   const int* __restrict__ out_lens, float* __restrict__ hard,
-                  int* __restrict__ durations, uint32_t* __restrict__ bits, int T, int L) {
-  __shared__ float rows[2][MAX_L];
+                  int* __restrict__ durations, uint32_t* bits, int T, int L) {
+  extern __shared__ float ring[];              // [SLOTS * BLOCK][row_floats]
+  __shared__ float halo[2][MAX_WARPS][32];     // each warp's last 32 columns, by block parity
   const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int W = (L + 31) / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int in_len = in_lens[b];
-  const int out_len = out_lens[b];
-  const float* la = log_attn + static_cast<long long>(b) * T * L;
-  uint32_t* bits_b = bits + static_cast<long long>(b) * T * W;
-  const bool col = j < L;
+  const int n = min(out_lens[b], T);  // rows on the path
+  // as in the JAX package, lengths outside [1, L] leave the item all zero
+  if (n <= 0 || in_len <= 0 || in_len > L) return;
+  const int n_warps = (in_len + 32 * COLS - 1) / (32 * COLS);  // search warps at work
+  const int first_copy_warp = (blockDim.x >> 5) - COPY_WARPS;
+  const int row_floats = first_copy_warp * 32 * COLS;
+  const int n_meet = (n_warps + COPY_WARPS) * 32;  // threads at a block's barrier
+  const float* la_b = log_attn + static_cast<long long>(b) * T * L;
 
-  auto masked = [&](int i) {
-    const bool valid = col && j < in_len && i < out_len;
-    return valid ? fmaxf(la[static_cast<long long>(i) * L + j], NEG_INF) : NEG_INF;
-  };
-
-  if (col) rows[0][j] = masked(0) + (j == 0 ? 0.f : NEG_INF);
-  __syncthreads();
-  for (int i = 1; i < T; ++i) {
-    const float* prev = rows[(i - 1) & 1];
-    float stay = 0.f, left = NEG_INF;
-    if (col) {
-      stay = prev[j];
-      if (j > 0) left = prev[j - 1];
+  if (warp >= first_copy_warp) {
+    // copy warps: the rows of block m, columns 0 .. 128 n_warps - 1 (zero
+    // past L), into ring rows (row % 48); one cp.async group a block. Rows
+    // that start on 16 bytes (L % 4 == 0) go four columns a copy.
+    const int c = (warp - first_copy_warp) * 32 + lane;  // of 128 copy lanes
+    const int n_blocks = (n + BLOCK - 1) / BLOCK;
+    const int width = n_warps * 32 * COLS;
+    const bool wide = (L & 3) == 0;
+    auto copy_block = [&](int m) {
+      if (m < n_blocks) {
+        const int last = min(n, (m + 1) * BLOCK);
+        float* dst = ring + (m % SLOTS) * BLOCK * row_floats;
+        const float* src = la_b + static_cast<long long>(m) * BLOCK * L;
+        for (int i = m * BLOCK; i < last; ++i, dst += row_floats, src += L) {
+          if (wide) {
+            for (int j = 4 * c; j < width; j += 4 * 32 * COPY_WARPS)
+              fs2::tc::cp_async16(dst + j, j < L ? src + j : la_b, j < L);
+          } else {
+            for (int j = c; j < width; j += 32 * COPY_WARPS)
+              fs2::tc::cp_async4(dst + j, j < L ? src + j : la_b, j < L);
+          }
+        }
+      }
+      fs2::tc::cp_async_commit();
+    };
+    copy_block(0);
+    copy_block(1);
+    for (int m = 0; m < n_blocks; ++m) {
+      // block m + 1 goes where block m - 2 was: the search warps left it
+      // before the barrier that handed them block m - 1
+      if (m > 0) copy_block(m + 1);
+      fs2::tc::cp_async_wait<1>();  // block m has landed
+      bar_sync(1, n_meet);          // and is handed over
     }
-    const bool move = col && j > 0 && left >= stay;
-    const uint32_t word = __ballot_sync(0xffffffffu, move);
-    if ((j & 31) == 0 && j < L) bits_b[static_cast<long long>(i) * W + (j >> 5)] = word;
-    if (col) rows[i & 1][j] = fmaxf(masked(i) + fmaxf(stay, left), NEG_INF);
-    __syncthreads();
+    return;
   }
+  if (warp >= n_warps) return;
+
+  const int jw = warp * 32 * COLS + lane;  // this lane's columns: jw + 32 k, and jw - 32 (halo)
+  const int n_groups = min(COLS, (in_len - warp * 32 * COLS + 31) >> 5);  // with a live column
+  uint32_t* bits_b = bits + static_cast<long long>(b) * ((L + 31) / 32) * T;
+  // P[i - 1, j]: cur[0] of the halo column (-inf for warp 0, which has
+  // none), cur[1 + k] of owned column k
+  float cur[COLS + 1];
+  uint32_t keep[COLS] = {};  // lane r: the decision words of row (i & ~31) + r
+  for (int i0 = 0; i0 < n; i0 += BLOCK) {
+    const int block = i0 / BLOCK;
+    const float* row = ring + (block % SLOTS) * BLOCK * row_floats + jw;
+    if (i0 == 0) {
+      bar_sync(1, n_meet);
+      cur[0] = warp > 0 ? fmaxf(row[-32], NEG_INF) + NEG_INF : -INFINITY;
+#pragma unroll
+      for (int k = 0; k < COLS; ++k)
+        cur[1 + k] = fmaxf(row[32 * k], NEG_INF) + (jw + 32 * k == 0 ? 0.f : NEG_INF);
+    } else {  // meet, and take the halo afresh
+      halo[block & 1][warp][lane] = cur[COLS];
+      bar_sync(1, n_meet);
+      if (warp > 0) cur[0] = halo[block & 1][warp - 1][lane];
+    }
+    const int last = min(n, i0 + BLOCK);
+#pragma unroll 4
+    for (int i = max(i0, 1); i < last; ++i) {
+      const float* x = row + (i - i0) * row_floats;
+      // the left neighbour: the lane before, for lane 0 lane 31 of the 32
+      // columns before. Left of column 0 (warp 0's cur[0]) and of the halo's
+      // first column (not valid past a block's first row anyway) is -inf:
+      // below every P, so no move and the same max.
+      float rot[COLS + 1], left[COLS + 1];
+#pragma unroll
+      for (int g = 0; g <= COLS; ++g) rot[g] = __shfl_sync(FULL, cur[g], (lane + 31) & 31);
+      left[0] = lane == 0 ? -INFINITY : rot[0];
+#pragma unroll
+      for (int g = 1; g <= COLS; ++g) left[g] = lane == 0 ? rot[g - 1] : rot[g];
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        const uint32_t word = __ballot_sync(FULL, left[1 + k] >= cur[1 + k]);
+        if (lane == (i & 31)) keep[k] = word;
+      }
+      if (warp > 0) cur[0] = fmaxf(fmaxf(x[-32], NEG_INF) + fmaxf(cur[0], left[0]), NEG_INF);
+#pragma unroll
+      for (int k = 0; k < COLS; ++k)
+        cur[1 + k] = fmaxf(fmaxf(x[32 * k], NEG_INF) + fmaxf(cur[1 + k], left[1 + k]), NEG_INF);
+      if ((i & 31) == 31 || i == n - 1) {  // 32 rows' words in one store a column group
+        const int r = (i & ~31) + lane;
+#pragma unroll
+        for (int k = 0; k < COLS; ++k)
+          if (r <= i && k < n_groups)
+            bits_b[static_cast<long long>(warp * COLS + k) * T + r] = keep[k];
+      }
+    }
+  }
+  // every warp's decision words are visible to warp 0
+  if (n_warps > 1) bar_sync(2, n_warps * 32);
+  __syncwarp();
+  if (warp != 0) return;
 
   float* hard_b = hard + static_cast<long long>(b) * T * L;
-  for (long long e = j; e < static_cast<long long>(T) * L; e += blockDim.x) hard_b[e] = 0.f;
   int* dur_b = durations + static_cast<long long>(b) * L;
-  if (col) dur_b[j] = 0;
-  __syncthreads();  // zeros and decision bits are visible to thread 0
-  // as in the JAX package, lengths outside [1, L] leave the item all zero
-  if (j == 0 && out_len > 0 && in_len > 0 && in_len <= L) {
-    int c = in_len - 1;
-    for (int i = out_len - 1; i >= 1; --i) {
-      hard_b[static_cast<long long>(i) * L + c] = 1.f;
-      dur_b[c] += 1;
-      if (c > 0 && ((bits_b[static_cast<long long>(i) * W + (c >> 5)] >> (c & 31)) & 1u)) --c;
+  int c = in_len - 1;  // the path's column at row `top`
+  for (int top = n - 1; top >= 0; top -= 32) {
+    const int i = top - lane;  // this lane's row
+    uint32_t w_hi = 0u, w_lo = 0u;
+    if (i >= 1) {  // row 0 decides nothing
+      const uint32_t* word = bits_b + static_cast<long long>(c >> 5) * T + i;
+      w_hi = word[0];
+      if (c >= 32) w_lo = word[-T];
     }
-    hard_b[c] = 1.f;
-    dur_b[c] += 1;
+    // bit p of the window: the decision at column c - 31 + p
+    const uint32_t window = static_cast<uint32_t>(
+        ((static_cast<uint64_t>(w_hi) << 32) | w_lo) >> ((c & 31) + 1));
+    int p = 31, my_c = c;
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const uint32_t wl = __shfl_sync(FULL, window, l);
+      if (lane == l) my_c = c;
+      const int mv = (wl >> p) & 1;
+      c -= mv;
+      p -= mv;
+    }
+    const bool on = i >= 0;
+    if (on) hard_b[static_cast<long long>(i) * L + my_c] = 1.f;
+    // durations: each run of equal columns among these rows adds its length
+    const uint32_t rows = __ballot_sync(FULL, on);
+    const int above = __shfl_up_sync(FULL, my_c, 1);
+    const bool start = on && (lane == 0 || above != my_c);
+    const uint32_t starts = __ballot_sync(FULL, start);
+    if (start) {
+      const uint32_t later = starts & ~((2u << lane) - 1u);
+      const int end = later ? __ffs(later) - 1 : __popc(rows);
+      atomicAdd(dur_b + my_c, end - lane);
+    }
   }
+}
+
+template <int COLS>
+cudaError_t launch(const void* log_attn, const void* in_lens, const void* out_lens, void* hard,
+                   void* durations, void* bits, int B, int T, int L, cudaStream_t stream) {
+  const int search_warps = (L + 32 * COLS - 1) / (32 * COLS);
+  const size_t smem = sizeof(float) * SLOTS * BLOCK * search_warps * 32 * COLS;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
+      mas_width1_kernel<COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(float) * SLOTS * BLOCK * MAX_WARPS * 32 * COLS));
+  if (attr != cudaSuccess) return attr;
+  mas_width1_kernel<COLS><<<B, (search_warps + COPY_WARPS) * 32, smem, stream>>>(
+      static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
+      static_cast<const int*>(out_lens), static_cast<float*>(hard),
+      static_cast<int*>(durations), static_cast<uint32_t*>(bits), T, L);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 FS2_EXPORT_ERROR_STRING
 
+// Zeroes hard and durations on `stream`, then launches the search there.
 // Returns a cudaError_t code (0 on success).
 extern "C" int mas_width1(const void* log_attn, const void* in_lens, const void* out_lens,
                           void* hard, void* durations, void* bits, int B, int T, int L,
                           void* stream) {
   if (B <= 0 || T <= 0 || L <= 0 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (L + 31) / 32 * 32;
-  mas_width1_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
-      static_cast<const int*>(out_lens), static_cast<float*>(hard),
-      static_cast<int*>(durations), static_cast<uint32_t*>(bits), T, L);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(hard, 0, sizeof(float) * B * T * L, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(durations, 0, sizeof(int) * B * L, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define FS2_MAS_ARGS log_attn, in_lens, out_lens, hard, durations, bits, B, T, L, st
+  if (L <= 32 * MAX_WARPS) return static_cast<int>(launch<1>(FS2_MAS_ARGS));
+  if (L <= 64 * MAX_WARPS) return static_cast<int>(launch<2>(FS2_MAS_ARGS));
+  return static_cast<int>(launch<4>(FS2_MAS_ARGS));
+#undef FS2_MAS_ARGS
 }

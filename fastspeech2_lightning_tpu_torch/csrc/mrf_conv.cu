@@ -5,152 +5,345 @@
 //                                           * w[tap, ci, co]   (+ res[b, t, co])
 //   mode 0: out = y        mode 1: acc += scale * y        mode 2: out = acc + scale * y
 //
-// over x, res, out: [B, T, C] (contiguous), w: [K, C, C], bias: [C] in the
-// input dtype and acc: [B, T, C] f32. Positions outside [0, T) read as zero,
-// as SAME padding gives (lrelu(0) = 0). `res` may alias `out`: each output
-// element reads its own residual before it writes.
+// over x, res, out: [B, T, C] (contiguous) and bias: [C] in the input dtype
+// (bf16 or f32), C = 32, 64 or 128, and acc: [B, T, C] f32. The weights are
+// always bf16: w [K, C, C] (tap, in, out) for bf16 inputs, and for f32 inputs
+// [2, K, C, C], the f32 weights split into a high and a low bf16 part
+// (w = w_hi + w_lo to 2^-16; ops/vocoder_resblocks.py prepare_stage_weights).
+// Positions outside [0, T) read as zero, as SAME padding gives
+// (lrelu(0) = 0). `res` may alias `out`: each output element reads its own
+// residual before it writes. `x` must not alias `out`: a block reads rows
+// that its neighbours write.
 //
 // Replaces fastspeech2_lightning_tpu/ops/vocoder_resblocks.py:168
 // fused_mrf_stage (_mrf_kernel :92), which computes a whole stage
 //   y = mean_j RB_j(x),  RB_j: for each dilation i,
 //   x += conv_{k_j,1}(lrelu(conv_{k_j,d_i}(lrelu(x))))
-// in one launch. The stage wrapper (ops/vocoder_resblocks.py) launches this
-// kernel 18 times for a HiFiGAN V1 stage (kernels 3, 7, 11 x dilations
-// 1, 3, 5 x 2 convs); the TPU's single launch with a 64-row halo needs two
-// (block_t + 128) x C f32 buffers, which at C = 128 fit 227 KB of shared
-// memory only at block_t <= 32, with 5x halo recompute. That redesign is
+// in one launch, each conv as a tap-stacked product [rows, k C] x [k C, C].
+// The stage wrapper (ops/vocoder_resblocks.py) launches this kernel 18 times
+// for a HiFiGAN V1 stage (kernels 3, 7, 11 x dilations 1, 3, 5 x 2 convs).
+// Fusing each resblock's conv pair into one launch, and then the stage, is
 // queued.
 //
 // Bound: a stage does 2 * B * T * C^2 * 126 operations on 2 * B * T * C
 // elements moved, so it is compute-bound at every C of the V1 stages.
 //
-// Design (a simple first kernel): an implicit GEMM, M = time, N = output
-// channels, reduction over (tap, input channel). A block of 256 threads
-// computes a 64 t x 64 co tile, 4 x 4 outputs a thread, walking 16-channel
-// slices of each tap: the shifted, leaky-ReLU'd input rows and the weight
-// slice are staged in shared memory as f32, products accumulate in f32
-// registers on the CUDA cores. Tensor cores and a pipelined tile ring are
-// later work.
+// Design: an implicit GEMM on the tensor cores. A block of two warpgroups
+// computes 128 time rows x all C output channels (wgmma m64nCk16, bf16 in,
+// f32 accumulators in registers), reducing over (tap, input channel) in
+// steps of 16; for f32 at C = 128, four warpgroups and 256 rows (Tiling).
+//  - The input tile is read from device memory once, with its halo: rows
+//    t0 - half * d .. t0 + 127 + half * d, zero outside [0, T), leaky-ReLU'd
+//    on the way and stored as bf16 rows of C + 8 elements. Tap `tap` of
+//    output row r is tile row r + tap * d.
+//  - A comes from registers, not from a shared-memory descriptor: dilations
+//    1, 3, 5 shift the rows by odd counts, which the 8-row period of a
+//    swizzled descriptor tile does not allow without its base-offset field.
+//    ldmatrix.x4 reads the 16 x 16 fragment at any row; the 16 bytes of
+//    padding a row put the 8 rows of each 8 x 8 block on different banks at
+//    every C.
+//  - B (the weights) streams from L2 in chunks of 64 reduction rows x C
+//    through a three-stage cp.async ring of swizzled tiles (128-byte swizzle
+//    at C = 64 and 128, 64-byte at C = 32), read by descriptor with the
+//    transpose flag, like V in the attention kernels. One __syncthreads a
+//    chunk; the chunk two ahead is in flight under this chunk's products.
+//    A last chunk that is half empty (C = 32, odd K) is zero-filled.
+//  - f32 inputs keep f32 accuracy on the same bf16 path: the activation is
+//    split after the leaky ReLU into a_hi + a_lo (two bf16 tiles), and each
+//    k-step runs three products, a_hi w_hi + a_lo w_hi + a_hi w_lo; the
+//    term a_lo w_lo (2^-16 of the sum) is dropped. Measured against the f32
+//    plain version: see PERF.md.
+//  - Epilogue from the accumulator layout (tensor_core.cuh), two
+//    neighbouring channels a store.
+// What limits it is not the tensor cores (29 to 42 % of their rate at
+// C = 128) but how many blocks a multiprocessor holds to hide each block's
+// phases behind another's (tile fill, per-chunk barrier, epilogue): a bf16
+// block takes 97 KB at C = 128 and under 60 KB below, so two to four fit;
+// anything that cost a block (more registers, a deeper ring) lost more than
+// it won. f32 at C = 128 needs 191 KB for 128 rows, so one block fits
+// whatever the tiling, and there 256 rows a block (with 32-row chunks, to
+// fit 212 KB) won: every block streams the whole conv's weights, so twice
+// the rows halve that traffic.
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int BT = 64;        // time rows per block
-constexpr int BCO = 64;       // output channels per block
-constexpr int BCI = 16;       // input channels per reduction step
-constexpr int THREADS = 256;  // 16 x 16, each 4 x 4 outputs
+using fs2::tc::bf16;
+
+constexpr int MAX_HALO = 50;   // (K - 1) * dilation, at most 10 * 5
 constexpr float LRELU_SLOPE = 0.1f;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-mrf_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const T* __restrict__ bias, const T* res, T* out, float* acc,
-                int T_len, int C, int K, int dil, int mode, float scale) {
-  __shared__ float As[BCI][BT + 4];
-  __shared__ float Ws[BCI][BCO];
+// The tiling for inputs of type T and C channels (each choice measured
+// against its neighbours on the H100; PERF.md).
+template <typename T, int C>
+struct Tiling {
+  static constexpr bool SPLIT = sizeof(T) == 4;
+  // time rows per block, one m64 warpgroup for every 64
+  static constexpr int BM = SPLIT && C == 128 ? 256 : 128;
+  static constexpr int THREADS = 2 * BM;
+  // reduction rows (tap, input channel) per weight chunk
+  static constexpr int KC = SPLIT && C == 128 ? 32 : 64;
+  // weight chunks in the ring
+  static constexpr int STAGES = 3;
+  // 1024 bytes to align the weight tiles to the swizzle period; per bf16 part
+  // (one for bf16 inputs, high and low for f32): the ring of weight chunks
+  // and the input tile with its halo, rows padded by 8 elements
+  static constexpr size_t SMEM =
+      1024 + (SPLIT ? 2 : 1) * (STAGES * KC * C + (BM + MAX_HALO) * (C + 8)) * sizeof(bf16);
+  // blocks a multiprocessor holds at the least (the compiler's register budget)
+  static constexpr int BLOCKS = SPLIT ? 1 : 2;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int t0 = blockIdx.x * BT;
-  const int co0 = blockIdx.y * BCO;
-  const long long b = blockIdx.z;
-  const T* xb = x + b * T_len * C;
-  const int half = (K - 1) / 2;
+__device__ __forceinline__ float lrelu(float v) { return v > 0.f ? v : v * LRELU_SLOPE; }
 
-  float sum[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sum[i][j] = 0.f;
-
-  for (int tap = 0; tap < K; ++tap) {
-    const int off = (tap - half) * dil;
-    const T* wt = w + static_cast<long long>(tap) * C * C;
-    for (int ci0 = 0; ci0 < C; ci0 += BCI) {
-      for (int i = tid; i < BT * BCI; i += THREADS) {
-        const int ci = i % BCI, tt = i / BCI;
-        const int t = t0 + tt + off, c = ci0 + ci;
-        float a = 0.f;
-        if (t >= 0 && t < T_len && c < C) {
-          a = fs2::to_f32(xb[static_cast<long long>(t) * C + c]);
-          a = a > 0.f ? a : a * LRELU_SLOPE;
-        }
-        As[ci][tt] = a;
-      }
-      for (int i = tid; i < BCI * BCO; i += THREADS) {
-        const int co = i % BCO, ci = i / BCO;
-        const int c = ci0 + ci, o = co0 + co;
-        Ws[ci][co] = (c < C && o < C) ? fs2::to_f32(wt[static_cast<long long>(c) * C + o]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BCI; ++kk) {
-        float a[4], bw[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bw[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sum[i][j] = fmaf(a[i], bw[j], sum[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
+// lrelu of 8 consecutive input elements (zero when !ok), as bf16 pairs: the
+// value itself for bf16 inputs; for f32 inputs its high part in hi[] and the
+// bf16-rounded remainder in lo[]
+__device__ __forceinline__ void load8(const bf16* p, bool ok, uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t r[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= T_len) continue;
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r[i]));
+    hi[i] = fs2::tc::pack_bf16(lrelu(v.x), lrelu(v.y));
+    lo[i] = 0u;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, bool ok, uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+  float4 u = make_float4(0.f, 0.f, 0.f, 0.f), v = u;
+  if (ok) {
+    u = *reinterpret_cast<const float4*>(p);
+    v = *reinterpret_cast<const float4*>(p + 4);
+  }
+  const float a[8] = {lrelu(u.x), lrelu(u.y), lrelu(u.z), lrelu(u.w),
+                      lrelu(v.x), lrelu(v.y), lrelu(v.z), lrelu(v.w)};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = co0 + tx + 16 * j;
-      if (o >= C) continue;
-      const long long idx = (b * T_len + t) * C + o;
-      float y = sum[i][j] + fs2::to_f32(bias[o]);
-      if (res != nullptr) y += fs2::to_f32(res[idx]);
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = fs2::tc::pack_bf16(a[2 * i] - hf.x, a[2 * i + 1] - hf.y);
+  }
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = fs2::tc::pack_bf16(a, b);
+}
+
+// reduction rows row0 .. row0 + KC - 1 of w [rows_total, C] into a swizzled
+// tile of the ring (NT threads); rows at or past rows_total are zero-filled
+template <int C, int KC, int NT>
+__device__ __forceinline__ void load_w_tile(bf16* tile, const bf16* w, int row0,
+                                            int rows_total, int tid) {
+  if constexpr (C == 32) {
+    static_assert(KC * 4 <= NT, "one 16-byte copy a thread");
+    const int r = tid >> 2, c = tid & 3, row = row0 + r;  // KC rows x 4 chunks
+    const bool ok = row < rows_total;
+    if (r < KC)
+      fs2::tc::cp_async16(tile + fs2::tc::sw64(r, c), w + (ok ? row : 0) * C + c * 8, ok);
+  } else {
+    fs2::tc::load_tile<KC, C, NT>(tile, w, C, row0, rows_total, tid);
+  }
+}
+
+// acc += A(registers) * (k-step kk of a weight tile of KC rows)
+template <int C, int KC>
+__device__ __forceinline__ void product(float (&acc)[C / 8][4], const uint32_t (&a)[4],
+                                        const bf16* tile, int kk) {
+  if constexpr (C == 32)
+    fs2::tc::wgmma_rs_n32(acc, a, fs2::tc::sw64_desc(tile + kk * 16 * 32));
+  else if constexpr (C == 64)
+    fs2::tc::wgmma_rs_n64(acc, a, fs2::tc::sw128_desc(tile + kk * 16 * 64, KC * 128, 1024));
+  else
+    fs2::tc::wgmma_rs_n128(acc, a, fs2::tc::sw128_desc(tile + kk * 16 * 64, KC * 128, 1024));
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(Tiling<T, C>::THREADS, Tiling<T, C>::BLOCKS)
+mrf_conv_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
+                const T* __restrict__ bias, const T* res, T* out, float* acc_buf,
+                int T_len, int K, int dil, int mode, float scale) {
+  using namespace fs2::tc;
+  using Tile = Tiling<T, C>;
+  constexpr bool SPLIT = Tile::SPLIT;
+  constexpr int BM = Tile::BM, THREADS = Tile::THREADS, KC = Tile::KC, STAGES = Tile::STAGES;
+  constexpr int NL = SPLIT ? 2 : 1;   // bf16 parts of a value
+  constexpr int AS = C + 8;           // input tile row stride, elements
+  constexpr int ATILE = (BM + MAX_HALO) * AS;
+  constexpr int WTILE = KC * C;
+  constexpr int CH = C / 8;           // 8-element chunks of a row
+  constexpr int NB = C / 8;           // n-blocks of the accumulator
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* As = Ws + STAGES * NL * WTILE;  // [NL][ATILE]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t0 = blockIdx.x * BM;
+  const long long b = blockIdx.y;
+  const int halo = (K - 1) / 2 * dil;
+  const int red_rows = K * C;                      // reduction length
+  const int n_chunks = (red_rows + KC - 1) / KC;
+
+  auto load_w = [&](int chunk) {
+    bf16* dst = Ws + (chunk % STAGES) * NL * WTILE;
+#pragma unroll
+    for (int l = 0; l < NL; ++l)
+      load_w_tile<C, KC, THREADS>(dst + l * WTILE, w + static_cast<long long>(l) * red_rows * C,
+                     chunk * KC, red_rows, tid);
+  };
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {  // one group a chunk, empty past the last
+    if (i < n_chunks) load_w(i);
+    cp_async_commit();
+  }
+
+  // the input tile, once: lrelu(x) rows t0 - halo .. t0 + BM - 1 + halo
+  const T* xb = x + b * T_len * C;
+  const int n_fill = (BM + 2 * halo) * CH;
+#pragma unroll 4
+  for (int i = tid; i < n_fill; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const int t = t0 - halo + r;
+    const bool ok = t >= 0 && t < T_len;
+    uint32_t hi[4], lo[4];
+    load8(xb + static_cast<long long>(ok ? t : 0) * C + c * 8, ok, hi, lo);
+    *reinterpret_cast<uint4*>(As + r * AS + c * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    if (SPLIT)
+      *reinterpret_cast<uint4*>(As + ATILE + r * AS + c * 8) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+
+  float acc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // this lane's ldmatrix row address within a 16 x 16 fragment of its warp's
+  // 16 output rows (warp w of the block: rows 16 w .. 16 w + 15)
+  const bf16* a_lane = As + (warp * 16 + (lane & 15)) * AS + (lane >> 4) * 8;
+
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait<STAGES - 2>();  // chunk i landed
+    fence_async_shared();
+    __syncthreads();              // ... for every thread, and chunk i - 1 is consumed
+    if (i + STAGES - 1 < n_chunks) load_w(i + STAGES - 1);  // where chunk i - 1 was
+    cp_async_commit();
+    const bf16* Wt = Ws + (i % STAGES) * NL * WTILE;
+
+    uint32_t a[NL][KC / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      const int red = i * KC + kk * 16;
+      // past the last tap (a half-empty last chunk) the weights are zero:
+      // read any finite row
+      const int tap = min(red / C, K - 1);
+      const bf16* p = a_lane + tap * dil * AS + red % C;
+      ldmatrix_x4(a[0][kk], p);
+      if (SPLIT) ldmatrix_x4(a[NL - 1][kk], p + ATILE);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      product<C, KC>(acc, a[0][kk], Wt, kk);
+      if (SPLIT) {
+        product<C, KC>(acc, a[NL - 1][kk], Wt, kk);
+        product<C, KC>(acc, a[0][kk], Wt + WTILE, kk);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + warp * 16 + g + 8 * h;
+    if (t >= T_len) continue;
+    const long long row = (b * T_len + t) * C + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const long long idx = row + n * 8;
+      const float2 bv = load2(bias + n * 8 + 2 * t4);
+      float y0 = acc[n][2 * h] + bv.x, y1 = acc[n][2 * h + 1] + bv.y;
+      if (res != nullptr) {
+        const float2 rv = load2(res + idx);
+        y0 += rv.x;
+        y1 += rv.y;
+      }
       if (mode == 0) {
-        out[idx] = fs2::from_f32<T>(y);
-      } else if (mode == 1) {
-        acc[idx] += scale * y;
+        store2(out + idx, y0, y1);
       } else {
-        out[idx] = fs2::from_f32<T>(acc[idx] + scale * y);
+        const float2 av = load2(acc_buf + idx);
+        if (mode == 1)
+          store2(acc_buf + idx, av.x + scale * y0, av.y + scale * y1);
+        else
+          store2(out + idx, av.x + scale * y0, av.y + scale * y1);
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, int C>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* res,
-                   void* out, void* acc, int B, int T_len, int C, int K, int dil,
-                   int mode, float scale, cudaStream_t stream) {
-  const dim3 grid((T_len + BT - 1) / BT, (C + BCO - 1) / BCO, B);
-  mrf_conv_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<const T*>(res), static_cast<T*>(out), static_cast<float*>(acc), T_len,
-      C, K, dil, mode, scale);
+                   void* out, void* acc, int B, int T_len, int K, int dil, int mode,
+                   float scale, cudaStream_t stream) {
+  using Tile = Tiling<T, C>;
+  constexpr size_t smem = Tile::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
+      mrf_conv_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((T_len + Tile::BM - 1) / Tile::BM, B);
+  mrf_conv_kernel<T, C><<<grid, Tile::THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const bf16*>(w), static_cast<const T*>(bias),
+      static_cast<const T*>(res), static_cast<T*>(out), static_cast<float*>(acc), T_len, K,
+      dil, mode, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_c(const void* x, const void* w, const void* bias, const void* res,
+                     void* out, void* acc, int B, int T_len, int C, int K, int dil,
+                     int mode, float scale, cudaStream_t stream) {
+  if (C == 32) return launch<T, 32>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
+  if (C == 64) return launch<T, 64>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
+  if (C == 128) return launch<T, 128>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 FS2_EXPORT_ERROR_STRING
 
-// res may be null; out is unused in mode 1 and acc in mode 0.
+// `w` is bf16 [K, C, C] for dtype bf16 and bf16 [2, K, C, C] (high, low) for
+// dtype f32. res may be null; out is unused in mode 1 and acc in mode 0.
 // Returns a cudaError_t code (0 on success).
 extern "C" int mrf_conv(int dtype, const void* x, const void* w, const void* bias,
                         const void* res, void* out, void* acc, int B, int T_len, int C,
                         int K, int dil, int mode, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T_len <= 0 || C <= 0 || K <= 0 || dil <= 0 || mode < 0 || mode > 2)
+  if (B <= 0 || B > 65535 || T_len <= 0 || K <= 0 || K % 2 == 0 || dil <= 0 ||
+      (K - 1) * dil > MAX_HALO || mode < 0 || mode > 2 || x == out)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == fs2::kFloat32)
-    return launch<float>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
+    return launch_c<float>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
   if (dtype == fs2::kBFloat16)
-    return launch<__nv_bfloat16>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode,
-                                 scale, st);
+    return launch_c<bf16>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
-// Tensor-core building blocks of the bf16 attention kernels
-// (attention_fwd.cu, attention_bwd.cu): 16-byte cp.async copies into
-// 128-byte-swizzled shared-memory tiles, their wgmma matrix descriptors, and
-// the sm_90a warpgroup product wgmma (bf16 in, f32 accumulators) with one
-// operand from registers or both from shared memory.
+// Tensor-core building blocks of the attention kernels (attention_fwd.cu,
+// attention_bwd.cu) and the MRF conv kernel (mrf_conv.cu): 16-byte cp.async
+// copies into swizzled shared-memory tiles, their wgmma matrix descriptors,
+// ldmatrix for A fragments, and the sm_90a warpgroup product wgmma (bf16 in,
+// f32 accumulators) with one operand from registers or both from shared
+// memory.
 //
 // Register fragments of a warpgroup product m64nNk16 (warp w of the
 // warpgroup holds rows 16w..16w+15; lane = 4 * g + t):
@@ -118,6 +119,34 @@ __device__ __forceinline__ uint64_t sw128_desc(const bf16* start, uint32_t lead_
          (static_cast<uint64_t>(1) << 62);
 }
 
+// A 64-byte-swizzled tile of R rows x 32 bf16 (64 bytes a row): 16-byte chunk
+// c of row r at chunk c ^ ((r / 2) % 4); the period is 8 rows (512 bytes),
+// on which every such tile starts.
+__device__ __forceinline__ int sw64(int row, int chunk) {
+  return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
+}
+
+// Its descriptor for an MN-major operand 32 wide (rows = K, N contiguous),
+// read with the transpose flag: stride offset 512 (8 K-rows), the leading
+// offset unused (one swizzle row holds all of N); a k-step advances the
+// start by 16 rows.
+__device__ __forceinline__ uint64_t sw64_desc(const bf16* start) {
+  return static_cast<uint64_t>((smem_u32(start) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(512 >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
+// The A fragment of one k-step for 16 rows of a row-major bf16 matrix in
+// shared memory: four 8 x 8 blocks (rows 0-7 and 8-15, columns 0-7 and
+// 8-15), a[0..3] in the order the header names. `p` is this lane's row
+// address: row (lane % 16), column 8 * (lane / 16) of the 16 x 16 block,
+// 16-byte aligned.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(p)));
+}
+
 // make this thread's generic-proxy writes to shared memory (cp.async, st)
 // visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_async_shared() {
@@ -161,6 +190,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint6
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[16] += A(registers) * B(smem desc), m64n32k16, B read transposed
+// (stored MN-major: rows = K, N contiguous)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d[32] += A(registers) * B(smem desc), m64n64k16, B read transposed

@@ -6,7 +6,8 @@
 CUDA tensor launches ``csrc/mas_width1.cu`` (which replaces
 ``ops/mas_pallas.py:94 mas_width1_pallas``) or raises; a CPU tensor runs
 ``mas_width1_reference``, its plain version. There is no scan fallback: a
-shape the kernel does not take raises. The search takes no gradient.
+shape the kernel does not take raises. The search takes no gradient. The C
+entry zeroes both outputs on the stream before the kernel writes its ones.
 
 Recurrence (``ops/mas.py:30-51``; adds and maxes in one order, exact in f32):
     la     = valid ? max(log_attn, -1e9) : -1e9
@@ -22,7 +23,7 @@ import ctypes
 import torch
 
 NEG_INF = -1e9
-MAX_L = 1024  # one thread per text position
+MAX_L = 1024  # eight warps of 128 text positions
 
 
 def _masked(log_attn, in_lens, out_lens):
@@ -63,6 +64,16 @@ def mas_width1_reference(log_attn, in_lens, out_lens):
     return hard, hard.sum(1).to(torch.int32)
 
 
+def backtrack_window(word_hi: int, word_lo: int, c: int) -> int:
+    """The kernel's 32-bit window of one row's move decisions around column
+    `c`: bit p is the decision at column c - 31 + p (0 for a column below 0).
+    `word_hi` is the row's decision word c // 32 (bit q: column 32 * (c // 32)
+    + q) and `word_lo` the word before it (0 when c < 32). From column c the
+    path falls by at most one column a row, so these windows hold every
+    decision the next 32 rows of the backtrack can need."""
+    return (((word_hi << 32) | word_lo) >> ((c & 31) + 1)) & 0xFFFFFFFF
+
+
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
@@ -84,7 +95,7 @@ def mas_width1(log_attn, in_lens, out_lens):
     out_lens = out_lens.to(device=dev, dtype=torch.int32).contiguous()
     hard = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     durations = torch.empty((B, L), dtype=torch.int32, device=dev)
-    bits = torch.empty((B, T, (L + 31) // 32), dtype=torch.int32, device=dev)
+    bits = torch.empty((B, (L + 31) // 32, T), dtype=torch.int32, device=dev)
 
     from ..kernels import build
 

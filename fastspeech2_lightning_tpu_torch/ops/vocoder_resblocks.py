@@ -13,6 +13,11 @@ outside [0, T) count as zero before every conv.
 unfused resblock group written with ``F.conv1d``, for the CPU and for
 comparison only.
 
+The kernel multiplies in bf16 on the tensor cores. Its weights are always
+bf16 (``prepare_stage_weights``): [K, C, C] for bf16 activations, and for f32
+activations the pair ``split_bf16(w)`` stacked as [2, K, C, C], with which
+the kernel forms a_hi w_hi + a_lo w_hi + a_hi w_lo and stays f32-accurate.
+
 Replaces ``fastspeech2_lightning_tpu/ops/vocoder_resblocks.py:168
 fused_mrf_stage``; the kernel's bound and design are in its source header.
 """
@@ -27,6 +32,8 @@ import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
 HALO = 64  # the JAX kernel's halo; kept for the same routing gate
+KERNEL_CHANNELS = (32, 64, 128)  # the widths csrc/mrf_conv.cu is built for
+KERNEL_MAX_SPAN = 50  # its input tile's halo: (k - 1) * dilation at most
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -41,14 +48,28 @@ WRITE, ACCUMULATE, FINISH = 0, 1, 2
 def mrf_stage_supported(C: int, kernel_sizes, dilation_sizes) -> bool:
     """The routing gate of the JAX package (``vocoder_resblocks.py:214``):
     the low-channel stages, C <= 128, whose deepest chain's receptive field
-    fits the TPU kernel's halo."""
-    if C > 128:
+    fits the TPU kernel's halo; and what the CUDA kernel takes: C of 32, 64
+    or 128, odd kernel sizes, (k - 1) * dilation <= 50."""
+    if C not in KERNEL_CHANNELS:
         return False
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        if k % 2 == 0 or (k - 1) * max(dils) > KERNEL_MAX_SPAN:
+            return False
     worst = max(
         sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
         for k, dils in zip(kernel_sizes, dilation_sizes)
     )
     return worst <= HALO
+
+
+def split_bf16(w: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor as two bf16 parts stacked on a new first axis: hi = w
+    rounded to bf16 and lo = (w - hi) rounded to bf16, so that hi + lo equals
+    w to a relative 2^-16."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.float()).to(torch.bfloat16)
+    return torch.stack([hi, lo])
 
 
 def prepare_stage_weights(
@@ -60,16 +81,29 @@ def prepare_stage_weights(
     """Flatten one stage's resblocks, given in torch Conv1d layout
     (``convs1.{i}.weight`` [C, C, k], ``convs1.{i}.bias`` [C], ...), into
     the kernel's order: for each resblock j, for each dilation i:
-    W1 [k, C, C] (tap, in, out), b1 [C], W2, b2 — contiguous, in `dtype`."""
+    W1, b1, W2, b2, contiguous. For activations of `dtype` bf16 a W is bf16
+    [k, C, C] (tap, in, out); for f32 it is ``split_bf16`` of that, bf16
+    [2, k, C, C]. The biases are in `dtype`."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"prepare_stage_weights: dtype {dtype} not supported")
     flat: List[torch.Tensor] = []
     for j, dils in enumerate(dilation_sizes):
         p = stage_params[j]
         for i in range(len(dils)):
             for name in (f"convs1.{i}", f"convs2.{i}"):
-                w = p[f"{name}.weight"]  # [Cout, Cin, k]
-                flat.append(w.permute(2, 1, 0).contiguous().to(dtype))
+                w = p[f"{name}.weight"].permute(2, 1, 0)  # [Cout, Cin, k] -> (tap, in, out)
+                if dtype == torch.float32:
+                    flat.append(split_bf16(w).contiguous())
+                else:
+                    flat.append(w.contiguous().to(torch.bfloat16))
                 flat.append(p[f"{name}.bias"].contiguous().to(dtype))
     return flat
+
+
+def _whole_weight(w: torch.Tensor) -> torch.Tensor:
+    """[K, C, C] f32 from a prepared weight: [K, C, C], or the (hi, lo) pair
+    [2, K, C, C], whose sum is exact in f32."""
+    return w.float().sum(0) if w.dim() == 4 else w.float()
 
 
 def mrf_conv_reference(
@@ -77,10 +111,11 @@ def mrf_conv_reference(
     mode: int = WRITE, scale: float = 1.0,
 ):
     """Plain version of one ``mrf_conv``: y = bias + conv(lrelu(x)) [+ res],
-    then the epilogue `mode` into `out` / `acc`, computed in f32."""
+    then the epilogue `mode` into `out` / `acc`, computed in f32. `w` as
+    ``prepare_stage_weights`` gives it, or [K, C, C] in any float type."""
     xt = F.leaky_relu(x.float(), LRELU_SLOPE).transpose(1, 2)
     y = F.conv1d(
-        xt, w.float().permute(2, 1, 0), bias.float(),
+        xt, _whole_weight(w).permute(2, 1, 0), bias.float(),
         padding="same", dilation=dilation,
     ).transpose(1, 2)
     if residual is not None:
@@ -93,6 +128,14 @@ def mrf_conv_reference(
         out.copy_(acc + scale * y)
 
 
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share memory."""
+    if a.device != b.device or a.numel() == 0 or b.numel() == 0:
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
 def mrf_conv(
     x, w, bias, dilation: int, residual=None, out=None, acc=None,
     mode: int = WRITE, scale: float = 1.0,
@@ -100,20 +143,34 @@ def mrf_conv(
     """One conv of the stage with its epilogue, in place into `out` / `acc`:
     y = bias + sum_tap lrelu(x shifted by (tap - half) * dilation) @ w[tap]
     [+ residual]; WRITE: out = y; ACCUMULATE: acc += scale * y; FINISH:
-    out = acc + scale * y. x, residual, out: [B, T, C] contiguous; w
-    [K, C, C]; bias [C]; acc [B, T, C] f32. `residual` may be `out`."""
+    out = acc + scale * y. x, residual, out: [B, T, C] contiguous, C of 32,
+    64 or 128; w as ``prepare_stage_weights`` gives it for x's dtype (bf16
+    [K, C, C], or [2, K, C, C] for f32 x), K odd, (K - 1) * dilation <= 50;
+    bias [C]; acc [B, T, C] f32. `residual` may be `out`; `x` may not (a
+    block of the kernel reads rows its neighbours write)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mrf_conv: unsupported device {x.device}")
+    if out is not None and _overlap(x, out):
+        raise ValueError("mrf_conv: `x` must not alias `out`")
     if x.device.type == "cpu":
         mrf_conv_reference(x, w, bias, dilation, residual, out, acc, mode, scale)
         return
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_conv: unsupported device {x.device}")
     B, T, C = x.shape
-    K = w.shape[0]
+    K = w.shape[-3]
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"mrf_conv: dtype {x.dtype} not supported")
-    if w.shape != (K, C, C) or bias.shape != (C,):
-        raise ValueError(f"mrf_conv: weights {tuple(w.shape)}/{tuple(bias.shape)} for C={C}")
-    tensors = {"x": x, "w": w, "bias": bias, "residual": residual, "out": out}
+    if C not in KERNEL_CHANNELS:
+        raise ValueError(f"mrf_conv: C={C} not in {KERNEL_CHANNELS}")
+    if K % 2 == 0 or dilation < 1 or (K - 1) * dilation > KERNEL_MAX_SPAN:
+        raise ValueError(f"mrf_conv: kernel size {K} with dilation {dilation} not supported")
+    want_w = (2, K, C, C) if x.dtype == torch.float32 else (K, C, C)
+    if w.shape != want_w or w.dtype != torch.bfloat16 or bias.shape != (C,):
+        raise ValueError(
+            f"mrf_conv: weights {w.dtype} {tuple(w.shape)}/{tuple(bias.shape)}: want bf16 "
+            f"{want_w} (prepare_stage_weights) and [{C}] for {x.dtype} x")
+    if w.device != x.device or not w.is_contiguous():
+        raise ValueError(f"mrf_conv: w must be contiguous on {x.device}")
+    tensors = {"x": x, "bias": bias, "residual": residual, "out": out}
     for name, t in tensors.items():
         if t is None:
             continue

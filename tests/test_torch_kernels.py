@@ -5,7 +5,10 @@ Python wrapper declares (a mismatch would cut pointers or shift arguments,
 and no compiler checks a ctypes call), and a wrapper given a tensor on a
 device it has no kernel for raises instead of falling back.
 
-On any host also: ``kv_end`` (the last unmasked key the attention kernels
+On any host also: the MRF kernel's prepared weights (the bf16 pair of an f32
+weight rebuilds it to 2^-16, and the plain version fed them equals the stage
+reference), its routing gate, and the window arithmetic of the MAS kernel's
+backtrack against a row-by-row walk; ``kv_end`` (the last unmasked key the attention kernels
 stop at) on CPU tensors, the row alignment the bf16 attention kernels need,
 and that the NaN keys the card tests place past ``kv_end`` would show a
 kernel that read them.
@@ -18,6 +21,9 @@ masks with no valid key, with holes and at tile edges, T off the tiles,
 dh 64 and 128, q, k, v as views of the fused projection; NaN keys and
 values in the tiles past kv_end, which the kernels must not read, and dK and
 dV exactly 0 there);
+the MRF conv in f32 within 5e-5, since it multiplies f32 inputs as split
+bf16 pairs on the tensor cores, at T off its 128-row tile and under its halo,
+with each epilogue mode, and on the edge rows alone;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5. Each counts one launch per kernel launch, and each wrapper raises on a
 shape its kernel does not take. This file imports no JAX, so it also runs on a
@@ -51,12 +57,22 @@ from fastspeech2_lightning_tpu_torch.ops.ctc import (
     ctc_beta_grad,
     ctc_beta_grad_reference,
 )
-from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+from fastspeech2_lightning_tpu_torch.ops.mas import (
+    backtrack_window,
+    mas_width1,
+    mas_width1_reference,
+)
 from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
+    ACCUMULATE,
+    FINISH,
+    WRITE,
     fused_mrf_stage,
     mrf_conv,
+    mrf_conv_reference,
     mrf_stage_reference,
+    mrf_stage_supported,
     prepare_stage_weights,
+    split_bf16,
 )
 
 C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
@@ -363,21 +379,145 @@ KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("C", [32, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype):
-    g = torch.Generator(device=cuda).manual_seed(1)
+def _stage_blocks(C, device, seed=1):
+    """One V1 stage's resblocks in torch Conv1d layout, fan-in scaled."""
+    g = torch.Generator(device=device).manual_seed(seed)
     blocks = []
     for k in KS:
         p = {}
         for i in range(3):
             for name in ("convs1", "convs2"):
-                p[f"{name}.{i}.weight"] = (torch.randn(C, C, k, device=cuda, generator=g)
+                p[f"{name}.{i}.weight"] = (torch.randn(C, C, k, device=device, generator=g)
                                            / math.sqrt(k * C))
-                p[f"{name}.{i}.bias"] = 0.1 * torch.randn(C, device=cuda, generator=g)
+                p[f"{name}.{i}.bias"] = 0.1 * torch.randn(C, device=device, generator=g)
         blocks.append(p)
-    x = torch.randn(2, 300, C, device=cuda, generator=g).to(dtype)
+    return blocks
+
+
+def _mrf_tol(dtype):
+    """f32 inputs are multiplied as bf16 pairs (a_hi w_hi + a_lo w_hi +
+    a_hi w_lo, the term a_lo w_lo dropped), which keeps 16 bits of each
+    factor: about 1e-5 a conv, within 5e-5 over a stage."""
+    return 5e-5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
+def test_split_bf16_rebuilds_f32_weights(scale):
+    g = torch.Generator().manual_seed(0)
+    w = scale * torch.randn(11, 64, 64, generator=g)
+    pair = split_bf16(w)
+    assert pair.dtype == torch.bfloat16 and pair.shape == (2, 11, 64, 64)
+    rebuilt = pair[0].float() + pair[1].float()
+    assert float(((rebuilt - w).abs() / w.abs()).max()) <= 2.0 ** -16
+    assert torch.equal(pair[0], w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_version_on_prepared_weights_equals_stage_reference(dtype):
+    """The stage wrapper on CPU tensors runs each conv's plain version on the
+    weights as the kernel gets them: bf16 [K, C, C], or the (hi, lo) pair for
+    f32, which must give the unfused f32 stage back."""
+    C = 32
+    blocks = _stage_blocks(C, "cpu")
+    x = torch.randn(2, 150, C, generator=torch.Generator().manual_seed(2)).to(dtype)
+    flat = prepare_stage_weights(blocks, KS, DILS, dtype)
+    assert len(flat) == 36 and all(w.dtype == torch.bfloat16 for w in flat[0::2])
+    assert flat[0].shape == ((2, 3, C, C) if dtype == torch.float32 else (3, C, C))
+    assert all(b.dtype == dtype and b.shape == (C,) for b in flat[1::2])
+    got = fused_mrf_stage(x, flat, KS, DILS)
+    ref_blocks = [{n: w.to(dtype).float() for n, w in p.items()} for p in blocks]
+    want = mrf_stage_reference(x.float(), ref_blocks, KS, DILS)
+    assert got.dtype == dtype
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("C,ks,dils,want", [
+    (128, KS, DILS, True), (64, KS, DILS, True), (32, KS, DILS, True),
+    (16, KS, DILS, False), (256, KS, DILS, False), (96, KS, DILS, False),
+    (64, (4, 7, 11), DILS, False), (64, (3, 7, 13), DILS, False),
+    (64, (3,), ((1, 26),), False),
+])
+def test_mrf_stage_gate_names_what_the_kernel_takes(C, ks, dils, want):
+    assert mrf_stage_supported(C, ks, dils) is want
+
+
+def test_mrf_conv_raises_when_x_aliases_out():
+    x = torch.zeros(1, 8, 32)
+    w, bias = torch.zeros(3, 32, 32), torch.zeros(32)
+    with pytest.raises(ValueError, match="must not alias"):
+        mrf_conv(x, w, bias, 1, out=x)
+    with pytest.raises(ValueError, match="must not alias"):
+        mrf_conv(x, w, bias, 1, out=x.view(8, 1, 32).view(1, 8, 32))
+    out = torch.empty_like(x)
+    mrf_conv(x, w, bias, 1, residual=out.zero_(), out=out)  # residual may be out
+
+
+def _chunked_backtrack(words, in_len: int, out_len: int):
+    """The kernel's backtrack in plain Python: `words[i][k]` is row i's
+    decision word k; 32 rows at a time from (out_len - 1, in_len - 1), each
+    row's window taken at the column the chunk starts from. Returns the
+    path's column at every row 0 .. out_len - 1."""
+    path = [0] * out_len
+    c = in_len - 1
+    for top in range(out_len - 1, -1, -32):
+        windows = []
+        for lane in range(32):
+            i = top - lane
+            hi = words[i][c >> 5] if i >= 1 else 0
+            lo = words[i][(c >> 5) - 1] if i >= 1 and c >= 32 else 0
+            windows.append(backtrack_window(hi, lo, c))
+        p = 31
+        for lane in range(32):
+            if top - lane >= 0:
+                path[top - lane] = c
+            move = (windows[lane] >> p) & 1
+            c -= move
+            p -= move
+    return path
+
+
+def _walk_back(words, in_len, out_len):
+    """The backtrack one row at a time, reading one bit a row."""
+    path, c = [0] * out_len, in_len - 1
+    for i in range(out_len - 1, 0, -1):
+        path[i] = c
+        c -= (words[i][c >> 5] >> (c & 31)) & 1
+    path[0] = c
+    return path
+
+
+@pytest.mark.parametrize("L,in_len,out_len,p_move", [
+    (1000, 1000, 2048, 0.5), (1000, 977, 1000, 0.97), (192, 192, 2016, 0.1),
+    (33, 33, 70, 0.5), (64, 32, 31, 1.0), (1024, 1024, 33, 1.0), (40, 1, 50, 0.5),
+    (160, 160, 1, 0.5),
+])
+def test_backtrack_windows_hold_the_bits_32_rows_need(L, in_len, out_len, p_move):
+    rng = np.random.default_rng(L + out_len)
+    W = (L + 31) // 32
+    moves = rng.random((out_len, L)) < p_move
+    moves[:, 0] = False  # column 0 never moves left
+    words = [[int(sum(1 << q for q in range(32) if 32 * k + q < L and row[32 * k + q]))
+              for k in range(W)] for row in moves]
+    assert _chunked_backtrack(words, in_len, out_len) == _walk_back(words, in_len, out_len)
+
+
+def test_backtrack_window_bit_p_is_column_c_minus_31_plus_p():
+    hi, lo = 0b1011 << 3, 1 << 31  # columns 64 + 3, 64 + 4, 64 + 6 and 63
+    for c in (64 + 6, 64 + 20, 64 + 31):
+        window = backtrack_window(hi, lo, c)
+        cols = {c - 31 + p for p in range(32) if (window >> p) & 1}
+        assert cols == {col for col in (63, 67, 68, 70) if c - 31 <= col <= c}
+    assert backtrack_window(0xFFFFFFFF, 0, 5) == 0b111111 << 26  # no column below 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [(2, 300), (1, 37), (1, 127), (1, 129), (1, 257), (1, 1000)])
+def test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype, B, T):
+    blocks = _stage_blocks(C, cuda)
+    g = torch.Generator(device=cuda).manual_seed(T)
+    x = torch.randn(B, T, C, device=cuda, generator=g).to(dtype)
     flat = prepare_stage_weights(blocks, KS, DILS, dtype)
     before = mrf_conv.launches
     out = fused_mrf_stage(x, flat, KS, DILS)
@@ -385,7 +525,74 @@ def test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype):
     assert mrf_conv.launches == before + 18
     ref_blocks = [{n: w.to(dtype).float() for n, w in p.items()} for p in blocks]
     want = mrf_stage_reference(x.float(), ref_blocks, KS, DILS)
-    assert _rel(out, want) <= _tol(dtype)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert _rel(out, want) <= _mrf_tol(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [WRITE, ACCUMULATE, FINISH])
+@pytest.mark.parametrize("K,dil", [(3, 1), (7, 3), (11, 5)])
+def test_mrf_conv_modes_and_edges_match_plain_version(cuda, C, dtype, mode, K, dil):
+    """One conv with `residual is out`, each epilogue mode; the whole output
+    and the first and last half * dilation rows (where SAME padding shows) on
+    their own."""
+    B, T = 2, 300
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(B, T, C, device=cuda, generator=g).to(dtype)
+    res = torch.randn(B, T, C, device=cuda, generator=g).to(dtype)
+    acc0 = torch.randn(B, T, C, device=cuda, generator=g)
+    w32 = torch.randn(K, C, C, device=cuda, generator=g) / math.sqrt(K * C)
+    bias = (0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
+    w = split_bf16(w32) if dtype == torch.float32 else w32.to(torch.bfloat16)
+    w_ref = w32 if dtype == torch.float32 else w.float()
+
+    out, acc = res.clone(), acc0.clone()
+    mrf_conv(x, w, bias, dil, residual=out, out=out, acc=acc, mode=mode, scale=1 / 3)
+    torch.cuda.synchronize()
+    want_out, want_acc = res.float(), acc0.clone()
+    mrf_conv_reference(x, w_ref, bias, dil, residual=res, out=want_out, acc=want_acc,
+                       mode=mode, scale=1 / 3)
+    got, want = (acc, want_acc) if mode == ACCUMULATE else (out, want_out)
+    edge = (K - 1) // 2 * dil
+    tol = _mrf_tol(dtype)
+    assert _rel(got, want) <= tol
+    assert _rel(got[:, :edge], want[:, :edge]) <= tol
+    assert _rel(got[:, -edge:], want[:, -edge:]) <= tol
+    if mode == ACCUMULATE:
+        assert torch.equal(out, res)  # this mode writes no `out`
+    else:
+        assert torch.equal(acc, acc0)
+
+
+@pytest.mark.gpu
+def test_mrf_conv_raises_on_what_the_kernel_does_not_take(cuda):
+    def call(C=32, K=3, dil=1, dtype=torch.float32, w=None, alias=False):
+        x = torch.zeros(1, 64, C, device=cuda, dtype=dtype)
+        if w is None:
+            w = torch.zeros((2, K, C, C) if dtype == torch.float32 else (K, C, C),
+                            device=cuda, dtype=torch.bfloat16)
+        bias = torch.zeros(C, device=cuda, dtype=dtype)
+        mrf_conv(x, w, bias, dil, out=x if alias else torch.empty_like(x))
+
+    call()
+    with pytest.raises(ValueError, match="must not alias"):
+        call(alias=True)
+    for C in (16, 48, 256):
+        with pytest.raises(ValueError, match="not in"):
+            call(C=C)
+    with pytest.raises(ValueError, match="kernel size"):
+        call(K=4)
+    with pytest.raises(ValueError, match="kernel size"):
+        call(K=11, dil=6)
+    with pytest.raises(ValueError, match="prepare_stage_weights"):
+        call(w=torch.zeros(3, 32, 32, device=cuda))  # f32 weights, not the bf16 pair
+    with pytest.raises(ValueError, match="prepare_stage_weights"):
+        call(dtype=torch.bfloat16, w=torch.zeros(2, 3, 32, 32, device=cuda,
+                                                  dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="not supported"):
+        call(dtype=torch.float16, w=torch.zeros(3, 32, 32, device=cuda, dtype=torch.bfloat16))
 
 
 def _attention_inputs(cuda, B, H, T, dh, dtype, seed=0):
@@ -433,21 +640,61 @@ def test_attention_with_dropout_is_an_autograd_function_over_both_kernels(cuda):
     assert _rel(qkv.grad, ref.grad) <= 1e-5
 
 
+def _poisoned_outputs(monkeypatch):
+    """Make every buffer the wrapper allocates with torch.empty start as NaN
+    (floats) or -1 (ints), so an output the C entry did not zero on the
+    stream would show."""
+    real_empty = torch.empty
+
+    def poisoned(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t.fill_(-1)
+
+    monkeypatch.setattr(torch, "empty", poisoned)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,L", [(4, 300, 40), (3, 160, 1000), (2, 2048, 160)])
-def test_mas_kernel_equals_plain_version(cuda, B, T, L):
+@pytest.mark.parametrize("B,T,L", [(4, 300, 40), (3, 160, 1000), (2, 2048, 160),
+                                   (16, 2016, 192), (3, 100, 1024), (4, 70, 33), (3, 200, 300),
+                                   (2, 100, 512), (2, 100, 256), (2, 100, 257)])
+def test_mas_kernel_equals_plain_version(cuda, monkeypatch, B, T, L):
     g = torch.Generator(device=cuda).manual_seed(2)
     la = torch.log_softmax(torch.randn(B, T, L, device=cuda, generator=g), -1)
     la[0, :, 1::3] = la[0, :, :1]  # exact ties between neighbours
-    in_lens = torch.tensor([L, max(L // 2, 1), 7, 1][:B], device=cuda)
-    out_lens = torch.tensor([T, T - 13, max(T // 3, 7), 5][:B], device=cuda)
+    in_lens = torch.tensor(([L, max(L // 2, 1), 7, 1] * B)[:B], device=cuda)
+    out_lens = torch.tensor(([T, T - 13, max(T // 3, 7), 5] * B)[:B], device=cuda)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    _poisoned_outputs(monkeypatch)
     before = mas_width1.launches
     hard, dur = mas_width1(la, in_lens, out_lens)
     torch.cuda.synchronize()
+    monkeypatch.undo()
     assert mas_width1.launches == before + 1
-    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
     assert torch.equal(hard, want_hard) and torch.equal(dur, want_dur)
     assert torch.equal(dur.sum(1).cpu(), out_lens.int().cpu())
+
+
+@pytest.mark.gpu
+def test_mas_kernel_on_length_edges(cuda, monkeypatch):
+    """in_len = 1, out_len = 1, out_len = T, in_len = L, a path that moves
+    left at every row, and lengths outside [1, L] (or no frame), which leave
+    the item zero."""
+    T, L = 90, 70
+    g = torch.Generator(device=cuda).manual_seed(4)
+    in_lens = torch.tensor([1, L, 40, L, 33, 0, L + 1, 20, -3, 64], device=cuda)
+    out_lens = torch.tensor([T, 1, T, T, 33, T, T, 0, 5, T + 7], device=cuda)
+    B = len(in_lens)
+    la = torch.log_softmax(torch.randn(B, T, L, device=cuda, generator=g), -1)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    _poisoned_outputs(monkeypatch)
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.equal(hard, want_hard) and torch.equal(dur, want_dur)
+    for b in (5, 6, 7, 8):
+        assert not hard[b].any() and not dur[b].any()
+    assert dur[4].tolist()[:33] == [1] * 33  # in_len = out_len: one frame a symbol
+    assert int(dur[0, 0]) == T and int(dur[1, L - 1]) == 1
 
 
 @pytest.mark.gpu

@@ -5,7 +5,8 @@ against the JAX package on the same random weights.
 ``csrc/mrf_conv.cu``: it must equal the JAX Pallas MRF stage
 (``fused_mrf_stage(..., interpret=True)``) and its numpy golden in f32
 within relative 1e-5. The generator, with fused=False and fused=True (the
-stage wrapper's CPU path, 18 plain-version convs a stage), must equal the
+stage wrapper's CPU path, 18 plain-version convs a stage, where a stage has a
+width the kernel takes), must equal the
 JAX generator within max-abs 1e-5, and the port's .npz/.pt loading must give
 the weights the JAX loader gives. The kernel itself is held against the
 plain version on the card by tests/test_torch_kernels.py."""
@@ -138,6 +139,33 @@ def test_generator_matches_jax(generator, fused):
     sd = {k: torch.as_tensor(v) for k, v in hifigan_state_from_jax(params, cfg).items()}
     got = port_hifigan.hifigan_generator(sd, torch.as_tensor(mel), cfg, fused=fused)
     assert got.shape == want.shape == (2, 40 * 256)
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_generator_fused_stage_at_a_kernel_width_matches_jax(monkeypatch):
+    """The narrow generator above has no stage the CUDA kernel takes (C of
+    32, 64 or 128), so its fused=True run takes the unfused branch by the
+    gate. This one's first stage is C = 32 at 320 frames: it goes through
+    ``fused_mrf_stage`` (on the CPU, the plain version on the prepared bf16
+    weight pairs) and must still equal the JAX generator."""
+    kw = dict(GEN_CONFIG, upsample_initial_channel=64)
+    jcfg = jax_hifigan.HiFiGANConfig(**kw)
+    params = jax_hifigan.init_random_hifigan(jcfg, seed=6)
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) * 3.0, params)
+    mel = np.random.default_rng(7).standard_normal((1, 40, 20)).astype(np.float32)
+    want = np.asarray(jax_hifigan.hifigan_generator(params, jnp.asarray(mel), jcfg))
+    cfg = port_hifigan.HiFiGANConfig(**kw)
+    sd = {k: torch.as_tensor(v) for k, v in hifigan_state_from_jax(params, cfg).items()}
+    fused_shapes = []
+
+    def counting(x, *args):
+        fused_shapes.append(tuple(x.shape))
+        return fused_mrf_stage(x, *args)
+
+    monkeypatch.setattr(port_hifigan, "fused_mrf_stage", counting)
+    got = port_hifigan.hifigan_generator(sd, torch.as_tensor(mel), cfg, fused=True)
+    assert fused_shapes == [(1, 320, 32)]
     assert np.abs(want).max() > 1e-3
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
