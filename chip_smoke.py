@@ -34,8 +34,9 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  9. MAS against its plain version, bit for bit, at B = 16, T 1024/2048,
     L 160/1000 and at the training corpus's top bucket (16, 2016, 192), with
     wall and device times;
- 10. the CTC alpha and beta-gradient kernels against their plain version at
-    B = 16, T = 1024, L = 160, with F.ctc_loss as the yardstick;
+ 10. kernel C (CTC: the alpha chain alone, both chains side by side, the
+    gradient) against its plain version at B = 16, T = 1024, L = 160, with
+    wall and device times beside the bound and F.ctc_loss's (a yardstick);
  11. training: a seeded 64-utterance corpus, the default config at full width
     and depth in bf16 with batch 16, 8 steps through the ``train`` CLI entry,
     the four training kernels' launch counts read around it, and the final
@@ -46,7 +47,10 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     bf16, p = 0 and 0.2, on the bucket's own key mask and on a full one:
     against the plain version; wall and device times beside SDPA's; the
     share of key tiles each skips. The kernels' JSON line takes its
-    training rows from the top bucket with its own mask at p = 0.2.
+    training rows from the top bucket with its own mask at p = 0.2;
+ 14. kernel C as phase 10 at each length bucket the trainer cut in phase 11,
+    with the bucket's text and mel lengths; its JSON entries take the top
+    bucket.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -148,6 +152,26 @@ def device_ms(fn, iters: int = 20) -> float:
         cycles *= 4
     fail(f"device_ms({getattr(fn, '__name__', fn)}): the card reached the timed calls before "
          f"the host had queued them")
+
+
+def kernels_ms(fn, iters: int = 10):
+    """Device ms per call of fn() as the sum of the kernel and copy times a
+    torch.profiler trace records, for a call that waits on the host inside
+    (which device_ms cannot queue); None when the trace holds no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
@@ -802,10 +826,11 @@ def phase_attention_train() -> None:
 
 
 def _bucket_lengths(workdir: Path) -> list:
-    """[(T, [B] mel lengths)] of each length bucket that the trainer's
-    loader cuts from the smoke corpus (phase 11): the decoder attention's
-    key masks in training. A bucket of fewer than B utterances is filled
-    from its own, as the loader fills it."""
+    """[(T, [B] mel lengths, L, [B] text lengths)] of each length bucket
+    that the trainer's loader cuts from the smoke corpus (phase 11): the
+    decoder attention's key masks and CTC's lengths in training. A bucket of
+    fewer than B utterances is filled from its own, as the loader fills
+    it."""
     import numpy as np
 
     from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
@@ -818,8 +843,8 @@ def _bucket_lengths(workdir: Path) -> list:
                            {"default": 0})
     loader = BucketedLoader(ds, tcfg.batch_size, n_buckets=tcfg.bucket_count,
                             max_mel_length=config.model.max_mel_length)
-    return [(b.max_mel, np.resize(loader.mel_lens[b.indices], tcfg.batch_size))
-            for b in loader.buckets]
+    return [(b.max_mel, np.resize(loader.mel_lens[b.indices], tcfg.batch_size), b.max_text,
+             np.resize(loader.text_lens[b.indices], tcfg.batch_size)) for b in loader.buckets]
 
 
 def _skipped_share(ends, T: int, tile: int) -> float:
@@ -850,7 +875,7 @@ def phase_attention_buckets(workdir: Path) -> dict:
     seed = torch.tensor([98765], dtype=torch.int32, device="cuda")
     H, dh = 2, 128
     keep_rows = {}
-    for T, lens in _bucket_lengths(workdir):
+    for T, lens, _, _ in _bucket_lengths(workdir):
         B = len(lens)
         qkv = torch.randn(B, T, 3, H, dh, device="cuda", generator=g).to(torch.bfloat16)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -989,75 +1014,154 @@ def phase_mas() -> dict:
 # -- phase 10: CTC (kernel C) ------------------------------------------------
 
 
-def phase_ctc() -> dict:
+def ctc_case(B, T, L, in_lens, out_lens, seed: int) -> dict:
+    """Kernel C at one shape against its plain version, on log-probabilities
+    made as attention_ctc_loss makes them: the gradient-free forward
+    (ctc_alpha), the forward with both chains (ctc_alpha_beta) and the
+    backward (ctc_grad). Wall and device ms of each, of their plain versions
+    and of F.ctc_loss (forward, and forward + backward); the bound of each
+    launch from the bytes these lengths need."""
     import torch
     import torch.nn.functional as F
 
     from fastspeech2_lightning_tpu_torch.ops import ctc
 
-    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    B, T, L = 16, 1024, 160
+    g = torch.Generator(device="cuda").manual_seed(seed)
     S = 2 * L + 1
-    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
-    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
-    in_lens[0], out_lens[0] = L, T
+    in_lens = torch.as_tensor(in_lens, device="cuda").long()
+    out_lens = torch.as_tensor(out_lens, device="cuda").long()
     attn = torch.randn(B, T, L, device="cuda", generator=g)
     logits = torch.cat([torch.full((B, T, 1), -1.0, device="cuda"), attn], -1)
-    logits = torch.where(torch.arange(L + 1, device="cuda") > in_lens[:, None, None],
-                         ctc.NEG_INF, logits)
-    lp = torch.log_softmax(logits, -1)
+    lp = torch.log_softmax(torch.where(torch.arange(L + 1, device="cuda") > in_lens[:, None, None],
+                                       ctc.NEG_INF, logits), -1)
+    del attn, logits
     gvec = torch.rand(B, device="cuda", generator=g)
 
-    alphas = ctc.ctc_alpha(lp, out_lens)
+    alphas_only = ctc.ctc_alpha(lp, out_lens)
+    alphas, betas = ctc.ctc_alpha_beta(lp, in_lens, out_lens)
     ll = ctc._final_ll(alphas[:, -1], in_lens)
-    grad = ctc.ctc_beta_grad(lp, alphas, in_lens, out_lens, ll, gvec)
+    grad = ctc.ctc_grad(alphas, betas, out_lens, ll, gvec)
     torch.cuda.synchronize()
     want_alphas = ctc.ctc_alpha_reference(lp, out_lens)
+    want_betas = ctc.ctc_beta_reference(lp, in_lens, out_lens)
     want_ll = ctc._final_ll(want_alphas[:, -1], in_lens)
-    want_grad = ctc.ctc_beta_grad_reference(lp, want_alphas, in_lens, out_lens, want_ll, gvec)
+    want_grad = ctc.ctc_grad_reference(want_alphas, want_betas, out_lens, want_ll, gvec)
+    same_in_grad = ctc.ctc_grad_reference(alphas, betas, out_lens, ll, gvec)
+    live = want_alphas > 0.5 * ctc.NEG_INF
+    live_b = want_betas > 0.5 * ctc.NEG_INF
+    rows_abs = max(float((alphas - want_alphas)[live].abs().max()),
+                   float((betas - want_betas)[live_b].abs().max()))
+    rows_scale = max(float(want_alphas[live].abs().max()), float(want_betas[live_b].abs().max()))
+    rows_apart = not (torch.equal(alphas > 0.5 * ctc.NEG_INF, live)
+                      and torch.equal(betas > 0.5 * ctc.NEG_INF, live_b))
     loss_rel = float(((ll - want_ll).abs() / want_ll.abs()).max())
     grad_abs = float((grad - want_grad).abs().max())
-    check(loss_rel <= 1e-5, f"ctc loss rel {loss_rel} > 1e-5")
-    check(grad_abs <= 1e-5, f"ctc grad_y max-abs {grad_abs} > 1e-5")
+    grad_same_abs = float((grad - same_in_grad).abs().max())
+    del want_alphas, want_betas, same_in_grad, live, live_b
+    what = f"ctc B={B} T={T} L={L}"
+    check(not any(bool(t.isnan().any()) for t in (alphas_only, alphas, betas, grad)),
+          f"{what}: NaN in an output")
+    check(torch.equal(alphas_only, alphas), f"{what}: ctc_alpha and ctc_alpha_beta disagree")
+    check(not rows_apart, f"{what}: the rows' states on the NEG_INF scale differ")
+    check(rows_abs <= 1e-5 * rows_scale, f"{what}: alpha/beta rows max-abs {rows_abs} > 1e-5 "
+          f"of {rows_scale}")
+    check(loss_rel <= 1e-5, f"{what}: loss rel {loss_rel} > 1e-5")
+    check(grad_abs <= 1e-5, f"{what}: grad max-abs {grad_abs} > 1e-5")
 
     targets = torch.arange(1, L + 1, device="cuda").expand(B, L)
     lp_tbc = lp.transpose(0, 1).contiguous()
+    lp_g = lp_tbc.clone().requires_grad_(True)
 
-    def lib_forward():
+    def lib_fwd():
         return F.ctc_loss(lp_tbc, targets, out_lens, in_lens, blank=0, reduction="none",
                           zero_infinity=True)
-
-    lib_rel = float(((lib_forward() - (-ll)).abs() / ll.abs()).max())
-    lp_g = lp_tbc.clone().requires_grad_(True)
 
     def lib_fwd_bwd():
         loss = F.ctc_loss(lp_g, targets, out_lens, in_lens, blank=0, reduction="none",
                           zero_infinity=True)
-        torch.autograd.grad(loss, lp_g, gvec)
+        return torch.autograd.grad(loss, lp_g, gvec)
 
-    a_ms = time_ms(lambda: ctc.ctc_alpha(lp, out_lens), iters=10)
-    b_ms = time_ms(lambda: ctc.ctc_beta_grad(lp, alphas, in_lens, out_lens, ll, gvec), iters=10)
-    a_plain = time_ms(lambda: ctc.ctc_alpha_reference(lp, out_lens), warmup=1, iters=3)
-    b_plain = time_ms(lambda: ctc.ctc_beta_grad_reference(lp, alphas, in_lens, out_lens, ll,
-                                                          gvec), warmup=1, iters=3)
-    a_lib = time_ms(lib_forward, iters=10)
-    b_lib = time_ms(lib_fwd_bwd, iters=10)
-    a_bound = bound_ms(0.0, B * T * ((L + 1) + S) * 4, "float32")
-    b_bound = bound_ms(0.0, B * T * (2 * (L + 1) + S) * 4, "float32")
-    log(f"ctc B={B} T={T} L={L}: loss rel={loss_rel:.3e} grad_y max_abs={grad_abs:.3e} "
-        f"(F.ctc_loss against ours: rel {lib_rel:.3e})")
-    log(f"ctc_alpha: kernel_ms={a_ms:.4f} plain_ms={a_plain:.3f} library_ms={a_lib:.4f} "
-        f"(F.ctc_loss forward) bound_ms={a_bound[0]:.4f} ({a_bound[1]})")
-    log(f"ctc_beta_grad: kernel_ms={b_ms:.4f} plain_ms={b_plain:.3f} library_ms={b_lib:.4f} "
-        f"(F.ctc_loss forward+backward) bound_ms={b_bound[0]:.4f} ({b_bound[1]})")
-    common = dict(shape=[B, T, L], dtype="float32")
-    return {
-        "alpha": dict(common, max_abs_err=float((ll - want_ll).abs().max()), loss_rel=loss_rel,
-                      ms=a_ms, plain_ms=a_plain, library_ms=a_lib, bound_ms=a_bound[0],
-                      bound_by=a_bound[1]),
-        "beta": dict(common, max_abs_err=grad_abs, ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
-                     bound_ms=b_bound[0], bound_by=b_bound[1]),
-    }
+    feasible = out_lens.clamp(max=T) >= in_lens  # F.ctc_loss gives 0 (zero_infinity) elsewhere
+    lib_rel = float(((lib_fwd() + ll).abs() / ll.abs())[feasible].max())
+    fns = {"fwd": lambda: ctc.ctc_alpha(lp, out_lens),
+           "fwd_grad": lambda: ctc.ctc_alpha_beta(lp, in_lens, out_lens),
+           "bwd": lambda: ctc.ctc_grad(alphas, betas, out_lens, ll, gvec),
+           "lib_fwd": lib_fwd, "lib_fwd_bwd": lib_fwd_bwd}
+    # F.ctc_loss copies the lengths to the host inside: its device time is
+    # the sum of its kernels in a profiler trace
+    ms = {k: (time_ms(fn, iters=10), (kernels_ms if k.startswith("lib") else device_ms)(fn))
+          for k, fn in fns.items()}
+    plain = {"fwd": time_ms(lambda: ctc.ctc_alpha_reference(lp, out_lens), warmup=1, iters=2),
+             "fwd_grad": time_ms(lambda: (ctc.ctc_alpha_reference(lp, out_lens),
+                                          ctc.ctc_beta_reference(lp, in_lens, out_lens)),
+                                 warmup=1, iters=2),
+             "bwd": time_ms(lambda: ctc.ctc_grad_reference(alphas, betas, out_lens, ll, gvec),
+                            warmup=1, iters=2)}
+    # bytes these lengths need: the live frames' logprobs rows read once, every
+    # row written once; the gradient reads the live frames' alpha and beta
+    # rows. Operations: about ten a state and frame (exp and log as one each).
+    frames = int(out_lens.clamp(max=T).sum())
+    rows_bytes = B * T * S * 4
+    bounds = {"fwd": bound_ms(10.0 * B * T * S, frames * (L + 1) * 4 + rows_bytes + B * 4,
+                              "float32"),
+              "fwd_grad": bound_ms(20.0 * B * T * S, frames * (L + 1) * 4 + 2 * rows_bytes
+                                   + 2 * B * 4, "float32"),
+              "bwd": bound_ms(3.0 * frames * S, 2 * frames * S * 4 + B * T * (L + 1) * 4
+                              + 3 * B * 4, "float32")}
+    errs = {"fwd": rows_abs, "fwd_grad": rows_abs, "bwd": grad_same_abs}
+    row = dict(shape=[B, T, L], dtype="float32", loss_rel=loss_rel, grad_max_abs=grad_abs)
+    for k in ("fwd", "fwd_grad", "bwd"):
+        row[k] = dict(max_abs_err=errs[k], ms=ms[k][0], device_ms=ms[k][1], plain_ms=plain[k],
+                      bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                      ns_per_frame=ms[k][1] * 1e6 / T)
+    row["library"] = {k: dict(ms=ms[k][0], device_ms=ms[k][1]) for k in ("lib_fwd", "lib_fwd_bwd")}
+
+    fb = ms["fwd_grad"][1] + ms["bwd"][1]
+    log(f"{what}: loss rel={loss_rel:.3e} grad max_abs={grad_abs:.3e} (alpha/beta rows "
+        f"max_abs {rows_abs:.3e}, gradient on the same rows {grad_same_abs:.3e}; F.ctc_loss "
+        f"against ours: rel {lib_rel:.3e})")
+    for k, name in (("fwd", "ctc_alpha (forward, no gradient)"),
+                    ("fwd_grad", "ctc_alpha_beta (forward, both chains)"),
+                    ("bwd", "ctc_grad (backward)")):
+        r = row[k]
+        what_bounds = ("a pass over bytes" if k == "bwd" else
+                       f"what bounds the time is the chain of {T} frames, "
+                       f"{r['ns_per_frame']:.1f} ns a frame")
+        log(f"  {name}: kernel_ms={r['ms']:.4f} (device {r['device_ms']:.4f}) "
+            f"plain_ms={r['plain_ms']:.2f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}; "
+            f"{what_bounds})")
+    lib_dev = {k: "not measured" if ms[k][1] is None else f"{ms[k][1]:.4f}"
+               for k in ("lib_fwd", "lib_fwd_bwd")}
+    log(f"  forward+backward device {fb:.4f} ms; F.ctc_loss forward {ms['lib_fwd'][0]:.4f} "
+        f"(device, its kernels in a profiler trace: {lib_dev['lib_fwd']}), forward+backward "
+        f"{ms['lib_fwd_bwd'][0]:.4f} (device {lib_dev['lib_fwd_bwd']})")
+    del lp, lp_tbc, lp_g, alphas, betas, grad, want_grad, alphas_only
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ctc() -> dict:
+    """Kernel C at B = 16, T = 1024, L = 160 (lengths drawn from [L/4, L]
+    and [T/2, T], item 0 full)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    B, T, L = 16, 1024, 160
+    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    return ctc_case(B, T, L, in_lens, out_lens, SEED + 6)
+
+
+def phase_ctc_buckets(workdir: Path, shapes: list) -> list:
+    """Kernel C at each length bucket the trainer cut in phase 11, with the
+    bucket's text and mel lengths: (B, T, L) as train_log.jsonl logged them
+    (`shapes`, [B, L, T] a step). Returns the rows, the top bucket last."""
+    rows = []
+    for T, mel_lens, L, text_lens in _bucket_lengths(workdir):
+        check([len(mel_lens), L, T] in shapes, f"bucket {len(mel_lens), L, T} was not trained")
+        rows.append(ctc_case(len(mel_lens), T, L, text_lens, mel_lens, SEED + 10 + T))
+    return rows
 
 
 # -- phase 11: training through the CLI --------------------------------------
@@ -1123,7 +1227,7 @@ def phase_train(workdir: Path) -> dict:
 
     from fastspeech2_lightning_tpu_torch import cli
     from fastspeech2_lightning_tpu_torch.ops.attention import attention_bwd, attention_fwd
-    from fastspeech2_lightning_tpu_torch.ops.ctc import ctc_alpha, ctc_beta_grad
+    from fastspeech2_lightning_tpu_torch.ops.ctc import ctc_alpha, ctc_alpha_beta, ctc_grad
     from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1
     from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
 
@@ -1139,7 +1243,7 @@ def phase_train(workdir: Path) -> dict:
     config_path.write_text(json.dumps(cfg))
     log(f"train: corpus of {N_UTTS} utterances written in {time.time() - t0:.1f} s")
 
-    counters = (attention_fwd, attention_bwd, mas_width1, ctc_alpha, ctc_beta_grad)
+    counters = (attention_fwd, attention_bwd, mas_width1, ctc_alpha, ctc_alpha_beta, ctc_grad)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1161,8 +1265,11 @@ def phase_train(workdir: Path) -> dict:
             f"{r['ms']:.1f} ms, total {r['total']:.4f}, attn_ctc {r['attn_ctc']:.4f}, "
             f"grad_norm {r['grad_norm']:.3f}")
     check(max(r["shape"][2] for r in rows) > 1536, "no bucket above 1536 frames was trained")
+    # a train step's CTC loss needs a gradient: both chains in one forward
+    # launch, the gradient pass in the backward, the alpha chain alone never
     want = {"attention_fwd": 8 * TRAIN_STEPS, "attention_bwd": 8 * TRAIN_STEPS,
-            "mas_width1": TRAIN_STEPS, "ctc_alpha": TRAIN_STEPS, "ctc_beta_grad": TRAIN_STEPS}
+            "mas_width1": TRAIN_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": TRAIN_STEPS,
+            "ctc_grad": TRAIN_STEPS}
     check(launches == want, f"training launches {launches}, predicted {want}")
     ms_step = statistics.median(r["ms"] for r in rows[2:])
 
@@ -1268,7 +1375,7 @@ def main() -> None:
     mrf_rows = phase_mrf()
     phase_attention_train()
     mas = phase_mas()
-    ctc = phase_ctc()
+    ctc_1024 = phase_ctc()
     cfg = model_config("bfloat16")
     sd = random_state_dict(cfg, np.random.default_rng(SEED))
     with tempfile.TemporaryDirectory() as workdir:
@@ -1277,7 +1384,16 @@ def main() -> None:
         train = phase_train(Path(workdir))
         phase_train_card_vs_cpu(Path(workdir))
         train_att = phase_attention_buckets(Path(workdir))
+        ctc_rows = phase_ctc_buckets(Path(workdir), train["shapes"])
     tl = train["launches"]
+    ctc = ctc_rows[-1]  # the top bucket
+
+    def ctc_entry(name, part, library, library_key, **extra):
+        lib = ctc["library"][library_key]
+        row = dict(ctc[part], shape=ctc["shape"], dtype="float32", library_ms=lib["ms"])
+        return entry(name, row, "ctc_banded_lse.cu", "ops/ctc_pallas.py:120", tl[name],
+                     library=library, library_device_ms=lib["device_ms"],
+                     device_ms=row["device_ms"], ns_per_frame=row["ns_per_frame"], **extra)
 
     def entry(name, row, source, replaces, n, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -1306,10 +1422,16 @@ def main() -> None:
               **device_keys(train_att["bwd"])),
         entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94", tl["mas_width1"],
               device_ms=mas["device_ms"], training_shape=mas["training_shape"]),
-        entry("ctc_alpha", ctc["alpha"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
-              tl["ctc_alpha"], library="F.ctc_loss forward"),
-        entry("ctc_beta_grad", ctc["beta"], "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
-              tl["ctc_beta_grad"], library="F.ctc_loss forward+backward"),
+        # the training forward (both chains, one launch) and backward at the top
+        # bucket; the gradient-free forward (entry ctc_alpha, the same kernel
+        # over B blocks) is not on the training path: it rides along, as do
+        # all buckets and (16, 1024, 160)
+        ctc_entry("ctc_alpha_beta", "fwd_grad", "F.ctc_loss forward", "lib_fwd",
+                  loss_rel=ctc["loss_rel"],
+                  alpha_only=dict(ctc["fwd"], entry="ctc_alpha", launches=tl["ctc_alpha"]),
+                  buckets=ctc_rows, at_16_1024_160=ctc_1024),
+        ctc_entry("ctc_grad", "bwd", "F.ctc_loss forward+backward, against ctc_alpha_beta + "
+                  "ctc_grad", "lib_fwd_bwd", grad_max_abs=ctc["grad_max_abs"]),
         # serving's vocoder is f32: that row (C = 128) on top; `stages` holds all six,
         # the bf16 C = 128 row first
         entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",

@@ -1,16 +1,18 @@
 """Alignment losses: CTC forward-sum and binarization (counterpart of the JAX
 package's ``ops/ctc.py``).
 
-``ctc_forward_sum`` is a ``torch.autograd.Function``: its forward is the
-alpha scan over blank-interleaved states (``ctc_alpha``), its backward the
-beta scan fused with the posterior gradient
-d(-ll)/dy_t(c) = -sum over states s with label c of exp(alpha + beta - ll)
-(``ctc_beta_grad``). Each wrapper launches its CUDA kernel in
-``csrc/ctc_banded_lse.cu`` (which replaces ``ops/ctc_pallas.py:120
-banded_lse_scan_pallas``) for CUDA tensors, or raises, and runs its plain
-version for CPU tensors. Padded frames (t >= out_len) emit blank with
-certainty, so alpha at T-1 equals alpha at out_len-1; they get no gradient.
-Labels are the text positions 1..in_len, so every skip transition is legal.
+``ctc_forward_sum`` runs the alpha scan over blank-interleaved states alone
+when no gradient is wanted (``ctc_alpha``). When one is, it is a
+``torch.autograd.Function`` whose forward runs the alpha and beta scans side
+by side (``ctc_alpha_beta``, one launch) and whose backward is the posterior
+gradient d(-ll)/dy_t(c) = -sum over states s with label c of
+exp(alpha + beta - ll) from their rows (``ctc_grad``). Each wrapper launches
+its CUDA kernel in ``csrc/ctc_banded_lse.cu`` (which replaces
+``ops/ctc_pallas.py:120 banded_lse_scan_pallas``) for CUDA tensors, or
+raises, and runs its plain version for CPU tensors. Padded frames
+(t >= out_len) emit blank with certainty, so alpha at T-1 equals alpha at
+out_len-1; they get no gradient. Labels are the text positions 1..in_len, so
+every skip transition is legal.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 import torch
 
 NEG_INF = -1e15
-MAX_S = 2048  # states per item the kernel takes (two per thread)
+MAX_S = 2048  # states per item the kernels take (112 a warp, at most 19 warps)
 
 
 def _state_labels(L: int, device) -> torch.Tensor:
@@ -28,13 +30,18 @@ def _state_labels(L: int, device) -> torch.Tensor:
     return torch.where(s % 2 == 1, (s + 1) // 2, 0)
 
 
+def _padded(out_lens, T: int, dev) -> torch.Tensor:
+    """[B, T, 1]: frame t of item b is padding (t >= out_len)."""
+    return torch.arange(T, device=dev)[None, :, None] >= out_lens.to(dev)[:, None, None]
+
+
 def _emissions(logprobs, out_lens) -> torch.Tensor:
     """[B, T, S] state emissions with padded frames forced to blank."""
     B, T, Lp1 = logprobs.shape
     dev = logprobs.device
-    padded = torch.arange(T, device=dev)[None, :, None] >= out_lens.to(dev)[:, None, None]
     blank = torch.arange(Lp1, device=dev)[None, None, :] == 0
-    y = torch.where(padded, torch.where(blank, 0.0, NEG_INF), logprobs.float())
+    y = torch.where(_padded(out_lens, T, dev), torch.where(blank, 0.0, NEG_INF),
+                    logprobs.float())
     return y[:, :, _state_labels(Lp1 - 1, dev)]
 
 
@@ -81,8 +88,8 @@ def _final_ll(alpha_last, in_lens) -> torch.Tensor:
     return m + torch.log(torch.exp(a - m) + torch.exp(b - m))
 
 
-def ctc_beta_grad_reference(logprobs, alphas, in_lens, out_lens, ll, g) -> torch.Tensor:
-    """Plain version of the beta scan and posterior gradient: [B, T, L+1]."""
+def ctc_beta_reference(logprobs, in_lens, out_lens) -> torch.Tensor:
+    """Plain version of the beta scan: betas [B, T, S] f32."""
     emis = _emissions(logprobs, out_lens)
     B, T, S = emis.shape
     dev = emis.device
@@ -98,48 +105,59 @@ def ctc_beta_grad_reference(logprobs, alphas, in_lens, out_lens, ll, g) -> torch
         beta = torch.clamp(_lse3(w, _shift(w, -1), torch.where(odd, _shift(w, -2), NEG_INF)),
                            min=NEG_INF)
         betas[t - 1] = beta
-    gamma = torch.exp(torch.clamp(alphas + torch.stack(betas, 1) - ll.float()[:, None, None],
-                                  -80.0, 0.0))
+    return torch.stack(betas, 1)
+
+
+def ctc_grad_reference(alphas, betas, out_lens, ll, g) -> torch.Tensor:
+    """Plain version of the posterior gradient d(g . -ll)/d logprobs: [B, T, L+1]."""
+    gamma = torch.exp(torch.clamp(alphas + betas - ll.float()[:, None, None], -80.0, 0.0))
     grad = torch.cat([gamma[:, :, 0::2].sum(-1, keepdim=True), gamma[:, :, 1::2]], dim=-1)
-    padded = torch.arange(T, device=dev)[None, :, None] >= out_lens.to(dev)[:, None, None]
-    grad = torch.where(padded, 0.0, -grad)
+    grad = torch.where(_padded(out_lens, alphas.shape[1], alphas.device), 0.0, -grad)
     return grad * g.float()[:, None, None]
 
 
-_ALPHA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BETA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_SIGNATURES = {"ctc_alpha": _ALPHA_ARGTYPES, "ctc_beta_grad": _BETA_ARGTYPES}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ALPHA_ARGTYPES = [_P] * 3 + [_I] * 3 + [_P]
+_ALPHA_BETA_ARGTYPES = [_P] * 5 + [_I] * 3 + [_P]
+_GRAD_ARGTYPES = [_P] * 6 + [_I] * 3 + [_P]
+_SIGNATURES = {"ctc_alpha": _ALPHA_ARGTYPES, "ctc_alpha_beta": _ALPHA_BETA_ARGTYPES,
+               "ctc_grad": _GRAD_ARGTYPES}
 
 
-def _check(name: str, logprobs) -> tuple:
-    if logprobs.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {logprobs.device}")
-    B, T, Lp1 = logprobs.shape
-    if 2 * (Lp1 - 1) + 1 > MAX_S:
-        raise ValueError(f"{name}: {2 * (Lp1 - 1) + 1} states > {MAX_S}")
-    return B, T, Lp1 - 1
+def _check(name: str, x, S: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if S > MAX_S:
+        raise ValueError(f"{name}: {S} states > {MAX_S}")
+
+
+def _f32(x, dev):
+    return x.to(device=dev, dtype=torch.float32).contiguous()
 
 
 def _i32(x, dev):
     return x.to(device=dev, dtype=torch.int32).contiguous()
 
 
+def _launch(entry: str, dev, *args) -> None:
+    from ..kernels import build
+
+    lib = build.load("ctc_banded_lse", _SIGNATURES)
+    err = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, entry)
+
+
 def ctc_alpha(logprobs, out_lens) -> torch.Tensor:
     """alphas [B, T, 2L+1] f32 for logprobs [B, T, L+1] (column 0 blank)."""
     if logprobs.device.type == "cpu":
         return ctc_alpha_reference(logprobs, out_lens)
-    B, T, L = _check("ctc_alpha", logprobs)
+    B, T, Lp1 = logprobs.shape
+    _check("ctc_alpha", logprobs, 2 * Lp1 - 1)
     dev = logprobs.device
-    lp = logprobs.float().contiguous()
-    out_lens = _i32(out_lens, dev)
-    alphas = torch.empty((B, T, 2 * L + 1), dtype=torch.float32, device=dev)
-
-    from ..kernels import build
-
-    lib = build.load("ctc_banded_lse", _SIGNATURES)
-    err = lib.ctc_alpha(lp.data_ptr(), out_lens.data_ptr(), alphas.data_ptr(), B, T, L,
-                        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, "ctc_alpha")
+    lp, out_lens = _f32(logprobs, dev), _i32(out_lens, dev)
+    alphas = torch.empty((B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
+    _launch("ctc_alpha", dev, lp.data_ptr(), out_lens.data_ptr(), alphas.data_ptr(), B, T,
+            Lp1 - 1)
     ctc_alpha.launches += 1
     return alphas
 
@@ -147,54 +165,69 @@ def ctc_alpha(logprobs, out_lens) -> torch.Tensor:
 ctc_alpha.launches = 0
 
 
-def ctc_beta_grad(logprobs, alphas, in_lens, out_lens, ll, g) -> torch.Tensor:
-    """d(g . -ll)/d logprobs, [B, T, L+1] f32."""
+def ctc_alpha_beta(logprobs, in_lens, out_lens) -> tuple:
+    """(alphas, betas), each [B, T, 2L+1] f32, from one launch."""
     if logprobs.device.type == "cpu":
-        return ctc_beta_grad_reference(logprobs, alphas, in_lens, out_lens, ll, g)
-    B, T, L = _check("ctc_beta_grad", logprobs)
+        return (ctc_alpha_reference(logprobs, out_lens),
+                ctc_beta_reference(logprobs, in_lens, out_lens))
+    B, T, Lp1 = logprobs.shape
+    _check("ctc_alpha_beta", logprobs, 2 * Lp1 - 1)
     dev = logprobs.device
-    if alphas.shape != (B, T, 2 * L + 1):
-        raise ValueError("ctc_beta_grad: alphas must be [B, T, 2L+1]")
-    lp = logprobs.float().contiguous()
-    alphas = alphas.float().contiguous()
+    lp = _f32(logprobs, dev)
     in_lens, out_lens = _i32(in_lens, dev), _i32(out_lens, dev)
-    ll = ll.float().contiguous()
-    g = g.float().contiguous()
-    grad = torch.empty((B, T, L + 1), dtype=torch.float32, device=dev)
+    rows = torch.empty((2, B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
+    _launch("ctc_alpha_beta", dev, lp.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+            rows[0].data_ptr(), rows[1].data_ptr(), B, T, Lp1 - 1)
+    ctc_alpha_beta.launches += 1
+    return rows[0], rows[1]
 
-    from ..kernels import build
 
-    lib = build.load("ctc_banded_lse", _SIGNATURES)
-    err = lib.ctc_beta_grad(lp.data_ptr(), alphas.data_ptr(), in_lens.data_ptr(),
-                            out_lens.data_ptr(), ll.data_ptr(), g.data_ptr(), grad.data_ptr(),
-                            B, T, L, torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, err, "ctc_beta_grad")
-    ctc_beta_grad.launches += 1
+ctc_alpha_beta.launches = 0
+
+
+def ctc_grad(alphas, betas, out_lens, ll, g) -> torch.Tensor:
+    """d(g . -ll)/d logprobs, [B, T, L+1] f32, from the alpha and beta rows."""
+    if alphas.device.type == "cpu":
+        return ctc_grad_reference(alphas, betas, out_lens, ll, g)
+    B, T, S = alphas.shape
+    _check("ctc_grad", alphas, S)
+    if betas.shape != alphas.shape or S % 2 == 0:
+        raise ValueError("ctc_grad: alphas and betas must both be [B, T, 2L+1]")
+    dev = alphas.device
+    alphas, betas = _f32(alphas, dev), _f32(betas, dev)
+    out_lens, ll, g = _i32(out_lens, dev), _f32(ll, dev), _f32(g, dev)
+    grad = torch.empty((B, T, (S + 1) // 2), dtype=torch.float32, device=dev)
+    _launch("ctc_grad", dev, alphas.data_ptr(), betas.data_ptr(), out_lens.data_ptr(),
+            ll.data_ptr(), g.data_ptr(), grad.data_ptr(), B, T, (S - 1) // 2)
+    ctc_grad.launches += 1
     return grad
 
 
-ctc_beta_grad.launches = 0
+ctc_grad.launches = 0
 
 
 class _CTCForwardSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logprobs, in_lens, out_lens):
-        alphas = ctc_alpha(logprobs, out_lens)
+        alphas, betas = ctc_alpha_beta(logprobs, in_lens, out_lens)
         ll = _final_ll(alphas[:, -1], in_lens)
-        ctx.save_for_backward(logprobs, alphas, in_lens, out_lens, ll)
+        ctx.save_for_backward(alphas, betas, out_lens, ll)
+        ctx.dtype = logprobs.dtype
         return -ll
 
     @staticmethod
     def backward(ctx, g):
-        logprobs, alphas, in_lens, out_lens, ll = ctx.saved_tensors
-        grad = ctc_beta_grad(logprobs, alphas, in_lens, out_lens, ll, g)
-        return grad.to(logprobs.dtype), None, None
+        grad = ctc_grad(*ctx.saved_tensors, g)
+        return grad.to(ctx.dtype), None, None
 
 
 def ctc_forward_sum(logprobs, in_lens, out_lens) -> torch.Tensor:
     """Exact CTC negative log-likelihood per example, labels = 1..in_len;
-    logprobs [B, T, L+1] with column 0 the blank."""
-    return _CTCForwardSum.apply(logprobs, in_lens, out_lens)
+    logprobs [B, T, L+1] with column 0 the blank. The beta scan runs (beside
+    the alpha scan) only when the result will need a gradient."""
+    if torch.is_grad_enabled() and logprobs.requires_grad:
+        return _CTCForwardSum.apply(logprobs, in_lens, out_lens)
+    return -_final_ll(ctc_alpha(logprobs, out_lens)[:, -1], in_lens)
 
 
 def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob: float = -1.0,

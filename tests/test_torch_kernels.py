@@ -53,9 +53,12 @@ from fastspeech2_lightning_tpu_torch.ops.attention import (
 )
 from fastspeech2_lightning_tpu_torch.ops.ctc import (
     ctc_alpha,
+    ctc_alpha_beta,
     ctc_alpha_reference,
-    ctc_beta_grad,
-    ctc_beta_grad_reference,
+    ctc_beta_reference,
+    ctc_forward_sum,
+    ctc_grad,
+    ctc_grad_reference,
 )
 from fastspeech2_lightning_tpu_torch.ops.mas import (
     backtrack_window,
@@ -97,7 +100,8 @@ def _c_params(source: str, entry: str) -> list:
     ("attention_bwd", "attention_bwd", attention._BWD_ARGTYPES),
     ("mas_width1", "mas_width1", mas._ARGTYPES),
     ("ctc_banded_lse", "ctc_alpha", ctc._ALPHA_ARGTYPES),
-    ("ctc_banded_lse", "ctc_beta_grad", ctc._BETA_ARGTYPES),
+    ("ctc_banded_lse", "ctc_alpha_beta", ctc._ALPHA_BETA_ARGTYPES),
+    ("ctc_banded_lse", "ctc_grad", ctc._GRAD_ARGTYPES),
     ("mrf_conv", "mrf_conv", vocoder_resblocks._ARGTYPES),
 ])
 def test_c_entries_match_declared_argtypes(source, entry, argtypes):
@@ -126,7 +130,10 @@ def test_wrappers_raise_on_a_device_without_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         ctc_alpha(la, lens)
     with pytest.raises(ValueError, match="unsupported device"):
-        ctc_beta_grad(la, la, lens, lens, lens.float(), lens.float())
+        ctc_alpha_beta(la, lens, lens)
+    rows = torch.empty(1, 8, 9, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc_grad(rows, rows, lens, lens.float(), lens.float())
     x = torch.empty(1, 8, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         mrf_conv(x, torch.empty(3, 16, 16, device="meta"), torch.empty(16, device="meta"), 1,
@@ -697,28 +704,111 @@ def test_mas_kernel_on_length_edges(cuda, monkeypatch):
     assert int(dur[0, 0]) == T and int(dur[1, L - 1]) == 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,T,L", [(3, 120, 20), (2, 300, 160)])
-def test_ctc_kernels_match_plain_version(cuda, B, T, L):
-    g = torch.Generator(device=cuda).manual_seed(3)
-    in_lens = torch.tensor([L, L - 5, 3][:B], device=cuda)
-    out_lens = torch.tensor([T, T - 17, 9][:B], device=cuda)
-    logits = torch.randn(B, T, L + 1, device=cuda, generator=g)
-    logits = torch.where(torch.arange(L + 1, device=cuda) > in_lens[:, None, None],
+def _ctc_inputs(dev, B, T, L, seed=3):
+    """Log-probabilities [B, T, L+1] over random logits with the columns past
+    in_len at NEG_INF, and lengths with the edge items first: in_len = L and
+    out_len = T, in_len = 1 over all frames, in_len = out_len = 1, in_len = L
+    over L - 1 frames (infeasible for L > 1), then lengths drawn from [1, L]
+    and [1, T]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    in_lens = torch.randint(1, L + 1, (B,), device=dev, generator=g)
+    out_lens = torch.randint(1, T + 1, (B,), device=dev, generator=g)
+    edges = [(L, T), (1, T), (1, 1), (L, max(1, min(L - 1, T)))]
+    for b, (n_in, n_out) in enumerate(edges[:B]):
+        in_lens[b], out_lens[b] = n_in, n_out
+    logits = torch.randn(B, T, L + 1, device=dev, generator=g)
+    logits = torch.where(torch.arange(L + 1, device=dev) > in_lens[:, None, None],
                          ctc.NEG_INF, logits)
-    lp = torch.log_softmax(logits, -1)
-    a0, b0 = ctc_alpha.launches, ctc_beta_grad.launches
-    alphas = ctc_alpha(lp, out_lens)
-    want_alphas = ctc_alpha_reference(lp, out_lens)
+    return torch.log_softmax(logits, -1), in_lens, out_lens
+
+
+def _rows_agree(got, want):
+    """The same states on the NEG_INF scale and the others within relative
+    1e-5 (the kernel repeats the plain version's arithmetic)."""
+    live = want > 0.5 * ctc.NEG_INF
+    assert torch.equal(got > 0.5 * ctc.NEG_INF, live)
+    assert torch.allclose(got[live], want[live], rtol=1e-5, atol=0)
+
+
+def test_ctc_wrappers_run_their_plain_versions_on_the_cpu():
+    """On CPU tensors each CTC wrapper is its plain version and counts no
+    launch; the chains' rows give the gradient of the loss."""
+    lp, in_lens, out_lens = _ctc_inputs("cpu", 4, 30, 6)
+    gvec = torch.rand(4, generator=torch.Generator().manual_seed(1))
+    counts = (ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches)
+    alphas, betas = ctc_alpha_beta(lp, in_lens, out_lens)
+    assert torch.equal(alphas, ctc_alpha_reference(lp, out_lens))
+    assert torch.equal(ctc_alpha(lp, out_lens), alphas)
+    assert torch.equal(betas, ctc_beta_reference(lp, in_lens, out_lens))
     ll = ctc._final_ll(alphas[:, -1], in_lens)
+    grad = ctc_grad(alphas, betas, out_lens, ll, gvec)
+    assert torch.equal(grad, ctc_grad_reference(alphas, betas, out_lens, ll, gvec))
+    assert counts == (ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches)
+    x = lp.clone().requires_grad_(True)
+    (ctc_forward_sum(x, in_lens, out_lens) * gvec).sum().backward()
+    assert torch.equal(x.grad, grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,L", [(3, 120, 20), (2, 300, 160), (16, 2016, 192), (16, 512, 64),
+                                   (4, 64, 1023), (4, 50, 1), (5, 9, 300)])
+def test_ctc_kernels_match_plain_version(cuda, monkeypatch, B, T, L):
+    """Both chains and the gradient against the plain version, every output
+    written (NaN before the call), edge and infeasible items included; an
+    infeasible item (fewer frames than labels) gets g = 0, as the loss gives
+    it, and so a zero gradient."""
+    lp, in_lens, out_lens = _ctc_inputs(cuda, B, T, L)
+    feasible = out_lens.clamp(max=T) >= in_lens
+    gvec = torch.rand(B, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    gvec = torch.where(feasible, gvec, 0.0)
+    want_alphas = ctc_alpha_reference(lp, out_lens)
+    want_betas = ctc_beta_reference(lp, in_lens, out_lens)
     want_ll = ctc._final_ll(want_alphas[:, -1], in_lens)
-    assert float(((ll - want_ll).abs() / want_ll.abs()).max()) <= 1e-5
-    gvec = torch.rand(B, device=cuda, generator=g)
-    grad = ctc_beta_grad(lp, alphas, in_lens, out_lens, ll, gvec)
+    want_grad = ctc_grad_reference(want_alphas, want_betas, out_lens, want_ll, gvec)
+    _poisoned_outputs(monkeypatch)
+    a0, ab0, g0 = ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches
+    alphas_only = ctc_alpha(lp, out_lens)
+    alphas, betas = ctc_alpha_beta(lp, in_lens, out_lens)
+    ll = ctc._final_ll(alphas[:, -1], in_lens)
+    grad = ctc_grad(alphas, betas, out_lens, ll, gvec)
     torch.cuda.synchronize()
-    assert (ctc_alpha.launches, ctc_beta_grad.launches) == (a0 + 1, b0 + 1)
-    want = ctc_beta_grad_reference(lp, want_alphas, in_lens, out_lens, want_ll, gvec)
-    assert float((grad - want).abs().max()) <= 1e-5
+    monkeypatch.undo()
+    assert (ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches) == (
+        a0 + 1, ab0 + 1, g0 + 1)
+    for t in (alphas_only, alphas, betas, grad):
+        assert not t.isnan().any()
+    assert torch.equal(alphas_only, alphas)
+    _rows_agree(alphas, want_alphas)
+    _rows_agree(betas, want_betas)
+    assert float(((ll - want_ll).abs() / want_ll.abs()).max()) <= 1e-5
+    assert float((grad - want_grad).abs().max()) <= 1e-5
+    assert bool(torch.isfinite(grad).all()) and not grad[~feasible].any()
+    assert not grad[torch.arange(T, device=cuda)[None] >= out_lens[:, None]].any()
+    if B >= 4 and L > 1:
+        assert float(ll[3]) < 1e-3 * ctc.NEG_INF  # infeasible: ll on the NEG_INF scale
+
+
+@pytest.mark.gpu
+def test_ctc_forward_sum_runs_the_beta_chain_only_for_a_gradient(cuda):
+    """Under no_grad the loss launches the alpha chain alone; with a gradient
+    one launch runs both chains and the backward one gradient pass. Both give
+    the same loss."""
+    lp, in_lens, out_lens = _ctc_inputs(cuda, 4, 200, 30)
+    x = lp.clone().requires_grad_(True)
+    counts = lambda: (ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches)  # noqa: E731
+    c0 = counts()
+    with torch.no_grad():
+        loss_ng = ctc_forward_sum(x, in_lens, out_lens)
+    c1 = counts()
+    loss = ctc_forward_sum(x, in_lens, out_lens)
+    c2 = counts()
+    loss.sum().backward()
+    c3 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (1, 0, 0)
+    assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (0, 1, 0)
+    assert (c3[0] - c2[0], c3[1] - c2[1], c3[2] - c2[2]) == (0, 0, 1)
+    assert torch.equal(loss_ng, loss.detach())
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 @pytest.mark.gpu

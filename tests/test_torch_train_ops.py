@@ -7,9 +7,10 @@ arbitrary ones. The plain MAS is exactly equal, path and durations, to the
 scan version and to the Pallas kernel in interpret mode, ties included. The
 plain CTC forward-sum agrees with the scan version within relative 1e-5 and
 its gradient (the autograd Function's beta pass) with jax.grad within
-max-abs 1e-5; the plain alphas agree with the Pallas banded scan in
-interpret mode. The two alignment losses agree with and without sample
-weights."""
+max-abs 1e-5; the plain alphas and betas agree with the Pallas banded scan
+in interpret mode, fed as the JAX package feeds it, and the loss is the same
+whether or not it runs the beta scan for a gradient. The two alignment
+losses agree with and without sample weights."""
 
 import jax
 import jax.numpy as jnp
@@ -145,6 +146,43 @@ def test_plain_alphas_match_pallas_banded_scan_interpret():
     valid = pallas > 0.9 * jctc.NEG_INF
     np.testing.assert_array_equal(valid, alphas > 0.9 * tctc.NEG_INF)
     np.testing.assert_allclose(alphas[valid], pallas[valid], rtol=1e-5, atol=1e-5)
+
+
+def test_plain_betas_match_pallas_banded_scan_interpret():
+    """The reversed scan as ``ops/ctc.py`` _ctc_bwd runs it on the TPU: the
+    emissions flipped in time, the final-state seed added to the first row,
+    rows[k] = beta_{T-2-k}."""
+    attn, in_lens, out_lens = _ctc_inputs(7, B=3, T=40, L=5)
+    lp = _logprobs(attn, in_lens)
+    betas = tctc.ctc_beta_reference(torch.from_numpy(lp), torch.from_numpy(in_lens),
+                                    torch.from_numpy(out_lens)).numpy()
+    T, S = lp.shape[1], 11
+    y = jctc._uniform_logprobs(jnp.asarray(lp), jnp.asarray(out_lens))
+    _, state_label, _ = jctc._state_maps(5)
+    s_ids = np.arange(S)[None]
+    finals = (s_ids == np.clip(2 * in_lens, 0, S - 1)[:, None]) | (
+        s_ids == np.clip(2 * in_lens - 1, 0, S - 1)[:, None])
+    beta_last = np.where(finals, 0.0, jctc.NEG_INF).astype(np.float32)
+    emis_rev = jnp.flip(y[:, :, state_label], axis=1).at[:, 0, :].add(beta_last)
+    rows = np.asarray(banded_lse_scan_pallas(emis_rev, left=True, add_emis_first=False,
+                                             interpret=True))
+    pallas = np.concatenate([np.flip(rows[:, : T - 1], axis=1), beta_last[:, None]], axis=1)
+    valid = pallas > 0.9 * jctc.NEG_INF
+    np.testing.assert_array_equal(valid, betas > 0.9 * tctc.NEG_INF)
+    np.testing.assert_allclose(betas[valid], pallas[valid], rtol=1e-5, atol=1e-5)
+
+
+def test_ctc_forward_sum_same_loss_with_and_without_gradient():
+    """Without a gradient the loss runs the alpha scan alone; with one it also
+    runs the beta scan (for the backward). The loss is the same."""
+    attn, in_lens, out_lens = _ctc_inputs(8)
+    x = torch.from_numpy(_logprobs(attn, in_lens)).requires_grad_(True)
+    lens = torch.from_numpy(in_lens), torch.from_numpy(out_lens)
+    with torch.no_grad():
+        loss_ng = tctc.ctc_forward_sum(x, *lens)
+    loss = tctc.ctc_forward_sum(x, *lens)
+    assert loss_ng.grad_fn is None and loss.grad_fn is not None
+    assert torch.equal(loss_ng, loss.detach())
 
 
 @pytest.mark.parametrize("weighted", [False, True])
