@@ -37,12 +37,20 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  10. kernel C (CTC: the alpha chain alone, both chains side by side, the
     gradient) against its plain version at B = 16, T = 1024, L = 160, with
     wall and device times beside the bound and F.ctc_loss's (a yardstick);
- 11. training: a seeded 64-utterance corpus, the default config at full width
-    and depth in bf16 with batch 16, 8 steps through the ``train`` CLI entry,
-    the four training kernels' launch counts read around it, and the final
-    checkpoint served one sentence;
+ 11. training: a seeded corpus (64 utterances to train on, 64 to validate),
+    the default config at full width and depth in bf16 with batch 16, 8
+    steps through the ``train`` CLI entry
+    with a validation every 4 steps (EMA on, async checkpoints, the top 1
+    kept), the training kernels' launch counts read around it and, apart,
+    around each validation (A at p 0, B and C's alpha chain per validation
+    batch); then a CLI run to step 12 in a subprocess, SIGTERMed after step
+    10 (exit 0, a checkpoint at its last step), its resume to 12, one
+    sentence synthesized from step=12 with and without EMA; then timings
+    of the 64-utterance validation, synchronous saves, async ones (blocking
+    part, written), a resume's load and steps with ``prefetch_batches`` 2
+    and 0 in turns (no save or validation among them) and with async saves;
  12. card against CPU: one f32 train step (2+2 layers, no dropout) from the
-    same weights and batch;
+    same weights and batch, then one eval step of the same weights;
  13. kernels A and A' at each length bucket the trainer cut in phase 11,
     bf16, p = 0 and 0.2, on the bucket's own key mask and on a full one:
     against the plain version; wall and device times beside SDPA's; the
@@ -56,8 +64,8 @@ f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
 it); device times are per call of calls queued back to back behind a spin
 kernel (``device_ms``). Prints a line for every check and timing, the
-kernels' JSON line, the card's name and power limit, and last the result
-line.
+kernels' JSON line (with the trainer's timings), the card's name and power
+limit, and last the result line.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ import io
 import json
 import math
 import re
+import signal
 import statistics
 import struct
 import subprocess
@@ -1166,15 +1175,17 @@ def phase_ctc_buckets(workdir: Path, shapes: list) -> list:
 
 # -- phase 11: training through the CLI --------------------------------------
 
-N_UTTS = 64
+N_UTTS = 64  # training list
+N_VAL = 64  # validation list: batches of 16 across the buckets
 
 
 def write_corpus(root: Path, cfg: dict, rng) -> None:
     """A seeded preprocessed corpus in the layout the dataset reads: per
     utterance a mel spec [n_mels, T], frame-level pitch and energy, a
-    diagonal attention prior [T, L]; stats.json and the filelists. Texts of
-    20-200 characters, mels of 100-2000 frames (one of exactly 2000, so a
-    bucket pads above 1536 frames)."""
+    diagonal attention prior [T, L]; stats.json and the filelists (N_UTTS
+    training utterances, N_VAL others for validation). Texts of 20-200
+    characters, mels of 100-2000 frames (one of exactly 2000, so a bucket
+    pads above 1536 frames)."""
     import numpy as np
 
     from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
@@ -1188,7 +1199,7 @@ def write_corpus(root: Path, cfg: dict, rng) -> None:
     for kind in ("spec", "pitch", "energy", "attn"):
         (root / kind).mkdir(parents=True, exist_ok=True)
     rows = []
-    for i in range(N_UTTS):
+    for i in range(N_UTTS + N_VAL):
         n_chars = int(rng.integers(20, 201))
         words = []
         while len(" ".join(words)) < n_chars:
@@ -1210,26 +1221,87 @@ def write_corpus(root: Path, cfg: dict, rng) -> None:
                 (prior / prior.sum(1, keepdims=True)).astype(np.float32))
         rows.append(f"utt{i:03d}|default|default|{text}")
     header = "basename|speaker|language|characters"
-    (root / "training_filelist.psv").write_text("\n".join([header] + rows) + "\n")
-    (root / "validation_filelist.psv").write_text("\n".join([header] + rows[:2]) + "\n")
+    (root / "training_filelist.psv").write_text("\n".join([header] + rows[:N_UTTS]) + "\n")
+    (root / "validation_filelist.psv").write_text("\n".join([header] + rows[N_UTTS:]) + "\n")
     (root / "stats.json").write_text(json.dumps(STATS))
 
 
 TRAIN_STEPS = 8
+RESUME_STEPS = 12  # the preempted run and its resume go on to here
+TIMED_STEPS = 12  # each timing run's steps
+SAVE_EVERY = 3  # in the timing run with async saves among its steps
+SAVES = 3  # validations, synchronous and async saves timed
+LOSS_KEYS = ("total", "spec", "postnet", "pitch", "energy", "duration", "attn_ctc", "attn_bin")
+TRAIN_COUNTERS = ("attention_fwd", "attention_bwd", "mas_width1", "ctc_alpha", "ctc_alpha_beta",
+                  "ctc_grad")
+
+
+def _counters() -> dict:
+    from fastspeech2_lightning_tpu_torch.ops import attention, ctc, mas
+
+    fns = (attention.attention_fwd, attention.attention_bwd, mas.mas_width1, ctc.ctc_alpha,
+           ctc.ctc_alpha_beta, ctc.ctc_grad)
+    return {fn.__name__: fn for fn in fns}
+
+
+def _train_and_validation_launches(run) -> tuple:
+    """Run `run()` with every training counter set to 0 before it; returns
+    (launches outside validation, launches inside it): the counters are
+    read just before and just after each Trainer.validate."""
+    from fastspeech2_lightning_tpu_torch.training import loop
+
+    fns = _counters()
+    for fn in fns.values():
+        fn.launches = 0
+    in_val = dict.fromkeys(fns, 0)
+    validate = loop.Trainer.validate
+
+    def counted(self, step, epoch):
+        before = {k: fn.launches for k, fn in fns.items()}
+        try:
+            return validate(self, step, epoch)
+        finally:
+            for k, fn in fns.items():
+                in_val[k] += fn.launches - before[k]
+
+    loop.Trainer.validate = counted
+    try:
+        run()
+    finally:
+        loop.Trainer.validate = validate
+    return {k: fn.launches - in_val[k] for k, fn in fns.items()}, in_val
+
+
+def _rows(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def _last_step(train_log: Path) -> int:
+    """The step of the last complete line of a train_log.jsonl another
+    process is writing."""
+    lines = train_log.read_text().split("\n")[:-1]  # the last piece may be half written
+    return json.loads(lines[-1])["step"] if lines else 0
 
 
 def phase_train(workdir: Path) -> dict:
     """Train the default config (full width and depth, bf16, batch 16) for
-    8 steps through the port's CLI entry; returns the launches, ms/step and
-    peak memory, after serving one sentence from the final checkpoint."""
+    8 steps through the port's CLI entry, validating every 4 steps with an
+    async checkpoint after each (EMA on, top 1 kept); the launches of the
+    training and validation paths apart. Then SIGTERM a CLI run on its way
+    to step 12 in a subprocess, resume it to 12, synthesize from step=12
+    with and without EMA, and time validation, saves, a resume's load and
+    steps with `prefetch_batches` 2 and 0 (`_trainer_timings`)."""
     import numpy as np
     import torch
 
     from fastspeech2_lightning_tpu_torch import cli
-    from fastspeech2_lightning_tpu_torch.ops.attention import attention_bwd, attention_fwd
-    from fastspeech2_lightning_tpu_torch.ops.ctc import ctc_alpha, ctc_alpha_beta, ctc_grad
-    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import BucketedLoader, load_datasets
     from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+    from fastspeech2_lightning_tpu_torch.text.lookups import lookuptables_from_config
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import (
+        latest_checkpoint, load_train_state, read_meta,
+    )
 
     cfg = model_config("bfloat16")
     corpus = workdir / "corpus"
@@ -1237,60 +1309,257 @@ def phase_train(workdir: Path) -> dict:
     write_corpus(corpus, cfg, np.random.default_rng(SEED + 7))
     cfg["preprocessing"]["save_dir"] = "corpus"
     cfg["training"].update(batch_size=16, training_filelist="corpus/training_filelist.psv",
-                           validation_filelist="corpus/validation_filelist.psv")
+                           validation_filelist="corpus/validation_filelist.psv",
+                           val_check_interval=4, save_top_k_ckpts=1, ema_decay=0.999,
+                           async_checkpoint=True)
     cfg["training"]["logger"].update(save_dir="logs", name="smoke", version="train")
     config_path = workdir / "config.json"
     config_path.write_text(json.dumps(cfg))
-    log(f"train: corpus of {N_UTTS} utterances written in {time.time() - t0:.1f} s")
+    log(f"train: corpus of {N_UTTS} training and {N_VAL} validation utterances written in "
+        f"{time.time() - t0:.1f} s")
 
-    counters = (attention_fwd, attention_bwd, mas_width1, ctc_alpha, ctc_alpha_beta, ctc_grad)
-    for fn in counters:
-        fn.launches = 0
+    config = FastSpeech2Config.from_file(config_path)
+    _, val_ds = load_datasets(config, *lookuptables_from_config(config))
+    val_batches = len(BucketedLoader(val_ds, min(16, max(len(val_ds), 1)),
+                                     n_buckets=config.training.bucket_count,
+                                     max_mel_length=config.model.max_mel_length))
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    cli.main(["train", str(config_path), "--max-steps", str(TRAIN_STEPS)])
+    tl, vl = _train_and_validation_launches(
+        lambda: cli.main(["train", str(config_path), "--max-steps", str(TRAIN_STEPS)]))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     log_dir = workdir / "logs" / "smoke" / "train"
-    rows = [json.loads(line) for line in (log_dir / "train_log.jsonl").read_text().splitlines()]
+    ckpt_dir = log_dir / "checkpoints"
+    rows = _rows(log_dir / "train_log.jsonl")
     check(len(rows) == TRAIN_STEPS, f"{len(rows)} steps logged, want {TRAIN_STEPS}")
-    loss_keys = ("total", "spec", "postnet", "pitch", "energy", "duration", "attn_ctc",
-                 "attn_bin", "grad_norm")
     for r in rows:
-        check(all(k in r and math.isfinite(r[k]) for k in loss_keys), f"step {r['step']}: {r}")
+        check(all(k in r and math.isfinite(r[k]) for k in LOSS_KEYS + ("grad_norm",)),
+              f"step {r['step']}: {r}")
         log(f"train step {r['step']}: B x L x T = {' x '.join(map(str, r['shape']))}, "
-            f"{r['ms']:.1f} ms, total {r['total']:.4f}, attn_ctc {r['attn_ctc']:.4f}, "
-            f"grad_norm {r['grad_norm']:.3f}")
+            f"{r['ms']:.1f} ms (+{r['wait_ms']:.1f} waiting for the batch), total "
+            f"{r['total']:.4f}, attn_ctc {r['attn_ctc']:.4f}, grad_norm {r['grad_norm']:.3f}")
     check(max(r["shape"][2] for r in rows) > 1536, "no bucket above 1536 frames was trained")
+    val_rows = _rows(log_dir / "val_log.jsonl")
+    check([v["step"] for v in val_rows] == [4, 8], f"validations at {val_rows}")
+    for v in val_rows:
+        check(v["batches"] == val_batches and all(math.isfinite(v[k]) for k in LOSS_KEYS),
+              f"validation at step {v['step']}: {v} ({val_batches} batches predicted)")
+        log(f"validation at step {v['step']}: {v['batches']} batches in {v['ms']:.1f} ms "
+            f"({v['ms'] / v['batches']:.1f} ms a batch), total {v['total']:.4f}")
     # a train step's CTC loss needs a gradient: both chains in one forward
-    # launch, the gradient pass in the backward, the alpha chain alone never
-    want = {"attention_fwd": 8 * TRAIN_STEPS, "attention_bwd": 8 * TRAIN_STEPS,
-            "mas_width1": TRAIN_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": TRAIN_STEPS,
-            "ctc_grad": TRAIN_STEPS}
-    check(launches == want, f"training launches {launches}, predicted {want}")
-    ms_step = statistics.median(r["ms"] for r in rows[2:])
+    # launch, the gradient pass in the backward; a validation batch runs the
+    # deterministic forward: A at p 0 in every Conformer layer, MAS once, the
+    # alpha chain alone once
+    n_val = len(val_rows) * val_batches
+    want_t = {"attention_fwd": 8 * TRAIN_STEPS, "attention_bwd": 8 * TRAIN_STEPS,
+              "mas_width1": TRAIN_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": TRAIN_STEPS,
+              "ctc_grad": TRAIN_STEPS}
+    want_v = {"attention_fwd": 8 * n_val, "attention_bwd": 0, "mas_width1": n_val,
+              "ctc_alpha": n_val, "ctc_alpha_beta": 0, "ctc_grad": 0}
+    check(tl == want_t, f"training launches {tl}, predicted {want_t}")
+    check(vl == want_v, f"validation launches {vl}, predicted {want_v} ({n_val} batches)")
+    newest = latest_checkpoint(ckpt_dir)
+    check(newest is not None and newest.name == f"step={TRAIN_STEPS}", f"newest {newest}")
+    check(not list(ckpt_dir.glob("*.tmp")), "a .tmp checkpoint was left")
+    check(read_meta(newest)["global_step"] == TRAIN_STEPS, "meta.json global_step")
+    kept = sorted(p.name for p in ckpt_dir.iterdir())
+    log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s (model build, loader, validations and "
+        f"first-step set-up included); peak memory {peak_gib:.2f} GiB; checkpoints kept "
+        f"{kept}; launches: training {tl}, validation {vl}")
 
-    syn = Synthesizer.from_checkpoint(log_dir / "checkpoints" / "last.ckpt")
-    check(syn.device.type == "cuda", f"the trained checkpoint loaded on {syn.device}")
-    mel = syn.synthesize(["the trained model speaks."]).mels[0]
-    check(mel.ndim == 2 and mel.shape[1] == 80 and bool(np.isfinite(mel).all()),
-          f"synthesis from the trained checkpoint gave {mel.shape}")
-    log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s (model build, loader and first-step "
-        f"set-up included); median step after step 2 {ms_step:.1f} ms; peak memory "
-        f"{peak_gib:.2f} GiB; launches {launches}; last.ckpt synthesized {mel.shape[0]} frames")
-    return dict(launches=launches, ms_per_step=ms_step, peak_gib=peak_gib,
-                shapes=[r["shape"] for r in rows])
+    s = _preempt(config_path, log_dir)
+    before = len(_rows(log_dir / "train_log.jsonl"))
+    tl2, vl2 = _train_and_validation_launches(
+        lambda: cli.main(["train", str(config_path), "--max-steps", str(RESUME_STEPS)]))
+    resumed = _rows(log_dir / "train_log.jsonl")[before:]
+    check([r["step"] for r in resumed] == list(range(s + 1, RESUME_STEPS + 1)),
+          f"the resume logged {[r['step'] for r in resumed]}, want {s + 1}..{RESUME_STEPS}")
+    newest = latest_checkpoint(ckpt_dir)
+    check(newest.name == f"step={RESUME_STEPS}", f"newest after the resume {newest}")
+    check(load_train_state(newest)["count"] == RESUME_STEPS, "count after the resume")
+    log(f"resume: steps {s + 1}..{RESUME_STEPS} from step={s}; launches: training {tl2}, "
+        f"validation {vl2}")
+
+    mels = {}
+    for ema in (False, True):
+        syn = Synthesizer.from_checkpoint(newest, use_ema=ema)
+        check(syn.device.type == "cuda", f"step={RESUME_STEPS} loaded on {syn.device}")
+        mel = syn.synthesize(["the trained model speaks."]).mels[0]
+        check(mel.ndim == 2 and mel.shape[1] == 80 and bool(np.isfinite(mel).all()),
+              f"synthesis from step={RESUME_STEPS} (use_ema={ema}) gave {mel.shape}")
+        mels[ema] = mel
+    check(mels[True].shape != mels[False].shape or not np.array_equal(mels[True], mels[False]),
+          "the EMA and the raw weights synthesized the same mel")
+    log(f"synthesis from step={RESUME_STEPS}: {mels[False].shape[0]} frames, with EMA "
+        f"{mels[True].shape[0]} frames")
+
+    timing = _trainer_timings(cfg, workdir)
+    return dict(launches=tl, validation_launches=vl,
+                ms_per_step=statistics.median(r["ms"] for r in rows[2:]), peak_gib=peak_gib,
+                shapes=[r["shape"] for r in rows], timing=timing)
 
 
-# -- phase 12: card against CPU, one train step ------------------------------
+def _preempt(config_path: Path, log_dir: Path) -> int:
+    """Run the train CLI to step 12 in a subprocess, SIGTERM it once
+    train_log.jsonl shows step 10; it must exit 0 with a checkpoint at the
+    last step it logged. Returns that step."""
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import (
+        latest_checkpoint, load_train_state,
+    )
+
+    train_log = log_dir / "train_log.jsonl"
+    out_path = config_path.parent / "preempt.out"
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", PORT, "train", str(config_path), "--max-steps",
+             str(RESUME_STEPS)], cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + 300
+            while proc.poll() is None and time.time() < deadline:
+                if _last_step(train_log) >= 10:
+                    break
+                time.sleep(0.02)
+            check(proc.poll() is None, f"the run ended (rc {proc.returncode}) before step 10 "
+                  f"was seen: {out_path.read_text()[-2000:]}")
+            sent = time.time()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = out_path.read_text()
+    check(rc == 0, f"the SIGTERMed run exited {rc}: {text[-2000:]}")
+    s = _rows(train_log)[-1]["step"]
+    ckpt = latest_checkpoint(log_dir / "checkpoints")
+    check(ckpt is not None and ckpt.name == f"step={s}", f"SIGTERM at step {s} left {ckpt}")
+    count = load_train_state(ckpt)["count"]
+    check(count == s, f"train_state.pt count {count}, want {s}")
+    check("received signal" in text, "the run did not report the signal")
+    log(f"preemption: SIGTERM after step 10 was logged; the run finished step {s}, "
+        f"checkpointed it and exited 0 {time.time() - sent:.1f} s after the signal")
+    return s
+
+
+def _median(xs) -> float:
+    return statistics.median(xs) if xs else float("nan")
+
+
+def _trainer_timings(cfg: dict, workdir: Path) -> dict:
+    """Fresh runs of TIMED_STEPS through Trainer.fit (EMA on, as phase 11)
+    with no save and no validation among the timed steps: prefetch_batches
+    2, 0, 0, 2 in turns, then 2 with an async save every SAVE_EVERY steps
+    (a save's writer thread beside the steps). A step's wall is its step
+    plus its wait for the batch, over steps 3.. of each run. Then, on the
+    last run's trainer: the validation (3 passes over the validation list),
+    synchronous saves and async ones (the blocking part, and until
+    written), each SAVES times in turns, and a resume's load."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import (
+        AsyncCheckpointWriter, save_checkpoint, take_snapshot,
+    )
+    from fastspeech2_lightning_tpu_torch.training.loop import Trainer
+
+    def run(name, **training):
+        c = json.loads(json.dumps(cfg))
+        c["training"].update({"ckpt_epochs": 0, "ckpt_steps": None, "async_checkpoint": False,
+                              "val_check_interval": 10**6,  # validated at the end only
+                              **training})
+        c["training"]["logger"]["version"] = name
+        path = workdir / f"config_{name}.json"
+        path.write_text(json.dumps(c))
+        trainer = Trainer(FastSpeech2Config.from_file(path))
+        rows = trainer.fit(max_steps=TIMED_STEPS)
+        torch.cuda.synchronize()
+        walls = [r["ms"] + r["wait_ms"] for r in rows[2:]]
+        log(f"timing run {name}: step wall {', '.join(f'{w:.1f}' for w in walls)} ms (median "
+            f"{_median(walls):.1f}; wait median {_median([r['wait_ms'] for r in rows[2:]]):.1f})")
+        return trainer, rows[2:]
+
+    timed = {2: [], 0: []}
+    for prefetch in (2, 0, 0, 2):
+        trainer, rows = run(f"prefetch{prefetch}_{len(timed[prefetch])}",
+                            prefetch_batches=prefetch)
+        timed[prefetch].append(rows)
+    del trainer
+    trainer, saving = run("prefetch2_async_saves", prefetch_batches=2, async_checkpoint=True,
+                          ckpt_steps=SAVE_EVERY)
+
+    val = [trainer.validate(TIMED_STEPS, 0) for _ in range(SAVES)]
+    val_ms = _median([json.loads(line)["ms"] for line in
+                      (trainer.log_dir / "val_log.jsonl").read_text().splitlines()[-SAVES:]])
+    shapes = [[*map(int, b["text"].shape), int(b["mel"].shape[1])] for b in trainer.val_loader]
+    check(all(math.isfinite(v["total"]) for v in val), f"validation losses {val}")
+
+    args = (trainer.config.to_dict(), trainer.stats_dict, trainer.lang2id, trainer.speaker2id,
+            trainer.symbols)
+    sync_ms, blocking_ms, written_ms = [], [], []
+    for _ in range(SAVES):
+        t0 = time.perf_counter()
+        save_checkpoint(trainer.ckpt_dir, take_snapshot(trainer.model, trainer.optimizer,
+                                                        trainer.ema, TIMED_STEPS, 1), *args)
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        writer = AsyncCheckpointWriter()
+        t0 = time.perf_counter()
+        writer.save(trainer.ckpt_dir, trainer.model, trainer.optimizer, trainer.ema,
+                    TIMED_STEPS, 1, *args)
+        blocking_ms.append((time.perf_counter() - t0) * 1e3)
+        writer.wait()
+        written_ms.append((time.perf_counter() - t0) * 1e3)
+    again = Trainer(trainer.config)
+    again.restore(trainer.ckpt_path)
+    load_ms = again.load_ms
+    del trainer, again
+    torch.cuda.empty_cache()
+
+    def step_walls(runs):
+        return [r["ms"] + r["wait_ms"] for rows in runs for r in rows]
+
+    timing = {
+        "validation_utterances": N_VAL,
+        "validation_batches": len(shapes),
+        "validation_batch_shapes": shapes,
+        "validation_ms": val_ms,
+        "validation_ms_per_batch": val_ms / len(shapes),
+        "sync_save_ms": _median(sync_ms),
+        "sync_save_ms_all": sync_ms,
+        "async_save_blocking_ms": _median(blocking_ms),
+        "async_save_blocking_ms_all": blocking_ms,
+        "async_save_written_ms": _median(written_ms),
+        "resume_load_ms": load_ms,
+        "step_ms_prefetch_2": _median(step_walls(timed[2])),
+        "step_ms_prefetch_0": _median(step_walls(timed[0])),
+        "step_ms_prefetch_2_runs": [_median(step_walls([r])) for r in timed[2]],
+        "step_ms_prefetch_0_runs": [_median(step_walls([r])) for r in timed[0]],
+        "wait_ms_prefetch_2": _median([r["wait_ms"] for rows in timed[2] for r in rows]),
+        "wait_ms_prefetch_0": _median([r["wait_ms"] for rows in timed[0] for r in rows]),
+        "step_ms_prefetch_2_async_saves": _median(step_walls([saving])),
+    }
+    log(f"trainer timings: validation of {N_VAL} utterances in {len(shapes)} batches (B x L x T "
+        f"{shapes}) {val_ms:.1f} ms, {timing['validation_ms_per_batch']:.1f} ms a batch; saves "
+        f"sync {', '.join(f'{x:.1f}' for x in sync_ms)} ms, async blocking "
+        f"{', '.join(f'{x:.1f}' for x in blocking_ms)} ms (written after "
+        f"{', '.join(f'{x:.1f}' for x in written_ms)}); resume load {load_ms:.1f} ms; median "
+        f"step wall {timing['step_ms_prefetch_2']:.1f} ms with prefetch 2 (runs "
+        f"{timing['step_ms_prefetch_2_runs']}), {timing['step_ms_prefetch_0']:.1f} with 0 (runs "
+        f"{timing['step_ms_prefetch_0_runs']}), {timing['step_ms_prefetch_2_async_saves']:.1f} "
+        f"with prefetch 2 and an async save every {SAVE_EVERY} steps")
+    return timing
+
+
+# -- phase 12: card against CPU, one train step and one eval step ------------
 
 
 def phase_train_card_vs_cpu(workdir: Path) -> None:
     """One f32 train step (2+2 layers, full width, every dropout 0, no
-    PostNet) from the same weights and batch on the card and on the CPU."""
+    PostNet) from the same weights and batch on the card and on the CPU, then
+    one eval step of the CPU's post-step weights on both."""
     import copy
 
     import numpy as np
@@ -1307,7 +1576,7 @@ def phase_train_card_vs_cpu(workdir: Path) -> None:
         AdamWNoam, init_like_flax,
     )
     from fastspeech2_lightning_tpu_torch.training.step import (
-        batch_to_device, step_generator, train_step,
+        batch_to_device, eval_step, step_generator, train_step,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1354,6 +1623,19 @@ def phase_train_card_vs_cpu(workdir: Path) -> None:
         f"durations equal, worst loss rel {worst_loss:.3e}, worst parameter max-abs "
         f"{worst_param:.3e}")
 
+    evals = {}
+    for dev in ("cuda", "cpu"):  # the eval step from the CPU's post-step weights
+        m = copy.deepcopy(model)
+        m.load_state_dict(p_cpu)
+        losses, out = eval_step(m.to(dev), config, batch_to_device(batch, dev), 50)
+        evals[dev] = (out["duration_target"].cpu(), {k: float(v) for k, v in losses.items()})
+    (d_gpu, l_gpu), (d_cpu, l_cpu) = evals["cuda"], evals["cpu"]
+    check(torch.equal(d_gpu, d_cpu), "eval step: MAS durations differ between card and CPU")
+    worst_eval = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-8) for k in l_cpu)
+    check(worst_eval <= 1e-4, f"card vs CPU eval losses differ: {l_gpu} vs {l_cpu}")
+    log(f"card vs CPU eval step (same weights and batch): durations equal, worst loss rel "
+        f"{worst_eval:.3e}")
+
 
 # -- main --------------------------------------------------------------------
 
@@ -1385,15 +1667,19 @@ def main() -> None:
         phase_train_card_vs_cpu(Path(workdir))
         train_att = phase_attention_buckets(Path(workdir))
         ctc_rows = phase_ctc_buckets(Path(workdir), train["shapes"])
-    tl = train["launches"]
+    tl, vl = train["launches"], train["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
+
+    def by_path(name):
+        return {"training": tl[name], "validation": vl[name]}
 
     def ctc_entry(name, part, library, library_key, **extra):
         lib = ctc["library"][library_key]
         row = dict(ctc[part], shape=ctc["shape"], dtype="float32", library_ms=lib["ms"])
-        return entry(name, row, "ctc_banded_lse.cu", "ops/ctc_pallas.py:120", tl[name],
-                     library=library, library_device_ms=lib["device_ms"],
-                     device_ms=row["device_ms"], ns_per_frame=row["ns_per_frame"], **extra)
+        return entry(name, row, "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
+                     tl[name] + vl[name], launches_by_path=by_path(name), library=library,
+                     library_device_ms=lib["device_ms"], device_ms=row["device_ms"],
+                     ns_per_frame=row["ns_per_frame"], **extra)
 
     def entry(name, row, source, replaces, n, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -1408,28 +1694,28 @@ def main() -> None:
 
     kernels = [
         entry("attention_fwd", att, "attention_fwd.cu", "models/conformer.py:142",
-              launches["attention_fwd"] + tl["attention_fwd"],
+              launches["attention_fwd"] + tl["attention_fwd"] + vl["attention_fwd"],
               launches_by_path={"serving": launches["attention_fwd"],
-                                "training": tl["attention_fwd"]},
+                                **by_path("attention_fwd")},
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
                              "fastspeech2_lightning_tpu/ops/attention_dropout.py:461"],
               **device_keys(att), training=train_att["fwd"]),
         entry("attention_bwd", train_att["bwd"], "attention_bwd.cu",
-              "ops/attention_dropout.py:190", tl["attention_bwd"],
+              "ops/attention_dropout.py:190", tl["attention_bwd"] + vl["attention_bwd"],
+              launches_by_path=by_path("attention_bwd"),
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:494"],
               p=train_att["bwd"]["p"], library="SDPA backward alone",
               library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
               **device_keys(train_att["bwd"])),
-        entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94", tl["mas_width1"],
+        entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94",
+              tl["mas_width1"] + vl["mas_width1"], launches_by_path=by_path("mas_width1"),
               device_ms=mas["device_ms"], training_shape=mas["training_shape"]),
-        # the training forward (both chains, one launch) and backward at the top
-        # bucket; the gradient-free forward (entry ctc_alpha, the same kernel
-        # over B blocks) is not on the training path: it rides along, as do
-        # all buckets and (16, 1024, 160)
+        # the training forward (both chains, one launch) and backward, and the
+        # validation forward (the alpha chain alone), at the top bucket; all
+        # buckets and (16, 1024, 160) ride along
+        ctc_entry("ctc_alpha", "fwd", "F.ctc_loss forward", "lib_fwd"),
         ctc_entry("ctc_alpha_beta", "fwd_grad", "F.ctc_loss forward", "lib_fwd",
-                  loss_rel=ctc["loss_rel"],
-                  alpha_only=dict(ctc["fwd"], entry="ctc_alpha", launches=tl["ctc_alpha"]),
-                  buckets=ctc_rows, at_16_1024_160=ctc_1024),
+                  loss_rel=ctc["loss_rel"], buckets=ctc_rows, at_16_1024_160=ctc_1024),
         ctc_entry("ctc_grad", "bwd", "F.ctc_loss forward+backward, against ctc_alpha_beta + "
                   "ctc_grad", "lib_fwd_bwd", grad_max_abs=ctc["grad_max_abs"]),
         # serving's vocoder is f32: that row (C = 128) on top; `stages` holds all six,
@@ -1442,7 +1728,7 @@ def main() -> None:
     log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "
         f"({smi})")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "trainer": train["timing"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -164,9 +164,33 @@ class LoggerConfig(_FromDict):
     version: str = "base"
 
 
+EARLY_STOPPING_METRICS = ("none", "mae", "js")
+
+
+@dataclasses.dataclass
+class EarlyStoppingConfig(_FromDict):
+    metric: str = "none"  # any value but "none" stops on validation/total_loss
+    patience: int = 4
+
+
 @dataclasses.dataclass
 class TrainingConfig(_FromDict):
+    """The JAX package's training section (``config/__init__.py:312-441``).
+    Like every key the port does not read, ``steps_per_call``,
+    ``fused_optimizer`` and ``prng_impl`` (the JAX trainer's dispatch,
+    optimizer layout and random-number generator; the port runs one step a
+    call, one per-parameter AdamW and torch generators) and ``vocoder_path``
+    (validation media, not ported) are ignored."""
+
     batch_size: int = 16
+    save_top_k_ckpts: int = 5
+    ckpt_steps: Optional[int] = None
+    ckpt_epochs: Optional[int] = 1
+    val_check_interval: Optional[Union[int, float]] = 500  # float: a fraction of an epoch
+    prefetch_batches: int = 2
+    async_checkpoint: bool = False
+    finetune_checkpoint: Optional[str] = None
+    early_stopping: EarlyStoppingConfig = dataclasses.field(default_factory=EarlyStoppingConfig)
     bucket_count: int = 4
     seed: int = 0
     max_steps: int = 100000
@@ -194,6 +218,9 @@ class TrainingConfig(_FromDict):
             raise ValueError("training.attn_bin_loss_warmup_epochs must be >= 1")
         if not 0.0 <= self.ema_decay < 1.0:
             raise ValueError("training.ema_decay must lie in [0, 1)")
+        if self.early_stopping.metric not in EARLY_STOPPING_METRICS:
+            raise ValueError(f"training.early_stopping.metric must be one of "
+                             f"{EARLY_STOPPING_METRICS}, not {self.early_stopping.metric!r}")
 
 
 _PARTIAL_KEYS = ("model", "training", "preprocessing", "text")

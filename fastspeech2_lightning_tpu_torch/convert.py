@@ -4,9 +4,11 @@
 package's ``models/torch_export.py:34-243``: flax (params, batch_stats,
 constants) -> the reference/torchaudio state_dict layout the port's modules
 are named after, so the result loads with ``load_state_dict(strict=True)``.
-``hifigan_state_from_jax`` is the inverse of ``models/hifigan.py::
-load_torch_hifigan``. Both take nested dicts of array-likes (numpy arrays,
-or anything ``np.asarray`` reads) and return numpy arrays."""
+``train_state_from_jax`` adds the optimizer's moments and count and the EMA
+weights, so a JAX run continues in the port. ``hifigan_state_from_jax`` is
+the inverse of ``models/hifigan.py::load_torch_hifigan``. All take nested
+dicts of array-likes (numpy arrays, or anything ``np.asarray`` reads) and
+return numpy arrays."""
 
 from __future__ import annotations
 
@@ -196,3 +198,42 @@ def hifigan_state_from_jax(params: dict, config) -> Dict[str, np.ndarray]:
                          block[f"convs_{di}_b"])
     conv("conv_post", params["conv_post_w"], params["conv_post_b"])
     return sd
+
+
+_BUFFER_SUFFIXES = (".running_mean", ".running_var", ".num_batches_tracked", ".inv_freq",
+                    "_bins")
+
+
+def _parameters_only(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {k: v for k, v in sd.items() if not k.endswith(_BUFFER_SUFFIXES)}
+
+
+def train_state_from_jax(
+    params: dict,
+    mu: dict,
+    nu: dict,
+    count,
+    ema_params: Optional[dict],
+    batch_stats: Optional[dict],
+    constants: Optional[dict],
+    config,
+    stats=None,
+):
+    """A JAX TrainState's numpy trees -> (state_dict, train_state), so a run
+    of the JAX package continues in the port: the state_dict as
+    ``state_dict_from_jax`` gives it, and ``train_state.pt``'s content (the
+    optax Adam moments `mu` and `nu` and update `count`, the EMA weights)
+    keyed by parameter name. Moments and EMA are parameter-shaped trees and
+    take the parameters' layout change."""
+    sd = state_dict_from_jax(params, batch_stats, constants, config, stats)
+
+    def by_name(tree):
+        return _parameters_only(state_dict_from_jax(tree, None, None, config))
+
+    train_state = {
+        "mu": by_name(mu),
+        "nu": by_name(nu),
+        "count": int(np.asarray(count)),
+        "ema": None if ema_params is None else by_name(ema_params),
+    }
+    return sd, train_state

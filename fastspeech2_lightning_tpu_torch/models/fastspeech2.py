@@ -94,12 +94,13 @@ class FastSpeech2(nn.Module):
         }
 
     def forward_train(self, batch: Dict[str, torch.Tensor],
-                      gen: torch.Generator) -> Dict[str, torch.Tensor]:
+                      gen: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """Training forward: `batch` holds the loader's arrays as tensors on
         the model's device (text, src_lens, mel, mel_lens, pitch, energy,
         attn_prior or duration, speaker_id, language_id); `gen` draws every
-        dropout mask and attention seed. Returns the keys ``compute_loss``
-        reads."""
+        dropout mask and attention seed, and None is the JAX package's
+        ``deterministic=True`` (the eval step). Returns the keys
+        ``compute_loss`` reads."""
         inputs, x, src_mask = self._encode(batch["text"], batch["src_lens"],
                                            batch.get("speaker_id"),
                                            batch.get("language_id"), gen)

@@ -10,7 +10,7 @@ regulator take the targets."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -111,7 +111,7 @@ class VarianceAdaptor(nn.Module):
         x: torch.Tensor,  # [B, L, D] encoder output (+ speaker/language)
         batch: Dict[str, torch.Tensor],
         src_mask: torch.Tensor,  # [B, L] bool
-        gen: torch.Generator,
+        gen: Optional[torch.Generator],  # None: deterministic
     ) -> Dict[str, torch.Tensor]:
         mcfg = self.config.model
         vp = mcfg.variance_predictors

@@ -390,10 +390,12 @@ def serve(
     vocoder_fused: bool = False,
     warmup: bool = False,
     device=None,
+    use_ema: bool = False,
 ) -> SynthesisServer:
     """Load once, serve. Returns the (not yet started) server. The model
     runs on the CUDA card unless `device` is "cpu"; warmup builds the kernels
-    and initialises the device libraries before the first request."""
+    and initialises the device libraries before the first request; use_ema
+    serves the EMA weights of a trainer's step=N/ directory."""
     from ..synthesis.api import Synthesizer
 
     if str(model_path).endswith(".fs2x"):
@@ -404,7 +406,7 @@ def serve(
     syn = Synthesizer.from_checkpoint(
         model_path, vocoder_path=vocoder_path, max_frames=max_frames,
         vocoder_precision=vocoder_precision, vocoder_fused=vocoder_fused,
-        device=device,
+        device=device, use_ema=use_ema,
     )
     if warmup:
         n = syn.warmup(max_batch)

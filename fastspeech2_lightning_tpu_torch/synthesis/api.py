@@ -60,11 +60,14 @@ class Synthesizer:
         vocoder_fused: bool = False,
         data_parallel: Optional[int] = None,
         device=None,
+        use_ema: bool = False,
     ) -> "Synthesizer":
-        """Load a reference-layout ``.ckpt`` (and a HiFiGAN ``.npz``/``.ckpt``)
-        onto `device`: the current CUDA card by default, the CPU only when
-        asked for by name. vocoder_fused routes the vocoder's low-channel
-        resblock stages through the MRF kernel."""
+        """Load a reference-layout ``.ckpt`` or a trainer's ``step=N/`` (and a
+        HiFiGAN ``.npz``/``.ckpt``) onto `device`: the current CUDA card by
+        default, the CPU only when asked for by name. vocoder_fused routes
+        the vocoder's low-channel resblock stages through the MRF kernel;
+        use_ema takes a ``step=N/``'s EMA weights (a ``.ckpt`` has none:
+        ValueError)."""
         if data_parallel is not None and data_parallel > 1:
             raise NotImplementedError(
                 "data-parallel serving is not ported yet (later slice: data parallel)"
@@ -76,7 +79,7 @@ class Synthesizer:
                 "the Griffin-Lim vocoder is not ported yet (later slice: synthesize writers)"
             )
         model, config, stats, lang2id, speaker2id, step = load_model_from_checkpoint(
-            Path(ckpt_path), device=device
+            Path(ckpt_path), device=device, use_ema=use_ema
         )
         vocoder = None
         if vocoder_path is not None:

@@ -86,6 +86,18 @@ class AdamWNoam:
         self.count = count_inc
         return norm
 
+    @torch.no_grad()
+    def load_state(self, mu: dict, nu: dict, count: int) -> None:
+        """Set the moments (tensors or arrays by parameter name, exactly this
+        optimizer's names) and the update count."""
+        for moments, given in ((self.mu, mu), (self.nu, nu)):
+            if set(given) != set(self.names):
+                raise KeyError(f"optimizer state names differ from the model's: "
+                               f"{sorted(set(given) ^ set(self.names))[:5]}")
+            for name, m in zip(self.names, moments):
+                m.copy_(torch.as_tensor(given[name]))
+        self.count = int(count)
+
 
 @torch.no_grad()
 def init_like_flax(model: nn.Module, seed: int) -> None:

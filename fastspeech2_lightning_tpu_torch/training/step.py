@@ -1,11 +1,13 @@
-"""One training step (counterpart of the JAX package's ``training/step.py``
-train step): forward with dropout, loss, backward, clip + AdamW + Noam
-(+ freeze), EMA of the parameters, and the gradient norm before clipping
-among the losses."""
+"""One training step and one evaluation step (counterparts of the JAX
+package's ``training/step.py`` train and eval steps). The train step: forward
+with dropout, loss, backward, clip + AdamW + Noam (+ freeze), EMA of the
+parameters, and the gradient norm before clipping among the losses. The eval
+step: the same forward without a generator (no dropout, BatchNorm on its
+running statistics, attention at p 0, the CTC alpha chain alone) and loss."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,3 +55,13 @@ def train_step(model, optimizer: AdamWNoam, config, batch: Dict[str, torch.Tenso
             for e, p in zip(ema, optimizer.params):
                 e.copy_(decay * e + (1.0 - decay) * p)
     return {k: v.detach() for k, v in losses.items()}
+
+
+def eval_step(model, config, batch: Dict[str, torch.Tensor],
+              epoch: int) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(losses as 0-d tensors, model output) of one device batch, without
+    gradients (``make_eval_step``, ``step.py:110-118``)."""
+    with torch.no_grad():
+        output = model.forward_train(batch, None)
+        losses = compute_loss(config, output, batch, epoch)
+    return losses, output

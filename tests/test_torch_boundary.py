@@ -19,7 +19,7 @@ from fastspeech2_lightning_tpu_torch.text import TextProcessor
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_DIR = REPO / "fastspeech2_lightning_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "yaml",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pydantic", "yaml", "packaging",
              "fastspeech2_lightning_tpu")
 
 
@@ -40,13 +40,14 @@ def test_importing_every_module_loads_no_jax():
     bad = [m for m in loaded
            if m.split(".")[0] in FORBIDDEN and m.split(".")[0] != "fastspeech2_lightning_tpu_torch"]
     assert not bad, bad
-    for module in ("serving.server", "training.loop", "training.step", "dataset", "ops.mas",
-                   "ops.ctc", "ops.attention"):
+    for module in ("serving.server", "training.loop", "training.step", "training.checkpoint",
+                   "training.preemption", "dataset", "ops.mas", "ops.ctc", "ops.attention"):
         assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    "path", sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    + [REPO / "tools" / f"{name}_parent_timing.py" for name in ("ctc", "trainer")],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax_or_the_jax_package(path):

@@ -6,9 +6,18 @@ epoch 50 so the binarization loss is on, three steps of the port's
 ``train_step`` and of JAX ``make_train_step`` on the same ragged batch, with
 a zero-weight fill row and EMA on: MAS durations equal, every loss,
 ``grad_norm``, every parameter, running statistic and EMA tensor within
-max-abs 1e-4. Clip, AdamW, Noam and freeze_components against the optax
-chain on random trees. In bf16 two steps give finite losses; with dropout
-on, the same seed gives identical parameters twice."""
+max-abs 1e-4. The JAX state after two steps, carried over by
+``train_state_from_jax`` (parameters, Adam moments and count, EMA, running
+statistics), takes the port's third step to JAX's third. Clip, AdamW, Noam
+and freeze_components against the optax chain on random trees. In bf16 two
+steps give finite losses; with dropout on, the same seed gives identical
+parameters twice.
+
+With PostNet on and dropout 0.2, two port train steps (dropout on) give a
+post-step state whose ``step=2/`` checkpoint the JAX package's
+``load_model_from_checkpoint`` reads: its weights are the port's bit for
+bit, and the port's ``eval_step`` matches JAX ``make_eval_step`` on them
+(deterministic: every loss within 1e-4, MAS durations equal)."""
 
 import copy
 
@@ -18,18 +27,31 @@ import numpy as np
 import pytest
 import torch
 
+import optax
+
 from fastspeech2_lightning_tpu.models import FastSpeech2 as JFastSpeech2
-from fastspeech2_lightning_tpu.training.state import create_train_state, make_optimizer
-from fastspeech2_lightning_tpu.training.step import make_train_step
+from fastspeech2_lightning_tpu.synthesis.synthesize import (
+    load_model_from_checkpoint as j_load_model_from_checkpoint,
+)
+from fastspeech2_lightning_tpu.training.state import (
+    TrainState,
+    create_train_state,
+    make_optimizer,
+)
+from fastspeech2_lightning_tpu.training.step import make_eval_step, make_train_step
 from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
-from fastspeech2_lightning_tpu_torch.convert import state_dict_from_jax
+from fastspeech2_lightning_tpu_torch.convert import state_dict_from_jax, train_state_from_jax
 from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
+from fastspeech2_lightning_tpu_torch.text import TextProcessor
+from fastspeech2_lightning_tpu_torch.training.checkpoint import save_checkpoint, take_snapshot
 from fastspeech2_lightning_tpu_torch.training.state import (
     AdamWNoam,
+    init_like_flax,
     noam_lr,
 )
 from fastspeech2_lightning_tpu_torch.training.step import (
     batch_to_device,
+    eval_step,
     step_generator,
     train_step,
 )
@@ -95,13 +117,17 @@ def jax_run():
     durations = np.asarray(out["duration_target"])
     step = make_train_step(cfg, model)
     losses = []
-    for _ in range(3):
+    for k in range(3):
         state, l = step(state, batch, jax.random.PRNGKey(1), EPOCH)
         losses.append({k: float(v) for k, v in l.items()})
+        if k == 1:  # copies: the next step donates the state's buffers
+            after_two = jax.tree_util.tree_map(np.array, dict(
+                params=state.params, opt_state=state.opt_state, ema_params=state.ema_params,
+                batch_stats=state.batch_stats, constants=state.constants))
     ema = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, state.ema_params),
                               None, None, cfg, stats)
-    return dict(cfg=cfg, start=start, durations=durations, losses=losses,
-                end=_port_state(state, cfg, stats), ema=ema)
+    return dict(cfg=cfg, stats=stats, start=start, durations=durations, losses=losses,
+                end=_port_state(state, cfg, stats), ema=ema, after_two=after_two)
 
 
 def _port_model(jcfg, state_dict):
@@ -128,6 +154,40 @@ def test_three_train_steps_match_jax(jax_run):
     for name, value in model.state_dict().items():
         _assert_close(name, value, jax_run["end"][name])
     for (name, _), e in zip(params, ema):
+        _assert_close(name, e, torch.from_numpy(jax_run["ema"][name]))
+
+
+def _adam_state(opt_state):
+    """The optax ScaleByAdamState inside a chain's nested state tuples."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    for sub in opt_state if isinstance(opt_state, (tuple, list)) else ():
+        found = _adam_state(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def test_a_jax_state_resumed_in_the_port_takes_jax_third_step(jax_run):
+    j = jax_run["after_two"]
+    adam = _adam_state(j["opt_state"])
+    sd, ts = train_state_from_jax(j["params"], adam.mu, adam.nu, adam.count, j["ema_params"],
+                                  j["batch_stats"], j["constants"], jax_run["cfg"],
+                                  jax_run["stats"])
+    assert ts["count"] == 2
+    cfg, model = _port_model(jax_run["cfg"], {k: torch.from_numpy(np.array(v))
+                                              for k, v in sd.items()})
+    opt = AdamWNoam(list(model.named_parameters()), cfg.training)
+    opt.load_state(ts["mu"], ts["nu"], ts["count"])
+    ema = [torch.from_numpy(np.array(ts["ema"][name])) for name in opt.names]
+    got = train_step(model, opt, cfg, batch_to_device(_batch(), "cpu"), 2, EPOCH, ema)
+    want = jax_run["losses"][2]
+    assert set(got) == set(want)
+    for name, value in want.items():
+        assert abs(float(got[name]) - value) <= ATOL, (name, float(got[name]), value)
+    for name, value in model.state_dict().items():
+        _assert_close(name, value, jax_run["end"][name])
+    for name, e in zip(opt.names, ema):
         _assert_close(name, e, torch.from_numpy(jax_run["ema"][name]))
 
 
@@ -216,3 +276,73 @@ def test_same_seed_with_dropout_gives_identical_parameters():
         assert torch.equal(value, results[1][name]), name
     gen_a, gen_b = step_generator(0, 1, "cpu"), step_generator(0, 2, "cpu")
     assert not torch.equal(torch.rand(8, generator=gen_a), torch.rand(8, generator=gen_b))
+
+
+def _postnet_dropout_config():
+    jcfg = tiny_config(dtype="float32")  # PostNet on (its default)
+    for conf in (jcfg.model.encoder, jcfg.model.decoder):
+        conf.dropout = 0.2
+    vp = jcfg.model.variance_predictors
+    for conf in (vp.pitch, vp.energy, vp.duration):
+        conf.dropout = 0.2
+    return jcfg
+
+
+@pytest.fixture(scope="module")
+def carried_back(tmp_path_factory):
+    """Two port train steps with dropout 0.2 and PostNet, saved as step=2/;
+    the JAX package loads its model.ckpt and runs make_eval_step."""
+    jcfg, jstats = _postnet_dropout_config(), tiny_stats()
+    cfg = FastSpeech2Config.from_dict(jcfg.model_checkpoint_dump())
+    assert cfg.model.use_postnet and cfg.model.encoder.dropout == 0.2
+    n_symbols = len(TextProcessor(cfg.text).symbols)
+    model = FastSpeech2(cfg, n_symbols=n_symbols)
+    init_like_flax(model, 0)
+    with torch.no_grad():
+        for kind in ("pitch", "energy"):
+            st = getattr(jstats, kind)
+            getattr(model.variance_adaptor, f"{kind}_bins").copy_(
+                torch.linspace(st.norm_min, st.norm_max, 15))
+    opt = AdamWNoam(list(model.named_parameters()), cfg.training)
+    batch = _batch(4)
+    db = batch_to_device(batch, "cpu")
+    for k in range(2):
+        train_step(model, opt, cfg, db, k, EPOCH)
+    snap = take_snapshot(model, opt, None, step=2, epoch=EPOCH)
+    step_dir = save_checkpoint(tmp_path_factory.mktemp("carried"), snap, cfg.to_dict(),
+                               jstats.model_dump(mode="json"), {}, {},
+                               TextProcessor(cfg.text).symbols)
+    jmodel, variables, jcfg_loaded, _, _, _, step = j_load_model_from_checkpoint(
+        step_dir / "model.ckpt")
+    state = TrainState.create(apply_fn=jmodel.apply, params=variables["params"],
+                              tx=optax.identity(), batch_stats=variables.get("batch_stats"),
+                              constants=variables.get("constants"))
+    jlosses, jout = make_eval_step(jcfg_loaded, jmodel)(state, batch, EPOCH)
+    losses, out = eval_step(model, cfg, db, EPOCH)
+    return dict(model=model, variables=variables, jcfg=jcfg_loaded, stats=jstats, step=step,
+                jlosses={k: float(v) for k, v in jlosses.items()},
+                jdurations=np.asarray(jout["duration_target"]),
+                losses={k: float(v) for k, v in losses.items()},
+                durations=out["duration_target"].numpy())
+
+
+def test_eval_step_matches_jax_make_eval_step(carried_back):
+    c = carried_back
+    np.testing.assert_array_equal(c["durations"], c["jdurations"])
+    assert set(c["losses"]) == set(c["jlosses"]) >= {"postnet", "attn_ctc", "attn_bin"}
+    for name, value in c["jlosses"].items():
+        assert abs(c["losses"][name] - value) <= ATOL, (name, c["losses"][name], value)
+
+
+def test_a_port_checkpoint_loads_in_jax_with_its_weights_and_eval_loss(carried_back):
+    c = carried_back
+    assert c["step"] == 2
+    assert c["jcfg"].model.use_postnet and c["jcfg"].model.encoder.dropout == 0.2
+    v = jax.tree_util.tree_map(np.asarray, c["variables"])
+    back = state_dict_from_jax(v["params"], v.get("batch_stats"), v.get("constants"),
+                               c["jcfg"], c["stats"])
+    for name, value in c["model"].state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue  # the JAX tree has no counter
+        np.testing.assert_array_equal(back[name], value.numpy(), err_msg=name)
+    assert abs(c["losses"]["total"] - c["jlosses"]["total"]) <= ATOL
