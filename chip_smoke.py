@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Run the PyTorch port's serving, training and synthesis paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -58,7 +58,23 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     training rows from the top bucket with its own mask at p = 0.2;
  14. kernel C as phase 10 at each length bucket the trainer cut in phase 11,
     with the bucket's text and mel lengths; its JSON entries take the top
-    bucket.
+    bucket;
+ 15. synthesis through the ``synthesize`` CLI entry, in-process, with the
+    kernels' launch counts set to 0 before and read after each run: phase
+    5's checkpoint and HiFiGAN on a filelist of 16 utterances (8 of 300-600
+    characters that chunk), batches of 8, all five output formats; the
+    same with Griffin-Lim (wav); phase 11's step=12 teacher-forced from its
+    corpus on the 64-utterance validation list, batches of 16 (spec,
+    TextGrid). Checks the file names, one file an utterance, the wav and
+    spec lengths, the target mel lengths, and the launches (attention_fwd 8
+    a batch, mas_width1 1 a teacher-forced batch, nothing else); prints
+    each run's wall, the ms a batch of forward, vocoder and writers, and
+    utterances and audio seconds a second. Then attention_fwd and
+    mas_width1 against their plain versions on inputs the runs gave them;
+ 16. card against CPU through the same CLI: a 2+2-layer f32 model, one
+    free-running and one teacher-forced batch (spec within 1e-4, TextGrid
+    and ReadAlong byte-equal, durations equal), and one Griffin-Lim call
+    (float wav within 1e-4).
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -1637,6 +1653,418 @@ def phase_train_card_vs_cpu(workdir: Path) -> None:
         f"{worst_eval:.3e}")
 
 
+# -- phase 15: the synthesize CLI ---------------------------------------------
+
+N_SYN = 8  # utterances of 20-120 characters, and as many of 300-600 that chunk
+SYN_BATCH = 8
+TF_BATCH = 16
+SPEC = "22050-mel-librosa"
+SYN_FORMATS = ("wav", "spec", "textgrid", "readalong-xml", "readalong-html")
+SYN_COUNTERS = TRAIN_COUNTERS + ("mrf_conv",)
+SYN_RUNS = ("hifigan", "griffin-lim", "teacher")
+
+
+def synthesis_filelist(path: Path, rng) -> None:
+    """A filelist of N_SYN short and N_SYN long utterances (words with some
+    punctuation, so that the long ones chunk at the checkpoint's stats)."""
+    texts = []
+    for lo, hi in ((20, 121), (300, 601)):
+        for n in rng.integers(lo, hi, N_SYN):
+            words = []
+            while len(" ".join(words)) < n:
+                w = str(rng.choice(WORDS))
+                if rng.random() < 0.12:
+                    w += str(rng.choice([",", ".", "?", "!", ";"]))
+                words.append(w)
+            texts.append(" ".join(words)[: n - 1].strip() + ".")
+    # no speaker or language: phase 5's checkpoint names none
+    path.write_text("basename|characters\n" + "".join(
+        f"syn{i:02d}|{t}\n" for i, t in enumerate(texts)))
+
+
+def _timed(fn, sink: list):
+    """fn, with the ms of every call (the card synchronized around it)
+    appended to `sink`."""
+    import torch
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+class _Recorder:
+    """Stands for the CLI's writers: records what a batch hands them (chunk
+    texts and flags, frames, durations, the mel width), then runs them and
+    times them, all together and each apart (by format)."""
+
+    def __init__(self, writers: dict, run: dict):
+        self.writers, self.run = writers, run
+
+    def on_predict_batch_end(self, outputs, batch):
+        self.run["batches"].append(dict(
+            texts=list(batch["raw_text"]), last=list(batch["is_last_input_chunk"]),
+            lens=[int(n) for n in outputs["tgt_lens"]], width=int(outputs["output"].shape[1]),
+            durations=outputs["duration_rounded"]))
+        start = time.perf_counter()
+        for fmt, w in self.writers.items():
+            t0 = time.perf_counter()
+            w.on_predict_batch_end(outputs, batch)
+            self.run["by_writer"].setdefault(fmt.value, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        self.run["writers"].append((time.perf_counter() - start) * 1e3)
+
+    def finalize(self):
+        for w in self.writers.values():
+            if hasattr(w, "finalize"):
+                w.finalize()
+
+
+class SynthesisProbe:
+    """Wraps the port's ``synthesize_items`` while the CLI runs: each run
+    gets a record of its batches (``_Recorder``) and the ms of every
+    forward, vocoder call and writers' turn. Keeps the inputs of the first
+    ``attention_fwd`` call at an odd length and of the first ``mas_width1``
+    call, to hold the kernels against their plain versions at this path's
+    shapes afterwards."""
+
+    def __init__(self):
+        self.runs = []
+        self.captured = {}
+
+    def __enter__(self):
+        from fastspeech2_lightning_tpu_torch.models import conformer, variance_adaptor
+        from fastspeech2_lightning_tpu_torch.synthesis import synthesize
+
+        self._saved = [(synthesize, "synthesize_items", synthesize.synthesize_items),
+                       (conformer, "attention_fwd", conformer.attention_fwd),
+                       (variance_adaptor, "mas_width1", variance_adaptor.mas_width1)]
+        real_items, real_att, real_mas = (s[2] for s in self._saved)
+        captured = self.captured
+
+        def attention(q, k, v, bias, scale, *args, **kwargs):
+            if q.shape[2] % 2 and "attention_fwd" not in captured:
+                captured["attention_fwd"] = (q.clone(), k.clone(), v.clone(), bias.clone(),
+                                             scale)
+            return real_att(q, k, v, bias, scale, *args, **kwargs)
+
+        def mas(log_attn, in_lens, out_lens):
+            if "mas_width1" not in captured:
+                captured["mas_width1"] = (log_attn.clone(), in_lens.clone(), out_lens.clone())
+            return real_mas(log_attn, in_lens, out_lens)
+
+        def items(items, model, config, lang2id, speaker2id, writers, **kwargs):
+            run = dict(forward=[], vocoder=[], vocoded=[], writers=[], by_writer={},
+                       batches=[])
+            self.runs.append(run)
+            model.forward = _timed(model.forward, run["forward"])
+            model.forward_teacher_forced = _timed(model.forward_teacher_forced, run["forward"])
+            for w in writers.values():
+                if hasattr(w, "vocoder"):
+                    timed = _timed(w.vocoder, run["vocoder"])
+
+                    def vocoder(mel, timed=timed):
+                        run["vocoded"].append(list(mel.shape[:2]))
+                        return timed(mel)
+                    w.vocoder = vocoder
+            return real_items(items, model, config, lang2id, speaker2id,
+                              {"recorder": _Recorder(writers, run)}, **kwargs)
+
+        synthesize.synthesize_items = items
+        conformer.attention_fwd = attention
+        variance_adaptor.mas_width1 = mas
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def _utterances(run: dict) -> list:
+    """(full text, [frames of each chunk]) of every utterance a run wrote."""
+    out, text, lens = [], "", []
+    for b in run["batches"]:
+        for t, last, n in zip(b["texts"], b["last"], b["lens"]):
+            text, lens = text + t, lens + [n]
+            if last:
+                out.append((text, lens))
+                text, lens = "", []
+    return out
+
+
+def _expected_files(utterances: list, formats, step: int) -> dict:
+    """{relative path: frames} under the JAX package's file names."""
+    from fastspeech2_lightning_tpu_torch.utils import slugify, truncate_basename
+
+    pattern = {"wav": "wav/{}--default--default--ckpt=%d--v_ckpt=0--pred.wav" % step,
+               "spec": "synthesized_spec/{}--default--default--spec-pred-%s.npy" % SPEC,
+               "textgrid": "textgrids/{}--default--default--%s.TextGrid" % SPEC,
+               "readalong-xml": "readalongs/{}--default--default--%s.readalong" % SPEC,
+               "readalong-html": "readalongs/{}--default--default--%s.html" % SPEC}
+    return {pattern[f].format(truncate_basename(slugify(text))): sum(lens)
+            for text, lens in utterances for f in formats}
+
+
+def _run_cli(name: str, argv: list, probe: SynthesisProbe) -> dict:
+    """One CLI run with every counter set to 0 just before it and read just
+    after; returns the run's record with its wall and launches."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+
+    counters = {**_counters(), "mrf_conv": mrf_conv}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    cli.main(["synthesize", *argv])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    run = probe.runs[-1]
+    run.update(name=name, wall_s=wall, launches={k: fn.launches for k, fn in counters.items()})
+    return run
+
+
+def _check_run(run: dict, out: Path, formats, step: int, batch: int, hop: int,
+               targets: dict = None) -> dict:
+    """The files, their lengths and the launches of one run; returns its
+    summary (the figures phase 15 prints)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    name = run["name"]
+    utts = _utterances(run)
+    chunks = sum(len(lens) for _, lens in utts)
+    n = len(run["batches"])
+    check(n == len(run["forward"]) == -(-chunks // batch),
+          f"{name}: {n} batches, {len(run['forward'])} forwards for {chunks} chunks")
+    want = _expected_files(utts, formats, step)
+    got = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    check(got == sorted(want), f"{name}: files {got[:4]}..., want {sorted(want)[:4]}...")
+    samples = 0
+    for path, frames in want.items():
+        if path.endswith(".npy"):
+            spec = np.load(out / path)
+            check(spec.shape == (80, frames) and bool(np.isfinite(spec).all()),
+                  f"{name}: {path} {spec.shape}, want (80, {frames})")
+        elif path.endswith(".wav"):
+            rate, pcm = wavfile.read(out / path)
+            check(rate == 22050 and pcm.shape == (frames * hop,),
+                  f"{name}: {path} {pcm.shape} at {rate}, want {frames} x {hop} samples")
+            check(frames == 0 or int(pcm.max()) != int(pcm.min()), f"{name}: {path} constant")
+            samples += pcm.size
+    if targets is not None:  # teacher forcing: the target mel lengths exactly
+        for text, lens in utts:
+            check(lens == [targets[text]], f"{name}: '{text[:20]}' {lens} frames, target "
+                                           f"{targets[text]}")
+    want_launches = dict.fromkeys(SYN_COUNTERS, 0)
+    want_launches["attention_fwd"] = 8 * n
+    want_launches["mas_width1"] = n if targets is not None else 0
+    check(run["launches"] == want_launches,
+          f"{name}: launches {run['launches']}, predicted {want_launches} ({n} batches)")
+    wall = run["wall_s"]
+    voc = run["vocoder"]
+    writers = [w - v for w, v in zip(run["writers"], voc)] if voc else run["writers"]
+    frames = sum(sum(lens) for _, lens in utts)
+    summary = dict(
+        wall_s=wall, batches=n, utterances=len(utts), chunks=chunks,
+        widths=[b["width"] for b in run["batches"]],
+        forward_ms=statistics.median(run["forward"]),
+        vocoder_ms=statistics.median(voc) if voc else None,
+        writers_ms=statistics.median(writers), utterances_per_s=len(utts) / wall,
+        audio_s_per_s=(samples if samples else frames * hop) / 22050 / wall,
+        launches={k: v for k, v in run["launches"].items() if v},
+        vocoded=run["vocoded"],
+        # each format's writer apart; the wav writer's without its vocoder
+        by_writer_ms={fmt: statistics.median([t - v for t, v in zip(ts, voc)]
+                                             if fmt == "wav" else ts)
+                      for fmt, ts in run["by_writer"].items()})
+    log(f"synthesize {name}: {len(utts)} utterances ({chunks} chunks) in {n} batches of "
+        f"<= {batch}, mel widths {summary['widths']}; wall {wall:.2f} s; ms a batch (median): "
+        f"forward {summary['forward_ms']:.1f}, "
+        + (f"vocoder {summary['vocoder_ms']:.1f} (on [B, frames] {run['vocoded']}), "
+           if voc else "")
+        + f"writers {summary['writers_ms']:.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in summary["by_writer_ms"].items())
+        + f"); {summary['utterances_per_s']:.2f} utterances/s, "
+        f"{summary['audio_s_per_s']:.2f} " + ("audio" if samples else "mel")
+        + f" s/s; launches {summary['launches']}")
+    return summary
+
+
+def griffin_lim_split(shape: list) -> dict:
+    """Griffin-Lim's ms at a [B, frames] the runs vocoded: the whole call on
+    the card, and apart the host's draws of the initial phases."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import AudioConfig
+    from fastspeech2_lightning_tpu_torch.synthesis.griffin_lim import GriffinLimVocoder
+
+    B, T = shape
+    voc = GriffinLimVocoder(AudioConfig())
+    mel = torch.randn(B, T, 80, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED)) - 4.0
+    whole = time_ms(lambda: voc.device_fn(mel), warmup=1, iters=3)
+    t0 = time.perf_counter()
+    draws = [np.random.default_rng(b).random((T, 513)) for b in range(B)]
+    t1 = time.perf_counter()
+    for d in draws:  # the phasors as the JAX package makes them, on the host
+        np.exp(2j * np.pi * d)
+    t2 = time.perf_counter()
+    draw, host_exp = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    log(f"griffin-lim at [{B}, {T} frames]: {whole:.1f} ms a call, of which the host's "
+        f"draws of the initial phases {draw:.1f} ms; the {voc.n_iter} iterations and the "
+        f"rest {whole - draw:.1f} ms (the phasors by numpy on the host would add "
+        f"{host_exp:.1f} ms)")
+    return dict(shape=shape, ms=whole, host_draws_ms=draw, host_phasors_ms=host_exp)
+
+
+def phase_synthesize(workdir: Path) -> dict:
+    """The port's synthesize CLI at full width on the card, in-process:
+    free-running with phase 5's bf16 checkpoint and HiFiGAN V1 (all five
+    formats, batches of 8), the same with Griffin-Lim (wav), and teacher
+    forced from phase 11's step=12 on its validation list (spec, TextGrid,
+    batches of 16). Then attention_fwd and mas_width1 against their plain
+    versions on inputs the runs gave them."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+
+    # the CLI's own numerics: PyTorch's defaults, which phases 6 and 12 changed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    filelist = workdir / "synthesis_filelist.psv"
+    synthesis_filelist(filelist, np.random.default_rng(SEED + 11))
+    step12 = workdir / "logs" / "smoke" / "train" / "checkpoints" / f"step={RESUME_STEPS}"
+    val_list = workdir / "corpus" / "validation_filelist.psv"
+    targets = {}
+    for line in val_list.read_text().splitlines()[1:]:
+        base, _, _, text = line.split("|")
+        spec = workdir / "corpus" / "spec" / f"{base}--default--default--spec-{SPEC}.npy"
+        targets[text] = np.load(spec, mmap_mode="r").shape[1]
+    out = {k: workdir / f"synthesis_{k}" for k in ("hifigan", "griffin-lim", "teacher")}
+    common = ["-f", str(filelist), "-b", str(SYN_BATCH)]
+    with SynthesisProbe() as probe:
+        runs = [
+            _run_cli("hifigan", [str(workdir / "model.ckpt"), *common, "-v",
+                                 str(workdir / "hifigan_v1.npz"), "-O", *SYN_FORMATS,
+                                 "-o", str(out["hifigan"])], probe),
+            _run_cli("griffin-lim", [str(workdir / "model.ckpt"), *common, "-v",
+                                     "griffin-lim", "-O", "wav", "-o",
+                                     str(out["griffin-lim"])], probe),
+            _run_cli("teacher", [str(step12), "-f", str(val_list), "-T",
+                                 str(workdir / "corpus"), "-b", str(TF_BATCH), "-O", "spec",
+                                 "textgrid", "-o", str(out["teacher"])], probe),
+        ]
+    summary = {
+        "hifigan": _check_run(runs[0], out["hifigan"], SYN_FORMATS, 0, SYN_BATCH, 256),
+        "griffin-lim": _check_run(runs[1], out["griffin-lim"], ("wav",), 0, SYN_BATCH, 256),
+        "teacher": _check_run(runs[2], out["teacher"], ("spec", "textgrid"), RESUME_STEPS,
+                              TF_BATCH, 256, targets=targets),
+    }
+    check(max(len(lens) for _, lens in _utterances(runs[0])) > 1, "no utterance chunked")
+
+    q, k, v, bias, scale = probe.captured["attention_fwd"]
+    got = attention_fwd(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    max_abs, rel = errors(got, attention_reference(q.float(), k.float(), v.float(), bias,
+                                                   scale))
+    check(rel <= 2e-2, f"attention_fwd at the synthesize shape {list(q.shape)}: rel-L2 {rel}")
+    la, in_lens, out_lens = probe.captured["mas_width1"]
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+          f"mas_width1 at the teacher-forced shape {list(la.shape)}: differs from the plain "
+          f"version")
+    log(f"synthesize kernels at the path's shapes: attention_fwd {list(q.shape)} "
+        f"{str(q.dtype).split('.')[-1]} rel-L2 {rel:.3e} (max-abs {max_abs:.3e}); mas_width1 "
+        f"{list(la.shape)} bit-exact")
+    summary["shapes"] = {"attention_fwd": list(q.shape), "mas_width1": list(la.shape)}
+    summary["griffin-lim"]["split"] = griffin_lim_split(
+        max(runs[1]["vocoded"], key=lambda s: s[0] * s[1]))
+    return summary
+
+
+# -- phase 16: synthesis, card against CPU ------------------------------------
+
+
+def phase_synthesize_card_vs_cpu(workdir: Path) -> None:
+    """A 2+2-layer f32 model (full width, seeded weights) through the CLI on
+    the card and on the CPU: a free-running batch and a teacher-forced batch
+    (phase 11's corpus), then one Griffin-Lim call on both devices."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.checkpoint import write_checkpoint
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.synthesis.griffin_lim import GriffinLimVocoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model_config("float32")
+    for part in ("encoder", "decoder"):
+        cfg["model"][part]["layers"] = 2
+    ckpt = write_checkpoint(workdir / "small.ckpt",
+                            random_state_dict(cfg, np.random.default_rng(SEED + 12)), cfg,
+                            STATS, lang2id={"default": 0}, speaker2id={"default": 0})
+    lines = (workdir / "synthesis_filelist.psv").read_text().splitlines()
+    short = workdir / "cvc_filelist.psv"
+    short.write_text("\n".join([lines[0]] + lines[1:4]) + "\n")
+    val = workdir / "cvc_validation.psv"
+    val.write_text("\n".join((workdir / "corpus" / "validation_filelist.psv")
+                             .read_text().splitlines()[:5]) + "\n")
+    runs = {}
+    with SynthesisProbe() as probe:
+        for dev in ("cuda", "cpu"):
+            for kind, argv in (("free", ["-f", str(short), "-O", "spec", "textgrid",
+                                         "readalong-xml"]),
+                               ("teacher", ["-f", str(val), "-T", str(workdir / "corpus"),
+                                            "-O", "spec", "textgrid"])):
+                out = workdir / f"cvc_{kind}_{dev}"
+                cli.main(["synthesize", str(ckpt), *argv, "-b", "4", "-o", str(out),
+                          "--device", dev])
+                runs[kind, dev] = (probe.runs[-1], out)
+    for kind in ("free", "teacher"):
+        (gpu, out_gpu), (cpu, out_cpu) = runs[kind, "cuda"], runs[kind, "cpu"]
+        check(len(gpu["batches"]) == len(cpu["batches"]) == 1, f"{kind}: not one batch")
+        d_gpu, d_cpu = gpu["batches"][0]["durations"], cpu["batches"][0]["durations"]
+        check(np.array_equal(d_gpu, d_cpu), f"{kind}: durations differ between card and CPU")
+        files = sorted(str(p.relative_to(out_cpu)) for p in out_cpu.rglob("*") if p.is_file())
+        check(files == sorted(str(p.relative_to(out_gpu)) for p in out_gpu.rglob("*")
+                              if p.is_file()), f"{kind}: file names differ")
+        worst = 0.0
+        for f in files:
+            if f.endswith(".npy"):
+                a, b = np.load(out_gpu / f), np.load(out_cpu / f)
+                check(a.shape == b.shape, f"{kind}: {f} {a.shape} vs {b.shape}")
+                worst = max(worst, float(np.abs(a - b).max()))
+            else:
+                check((out_gpu / f).read_bytes() == (out_cpu / f).read_bytes(),
+                      f"{kind}: {f} differs between card and CPU")
+        check(worst <= 1e-4, f"{kind}: spec max-abs {worst} > 1e-4")
+        log(f"card vs CPU synthesize {kind} (f32, TF32 off, 2+2 layers, B=4, mel width "
+            f"{gpu['batches'][0]['width']}): durations equal, {len(files)} files, spec "
+            f"max-abs {worst:.3e}, TextGrid/ReadAlong byte-equal")
+
+    audio = FastSpeech2Config.from_dict(cfg).preprocessing.audio
+    specs = sorted((runs["free", "cpu"][1] / "synthesized_spec").glob("*.npy"))[:2]
+    T = min(np.load(p).shape[1] for p in specs)
+    mel = np.stack([np.load(p)[:, :T].T for p in specs]).astype(np.float32)
+    wavs = {dev: GriffinLimVocoder(audio, device=dev)(mel)[0] for dev in ("cuda", "cpu")}
+    err = float(np.abs(wavs["cuda"] - wavs["cpu"]).max())
+    check(err <= 1e-4, f"Griffin-Lim card vs CPU max-abs {err} > 1e-4")
+    log(f"card vs CPU Griffin-Lim ([2, {T} frames], 48 iterations): float wav max-abs "
+        f"{err:.3e}")
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -1667,11 +2095,18 @@ def main() -> None:
         phase_train_card_vs_cpu(Path(workdir))
         train_att = phase_attention_buckets(Path(workdir))
         ctc_rows = phase_ctc_buckets(Path(workdir), train["shapes"])
+        syn = phase_synthesize(Path(workdir))
+        phase_synthesize_card_vs_cpu(Path(workdir))
     tl, vl = train["launches"], train["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
+    sl = {name: sum(syn[run]["launches"].get(name, 0) for run in SYN_RUNS)
+          for name in SYN_COUNTERS}
 
     def by_path(name):
-        return {"training": tl[name], "validation": vl[name]}
+        paths = {"training": tl[name], "validation": vl[name]}
+        if name in ("attention_fwd", "mas_width1"):
+            paths["synthesize"] = sl[name]
+        return paths
 
     def ctc_entry(name, part, library, library_key, **extra):
         lib = ctc["library"][library_key]
@@ -1694,7 +2129,8 @@ def main() -> None:
 
     kernels = [
         entry("attention_fwd", att, "attention_fwd.cu", "models/conformer.py:142",
-              launches["attention_fwd"] + tl["attention_fwd"] + vl["attention_fwd"],
+              launches["attention_fwd"] + tl["attention_fwd"] + vl["attention_fwd"]
+              + sl["attention_fwd"],
               launches_by_path={"serving": launches["attention_fwd"],
                                 **by_path("attention_fwd")},
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
@@ -1708,7 +2144,8 @@ def main() -> None:
               library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
               **device_keys(train_att["bwd"])),
         entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94",
-              tl["mas_width1"] + vl["mas_width1"], launches_by_path=by_path("mas_width1"),
+              tl["mas_width1"] + vl["mas_width1"] + sl["mas_width1"],
+              launches_by_path=by_path("mas_width1"),
               device_ms=mas["device_ms"], training_shape=mas["training_shape"]),
         # the training forward (both chains, one launch) and backward, and the
         # validation forward (the alpha chain alone), at the top bucket; all
@@ -1728,7 +2165,7 @@ def main() -> None:
     log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "
         f"({smi})")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "trainer": train["timing"]}))
+    print(json.dumps({"kernels": kernels, "trainer": train["timing"], "synthesize": syn}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

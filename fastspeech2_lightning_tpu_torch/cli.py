@@ -4,13 +4,18 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch serve MODEL.ckpt -v VOCODER.npz --port 8777
     python -m fastspeech2_lightning_tpu_torch train CONFIG.json --max-steps 1000
     python -m fastspeech2_lightning_tpu_torch serve LOGS/.../checkpoints/step=1000 --use-ema
+    python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -t "hello" -O spec textgrid
+    python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -f LIST.psv -v griffin-lim
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 from typing import Optional, Sequence
+
+from .type_definitions import SynthesizeOutputFormats
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -56,12 +61,131 @@ def _parser() -> argparse.ArgumentParser:
                    "directory (default); --no-resume starts fresh.")
     t.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    y = sub.add_parser(
+        "synthesize",
+        help="Synthesize audio, specs and alignments from texts or a filelist. Writes "
+        "under OUTPUT_DIR: wav/, synthesized_spec/, textgrids/ and readalongs/.",
+    )
+    y.add_argument("model_path", help="A reference-layout .ckpt or a step=N/ directory.")
+    y.add_argument("--texts", "-t", action="append", default=None,
+                   help="Text to synthesize (repeatable).")
+    y.add_argument("--filelist", "-f", default=None)
+    y.add_argument("--output-type", "-O", action="extend", nargs="+",
+                   choices=[f.value for f in SynthesizeOutputFormats], default=None,
+                   help="One or more of the formats (default: wav).")
+    y.add_argument("--language", "-l", default=None)
+    y.add_argument("--speaker", "-s", default=None)
+    y.add_argument("--text-representation", choices=["characters", "phones", "arpabet"],
+                   default="characters",
+                   help="Which filelist column / input representation to synthesize from.")
+    y.add_argument("--duration-control", "-D", type=float, default=1.0)
+    y.add_argument("--pitch-control", type=float, default=1.0)
+    y.add_argument("--energy-control", type=float, default=1.0)
+    y.add_argument("--vocoder-path", "-v", default=None,
+                   help="A HiFiGAN .npz/.ckpt, or griffin-lim (also griffin_lim, gl).")
+    y.add_argument("--vocoder-precision", choices=["float32", "bfloat16"], default="float32")
+    y.add_argument("--style-reference", "-S", default=None)
+    y.add_argument("--output-dir", "-o", default="synthesis_output")
+    y.add_argument("--batch-size", "-b", type=int, default=None)
+    y.add_argument("--data-parallel", type=int, default=None)
+    y.add_argument("--teacher-forcing-directory", "-T", default=None,
+                   help="A preprocessed directory holding the target mels (and attention "
+                   "priors or durations) of the filelist's utterances.")
+    y.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default=False,
+                   help="Synthesize with the EMA weights of a step=N/ directory.")
+    y.add_argument("--device", default=None,
+                   help="'cuda' (default, the current card) or 'cpu'.")
+    y.set_defaults(command_parser=y)
     return p
+
+
+def synthesize(args) -> None:
+    """The ``synthesize`` command: the JAX package's options, defaults and
+    usage errors (each exits 2 with the JAX package's message)."""
+    from .config import CHARACTERS
+
+    parser = args.command_parser
+    output_type = [SynthesizeOutputFormats(o) for o in args.output_type or ["wav"]]
+    for name, path in (("'MODEL_PATH'", args.model_path),
+                       ("'--filelist' / '-f'", args.filelist),
+                       ("'--style-reference' / '-S'", args.style_reference)):
+        if path is not None and not Path(path).exists():
+            parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
+    if not args.texts and args.filelist is None:
+        parser.error("You must define either --text or --filelist")
+    if args.texts and args.filelist is not None:
+        parser.error("Only one of --text and --filelist may be used")
+    needs_vocoder = (SynthesizeOutputFormats.wav in output_type
+                     or SynthesizeOutputFormats.readalong_html in output_type)
+    if needs_vocoder and args.vocoder_path is None:
+        parser.error("Missing --vocoder-path option. A vocoder is required for wav "
+                     "and readalong-html output.")
+    if args.data_parallel is not None and args.data_parallel > 1:
+        raise NotImplementedError(
+            "data-parallel synthesis is not ported yet (later slice: data parallel)")
+
+    from .checkpoint import load_model_from_checkpoint
+    from .synthesis.prepare import prepare_data
+    from .synthesis.synthesize import synthesize_items
+    from .synthesis.writers import get_synthesis_output_writers
+
+    model, config, stats, lang2id, speaker2id, global_step = load_model_from_checkpoint(
+        Path(args.model_path), device=args.device, use_ema=args.use_ema)
+    teacher_forcing = args.teacher_forcing_directory is not None
+    if teacher_forcing:
+        # the target mels and priors come from this preprocessed directory
+        config.preprocessing.save_dir = str(args.teacher_forcing_directory)
+
+    vocoder, vocoder_global_step, output_hop = None, 0, None
+    if args.vocoder_path is not None:
+        from .synthesis.griffin_lim import GriffinLimVocoder, is_griffin_lim_path
+
+        device = next(model.parameters()).device
+        if is_griffin_lim_path(args.vocoder_path):
+            vocoder = GriffinLimVocoder(config.preprocessing.audio, device=device)
+            output_hop = vocoder.hop
+        else:
+            from .models.hifigan import load_vocoder_params, make_vocoder_fn
+
+            vp, vcfg, vocoder_global_step = load_vocoder_params(Path(args.vocoder_path))
+            vocoder = make_vocoder_fn(vp, vcfg, precision=args.vocoder_precision,
+                                      device=device)
+            output_hop = vcfg.total_upsampling
+
+    if (args.text_representation != CHARACTERS
+            and config.model.target_text_representation_level == CHARACTERS):
+        parser.error(
+            f"--text-representation {args.text_representation} requires a model "
+            "trained on phones (target_text_representation_level), but this "
+            "checkpoint was trained on characters.")
+    items = prepare_data(
+        texts=args.texts, language=args.language, speaker=args.speaker,
+        filelist=args.filelist, config=config, stats=stats, lang2id=lang2id,
+        speaker2id=speaker2id, text_representation=args.text_representation,
+        duration_control=args.duration_control, style_reference=args.style_reference,
+        # each utterance pairs with its whole target mel: no chunking
+        split_text=False if teacher_forcing else None,
+    )
+    writers = get_synthesis_output_writers(
+        output_type, Path(args.output_dir), config,
+        "postnet_output" if config.model.use_postnet else "output",
+        global_step, vocoder=vocoder, vocoder_global_step=vocoder_global_step,
+        output_hop_size=output_hop,
+    )
+    synthesize_items(
+        items, model, config, lang2id, speaker2id, writers, batch_size=args.batch_size,
+        teacher_forcing=teacher_forcing,
+        control={"pitch": args.pitch_control, "energy": args.energy_control,
+                 "duration": args.duration_control},
+    )
+    print(f"Wrote outputs to {args.output_dir}", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
-    if args.command == "train":
+    if args.command == "synthesize":
+        synthesize(args)
+    elif args.command == "train":
         from .config import FastSpeech2Config
         from .training.loop import Trainer
 

@@ -45,10 +45,14 @@ class FastSpeechDataset:
     """Loads one utterance's artifacts (``dataset.py:44-190``, character
     level): text ids capped at ``model.max_length``, the mel [T, n_mels],
     the attention prior (or the durations without learned alignment), pitch
-    and energy."""
+    and energy. At `inference` only the text is loaded, and with
+    `teacher_forcing` also the mel and the prior (or durations). Every item
+    carries its raw text, ``duration_control`` and ``is_last_input_chunk``
+    for the synthesis writers."""
 
     def __init__(self, items: List[dict], config: FastSpeech2Config,
-                 lang2id: LookupTable, speaker2id: LookupTable):
+                 lang2id: LookupTable, speaker2id: LookupTable,
+                 teacher_forcing: bool = False, inference: bool = False):
         _require_characters(config)
         self.items = items
         self.config = config
@@ -56,6 +60,8 @@ class FastSpeechDataset:
         self.text_processor = TextProcessor(config.text)
         self.lang2id = lang2id
         self.speaker2id = speaker2id
+        self.teacher_forcing = teacher_forcing
+        self.inference = inference
 
     def __len__(self):
         return len(self.items)
@@ -87,9 +93,14 @@ class FastSpeechDataset:
             "speaker_id": self.speaker2id.get(speaker, 0),
             "language": language,
             "language_id": self.lang2id.get(language, 0),
+            "raw_text": item.get("characters") or item.get("text") or "",
+            "duration_control": float(item.get("duration_control") or 1.0),
+            "is_last_input_chunk": bool(item.get("is_last_input_chunk", True)),
             "text": text,
-            "mel": np.load(self.path(item, "spec", self.spec_name())).T.astype(np.float32),
         }
+        if self.inference and not self.teacher_forcing:
+            return loaded
+        loaded["mel"] = np.load(self.path(item, "spec", self.spec_name())).T.astype(np.float32)
         if self.config.model.learn_alignment:
             loaded["attn_prior"] = np.load(
                 self.path(item, "attn", "characters-attn-prior.npy")).astype(np.float32)
@@ -101,36 +112,61 @@ class FastSpeechDataset:
                     f"mel has {loaded['mel'].shape[0]} frames"
                 )
             loaded["duration"] = duration
+        if self.inference:
+            return loaded
         loaded["energy"] = np.load(self.path(item, "energy", "energy.npy")).astype(np.float32)
         loaded["pitch"] = np.load(self.path(item, "pitch", "pitch.npy")).astype(np.float32)
         return loaded
 
 
-def collate(samples: List[dict], pad_text_to: int, pad_mel_to: int,
+def collate(samples: List[dict], pad_text_to: int, pad_mel_to: Optional[int],
             learn_alignment: bool = True,
             variance_levels: Optional[Dict[str, str]] = None) -> dict:
     """Pad per-utterance dicts into one fixed-shape numpy batch
-    (``dataset.py:202-317``, training fields): lengths clipped to the padded
-    axes, pitch and energy at frame level with learned alignment, else at
-    the level the config names."""
+    (``dataset.py:202-317``): lengths clipped to the padded axes, pitch and
+    energy at frame level with learned alignment, else at the level the
+    config names. `pad_mel_to` None pads the mels to the longest; without
+    mels (inference) it is only recorded as ``max_mel_len`` and
+    ``mel_lens`` is None. The host keys (speaker and language names, raw
+    text, chunk flags) and ``duration_control`` ride along for the
+    synthesis writers."""
     B = len(samples)
-    L, T = pad_text_to, pad_mel_to
+    L = pad_text_to
     src_lens = np.minimum(np.array([s["text"].shape[0] for s in samples], np.int32), L)
-    mel_lens = np.minimum(np.array([s["mel"].shape[0] for s in samples], np.int32), T)
+    has_mel = samples[0].get("mel") is not None
+    mel_lens = None
+    T = pad_mel_to
+    if has_mel:
+        mel_lens = np.array([s["mel"].shape[0] for s in samples], np.int32)
+        T = T or int(mel_lens.max())
+        mel_lens = np.minimum(mel_lens, T)
     batch: Dict[str, object] = {
         "src_lens": src_lens,
         "mel_lens": mel_lens,
+        "max_src_len": L,
+        "max_mel_len": T,
         "basename": [s["basename"] for s in samples],
+        "speaker": [s.get("speaker") for s in samples],
+        "language": [s.get("language") for s in samples],
+        "raw_text": [s.get("raw_text", "") for s in samples],
         "speaker_id": np.array([s["speaker_id"] for s in samples], np.int32),
         "language_id": np.array([s["language_id"] for s in samples], np.int32),
+        "duration_control": np.array([s.get("duration_control", 1.0) for s in samples],
+                                     np.float32),
+        "is_last_input_chunk": [s.get("is_last_input_chunk", True) for s in samples],
     }
     text = np.zeros((B, L), np.int32)
-    mel = np.zeros((B, T, samples[0]["mel"].shape[1]), np.float32)
     for i, s in enumerate(samples):
         text[i, : src_lens[i]] = s["text"][:L]
-        mel[i, : mel_lens[i]] = s["mel"][:T]
-    batch["text"], batch["mel"] = text, mel
+    batch["text"] = text
+    if has_mel:
+        mel = np.zeros((B, T, samples[0]["mel"].shape[1]), np.float32)
+        for i, s in enumerate(samples):
+            mel[i, : mel_lens[i]] = s["mel"][:T]
+        batch["mel"] = mel
     for key in ("pitch", "energy"):
+        if key not in samples[0]:
+            continue
         frame = learn_alignment or (variance_levels or {}).get(key) == "frame"
         W = T if frame else L
         arr = np.zeros((B, W), np.float32)

@@ -1,7 +1,9 @@
 """FastSpeech2 text-to-mel model (counterpart of the JAX package's
 ``models/fastspeech2.py:125-239``): ``forward`` with ``inference=True,
-deterministic=True``, and ``forward_train``, the training forward
-(``inference=False, deterministic=False``) over a batch of tensors.
+deterministic=True``; ``forward_teacher_forced``, the same with
+``teacher_forcing=True`` over a batch holding target mels; and
+``forward_train``, the training forward (``inference=False,
+deterministic=False``) over a batch of tensors.
 
 Text embedding + FastPitch positions -> Conformer encoder -> speaker /
 language embeddings -> variance adaptor -> Conformer decoder -> mel linear
@@ -79,6 +81,24 @@ class FastSpeech2(nn.Module):
             control = {"pitch": 1.0, "energy": 1.0, "duration": 1.0}
         _, x, src_mask = self._encode(text, src_lens, speaker_id, language_id)
         va = self.variance_adaptor(x, src_mask, control, max_target_len)
+        return self._inference_outputs(va, x, src_mask, va["mel_lens"])
+
+    @torch.inference_mode()
+    def forward_teacher_forced(self, batch: Dict[str, torch.Tensor],
+                               control: Optional[Dict[str, float]] = None
+                               ) -> Dict[str, torch.Tensor]:
+        """The inference forward with the durations taken from the batch's
+        target mels (text, src_lens, mel, mel_lens, attn_prior or duration,
+        speaker_id, language_id): the mel comes out at the batch's mel width,
+        ``tgt_lens`` is ``mel_lens`` and ``duration_rounded`` the durations."""
+        if control is None:
+            control = {"pitch": 1.0, "energy": 1.0, "duration": 1.0}
+        inputs, x, src_mask = self._encode(batch["text"], batch["src_lens"],
+                                           batch.get("speaker_id"), batch.get("language_id"))
+        va = self.variance_adaptor.forward_teacher_forced(inputs, x, batch, src_mask, control)
+        return self._inference_outputs(va, x, src_mask, batch["mel_lens"])
+
+    def _inference_outputs(self, va, x, src_mask, tgt_lens) -> Dict[str, torch.Tensor]:
         tgt_mask = va["target_mask"]
         output, postnet_output = self._decode(va["output"], tgt_mask, x.dtype)
         return {
@@ -86,7 +106,7 @@ class FastSpeech2(nn.Module):
             "postnet_output": postnet_output,
             "src_mask": src_mask,
             "tgt_mask": tgt_mask,
-            "tgt_lens": va["mel_lens"],
+            "tgt_lens": tgt_lens,
             "duration_prediction": va["duration_prediction"],
             "duration_rounded": va["duration_rounded"],
             "pitch_prediction": va["pitch_prediction"],

@@ -3,9 +3,13 @@
 embeddings, the duration predictor and the length regulator.
 
 ``forward`` is the inference branch (``:178-228``): embeddings of the
-predictions, rounded predicted durations. ``forward_train`` is the training
-branch (``:151-213``): the alignment attention and MAS give the durations,
-the frame targets are averaged over them, and the embeddings and the length
+predictions, rounded predicted durations. ``forward_teacher_forced`` is the
+teacher-forced inference branch (``:151-232`` with ``teacher_forcing`` and
+``inference``): the durations come from the alignment attention on the
+target mel and MAS (or from the batch without learned alignment), the rest
+is the inference branch. ``forward_train`` is the training branch
+(``:151-213``): the alignment attention and MAS give the durations, the
+frame targets are averaged over them, and the embeddings and the length
 regulator take the targets."""
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ class VarianceAdaptor(nn.Module):
         src_mask: torch.Tensor,  # [B, L] bool
         control: Dict[str, float],
         max_target_len: int,
+        durations: Optional[torch.Tensor] = None,  # [B, L] int; None: predicted
     ) -> Dict[str, torch.Tensor]:
         vp = self.config.model.variance_predictors
         energy_prediction = pitch_prediction = None
@@ -75,12 +80,13 @@ class VarianceAdaptor(nn.Module):
             x = x + emb
 
         log_duration_prediction = self.duration_predictor(x, src_mask)
-        duration_rounded = torch.clamp(
-            torch.round(torch.exp(log_duration_prediction) - 1.0) * control["duration"],
-            min=0,
-        ).to(torch.int32)
-        duration_rounded = duration_rounded * src_mask.to(torch.int32)
-        x, tgt_mask, mel_lens = length_regulate(x, duration_rounded, max_target_len)
+        if durations is None:
+            durations = torch.clamp(
+                torch.round(torch.exp(log_duration_prediction) - 1.0) * control["duration"],
+                min=0,
+            ).to(torch.int32)
+            durations = durations * src_mask.to(torch.int32)
+        x, tgt_mask, mel_lens = length_regulate(x, durations, max_target_len)
 
         if vp.energy.level == "frame":
             energy_prediction, emb = self._variance(
@@ -98,12 +104,35 @@ class VarianceAdaptor(nn.Module):
         return {
             "output": x,
             "duration_prediction": log_duration_prediction,
-            "duration_rounded": duration_rounded,
+            "duration_rounded": durations,
             "pitch_prediction": pitch_prediction,
             "energy_prediction": energy_prediction,
             "target_mask": tgt_mask,
             "mel_lens": mel_lens,
         }
+
+    def forward_teacher_forced(
+        self,
+        text_emb: torch.Tensor,  # [B, L, D] raw text embeddings (aligner keys)
+        x: torch.Tensor,  # [B, L, D] encoder output (+ speaker/language)
+        batch: Dict[str, torch.Tensor],
+        src_mask: torch.Tensor,  # [B, L] bool
+        control: Dict[str, float],
+    ) -> Dict[str, torch.Tensor]:
+        """The inference branch at the durations of the batch's target mel
+        (MAS over the alignment attention, or ``batch["duration"]``), length
+        regulated to the batch's mel width."""
+        durations = batch.get("duration")
+        if self.config.model.learn_alignment:
+            attn_soft, _ = self.attention(
+                batch["mel"], text_emb, key_mask=src_mask,
+                attn_prior=batch.get("attn_prior"),
+            )
+            _, durations = mas_width1(
+                torch.log(torch.clamp(attn_soft, min=1e-20)),
+                batch["src_lens"], batch["mel_lens"],
+            )
+        return self(x, src_mask, control, batch["mel"].shape[1], durations=durations)
 
     def forward_train(
         self,

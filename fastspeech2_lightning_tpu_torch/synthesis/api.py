@@ -25,6 +25,7 @@ import torch
 from ..checkpoint import load_model_from_checkpoint
 from ..dataset import PAD_MULT_TEXT, _round_up
 from ..text import TextProcessor
+from .griffin_lim import GriffinLimVocoder, is_griffin_lim_path
 from .prepare import chunk_text_for_model, encode_texts_for_model
 
 
@@ -63,8 +64,9 @@ class Synthesizer:
         use_ema: bool = False,
     ) -> "Synthesizer":
         """Load a reference-layout ``.ckpt`` or a trainer's ``step=N/`` (and a
-        HiFiGAN ``.npz``/``.ckpt``) onto `device`: the current CUDA card by
-        default, the CPU only when asked for by name. vocoder_fused routes
+        HiFiGAN ``.npz``/``.ckpt``, or Griffin-Lim for ``"griffin-lim"``)
+        onto `device`: the current CUDA card by default, the CPU only when
+        asked for by name. vocoder_fused routes
         the vocoder's low-channel resblock stages through the MRF kernel;
         use_ema takes a ``step=N/``'s EMA weights (a ``.ckpt`` has none:
         ValueError)."""
@@ -72,17 +74,14 @@ class Synthesizer:
             raise NotImplementedError(
                 "data-parallel serving is not ported yet (later slice: data parallel)"
             )
-        if vocoder_path is not None and str(vocoder_path).lower() in (
-            "griffin-lim", "griffin_lim", "griffinlim"
-        ):
-            raise NotImplementedError(
-                "the Griffin-Lim vocoder is not ported yet (later slice: synthesize writers)"
-            )
         model, config, stats, lang2id, speaker2id, step = load_model_from_checkpoint(
             Path(ckpt_path), device=device, use_ema=use_ema
         )
         vocoder = None
-        if vocoder_path is not None:
+        if vocoder_path is not None and is_griffin_lim_path(vocoder_path):
+            vocoder = GriffinLimVocoder(config.preprocessing.audio,
+                                        device=next(model.parameters()).device)
+        elif vocoder_path is not None:
             from ..models.hifigan import load_vocoder_params, make_vocoder_fn
 
             vp, vcfg, _ = load_vocoder_params(Path(vocoder_path))

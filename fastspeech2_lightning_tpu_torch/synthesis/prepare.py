@@ -1,18 +1,51 @@
-"""Synthesis data preparation: text chunking and encoding.
+"""Synthesis data preparation: text chunking, language and speaker
+validation, and encoding.
 
-A copy of what the serving path needs of the JAX package's
-``synthesis/prepare.py`` (``get_text_split_params``,
-``representation_for_model``, ``chunk_text_for_model`` and the character
-branch of ``encode_texts_for_model``)."""
+A copy of the JAX package's ``synthesis/prepare.py`` as far as the port
+needs it: ``validate_data_keys_with_model_keys``, ``get_text_split_params``,
+``representation_for_model``, ``chunk_text_for_model``, ``prepare_data``
+(without style references, which need the global-style-token module) and
+the character branch of ``encode_texts_for_model``."""
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
 from ..config import CHARACTERS, PHONES
+from ..text.lookups import load_filelist
 from ..text.textsplit import chunk_text
+from ..utils import slugify, truncate_basename
+
+
+def validate_data_keys_with_model_keys(
+    data_keys: set, model_keys: set, key: str, multi: bool
+) -> None:
+    """Raise ValueError when the items name a language or speaker the model
+    lacks (or name any on a model that has one)."""
+    if multi:
+        if None in data_keys:
+            raise ValueError(
+                f"You have not specified a {key} for all your sentences."
+                f" Available values are {model_keys}"
+            )
+        extras = data_keys.difference(model_keys)
+        if extras:
+            raise ValueError(
+                f"You provided {data_keys} which are not {key}s supported by "
+                f"the model {model_keys or {}}."
+            )
+    else:
+        extras = data_keys.difference(model_keys | {None})
+        if extras:
+            raise ValueError(
+                f"The current model doesn't support multiple {key}s but your "
+                f"data has {key}s {extras}. Please retrain your model with "
+                f"multi{'lingual' if key == 'language' else key} set to True."
+            )
 
 
 def get_text_split_params(
@@ -75,3 +108,85 @@ def encode_texts_for_model(texts: List[str], config, text_processor) -> List[np.
             "serve them with the JAX package"
         )
     return [np.asarray(text_processor.encode_text(t), dtype=np.int32) for t in texts]
+
+
+def prepare_data(
+    texts: Optional[List[str]],
+    language: Optional[str],
+    speaker: Optional[str],
+    filelist: Optional[Path],
+    config,
+    stats,
+    lang2id: dict,
+    speaker2id: dict,
+    text_representation: str = CHARACTERS,
+    duration_control: float = 1.0,
+    style_reference: Optional[Path] = None,
+    split_text: Optional[bool] = None,
+) -> List[dict]:
+    """Synthesis items from `texts` or a filelist: each text chunked at the
+    corpus-informed boundaries (unless `split_text` or the config turns that
+    off), one item a chunk with ``is_last_input_chunk`` on its last, the
+    language and speaker defaulting to the model's first, validated against
+    the model, and `duration_control` on every item."""
+    if style_reference is not None:
+        raise NotImplementedError(
+            "style references need the global-style-token module, which is not "
+            "ported yet (later slice: GST)"
+        )
+    default_language = next(iter(lang2id.keys()), None)
+    default_speaker = next(iter(speaker2id.keys()), None)
+    if split_text is None:
+        split_text = config.text.split_text
+    desired, maxi, strong, weak = get_text_split_params(
+        stats, text_representation, config, language or default_language
+    )
+
+    def make_items(text: str, lang, spk, basename: Optional[str] = None):
+        chunks = (
+            chunk_text(text, desired, maxi, strong, weak) if split_text else [text]
+        )
+        out = []
+        for i, chunk in enumerate(chunks):
+            out.append(
+                {
+                    "basename": basename or truncate_basename(slugify(chunk)),
+                    text_representation: chunk,
+                    "text": chunk,
+                    "language": lang or default_language,
+                    "speaker": spk or default_speaker,
+                    "is_last_input_chunk": i == len(chunks) - 1,
+                }
+            )
+        print(f"Processing text: {chunks}", file=sys.stderr)
+        return out
+
+    data: List[dict] = []
+    if texts:
+        for text in texts:
+            data.extend(make_items(text, language, speaker))
+    else:
+        if filelist is None:
+            raise ValueError("Filelist must be provided when texts is empty or None")
+        for d in load_filelist(filelist):
+            line = d.get(text_representation) or d.get("text") or ""
+            data.extend(
+                make_items(
+                    line,
+                    language or d.get("language", default_language),
+                    speaker or d.get("speaker", default_speaker),
+                    basename=d.get("basename"),
+                )
+            )
+
+    validate_data_keys_with_model_keys(
+        {d["language"] for d in data}, set(lang2id.keys()), "language",
+        config.model.multilingual,
+    )
+    validate_data_keys_with_model_keys(
+        {d["speaker"] for d in data}, set(speaker2id.keys()), "speaker",
+        config.model.multispeaker,
+    )
+    for item in data:
+        item["duration_control"] = duration_control
+    return data

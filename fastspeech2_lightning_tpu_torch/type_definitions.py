@@ -1,10 +1,23 @@
-"""Corpus statistics carried in a checkpoint (copy of the JAX package's
-``type_definitions.Stats``/``StatsInfo`` as plain dataclasses)."""
+"""Shared types: the synthesis output formats and the corpus statistics
+carried in a checkpoint (copies of the JAX package's
+``type_definitions.SynthesizeOutputFormats``, ``Stats`` and ``StatsInfo``,
+the latter two as plain dataclasses)."""
 
 from __future__ import annotations
 
 import dataclasses
+from enum import Enum
 from typing import Optional
+
+
+class SynthesizeOutputFormats(str, Enum):
+    """Output formats of the ``synthesize`` command."""
+
+    wav = "wav"
+    spec = "spec"
+    textgrid = "textgrid"
+    readalong_xml = "readalong-xml"
+    readalong_html = "readalong-html"
 
 
 @dataclasses.dataclass

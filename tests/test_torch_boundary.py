@@ -41,7 +41,9 @@ def test_importing_every_module_loads_no_jax():
            if m.split(".")[0] in FORBIDDEN and m.split(".")[0] != "fastspeech2_lightning_tpu_torch"]
     assert not bad, bad
     for module in ("serving.server", "training.loop", "training.step", "training.checkpoint",
-                   "training.preemption", "dataset", "ops.mas", "ops.ctc", "ops.attention"):
+                   "training.preemption", "dataset", "ops.mas", "ops.ctc", "ops.attention",
+                   "synthesis.synthesize", "synthesis.writers", "synthesis.griffin_lim",
+                   "preprocessing.features", "preprocessing.pipeline", "utils"):
         assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 
