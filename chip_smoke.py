@@ -74,7 +74,25 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  16. card against CPU through the same CLI: a 2+2-layer f32 model, one
     free-running and one teacher-forced batch (spec within 1e-4, TextGrid
     and ReadAlong byte-equal, durations equal), and one Griffin-Lim call
-    (float wav within 1e-4).
+    (float wav within 1e-4);
+ 17. conditioned training: the default config with speakers, languages and
+    global style tokens, bf16, batch 16, 8 steps through the ``train`` CLI on
+    phase 11's corpus spoken by 2 speakers in 2 languages (the same batch
+    shapes in the same order), one validation: launches a step as phase 11,
+    the style encoder's BatchNorm statistics moved, step ms beside phase
+    11's, peak memory; then phase 12's card-against-CPU steps on this config;
+ 18. serving its step=8/ with a seeded style-reference wav: a speaker x
+    language grid of concurrent requests (8 attention_fwd a forward), the
+    Synthesizer without a reference (style token 0) and with a second one
+    (a different style embedding); card against CPU in f32;
+ 19. low-latency streaming over HTTP (phase 5's checkpoint, fused f32 HiFiGAN
+    V1, windows of 128 frames): time to the first audio and to the whole
+    body beside the batched wav's, in turns; mrf_conv launches a window (54);
+    the stream against device_fn of each whole mel (TF32 off); the MRF stage
+    at the three B = 1 window shapes against its plain version;
+ 20. a phone-level and a phonological-feature model at full width through the
+    Synthesizer on English text (g2p): attention_fwd launches, card against
+    CPU in f32.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -87,6 +105,7 @@ limit, and last the result line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import io
 import json
@@ -212,6 +231,70 @@ def errors(got, want) -> tuple:
     max_abs = float(d.abs().max())
     rel = float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(want.float()))
     return max_abs, rel
+
+
+class SharedBins:
+    """Holds the card's pitch and energy bucket choices against the CPU's
+    in a card-against-CPU comparison, so that the mel is compared on the same
+    discrete decisions. Inside ``with SharedBins() as bins:`` run the CPU
+    first under ``with bins.on("cpu"):``: the variance adaptor's bucketize
+    calls are recorded. Then run the card under ``bins.on("cuda")``, making the
+    same calls in the same order: each one computes its own buckets and
+    holds them against the CPU's. A bucket may differ only where the two
+    predictions lie within EDGE of each other, i.e. on either side of a bin
+    edge (the card and the CPU sum in different orders); anything else
+    fails. The CPU's buckets are then used, so that the mel compares the
+    continuous path alone. ``flips`` counts the buckets that differed."""
+
+    EDGE = 1e-4
+
+    def __init__(self):
+        self.recorded, self.flips, self.calls, self.mode, self.pos = [], 0, 0, None, 0
+
+    def __enter__(self):
+        from fastspeech2_lightning_tpu_torch.models import variance_adaptor
+
+        self._module, self._own = variance_adaptor, variance_adaptor.bucketize
+        variance_adaptor.bucketize = self._bucketize
+        return self
+
+    def __exit__(self, *exc):
+        self._module.bucketize = self._own
+
+    @contextlib.contextmanager
+    def on(self, dev: str):
+        self.mode, self.pos = dev, 0
+        try:
+            yield self
+        finally:
+            self.mode = None
+
+    def held(self) -> int:
+        """Checks that the card made every call the CPU made; the flips."""
+        check(self.calls > 0 and self.pos == len(self.recorded),
+              f"the card made {self.pos} of the CPU's {len(self.recorded)} bucketize calls")
+        return self.flips
+
+    def _bucketize(self, values, boundaries):
+        idx = self._own(values, boundaries)
+        if self.mode is None:
+            return idx
+        if self.mode == "cpu":
+            self.recorded.append((values.detach().clone(), idx.clone()))
+            return idx
+        check(self.pos < len(self.recorded), "the card made more bucketize calls than the CPU")
+        v_cpu, i_cpu = self.recorded[self.pos]
+        self.pos += 1
+        self.calls += 1
+        check(idx.shape == i_cpu.shape, f"bucketize shapes {tuple(idx.shape)} (card) and "
+                                        f"{tuple(i_cpu.shape)} (CPU) differ")
+        differ = idx.cpu() != i_cpu
+        if bool(differ.any()):
+            gap = float((values.detach().cpu() - v_cpu)[differ].abs().max())
+            check(gap <= self.EDGE, f"{int(differ.sum())} pitch or energy bucket(s) differ "
+                                    f"between card and CPU with predictions {gap} apart")
+            self.flips += int(differ.sum())
+        return i_cpu.to(idx.device)
 
 
 # -- phase 1-2 ---------------------------------------------------------------
@@ -341,8 +424,9 @@ MRF_LIMIT = {"float32": 5e-5, "bfloat16": 2e-2}
 MRF_LAUNCHES = 2 * len(KS) * len(DILS[0])  # per stage: one per conv
 
 
-def phase_mrf() -> list:
-    """Rows for C = 128, 64, 32 x bf16, f32, in that order."""
+def phase_mrf(batch: int = BATCH, frames: int = 256, dtypes=("bfloat16", "float32")) -> list:
+    """Rows for C = 128, 64, 32 x `dtypes`, in that order: the V1 vocoder's
+    fused stages for `batch` mels of `frames` frames."""
     import torch
 
     from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
@@ -352,11 +436,10 @@ def phase_mrf() -> list:
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    frames = 256
     for C, T in ((128, frames * 64), (64, frames * 128), (32, frames * 256)):
         blocks = _stage_blocks(C, g)
-        x32 = torch.randn(BATCH, T, C, device="cuda", generator=g)
-        for dtype in (torch.bfloat16, torch.float32):
+        x32 = torch.randn(batch, T, C, device="cuda", generator=g)
+        for dtype in (getattr(torch, d) for d in dtypes):
             dt = str(dtype).split(".")[-1]
             x = x32.to(dtype)
             flat = prepare_stage_weights(blocks, KS, DILS, dtype)
@@ -383,16 +466,16 @@ def phase_mrf() -> list:
             # every product runs on the bf16 tensor cores: one per
             # multiply-add for bf16 inputs, three (the bf16 pairs) for f32
             products = 3 if dtype == torch.float32 else 1
-            flops = products * 2.0 * BATCH * T * C * C * 2 * sum(KS) * len(DILS[0])
-            nbytes = (2 * BATCH * T * C * x.element_size()
+            flops = products * 2.0 * batch * T * C * C * 2 * sum(KS) * len(DILS[0])
+            nbytes = (2 * batch * T * C * x.element_size()
                       + sum(t.numel() * t.element_size() for t in flat))
             bound, bound_by = bound_ms(flops, nbytes, "bfloat16")
-            row = dict(shape=[BATCH, T, C], dtype=dt, launches_per_stage=MRF_LAUNCHES,
+            row = dict(shape=[batch, T, C], dtype=dt, launches_per_stage=MRF_LAUNCHES,
                        max_abs_err=max_abs, rel_l2=rel, ms=kernel, device_ms=kernel_dev,
                        plain_ms=plain, library_ms=None,
                        bound_ms=bound, bound_by=bound_by,
                        bound_counts=f"{products} bf16 tensor-core product(s) per multiply-add")
-            log(f"mrf stage [B={BATCH}, T={T}, C={C}] {dt}: max_abs={max_abs:.3e} "
+            log(f"mrf stage [B={batch}, T={T}, C={C}] {dt}: max_abs={max_abs:.3e} "
                 f"rel_l2={rel:.3e} kernel_ms={kernel:.3f} (device {kernel_dev:.3f}) "
                 f"plain_ms={plain:.3f} bound_ms={bound:.3f} "
                 f"({bound_by}, {row['bound_counts']})")
@@ -691,7 +774,7 @@ def phase_card_vs_cpu(sd: dict) -> None:
     config = FastSpeech2Config.from_dict(model_config("float32"))
     tp = TextProcessor(config.text)
     texts = request_texts(np.random.default_rng(SEED + 3))[:2]
-    encoded = encode_texts_for_model(texts, config, tp)
+    encoded, _ = encode_texts_for_model(texts, None, config, tp, {})
     L = _round_up(max(len(e) for e in encoded), PAD_MULT_TEXT)
     text = np.zeros((len(encoded), L), np.int64)
     for i, e in enumerate(encoded):
@@ -699,12 +782,15 @@ def phase_card_vs_cpu(sd: dict) -> None:
     lens = np.array([len(e) for e in encoded])
     T = min(config.model.max_mel_length, _round_up(12 * L, 128))
     outs = {}
-    for dev in ("cuda", "cpu"):
-        model = FastSpeech2(config, n_symbols=len(tp.symbols))
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
-        model = model.to(dev).eval()
-        out = model(torch.as_tensor(text, device=dev), torch.as_tensor(lens, device=dev), T)
-        outs[dev] = {k: v.cpu() for k, v in out.items() if v is not None}
+    with SharedBins() as bins:
+        for dev in ("cpu", "cuda"):
+            model = FastSpeech2(config, n_symbols=len(tp.symbols))
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
+            model = model.to(dev).eval()
+            with torch.no_grad(), bins.on(dev):
+                out = model(torch.as_tensor(text, device=dev), torch.as_tensor(lens, device=dev),
+                            T)
+            outs[dev] = {k: v.cpu() for k, v in out.items() if v is not None}
     gpu, cpu = outs["cuda"], outs["cpu"]
     check(torch.equal(gpu["duration_rounded"], cpu["duration_rounded"]),
           "duration_rounded differs between card and CPU")
@@ -712,7 +798,8 @@ def phase_card_vs_cpu(sd: dict) -> None:
     mel_err = float((gpu["postnet_output"] - cpu["postnet_output"]).abs().max())
     check(mel_err <= 1e-3, f"card vs CPU mel max-abs {mel_err} > 1e-3")
     log(f"card vs CPU (f32, TF32 off): durations equal, frames {cpu['tgt_lens'].tolist()}, "
-        f"mel max-abs {mel_err:.3e}")
+        f"mel max-abs {mel_err:.3e}; pitch and energy buckets differing at an edge "
+        f"{bins.held()}")
 
 
 # -- phases 7-8: training attention (kernels A and A') ----------------------
@@ -1195,13 +1282,15 @@ N_UTTS = 64  # training list
 N_VAL = 64  # validation list: batches of 16 across the buckets
 
 
-def write_corpus(root: Path, cfg: dict, rng) -> None:
+def write_corpus(root: Path, cfg: dict, rng, speakers=("default",),
+                 languages=("default",)) -> None:
     """A seeded preprocessed corpus in the layout the dataset reads: per
     utterance a mel spec [n_mels, T], frame-level pitch and energy, a
     diagonal attention prior [T, L]; stats.json and the filelists (N_UTTS
     training utterances, N_VAL others for validation). Texts of 20-200
     characters, mels of 100-2000 frames (one of exactly 2000, so a bucket
-    pads above 1536 frames)."""
+    pads above 1536 frames). Utterance i is spoken by speaker i mod S in
+    language (i div S) mod N; the texts and lengths depend on `rng` alone."""
     import numpy as np
 
     from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
@@ -1223,7 +1312,8 @@ def write_corpus(root: Path, cfg: dict, rng) -> None:
         text = " ".join(words)[:n_chars].strip()
         L = len(tp.encode_text(text))
         T = 2000 if i == 0 else int(np.clip(L * rng.uniform(6, 10), 100, 2000))
-        name = f"utt{i:03d}--default--default--"
+        spk, lang = speakers[i % len(speakers)], languages[i // len(speakers) % len(languages)]
+        name = f"utt{i:03d}--{spk}--{lang}--"
         mel = (rng.standard_normal((n_mels, T)) - 4.0).astype(np.float32)
         np.save(root / "spec" / (name + spec_name), mel)
         voiced = rng.random(T) > 0.2
@@ -1235,7 +1325,7 @@ def write_corpus(root: Path, cfg: dict, rng) -> None:
         prior = np.exp(-((np.arange(L)[None, :] - centre) ** 2) / (2 * (L / 8 + 1) ** 2))
         np.save(root / "attn" / (name + "characters-attn-prior.npy"),
                 (prior / prior.sum(1, keepdims=True)).astype(np.float32))
-        rows.append(f"utt{i:03d}|default|default|{text}")
+        rows.append(f"utt{i:03d}|{spk}|{lang}|{text}")
     header = "basename|speaker|language|characters"
     (root / "training_filelist.psv").write_text("\n".join([header] + rows[:N_UTTS]) + "\n")
     (root / "validation_filelist.psv").write_text("\n".join([header] + rows[N_UTTS:]) + "\n")
@@ -1416,7 +1506,8 @@ def phase_train(workdir: Path) -> dict:
     timing = _trainer_timings(cfg, workdir)
     return dict(launches=tl, validation_launches=vl,
                 ms_per_step=statistics.median(r["ms"] for r in rows[2:]), peak_gib=peak_gib,
-                shapes=[r["shape"] for r in rows], timing=timing)
+                shapes=[r["shape"] for r in rows], step_ms=[r["ms"] for r in rows],
+                timing=timing)
 
 
 def _preempt(config_path: Path, log_dir: Path) -> int:
@@ -1572,10 +1663,11 @@ def _trainer_timings(cfg: dict, workdir: Path) -> dict:
 # -- phase 12: card against CPU, one train step and one eval step ------------
 
 
-def phase_train_card_vs_cpu(workdir: Path) -> None:
+def phase_train_card_vs_cpu(workdir: Path, conditioned: bool = False) -> None:
     """One f32 train step (2+2 layers, full width, every dropout 0, no
     PostNet) from the same weights and batch on the card and on the CPU, then
-    one eval step of the CPU's post-step weights on both."""
+    one eval step of the CPU's post-step weights on both. `conditioned`: the
+    speaker, language and style-token config on phase 17's corpus."""
     import copy
 
     import numpy as np
@@ -1597,28 +1689,36 @@ def phase_train_card_vs_cpu(workdir: Path) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = model_config("float32")
+    cfg = conditioned_config("float32") if conditioned else model_config("float32")
     for part in ("encoder", "decoder"):
         cfg["model"][part].update(layers=2, dropout=0.0)
     for kind in ("pitch", "energy", "duration"):
         cfg["model"]["variance_predictors"][kind]["dropout"] = 0.0
     cfg["model"]["use_postnet"] = False
-    cfg["preprocessing"]["save_dir"] = str(workdir / "corpus")
+    corpus = workdir / ("corpus_conditioned" if conditioned else "corpus")
+    cfg["preprocessing"]["save_dir"] = str(corpus)
     config = FastSpeech2Config.from_dict(cfg)
-    items = load_filelist(workdir / "corpus" / "training_filelist.psv")
-    ds = FastSpeechDataset(items, config, {"default": 0}, {"default": 0})
+    items = load_filelist(corpus / "training_filelist.psv")
+    lookups = ((COND_LANG2ID, COND_SPEAKER2ID) if conditioned
+               else ({"default": 0}, {"default": 0}))
+    ds = FastSpeechDataset(items, config, *lookups)
     samples = sorted((ds[i] for i in range(8)), key=lambda s: s["mel"].shape[0])[:4]
     batch = collate(samples, _round_up(max(len(s["text"]) for s in samples), PAD_MULT_TEXT),
                     _round_up(max(s["mel"].shape[0] for s in samples), PAD_MULT_MEL))
     batch["sample_weight"] = np.array([1, 1, 1, 0], np.float32)
 
-    model = FastSpeech2(config, n_symbols=len(TextProcessor(config.text).symbols))
+    model = FastSpeech2(config, n_symbols=len(TextProcessor(config.text).symbols),
+                        n_speakers=len(lookups[1]), n_languages=len(lookups[0]))
     init_like_flax(model, SEED)
     with torch.no_grad():
         for kind in ("pitch", "energy"):
             st = STATS[kind]
             getattr(model.variance_adaptor, f"{kind}_bins").copy_(
                 torch.linspace(st["norm_min"], st["norm_max"], 255))
+    label = "conditioned " if conditioned else ""
+    if conditioned:
+        check(set(batch["speaker_id"]) == {0, 1} or set(batch["language_id"]) == {0, 1},
+              f"the batch holds one speaker and one language: {batch['speaker_id']}")
     results = {}
     for dev in ("cuda", "cpu"):
         m = copy.deepcopy(model).to(dev)
@@ -1635,9 +1735,9 @@ def phase_train_card_vs_cpu(workdir: Path) -> None:
     check(worst_loss <= 1e-4, f"card vs CPU losses differ: {l_gpu} vs {l_cpu}")
     worst_param = max(float((p_gpu[k].float() - p_cpu[k].float()).abs().max()) for k in p_cpu)
     check(worst_param <= 1e-5, f"card vs CPU parameters after a step differ by {worst_param}")
-    log(f"card vs CPU train step (f32, TF32 off, 2+2 layers, B=4, T={batch['mel'].shape[1]}): "
-        f"durations equal, worst loss rel {worst_loss:.3e}, worst parameter max-abs "
-        f"{worst_param:.3e}")
+    log(f"card vs CPU {label}train step (f32, TF32 off, 2+2 layers, B=4, "
+        f"T={batch['mel'].shape[1]}): durations equal, worst loss rel {worst_loss:.3e}, worst "
+        f"parameter max-abs {worst_param:.3e}")
 
     evals = {}
     for dev in ("cuda", "cpu"):  # the eval step from the CPU's post-step weights
@@ -1649,8 +1749,8 @@ def phase_train_card_vs_cpu(workdir: Path) -> None:
     check(torch.equal(d_gpu, d_cpu), "eval step: MAS durations differ between card and CPU")
     worst_eval = max(abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-8) for k in l_cpu)
     check(worst_eval <= 1e-4, f"card vs CPU eval losses differ: {l_gpu} vs {l_cpu}")
-    log(f"card vs CPU eval step (same weights and batch): durations equal, worst loss rel "
-        f"{worst_eval:.3e}")
+    log(f"card vs CPU {label}eval step (same weights and batch): durations equal, worst loss "
+        f"rel {worst_eval:.3e}")
 
 
 # -- phase 15: the synthesize CLI ---------------------------------------------
@@ -2022,16 +2122,18 @@ def phase_synthesize_card_vs_cpu(workdir: Path) -> None:
     val.write_text("\n".join((workdir / "corpus" / "validation_filelist.psv")
                              .read_text().splitlines()[:5]) + "\n")
     runs = {}
-    with SynthesisProbe() as probe:
-        for dev in ("cuda", "cpu"):
-            for kind, argv in (("free", ["-f", str(short), "-O", "spec", "textgrid",
-                                         "readalong-xml"]),
-                               ("teacher", ["-f", str(val), "-T", str(workdir / "corpus"),
-                                            "-O", "spec", "textgrid"])):
-                out = workdir / f"cvc_{kind}_{dev}"
-                cli.main(["synthesize", str(ckpt), *argv, "-b", "4", "-o", str(out),
-                          "--device", dev])
-                runs[kind, dev] = (probe.runs[-1], out)
+    with SynthesisProbe() as probe, SharedBins() as bins:
+        for dev in ("cpu", "cuda"):
+            with bins.on(dev):
+                for kind, argv in (("free", ["-f", str(short), "-O", "spec", "textgrid",
+                                             "readalong-xml"]),
+                                   ("teacher", ["-f", str(val), "-T", str(workdir / "corpus"),
+                                                "-O", "spec", "textgrid"])):
+                    out = workdir / f"cvc_{kind}_{dev}"
+                    cli.main(["synthesize", str(ckpt), *argv, "-b", "4", "-o", str(out),
+                              "--device", dev])
+                    runs[kind, dev] = (probe.runs[-1], out)
+    flips = bins.held()
     for kind in ("free", "teacher"):
         (gpu, out_gpu), (cpu, out_cpu) = runs[kind, "cuda"], runs[kind, "cpu"]
         check(len(gpu["batches"]) == len(cpu["batches"]) == 1, f"{kind}: not one batch")
@@ -2052,7 +2154,8 @@ def phase_synthesize_card_vs_cpu(workdir: Path) -> None:
         check(worst <= 1e-4, f"{kind}: spec max-abs {worst} > 1e-4")
         log(f"card vs CPU synthesize {kind} (f32, TF32 off, 2+2 layers, B=4, mel width "
             f"{gpu['batches'][0]['width']}): durations equal, {len(files)} files, spec "
-            f"max-abs {worst:.3e}, TextGrid/ReadAlong byte-equal")
+            f"max-abs {worst:.3e}, TextGrid/ReadAlong byte-equal; pitch and energy buckets "
+            f"differing at an edge (both runs) {flips}")
 
     audio = FastSpeech2Config.from_dict(cfg).preprocessing.audio
     specs = sorted((runs["free", "cpu"][1] / "synthesized_spec").glob("*.npy"))[:2]
@@ -2063,6 +2166,591 @@ def phase_synthesize_card_vs_cpu(workdir: Path) -> None:
     check(err <= 1e-4, f"Griffin-Lim card vs CPU max-abs {err} > 1e-4")
     log(f"card vs CPU Griffin-Lim ([2, {T} frames], 48 iterations): float wav max-abs "
         f"{err:.3e}")
+
+
+# -- phase 17: conditioned training through the CLI ---------------------------
+
+COND_SPEAKERS = ("spk_a", "spk_b")
+COND_LANGUAGES = ("eng", "fra")
+COND_SPEAKER2ID = {s: i for i, s in enumerate(COND_SPEAKERS)}
+COND_LANG2ID = {lang: i for i, lang in enumerate(COND_LANGUAGES)}
+
+
+def conditioned_config(dtype: str) -> dict:
+    """The default config with speakers, languages and global style tokens."""
+    cfg = model_config(dtype)
+    cfg["model"].update(multispeaker=True, multilingual=True,
+                        use_global_style_token_module=True)
+    return cfg
+
+
+def phase_train_conditioned(workdir: Path, plain: dict) -> dict:
+    """Train the conditioned config (full width and depth, bf16, batch 16) 8
+    steps through the CLI on phase 11's corpus spoken by 2 speakers in 2
+    languages (the same texts and lengths, so the same batch shapes in the
+    same order), one validation at the end: each kernel's launches a step
+    as in phase 11, the style encoder's BatchNorm statistics moved, the
+    step ms beside phase 11's at the same shapes, and the peak memory."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.checkpoint import read_checkpoint
+
+    cfg = conditioned_config("bfloat16")
+    corpus = workdir / "corpus_conditioned"
+    write_corpus(corpus, cfg, np.random.default_rng(SEED + 7), COND_SPEAKERS, COND_LANGUAGES)
+    cfg["preprocessing"]["save_dir"] = corpus.name
+    cfg["training"].update(batch_size=16, training_filelist=f"{corpus.name}/training_filelist.psv",
+                           validation_filelist=f"{corpus.name}/validation_filelist.psv",
+                           val_check_interval=TRAIN_STEPS, save_top_k_ckpts=1,
+                           ema_decay=0.999, async_checkpoint=True)
+    cfg["training"]["logger"].update(save_dir="logs", name="smoke", version="conditioned")
+    config_path = workdir / "config_conditioned.json"
+    config_path.write_text(json.dumps(cfg))
+
+    torch.cuda.reset_peak_memory_stats()
+    tl, vl = _train_and_validation_launches(
+        lambda: cli.main(["train", str(config_path), "--max-steps", str(TRAIN_STEPS)]))
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log_dir = workdir / "logs" / "smoke" / "conditioned"
+    rows = _rows(log_dir / "train_log.jsonl")
+    check(len(rows) == TRAIN_STEPS, f"conditioned: {len(rows)} steps logged")
+    for r in rows:
+        check(all(k in r and math.isfinite(r[k]) for k in LOSS_KEYS + ("grad_norm",)),
+              f"conditioned step {r['step']}: {r}")
+    same_shapes = [r["shape"] for r in rows] == plain["shapes"]
+    (val,) = _rows(log_dir / "val_log.jsonl")
+    n_val = val["batches"]
+    check(all(math.isfinite(val[k]) for k in LOSS_KEYS), f"conditioned validation {val}")
+    want_t = {"attention_fwd": 8 * TRAIN_STEPS, "attention_bwd": 8 * TRAIN_STEPS,
+              "mas_width1": TRAIN_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": TRAIN_STEPS,
+              "ctc_grad": TRAIN_STEPS}
+    want_v = {"attention_fwd": 8 * n_val, "attention_bwd": 0, "mas_width1": n_val,
+              "ctc_alpha": n_val, "ctc_alpha_beta": 0, "ctc_grad": 0}
+    check(tl == want_t, f"conditioned training launches {tl}, predicted {want_t}")
+    check(vl == want_v, f"conditioned validation launches {vl}, predicted {want_v}")
+
+    step_dir = log_dir / "checkpoints" / f"step={TRAIN_STEPS}"
+    sd = read_checkpoint(step_dir / "model.ckpt")[0]["state_dict"]
+    moved = []
+    for i in range(6):
+        mean, var = (sd[f"gst.ref_enc.convs.{3 * i + 1}.running_{k}"].float()
+                     for k in ("mean", "var"))
+        moved.append(float(mean.abs().max()) > 0 and float((var - 1).abs().max()) > 0)
+    check(all(moved), f"the style encoder's BatchNorm statistics did not all move: {moved}")
+    check(sd["speaker_embedding.weight"].shape[0] == 2
+          and sd["language_embedding.weight"].shape[0] == 2, "speaker/language tables")
+
+    gst_ms = _style_encoder_ms(max(r["shape"][2] for r in rows))
+    ab = _conditioning_ab(workdir)
+    ms = statistics.median(r["ms"] for r in rows[2:])
+    # the same corpus lengths and loader seed give phase 11's batch shapes in
+    # its order, so step k of both runs did the same work but the conditioning
+    ratio = (statistics.median(c / p for c, p in zip([r["ms"] for r in rows][2:],
+                                                     plain["step_ms"][2:]))
+             if same_shapes else ms / plain["ms_per_step"])
+    log(f"conditioned train: {TRAIN_STEPS} steps, median {ms:.1f} ms a step against "
+        f"{plain['ms_per_step']:.1f} without speakers, languages and GST ("
+        f"{'the same shapes in the same order, per-step' if same_shapes else 'other shapes:'} "
+        f"ratio median {ratio:.3f}); peak memory {peak_gib:.2f} "
+        f"GiB (phase 11: {plain['peak_gib']:.2f}); validation {n_val} batches in "
+        f"{val['ms']:.1f} ms; launches: training {tl}, validation {vl}; the style encoder's "
+        f"6 BatchNorms moved; the style encoder alone at the top bucket {gst_ms}; steps "
+        f"in turns: conditioned / plain median {ab['ratio_median']:.3f}")
+    return dict(launches=tl, validation_launches=vl, ms_per_step=ms, peak_gib=peak_gib,
+                style_encoder=gst_ms, in_turns=ab,
+                step_ms=[r["ms"] for r in rows], ratio_to_plain=ratio, same_shapes=same_shapes,
+                step_dir=step_dir)
+
+
+def _conditioning_ab(workdir: Path, rounds: int = 4) -> dict:
+    """Train steps of the plain and the conditioned config (full width, bf16,
+    batch 16, fresh weights) in turns (plain first in even rounds, last in
+    odd ones) on one batch of each bucket of phase 11's corpus and of its
+    conditioned copy (the same shapes): wall ms of a step between CUDA
+    events, the first round left out; medians per bucket."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import BucketedLoader, FastSpeechDataset
+    from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_lightning_tpu_torch.text import TextProcessor
+    from fastspeech2_lightning_tpu_torch.text.lookups import load_filelist
+    from fastspeech2_lightning_tpu_torch.training.state import AdamWNoam, init_like_flax
+    from fastspeech2_lightning_tpu_torch.training.step import batch_to_device, train_step
+
+    runs = {}
+    for name, cfg, corpus, lookups in (
+            ("plain", model_config("bfloat16"), "corpus", ({"default": 0}, {"default": 0})),
+            ("conditioned", conditioned_config("bfloat16"), "corpus_conditioned",
+             (COND_LANG2ID, COND_SPEAKER2ID))):
+        cfg["preprocessing"]["save_dir"] = str(workdir / corpus)
+        config = FastSpeech2Config.from_dict(cfg)
+        ds = FastSpeechDataset(load_filelist(workdir / corpus / "training_filelist.psv"), config,
+                               *lookups)
+        batches = {}
+        for b in BucketedLoader(ds, 16, n_buckets=config.training.bucket_count, seed=SEED,
+                                max_mel_length=config.model.max_mel_length):
+            batches.setdefault((*b["text"].shape, b["mel"].shape[1]), batch_to_device(b, "cuda"))
+        model = FastSpeech2(config, n_symbols=len(TextProcessor(config.text).symbols),
+                            n_speakers=len(lookups[1]), n_languages=len(lookups[0]))
+        init_like_flax(model, SEED)
+        with torch.no_grad():
+            for kind in ("pitch", "energy"):
+                st = STATS[kind]
+                getattr(model.variance_adaptor, f"{kind}_bins").copy_(
+                    torch.linspace(st["norm_min"], st["norm_max"], 255))
+        model = model.cuda().train()
+        runs[name] = (model, AdamWNoam(list(model.named_parameters()), config.training), config,
+                      batches)
+    shapes = sorted(runs["plain"][3])
+    check(shapes == sorted(runs["conditioned"][3]), "the two corpora cut other buckets")
+    times = {name: {s: [] for s in shapes} for name in runs}
+    for r in range(rounds):
+        order = ("plain", "conditioned") if r % 2 == 0 else ("conditioned", "plain")
+        for s in shapes:
+            for name in order:
+                model, opt, config, batches = runs[name]
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                train_step(model, opt, config, batches[s], r, 50)
+                end.record()
+                torch.cuda.synchronize()
+                if r > 0:
+                    times[name][s].append(start.elapsed_time(end))
+    rows = [{"shape": list(s), "plain_ms": statistics.median(times["plain"][s]),
+             "conditioned_ms": statistics.median(times["conditioned"][s])} for s in shapes]
+    for row in rows:
+        row["ratio"] = row["conditioned_ms"] / row["plain_ms"]
+        log(f"train step in turns, B x L x T = {' x '.join(map(str, row['shape']))}: plain "
+            f"{row['plain_ms']:.1f} ms, with speakers, languages and GST "
+            f"{row['conditioned_ms']:.1f} ms ({row['ratio']:.3f}x; medians of {rounds - 1})")
+    del runs
+    torch.cuda.empty_cache()
+    return {"buckets": rows, "ratio_median": statistics.median(r["ratio"] for r in rows)}
+
+
+def _style_encoder_ms(T: int) -> dict:
+    """Wall ms (CUDA events around single calls) and device ms (its kernels
+    in a profiler trace; device_ms cannot queue it: a call waits on the host)
+    of a full-width style encoder (f32, batch statistics) on a [16, T, 80]
+    mel: the forward alone and forward + backward."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.models.gst import StyleEncoder
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    gst = StyleEncoder(idim=80, gst_token_dim=256).cuda()
+    mel = torch.randn(16, T, 80, device="cuda", generator=g)
+
+    def forward():
+        with torch.no_grad():
+            return gst(mel, use_running_average=False)
+
+    def forward_backward():
+        gst(mel, use_running_average=False).sum().backward()
+
+    return {"shape": [16, T, 80], "forward_wall_ms": time_ms(forward, iters=10),
+            "forward_device_ms": kernels_ms(forward),
+            "forward_backward_wall_ms": time_ms(forward_backward, iters=10),
+            "forward_backward_device_ms": kernels_ms(forward_backward)}
+
+
+# -- phase 18: serving the conditioned checkpoint -----------------------------
+
+
+def style_wav(path: Path, seed: int, f0: float, seconds: float = 2.0) -> Path:
+    """A seeded 22.05 kHz PCM16 wav: a vowel-like harmonic tone at `f0` with
+    vibrato and noise."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    sr = 22050
+    t = np.arange(int(sr * seconds)) / sr
+    phase = 2 * np.pi * f0 * (t + 0.002 * np.sin(2 * np.pi * 5 * t) / 5)
+    x = sum(np.sin(k * phase) / k for k in range(1, 12)) * (0.5 + 0.5 * np.sin(np.pi * t / seconds))
+    x = 0.3 * x / np.abs(x).max() + 0.01 * rng.standard_normal(t.size)
+    wavfile.write(path, sr, (x * 32767).astype(np.int16))
+    return path
+
+
+def _count_forwards(syn) -> list:
+    """Wrap syn._forward; returns the list it appends one entry a call to."""
+    calls = []
+    forward = syn._forward
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return forward(*args, **kwargs)
+
+    syn._forward = counted
+    return calls
+
+
+def phase_serve_conditioned(workdir: Path, step_dir: Path) -> dict:
+    """Serve phase 17's step=8/ (bf16) with a seeded style-reference wav:
+    a speaker x language grid of concurrent mel requests (kernel A's
+    launches: 8 a forward), the Synthesizer without a reference (style token
+    0) and with a second reference (a different style embedding); then the
+    card against the CPU in f32 with a reference."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.checkpoint import read_checkpoint
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import (
+        PAD_MULT_TEXT, FastSpeechDataset, _round_up, collate,
+    )
+    from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
+    from fastspeech2_lightning_tpu_torch.serving import serve
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+    from fastspeech2_lightning_tpu_torch.synthesis.prepare import style_reference_mel
+    from fastspeech2_lightning_tpu_torch.text.lookups import load_filelist
+    from fastspeech2_lightning_tpu_torch.training.step import batch_to_device
+
+    refs = [style_wav(workdir / f"style_{i}.wav", SEED + 20 + i, f0)
+            for i, f0 in enumerate((110.0, 240.0))]
+    texts = request_texts(np.random.default_rng(SEED + 21))[:2]
+    server = serve(step_dir, port=0, max_batch=BATCH, style_reference=refs[0], warmup=True)
+    syn = server.synthesizer
+    check(syn.device.type == "cuda" and syn.config.model.use_global_style_token_module,
+          "the conditioned checkpoint did not load as a GST model on the card")
+    forwards = _count_forwards(syn)
+    grid = [(s, lang) for s in COND_SPEAKERS for lang in COND_LANGUAGES]
+    attention_fwd.launches = 0
+    server.start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(grid)) as pool:
+            futures = [pool.submit(_post, server.address, {"text": texts[0], "speaker": s,
+                                                           "language": lang, "format": "mel"})
+                       for s, lang in grid]
+            responses = [f.result() for f in futures]
+        torch.cuda.synchronize()
+        launches = attention_fwd.launches
+    finally:
+        server.shutdown()
+    mels = {}
+    for (s, lang), (status, body, seconds) in zip(grid, responses):
+        check(status == 200, f"conditioned request {s}/{lang} answered {status}")
+        mel = np.load(io.BytesIO(body))  # an 8-step model predicts few frames
+        check(mel.ndim == 2 and mel.shape[1] == 80 and bool(np.isfinite(mel).all()),
+              f"conditioned request {s}/{lang}: mel {mel.shape}")
+        mels[s, lang] = mel
+        log(f"conditioned request speaker={s} language={lang}: {mel.shape[0]} frames in "
+            f"{seconds:.3f} s")
+    check(launches == 8 * len(forwards) and launches > 0,
+          f"attention_fwd launched {launches} times over {len(forwards)} forwards")
+
+    direct = Synthesizer.from_checkpoint(step_dir)
+    with torch.no_grad():
+        embs = [direct.model.gst(torch.as_tensor(direct._style_reference_mel(r),
+                                                 device="cuda")[None]) for r in refs]
+        token = direct.model.gst.condition_on_gst_tokens(1)
+    style_diff = float((embs[0] - embs[1]).abs().max())
+    token_diff = float((embs[0] - token).abs().max())
+    check(style_diff > 1e-3 and token_diff > 1e-3,
+          f"style embeddings: two references differ by {style_diff}, a reference and token 0 "
+          f"by {token_diff}")
+    outs = {name: direct.synthesize([texts[1]], speaker=COND_SPEAKERS[1],
+                                    language=COND_LANGUAGES[1], **kw).mels[0]
+            for name, kw in (("token_0", {}), ("reference_a", {"style_reference": refs[0]}),
+                             ("reference_b", {"style_reference": refs[1]}))}
+    for name, mel in outs.items():
+        check(mel.ndim == 2 and mel.shape[1] == 80 and bool(np.isfinite(mel).all()),
+              f"{name}: mel {mel.shape}")
+    log(f"conditioned Synthesizer: frames with token 0 / reference a / reference b: "
+        f"{[m.shape[0] for m in outs.values()]}; style embeddings of the two references "
+        f"differ by max-abs {style_diff:.4f}, reference a and token 0 by {token_diff:.4f}")
+
+    # card against CPU in f32 with the checkpoint's weights and reference a:
+    # the free-running forward (its durations: an 8-step model predicts few
+    # frames) and the teacher-forced one on 4 corpus utterances of both
+    # speakers and languages (MAS durations, the mel at the targets' length)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt, _ = read_checkpoint(step_dir / "model.ckpt")
+    cfg32 = dict(ckpt["hyper_parameters"]["config"])
+    cfg32["model"] = dict(cfg32["model"], dtype="float32")
+    cfg32["preprocessing"] = dict(cfg32["preprocessing"],
+                                  save_dir=str(workdir / "corpus_conditioned"))
+    config = FastSpeech2Config.from_dict(cfg32)
+    ref = torch.as_tensor(style_reference_mel(refs[0], config.preprocessing.audio))
+    items = load_filelist(workdir / "corpus_conditioned" / "validation_filelist.psv")[:4]
+    ds = FastSpeechDataset(items, config, COND_LANG2ID, COND_SPEAKER2ID, teacher_forcing=True,
+                           inference=True)
+    samples = [ds[i] for i in range(len(items))]
+    batch = collate(samples, _round_up(max(len(x["text"]) for x in samples), PAD_MULT_TEXT), None)
+    check(len(set(batch["speaker_id"])) == 2 and len(set(batch["language_id"])) == 2,
+          f"the batch misses a speaker or language: {batch['speaker_id']}, "
+          f"{batch['language_id']}")
+    res = {}
+    with SharedBins() as bins, torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            model = FastSpeech2(config,
+                                n_symbols=ckpt["state_dict"]["text_input_layer.weight"].shape[0],
+                                n_speakers=2, n_languages=2)
+            model.load_state_dict(ckpt["state_dict"], strict=True)
+            model = model.to(dev).eval()
+            db = batch_to_device(batch, dev)
+            db["mel_style_reference"] = ref[None].expand(len(items), -1, -1).to(dev)
+            with bins.on(dev):
+                free = model(db["text"], db["src_lens"], 1024, speaker_id=db["speaker_id"],
+                             language_id=db["language_id"],
+                             mel_style_reference=db["mel_style_reference"])
+                tf = model.forward_teacher_forced(db)
+            res[dev] = {"free": free["duration_rounded"].cpu(),
+                        "durations": tf["duration_rounded"].cpu(),
+                        "mel": tf["postnet_output"].cpu()}
+    flips = bins.held()
+    for key in ("free", "durations"):
+        check(torch.equal(res["cuda"][key], res["cpu"][key]),
+              f"conditioned card vs CPU: {key} durations differ")
+    mel_err = float((res["cuda"]["mel"] - res["cpu"]["mel"]).abs().max())
+    check(mel_err <= 1e-3, f"conditioned card vs CPU mel max-abs {mel_err} > 1e-3")
+    log(f"conditioned card vs CPU (f32, TF32 off, reference a, 2 speakers x 2 languages): "
+        f"free-running and MAS durations equal, teacher-forced mel [{len(items)}, "
+        f"{batch['mel'].shape[1]}] max-abs {mel_err:.3e}; pitch and energy buckets differing "
+        f"at an edge {flips}")
+    return dict(attention_fwd=launches, forwards=len(forwards), style_diff=style_diff,
+                card_vs_cpu_mel_max_abs=mel_err, card_vs_cpu_bucket_flips=flips)
+
+
+# -- phase 19: low-latency streaming over HTTP --------------------------------
+
+STREAM_WINDOW = 128
+
+
+def _stream_post(address, payload: dict):
+    """(status, seconds to the first audio bytes, seconds to the whole body,
+    body) of a /synthesize request whose answer is read as it arrives."""
+    import http.client
+
+    conn = http.client.HTTPConnection(address[0], address[1], timeout=600)
+    t0 = time.time()
+    conn.request("POST", "/synthesize", body=json.dumps(payload),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body, first = b"", None
+    while True:
+        piece = resp.read1(1 << 16)
+        if not piece:
+            break
+        body += piece
+        if first is None and len(body) > 44:
+            first = time.time() - t0
+    total = time.time() - t0
+    conn.close()
+    return resp.status, first, total, body
+
+
+def long_text(rng, n_chars: int = 700) -> str:
+    words = []
+    while len(" ".join(words)) < n_chars:
+        w = str(rng.choice(WORDS))
+        if rng.random() < 0.1:
+            w += str(rng.choice([",", "."]))
+        words.append(w)
+    return " ".join(words)[:n_chars].strip() + "."
+
+
+def phase_streaming(workdir: Path) -> dict:
+    """Phase 5's checkpoint and fused f32 HiFiGAN V1 behind serve(): a long
+    text as a low-latency stream (windows of 128 frames, margin 15) and as
+    the batched wav, in turns: time to the first audio and to the whole
+    body; mrf_conv launches a window (54: three fused stages of 18); the
+    stream against device_fn of each whole mel (TF32 off); the MRF stage at
+    the three B = 1 window shapes against its plain version."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+    from fastspeech2_lightning_tpu_torch.serving import serve
+    from fastspeech2_lightning_tpu_torch.synthesis.streaming import windowed_vocode
+
+    server = serve(workdir / "model.ckpt", vocoder_path=workdir / "hifigan_v1.npz", port=0,
+                   max_batch=BATCH, vocoder_fused=True, warmup=True)
+    syn = server.synthesizer
+    voc = syn.vocoder
+    margin = voc.receptive_margin_frames
+    check(margin == 15, f"V1 receptive margin {margin}, want 15")
+    windows, window_ms, synthesize_ms = [], [], []
+    device_fn, synthesize = voc.device_fn, syn.synthesize
+
+    def counted(mel):  # a window: the caller copies its samples to the host next
+        t0 = time.perf_counter()
+        windows.append(tuple(mel.shape))
+        wav = device_fn(mel)
+        torch.cuda.synchronize()
+        window_ms.append((time.perf_counter() - t0) * 1e3)
+        return wav
+
+    def timed(*args, **kwargs):  # the acoustic forward of all chunks (mels on the host)
+        t0 = time.perf_counter()
+        try:
+            return synthesize(*args, **kwargs)
+        finally:
+            synthesize_ms.append((time.perf_counter() - t0) * 1e3)
+
+    voc.device_fn = counted
+    syn.synthesize = timed
+    forwards = _count_forwards(syn)
+    text = long_text(np.random.default_rng(SEED + 30))
+    chunks = syn._chunk_text(text, None)
+    low = {"text": text, "low_latency": True, "window": STREAM_WINDOW}
+    server.start()
+    try:
+        _stream_post(server.address, low)  # first call: library set-up
+        for record in (windows, window_ms, synthesize_ms, forwards):
+            record.clear()
+        attention_fwd.launches = mrf_conv.launches = 0
+        status, first, total, body = _stream_post(server.address, low)
+        torch.cuda.synchronize()
+        launches = {"mrf_conv": mrf_conv.launches, "attention_fwd": attention_fwd.launches}
+        n_windows, n_forwards, shapes = len(windows), len(forwards), sorted(set(windows))
+        split = {"synthesize_ms": synthesize_ms[0], "first_window_ms": window_ms[0],
+                 "window_ms_median": statistics.median(window_ms)}
+        check(status == 200 and body[:4] == b"RIFF", f"low-latency request answered {status}")
+        timings = {"low_latency": [(first, total)], "batched": []}
+        for k in range(3):  # in turns: batched, low latency, ...
+            for name, payload in (("batched", {"text": text}), ("low_latency", low)):
+                st, f, t, b = _stream_post(server.address, payload)
+                check(st == 200, f"{name} request answered {st}")
+                timings[name].append((f, t))
+                if name == "batched" and k == 0:
+                    batched_body = b
+        _, stats = _get(server.address, "/stats")
+    finally:
+        server.shutdown()
+        voc.device_fn, syn.synthesize = device_fn, synthesize
+    check(stats.get("low_latency_requests") == 5, f"/stats low_latency_requests: {stats}")
+    W = STREAM_WINDOW + 2 * margin
+    check(all(s[1] <= W for s in shapes), f"a window of more than {W} frames: {shapes}")
+    check(launches["mrf_conv"] == 3 * MRF_LAUNCHES * n_windows,
+          f"mrf_conv launched {launches['mrf_conv']} times for {n_windows} windows")
+    check(launches["attention_fwd"] == 8 * n_forwards,
+          f"attention_fwd launched {launches['attention_fwd']} times in {n_forwards} forwards")
+    pcm_low = np.frombuffer(body[44:], dtype="<i2")
+    pcm_batched = np.frombuffer(batched_body[44:], dtype="<i2")
+    med = {name: (statistics.median(f for f, _ in ts), statistics.median(t for _, t in ts))
+           for name, ts in timings.items()}
+    log(f"low-latency stream ({len(text)} characters, {len(chunks)} chunks, "
+        f"{pcm_low.size / voc.sample_rate:.2f} s of audio, {n_windows} windows of <= {W} "
+        f"frames, shapes {shapes}): first audio {med['low_latency'][0] * 1e3:.1f} ms, whole "
+        f"body {med['low_latency'][1] * 1e3:.1f} ms; batched wav: first audio "
+        f"{med['batched'][0] * 1e3:.1f} ms, whole body {med['batched'][1] * 1e3:.1f} ms "
+        f"(medians of {len(timings['low_latency'])} and {len(timings['batched'])}, in turns); "
+        f"mrf_conv {launches['mrf_conv'] / n_windows:.0f} launches a window, attention_fwd "
+        f"{launches['attention_fwd']} in {n_forwards} forward(s); in the counted stream the "
+        f"acoustic forward of all chunks took {split['synthesize_ms']:.1f} ms, the first "
+        f"window {split['first_window_ms']:.1f} ms, a window {split['window_ms_median']:.2f} ms "
+        f"(median, wall with the host)")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the stream's one forward over all chunks; the batched wav's batches of
+    # 8 pad their text otherwise, and in bf16 a duration near a rounding
+    # boundary can land a frame apart
+    mels = syn.synthesize(chunks, vocode=False).mels
+    frames = sum(m.shape[0] for m in mels)
+    check(pcm_low.size == frames * voc.hop and pcm_low.size > 0,
+          f"stream {pcm_low.size} samples for {frames} frames")
+    log(f"stream {pcm_low.size} samples ({frames} frames); batched wav {pcm_batched.size} "
+        f"samples ({(pcm_batched.size - pcm_low.size) // voc.hop:+d} frames)")
+    worst = 0.0
+    for mel in mels:
+        streamed = np.concatenate(list(windowed_vocode(voc, mel, window=STREAM_WINDOW)))
+        T = mel.shape[0]
+        if T <= W:  # one call at a 32-frame bucket: the zero-padded mel vocoded whole
+            mel = np.pad(mel, ((0, min(W, 32 * -(-T // 32)) - T), (0, 0)))
+        whole = voc.device_fn(torch.as_tensor(mel, device="cuda")[None])[0].float().cpu().numpy()
+        whole = whole[: T * voc.hop]
+        check(streamed.shape == whole.shape, f"stream {streamed.shape} vs whole {whole.shape}")
+        rel = float(np.linalg.norm(streamed - whole) / max(np.linalg.norm(whole), 1e-30))
+        worst = max(worst, rel)
+    check(worst <= 1e-4, f"the stream differs from the whole-mel vocoding: rel-L2 {worst}")
+    log(f"stream against device_fn of each whole mel ({len(mels)} mels of "
+        f"{[m.shape[0] for m in mels]} frames, f32, TF32 off): worst rel-L2 {worst:.3e}")
+    rows = phase_mrf(batch=1, frames=W, dtypes=("float32",))
+    return dict(launches=launches, windows=n_windows, window_shapes=[list(s) for s in shapes],
+                first_audio_ms=med["low_latency"][0] * 1e3, body_ms=med["low_latency"][1] * 1e3,
+                batched_first_audio_ms=med["batched"][0] * 1e3,
+                batched_body_ms=med["batched"][1] * 1e3, stream_rel_l2=worst, stages=rows,
+                first_request_split=split,
+                text_chars=len(text), chunks=len(chunks))
+
+
+# -- phase 20: phone-level and phonological-feature models --------------------
+
+LEVELS = ("phones", "phonological_features")
+ENGLISH = ["The quick brown fox jumps over the lazy dog, and then it runs far away.",
+           "She sells sea shells by the sea shore; the shells she sells are surely seashells.",
+           "How much wood would a woodchuck chuck if a woodchuck could chuck wood?"]
+
+
+def phase_pfs_phones(workdir: Path) -> dict:
+    """A phone-level and a phonological-feature model at full width and
+    depth (bf16) with seeded weights through the Synthesizer on English
+    text (g2p): kernel A's launches, 8 a forward; then the same weights in
+    f32 on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.checkpoint import write_checkpoint
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for k, level in enumerate(LEVELS):
+        cfg = model_config("bfloat16")
+        cfg["model"]["target_text_representation_level"] = level
+        cfg = FastSpeech2Config.from_dict(cfg).to_dict()  # with the g2p_ipa symbols
+        sd = random_state_dict(cfg, np.random.default_rng(SEED + 40 + k))
+        ckpt = write_checkpoint(workdir / f"{level}.ckpt", sd, cfg, STATS)
+        syn = Synthesizer.from_checkpoint(ckpt)
+        forwards = _count_forwards(syn)
+        attention_fwd.launches = 0
+        t0 = time.time()
+        res = syn.synthesize(ENGLISH)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        launches = attention_fwd.launches
+        check(launches == 8 * len(forwards) and launches > 0,
+              f"{level}: attention_fwd launched {launches} times in {len(forwards)} forwards")
+        for mel in res.mels:
+            check(mel.ndim == 2 and mel.shape[0] > 0 and bool(np.isfinite(mel).all()),
+                  f"{level}: mel {mel.shape}")
+        cfg32 = dict(cfg, model=dict(cfg["model"], dtype="float32"))
+        ckpt32 = write_checkpoint(workdir / f"{level}_f32.ckpt", sd, cfg32, STATS)
+        r = {}
+        with SharedBins() as bins:
+            for dev in ("cpu", "cuda"):
+                syn32 = Synthesizer.from_checkpoint(ckpt32, device=dev)
+                with bins.on(dev):
+                    r[dev] = syn32.synthesize(ENGLISH[:2])
+        flips = bins.held()
+        for a, b in zip(r["cuda"].durations, r["cpu"].durations):
+            check(np.array_equal(a, b), f"{level}: card and CPU durations differ")
+        mel_err = max(float(np.abs(a - b).max()) for a, b in zip(r["cuda"].mels, r["cpu"].mels))
+        check(mel_err <= 1e-3, f"{level}: card vs CPU mel max-abs {mel_err} > 1e-3")
+        n_ids = [int(d.shape[0]) for d in res.durations]
+        log(f"{level} model (full width, bf16): {len(ENGLISH)} English sentences -> {n_ids} "
+            f"phones, {[m.shape[0] for m in res.mels]} frames in {ms:.1f} ms; attention_fwd "
+            f"{launches} in {len(forwards)} forward(s); card vs CPU (f32, TF32 off): durations "
+            f"equal, mel max-abs {mel_err:.3e}, pitch and energy buckets differing at an edge "
+            f"{flips}")
+        out[level] = dict(attention_fwd=launches, forwards=len(forwards), ms=ms,
+                          card_vs_cpu_mel_max_abs=mel_err, card_vs_cpu_bucket_flips=flips)
+    return out
 
 
 # -- main --------------------------------------------------------------------
@@ -2097,22 +2785,37 @@ def main() -> None:
         ctc_rows = phase_ctc_buckets(Path(workdir), train["shapes"])
         syn = phase_synthesize(Path(workdir))
         phase_synthesize_card_vs_cpu(Path(workdir))
+        cond = phase_train_conditioned(Path(workdir), train)
+        phase_train_card_vs_cpu(Path(workdir), conditioned=True)
+        cond_serve = phase_serve_conditioned(Path(workdir), cond.pop("step_dir"))
+        stream = phase_streaming(Path(workdir))
+        levels = phase_pfs_phones(Path(workdir))
     tl, vl = train["launches"], train["validation_launches"]
+    ctl, cvl = cond["launches"], cond["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
     sl = {name: sum(syn[run]["launches"].get(name, 0) for run in SYN_RUNS)
           for name in SYN_COUNTERS}
 
     def by_path(name):
-        paths = {"training": tl[name], "validation": vl[name]}
+        paths = {"training": tl[name], "validation": vl[name],
+                 "conditioned_training": ctl[name], "conditioned_validation": cvl[name]}
         if name in ("attention_fwd", "mas_width1"):
             paths["synthesize"] = sl[name]
+        if name == "attention_fwd":
+            paths.update(conditioned_serving=cond_serve["attention_fwd"],
+                         streaming=stream["launches"]["attention_fwd"],
+                         **{f"{level}_serving": levels[level]["attention_fwd"]
+                            for level in LEVELS})
         return paths
+
+    def total(name):
+        return sum(by_path(name).values())
 
     def ctc_entry(name, part, library, library_key, **extra):
         lib = ctc["library"][library_key]
         row = dict(ctc[part], shape=ctc["shape"], dtype="float32", library_ms=lib["ms"])
         return entry(name, row, "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
-                     tl[name] + vl[name], launches_by_path=by_path(name), library=library,
+                     total(name), launches_by_path=by_path(name), library=library,
                      library_device_ms=lib["device_ms"], device_ms=row["device_ms"],
                      ns_per_frame=row["ns_per_frame"], **extra)
 
@@ -2129,22 +2832,21 @@ def main() -> None:
 
     kernels = [
         entry("attention_fwd", att, "attention_fwd.cu", "models/conformer.py:142",
-              launches["attention_fwd"] + tl["attention_fwd"] + vl["attention_fwd"]
-              + sl["attention_fwd"],
+              launches["attention_fwd"] + total("attention_fwd"),
               launches_by_path={"serving": launches["attention_fwd"],
                                 **by_path("attention_fwd")},
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
                              "fastspeech2_lightning_tpu/ops/attention_dropout.py:461"],
               **device_keys(att), training=train_att["fwd"]),
         entry("attention_bwd", train_att["bwd"], "attention_bwd.cu",
-              "ops/attention_dropout.py:190", tl["attention_bwd"] + vl["attention_bwd"],
+              "ops/attention_dropout.py:190", total("attention_bwd"),
               launches_by_path=by_path("attention_bwd"),
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:494"],
               p=train_att["bwd"]["p"], library="SDPA backward alone",
               library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
               **device_keys(train_att["bwd"])),
         entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94",
-              tl["mas_width1"] + vl["mas_width1"] + sl["mas_width1"],
+              total("mas_width1"),
               launches_by_path=by_path("mas_width1"),
               device_ms=mas["device_ms"], training_shape=mas["training_shape"]),
         # the training forward (both chains, one launch) and backward, and the
@@ -2158,14 +2860,24 @@ def main() -> None:
         # serving's vocoder is f32: that row (C = 128) on top; `stages` holds all six,
         # the bf16 C = 128 row first
         entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
-              launches["mrf_conv"], timed=f"one MRF stage: {MRF_LAUNCHES} launches",
+              launches["mrf_conv"] + stream["launches"]["mrf_conv"],
+              launches_by_path={"serving": launches["mrf_conv"],
+                                "streaming": stream["launches"]["mrf_conv"]},
+              timed=f"one MRF stage: {MRF_LAUNCHES} launches",
               device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
-              stages=mrf_rows, serving_vocoder=launches["vocoder"]),
+              stages=mrf_rows, stream_window_stages=stream["stages"],
+              serving_vocoder=launches["vocoder"]),
     ]
+    stream.pop("stages")
     log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "
         f"({smi})")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "trainer": train["timing"], "synthesize": syn}))
+    log(f"conditioned train: median {cond['ms_per_step']:.1f} ms/step ({cond['ratio_to_plain']:.3f}"
+        f" of the unconditioned), peak {cond['peak_gib']:.2f} GiB; stream: first audio "
+        f"{stream['first_audio_ms']:.1f} ms against {stream['batched_first_audio_ms']:.1f} batched")
+    print(json.dumps({"kernels": kernels, "trainer": train["timing"], "synthesize": syn,
+                      "conditioned": {"training": cond, "serving": cond_serve},
+                      "streaming": stream, "text_levels": levels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
-"""fastspeech2_lightning_tpu_torch — the PyTorch/CUDA port of the serving path.
+"""fastspeech2_lightning_tpu_torch — the PyTorch/CUDA port.
 
-Text -> FastSpeech2 mel -> HiFiGAN wav, served over HTTP, on an NVIDIA
-Hopper card. Plain tensor code is PyTorch; the two kernels on this path
-(attention forward and the HiFiGAN multi-receptive-field stage) are CUDA C++
-under ``csrc/``, built with nvcc on first use (``kernels/build.py``).
+Serving (text -> FastSpeech2 mel -> HiFiGAN wav over HTTP, batched or
+streamed window by window), the ``synthesize`` command and acoustic
+training, on an NVIDIA Hopper card, for character, phone and
+phonological-feature models with speakers, languages and global style
+tokens. Plain tensor code is PyTorch; the kernels (attention forward and
+backward, MAS, the CTC scans and the HiFiGAN multi-receptive-field stage)
+are CUDA C++ under ``csrc/``, built with nvcc on first use
+(``kernels/build.py``).
 
 The package imports neither JAX nor the JAX package beside it: what it needs
 of that package's host-side modules (config, text, synthesis preparation) it

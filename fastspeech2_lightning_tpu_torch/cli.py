@@ -6,6 +6,8 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch serve LOGS/.../checkpoints/step=1000 --use-ema
     python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -t "hello" -O spec textgrid
     python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -f LIST.psv -v griffin-lim
+    python -m fastspeech2_lightning_tpu_torch synthesize GST.ckpt -t "hello" -S REF.wav -O spec
+    python -m fastspeech2_lightning_tpu_torch serve GST.ckpt -v VOCODER.npz -S REF.wav
 """
 
 from __future__ import annotations
@@ -44,8 +46,12 @@ def _parser() -> argparse.ArgumentParser:
                    default="float32")
     s.add_argument("--warmup", action="store_true",
                    help="Build the kernels before accepting requests.")
+    s.add_argument("--style-reference", "-S", default=None,
+                   help="GST style-reference wav applied to every request (the model must "
+                   "be trained with the global-style-token module).")
     s.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    s.set_defaults(command_parser=s)
     t = sub.add_parser(
         "train",
         help="Train the acoustic model on a preprocessed corpus. CONFIG is a JSON "
@@ -84,7 +90,8 @@ def _parser() -> argparse.ArgumentParser:
     y.add_argument("--vocoder-path", "-v", default=None,
                    help="A HiFiGAN .npz/.ckpt, or griffin-lim (also griffin_lim, gl).")
     y.add_argument("--vocoder-precision", choices=["float32", "bfloat16"], default="float32")
-    y.add_argument("--style-reference", "-S", default=None)
+    y.add_argument("--style-reference", "-S", default=None,
+                   help="A wav whose style a global-style-token model takes.")
     y.add_argument("--output-dir", "-o", default="synthesis_output")
     y.add_argument("--batch-size", "-b", type=int, default=None)
     y.add_argument("--data-parallel", type=int, default=None)
@@ -195,12 +202,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     elif args.command == "serve":
         from .serving import serve
 
+        if args.style_reference is not None and not Path(args.style_reference).exists():
+            args.command_parser.error("Invalid value for '--style-reference' / '-S': Path "
+                                      f"'{args.style_reference}' does not exist.")
         server = serve(
             args.model_path, vocoder_path=args.vocoder_path, host=args.host,
             port=args.port, max_batch=args.max_batch,
             batch_window_ms=args.batch_window_ms, max_frames=args.max_frames,
             vocoder_precision=args.vocoder_precision,
             warmup=args.warmup, device=args.device, use_ema=args.use_ema,
+            style_reference=args.style_reference,
         )
         print(f"serving on http://{server.address[0]}:{server.address[1]}", flush=True)
         try:

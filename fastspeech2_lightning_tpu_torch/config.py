@@ -48,6 +48,7 @@ class _FromDict:
 # text representation levels (TargetTrainingTextRepresentationLevel values)
 CHARACTERS = "characters"
 PHONES = "phones"
+PHONOLOGICAL_FEATURES = "phonological_features"
 
 
 @dataclasses.dataclass
@@ -251,6 +252,27 @@ class FastSpeech2Config(_FromDict):
     )
     text: TextConfig = dataclasses.field(default_factory=TextConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
+
+    def __post_init__(self):
+        """Phone-level and phonological-feature models get the bundled
+        g2p's IPA inventory as the symbol set ``g2p_ipa`` when the config
+        declares none of that name: the phones its symbols lack, in
+        ``IPA_PHONES`` order (``config/__init__.py:572-591``). Character
+        models keep their symbols."""
+        if self.model.target_text_representation_level == CHARACTERS:
+            return
+        symbols = self.text.symbols
+        if "g2p_ipa" in symbols:
+            return
+        from .text.g2p import IPA_PHONES
+
+        declared = set()
+        for key, val in symbols.items():
+            if key != "pad":
+                declared.update([val] if isinstance(val, str) else val)
+        missing = [p for p in IPA_PHONES if p not in declared]
+        if missing:
+            self.text.symbols = {**symbols, "g2p_ipa": missing}  # the caller's dict stays
 
     @classmethod
     def from_file(cls, path: Union[str, Path]) -> "FastSpeech2Config":

@@ -3,7 +3,8 @@
 ``state_dict_from_jax`` is the port's own copy of the mapping in the JAX
 package's ``models/torch_export.py:34-243``: flax (params, batch_stats,
 constants) -> the reference/torchaudio state_dict layout the port's modules
-are named after, so the result loads with ``load_state_dict(strict=True)``.
+are named after (the global style tokens and the phonological-feature input
+layer included), so the result loads with ``load_state_dict(strict=True)``.
 ``train_state_from_jax`` adds the optimizer's moments and count and the EMA
 weights, so a JAX run continues in the port. ``hifigan_state_from_jax`` is
 the inverse of ``models/hifigan.py::load_torch_hifigan``. All take nested
@@ -97,6 +98,37 @@ def _conv_attention(out: dict, prefix: str, p: dict) -> None:
     _conv1d(out, f"{prefix}.query_proj.4.conv", p["query_proj_2"]["Conv_0"])
 
 
+def _gru(out: dict, prefix: str, p: dict) -> None:
+    """flax GRUCell gates (ir, iz, in with biases; hr, hz without; hn with)
+    -> torch GRU layer 0: the r and z biases go whole into ``bias_ih_l0`` and
+    ``bias_hh_l0`` holds zeros there (``torch_export.py:118-133``)."""
+    out[f"{prefix}.weight_ih_l0"] = np.concatenate(
+        [_f32(p[g]["kernel"]).T for g in ("ir", "iz", "in")])
+    out[f"{prefix}.weight_hh_l0"] = np.concatenate(
+        [_f32(p[g]["kernel"]).T for g in ("hr", "hz", "hn")])
+    H = _f32(p["hr"]["kernel"]).shape[0]
+    out[f"{prefix}.bias_ih_l0"] = np.concatenate([_f32(p[g]["bias"]) for g in ("ir", "iz", "in")])
+    out[f"{prefix}.bias_hh_l0"] = np.concatenate(
+        [np.zeros(2 * H, np.float32), _f32(p["hn"]["bias"])])
+
+
+def _gst(out: dict, prefix: str, p: dict, s: dict) -> None:
+    """The style encoder (``torch_export.py:136-148``): conv kernels [kh, kw,
+    in, out] -> [out, in, kh, kw], BatchNorms with their statistics."""
+    ref_p, ref_s = p["ref_enc"], s.get("ref_enc", {})
+    i = 0
+    while f"conv_{i}" in ref_p:
+        out[f"{prefix}.ref_enc.convs.{3 * i}.weight"] = np.ascontiguousarray(
+            np.transpose(_f32(ref_p[f"conv_{i}"]["kernel"]), (3, 2, 0, 1)))
+        _bn(out, f"{prefix}.ref_enc.convs.{3 * i + 1}", ref_p[f"bn_{i}"], ref_s.get(f"bn_{i}"))
+        i += 1
+    _gru(out, f"{prefix}.ref_enc.gru", ref_p["gru"])
+    stl = p["stl"]
+    out[f"{prefix}.stl.gst_embs"] = _f32(stl["gst_embs"])
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        _lin(out, f"{prefix}.stl.mha.{name}", stl[name])
+
+
 def state_dict_from_jax(
     params: dict,
     batch_stats: Optional[dict],
@@ -110,17 +142,14 @@ def state_dict_from_jax(
     from ``np.linspace`` over the stats' normalized range otherwise, as the
     JAX exporter writes them."""
     mcfg = config.model
-    if mcfg.use_global_style_token_module:
-        raise NotImplementedError("global style tokens are not ported yet (later slice: GST)")
     batch_stats = batch_stats or {}
     sd: Dict[str, np.ndarray] = {}
 
     tl = params["text_input_layer"]
-    if "embedding" not in tl:
-        raise NotImplementedError(
-            "phonological-feature input is not ported yet (later slice: phones/pfs input)"
-        )
-    sd["text_input_layer.weight"] = _f32(tl["embedding"])
+    if "embedding" in tl:
+        sd["text_input_layer.weight"] = _f32(tl["embedding"])
+    else:  # phonological features: the bias-free Linear's kernel [in, out]
+        sd["text_input_layer.weight"] = _f32(tl["kernel"]).T
     d = mcfg.encoder.input_dim
     sd["position_embedding.inv_freq"] = (
         1.0 / (10000.0 ** (np.arange(0.0, d, 2.0, dtype=np.float32) / d))
@@ -164,6 +193,8 @@ def state_dict_from_jax(
         sd["speaker_embedding.weight"] = _f32(params["speaker_embedding"]["embedding"])
     if mcfg.multilingual and "language_embedding" in params:
         sd["language_embedding.weight"] = _f32(params["language_embedding"]["embedding"])
+    if mcfg.use_global_style_token_module and "gst" in params:
+        _gst(sd, "gst", params["gst"], batch_stats.get("gst", {}))
     return sd
 
 

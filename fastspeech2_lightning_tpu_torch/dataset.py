@@ -9,7 +9,10 @@ the last partial batch of a bucket is filled with bucket-mates of
 ``sample_weight`` 0. The padding decides the losses' denominators
 (``training/loss.py``), so buckets and padding equal the JAX package's for
 the same corpus and seed. Batches are numpy dicts; the trainer moves them to
-the device. Character-level models only."""
+the device. Phone-level and phonological-feature models read the
+``phone_tokens`` column (or run g2p on an item without it) and the
+phonological features from ``pfs.npy``, as the JAX package's ``preprocess``
+writes them."""
 
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from .config import CHARACTERS, FastSpeech2Config
+from .config import CHARACTERS, PHONOLOGICAL_FEATURES, FastSpeech2Config
 from .text import TextProcessor
 from .text.lookups import LookupTable, load_filelist
 
@@ -33,27 +36,27 @@ def _round_up(n: int, mult: int) -> int:
     return max(mult, int(math.ceil(n / mult)) * mult)
 
 
-def _require_characters(config: FastSpeech2Config) -> None:
+def token_key(config: FastSpeech2Config) -> str:
+    """The filelist column that holds a model's tokens."""
     level = config.model.target_text_representation_level
-    if level != CHARACTERS:
-        raise NotImplementedError(
-            f"{level!r}-level training data is not ported yet (later slice: phones/pfs input)"
-        )
+    return "character_tokens" if level == CHARACTERS else "phone_tokens"
 
 
 class FastSpeechDataset:
-    """Loads one utterance's artifacts (``dataset.py:44-190``, character
-    level): text ids capped at ``model.max_length``, the mel [T, n_mels],
-    the attention prior (or the durations without learned alignment), pitch
-    and energy. At `inference` only the text is loaded, and with
-    `teacher_forcing` also the mel and the prior (or durations). Every item
-    carries its raw text, ``duration_control`` and ``is_last_input_chunk``
-    for the synthesis writers."""
+    """Loads one utterance's artifacts (``dataset.py:44-190``): text ids
+    capped at ``model.max_length``, the mel [T, n_mels], the attention prior
+    (or the durations without learned alignment), pitch and energy, and for
+    a phonological-feature model its features [L, N_PHONOLOGICAL_FEATURES].
+    At `inference` only the text is loaded, and with `teacher_forcing` also
+    the mel and the prior (or durations); with `style_reference` an item's
+    ``mel_style_reference`` rides along. Every item carries its raw text,
+    ``duration_control`` and ``is_last_input_chunk`` for the synthesis
+    writers."""
 
     def __init__(self, items: List[dict], config: FastSpeech2Config,
                  lang2id: LookupTable, speaker2id: LookupTable,
-                 teacher_forcing: bool = False, inference: bool = False):
-        _require_characters(config)
+                 teacher_forcing: bool = False, inference: bool = False,
+                 style_reference: bool = False):
         self.items = items
         self.config = config
         self.preprocessed_dir = Path(config.preprocessing.save_dir)
@@ -62,6 +65,8 @@ class FastSpeechDataset:
         self.speaker2id = speaker2id
         self.teacher_forcing = teacher_forcing
         self.inference = inference
+        self.style_reference = style_reference
+        self._preprocessor = None
 
     def __len__(self):
         return len(self.items)
@@ -76,8 +81,20 @@ class FastSpeechDataset:
         return f"spec-{a.input_sampling_rate}-{a.spec_type}.npy"
 
     def encode_text(self, item: dict) -> np.ndarray:
-        if item.get("character_tokens"):
-            ids = self.text_processor.encode_escaped_string_sequence(item["character_tokens"])
+        """The item's symbol ids (``dataset.py:78-98``): its token column
+        when it has one; else, for a phone-level model, the phones
+        ``Preprocessor.process_text`` gives (g2p for an ad-hoc item); else
+        its characters."""
+        key = token_key(self.config)
+        if item.get(key):
+            ids = self.text_processor.encode_escaped_string_sequence(item[key])
+        elif key == "phone_tokens":
+            if self._preprocessor is None:
+                from .preprocessing.pipeline import Preprocessor
+
+                self._preprocessor = Preprocessor(self.config)
+            _, phone_tokens, _ = self._preprocessor.process_text(item)
+            ids = self.text_processor.encode_tokens(phone_tokens or [])
         else:
             ids = self.text_processor.encode_text(item.get("characters") or item.get("text") or "")
         return np.asarray(ids, dtype=np.int32)
@@ -98,12 +115,24 @@ class FastSpeechDataset:
             "is_last_input_chunk": bool(item.get("is_last_input_chunk", True)),
             "text": text,
         }
-        if self.inference and not self.teacher_forcing:
-            return loaded
+        if not self.inference or self.teacher_forcing:
+            self._load_targets(item, loaded)
+        if not self.inference:
+            loaded["energy"] = np.load(self.path(item, "energy", "energy.npy")).astype(np.float32)
+            loaded["pitch"] = np.load(self.path(item, "pitch", "pitch.npy")).astype(np.float32)
+            if self.config.model.target_text_representation_level == PHONOLOGICAL_FEATURES:
+                loaded["pfs"] = np.load(self.path(item, "pfs", "pfs.npy")).astype(np.float32)
+        if self.style_reference and "mel_style_reference" in item:
+            loaded["mel_style_reference"] = item["mel_style_reference"]
+        return loaded
+
+    def _load_targets(self, item: dict, loaded: dict) -> None:
+        """The mel and the attention prior (or the durations)."""
         loaded["mel"] = np.load(self.path(item, "spec", self.spec_name())).T.astype(np.float32)
         if self.config.model.learn_alignment:
+            rep = "characters" if token_key(self.config) == "character_tokens" else "phones"
             loaded["attn_prior"] = np.load(
-                self.path(item, "attn", "characters-attn-prior.npy")).astype(np.float32)
+                self.path(item, "attn", f"{rep}-attn-prior.npy")).astype(np.float32)
         else:
             duration = np.load(self.path(item, "duration", "duration.npy")).astype(np.int32)
             if int(duration.sum()) != loaded["mel"].shape[0]:
@@ -112,11 +141,6 @@ class FastSpeechDataset:
                     f"mel has {loaded['mel'].shape[0]} frames"
                 )
             loaded["duration"] = duration
-        if self.inference:
-            return loaded
-        loaded["energy"] = np.load(self.path(item, "energy", "energy.npy")).astype(np.float32)
-        loaded["pitch"] = np.load(self.path(item, "pitch", "pitch.npy")).astype(np.float32)
-        return loaded
 
 
 def collate(samples: List[dict], pad_text_to: int, pad_mel_to: Optional[int],
@@ -129,7 +153,8 @@ def collate(samples: List[dict], pad_text_to: int, pad_mel_to: Optional[int],
     mels (inference) it is only recorded as ``max_mel_len`` and
     ``mel_lens`` is None. The host keys (speaker and language names, raw
     text, chunk flags) and ``duration_control`` ride along for the
-    synthesis writers."""
+    synthesis writers; phonological features pad to [B, L, features] and
+    style references to the longest one."""
     B = len(samples)
     L = pad_text_to
     src_lens = np.minimum(np.array([s["text"].shape[0] for s in samples], np.int32), L)
@@ -186,6 +211,17 @@ def collate(samples: List[dict], pad_text_to: int, pad_mel_to: Optional[int],
             d = s["duration"]
             dur[i, : min(d.shape[0], L)] = d[:L]
         batch["duration"] = dur
+    if samples[0].get("pfs") is not None:
+        pfs = np.zeros((B, L, samples[0]["pfs"].shape[1]), np.float32)
+        for i, s in enumerate(samples):
+            pfs[i, : min(s["pfs"].shape[0], L)] = s["pfs"][:L]
+        batch["pfs"] = pfs
+    if samples[0].get("mel_style_reference") is not None:
+        refs = [np.asarray(s["mel_style_reference"]) for s in samples]
+        ref = np.zeros((B, max(r.shape[0] for r in refs), refs[0].shape[1]), np.float32)
+        for i, r in enumerate(refs):
+            ref[i, : r.shape[0]] = r
+        batch["mel_style_reference"] = ref
     return batch
 
 
@@ -212,8 +248,9 @@ class BucketedLoader:
         self.use_weighted_sampler = use_weighted_sampler
         text_lens, mel_lens = [], []
         spec = dataset.spec_name()
+        key = token_key(dataset.config)
         for item in dataset.items:
-            tokens = item.get("character_tokens")
+            tokens = item.get(key)
             text_lens.append(len(tokens.split("/")) if tokens else len(dataset.encode_text(item)))
             p = dataset.path(item, "spec", spec)
             mel_lens.append(np.load(p, mmap_mode="r").shape[1] if p.exists() else 0)

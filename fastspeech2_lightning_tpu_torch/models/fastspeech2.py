@@ -5,12 +5,21 @@ deterministic=True``; ``forward_teacher_forced``, the same with
 ``forward_train``, the training forward (``inference=False,
 deterministic=False``) over a batch of tensors.
 
-Text embedding + FastPitch positions -> Conformer encoder -> speaker /
-language embeddings -> variance adaptor -> Conformer decoder -> mel linear
--> PostNet. ``model.dtype = "bfloat16"`` computes in bf16 wherever the JAX
-model passes ``dtype=dt``; the variance heads and the mel outputs stay f32,
-and so do the speaker and language embeddings (whose sum promotes the
-encoder output to f32, as in JAX)."""
+Text embedding (or, for a phonological-feature model, a bias-free Linear
+over the feature vectors) + FastPitch positions -> Conformer encoder ->
+global style embedding -> speaker / language embeddings -> variance adaptor
+-> Conformer decoder -> mel linear -> PostNet. ``model.dtype = "bfloat16"``
+computes in bf16 wherever the JAX model passes ``dtype=dt``; the variance
+heads and the mel outputs stay f32, and so do the speaker and language
+embeddings (whose sum promotes the encoder output to f32, as in JAX). The
+style encoder computes in f32 and its output is cast to the encoder's
+dtype before it is added.
+
+The style (``fastspeech2.py:164-174``): in training and under teacher
+forcing from the batch's padded ``mel`` (BatchNorm on batch statistics in
+training, on running ones otherwise), unless a ``mel_style_reference`` is
+given at inference; free-running inference without one attends to style
+token 0."""
 
 from __future__ import annotations
 
@@ -19,9 +28,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..config import CHARACTERS, FastSpeech2Config
+from ..config import PHONOLOGICAL_FEATURES, FastSpeech2Config
 from ..ops.masking import mask_from_lens
+from ..text.features import N_PHONOLOGICAL_FEATURES
 from .conformer import Conformer
+from .gst import StyleEncoder
 from .layers import Embedding, Linear, PostNet, fastpitch_positional_embedding
 from .variance_adaptor import VarianceAdaptor
 
@@ -34,22 +45,20 @@ class FastSpeech2(nn.Module):
                  n_speakers: int = 1, n_languages: int = 1):
         super().__init__()
         mcfg = config.model
-        if mcfg.target_text_representation_level != CHARACTERS:
-            raise NotImplementedError(
-                f"{mcfg.target_text_representation_level!r}-level models are not "
-                "ported yet (later slice: phones/pfs input)"
-            )
-        if mcfg.use_global_style_token_module:
-            raise NotImplementedError(
-                "global style tokens are not ported yet (later slice: GST)"
-            )
         self.config = config
         dt = compute_dtype(config)
         self.compute_dtype = dt
         d = mcfg.encoder.input_dim
         n_mels = config.preprocessing.audio.n_mels
-        self.text_input_layer = Embedding(n_symbols, d, dtype=dt)
+        self.uses_pfs = mcfg.target_text_representation_level == PHONOLOGICAL_FEATURES
+        if self.uses_pfs:
+            self.text_input_layer = Linear(N_PHONOLOGICAL_FEATURES, d, bias=False, dtype=dt)
+        else:
+            self.text_input_layer = Embedding(n_symbols, d, dtype=dt)
         self.position_embedding = _PositionEmbedding(d)
+        if mcfg.use_global_style_token_module:
+            # added to the encoder output, so as wide as the encoder
+            self.gst = StyleEncoder(idim=n_mels, gst_token_dim=d)
         enc, dec = mcfg.encoder, mcfg.decoder
         self.encoder = Conformer(d, enc.layers, enc.heads, enc.feedforward_dim,
                                  enc.conv_kernel_size, dtype=dt, dropout=enc.dropout,
@@ -76,10 +85,13 @@ class FastSpeech2(nn.Module):
         control: Optional[Dict[str, float]] = None,
         speaker_id: Optional[torch.Tensor] = None,
         language_id: Optional[torch.Tensor] = None,
+        pfs: Optional[torch.Tensor] = None,  # [B, L, N_PHONOLOGICAL_FEATURES]
+        mel_style_reference: Optional[torch.Tensor] = None,  # [B, T_ref, n_mels]
     ) -> Dict[str, torch.Tensor]:
         if control is None:
             control = {"pitch": 1.0, "energy": 1.0, "duration": 1.0}
-        _, x, src_mask = self._encode(text, src_lens, speaker_id, language_id)
+        _, x, src_mask = self._encode(text, src_lens, speaker_id, language_id, pfs=pfs,
+                                      style_mel=mel_style_reference)
         va = self.variance_adaptor(x, src_mask, control, max_target_len)
         return self._inference_outputs(va, x, src_mask, va["mel_lens"])
 
@@ -89,12 +101,16 @@ class FastSpeech2(nn.Module):
                                ) -> Dict[str, torch.Tensor]:
         """The inference forward with the durations taken from the batch's
         target mels (text, src_lens, mel, mel_lens, attn_prior or duration,
-        speaker_id, language_id): the mel comes out at the batch's mel width,
+        speaker_id, language_id, and pfs and mel_style_reference where the
+        model takes them): the mel comes out at the batch's mel width,
         ``tgt_lens`` is ``mel_lens`` and ``duration_rounded`` the durations."""
         if control is None:
             control = {"pitch": 1.0, "energy": 1.0, "duration": 1.0}
+        style = batch.get("mel_style_reference")
         inputs, x, src_mask = self._encode(batch["text"], batch["src_lens"],
-                                           batch.get("speaker_id"), batch.get("language_id"))
+                                           batch.get("speaker_id"), batch.get("language_id"),
+                                           pfs=batch.get("pfs"),
+                                           style_mel=batch["mel"] if style is None else style)
         va = self.variance_adaptor.forward_teacher_forced(inputs, x, batch, src_mask, control)
         return self._inference_outputs(va, x, src_mask, batch["mel_lens"])
 
@@ -117,13 +133,14 @@ class FastSpeech2(nn.Module):
                       gen: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         """Training forward: `batch` holds the loader's arrays as tensors on
         the model's device (text, src_lens, mel, mel_lens, pitch, energy,
-        attn_prior or duration, speaker_id, language_id); `gen` draws every
-        dropout mask and attention seed, and None is the JAX package's
+        attn_prior or duration, speaker_id, language_id, pfs); `gen` draws
+        every dropout mask and attention seed, and None is the JAX package's
         ``deterministic=True`` (the eval step). Returns the keys
         ``compute_loss`` reads."""
         inputs, x, src_mask = self._encode(batch["text"], batch["src_lens"],
                                            batch.get("speaker_id"),
-                                           batch.get("language_id"), gen)
+                                           batch.get("language_id"), gen, pfs=batch.get("pfs"),
+                                           style_mel=batch["mel"])
         va = self.variance_adaptor.forward_train(inputs, x, batch, src_mask, gen)
         tgt_mask = va["target_mask"]
         output, postnet_output = self._decode(va["output"], tgt_mask, x.dtype, gen)
@@ -146,10 +163,18 @@ class FastSpeech2(nn.Module):
             "pitch_target": va["pitch_target"],
         }
 
-    def _encode(self, text, src_lens, speaker_id, language_id, gen=None):
-        """(text embeddings, encoder output with the speaker and language
-        embeddings added, source mask)."""
+    def _encode(self, text, src_lens, speaker_id, language_id, gen=None, pfs=None,
+                style_mel=None):
+        """(text embeddings, encoder output with the style, speaker and
+        language embeddings added, source mask). A phonological-feature
+        model reads `pfs` in place of `text`; a GST model takes its style
+        from `style_mel`, or from token 0 when that is None."""
         mcfg = self.config.model
+        if self.uses_pfs:
+            if pfs is None:
+                raise ValueError("a phonological-feature model needs the batch's pfs "
+                                 "[B, L, N_PHONOLOGICAL_FEATURES]")
+            text = pfs
         L = text.shape[1]
         src_mask = mask_from_lens(src_lens, L)
         inputs = self.text_input_layer(text)
@@ -158,6 +183,12 @@ class FastSpeech2(nn.Module):
                                                  dtype=inputs.dtype)
         enc_pos = enc_pos[None] * src_mask[:, :, None].to(inputs.dtype)
         x = self.encoder(inputs + enc_pos, src_mask, gen)
+        if mcfg.use_global_style_token_module:
+            if style_mel is None:
+                style = self.gst.condition_on_gst_tokens(text.shape[0])
+            else:
+                style = self.gst(style_mel, use_running_average=gen is None)
+            x = x + style[:, None, :].to(x.dtype)
         if mcfg.multispeaker:
             x = x + self.speaker_embedding(speaker_id)[:, None, :]
         if mcfg.multilingual:

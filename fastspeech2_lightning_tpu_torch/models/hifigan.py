@@ -242,7 +242,8 @@ def make_vocoder_fn(
 ):
     """Callable (mel [B, T, n_mels] numpy) -> (wav [B, samples] float32 numpy,
     sample rate), with ``.device_fn`` (mel tensor on the device -> wav tensor),
-    ``.sample_rate`` and ``.hop``.
+    ``.device``, ``.sample_rate``, ``.hop`` and ``.receptive_margin_frames``
+    (the window margin of ``synthesis.streaming``).
     precision: "float32" or "bfloat16" (weights and activations)."""
     device = resolve_device(device)
     dt = torch.bfloat16 if precision == "bfloat16" else torch.float32
@@ -270,6 +271,8 @@ def make_vocoder_fn(
         return wav.float().cpu().numpy(), config.sampling_rate
 
     vocoder.device_fn = device_fn
+    vocoder.device = device
     vocoder.sample_rate = config.sampling_rate
     vocoder.hop = config.total_upsampling
+    vocoder.receptive_margin_frames = config.receptive_margin_frames
     return vocoder

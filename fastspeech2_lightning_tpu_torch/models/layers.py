@@ -102,16 +102,17 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm1d(nn.BatchNorm1d):
-    """BatchNorm over the channels of [B, T, C], normalized by the running
-    statistics or by one of the JAX package's two batch-statistics forms;
-    the result is cast to the compute dtype.
+    """BatchNorm over the channels of [B, T, C] (or of any [..., C]),
+    normalized by the running statistics or by one of the JAX package's two
+    batch-statistics forms; the result is cast to the compute dtype.
 
     - running statistics (``use_running_average=True``), normalized in f32;
     - ``mask`` given: the conformer's MaskedBatchNorm (``conformer.py:28-55``),
-      statistics over the valid frames only, computed in x's dtype, biased
-      variance;
-    - no mask: flax ``nn.BatchNorm`` (the PostNet), statistics in f32 over
-      all B*T positions, padding included, variance E[x^2] - E[x]^2.
+      statistics over the valid frames of [B, T, C] only, computed in x's
+      dtype, biased variance;
+    - no mask: flax ``nn.BatchNorm`` (the PostNet, and the style encoder's
+      [B, T, F, C]), statistics in f32 over every position but the channel
+      axis, padding included, variance E[x^2] - E[x]^2.
 
     Batch statistics update the running ones as running = 0.9 * running +
     0.1 * batch, with the biased variance (``nn.BatchNorm1d``'s own update
@@ -135,8 +136,9 @@ class BatchNorm1d(nn.BatchNorm1d):
             y = ((x - mean) * torch.rsqrt(var + self.eps)).float() * self.weight + self.bias
         else:
             x32 = x.float()
-            mean = x32.mean((0, 1))
-            var = torch.clamp((x32 * x32).mean((0, 1)) - mean * mean, min=0.0)
+            dims = tuple(range(x.ndim - 1))
+            mean = x32.mean(dims)
+            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
             y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         with torch.no_grad():
             k = self.MOMENTUM

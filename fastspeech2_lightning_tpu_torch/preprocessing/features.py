@@ -1,8 +1,9 @@
-"""Spectral features: the mel filterbank and the complex STFT.
+"""Spectral features: the mel filterbank, the STFT and the log-mel.
 
 Copies of the JAX package's ``preprocessing/features.py`` host functions
 (``hz_to_mel``, ``mel_to_hz``, ``mel_filterbank``, ``_hann``,
-``stft_complex_numpy``), and ``stft_complex``, which computes what
+``stft_complex_numpy``, ``stft_magnitude_numpy``, ``mel_spectrogram_numpy``:
+what a style-reference wav becomes), and ``stft_complex``, which computes what
 ``stft_complex_numpy`` computes on a batch of tensors on any device:
 periodic Hann window, center padding by numpy's ``reflect`` rule (which
 reflects again where the pad is wider than the signal), frames in float64,
@@ -14,6 +15,8 @@ import functools
 
 import numpy as np
 import torch
+
+LOG_CLIP = 1e-5
 
 
 def hz_to_mel(f, htk: bool = False):
@@ -107,6 +110,28 @@ def stft_complex_numpy(
     return np.fft.rfft(frames * window[None, :], n=n_fft, axis=1).astype(
         np.complex64
     )
+
+
+def stft_magnitude_numpy(audio: np.ndarray, n_fft: int, hop: int, win_length: int
+                         ) -> np.ndarray:
+    """[T_frames, n_fft//2+1] magnitude; center=True with reflect padding."""
+    return np.abs(stft_complex_numpy(audio, n_fft, hop, win_length)).astype(np.float32)
+
+
+def mel_spectrogram_numpy(audio: np.ndarray, sr: int, n_fft: int, hop: int, win_length: int,
+                          n_mels: int, f_min: float, f_max: float,
+                          spec_type: str = "mel-librosa") -> np.ndarray:
+    """[n_mels, T_frames] log-mel, [n_fft//2+1, T] log-linear, or, for
+    spec_type 'raw', the [n_fft//2+1, T] complex STFT with no log."""
+    if spec_type == "raw":
+        return stft_complex_numpy(audio, n_fft, hop, win_length).T
+    mag = stft_magnitude_numpy(audio, n_fft, hop, win_length)  # [T, bins]
+    if spec_type == "linear":
+        out = mag.T
+    else:
+        fb = mel_filterbank(sr, n_fft, n_mels, f_min, f_max, spec_type == "mel")
+        out = fb @ mag.T  # [n_mels, T]
+    return np.log(np.clip(out, LOG_CLIP, None)).astype(np.float32)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

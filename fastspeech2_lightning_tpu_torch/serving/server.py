@@ -6,14 +6,19 @@
    -> for "wav": a RIFF/PCM16 stream whose data arrives chunk by chunk
    (Transfer-Encoding: chunked; the RIFF sizes use the 0xFFFFFFFF streaming
    convention). For "mel": the concatenated [T, n_mels] float32 mel as .npy.
+   A wav request with "low_latency": true (and "window"?, frames) bypasses
+   the micro-batcher: one acoustic forward, then the vocoder window by
+   window (``Synthesizer.synthesize_stream``), each window sent as it is
+   vocoded.
  - GET /health -> {"status": "ok", "global_step": N, "sample_rate": SR}
  - GET /stats -> serving counters and batch latency percentiles.
 
 Long inputs are split with the corpus-informed chunker; each chunk is one
 row of a device batch. A background worker micro-batches chunks across
 concurrent requests (grouped by (language, speaker, controls)) and pads each
-group to `max_batch` rows. Low-latency windowed streaming and ``.fs2x``
-artifacts are not ported yet.
+group to `max_batch` rows. A server-wide style reference (a wav) conditions
+every request of a global-style-token model. ``.fs2x`` artifacts are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -123,8 +128,10 @@ class _Batcher:
     `max_batch` rows (one batch shape) and runs ONE predict call."""
 
     def __init__(self, synthesizer, max_batch: int = 8,
-                 batch_window_ms: float = 5.0, stats: Optional[_Stats] = None):
+                 batch_window_ms: float = 5.0, stats: Optional[_Stats] = None,
+                 style_reference=None):
         self.synthesizer = synthesizer
+        self.style_reference = style_reference
         self.max_batch = max_batch
         self.batch_window = batch_window_ms / 1000.0
         self.stats = stats or _Stats()
@@ -181,6 +188,7 @@ class _Batcher:
                     pitch_control=pitch,
                     energy_control=energy,
                     duration_control=duration,
+                    style_reference=self.style_reference,
                 )
                 self.stats.record_batch(
                     len(group), self.max_batch, time.time() - t0
@@ -202,11 +210,13 @@ class SynthesisServer:
 
     def __init__(self, synthesizer, host: str = "127.0.0.1", port: int = 8777,
                  max_batch: int = 8, batch_window_ms: float = 5.0,
-                 global_step: int = 0):
+                 global_step: int = 0, style_reference=None):
         self.synthesizer = synthesizer
         self.global_step = global_step
+        self.style_reference = style_reference
         self.stats = _Stats()
-        self.batcher = _Batcher(synthesizer, max_batch, batch_window_ms, stats=self.stats)
+        self.batcher = _Batcher(synthesizer, max_batch, batch_window_ms, stats=self.stats,
+                                style_reference=style_reference)
         handler = self._make_handler()
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self._serve_thread: Optional[threading.Thread] = None
@@ -308,12 +318,8 @@ class SynthesisServer:
                     float(req.get("energy", 1.0)),
                     float(req.get("duration", 1.0)),
                 )
-                if req.get("low_latency"):
-                    server.stats.incr("request_errors")
-                    self._json(400, {
-                        "error": "low_latency streaming is not yet ported "
-                        "(later slice: streaming)"
-                    })
+                if fmt == "wav" and req.get("low_latency"):
+                    self._low_latency(req, text)
                     return
 
                 try:
@@ -375,6 +381,54 @@ class SynthesisServer:
                 except OSError:
                     pass  # client already gone
 
+            def _low_latency(self, req: dict, text: str) -> None:
+                """Windowed streaming (``server.py:324-380``): the window
+                (frames) is checked against [1, 1024] and rounded up to a
+                multiple of 64 within [64, 1024], so clients reach a few
+                slice shapes only; a failure before the first window is a
+                400, one after it closes the connection."""
+                server.stats.incr("low_latency_requests")
+                syn = server.synthesizer
+                try:
+                    window = int(req.get("window", 128))
+                except (TypeError, ValueError):
+                    self._json(400, {"error": "window must be an int"})
+                    return
+                if not 1 <= window <= 1024:
+                    self._json(400, {"error": "window must be in [1, 1024] frames"})
+                    return
+                window = max(64, min(1024, 64 * -(-window // 64)))
+                try:
+                    gen = syn.synthesize_stream(
+                        text, window=window, language=req.get("language"),
+                        speaker=req.get("speaker"),
+                        pitch_control=float(req.get("pitch", 1.0)),
+                        energy_control=float(req.get("energy", 1.0)),
+                        duration_control=float(req.get("duration", 1.0)),
+                        style_reference=server.style_reference,
+                    )
+                    first = next(gen)
+                except Exception as exc:
+                    self._json(400, {"error": str(exc)})
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "audio/wav")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                self._chunked(wav_stream_header(syn.vocoder.sample_rate))
+                self._chunked(pcm16(first))
+                try:
+                    for seg in gen:
+                        self._chunked(pcm16(seg))
+                except Exception as exc:
+                    logger.error(f"wav stream aborted mid-response: {exc}")
+                    self.close_connection = True
+                try:
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except OSError:
+                    pass
+
         return Handler
 
 
@@ -391,11 +445,13 @@ def serve(
     warmup: bool = False,
     device=None,
     use_ema: bool = False,
+    style_reference=None,
 ) -> SynthesisServer:
     """Load once, serve. Returns the (not yet started) server. The model
     runs on the CUDA card unless `device` is "cpu"; warmup builds the kernels
     and initialises the device libraries before the first request; use_ema
-    serves the EMA weights of a trainer's step=N/ directory."""
+    serves the EMA weights of a trainer's step=N/ directory; style_reference
+    (a wav) conditions every request of a global-style-token model."""
     from ..synthesis.api import Synthesizer
 
     if str(model_path).endswith(".fs2x"):
@@ -414,4 +470,5 @@ def serve(
     return SynthesisServer(
         syn, host=host, port=port, max_batch=max_batch,
         batch_window_ms=batch_window_ms, global_step=syn.global_step,
+        style_reference=style_reference,
     )

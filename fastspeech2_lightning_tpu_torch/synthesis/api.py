@@ -11,7 +11,11 @@ Text is padded to a multiple of 16 symbols. The forward runs at an adaptive
 frame bucket min(cap, round_up(12 * L, 128)); the predicted durations give
 the true total, and an underestimate is re-run at the exact bucket, so the
 output equals the fixed-cap path. Mels go to the vocoder trimmed to a
-128-multiple of the longest utterance, without leaving the device."""
+128-multiple of the longest utterance, without leaving the device.
+``synthesize_stream`` yields a long text's audio window by window
+(``streaming.windowed_vocode``) after one acoustic forward; a style
+reference (a wav path or a [T, n_mels] log-mel) conditions a model with
+global style tokens."""
 
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from ..checkpoint import load_model_from_checkpoint
 from ..dataset import PAD_MULT_TEXT, _round_up
 from ..text import TextProcessor
 from .griffin_lim import GriffinLimVocoder, is_griffin_lim_path
-from .prepare import chunk_text_for_model, encode_texts_for_model
+from .prepare import chunk_text_for_model, encode_texts_for_model, style_reference_mel
 
 
 @dataclasses.dataclass
@@ -50,6 +54,8 @@ class Synthesizer:
         self.device = next(model.parameters()).device
         self.text_processor = TextProcessor(config.text)
         self.max_frames = max_frames or config.model.max_mel_length
+        self._encode_cache: dict = {}
+        self._style_cache: dict = {}
 
     @classmethod
     def from_checkpoint(
@@ -92,9 +98,21 @@ class Synthesizer:
         return cls(model, config, stats, lang2id, speaker2id, vocoder=vocoder,
                    max_frames=max_frames, global_step=step)
 
-    def _forward(self, text, src_lens, spk, lang, ctrl, max_len: int):
+    def _forward(self, text, src_lens, spk, lang, ctrl, max_len: int, pfs=None, style=None):
         return self.model(text, src_lens, max_len, control=ctrl, speaker_id=spk,
-                          language_id=lang)
+                          language_id=lang, pfs=pfs, mel_style_reference=style)
+
+    def _style_reference_mel(self, style_reference) -> np.ndarray:
+        """[T_ref, n_mels] log-mel of a style-reference wav path (cached per
+        path) or of a given array; not padded, since the style encoder's
+        convolutions and GRU see the length (``api.py:147-171``)."""
+        if isinstance(style_reference, np.ndarray):
+            return style_reference.astype(np.float32)
+        key = str(style_reference)
+        if key not in self._style_cache:
+            self._style_cache[key] = style_reference_mel(Path(style_reference),
+                                                         self.config.preprocessing.audio)
+        return self._style_cache[key]
 
     @torch.inference_mode()
     def synthesize(
@@ -109,11 +127,6 @@ class Synthesizer:
         vocode: bool = True,
         style_reference=None,
     ) -> SynthesisResult:
-        if style_reference is not None:
-            raise NotImplementedError(
-                "style references need the global-style-token module, which is "
-                "not ported yet (later slice: GST)"
-            )
         if language is not None and language not in self.lang2id:
             raise ValueError(
                 f"unknown language {language!r}; available: "
@@ -124,7 +137,8 @@ class Synthesizer:
                 f"unknown speaker {speaker!r}; available: "
                 f"{sorted(self.speaker2id) or ['<none>']}"
             )
-        encoded = encode_texts_for_model(texts, self.config, self.text_processor)
+        encoded, pfs_mats = encode_texts_for_model(texts, language, self.config,
+                                                   self.text_processor, self._encode_cache)
         if any(len(e) == 0 for e in encoded):
             raise ValueError("one or more inputs contain no known symbols")
         B = len(encoded)
@@ -139,18 +153,30 @@ class Synthesizer:
         src_lens = torch.as_tensor([len(e) for e in encoded], dtype=torch.int64, device=dev)
         spk = torch.full((B,), spk_id, dtype=torch.int64, device=dev)
         lang = torch.full((B,), lang_id, dtype=torch.int64, device=dev)
+        pfs = style = None
+        if pfs_mats is not None:
+            pfs_np = np.zeros((B, L, pfs_mats[0].shape[1]), dtype=np.float32)
+            for i, m in enumerate(pfs_mats):
+                pfs_np[i, : min(len(m), L)] = m[:L]
+            pfs = torch.as_tensor(pfs_np, device=dev)
+        if style_reference is not None:
+            if not self.config.model.use_global_style_token_module:
+                raise ValueError("style_reference requires a model trained with "
+                                 "model.use_global_style_token_module")
+            ref = torch.as_tensor(self._style_reference_mel(style_reference), device=dev)
+            style = ref[None].expand(B, -1, -1)
         ctrl = {"pitch": float(pitch_control), "energy": float(energy_control),
                 "duration": float(duration_control)}
 
         cap = int(self.max_frames)
         # ~12 frames/symbol upper estimate; the duration total corrects misses
         est = min(cap, _round_up(12 * L, 128)) if adaptive_max_frames else cap
-        out = self._forward(text_t, src_lens, spk, lang, ctrl, est)
+        out = self._forward(text_t, src_lens, spk, lang, ctrl, est, pfs, style)
         dur = out["duration_rounded"].cpu().numpy()
         true_total = int(dur.sum(axis=1).max())
         if est < cap and true_total > est:
             need = min(cap, _round_up(max(true_total, 1), 128))
-            out = self._forward(text_t, src_lens, spk, lang, ctrl, need)
+            out = self._forward(text_t, src_lens, spk, lang, ctrl, need, pfs, style)
             dur = out["duration_rounded"].cpu().numpy()
         lens = out["tgt_lens"].cpu().numpy()
         key = "postnet_output" if self.config.model.use_postnet else "output"
@@ -182,7 +208,13 @@ class Synthesizer:
         text = torch.ones((batch_size, PAD_MULT_TEXT), dtype=torch.int64, device=self.device)
         lens = torch.full((batch_size,), PAD_MULT_TEXT, dtype=torch.int64, device=self.device)
         ids = torch.zeros((batch_size,), dtype=torch.int64, device=self.device)
-        self._forward(text, lens, ids, ids, None, min(int(self.max_frames), 128))
+        pfs = None
+        if self.model.uses_pfs:
+            from ..text.features import N_PHONOLOGICAL_FEATURES
+
+            pfs = torch.zeros((batch_size, PAD_MULT_TEXT, N_PHONOLOGICAL_FEATURES),
+                              device=self.device)
+        self._forward(text, lens, ids, ids, None, min(int(self.max_frames), 128), pfs)
         n = 1
         if self.vocoder is not None:
             mel = torch.zeros((batch_size, 128, self.config.preprocessing.audio.n_mels),
@@ -195,6 +227,22 @@ class Synthesizer:
 
     def _chunk_text(self, text: str, language: Optional[str]) -> List[str]:
         return chunk_text_for_model(text, language, self.config, self.stats)
+
+    def synthesize_stream(self, text: str, window: int = 128, margin: Optional[int] = None,
+                          **kwargs):
+        """Yield a long text's float32 audio in pieces as they are vocoded
+        (``api.py:437-462``): one acoustic forward over all its chunks, then
+        each chunk's mel through the vocoder in windows of `window` frames
+        with `margin` frames of context (``streaming.windowed_vocode``);
+        the pieces put together equal vocoding each mel whole."""
+        if self.vocoder is None:
+            raise ValueError("synthesize_stream requires a loaded vocoder")
+        from .streaming import windowed_vocode
+
+        chunks = self._chunk_text(text, kwargs.get("language"))
+        result = self.synthesize(chunks, vocode=False, **kwargs)
+        for mel in result.mels:
+            yield from windowed_vocode(self.vocoder, mel, window=window, margin=margin)
 
     def synthesize_long(self, text: str, **kwargs) -> SynthesisResult:
         """Chunk at the corpus-informed boundaries, synthesize the chunks as

@@ -1,11 +1,11 @@
 """Synthesis data preparation: text chunking, language and speaker
 validation, and encoding.
 
-A copy of the JAX package's ``synthesis/prepare.py`` as far as the port
-needs it: ``validate_data_keys_with_model_keys``, ``get_text_split_params``,
-``representation_for_model``, ``chunk_text_for_model``, ``prepare_data``
-(without style references, which need the global-style-token module) and
-the character branch of ``encode_texts_for_model``."""
+A copy of the JAX package's ``synthesis/prepare.py``:
+``validate_data_keys_with_model_keys``, ``get_text_split_params``,
+``representation_for_model``, ``chunk_text_for_model``,
+``encode_texts_for_model`` and ``prepare_data`` (with the style reference's
+log-mel on every item)."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..config import CHARACTERS, PHONES
+from ..config import CHARACTERS, PHONES, PHONOLOGICAL_FEATURES
 from ..text.lookups import load_filelist
 from ..text.textsplit import chunk_text
 from ..utils import slugify, truncate_basename
@@ -96,18 +96,37 @@ def chunk_text_for_model(text: str, language: Optional[str], config, stats) -> L
     return chunk_text(text, desired, maxi, strong, weak) or [text]
 
 
-def encode_texts_for_model(texts: List[str], config, text_processor) -> List[np.ndarray]:
-    """Per-text int32 symbol ids. Only character-level models are served by
-    this port so far: phone-level and phonological-feature models need the
-    g2p and preprocessing modules, which come with a later slice."""
+def encode_texts_for_model(texts: List[str], language: Optional[str], config,
+                           text_processor, cache: dict):
+    """(ids, pfs) for `texts` at the model's representation level
+    (``prepare.py:105-160``): a character model's symbol ids and None; a
+    phone-level model's ids of the phones ``Preprocessor.process_text``
+    gives for `language`; a phonological-feature model's ids of its phones
+    (its characters where g2p gives none), kept to the symbol inventory,
+    and their features, one [T, N_PHONOLOGICAL_FEATURES] float32 matrix a
+    text whose rows match the ids. `cache` keeps the Preprocessor between
+    calls."""
     level = config.model.target_text_representation_level
-    if level != CHARACTERS:
-        raise NotImplementedError(
-            f"{level!r}-level models need g2p and the preprocessing pipeline, "
-            "which are not ported yet (later slice: phones/pfs input); "
-            "serve them with the JAX package"
-        )
-    return [np.asarray(text_processor.encode_text(t), dtype=np.int32) for t in texts]
+    if level == CHARACTERS:
+        return [np.asarray(text_processor.encode_text(t), dtype=np.int32) for t in texts], None
+    use_pfs = level == PHONOLOGICAL_FEATURES
+    pre = cache.get("preprocessor")
+    if pre is None:
+        from ..preprocessing.pipeline import Preprocessor
+
+        pre = cache["preprocessor"] = Preprocessor(config)
+    ids, pfs_mats = [], []
+    for t in texts:
+        char_tokens, phone_tokens, _ = pre.process_text({"text": t,
+                                                         "language": language or "default"})
+        tokens = (phone_tokens or char_tokens) if use_pfs else phone_tokens
+        if use_pfs:
+            from ..text.features import get_features_for_tokens
+
+            tokens = [tok for tok in tokens or [] if tok in text_processor.symbol_to_id]
+            pfs_mats.append(get_features_for_tokens(tokens))
+        ids.append(np.asarray(text_processor.encode_tokens(tokens or []), dtype=np.int32))
+    return ids, (pfs_mats if use_pfs else None)
 
 
 def prepare_data(
@@ -128,12 +147,9 @@ def prepare_data(
     corpus-informed boundaries (unless `split_text` or the config turns that
     off), one item a chunk with ``is_last_input_chunk`` on its last, the
     language and speaker defaulting to the model's first, validated against
-    the model, and `duration_control` on every item."""
-    if style_reference is not None:
-        raise NotImplementedError(
-            "style references need the global-style-token module, which is not "
-            "ported yet (later slice: GST)"
-        )
+    the model, and `duration_control` on every item, with the
+    `style_reference` wav's log-mel [T, n_mels] as ``mel_style_reference``
+    when one is given."""
     default_language = next(iter(lang2id.keys()), None)
     default_speaker = next(iter(speaker2id.keys()), None)
     if split_text is None:
@@ -187,6 +203,24 @@ def prepare_data(
         {d["speaker"] for d in data}, set(speaker2id.keys()), "speaker",
         config.model.multispeaker,
     )
+    ref = None
+    if style_reference is not None:
+        ref = style_reference_mel(Path(style_reference), config.preprocessing.audio)
     for item in data:
         item["duration_control"] = duration_control
+        if ref is not None:
+            item["mel_style_reference"] = ref
     return data
+
+
+def style_reference_mel(path: Path, audio_config) -> np.ndarray:
+    """[T, n_mels] float32 log-mel of a style-reference wav, resampled to
+    the input rate (``prepare.py:237-249``)."""
+    from ..preprocessing.features import mel_spectrogram_numpy
+    from ..preprocessing.pipeline import load_wav
+
+    a = audio_config
+    audio = load_wav(Path(path), a.input_sampling_rate)
+    return mel_spectrogram_numpy(audio, a.input_sampling_rate, a.n_fft, a.fft_hop_size,
+                                 a.fft_window_size, a.n_mels, a.f_min, a.f_max,
+                                 a.spec_type).T.astype(np.float32)

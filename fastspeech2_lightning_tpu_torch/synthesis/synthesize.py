@@ -5,8 +5,11 @@ counterpart of the JAX package's ``synthesis/synthesize.py``
 Items go through the model in their order, `batch_size` at a time, with
 the text padded to a multiple of 16. Free-running batches run the decoder
 at `max_target_len` frames (``model.max_mel_length`` by default), as the
-JAX package does; teacher-forced batches at their longest target mel. The
-outputs reach the writers as numpy arrays on the host."""
+JAX package does; teacher-forced batches at their longest target mel. Items
+with a ``mel_style_reference`` (``prepare_data(style_reference=)``) condition
+a global-style-token model on it; the batch's ``pfs`` reach a
+phonological-feature model where the batch has them. The outputs reach the
+writers as numpy arrays on the host."""
 
 from __future__ import annotations
 
@@ -35,8 +38,10 @@ def synthesize_items(
     ``finalize`` where it has one. With `teacher_forcing` the durations come
     from the target mels under ``config.preprocessing.save_dir``."""
     batch_size = batch_size or config.training.batch_size
+    style_reference = any("mel_style_reference" in it for it in items)
     ds = FastSpeechDataset(items, config, lang2id, speaker2id,
-                           teacher_forcing=teacher_forcing, inference=True)
+                           teacher_forcing=teacher_forcing, inference=True,
+                           style_reference=style_reference)
     max_target_len = max_target_len or config.model.max_mel_length
     # the JAX package hands the controls over as float32
     ctrl = {k: float(np.float32((control or {}).get(k, 1.0)))
@@ -54,7 +59,8 @@ def synthesize_items(
             out = model.forward_teacher_forced(db, ctrl)
         else:
             out = model(db["text"], db["src_lens"], int(batch["max_mel_len"]), control=ctrl,
-                        speaker_id=db["speaker_id"], language_id=db["language_id"])
+                        speaker_id=db["speaker_id"], language_id=db["language_id"],
+                        pfs=db.get("pfs"), mel_style_reference=db.get("mel_style_reference"))
         # the model's outputs are f32 (also in bf16 models), ints and masks
         out_host = {k: v.cpu().numpy() for k, v in out.items() if v is not None}
         for writer in writers.values():

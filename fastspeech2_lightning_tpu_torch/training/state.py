@@ -20,6 +20,7 @@ from torch import nn
 
 from ..models.attention import ConvAttention
 from ..models.conformer import SelfAttention
+from ..models.gst import StyleTokenLayer
 
 
 def noam_lr(base_lr: float, warmup_steps: int, count: int) -> float:
@@ -104,7 +105,9 @@ def init_like_flax(model: nn.Module, seed: int) -> None:
     """The JAX package's initial distributions (flax defaults): dense and
     conv kernels lecun-normal (truncated normal, std 1/sqrt(fan_in)), the
     alignment attention's convs xavier-uniform, embeddings normal with std
-    1/sqrt(features), biases 0, norm scales 1."""
+    1/sqrt(features), biases 0, norm scales 1; the style encoder's GRU with
+    lecun-normal input kernels and orthogonal recurrent ones (each gate's
+    apart), its tokens normal with std 1."""
     gen = torch.Generator().manual_seed(seed)
     xavier = set()
     for name, module in model.named_modules():
@@ -116,7 +119,7 @@ def init_like_flax(model: nn.Module, seed: int) -> None:
         nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
 
     for name, module in model.named_modules():
-        if isinstance(module, (nn.Linear, nn.Conv1d)):
+        if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = module.weight[0].numel()
             if id(module) in xavier:
                 nn.init.xavier_uniform_(module.weight, generator=gen)
@@ -132,3 +135,11 @@ def init_like_flax(model: nn.Module, seed: int) -> None:
         elif isinstance(module, SelfAttention):
             lecun(module.in_proj_weight, module.in_proj_weight.shape[1])
             module.in_proj_bias.zero_()
+        elif isinstance(module, nn.GRU):
+            lecun(module.weight_ih_l0, module.weight_ih_l0.shape[1])
+            for gate in module.weight_hh_l0.chunk(3):
+                nn.init.orthogonal_(gate, generator=gen)
+            module.bias_ih_l0.zero_()
+            module.bias_hh_l0.zero_()
+        elif isinstance(module, StyleTokenLayer):
+            nn.init.normal_(module.gst_embs, std=1.0, generator=gen)

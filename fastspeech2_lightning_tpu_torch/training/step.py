@@ -17,7 +17,8 @@ from .state import AdamWNoam
 
 # batch arrays the device step reads (the loader's host-only fields stay behind)
 DEVICE_KEYS = ("text", "src_lens", "mel", "mel_lens", "pitch", "energy", "attn_prior",
-               "duration", "speaker_id", "language_id", "sample_weight")
+               "duration", "speaker_id", "language_id", "sample_weight", "pfs",
+               "mel_style_reference")
 
 
 def batch_to_device(batch: dict, device) -> Dict[str, torch.Tensor]:

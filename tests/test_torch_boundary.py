@@ -43,7 +43,8 @@ def test_importing_every_module_loads_no_jax():
     for module in ("serving.server", "training.loop", "training.step", "training.checkpoint",
                    "training.preemption", "dataset", "ops.mas", "ops.ctc", "ops.attention",
                    "synthesis.synthesize", "synthesis.writers", "synthesis.griffin_lim",
-                   "preprocessing.features", "preprocessing.pipeline", "utils"):
+                   "preprocessing.features", "preprocessing.pipeline", "utils", "models.gst",
+                   "synthesis.streaming", "text.g2p", "text.lexicon", "text.features"):
         assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 

@@ -23,7 +23,8 @@ values in the tiles past kv_end, which the kernels must not read, and dK and
 dV exactly 0 there);
 the MRF conv in f32 within 5e-5, since it multiplies f32 inputs as split
 bf16 pairs on the tensor cores, at T off its 128-row tile and under its halo,
-with each epilogue mode, and on the edge rows alone;
+with each epilogue mode, and on the edge rows alone, and its stage at the
+three B = 1 shapes of a low-latency window of the V1 vocoder;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5. Each counts one launch per kernel launch, and each wrapper raises on a
 shape its kernel does not take. This file imports no JAX, so it also runs on a
@@ -515,6 +516,18 @@ def test_backtrack_window_bit_p_is_column_c_minus_31_plus_p():
         cols = {c - 31 + p for p in range(32) if (window >> p) & 1}
         assert cols == {col for col in (63, 67, 68, 70) if c - 31 <= col <= c}
     assert backtrack_window(0xFFFFFFFF, 0, 5) == 0b111111 << 26  # no column below 0
+
+
+# the fused stages of a low-latency window of the V1 vocoder: 128 + 2 * 15
+# frames, upsampled 64x to the C = 128 stage and twice more at each next one
+STREAM_WINDOW_STAGES = [(128, 158 * 64), (64, 158 * 128), (32, 158 * 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T", STREAM_WINDOW_STAGES)
+def test_mrf_stage_at_a_streaming_window_matches_plain_version(cuda, C, T, dtype):
+    test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype, 1, T)
 
 
 @pytest.mark.gpu

@@ -129,6 +129,9 @@ def test_server_wav_is_riff_pcm16(server, slice_pair):
 
 
 def test_server_refuses_low_latency(server):
+    """Low-latency streaming is served (tests/test_torch_streaming.py); a
+    window outside [1, 1024] frames is refused with 400."""
     with pytest.raises(urllib.error.HTTPError) as err:
-        _post(server, {"text": "abc", "low_latency": True})
+        _post(server, {"text": "abc", "low_latency": True, "window": 0})
     assert err.value.code == 400
+    assert "window" in json.loads(err.value.read())["error"]
