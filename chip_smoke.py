@@ -92,7 +92,22 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     at the three B = 1 window shapes against its plain version;
  20. a phone-level and a phonological-feature model at full width through the
     Synthesizer on English text (g2p): attention_fwd launches, card against
-    CPU in f32.
+    CPU in f32;
+ 21. vocoder training: the full-width HiFiGAN V1 against the default MPD +
+    MSD through the ``train-vocoder`` CLI (B 16, 32-frame crops, bf16) on a
+    seeded corpus of 32 harmonic tones of 1-4 s (``audio-22050.wav`` and
+    spec), 40 steps with a checkpoint every 20: finite losses, mel L1 falling,
+    no kernel launched; a SIGTERMed run after step 45, its resume to 50; then
+    steps in bf16 and f32 in turns (wall; from a profiler trace the kernels'
+    summed time, the card's busy time and the span), peak memory, the
+    step's FLOPs and bound, a save's wall, a resume's load, parameters;
+ 22. card against CPU: one f32 D+G step (TF32 off) on B = 2 full crops from
+    phase 21's last checkpoint: losses within 1e-4, G's and D's gradients
+    within 1e-3 each;
+ 23. the trained vocoder: ``evaluate-vocoder`` on its vocoder.npz; the
+    validation mels vocoded fused (MRF kernel, mrf_conv launches counted)
+    and unfused in f32 within 5e-5; one Synthesizer request with it; the
+    MRF stage raising under autograd before it launches.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -216,6 +231,38 @@ def kernels_ms(fn, iters: int = 10):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
     return us / 1e3 / iters if us > 0 else None
+
+
+def device_busy_ms(fn, iters: int = 2):
+    """Per call of fn(), from a torch.profiler trace of `iters` calls: the
+    sum of the kernels' times, the union of their intervals (the card busy)
+    and the span from the first kernel's start to the last one's end, in
+    ms; None when the trace holds no device event. 1 - busy / span is the
+    card's idle share while calls follow each other."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return {"kernel_sum_ms": sum(b - a for a, b in spans) / 1e3 / iters,
+            "busy_ms": busy / 1e3 / iters,
+            "span_ms": (spans[-1][1] - spans[0][0]) / 1e3 / iters}
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
@@ -2756,6 +2803,443 @@ def phase_pfs_phones(workdir: Path) -> dict:
 # -- main --------------------------------------------------------------------
 
 
+# -- phases 21-23: vocoder training ---------------------------------------------
+
+N_VOC = 32  # utterances of 1-4 s: the first N_VOC_VAL validate, the rest train
+N_VOC_VAL = 8
+VOC_STEPS = 40  # the CLI run: a checkpoint every VOC_CKPT steps, a log every VOC_LOG
+VOC_CKPT = 20
+VOC_LOG = 10
+VOC_RESUME = 50  # the SIGTERMed run and its resume go on to here
+VOC_TIMED = 4  # steps timed a precision a round
+VOC_ROUNDS = 2
+VOC_LOSSES = ("d", "g", "g_adv", "fm", "mel_l1")
+VOC_MRF_STAGES = 3  # of V1's four stages C = 128, 64, 32 take the MRF kernel
+
+
+def vocoder_wav(rng, seconds: float, sr: int = 22050):
+    """A harmonic tone (8 partials at 1/h) on a 90-260 Hz pitch with 4-7 Hz
+    vibrato, a 2-5 Hz syllable-like envelope and noise at about -30 dB,
+    peaking at 0.5."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(90, 260) * (1 + 0.03 * np.sin(2 * np.pi * rng.uniform(4, 7) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(h * phase) / h for h in range(1, 9))
+    x = x * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6.3)))
+    x = x + 0.03 * np.std(x) * rng.standard_normal(t.size)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def write_vocoder_corpus(root: Path, cfg: dict, rng) -> None:
+    """N_VOC seeded utterances as preprocessing writes them: ``audio-22050.wav``
+    (PCM16) and the log-mel ``spec`` of the wav as read back, under
+    ``Preprocessor.artifact_path`` names, and the two filelists."""
+    import numpy as np
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.preprocessing.features import mel_spectrogram_numpy
+    from fastspeech2_lightning_tpu_torch.preprocessing.pipeline import (
+        Preprocessor, load_wav, save_wav,
+    )
+
+    config = FastSpeech2Config.from_dict(cfg)
+    config.preprocessing.save_dir = str(root)
+    a = config.preprocessing.audio
+    pre = Preprocessor(config)
+    rows = []
+    for i in range(N_VOC):
+        name = f"voc{i:03d}"
+        wav_p = pre.artifact_path("audio", name, "default", "default",
+                                  f"audio-{a.input_sampling_rate}.wav")
+        save_wav(wav_p, vocoder_wav(rng, float(rng.uniform(1.0, 4.0))), a.input_sampling_rate)
+        mel = mel_spectrogram_numpy(load_wav(wav_p, a.input_sampling_rate),
+                                    a.input_sampling_rate, a.n_fft, a.fft_hop_size,
+                                    a.fft_window_size, a.n_mels, a.f_min, a.f_max, a.spec_type)
+        spec_p = pre.artifact_path("spec", name, "default", "default", pre.spec_filename())
+        spec_p.parent.mkdir(parents=True, exist_ok=True)
+        np.save(spec_p, mel)
+        rows.append(f"{name}|default|default|utterance {i}")
+    header = "basename|speaker|language|characters"
+    (root / "training_filelist.psv").write_text("\n".join([header] + rows[N_VOC_VAL:]) + "\n")
+    (root / "validation_filelist.psv").write_text("\n".join([header] + rows[:N_VOC_VAL]) + "\n")
+
+
+def _voc_counters() -> dict:
+    from fastspeech2_lightning_tpu_torch.ops import attention, ctc, mas, vocoder_resblocks
+
+    return {"attention_fwd": attention.attention_fwd, "attention_bwd": attention.attention_bwd,
+            "mas_width1": mas.mas_width1, "ctc_alpha": ctc.ctc_alpha,
+            "ctc_alpha_beta": ctc.ctc_alpha_beta, "ctc_grad": ctc.ctc_grad,
+            "mrf_conv": vocoder_resblocks.mrf_conv}
+
+
+def _voc_preempt(config_path: Path, log_path: Path, after: int) -> int:
+    """The train-vocoder CLI to VOC_RESUME in a subprocess, SIGTERMed once
+    its log shows step `after`: it must exit 0 with a checkpoint at the last
+    step it logged. Returns that step."""
+    out_path = config_path.parent / "vocoder_preempt.out"
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", PORT, "train-vocoder", str(config_path), "--max-steps",
+             str(VOC_RESUME), "--ckpt-steps", str(VOC_CKPT), "--log-steps", "1"],
+            cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + 300
+            while proc.poll() is None and time.time() < deadline:
+                if _last_step(log_path) >= after:
+                    break
+                time.sleep(0.02)
+            check(proc.poll() is None, f"the vocoder run ended (rc {proc.returncode}) before "
+                  f"step {after}: {out_path.read_text()[-2000:]}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = out_path.read_text()
+    check(rc == 0 and "received signal" in text, f"the SIGTERMed vocoder run exited {rc}: "
+                                                  f"{text[-2000:]}")
+    return _rows(log_path)[-1]["step"]
+
+
+def vocoder_step_flops(step, state, batch) -> int:
+    """Floating-point operations of one step, counted by
+    torch.utils.flop_counter from the shapes of its convolutions and
+    products, forward and backward (the generator once, D at 2B for its
+    update, D on the fake with input gradients and on the real without for
+    G's; the weight norm, the mel and the optimizer's element-wise work are
+    not counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        step(state, batch)
+    return counter.get_total_flops()
+
+
+def _vocoder_timings(config, ckpt_dir: Path) -> dict:
+    """Steps of the full-width D+G at B = 16 and 32-frame crops, bf16 and f32
+    in turns (wall and device ms), the bf16 step's peak memory and FLOPs, a
+    save's wall and a resume's load, and the parameter counts."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.models.hifigan import HiFiGANConfig
+    from fastspeech2_lightning_tpu_torch.models.hifigan_discriminators import (
+        DiscriminatorConfig, count_params,
+    )
+    from fastspeech2_lightning_tpu_torch.training import vocoder as tv
+
+    a = config.preprocessing.audio
+    gen_cfg = HiFiGANConfig(n_mels=a.n_mels, sampling_rate=a.output_sampling_rate,
+                            hop_size=a.fft_hop_size)
+    disc_cfg = DiscriminatorConfig()
+    loader = tv.VocoderCropLoader(config, tv.VocoderTrainingConfig())
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in loader.next_batch().items()}
+               for _ in range(2)]
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        tc = tv.VocoderTrainingConfig(compute_dtype=dtype)
+        state = tv.create_vocoder_state(gen_cfg, disc_cfg, tc, device="cuda")
+        runs[dtype] = (state, tv.make_vocoder_train_step(gen_cfg, disc_cfg, tc, a))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, step = runs["bfloat16"]
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    walls = {d: [] for d in runs}
+    i = 0
+    for r in range(VOC_ROUNDS):
+        for dtype in (("bfloat16", "float32") if r % 2 == 0 else ("float32", "bfloat16")):
+            state, step = runs[dtype]
+
+            def one(state=state, step=step):
+                nonlocal i
+                i += 1
+                step(state, batches[i % 2])
+
+            walls[dtype].append(time_ms(one, warmup=1, iters=VOC_TIMED))
+    # a step launches more kernels than a stream queues, so device_ms cannot
+    # queue it behind a spin: the device time comes from a profiler trace
+    device = {}
+    for dtype, (state, step) in runs.items():
+        device[dtype] = device_busy_ms(lambda state=state, step=step: step(state, batches[0]))
+    flops = vocoder_step_flops(runs["bfloat16"][1], runs["bfloat16"][0], batches[0])
+    # the JAX step runs the generator forward once more (for the D update)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        runs["bfloat16"][0].gen(batches[0]["mel"], torch.bfloat16)
+    gen_forward_flops = counter.get_total_flops()
+    gen_n, disc_n = count_params(runs["bfloat16"][0].gen), count_params(runs["bfloat16"][0].disc)
+    # the parameters, their gradients and both Adam moments read and written once a step
+    nbytes = (gen_n + disc_n) * 4 * 8
+    bound, bound_by = bound_ms(flops, nbytes, "bfloat16")
+
+    state = runs["bfloat16"][0]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    saved = tv.save_vocoder_checkpoint(ckpt_dir, state)
+    save_ms = (time.time() - t0) * 1e3
+    fresh = runs["float32"][0]  # the bf16 run's checkpoint loaded over the f32 run's state
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tv.load_vocoder_training_checkpoint(saved, fresh)
+    torch.cuda.synchronize()
+    load_ms = (time.time() - t0) * 1e3
+    check(fresh.step == state.step and all(
+        torch.equal(p, q) for p, q in zip(fresh.gen.parameters(), state.gen.parameters())),
+        "the resumed vocoder state differs from the saved one")
+    return dict(ms_per_step={d: statistics.median(w) for d, w in walls.items()},
+                ms_rounds=walls, device=device, peak_gib=peak_gib, flops=flops,
+                gen_forward_flops=gen_forward_flops,
+                bound_ms=bound, bound_by=bound_by, save_ms=save_ms, load_ms=load_ms,
+                params={"generator": gen_n, "discriminators": disc_n},
+                shape={"batch": 16, "frames": 32, "samples": 32 * a.fft_hop_size})
+
+
+def phase_vocoder_train(workdir: Path) -> dict:
+    """Phase 21: the full-width HiFiGAN V1 against the default MPD + MSD through
+    the ``train-vocoder`` CLI (B 16, 32-frame crops, bf16) on a seeded corpus,
+    VOC_STEPS steps with a checkpoint every VOC_CKPT; finite losses and a
+    falling mel L1; no kernel launched. Then a SIGTERMed CLI run, its resume
+    to VOC_RESUME, and the timings of ``_vocoder_timings``."""
+    import numpy as np
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import latest_checkpoint
+
+    cfg = json.loads(json.dumps(model_config("bfloat16")))
+    t0 = time.time()
+    write_vocoder_corpus(workdir / "vcorpus", cfg, np.random.default_rng(SEED + 21))
+    cfg["preprocessing"]["save_dir"] = "vcorpus"
+    cfg["training"].update(training_filelist="vcorpus/training_filelist.psv",
+                           validation_filelist="vcorpus/validation_filelist.psv")
+    cfg["training"]["logger"].update(save_dir="vlogs")
+    config_path = workdir / "vocoder_config.json"
+    config_path.write_text(json.dumps(cfg))
+    log(f"vocoder train: corpus of {N_VOC} utterances of 1-4 s written in "
+        f"{time.time() - t0:.1f} s")
+    log_dir = workdir / "vlogs" / "vocoder"
+    ckpt_dir = log_dir / "checkpoints"
+    log_path = log_dir / "vocoder_log.jsonl"
+
+    counters = _voc_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    cli.main(["train-vocoder", str(config_path), "--max-steps", str(VOC_STEPS),
+              "--ckpt-steps", str(VOC_CKPT), "--log-steps", str(VOC_LOG)])
+    wall = time.time() - t0
+    launched = {name: fn.launches for name, fn in counters.items()}
+    check(not any(launched.values()), f"vocoder training launched kernels: {launched}")
+    rows = _rows(log_path)
+    want = [1] + list(range(VOC_LOG, VOC_STEPS + 1, VOC_LOG))
+    check([r["step"] for r in rows] == want, f"logged steps {[r['step'] for r in rows]}")
+    for r in rows:
+        check(all(math.isfinite(r[k]) for k in VOC_LOSSES), f"vocoder step {r['step']}: {r}")
+        log(f"vocoder step {r['step']}: " + ", ".join(f"{k} {r[k]:.4f}" for k in VOC_LOSSES))
+    check(rows[-1]["mel_l1"] < rows[0]["mel_l1"],
+          f"mel_l1 did not fall: {rows[0]['mel_l1']} -> {rows[-1]['mel_l1']}")
+    dirs = sorted((p.name for p in ckpt_dir.glob("step=*")), key=lambda n: int(n[5:]))
+    check(dirs == [f"step={s}" for s in range(VOC_CKPT, VOC_STEPS + 1, VOC_CKPT)],
+          f"checkpoints {dirs}")
+    check((ckpt_dir / "vocoder.npz").is_file(), "no vocoder.npz")
+    log(f"vocoder train: {VOC_STEPS} steps in {wall:.1f} s (state build, loader and "
+        f"checkpoints included); checkpoints {dirs}")
+
+    after = (VOC_STEPS + VOC_RESUME) // 2
+    s = _voc_preempt(config_path, log_path, after)
+    newest = latest_checkpoint(ckpt_dir)
+    meta = json.loads((newest / "meta.json").read_text())
+    check(newest.name == f"step={s}" and meta["global_step"] == s,
+          f"SIGTERM after step {s} left {newest.name}")
+    import torch
+
+    saved = torch.load(newest / "train_state.pt", map_location="cpu", weights_only=True)
+    counts = {int(v["step"]) for part in ("opt_g", "opt_d")
+              for v in saved[part]["state"].values()}
+    check(counts == {s}, f"the optimizers' step counts {counts}, want {s}")
+    before = len(_rows(log_path))
+    cli.main(["train-vocoder", str(config_path), "--max-steps", str(VOC_RESUME),
+              "--ckpt-steps", str(VOC_CKPT), "--log-steps", "1"])
+    resumed = [r["step"] for r in _rows(log_path)[before:]]
+    check(resumed == list(range(s + 1, VOC_RESUME + 1)),
+          f"the resume logged {resumed}, want {s + 1}..{VOC_RESUME}")
+    check(latest_checkpoint(ckpt_dir).name == f"step={VOC_RESUME}",
+          "no checkpoint at the resume's end")
+    log(f"vocoder preemption: SIGTERM after step {after} was logged; the run "
+        f"checkpointed step {s} and exited 0; the resume ran {s + 1}..{VOC_RESUME}")
+
+    timing = _vocoder_timings(FastSpeech2Config.from_file(config_path), workdir / "vtiming")
+    ms = timing["ms_per_step"]
+    log(f"vocoder step (B 16, 8192 samples): wall bf16 {ms['bfloat16']:.1f} ms, f32 "
+        f"{ms['float32']:.1f} ms (medians of rounds {timing['ms_rounds']}); profiled device "
+        f"time bf16 {timing['device']['bfloat16']}, f32 {timing['device']['float32']}; "
+        f"{timing['flops'] / 1e12:.3f} TFLOP a step (the JAX step's recipe, with a second "
+        f"generator forward: {(timing['flops'] + timing['gen_forward_flops']) / 1e12:.3f}), "
+        f"bound {timing['bound_ms']:.3f} ms "
+        f"({timing['bound_by']}); peak {timing['peak_gib']:.2f} GiB; save "
+        f"{timing['save_ms']:.1f} ms, resume's load {timing['load_ms']:.1f} ms; parameters "
+        f"{timing['params']}")
+    return dict(config_path=config_path, ckpt_dir=ckpt_dir, losses=rows, wall_s=wall,
+                preempted_at=s, timing=timing)
+
+
+def _vocoder_step_on(dev: str, gen_cfg, tc, audio, batch, ckpt: Path):
+    """One f32 D+G step on `dev` from `ckpt`: (losses, gradients by
+    parameter name on the host)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.models.hifigan_discriminators import (
+        DiscriminatorConfig,
+    )
+    from fastspeech2_lightning_tpu_torch.training import vocoder as tv
+
+    state = tv.create_vocoder_state(gen_cfg, DiscriminatorConfig(), tc, device=dev)
+    tv.load_vocoder_training_checkpoint(ckpt, state)
+    step = tv.make_vocoder_train_step(gen_cfg, DiscriminatorConfig(), tc, audio)
+    losses = step(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    grads = {f"{side}.{k}": p.grad.double().cpu()
+             for side, mod in (("gen", state.gen), ("disc", state.disc))
+             for k, p in mod.named_parameters()}
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def phase_vocoder_card_vs_cpu(ckpt_dir: Path, config_path: Path) -> dict:
+    """Phase 22: one f32 D+G step, TF32 off, on B = 2 full crops on the card
+    and on the CPU from phase 21's last checkpoint: losses within 1e-4
+    relative, each side's gradient (G's, D's, all parameters as one vector)
+    within rel-L2 1e-3. Parameter by parameter the f32 gradients of some
+    resblock convs lie up to about 1e-3 apart, as far as each device's f32
+    lies from a float64 step (the mel L1's gradient is ill-conditioned
+    there), while float64 steps on the card and the CPU agree
+    (``tools/vocoder_grad_precision.py``); and near the LSGAN equilibrium
+    the gradient of D's last biases is a difference of near-equal sums. The
+    largest per-parameter errors are printed, not checked."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.models.hifigan import HiFiGANConfig
+    from fastspeech2_lightning_tpu_torch.training import vocoder as tv
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import latest_checkpoint
+
+    config = FastSpeech2Config.from_file(config_path)
+    a = config.preprocessing.audio
+    gen_cfg = HiFiGANConfig(n_mels=a.n_mels, sampling_rate=a.output_sampling_rate,
+                            hop_size=a.fft_hop_size)
+    tc = tv.VocoderTrainingConfig(batch_size=2, compute_dtype="float32", seed=SEED + 22)
+    batch = tv.VocoderCropLoader(config, tc).next_batch()
+    newest = latest_checkpoint(ckpt_dir)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (lc, gc), (lp, gp) = (_vocoder_step_on(dev, gen_cfg, tc, a, batch, newest)
+                              for dev in ("cuda", "cpu"))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    rel = {k: abs(lc[k] - lp[k]) / abs(lp[k]) for k in VOC_LOSSES}
+    check(max(rel.values()) <= 1e-4, f"vocoder step losses card vs CPU: {rel}")
+    grad_rel = {k: float(torch.linalg.vector_norm(gc[k] - gp[k])
+                         / torch.linalg.vector_norm(gp[k]).clamp_min(1e-30)) for k in gp}
+    worst = sorted(grad_rel, key=grad_rel.get)[::-1]
+    side_rel = {}
+    for side in ("gen", "disc"):
+        keys = [k for k in gp if k.startswith(side + ".")]
+        diff = torch.cat([(gc[k] - gp[k]).ravel() for k in keys])
+        side_rel[side] = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(
+            torch.cat([gp[k].ravel() for k in keys])))
+    check(max(side_rel.values()) <= 1e-3, f"vocoder gradients card vs CPU: rel-L2 {side_rel}")
+    log(f"vocoder card vs CPU (f32, TF32 off, {newest.name}, B 2 x 8192): losses rel max "
+        f"{max(rel.values()):.2e}; gradients rel-L2 by side {side_rel}; by parameter "
+        + ", ".join(f"{k} {grad_rel[k]:.2e}" for k in worst[:3]) + f" of {len(gp)}")
+    return dict(state=newest.name, loss_rel=max(rel.values()), side_rel=side_rel,
+                worst=[(k, grad_rel[k]) for k in worst[:3]])
+
+
+def phase_trained_vocoder(workdir: Path, ckpt_dir: Path, config_path: Path) -> dict:
+    """Phase 23: ``evaluate-vocoder`` on phase 21's vocoder.npz; the
+    validation mels vocoded fused and unfused in f32 (TF32 off) within the
+    MRF row's limit, with the ``mrf_conv`` launches counted around the fused
+    run; one request through the Synthesizer with that vocoder; the MRF
+    stage refusing autograd on the card."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.models.hifigan import (
+        load_vocoder_params, make_vocoder_fn, stage_params,
+    )
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
+        fused_mrf_stage, mrf_conv, prepare_stage_weights,
+    )
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+
+    npz = ckpt_dir / "vocoder.npz"
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        cli.main(["evaluate-vocoder", str(config_path), "-v", str(npz)])
+    eval_s = time.time() - t0
+    report = json.loads(out.getvalue())
+    check(report["n"] == N_VOC_VAL and all(math.isfinite(report[k]) for k in
+                                           ("mel_l1", "si_sdr_db", "stoi", "pesq_proxy")),
+          f"evaluate-vocoder: {report}")
+    log(f"evaluate-vocoder on step={VOC_RESUME}'s vocoder.npz: {report} in {eval_s:.1f} s")
+
+    params, vcfg, vstep = load_vocoder_params(npz)
+    check(vstep == VOC_RESUME, f"vocoder.npz global_step {vstep}")
+    mels = [np.load(p).T[None] for p in sorted((workdir / "vcorpus" / "spec").glob("*.npy"))
+            [:N_VOC_VAL]]
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fused = make_vocoder_fn(params, vcfg, fused=True)
+        unfused = make_vocoder_fn(params, vcfg, fused=False)
+        mrf_conv.launches = 0
+        wf = [fused(m)[0] for m in mels]
+        torch.cuda.synchronize()
+        launches = mrf_conv.launches
+        wu = [unfused(m)[0] for m in mels]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    want = MRF_LAUNCHES * VOC_MRF_STAGES * len(mels)
+    check(launches == want, f"mrf_conv launched {launches} times vocoding {len(mels)} mels, "
+                            f"want {want}")
+    rels = [float(np.linalg.norm(f - u) / np.linalg.norm(u)) for f, u in zip(wf, wu)]
+    check(max(rels) <= MRF_LIMIT["float32"], f"fused against unfused vocoding rel-L2 {rels}")
+    log(f"trained vocoder: {len(mels)} validation mels fused against unfused (f32, TF32 off) "
+        f"rel-L2 max {max(rels):.2e}; mrf_conv {launches} launches "
+        f"({MRF_LAUNCHES} x {VOC_MRF_STAGES} stages a mel)")
+
+    syn = Synthesizer.from_checkpoint(workdir / "model.ckpt", vocoder_path=npz)
+    result = syn.synthesize(["the trained vocoder speaks to you."])
+    wav, mel = result.wavs[0], result.mels[0]
+    check(wav.ndim == 1 and wav.size == mel.shape[0] * vcfg.total_upsampling
+          and bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0,
+          f"the Synthesizer with the trained vocoder gave {wav.shape} for {mel.shape}")
+
+    x = torch.randn(1, 300, 128, device="cuda", requires_grad=True)
+    dev_params = {k: torch.as_tensor(v).cuda() for k, v in params.items()}
+    flat = prepare_stage_weights(stage_params(dev_params, 1, 3), (3, 7, 11), ((1, 3, 5),) * 3,
+                                 torch.float32)
+    before = mrf_conv.launches
+    try:
+        fused_mrf_stage(x, flat)
+        refused = False
+    except RuntimeError as e:
+        refused = "no backward" in str(e)
+    check(refused and mrf_conv.launches == before,
+          "fused_mrf_stage under autograd did not raise before launching")
+    log(f"trained vocoder: the Synthesizer spoke {wav.size} samples; fused_mrf_stage under "
+        "autograd raised before launching")
+    return dict(report=report, eval_s=eval_s, launches=launches, fused_rel=max(rels))
+
+
 def main() -> None:
     import torch
 
@@ -2790,6 +3274,10 @@ def main() -> None:
         cond_serve = phase_serve_conditioned(Path(workdir), cond.pop("step_dir"))
         stream = phase_streaming(Path(workdir))
         levels = phase_pfs_phones(Path(workdir))
+        voc = phase_vocoder_train(Path(workdir))
+        voc["card_vs_cpu"] = phase_vocoder_card_vs_cpu(voc["ckpt_dir"], voc["config_path"])
+        trained = phase_trained_vocoder(Path(workdir), voc.pop("ckpt_dir"),
+                                        voc.pop("config_path"))
     tl, vl = train["launches"], train["validation_launches"]
     ctl, cvl = cond["launches"], cond["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
@@ -2860,9 +3348,10 @@ def main() -> None:
         # serving's vocoder is f32: that row (C = 128) on top; `stages` holds all six,
         # the bf16 C = 128 row first
         entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
-              launches["mrf_conv"] + stream["launches"]["mrf_conv"],
+              launches["mrf_conv"] + stream["launches"]["mrf_conv"] + trained["launches"],
               launches_by_path={"serving": launches["mrf_conv"],
-                                "streaming": stream["launches"]["mrf_conv"]},
+                                "streaming": stream["launches"]["mrf_conv"],
+                                "trained_vocoder": trained["launches"]},
               timed=f"one MRF stage: {MRF_LAUNCHES} launches",
               device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
               stages=mrf_rows, stream_window_stages=stream["stages"],
@@ -2871,13 +3360,20 @@ def main() -> None:
     stream.pop("stages")
     log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "
         f"({smi})")
+    vt = voc["timing"]
+    busy = {d: (v or {}).get("busy_ms", float("nan")) for d, v in vt["device"].items()}
+    log(f"vocoder train (B 16, 8192 samples): bf16 {vt['ms_per_step']['bfloat16']:.1f} ms a "
+        f"step wall, {busy['bfloat16']:.1f} device busy; f32 "
+        f"{vt['ms_per_step']['float32']:.1f} wall, {busy['float32']:.1f} device busy; "
+        f"bound {vt['bound_ms']:.2f} ms; peak {vt['peak_gib']:.2f} GiB ({smi})")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(f"conditioned train: median {cond['ms_per_step']:.1f} ms/step ({cond['ratio_to_plain']:.3f}"
         f" of the unconditioned), peak {cond['peak_gib']:.2f} GiB; stream: first audio "
         f"{stream['first_audio_ms']:.1f} ms against {stream['batched_first_audio_ms']:.1f} batched")
     print(json.dumps({"kernels": kernels, "trainer": train["timing"], "synthesize": syn,
                       "conditioned": {"training": cond, "serving": cond_serve},
-                      "streaming": stream, "text_levels": levels}))
+                      "streaming": stream, "text_levels": levels,
+                      "vocoder_training": {**voc, "trained": trained}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

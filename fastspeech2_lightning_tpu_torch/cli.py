@@ -8,6 +8,8 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -f LIST.psv -v griffin-lim
     python -m fastspeech2_lightning_tpu_torch synthesize GST.ckpt -t "hello" -S REF.wav -O spec
     python -m fastspeech2_lightning_tpu_torch serve GST.ckpt -v VOCODER.npz -S REF.wav
+    python -m fastspeech2_lightning_tpu_torch train-vocoder CONFIG.json --max-steps 1000
+    python -m fastspeech2_lightning_tpu_torch evaluate-vocoder CONFIG.json -v VOCODER.npz
 """
 
 from __future__ import annotations
@@ -103,7 +105,91 @@ def _parser() -> argparse.ArgumentParser:
     y.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
     y.set_defaults(command_parser=y)
+    v = sub.add_parser(
+        "train-vocoder",
+        help="Train a HiFiGAN vocoder on the preprocessed corpus against the MPD and MSD "
+        "discriminators. Writes <logger.save_dir>/vocoder/checkpoints/step=N/ and "
+        "vocoder.npz (usable via --vocoder-path, in this package and the JAX one) and logs "
+        "vocoder_log.jsonl. SIGTERM checkpoints the step in flight and exits 0.",
+    )
+    v.add_argument("config")
+    v.add_argument("--max-steps", type=int, default=None)
+    v.add_argument("--resume", action=argparse.BooleanOptionalAction, default=True)
+    v.add_argument("--batch-size", type=int, default=16)
+    v.add_argument("--frames-per-crop", type=int, default=32,
+                   help="Mel frames per training crop (x hop = samples).")
+    v.add_argument("--learning-rate", type=float, default=2e-4)
+    v.add_argument("--ckpt-steps", type=int, default=5000)
+    v.add_argument("--log-steps", type=int, default=50,
+                   help="Log the losses at step 1 and every this many steps.")
+    v.add_argument("--data-parallel", type=int, default=None)
+    v.add_argument("--finetune-from", default=None,
+                   help="Initialize the generator from an existing vocoder checkpoint "
+                   "(.ckpt torch or .npz); discriminators start fresh.")
+    v.add_argument("--finetune-mels", default=None,
+                   help="Train on acoustic-model-predicted mels: a directory produced by "
+                   "`synthesize -O spec --teacher-forcing-directory <preprocessed>`.")
+    v.add_argument("--precision", choices=["bfloat16", "float32"], default="bfloat16",
+                   help="Conv compute dtype of the D+G step (parameters, losses and "
+                   "optimizers stay float32).")
+    v.add_argument("--device", default=None,
+                   help="'cuda' (default, the current card) or 'cpu'.")
+    v.set_defaults(command_parser=v)
+    e = sub.add_parser(
+        "evaluate-vocoder",
+        help="Copy-synthesis quality of a vocoder on the validation set: vocode "
+        "ground-truth mels and score against the real audio (mel-L1, SI-SDR, STOI, "
+        "PESQ-family proxy). Prints the report as JSON.",
+    )
+    e.add_argument("config")
+    e.add_argument("--vocoder-path", "-v", required=True)
+    e.add_argument("--n-utterances", "-n", type=int, default=16)
+    e.add_argument("--vocoder-precision", choices=["float32", "bfloat16"], default="float32")
+    e.add_argument("--device", default=None,
+                   help="'cuda' (default, the current card) or 'cpu'.")
+    e.set_defaults(command_parser=e)
     return p
+
+
+def train_vocoder_command(args) -> None:
+    for name, path in (("'CONFIG_FILE'", args.config),
+                       ("'--finetune-from'", args.finetune_from),
+                       ("'--finetune-mels'", args.finetune_mels)):
+        if path is not None and not Path(path).exists():
+            args.command_parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
+    from .config import FastSpeech2Config
+    from .device import resolve_device
+    from .training.vocoder import VocoderTrainingConfig, train_vocoder
+
+    device = resolve_device(args.device)
+    tc = VocoderTrainingConfig(batch_size=args.batch_size,
+                               frames_per_crop=args.frames_per_crop,
+                               learning_rate=args.learning_rate, ckpt_steps=args.ckpt_steps,
+                               compute_dtype=args.precision, log_steps=args.log_steps)
+    train_vocoder(FastSpeech2Config.from_file(args.config), train_config=tc,
+                  max_steps=args.max_steps, resume=args.resume,
+                  data_parallel=args.data_parallel,
+                  finetune_from=None if args.finetune_from is None else Path(args.finetune_from),
+                  finetune_mel_dir=None if args.finetune_mels is None else Path(args.finetune_mels),
+                  device=device)
+
+
+def evaluate_vocoder_command(args) -> None:
+    import json
+
+    for name, path in (("'CONFIG_FILE'", args.config),
+                       ("'--vocoder-path' / '-v'", args.vocoder_path)):
+        if not Path(path).exists():
+            args.command_parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
+    from .config import FastSpeech2Config
+    from .device import resolve_device
+    from .evaluation import evaluate_vocoder
+
+    device = resolve_device(args.device)
+    report = evaluate_vocoder(FastSpeech2Config.from_file(args.config), Path(args.vocoder_path),
+                              n_utterances=args.n_utterances,
+                              precision=args.vocoder_precision, device=device)
+    print(json.dumps(report, indent=2), flush=True)
 
 
 def synthesize(args) -> None:
@@ -192,6 +278,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
     if args.command == "synthesize":
         synthesize(args)
+    elif args.command == "train-vocoder":
+        train_vocoder_command(args)
+    elif args.command == "evaluate-vocoder":
+        evaluate_vocoder_command(args)
     elif args.command == "train":
         from .config import FastSpeech2Config
         from .training.loop import Trainer

@@ -7,9 +7,11 @@ are named after (the global style tokens and the phonological-feature input
 layer included), so the result loads with ``load_state_dict(strict=True)``.
 ``train_state_from_jax`` adds the optimizer's moments and count and the EMA
 weights, so a JAX run continues in the port. ``hifigan_state_from_jax`` is
-the inverse of ``models/hifigan.py::load_torch_hifigan``. All take nested
-dicts of array-likes (numpy arrays, or anything ``np.asarray`` reads) and
-return numpy arrays."""
+the inverse of ``models/hifigan.py::load_torch_hifigan`` and
+``hifigan_state_to_jax`` its own inverse (what the port's ``vocoder.npz``
+holds); ``discriminators_from_jax`` maps the vocoder trainer's MPD and MSD.
+All take nested dicts of array-likes (numpy arrays, or anything
+``np.asarray`` reads) and return numpy arrays."""
 
 from __future__ import annotations
 
@@ -268,3 +270,55 @@ def train_state_from_jax(
         "ema": None if ema_params is None else by_name(ema_params),
     }
     return sd, train_state
+
+
+def hifigan_state_to_jax(sd: Dict[str, np.ndarray], config) -> dict:
+    """The inverse of ``hifigan_state_from_jax``: a torch HiFiGAN state_dict
+    (weight norm folded) -> the JAX package's generator pytree, numpy f32
+    leaves, the ``params`` of its ``vocoder.npz``."""
+    sd = {k: _f32(v.detach().float().cpu() if hasattr(v, "detach") else v)
+          for k, v in sd.items()}
+
+    def conv(prefix):
+        return (np.ascontiguousarray(np.transpose(sd[f"{prefix}.weight"], (2, 1, 0))),
+                sd[f"{prefix}.bias"])
+
+    params: dict = {}
+    params["conv_pre_w"], params["conv_pre_b"] = conv("conv_pre")
+    n = len(config.resblock_kernel_sizes)
+    for i in range(len(config.upsample_rates)):
+        params[f"up_{i}_w"] = np.ascontiguousarray(
+            np.transpose(sd[f"ups.{i}.weight"], (2, 0, 1)))
+        params[f"up_{i}_b"] = sd[f"ups.{i}.bias"]
+        for j in range(n):
+            block: dict = {}
+            r = i * n + j
+            names = ("convs1", "convs2") if config.resblock == "1" else ("convs",)
+            for di in range(len(config.resblock_dilation_sizes[j])):
+                for name in names:
+                    block[f"{name}_{di}_w"], block[f"{name}_{di}_b"] = conv(
+                        f"resblocks.{r}.{name}.{di}")
+            params[f"res_{i}_{j}"] = block
+    params["conv_post_w"], params["conv_post_b"] = conv("conv_post")
+    return params
+
+
+def discriminators_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """The JAX package's discriminator tree (``{"mpd": [...], "msd": [...]}``
+    of ``{"layers": [{"v", "g", "b"}, ...], "post": {...}}``) -> the
+    state_dict of ``models.hifigan_discriminators.Discriminators``: a Conv1d
+    ``v`` [K, Cin/g, Cout] -> [Cout, Cin/g, K], a Conv2d ``v``
+    [KH, KW, Cin, Cout] -> [Cout, Cin, KH, KW], ``g`` [1, ..., Cout] ->
+    [Cout, 1, ...] by the same permutation."""
+    sd: Dict[str, np.ndarray] = {}
+    for kind in ("mpd", "msd"):
+        for i, sub in enumerate(params[kind]):
+            convs = [(f"layers.{j}", p) for j, p in enumerate(sub["layers"])]
+            for name, p in convs + [("post", sub["post"])]:
+                v = _f32(p["v"])
+                perm = (2, 1, 0) if v.ndim == 3 else (3, 2, 0, 1)
+                prefix = f"{kind}.{i}.{name}"
+                sd[f"{prefix}.v"] = np.ascontiguousarray(np.transpose(v, perm))
+                sd[f"{prefix}.g"] = np.ascontiguousarray(np.transpose(_f32(p["g"]), perm))
+                sd[f"{prefix}.b"] = _f32(p["b"])
+    return sd

@@ -8,7 +8,11 @@ Parameters are a torch HiFiGAN state_dict (``conv_pre``, ``ups.{i}``,
 XLA. With ``fused=True`` every resblock-1 stage that passes
 ``mrf_stage_supported`` and has at least 256 frames runs through the MRF
 kernel (``ops/vocoder_resblocks.py``), the gate of ``hifigan.py:249-254``.
-Activations are [B, C, T] here and [B, T, C] inside the fused stage."""
+Activations are [B, C, T] here and [B, T, C] inside the fused stage.
+
+``init_random_hifigan`` draws the JAX package's random generator weights
+(the same numpy draws in the same order); ``HiFiGANGenerator`` holds them as
+``nn.Parameter``s under the state_dict names, for the vocoder trainer."""
 
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..convert import hifigan_state_from_jax
 from ..device import resolve_device
@@ -133,6 +138,80 @@ def hifigan_generator(
     return torch.tanh(x)[:, 0, :]
 
 
+def init_random_hifigan(config: HiFiGANConfig, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random generator weights as a state_dict of numpy f32 arrays: the
+    draws of the JAX package's ``init_random_hifigan`` (``hifigan.py:
+    276-311``; one ``np.random.default_rng(seed)``, N(0, 0.02^2) weights in
+    its order, zero biases), so a seed gives the JAX package's weights bit
+    for bit, in the torch layout."""
+    rng = np.random.default_rng(seed)
+
+    def w(k, cin, cout):
+        return rng.standard_normal((k, cin, cout)).astype(np.float32) * 0.02
+
+    params: Dict[str, object] = {}
+    ch = config.upsample_initial_channel
+    params["conv_pre_w"], params["conv_pre_b"] = w(7, config.n_mels, ch), np.zeros(ch)
+    for i, k in enumerate(config.upsample_kernel_sizes):
+        cout = ch // 2
+        params[f"up_{i}_w"], params[f"up_{i}_b"] = w(k, ch, cout), np.zeros(cout)
+        for j, (rk, dil) in enumerate(zip(config.resblock_kernel_sizes,
+                                          config.resblock_dilation_sizes)):
+            block = {}
+            for di in range(len(dil)):
+                for name in ("convs1", "convs2"):
+                    block[f"{name}_{di}_w"] = w(rk, cout, cout)
+                    block[f"{name}_{di}_b"] = np.zeros(cout)
+            params[f"res_{i}_{j}"] = block
+        ch = cout
+    params["conv_post_w"], params["conv_post_b"] = w(7, ch, 1), np.zeros(1)
+    return hifigan_state_from_jax(params, config)
+
+
+class _Conv(nn.Module):
+    def __init__(self, weight: np.ndarray, bias: np.ndarray, device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.as_tensor(np.asarray(weight, np.float32), device=device))
+        self.bias = nn.Parameter(torch.as_tensor(np.asarray(bias, np.float32), device=device))
+
+
+class _ResBlock(nn.Module):
+    def __init__(self, sd: Dict[str, np.ndarray], prefix: str, names, n: int, device):
+        super().__init__()
+        for name in names:
+            setattr(self, name, nn.ModuleList(
+                _Conv(sd[f"{prefix}.{name}.{d}.weight"], sd[f"{prefix}.{name}.{d}.bias"], device)
+                for d in range(n)))
+
+
+class HiFiGANGenerator(nn.Module):
+    """The generator as trainable parameters, named as its state_dict
+    (``conv_pre``, ``ups.{i}``, ``resblocks.{r}.convs1.{k}`` ..., ``conv_post``),
+    f32 on `device`. The forward runs ``hifigan_generator`` unfused (the MRF
+    kernel has no backward) with every parameter cast to `dtype` and returns
+    the wav in f32: the JAX trainer's ``g_forward`` (``vocoder.py:103-105``)."""
+
+    def __init__(self, config: HiFiGANConfig, state_dict: Dict[str, np.ndarray], device=None):
+        super().__init__()
+        self.config = config
+        self.conv_pre = _Conv(state_dict["conv_pre.weight"], state_dict["conv_pre.bias"], device)
+        self.ups = nn.ModuleList(_Conv(state_dict[f"ups.{i}.weight"], state_dict[f"ups.{i}.bias"],
+                                       device) for i in range(len(config.upsample_rates)))
+        names = ("convs1", "convs2") if config.resblock == "1" else ("convs",)
+        n = len(config.resblock_kernel_sizes)
+        self.resblocks = nn.ModuleList(
+            _ResBlock(state_dict, f"resblocks.{r}", names,
+                      len(config.resblock_dilation_sizes[r % n]), device)
+            for r in range(len(config.upsample_rates) * n))
+        self.conv_post = _Conv(state_dict["conv_post.weight"], state_dict["conv_post.bias"],
+                               device)
+
+    def forward(self, mel: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """mel [B, T, n_mels] -> wav [B, T * hop] f32."""
+        params = {k: p.to(dtype) for k, p in self.named_parameters()}
+        return hifigan_generator(params, mel.to(dtype), self.config, fused=False).float()
+
+
 def _fold_weight_norm(sd: dict, prefix: str) -> Optional[np.ndarray]:
     """The conv weight for `prefix` from a torch state_dict: a plain
     ``.weight`` or a folded weight-norm pair (``hifigan.py:314-330``)."""
@@ -231,6 +310,14 @@ def load_vocoder_params(path) -> Tuple[Dict[str, np.ndarray], HiFiGANConfig, int
     else:
         raise ValueError(f"Unsupported vocoder checkpoint format: {path}")
     return params, config, global_step
+
+
+def load_vocoder_checkpoint(path, precision: str = "float32", fused: bool = False, device=None):
+    """(vocoder_fn, global_step, output_hop_size) from a vocoder checkpoint
+    (``hifigan.py:398-412``)."""
+    params, config, global_step = load_vocoder_params(path)
+    fn = make_vocoder_fn(params, config, precision=precision, fused=fused, device=device)
+    return fn, global_step, config.total_upsampling
 
 
 def make_vocoder_fn(

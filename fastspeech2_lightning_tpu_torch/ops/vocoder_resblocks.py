@@ -11,7 +11,10 @@ outside [0, T) count as zero before every conv.
 ``csrc/mrf_conv.cu`` on a CUDA tensor (or raises) and runs its plain version
 ``mrf_conv_reference`` on a CPU tensor. ``mrf_stage_reference`` is the
 unfused resblock group written with ``F.conv1d``, for the CPU and for
-comparison only.
+comparison only. The kernel has no backward: ``mrf_conv`` and
+``fused_mrf_stage`` raise a RuntimeError under grad mode when an input
+requires grad, on either device, as differentiating the JAX package's
+``pallas_call`` fails; the vocoder trainer runs the generator unfused.
 
 The kernel multiplies in bf16 on the tensor cores. Its weights are always
 bf16 (``prepare_stage_weights``): [K, C, C] for bf16 activations, and for f32
@@ -136,6 +139,16 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
 
 
+def _refuse_autograd(name: str, *tensors) -> None:
+    """The MRF kernel has no backward (as the JAX package's ``pallas_call``
+    has no VJP): under grad mode with an input that requires grad it would
+    return outputs without a ``grad_fn`` and train nothing, so it raises."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the MRF kernel has no backward; call it under torch.no_grad() or "
+            "torch.inference_mode(), or run the generator with fused=False to train it")
+
+
 def mrf_conv(
     x, w, bias, dilation: int, residual=None, out=None, acc=None,
     mode: int = WRITE, scale: float = 1.0,
@@ -148,6 +161,7 @@ def mrf_conv(
     [K, C, C], or [2, K, C, C] for f32 x), K odd, (K - 1) * dilation <= 50;
     bias [C]; acc [B, T, C] f32. `residual` may be `out`; `x` may not (a
     block of the kernel reads rows its neighbours write)."""
+    _refuse_autograd("mrf_conv", x, w, bias, residual)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mrf_conv: unsupported device {x.device}")
     if out is not None and _overlap(x, out):
@@ -213,7 +227,9 @@ def fused_mrf_stage(
     """A whole stage, x [B, T, C] -> mean_j RB_j(x) [B, T, C], as one
     ``mrf_conv`` per conv. Buffers: t (the inner conv's output), s (the
     running resblock state, updated in place) and an f32 accumulator of the
-    resblock average, which the last conv of the last resblock writes out."""
+    resblock average, which the last conv of the last resblock writes out.
+    Raises under autograd (``_refuse_autograd``)."""
+    _refuse_autograd("fused_mrf_stage", x, *flat_weights)
     x = x.contiguous()
     t = torch.empty_like(x)
     s_buf = torch.empty_like(x)

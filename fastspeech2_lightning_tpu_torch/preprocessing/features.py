@@ -7,7 +7,8 @@ what a style-reference wav becomes), and ``stft_complex``, which computes what
 ``stft_complex_numpy`` computes on a batch of tensors on any device:
 periodic Hann window, center padding by numpy's ``reflect`` rule (which
 reflects again where the pad is wider than the signal), frames in float64,
-the result cast to complex64."""
+the result cast to complex64; and ``mel_spectrogram_torch``, the batched,
+differentiable float32 log-mel of the vocoder trainer."""
 
 from __future__ import annotations
 
@@ -153,3 +154,29 @@ def stft_complex(audio: torch.Tensor, n_fft: int, hop: int, win_length: int) -> 
     window = torch.as_tensor(stft_window(n_fft, win_length), device=audio.device)
     frames = x.unfold(-1, n_fft, hop).to(torch.float64) * window
     return torch.fft.rfft(frames, n=n_fft, dim=-1).to(torch.complex64)
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_constants(sr: int, n_fft: int, win_length: int, n_mels: int, f_min: float,
+                   f_max: float, htk: bool, device: torch.device):
+    """The f32 window and filterbank on `device`, copied there once (a copy
+    from host memory would wait for the device's queue on every call)."""
+    window = torch.as_tensor(stft_window(n_fft, win_length), dtype=torch.float32, device=device)
+    fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, f_min, f_max, htk), device=device)
+    return window, fb
+
+
+def mel_spectrogram_torch(audio: torch.Tensor, sr: int, n_fft: int, hop: int, win_length: int,
+                          n_mels: int, f_min: float, f_max: float, htk: bool = False
+                          ) -> torch.Tensor:
+    """[B, samples] -> [B, n_mels, T_frames] log-mel in float32,
+    differentiable: the vocoder trainer's mel (the JAX package's
+    ``mel_spectrogram_jax``, ``features.py:159-217``). Center reflect
+    padding, the periodic Hann window, |rfft| (whose gradient at a zero bin
+    is 0), the filterbank, then the LOG_CLIP floor and the log. Unlike
+    ``stft_complex`` it stays in float32, as the JAX mel does."""
+    window, fb = _mel_constants(sr, n_fft, win_length, n_mels, f_min, f_max, htk,
+                                audio.device)
+    frames = reflect_pad(audio.float(), n_fft // 2).unfold(-1, n_fft, hop) * window
+    mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()  # [B, T, bins]
+    return torch.log(torch.clamp(torch.einsum("mf,btf->bmt", fb, mag), min=LOG_CLIP))

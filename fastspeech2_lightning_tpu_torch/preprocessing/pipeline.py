@@ -1,7 +1,7 @@
 """Audio in and out, and the text side of preprocessing (copies of the JAX
 package's ``preprocessing/pipeline.py`` ``load_wav``, ``save_wav`` and
-``Preprocessor.process_text`` with its g2p engine lookup; the corpus
-preprocessor itself is not ported yet)."""
+``Preprocessor.process_text`` with its g2p engine lookup, ``artifact_path``
+and ``spec_filename``; the corpus preprocessor itself is not ported yet)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from pathlib import Path
 import numpy as np
 
 from ..config import CHARACTERS
+from ..dataset import SEP
 from ..text import TextProcessor
 from ..text.features import get_features_for_tokens
 
@@ -48,12 +49,25 @@ def save_wav(path: Path, audio: np.ndarray, sr: int) -> None:
 
 class Preprocessor:
     """The text half of the JAX package's ``Preprocessor``: a filelist item
-    to its character tokens, phone tokens and phonological features."""
+    to its character tokens, phone tokens and phonological features, and
+    the names of an utterance's artifacts."""
 
     def __init__(self, config):
         self.config = config
+        self.audio_cfg = config.preprocessing.audio
+        self.save_dir = Path(config.preprocessing.save_dir)
         self.text_processor = TextProcessor(config.text)
         self._g2p_cache: dict = {}
+
+    def artifact_path(self, kind: str, basename: str, speaker: str, language: str,
+                      fn: str) -> Path:
+        """``<save_dir>/<kind>/<basename>--<speaker>--<language>--<fn>``
+        (``pipeline.py:109-110``)."""
+        return self.save_dir / kind / SEP.join([basename, speaker, language, fn])
+
+    def spec_filename(self) -> str:
+        a = self.audio_cfg
+        return f"spec-{a.input_sampling_rate}-{a.spec_type}.npy"
 
     def process_text(self, item: dict, use_pfs: bool = False):
         """(character_tokens, phone_tokens, pfs) for a filelist item

@@ -129,3 +129,22 @@ def test_cli_train_refuses_without_card(tmp_path):
     )
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("command", ["train-vocoder", "evaluate-vocoder"])
+def test_cli_vocoder_commands_refuse_without_card(tmp_path, command):
+    """``train-vocoder`` and ``evaluate-vocoder`` refuse to run without a
+    card unless given ``--device cpu``, as ``train`` does."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    (tmp_path / "config.json").write_text(json.dumps({"preprocessing": {"save_dir": "pre"}}))
+    (tmp_path / "voc.npz").write_bytes(b"")
+    extra = ["--max-steps", "1"] if command == "train-vocoder" else [
+        "-v", str(tmp_path / "voc.npz")]
+    out = subprocess.run(
+        [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", command,
+         str(tmp_path / "config.json"), *extra],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

@@ -7,7 +7,8 @@ device it has no kernel for raises instead of falling back.
 
 On any host also: the MRF kernel's prepared weights (the bf16 pair of an f32
 weight rebuilds it to 2^-16, and the plain version fed them equals the stage
-reference), its routing gate, and the window arithmetic of the MAS kernel's
+reference), its routing gate, its refusal to run under autograd (it has no backward),
+and the window arithmetic of the MAS kernel's
 backtrack against a row-by-row walk; ``kv_end`` (the last unmasked key the attention kernels
 stop at) on CPU tensors, the row alignment the bf16 attention kernels need,
 and that the NaN keys the card tests place past ``kv_end`` would show a
@@ -24,7 +25,8 @@ dV exactly 0 there);
 the MRF conv in f32 within 5e-5, since it multiplies f32 inputs as split
 bf16 pairs on the tensor cores, at T off its 128-row tile and under its halo,
 with each epilogue mode, and on the edge rows alone, and its stage at the
-three B = 1 shapes of a low-latency window of the V1 vocoder;
+three B = 1 shapes of a low-latency window of the V1 vocoder, and raising
+under autograd before it launches;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5. Each counts one launch per kernel launch, and each wrapper raises on a
 shape its kernel does not take. This file imports no JAX, so it also runs on a
@@ -460,6 +462,29 @@ def test_mrf_conv_raises_when_x_aliases_out():
     mrf_conv(x, w, bias, 1, residual=out.zero_(), out=out)  # residual may be out
 
 
+@pytest.mark.parametrize("grad_of", ["x", "weight"])
+def test_mrf_kernel_refuses_autograd(grad_of):
+    """The MRF kernel has no backward: with grad mode on and an input that
+    requires grad, the stage and the conv raise (on the CPU through the
+    wrapper's dispatch to the plain version) instead of returning outputs
+    without a gradient; under no_grad the same call runs."""
+    C = 32
+    blocks = _stage_blocks(C, "cpu")
+    x = torch.randn(1, 40, C, generator=torch.Generator().manual_seed(1))
+    flat = prepare_stage_weights(blocks, KS, DILS, torch.float32)
+    if grad_of == "x":
+        x.requires_grad_(True)
+    else:
+        flat[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mrf_stage(x, flat, KS, DILS)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf_conv(x, flat[0], flat[1], 1, out=torch.empty(1, 40, C))
+    with torch.no_grad():
+        out = fused_mrf_stage(x, flat, KS, DILS)
+    assert out.shape == x.shape and not out.requires_grad
+
+
 def _chunked_backtrack(words, in_len: int, out_len: int):
     """The kernel's backtrack in plain Python: `words[i][k]` is row i's
     decision word k; 32 rows at a time from (out_len - 1, in_len - 1), each
@@ -584,6 +609,22 @@ def test_mrf_conv_modes_and_edges_match_plain_version(cuda, C, dtype, mode, K, d
         assert torch.equal(out, res)  # this mode writes no `out`
     else:
         assert torch.equal(acc, acc0)
+
+
+@pytest.mark.gpu
+def test_mrf_kernel_refuses_autograd_on_the_card(cuda):
+    """On the card the stage raises under autograd before it launches."""
+    blocks = _stage_blocks(64, cuda)
+    x = torch.randn(1, 300, 64, device=cuda, requires_grad=True)
+    flat = prepare_stage_weights(blocks, KS, DILS, torch.float32)
+    before = mrf_conv.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_mrf_stage(x, flat, KS, DILS)
+    assert mrf_conv.launches == before
+    with torch.no_grad():
+        fused_mrf_stage(x, flat, KS, DILS)
+    torch.cuda.synchronize()
+    assert mrf_conv.launches == before + 18
 
 
 @pytest.mark.gpu
