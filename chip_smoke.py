@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, training and synthesis paths on one CUDA
-card and check them.
+"""Run the PyTorch port's serving, training, synthesis and preprocessing
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -107,7 +107,26 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  23. the trained vocoder: ``evaluate-vocoder`` on its vocoder.npz; the
     validation mels vocoded fused (MRF kernel, mrf_conv launches counted)
     and unfused in f32 within 5e-5; one Synthesizer request with it; the
-    MRF stage raising under autograd before it launches.
+    MRF stage raising under autograd before it launches;
+ 24. preprocessing: a seeded wav corpus (128 utterances of 1-11 s of
+    harmonic tones with vibrato, silences and noise bursts; 16 stereo
+    44.1 kHz files under sox effects; one of 12 s and one of 0.3 s that the
+    length filter drops) through the ``preprocess`` CLI in a subprocess,
+    on the host with 4 workers and with the spectral pass on the card: the
+    filelists (the same split both times), one artifact of each kind an
+    utterance, frame counts that agree, the card's spec and energy against
+    the host's (the JAX package's tolerances, 2e-2 and 1e-1), stats.json
+    and the normalization; each run's wall and utterances a second, the
+    card's batch of 16 at the top bucket; then 4 train steps (bf16, B 16)
+    on the host tree with the launches of phase 11;
+ 25. ``check-data`` in-process on that tree with its step=4/ scoring every
+    utterance, the objective estimates and the thorough clipping count:
+    a row and a score an utterance, the scores sorted, the launches around
+    the run (attention_fwd 8, mas_width1 1, ctc_alpha 1 an utterance,
+    nothing else), ms an utterance of forward, loss and the host; A (p 0),
+    B and C's alpha chain against their plain versions on inputs the run
+    gave them; a 2+2-layer f32 model scoring 8 utterances on the card and
+    on the CPU (losses within 1e-4 relative, ``SharedBins``).
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -3240,6 +3259,414 @@ def phase_trained_vocoder(workdir: Path, ckpt_dir: Path, config_path: Path) -> d
     return dict(report=report, eval_s=eval_s, launches=launches, fused_rel=max(rels))
 
 
+# -- phase 24: preprocess a wav corpus, then train on it ------------------------
+
+N_WAVS = 128  # utterances of 1-11 s in the main source
+N_STEREO = 16  # 44.1 kHz stereo files of 1-4 s under sox effects
+STEREO_EFFECTS = [["channels", "1"], ["rate", "22050"]]
+PRE_STEPS = 4
+PRE_CPUS = 4
+
+
+def corpus_wav(rng, seconds: float, sr: int = 22050):
+    """Speech-like audio: a harmonic tone (6 partials) on a 90-260 Hz pitch
+    with 4-7 Hz vibrato under a syllable envelope, cut by 0.1-0.3 s silences
+    and 50-150 ms noise bursts, peaking at 0.5."""
+    import numpy as np
+
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = rng.uniform(90, 260) * (1 + 0.03 * np.sin(2 * np.pi * rng.uniform(4, 7) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(h * phase) / h for h in range(1, 7))
+    x = x * (0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6.3)))
+    for _ in range(int(seconds)):
+        a = int(rng.integers(0, n))
+        x[a: a + int(rng.uniform(0.1, 0.3) * sr)] = 0.0
+        b = int(rng.integers(0, n))
+        m = len(x[b: b + int(rng.uniform(0.05, 0.15) * sr)])
+        x[b: b + m] = 0.4 * rng.standard_normal(m)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def _sentence(rng, n_chars: int) -> str:
+    words = []
+    while len(" ".join(words)) < n_chars:
+        words.append(str(rng.choice(WORDS)))
+    return " ".join(words)[:n_chars].strip()
+
+
+def write_wav_corpus(root: Path, rng) -> list:
+    """The main source (N_WAVS wavs of 1-11 s, one of 12 s and one of 0.3 s
+    that the length filter drops) and the stereo source, with filelists of
+    about 12 characters a second; returns the config's source_data."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from fastspeech2_lightning_tpu_torch.preprocessing.pipeline import save_wav
+    from fastspeech2_lightning_tpu_torch.utils import write_filelist
+
+    rows = []
+    lengths = [float(rng.uniform(1.0, 11.0)) for _ in range(N_WAVS)] + [12.0, 0.3]
+    for i, seconds in enumerate(lengths):
+        save_wav(root / "wavs" / f"w{i:03d}.wav", corpus_wav(rng, seconds), 22050)
+        rows.append({"basename": f"w{i:03d}", "characters": _sentence(rng, max(4, int(12 * seconds)))})
+    write_filelist(rows, root / "wavs.psv")
+    (root / "stereo").mkdir()
+    rows = []
+    for i in range(N_STEREO):
+        seconds = float(rng.uniform(1.0, 4.0))
+        left, right = corpus_wav(rng, seconds, 44100), corpus_wav(rng, seconds, 44100)
+        wavfile.write(root / "stereo" / f"s{i:02d}.wav", 44100,
+                      (np.stack([left, right], 1) * 32767).astype(np.int16))
+        rows.append({"basename": f"s{i:02d}", "characters": _sentence(rng, int(12 * seconds))})
+    write_filelist(rows, root / "stereo.psv")
+    return [{"label": "wavs", "data_dir": "wavs", "filelist": "wavs.psv"},
+            {"label": "stereo", "data_dir": "stereo", "filelist": "stereo.psv",
+             "sox_effects": STEREO_EFFECTS}]
+
+
+def _preprocess_cli(config_path: Path, *flags) -> float:
+    """The port's preprocess CLI in a subprocess; its wall in seconds."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", PORT, "preprocess", str(config_path), *flags],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    check(out.returncode == 0, f"preprocess {flags} exited {out.returncode}: "
+                               f"{out.stderr[-3000:]}")
+    log(f"preprocess {' '.join(flags)}: {out.stdout.strip().splitlines()[-1]}")
+    return wall
+
+
+def _tree_files(root: Path, kind: str) -> dict:
+    return {p.name.split("--")[0]: p for p in (root / kind).glob("*")}
+
+
+def phase_preprocess(workdir: Path) -> dict:
+    """Phase 24: a seeded wav corpus through the port's ``preprocess`` CLI,
+    on the host (4 workers) and with the spectral pass on the card; the two
+    trees held against each other; then 4 train steps on the host tree."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.dataset import BucketedLoader, load_datasets
+    from fastspeech2_lightning_tpu_torch.preprocessing.features import batched_mel_energy_torch
+    from fastspeech2_lightning_tpu_torch.preprocessing.pipeline import DEVICE_BATCH, Preprocessor
+    from fastspeech2_lightning_tpu_torch.text.lookups import lookuptables_from_config
+    from fastspeech2_lightning_tpu_torch.utils import load_filelist
+
+    root = workdir / "wav_corpus"
+    root.mkdir()
+    t0 = time.time()
+    sources = write_wav_corpus(root, np.random.default_rng(SEED + 24))
+    n_kept = N_WAVS + N_STEREO
+    cfg = model_config("bfloat16")
+    cfg["preprocessing"].update(save_dir="pre_host", source_data=sources)
+    cfg["training"].update(batch_size=16, training_filelist="pre_host/training_filelist.psv",
+                           validation_filelist="pre_host/validation_filelist.psv")
+    cfg["training"]["logger"].update(save_dir="logs", name="smoke", version="preprocessed")
+    config_path = root / "config.json"
+    config_path.write_text(json.dumps(cfg))
+    log(f"preprocess: {N_WAVS + 2} wavs of 0.3-12 s and {N_STEREO} stereo 44.1 kHz wavs "
+        f"written in {time.time() - t0:.1f} s")
+
+    walls = {"host": _preprocess_cli(config_path, "--host-spec", "--cpus", str(PRE_CPUS)),
+             "device": _preprocess_cli(config_path, "--on-device-spec", "--cpus",
+                                       str(PRE_CPUS), "-c", "preprocessing.save_dir=pre_dev")}
+    host, dev = root / "pre_host", root / "pre_dev"
+    n_train = int(n_kept * 0.9)
+    for tree in (host, dev):
+        rows = [load_filelist(tree / f"{s}_filelist.psv") for s in ("training", "validation")]
+        check((len(rows[0]), len(rows[1])) == (n_train, n_kept - n_train),
+              f"{tree.name}: {len(rows[0])} + {len(rows[1])} utterances, want {n_train} + "
+              f"{n_kept - n_train}")
+    for name in ("training_filelist.psv", "validation_filelist.psv"):
+        check((host / name).read_bytes() == (dev / name).read_bytes(),
+              f"{name} differs between the host and the device runs")
+    kept = {r["basename"] for s in ("training", "validation")
+            for r in load_filelist(host / f"{s}_filelist.psv")}
+    check(len(kept) == n_kept and f"w{N_WAVS:03d}" not in kept and f"w{N_WAVS + 1:03d}" not in kept,
+          "the length filter")
+    for tree in (host, dev):
+        for kind in ("audio", "spec", "attn", "text", "pfs", "pitch", "energy"):
+            files = _tree_files(tree, kind)
+            check(set(files) == kept and len(list((tree / kind).iterdir())) == n_kept,
+                  f"{tree.name}/{kind}: {len(files)} artifacts for {n_kept} utterances")
+    spec_h, spec_d = _tree_files(host, "spec"), _tree_files(dev, "spec")
+    energy_h, energy_d = _tree_files(host, "energy"), _tree_files(dev, "energy")
+    pitch_h, attn_h = _tree_files(host, "pitch"), _tree_files(host, "attn")
+    worst = {"spec": 0.0, "energy": 0.0}
+    n_frames = {}
+    for b in sorted(kept):
+        mel = np.load(spec_h[b])
+        T = n_frames[b] = mel.shape[1]
+        check(mel.shape[0] == 80 and np.load(pitch_h[b]).shape == (T,)
+              and np.load(energy_h[b]).shape == (T,) and np.load(attn_h[b]).shape[0] == T,
+              f"{b}: spec, pitch, energy and prior disagree in frames")
+        for kind, (a, d) in (("spec", (mel, np.load(spec_d[b]))),
+                             ("energy", (np.load(energy_h[b]), np.load(energy_d[b])))):
+            check(a.shape == d.shape, f"{b}: {kind} {a.shape} on the host, {d.shape} on the card")
+            worst[kind] = max(worst[kind], float(np.abs(a - d).max()))
+    # the JAX package's own tolerances for its device pass against its host pass
+    check(worst["spec"] <= 2e-2 and worst["energy"] <= 1e-1,
+          f"the card's spec and energy against the host's: max-abs {worst}")
+    stats = json.loads((host / "stats.json").read_text())
+    check(all(math.isfinite(v) for k in ("pitch", "energy") for v in stats[k].values()),
+          f"stats.json {stats}")
+    for kind, files in (("pitch", pitch_h), ("energy", energy_h)):
+        v = np.concatenate([np.load(p) for p in files.values()])
+        v = v[v != 0]
+        check(abs(float(v.mean())) < 1e-3 and abs(float(v.std()) - 1.0) < 1e-3,
+              f"{kind} not z-normalized: mean {v.mean()}, std {v.std()}")
+    audio_s = sum(n_frames.values()) * 256 / 22050
+
+    # the device pass's batch: 16 utterances at the corpus's top bucket
+    config = FastSpeech2Config.from_file(config_path)
+    a = config.preprocessing.audio
+    longest = max((b for b in kept if b.startswith("w")), key=lambda b: n_frames[b])
+    _, batch = next(Preprocessor(config).device_batches(
+        [({"basename": longest}, root / "wavs", [])] * DEVICE_BATCH))
+    x = torch.from_numpy(batch).cuda()
+    args = (a.input_sampling_rate, a.n_fft, a.fft_hop_size, a.fft_window_size, a.n_mels,
+            a.f_min, a.f_max)
+    pass_ms = time_ms(lambda: [t.cpu() for t in batched_mel_energy_torch(
+        torch.from_numpy(batch).cuda(), *args)], warmup=2, iters=10)
+    pass_dev = device_ms(lambda: batched_mel_energy_torch(x, *args), iters=10)
+    log(f"preprocess: {n_kept} utterances, {audio_s:.1f} s of audio; host pass ({PRE_CPUS} "
+        f"workers) {walls['host']:.1f} s wall, {n_kept / walls['host']:.2f} utterances/s; "
+        f"device pass {walls['device']:.1f} s wall, {n_kept / walls['device']:.2f} "
+        f"utterances/s; the card's batch of {DEVICE_BATCH} x {batch.shape[1]} samples "
+        f"{pass_ms:.3f} ms with its copies ({pass_dev:.4f} device); card against host max-abs "
+        f"spec {worst['spec']:.3e}, energy {worst['energy']:.3e}")
+
+    _, val_ds = load_datasets(config, *lookuptables_from_config(config))
+    val_batches = len(BucketedLoader(val_ds, min(16, max(len(val_ds), 1)),
+                                     n_buckets=config.training.bucket_count,
+                                     max_mel_length=config.model.max_mel_length))
+    t0 = time.time()
+    tl, vl = _train_and_validation_launches(
+        lambda: cli.main(["train", str(config_path), "--max-steps", str(PRE_STEPS)]))
+    train_s = time.time() - t0
+    log_dir = root / "logs" / "smoke" / "preprocessed"
+    rows = _rows(log_dir / "train_log.jsonl")
+    check(len(rows) == PRE_STEPS and all(math.isfinite(r[k]) for r in rows for k in LOSS_KEYS),
+          f"training on the preprocessed tree: {rows}")
+    want_t = {"attention_fwd": 8 * PRE_STEPS, "attention_bwd": 8 * PRE_STEPS,
+              "mas_width1": PRE_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": PRE_STEPS,
+              "ctc_grad": PRE_STEPS}
+    want_v = {"attention_fwd": 8 * val_batches, "attention_bwd": 0, "mas_width1": val_batches,
+              "ctc_alpha": val_batches, "ctc_alpha_beta": 0, "ctc_grad": 0}
+    check(tl == want_t and vl == want_v, f"launches training {tl}, validation {vl}; predicted "
+                                         f"{want_t}, {want_v}")
+    step_dir = log_dir / "checkpoints" / f"step={PRE_STEPS}"
+    check((step_dir / "model.ckpt").is_file(), f"no checkpoint at {step_dir}")
+    for r in rows:
+        log(f"train on the preprocessed tree, step {r['step']}: B x L x T = "
+            f"{' x '.join(map(str, r['shape']))}, {r['ms']:.1f} ms, total {r['total']:.4f}")
+    log(f"train on the preprocessed tree: {PRE_STEPS} steps in {train_s:.1f} s; launches "
+        f"training {tl}, validation {vl}")
+    return dict(config_path=config_path, step_dir=step_dir, kept=n_kept, audio_s=audio_s,
+                host_s=walls["host"], device_s=walls["device"],
+                utterances_per_s={k: n_kept / w for k, w in walls.items()},
+                device_batch={"shape": list(batch.shape), "ms": pass_ms, "device_ms": pass_dev},
+                card_vs_host=worst, train_launches=tl, validation_launches=vl,
+                step_ms=[r["ms"] for r in rows])
+
+
+# -- phase 25: check-data with per-utterance scores -----------------------------
+
+CHECK_COUNTERS = TRAIN_COUNTERS + ("mrf_conv",)
+N_CHECK_CVC = 8
+
+
+class CheckDataProbe:
+    """Wraps the kernels and the scoring while ``check-data`` runs: keeps
+    the inputs of the first ``attention_fwd`` call at an odd length, of the
+    first ``mas_width1`` and of the first ``ctc_alpha``, and times every
+    teacher-forced forward and loss (the card synchronized around each) and
+    the scoring run as a whole."""
+
+    def __init__(self):
+        self.captured, self.forward, self.loss, self.scoring = {}, [], [], []
+
+    def __enter__(self):
+        from fastspeech2_lightning_tpu_torch.models import conformer, fastspeech2
+        from fastspeech2_lightning_tpu_torch.models import variance_adaptor
+        from fastspeech2_lightning_tpu_torch.ops import ctc
+        from fastspeech2_lightning_tpu_torch.synthesis import synthesize
+
+        self._saved = [(conformer, "attention_fwd", conformer.attention_fwd),
+                       (variance_adaptor, "mas_width1", variance_adaptor.mas_width1),
+                       (ctc, "ctc_forward_sum", ctc.ctc_forward_sum),
+                       (synthesize, "compute_loss", synthesize.compute_loss),
+                       (fastspeech2.FastSpeech2, "forward_teacher_forced",
+                        fastspeech2.FastSpeech2.forward_teacher_forced),
+                       (synthesize, "synthesize_items", synthesize.synthesize_items)]
+        real_att, real_mas, real_sum, real_loss, real_tf, real_items = (
+            s[2] for s in self._saved)
+        captured = self.captured
+
+        def attention(q, k, v, bias, scale, *args, **kwargs):
+            if q.shape[2] % 2 and "attention_fwd" not in captured:
+                captured["attention_fwd"] = (q.clone(), k.clone(), v.clone(), bias.clone(),
+                                             scale)
+            return real_att(q, k, v, bias, scale, *args, **kwargs)
+
+        def mas(log_attn, in_lens, out_lens):
+            captured.setdefault("mas_width1", (log_attn.clone(), in_lens.clone(),
+                                               out_lens.clone()))
+            return real_mas(log_attn, in_lens, out_lens)
+
+        def forward_sum(logprobs, in_lens, out_lens):  # ctc_alpha's inputs
+            captured.setdefault("ctc_alpha", (logprobs.clone(), out_lens.clone()))
+            return real_sum(logprobs, in_lens, out_lens)
+
+        def teacher_forced(model, *args, **kwargs):
+            return _timed(real_tf, self.forward)(model, *args, **kwargs)
+
+        conformer.attention_fwd = attention
+        variance_adaptor.mas_width1 = mas
+        ctc.ctc_forward_sum = forward_sum
+        synthesize.compute_loss = _timed(real_loss, self.loss)
+        synthesize.synthesize_items = _timed(real_items, self.scoring)
+        fastspeech2.FastSpeech2.forward_teacher_forced = teacher_forced
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _check_data_cli(argv: list) -> dict:
+    """check-data in-process with every counter set to 0 just before it and
+    read just after; the wall and the launches."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+
+    counters = {**_counters(), "mrf_conv": mrf_conv}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stderr(io.StringIO()):  # the estimates' note
+        cli.main(["check-data", *argv])
+    torch.cuda.synchronize()
+    return dict(wall_s=time.time() - t0, launches={k: fn.launches for k, fn in counters.items()})
+
+
+def phase_check_data(workdir: Path, pre: dict) -> dict:
+    """Phase 25: ``check-data`` on phase 24's tree with its step=4/ scoring
+    every utterance on the card, the objective estimates and the thorough
+    clipping count; the launches around it; kernels A (p 0), B and C's
+    alpha chain against their plain versions on inputs the run gave them;
+    then a 2+2-layer f32 model scoring 8 utterances on the card and on the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.checkpoint import write_checkpoint
+    from fastspeech2_lightning_tpu_torch.ops import ctc
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+    from fastspeech2_lightning_tpu_torch.utils import load_filelist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    config_path, n = pre["config_path"], pre["kept"]
+    out = workdir / "checked"
+    with CheckDataProbe() as probe:
+        run = _check_data_cli([str(config_path), "--model-path", str(pre["step_dir"]), "-o",
+                               str(out), "--objective-evaluation", "--clip-detection"])
+    rows = json.loads((out / "checked-data.json").read_text())
+    check(len(rows) == n and all(math.isfinite(r[k]) for r in rows for k in
+                                 ("pitch_mean", "energy_mean", "stoi", "si_sdr", "duration")),
+          f"checked-data.json: {len(rows)} rows for {n} utterances")
+    scores = load_filelist(out / f"scores-{PRE_STEPS}.psv")
+    losses = [k for k in scores[0] if k.endswith("_loss")]
+    check(len(scores) == n and {r["basename"] for r in scores} == {r["basename"] for r in rows},
+          f"scores-{PRE_STEPS}.psv: {len(scores)} rows for {n} utterances")
+    check({"total_loss", "spec_loss", "postnet_loss", "duration_loss", "attn_ctc_loss"}
+          <= set(losses) and all(math.isfinite(float(r[k])) for r in scores for k in losses),
+          f"scores columns {list(scores[0])}")
+    key = [(-float(r["total_loss"]), float(r["trigram_coverage_score"])) for r in scores]
+    check(key == sorted(key), "scores are not sorted by (-total_loss, trigram coverage)")
+    want = {k: 0 for k in CHECK_COUNTERS}
+    want.update(attention_fwd=8 * n, mas_width1=n, ctc_alpha=n)
+    check(run["launches"] == want, f"check-data launches {run['launches']}, predicted {want}")
+    check(len(probe.forward) == len(probe.loss) == n and len(probe.scoring) == 1,
+          f"{len(probe.forward)} forwards and {len(probe.loss)} losses timed for {n}")
+    fwd, loss = sum(probe.forward) / n, sum(probe.loss) / n
+    scoring_ms = probe.scoring[0]
+    host_ms = scoring_ms / n - fwd - loss
+    log(f"check-data: {n} rows, {len(scores)} scores ({', '.join(losses)}) in "
+        f"{run['wall_s']:.1f} s, of which scoring {scoring_ms / 1e3:.1f} s; launches "
+        f"{run['launches']}; a scored utterance {scoring_ms / n:.2f} ms: forward {fwd:.2f}, "
+        f"loss {loss:.2f}, the host's share {host_ms:.2f} (batching, copies, writer)")
+
+    q, k, v, bias, scale = probe.captured["attention_fwd"]
+    max_abs, rel = errors(attention_fwd(q, k, v, bias, scale),
+                          attention_reference(q.float(), k.float(), v.float(), bias, scale))
+    check(rel <= 2e-2, f"attention_fwd at the check-data shape {list(q.shape)}: rel-L2 {rel}")
+    la, in_lens, out_lens = probe.captured["mas_width1"]
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+          f"mas_width1 at the check-data shape {list(la.shape)}: differs from the plain version")
+    lp, lens = probe.captured["ctc_alpha"]
+    alphas, want_alphas = ctc.ctc_alpha(lp, lens), ctc.ctc_alpha_reference(lp, lens)
+    live = want_alphas > 0.5 * ctc.NEG_INF
+    alpha_abs = float((alphas - want_alphas)[live].abs().max())
+    alpha_scale = float(want_alphas[live].abs().max())
+    check(torch.equal(alphas > 0.5 * ctc.NEG_INF, live) and alpha_abs <= 1e-5 * alpha_scale,
+          f"ctc_alpha at the check-data shape {list(lp.shape)}: max-abs {alpha_abs} of "
+          f"{alpha_scale}")
+    log(f"check-data kernels at the path's shapes: attention_fwd {list(q.shape)} "
+        f"{str(q.dtype).split('.')[-1]} rel-L2 {rel:.3e} (max-abs {max_abs:.3e}); mas_width1 "
+        f"{list(la.shape)} bit-exact; ctc_alpha {list(lp.shape)} max-abs {alpha_abs:.3e}")
+
+    # card against CPU: a 2+2-layer f32 model scores 8 utterances on both
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model_config("float32")
+    for part in ("encoder", "decoder"):
+        cfg["model"][part]["layers"] = 2
+    cfg["preprocessing"]["save_dir"] = str(config_path.parent / "pre_host")
+    ckpt = write_checkpoint(workdir / "check_small.ckpt",
+                            random_state_dict(cfg, np.random.default_rng(SEED + 25)), cfg,
+                            STATS, lang2id={"default": 0}, speaker2id={"default": 0})
+    lines = (config_path.parent / "pre_host" / "training_filelist.psv").read_text().splitlines()
+    small = workdir / "check_cvc.psv"
+    small.write_text("\n".join(lines[: N_CHECK_CVC + 1]) + "\n")
+    scored = {}
+    with SharedBins() as bins:
+        for dev in ("cpu", "cuda"):
+            with bins.on(dev):
+                _check_data_cli([str(config_path), "-f", str(small), "--no-calculate-stats",
+                                 "--model-path", str(ckpt), "-o", str(workdir / f"cvc_{dev}"),
+                                 "--device", dev])
+            scored[dev] = {r["basename"]: r for r in load_filelist(workdir / f"cvc_{dev}" /
+                                                              "scores-0.psv")}
+    flips = bins.held()
+    check(sorted(scored["cuda"]) == sorted(scored["cpu"]) and len(scored["cpu"]) == N_CHECK_CVC,
+          "card and CPU scored different utterances")
+    worst = 0.0
+    for b, r in scored["cpu"].items():
+        for k in losses:
+            a, c = float(scored["cuda"][b][k]), float(r[k])
+            worst = max(worst, abs(a - c) / max(abs(c), 1e-6))
+    check(worst <= 1e-4, f"card against CPU scores: rel {worst} > 1e-4")
+    log(f"card vs CPU check-data scores (f32, TF32 off, 2+2 layers, {N_CHECK_CVC} utterances): "
+        f"losses rel {worst:.3e}; pitch and energy buckets differing at an edge {flips}")
+    return dict(rows=len(rows), scores=len(scores), wall_s=run["wall_s"],
+                launches=run["launches"], ms_per_utterance=scoring_ms / n, forward_ms=fwd,
+                loss_ms=loss, host_ms=host_ms, card_vs_cpu_rel=worst,
+                shapes={"attention_fwd": list(q.shape), "mas_width1": list(la.shape),
+                        "ctc_alpha": list(lp.shape)},
+                max_abs_err={"attention_fwd": max_abs, "ctc_alpha": alpha_abs})
+
+
 def main() -> None:
     import torch
 
@@ -3278,6 +3705,10 @@ def main() -> None:
         voc["card_vs_cpu"] = phase_vocoder_card_vs_cpu(voc["ckpt_dir"], voc["config_path"])
         trained = phase_trained_vocoder(Path(workdir), voc.pop("ckpt_dir"),
                                         voc.pop("config_path"))
+        pre = phase_preprocess(Path(workdir))
+        checked = phase_check_data(Path(workdir), pre)
+        pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
+                                               for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
     ctl, cvl = cond["launches"], cond["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
@@ -3289,6 +3720,10 @@ def main() -> None:
                  "conditioned_training": ctl[name], "conditioned_validation": cvl[name]}
         if name in ("attention_fwd", "mas_width1"):
             paths["synthesize"] = sl[name]
+        paths["preprocessed_training"] = pre["train_launches"][name]
+        paths["preprocessed_validation"] = pre["validation_launches"][name]
+        if name in ("attention_fwd", "mas_width1", "ctc_alpha"):
+            paths["check-data"] = checked["launches"][name]
         if name == "attention_fwd":
             paths.update(conditioned_serving=cond_serve["attention_fwd"],
                          streaming=stream["launches"]["attention_fwd"],
@@ -3366,6 +3801,9 @@ def main() -> None:
         f"step wall, {busy['bfloat16']:.1f} device busy; f32 "
         f"{vt['ms_per_step']['float32']:.1f} wall, {busy['float32']:.1f} device busy; "
         f"bound {vt['bound_ms']:.2f} ms; peak {vt['peak_gib']:.2f} GiB ({smi})")
+    log(f"preprocess ({pre['kept']} utterances, {pre['audio_s']:.1f} s of audio): host "
+        f"{pre['host_s']:.1f} s, device {pre['device_s']:.1f} s wall; check-data "
+        f"{checked['ms_per_utterance']:.2f} ms a scored utterance ({smi})")
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     log(f"conditioned train: median {cond['ms_per_step']:.1f} ms/step ({cond['ratio_to_plain']:.3f}"
         f" of the unconditioned), peak {cond['peak_gib']:.2f} GiB; stream: first audio "
@@ -3373,7 +3811,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels, "trainer": train["timing"], "synthesize": syn,
                       "conditioned": {"training": cond, "serving": cond_serve},
                       "streaming": stream, "text_levels": levels,
-                      "vocoder_training": {**voc, "trained": trained}}))
+                      "vocoder_training": {**voc, "trained": trained},
+                      "preprocess": pre, "check_data": checked}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """fastspeech2_lightning_tpu_torch — the PyTorch/CUDA port.
 
 Serving (text -> FastSpeech2 mel -> HiFiGAN wav over HTTP, batched or
-streamed window by window), the ``synthesize`` command and acoustic
-training, on an NVIDIA Hopper card, for character, phone and
+streamed window by window), the ``synthesize`` command, acoustic and
+vocoder training, and the corpus front end (``preprocess``, ``check-data``,
+``convert-artifacts``), on an NVIDIA Hopper card, for character, phone and
 phonological-feature models with speakers, languages and global style
 tokens. Plain tensor code is PyTorch; the kernels (attention forward and
 backward, MAS, the CTC scans and the HiFiGAN multi-receptive-field stage)

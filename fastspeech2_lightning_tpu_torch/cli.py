@@ -10,6 +10,13 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch serve GST.ckpt -v VOCODER.npz -S REF.wav
     python -m fastspeech2_lightning_tpu_torch train-vocoder CONFIG.json --max-steps 1000
     python -m fastspeech2_lightning_tpu_torch evaluate-vocoder CONFIG.json -v VOCODER.npz
+    python -m fastspeech2_lightning_tpu_torch preprocess CONFIG.json --cpus 8
+    python -m fastspeech2_lightning_tpu_torch preprocess CONFIG.json --on-device-spec
+    python -m fastspeech2_lightning_tpu_torch check-data CONFIG.json --model-path STEP_DIR
+    python -m fastspeech2_lightning_tpu_torch convert-artifacts PREPROCESSED_DIR
+
+Every command that reads a config takes the JAX CLI's ``-c key.path=value``
+overrides.
 """
 
 from __future__ import annotations
@@ -20,6 +27,44 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 from .type_definitions import SynthesizeOutputFormats
+
+
+STEPS = ("audio", "spec", "attn", "text", "pitch", "energy")
+
+
+def _config_args(parser) -> None:
+    parser.add_argument("--config-args", "-c", dest="config_args", action="append",
+                        default=[], help="Dotted-path config overrides, e.g. "
+                        "-c training.batch_size=8 (values read as YAML).")
+
+
+def _must_exist(args, *named) -> None:
+    """The JAX CLI's usage error (exit 2) for a path argument that does not
+    exist."""
+    for name, path in named:
+        if path is not None and not Path(path).exists():
+            args.command_parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
+
+
+def _with_overrides(args, load):
+    """load() of a config with ``args.config_args``; a value the override
+    reader cannot read is a usage error naming it."""
+    from .config import OverrideValueError
+
+    try:
+        return load()
+    except OverrideValueError as e:
+        args.command_parser.error(
+            f"Invalid value for '--config-args' / '-c': {str(e)!r} is not a YAML scalar or "
+            "flow sequence this reader takes")
+
+
+def _load_config(args):
+    """The config file of `args` with its ``-c`` overrides."""
+    from .config import load_config_base_command
+
+    return _with_overrides(args, lambda: load_config_base_command(args.config,
+                                                                  args.config_args))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -69,6 +114,8 @@ def _parser() -> argparse.ArgumentParser:
                    "directory (default); --no-resume starts fresh.")
     t.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    _config_args(t)
+    t.set_defaults(command_parser=t)
     y = sub.add_parser(
         "synthesize",
         help="Synthesize audio, specs and alignments from texts or a filelist. Writes "
@@ -104,6 +151,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="Synthesize with the EMA weights of a step=N/ directory.")
     y.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    _config_args(y)
     y.set_defaults(command_parser=y)
     v = sub.add_parser(
         "train-vocoder",
@@ -134,6 +182,7 @@ def _parser() -> argparse.ArgumentParser:
                    "optimizers stay float32).")
     v.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    _config_args(v)
     v.set_defaults(command_parser=v)
     e = sub.add_parser(
         "evaluate-vocoder",
@@ -147,17 +196,91 @@ def _parser() -> argparse.ArgumentParser:
     e.add_argument("--vocoder-precision", choices=["float32", "bfloat16"], default="float32")
     e.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
+    _config_args(e)
     e.set_defaults(command_parser=e)
+    r = sub.add_parser(
+        "preprocess",
+        help="Preprocess audio/spec/attn/text/pitch/energy artifacts + stats: the wavs "
+        "of preprocessing.source_data become the tree under preprocessing.save_dir "
+        "that train reads (filelists, stats.json, .npy artifacts).",
+    )
+    r.add_argument("config")
+    r.add_argument("--steps", "-s", action="append", choices=STEPS, default=None,
+                   help="Subset of preprocessing steps (default: all).")
+    r.add_argument("--cpus", type=int, default=None, help="Worker processes.")
+    r.add_argument("--on-device-spec", dest="on_device_spec", action="store_true",
+                   default=False, help="Compute mel+energy as batched ops on the card.")
+    r.add_argument("--host-spec", dest="on_device_spec", action="store_false",
+                   help="Compute them on the host (the default).")
+    r.add_argument("--device", default=None,
+                   help="The on-device pass's device: 'cuda' (default) or 'cpu'.")
+    _config_args(r)
+    r.set_defaults(command_parser=r)
+    k = sub.add_parser("check-data",
+                       help="Dataset QA: stats, clipping, per-utterance loss scores.")
+    k.add_argument("config")
+    k.add_argument("--filelist", "-f", default=None)
+    k.add_argument("--calculate-stats", action=argparse.BooleanOptionalAction, default=True)
+    k.add_argument("--model-path", default=None,
+                   help="Score utterances by model loss using this checkpoint.")
+    k.add_argument("--output-dir", "-o", default="checked_data")
+    k.add_argument("--objective-evaluation", action=argparse.BooleanOptionalAction,
+                   default=False, help="Reference-free STOI/SI-SDR/PESQ-proxy metrics.")
+    k.add_argument("--clip-detection", action=argparse.BooleanOptionalAction, default=False,
+                   help="Thorough consecutive-run clipping detection (slower).")
+    k.add_argument("--device", default=None,
+                   help="The scoring model's device: 'cuda' (default) or 'cpu'.")
+    _config_args(k)
+    k.set_defaults(command_parser=k)
+    a = sub.add_parser(
+        "convert-artifacts",
+        help="Convert a reference preprocessed tree (.pt artifacts) to .npy in place, so "
+        "a corpus preprocessed with the PyTorch reference trains here without "
+        "re-preprocessing.",
+    )
+    a.add_argument("preprocessed_dir")
+    a.add_argument("--overwrite", action=argparse.BooleanOptionalAction, default=False,
+                   help="Re-convert even when the .npy sibling already exists.")
+    a.add_argument("--verbose", "-V", action="store_true")
+    a.set_defaults(command_parser=a)
     return p
 
 
+def preprocess_command(args) -> None:
+    _must_exist(args, ("'CONFIG_FILE'", args.config))
+    from .preprocessing.pipeline import ALL_STEPS, Preprocessor
+
+    config = _load_config(args)
+    result = Preprocessor(config).run(steps=args.steps or ALL_STEPS, cpus=args.cpus,
+                                      on_device_spec=args.on_device_spec, device=args.device)
+    print(f"Preprocessed {result['n_train']} training + {result['n_val']} validation "
+          f"utterances -> {config.preprocessing.save_dir}", flush=True)
+
+
+def check_data_cli(args) -> None:
+    _must_exist(args, ("'CONFIG_FILE'", args.config), ("'--filelist' / '-f'", args.filelist))
+    from .check_data import check_data_command
+
+    check_data_command(
+        _load_config(args), None if args.filelist is None else Path(args.filelist),
+        args.calculate_stats, None if args.model_path is None else Path(args.model_path),
+        Path(args.output_dir), objective_evaluation=args.objective_evaluation,
+        clip_detection=args.clip_detection, device=args.device)
+
+
+def convert_artifacts_command(args) -> None:
+    _must_exist(args, ("'PREPROCESSED_DIR'", args.preprocessed_dir))
+    from .preprocessing.convert import convert_artifact_tree
+
+    converted, skipped = convert_artifact_tree(
+        Path(args.preprocessed_dir), overwrite=args.overwrite,
+        log=print if args.verbose else (lambda s: None))
+    print(f"converted {converted} artifacts, skipped {skipped}", flush=True)
+
+
 def train_vocoder_command(args) -> None:
-    for name, path in (("'CONFIG_FILE'", args.config),
-                       ("'--finetune-from'", args.finetune_from),
-                       ("'--finetune-mels'", args.finetune_mels)):
-        if path is not None and not Path(path).exists():
-            args.command_parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
-    from .config import FastSpeech2Config
+    _must_exist(args, ("'CONFIG_FILE'", args.config), ("'--finetune-from'", args.finetune_from),
+                ("'--finetune-mels'", args.finetune_mels))
     from .device import resolve_device
     from .training.vocoder import VocoderTrainingConfig, train_vocoder
 
@@ -166,7 +289,7 @@ def train_vocoder_command(args) -> None:
                                frames_per_crop=args.frames_per_crop,
                                learning_rate=args.learning_rate, ckpt_steps=args.ckpt_steps,
                                compute_dtype=args.precision, log_steps=args.log_steps)
-    train_vocoder(FastSpeech2Config.from_file(args.config), train_config=tc,
+    train_vocoder(_load_config(args), train_config=tc,
                   max_steps=args.max_steps, resume=args.resume,
                   data_parallel=args.data_parallel,
                   finetune_from=None if args.finetune_from is None else Path(args.finetune_from),
@@ -177,16 +300,13 @@ def train_vocoder_command(args) -> None:
 def evaluate_vocoder_command(args) -> None:
     import json
 
-    for name, path in (("'CONFIG_FILE'", args.config),
-                       ("'--vocoder-path' / '-v'", args.vocoder_path)):
-        if not Path(path).exists():
-            args.command_parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
-    from .config import FastSpeech2Config
+    _must_exist(args, ("'CONFIG_FILE'", args.config),
+                ("'--vocoder-path' / '-v'", args.vocoder_path))
     from .device import resolve_device
     from .evaluation import evaluate_vocoder
 
     device = resolve_device(args.device)
-    report = evaluate_vocoder(FastSpeech2Config.from_file(args.config), Path(args.vocoder_path),
+    report = evaluate_vocoder(_load_config(args), Path(args.vocoder_path),
                               n_utterances=args.n_utterances,
                               precision=args.vocoder_precision, device=device)
     print(json.dumps(report, indent=2), flush=True)
@@ -199,11 +319,8 @@ def synthesize(args) -> None:
 
     parser = args.command_parser
     output_type = [SynthesizeOutputFormats(o) for o in args.output_type or ["wav"]]
-    for name, path in (("'MODEL_PATH'", args.model_path),
-                       ("'--filelist' / '-f'", args.filelist),
-                       ("'--style-reference' / '-S'", args.style_reference)):
-        if path is not None and not Path(path).exists():
-            parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
+    _must_exist(args, ("'MODEL_PATH'", args.model_path), ("'--filelist' / '-f'", args.filelist),
+                ("'--style-reference' / '-S'", args.style_reference))
     if not args.texts and args.filelist is None:
         parser.error("You must define either --text or --filelist")
     if args.texts and args.filelist is not None:
@@ -224,6 +341,12 @@ def synthesize(args) -> None:
 
     model, config, stats, lang2id, speaker2id, global_step = load_model_from_checkpoint(
         Path(args.model_path), device=args.device, use_ema=args.use_ema)
+    if args.config_args:
+        # inference-time overrides of the checkpoint's config
+        from .config import FastSpeech2Config, apply_overrides
+
+        config = _with_overrides(args, lambda: FastSpeech2Config.from_dict(
+            apply_overrides(config.to_dict(), args.config_args)))
     teacher_forcing = args.teacher_forcing_directory is not None
     if teacher_forcing:
         # the target mels and priors come from this preprocessed directory
@@ -282,11 +405,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         train_vocoder_command(args)
     elif args.command == "evaluate-vocoder":
         evaluate_vocoder_command(args)
+    elif args.command == "preprocess":
+        preprocess_command(args)
+    elif args.command == "check-data":
+        check_data_cli(args)
+    elif args.command == "convert-artifacts":
+        convert_artifacts_command(args)
     elif args.command == "train":
-        from .config import FastSpeech2Config
         from .training.loop import Trainer
 
-        trainer = Trainer(FastSpeech2Config.from_file(args.config), device=args.device)
+        trainer = Trainer(_load_config(args), device=args.device)
         rows = trainer.fit(max_steps=args.max_steps, resume=args.resume)
         print(f"trained {len(rows)} steps; checkpoint {trainer.ckpt_path}", flush=True)
     elif args.command == "serve":

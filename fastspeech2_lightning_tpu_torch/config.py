@@ -8,12 +8,17 @@ checkpoint stores (``config.model_checkpoint_dump()``) and ignores every field
 the port does not read, so a full config loads unchanged. ``from_file``
 reads a config file as the JAX CLI does (``:483-535``): JSON only (this
 package does not read YAML; the JAX CLI reads the same JSON file), partial
-files merged, relative paths resolved against the file's folder."""
+files merged, relative paths resolved against the file's folder.
+``load_config_base_command`` adds the CLI's ``-c key.path=value`` overrides
+(``:626-663``), whose values are read as YAML 1.1 scalars and flow
+sequences by ``parse_override_value`` (the JAX package uses
+``yaml.safe_load``; this package reads the same values without ``yaml``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import typing
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -32,6 +37,10 @@ def _from_dict(cls, data: Optional[dict]):
         ftype = hints[f.name]
         if dataclasses.is_dataclass(ftype):
             value = _from_dict(ftype, value)
+        elif typing.get_origin(ftype) is list and value is not None:
+            (item_type,) = typing.get_args(ftype) or (None,)
+            if dataclasses.is_dataclass(item_type):
+                value = [_from_dict(item_type, v) for v in value]
         kwargs[f.name] = value
     return cls(**kwargs)
 
@@ -126,9 +135,28 @@ class AudioConfig(_FromDict):
 
 
 @dataclasses.dataclass
+class DatasetSource(_FromDict):
+    """One corpus of wavs (``config/__init__.py:110-116``): `data_dir`
+    holds ``<basename>.wav`` for every row of `filelist`; `sox_effects`
+    (``[["channels", "1"], ["rate", "22050"], ...]``) apply on loading."""
+
+    label: str = "dataset_0"
+    data_dir: str = "."
+    filelist: str = "filelist.psv"
+    filelist_loader: str = "psv"
+    permissions_obtained: bool = False
+    sox_effects: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class PreprocessingConfig(_FromDict):
-    audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
+    dataset: str = "YourDataSet"
+    dataset_split_seed: int = 1234
+    train_split: float = 0.9
     save_dir: str = "./preprocessed"
+    cpus: Optional[int] = None  # worker processes
+    audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
+    source_data: List[DatasetSource] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -279,26 +307,237 @@ class FastSpeech2Config(_FromDict):
         """Read a JSON config file: ``path_to_<key>_config_file`` partials are
         the base that the file's inline section overrides
         (``load_partials``, ``config/__init__.py:507-535``), and the relative
-        data, log and filelist paths resolve against the file's folder
-        (``:483-494``)."""
-        path = Path(path)
-        data = _read_json(path)
-        for key in _PARTIAL_KEYS:
-            rel = data.get(f"path_to_{key}_config_file")
-            if not rel:
-                continue
-            partial_path = Path(rel)
-            if not partial_path.is_absolute():
-                partial_path = (path.parent / partial_path).resolve()
-            merged = _read_json(partial_path)
-            if isinstance(data.get(key), dict):
-                merged.update(data[key])
-            data[key] = merged
+        data, log, filelist and corpus paths resolve against the file's
+        folder (``:483-494``)."""
+        return load_config_base_command(path)
+
+    @classmethod
+    def _from_raw(cls, data: dict, path: Path) -> "FastSpeech2Config":
         config = cls.from_dict(data)
         base = path.parent
-        config.preprocessing.save_dir = _relative_to(base, config.preprocessing.save_dir)
+        p = config.preprocessing
+        p.save_dir = _relative_to(base, p.save_dir)
+        for source in p.source_data:
+            source.data_dir = _relative_to(base, source.data_dir)
+            source.filelist = _relative_to(base, source.filelist)
         t = config.training
         t.training_filelist = _relative_to(base, t.training_filelist)
         t.validation_filelist = _relative_to(base, t.validation_filelist)
         t.logger.save_dir = _relative_to(base, t.logger.save_dir)
         return config
+
+
+def _load_raw(path: Path) -> dict:
+    """The file's dict with its ``path_to_<key>_config_file`` partials
+    merged under its inline sections."""
+    data = _read_json(path)
+    for key in _PARTIAL_KEYS:
+        rel = data.get(f"path_to_{key}_config_file")
+        if not rel:
+            continue
+        partial_path = Path(rel)
+        if not partial_path.is_absolute():
+            partial_path = (path.parent / partial_path).resolve()
+        merged = _read_json(partial_path)
+        if isinstance(data.get(key), dict):
+            merged.update(data[key])
+        data[key] = merged
+    return data
+
+
+# ---------------------------------------------------------------------------
+# -c key.path=value overrides: the values YAML 1.1 (``yaml.safe_load``) gives
+# ---------------------------------------------------------------------------
+
+
+class OverrideValueError(ValueError):
+    """An override value this reader cannot read as YAML would."""
+
+
+_YAML_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                        r"|on|On|ON|off|Off|OFF)$")
+_YAML_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*"
+                         r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_YAML_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                       r"|[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$")
+_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_YAML_TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
+# a plain scalar may not start with these (YAML indicators); '[' and the
+# quotes are read below
+_INDICATORS = set("{}],#&*!|>%@`?")
+_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n",
+            "v": "\v", "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"',
+            "/": "/", "\\": "\\", "N": "\x85", "_": "\xa0", "L": "\u2028",
+            "P": "\u2029"}
+
+
+def _sexagesimal(text: str, cast):
+    value, base = 0, 1
+    for part in reversed(text.split(":")):
+        value += cast(part) * base
+        base *= 60
+    return value
+
+
+def _yaml_int(text: str) -> int:
+    text = text.replace("_", "")
+    sign = -1 if text[0] == "-" else 1
+    text = text.lstrip("+-")
+    if text == "0":
+        return 0
+    if text.startswith("0b"):
+        return sign * int(text[2:], 2)
+    if text.startswith("0x"):
+        return sign * int(text[2:], 16)
+    if text[0] == "0":
+        return sign * int(text, 8)
+    if ":" in text:
+        return sign * _sexagesimal(text, int)
+    return sign * int(text)
+
+
+def _yaml_float(text: str) -> float:
+    text = text.replace("_", "").lower()
+    sign = -1.0 if text[0] == "-" else 1.0
+    text = text.lstrip("+-")
+    if text == ".inf":
+        return sign * float("inf")
+    if text == ".nan":
+        return float("nan")
+    if ":" in text:
+        return sign * _sexagesimal(text, float)
+    return sign * float(text)
+
+
+def _plain_scalar(text: str, value: str, flow: bool) -> Any:
+    """A plain (unquoted) scalar resolved as PyYAML's implicit resolvers do."""
+    if text and (text[0] in _INDICATORS or (text[0] == "-" and text[1:2] in ("", " "))):
+        raise OverrideValueError(value)
+    if ": " in text or text.endswith(":") or " #" in text or "\t" in text or (
+            flow and any(c in text for c in ",[]{}")):
+        raise OverrideValueError(value)
+    if _YAML_NULL.match(text):
+        return None
+    if _YAML_BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    if _YAML_FLOAT.match(text):
+        return _yaml_float(text)
+    if _YAML_INT.match(text):
+        return _yaml_int(text)
+    if _YAML_TIMESTAMP.match(text) or text in ("<<", "="):
+        raise OverrideValueError(value)
+    return text
+
+
+def _quoted(text: str, value: str) -> str:
+    quote, body = text[0], text[1:-1]
+    if len(text) < 2 or text[-1] != quote:
+        raise OverrideValueError(value)
+    if quote == "'":
+        if "'" in body.replace("''", ""):
+            raise OverrideValueError(value)
+        return body.replace("''", "'")
+    out, i = [], 0
+    while i < len(body):
+        c = body[i]
+        if c == '"':
+            raise OverrideValueError(value)
+        if c != "\\":
+            out.append(c)
+            i += 1
+            continue
+        nxt = body[i + 1: i + 2]
+        width = {"x": 2, "u": 4, "U": 8}.get(nxt)
+        if width:
+            digits = body[i + 2: i + 2 + width]
+            if len(digits) != width or not re.fullmatch(r"[0-9a-fA-F]+", digits):
+                raise OverrideValueError(value)
+            out.append(chr(int(digits, 16)))
+            i += 2 + width
+        elif nxt in _ESCAPES:
+            out.append(_ESCAPES[nxt])
+            i += 2
+        else:
+            raise OverrideValueError(value)
+    return "".join(out)
+
+
+def _split_flow(body: str, value: str) -> list:
+    """The items of a flow sequence's inside, split at its top-level commas."""
+    items, depth, quote, start = [], 0, None, 0
+    for i, c in enumerate(body):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"" and not body[start:i].strip():
+            quote = c
+        elif c == "[":
+            depth += 1
+        elif c == "]":
+            depth -= 1
+        elif c == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    if quote or depth:
+        raise OverrideValueError(value)
+    items.append(body[start:])
+    if len(items) == 1 and not items[0].strip():
+        return []
+    if any(not item.strip() for item in items):
+        raise OverrideValueError(value)
+    return items
+
+
+def _node(text: str, value: str, flow: bool) -> Any:
+    text = text.strip(" ")
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise OverrideValueError(value)
+        return [_node(item, value, True) for item in _split_flow(text[1:-1], value)]
+    if text[:1] in ("'", '"'):
+        return _quoted(text, value)
+    return _plain_scalar(text, value, flow)
+
+
+def parse_override_value(value: str) -> Any:
+    """`value` as ``yaml.safe_load`` reads it (YAML 1.1): ``yes``/``no``/
+    ``on``/``off``/``true``/``false`` are booleans, ``~``, ``null`` and the
+    empty string None, ints in decimal, octal (``010``), hex, binary and
+    base 60, floats only with a dot (``1e3`` stays a string, ``1.0e+3`` is
+    1000.0: the exponent needs its sign), quoted strings, and flow
+    sequences (``[1, 2]``) of these. A value outside that subset (a flow
+    mapping, an anchor, a tag, a date, a comment, a block) raises
+    ``OverrideValueError`` naming it, rather than becoming a string."""
+    if "\n" in value or "\r" in value:
+        raise OverrideValueError(value)
+    return _node(value, value, False)
+
+
+def apply_overrides(config_dict: dict, overrides: List[str]) -> dict:
+    """Apply ``key.sub.path=value`` overrides onto a raw config dict
+    (``config/__init__.py:638-651``)."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"Override must look like key.path=value, got: {item}")
+        dotted, value = item.split("=", 1)
+        keys = dotted.strip().split(".")
+        node = config_dict
+        for k in keys[:-1]:
+            if k not in node or not isinstance(node[k], dict):
+                node[k] = {}
+            node = node[k]
+        node[keys[-1]] = parse_override_value(value)
+    return config_dict
+
+
+def load_config_base_command(config_file: Union[str, Path],
+                             config_args: Optional[List[str]] = None) -> FastSpeech2Config:
+    """The config of a JSON file with its partials merged and the ``-c``
+    overrides applied before the paths resolve (``:654-663``)."""
+    path = Path(config_file)
+    raw = _load_raw(path)
+    if config_args:
+        raw = apply_overrides(raw, list(config_args))
+    return FastSpeech2Config._from_raw(raw, path)

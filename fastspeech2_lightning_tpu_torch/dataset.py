@@ -30,6 +30,7 @@ from .text.lookups import LookupTable, load_filelist
 PAD_MULT_TEXT = 16
 PAD_MULT_MEL = 32
 SEP = "--"
+COVERAGE_KEYS = ("phone_coverage_score", "trigram_coverage_score")
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -124,6 +125,9 @@ class FastSpeechDataset:
                 loaded["pfs"] = np.load(self.path(item, "pfs", "pfs.npy")).astype(np.float32)
         if self.style_reference and "mel_style_reference" in item:
             loaded["mel_style_reference"] = item["mel_style_reference"]
+        for key in COVERAGE_KEYS:  # check-data's scores ride along
+            if key in item:
+                loaded[key] = float(item[key])
         return loaded
 
     def _load_targets(self, item: dict, loaded: dict) -> None:
@@ -180,6 +184,9 @@ def collate(samples: List[dict], pad_text_to: int, pad_mel_to: Optional[int],
                                      np.float32),
         "is_last_input_chunk": [s.get("is_last_input_chunk", True) for s in samples],
     }
+    for key in COVERAGE_KEYS:
+        if key in samples[0]:
+            batch[key] = np.array([s[key] for s in samples], np.float32)
     text = np.zeros((B, L), np.int32)
     for i, s in enumerate(samples):
         text[i, : src_lens[i]] = s["text"][:L]

@@ -103,7 +103,12 @@ class FastSpeech2(nn.Module):
         target mels (text, src_lens, mel, mel_lens, attn_prior or duration,
         speaker_id, language_id, and pfs and mel_style_reference where the
         model takes them): the mel comes out at the batch's mel width,
-        ``tgt_lens`` is ``mel_lens`` and ``duration_rounded`` the durations."""
+        ``tgt_lens`` is ``mel_lens`` and ``duration_rounded`` the durations.
+        It also returns the keys ``compute_loss`` scores
+        (``fastspeech2.py:221-239``): ``src_lens``, the alignment's
+        ``attn_logprob``, ``attn_soft`` and ``attn_hard``,
+        ``duration_target``, and ``pitch_target`` and ``energy_target``,
+        which are None at inference."""
         if control is None:
             control = {"pitch": 1.0, "energy": 1.0, "duration": 1.0}
         style = batch.get("mel_style_reference")
@@ -112,7 +117,11 @@ class FastSpeech2(nn.Module):
                                            pfs=batch.get("pfs"),
                                            style_mel=batch["mel"] if style is None else style)
         va = self.variance_adaptor.forward_teacher_forced(inputs, x, batch, src_mask, control)
-        return self._inference_outputs(va, x, src_mask, batch["mel_lens"])
+        out = self._inference_outputs(va, x, src_mask, batch["mel_lens"])
+        out.update({k: va[k] for k in ("attn_logprob", "attn_soft", "attn_hard",
+                                       "duration_target", "pitch_target", "energy_target")},
+                   src_lens=batch["src_lens"])
+        return out
 
     def _inference_outputs(self, va, x, src_mask, tgt_lens) -> Dict[str, torch.Tensor]:
         tgt_mask = va["target_mask"]

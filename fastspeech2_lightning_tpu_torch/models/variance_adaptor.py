@@ -121,18 +121,26 @@ class VarianceAdaptor(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """The inference branch at the durations of the batch's target mel
         (MAS over the alignment attention, or ``batch["duration"]``), length
-        regulated to the batch's mel width."""
+        regulated to the batch's mel width. Besides the inference outputs it
+        returns what JAX's teacher-forced branch returns for the loss
+        (``variance_adaptor.py:151-239``): the attention's log-probabilities,
+        soft and hard alignments, the durations as ``duration_target``, and
+        None for the pitch and energy targets (inference loads none)."""
         durations = batch.get("duration")
+        attn_logprob = attn_soft = attn_hard = None
         if self.config.model.learn_alignment:
-            attn_soft, _ = self.attention(
+            attn_soft, attn_logprob = self.attention(
                 batch["mel"], text_emb, key_mask=src_mask,
                 attn_prior=batch.get("attn_prior"),
             )
-            _, durations = mas_width1(
+            attn_hard, durations = mas_width1(
                 torch.log(torch.clamp(attn_soft, min=1e-20)),
                 batch["src_lens"], batch["mel_lens"],
             )
-        return self(x, src_mask, control, batch["mel"].shape[1], durations=durations)
+        out = self(x, src_mask, control, batch["mel"].shape[1], durations=durations)
+        out.update(attn_logprob=attn_logprob, attn_soft=attn_soft, attn_hard=attn_hard,
+                   duration_target=durations, pitch_target=None, energy_target=None)
+        return out
 
     def forward_train(
         self,

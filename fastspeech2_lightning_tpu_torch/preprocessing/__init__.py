@@ -1,3 +1,4 @@
-"""Spectral features, audio in and out, and the text side of preprocessing
-(the parts of the JAX package's ``preprocessing`` that synthesis and the
-trainer's data need)."""
+"""Corpus preprocessing (counterpart of the JAX package's
+``preprocessing``): the ``Preprocessor`` pipeline and its pieces (spectral
+features, pitch, priors, statistics, sox effects), the reference-tree
+converter and the objective audio metrics."""

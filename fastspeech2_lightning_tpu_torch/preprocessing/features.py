@@ -3,12 +3,15 @@
 Copies of the JAX package's ``preprocessing/features.py`` host functions
 (``hz_to_mel``, ``mel_to_hz``, ``mel_filterbank``, ``_hann``,
 ``stft_complex_numpy``, ``stft_magnitude_numpy``, ``mel_spectrogram_numpy``:
-what a style-reference wav becomes), and ``stft_complex``, which computes what
+what a style-reference wav and the host preprocessing pass compute, and
+``frame_energy_numpy``), and ``stft_complex``, which computes what
 ``stft_complex_numpy`` computes on a batch of tensors on any device:
 periodic Hann window, center padding by numpy's ``reflect`` rule (which
 reflects again where the pad is wider than the signal), frames in float64,
-the result cast to complex64; and ``mel_spectrogram_torch``, the batched,
-differentiable float32 log-mel of the vocoder trainer."""
+the result cast to complex64; ``mel_spectrogram_torch``, the batched,
+differentiable float32 log-mel of the vocoder trainer; and
+``batched_mel_energy_torch``, the on-device preprocessing pass's log-mel and
+energy from one float32 STFT."""
 
 from __future__ import annotations
 
@@ -126,13 +129,32 @@ def mel_spectrogram_numpy(audio: np.ndarray, sr: int, n_fft: int, hop: int, win_
     spec_type 'raw', the [n_fft//2+1, T] complex STFT with no log."""
     if spec_type == "raw":
         return stft_complex_numpy(audio, n_fft, hop, win_length).T
-    mag = stft_magnitude_numpy(audio, n_fft, hop, win_length)  # [T, bins]
+    return log_spectrogram(stft_magnitude_numpy(audio, n_fft, hop, win_length), sr, n_fft,
+                           n_mels, f_min, f_max, spec_type)
+
+
+def log_spectrogram(mag: np.ndarray, sr: int, n_fft: int, n_mels: int, f_min: float,
+                    f_max: float, spec_type: str) -> np.ndarray:
+    """The log-mel [n_mels, T] (or, for 'linear', log [bins, T]) of an
+    STFT magnitude [T, bins]."""
     if spec_type == "linear":
         out = mag.T
     else:
         fb = mel_filterbank(sr, n_fft, n_mels, f_min, f_max, spec_type == "mel")
         out = fb @ mag.T  # [n_mels, T]
     return np.log(np.clip(out, LOG_CLIP, None)).astype(np.float32)
+
+
+def frame_energy_numpy(audio: np.ndarray, n_fft: int, hop: int, win_length: int
+                       ) -> np.ndarray:
+    """[T_frames] frame energy: the L2 norm of the frame's STFT magnitudes
+    (the FastSpeech2 convention)."""
+    return energy_of(stft_magnitude_numpy(audio, n_fft, hop, win_length))
+
+
+def energy_of(mag: np.ndarray) -> np.ndarray:
+    """[T] frame energy of an STFT magnitude [T, bins]."""
+    return np.linalg.norm(mag, axis=1).astype(np.float32)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -175,8 +197,27 @@ def mel_spectrogram_torch(audio: torch.Tensor, sr: int, n_fft: int, hop: int, wi
     padding, the periodic Hann window, |rfft| (whose gradient at a zero bin
     is 0), the filterbank, then the LOG_CLIP floor and the log. Unlike
     ``stft_complex`` it stays in float32, as the JAX mel does."""
-    window, fb = _mel_constants(sr, n_fft, win_length, n_mels, f_min, f_max, htk,
-                                audio.device)
-    frames = reflect_pad(audio.float(), n_fft // 2).unfold(-1, n_fft, hop) * window
-    mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()  # [B, T, bins]
+    mag = _magnitude(audio, sr, n_fft, hop, win_length, n_mels, f_min, f_max, htk)
+    fb = _mel_constants(sr, n_fft, win_length, n_mels, f_min, f_max, htk, audio.device)[1]
     return torch.log(torch.clamp(torch.einsum("mf,btf->bmt", fb, mag), min=LOG_CLIP))
+
+
+def _magnitude(audio, sr, n_fft, hop, win_length, n_mels, f_min, f_max, htk):
+    """[B, T_frames, n_fft//2+1] f32 |STFT| of [B, samples] audio."""
+    window = _mel_constants(sr, n_fft, win_length, n_mels, f_min, f_max, htk,
+                            audio.device)[0]
+    frames = reflect_pad(audio.float(), n_fft // 2).unfold(-1, n_fft, hop) * window
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
+
+
+def batched_mel_energy_torch(audio: torch.Tensor, sr: int, n_fft: int, hop: int,
+                             win_length: int, n_mels: int, f_min: float, f_max: float,
+                             htk: bool = False) -> tuple:
+    """([B, n_mels, T] log-mel, [B, T] frame energy) of [B, samples] audio
+    from one f32 STFT on `audio`'s device: the on-device preprocessing pass
+    (the JAX package's ``batched_mel_energy_jax``, ``features.py:182-217``);
+    the energy is the L2 norm of a frame's magnitudes."""
+    mag = _magnitude(audio, sr, n_fft, hop, win_length, n_mels, f_min, f_max, htk)
+    fb = _mel_constants(sr, n_fft, win_length, n_mels, f_min, f_max, htk, audio.device)[1]
+    mel = torch.log(torch.clamp(torch.einsum("mf,btf->bmt", fb, mag), min=LOG_CLIP))
+    return mel, torch.sqrt(torch.sum(mag * mag, dim=-1))

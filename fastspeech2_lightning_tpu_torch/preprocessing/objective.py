@@ -9,8 +9,13 @@
 * ``pesq_proxy(clean, degraded, sr)``: a PESQ-shaped MOS estimate (not ITU
   PESQ), for ranking.
 
-NumPy only, on the host. ``detect_clipping`` and ``estimate_quality`` come
-with ``check-data``."""
+and, for ``check-data`` (``:142-165``, ``:212-265``):
+
+* ``detect_clipping(audio)``: runs of samples pinned at either rail;
+* ``estimate_quality(audio, sr)``: reference-free STOI, SI-SDR and PESQ
+  proxy against a spectrally subtracted copy of the audio.
+
+NumPy only, on the host."""
 
 from __future__ import annotations
 
@@ -127,6 +132,31 @@ def stoi(clean: np.ndarray, degraded: np.ndarray, sr: int) -> float:
     return float(np.mean(scores))
 
 
+def _spectral_subtract(audio: np.ndarray, sr: int) -> np.ndarray:
+    """Light spectral-subtraction denoise: noise floor = 10th percentile
+    magnitude per bin; over-subtract 1.5x with a 5% magnitude floor."""
+    x = np.asarray(audio, np.float64)
+    nfft, hop = 512, 128
+    win = np.hanning(nfft)
+    n = 1 + max(0, (len(x) - nfft) // hop)
+    if n < 4:
+        return x
+    idx = np.arange(nfft)[None, :] + hop * np.arange(n)[:, None]
+    S = np.fft.rfft(x[idx] * win[None, :], axis=1)  # [n, F]
+    mag, phase = np.abs(S), np.angle(S)
+    noise = np.percentile(mag, 10, axis=0, keepdims=True)
+    mag_d = np.maximum(mag - 1.5 * noise, 0.05 * mag)
+    Sd = mag_d * np.exp(1j * phase)
+    frames = np.fft.irfft(Sd, nfft, axis=1) * win[None, :]
+    out = np.zeros(len(x))
+    norm = np.zeros(len(x))
+    for i in range(n):
+        sl = slice(i * hop, i * hop + nfft)
+        out[sl] += frames[i]
+        norm[sl] += win**2
+    return out / np.maximum(norm, 1e-8)
+
+
 def pesq_proxy(clean: np.ndarray, degraded: np.ndarray, sr: int) -> float:
     """PESQ-family MOS estimate (intrusive, P.862-inspired — NOT ITU PESQ).
 
@@ -170,3 +200,64 @@ def pesq_proxy(clean: np.ndarray, degraded: np.ndarray, sr: int) -> float:
     raw = sym + 0.4 * asym
     # logistic map to the PESQ MOS-LQO range
     return float(1.02 + 3.54 / (1.0 + np.exp(2.2 * (raw - 1.2))))
+
+
+# ---------------------------------------------------------------------------
+# Data QA (check-data)
+# ---------------------------------------------------------------------------
+
+
+def detect_clipping(
+    audio: np.ndarray, min_run: int = 2, rail_tol: float = 1e-4
+) -> tuple[list[tuple[int, int]], int]:
+    """Consecutive-sample clipping detector (clipdetect-equivalent; the
+    reference's heavy path, fs2/cli/check_data_heavy.py:62-63).
+
+    Digital clipping pins consecutive samples AT the rail, so a clipped
+    region is a run of >= `min_run` consecutive samples within
+    `rail_tol` x dynamic-range of the recording's extreme (either rail) —
+    a smooth waveform passes a rail once per cycle, never dwelling on it.
+    Returns (list of [start, end) intervals, total clipped samples) — the
+    same (intervals, count) contract as clipdetect.detect_clipping."""
+    x = np.asarray(audio, np.float64)
+    if len(x) == 0:
+        return [], 0
+    hi, lo = x.max(), x.min()
+    if hi - lo < 1e-6:
+        # degenerate dynamic range (digital silence / DC): there are no
+        # rails to pin to — without this, tol collapses and every sample
+        # of a silent file is reported as clipped
+        return [], 0
+    tol = rail_tol * (hi - lo)
+    pinned = (x >= hi - tol) | (x <= lo + tol)
+    # run-length scan over the pinned mask
+    idx = np.flatnonzero(pinned)
+    if len(idx) == 0:
+        return [], 0
+    breaks = np.flatnonzero(np.diff(idx) > 1)
+    run_starts = np.concatenate([[0], breaks + 1])
+    run_ends = np.concatenate([breaks, [len(idx) - 1]])
+    intervals = []
+    total = 0
+    for s, e in zip(run_starts, run_ends):
+        length = int(e - s + 1)
+        if length >= min_run:
+            intervals.append((int(idx[s]), int(idx[e]) + 1))
+            total += length
+    return intervals, total
+
+
+def estimate_quality(audio: np.ndarray, sr: int) -> dict:
+    """Reference-free quality estimates for data QA.
+
+    The denoised signal acts as the clean arm: `stoi` is the intelligibility
+    of the raw audio against it, `si_sdr` the raw audio's SI-SDR against it
+    (an SNR proxy), and `pesq` is the PESQ-family proxy MOS of the raw audio
+    against it (see pesq_proxy: ranking-grade, not ITU-comparable; install
+    torchaudio for SQUIM's neural estimates)."""
+    clean = _spectral_subtract(audio, sr)
+    return {
+        "stoi": stoi(clean, audio, sr),
+        "si_sdr": si_sdr(np.asarray(audio, np.float64), clean),
+        "pesq": pesq_proxy(clean, audio, sr),
+    }

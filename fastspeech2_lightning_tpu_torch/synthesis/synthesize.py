@@ -16,8 +16,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..dataset import PAD_MULT_TEXT, FastSpeechDataset, _round_up, collate
+from ..training.loss import compute_loss
 from ..training.step import batch_to_device
 
 
@@ -32,12 +34,16 @@ def synthesize_items(
     teacher_forcing: bool = False,
     control: Optional[Dict[str, float]] = None,
     max_target_len: Optional[int] = None,
+    return_scores: bool = False,
 ) -> None:
     """Synthesize `items` (``prepare_data``'s) with `model` on its device and
     hand every batch's outputs to each writer, then call each writer's
     ``finalize`` where it has one. With `teacher_forcing` the durations come
-    from the target mels under ``config.preprocessing.save_dir``."""
+    from the target mels under ``config.preprocessing.save_dir``;
+    `return_scores` (with `teacher_forcing`) adds each utterance's losses."""
     batch_size = batch_size or config.training.batch_size
+    if return_scores:
+        batch_size = 1
     style_reference = any("mel_style_reference" in it for it in items)
     ds = FastSpeechDataset(items, config, lang2id, speaker2id,
                            teacher_forcing=teacher_forcing, inference=True,
@@ -63,6 +69,10 @@ def synthesize_items(
                         pfs=db.get("pfs"), mel_style_reference=db.get("mel_style_reference"))
         # the model's outputs are f32 (also in bf16 models), ints and masks
         out_host = {k: v.cpu().numpy() for k, v in out.items() if v is not None}
+        if return_scores:
+            with torch.no_grad():
+                losses = compute_loss(config, out, db, 0)
+            out_host["losses"] = {k: float(v) for k, v in losses.items()}
         for writer in writers.values():
             writer.on_predict_batch_end(out_host, batch)
 

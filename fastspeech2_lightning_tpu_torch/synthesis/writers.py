@@ -1,7 +1,8 @@
 """Prediction writers: wav, spec, TextGrid and ReadAlong outputs (the
 counterpart of the JAX package's ``synthesis/writers.py``).
 
-The same factory (``get_synthesis_output_writers``), the same file names
+The same factory (``get_synthesis_output_writers``, with ``check-data``'s
+``ScorerWriter``), the same file names
 ``{basename}--{speaker}--{language}[--ckpt=N][--v_ckpt=N]--{extension}``
 and the same serializers, and the same reassembly of chunked utterances
 across batches, keyed on ``is_last_input_chunk``. Writers are host objects
@@ -19,7 +20,7 @@ from ..preprocessing.pipeline import save_wav
 from ..text import TextProcessor
 from ..text.processor import PAD_SYMBOL
 from ..type_definitions import SynthesizeOutputFormats
-from ..utils import slugify, truncate_basename
+from ..utils import slugify, truncate_basename, write_filelist
 
 SEP = "--"
 
@@ -429,6 +430,37 @@ class PredictionWritingWavWriter(PredictionWriterBase):
                 self.full_text = ""
 
 
+class ScorerWriter(PredictionWriterBase):
+    """Each utterance's losses and coverage scores, written by ``finalize``
+    to ``scores-{step}.psv`` sorted by (-total_loss, trigram coverage)
+    (``writers.py:436-477``)."""
+
+    def __init__(self, config, global_step, output_dir: Path, output_key: str):
+        super().__init__(config=config, file_extension="psv", global_step=global_step,
+                         save_dir=Path(output_dir))
+        self.output_key = output_key
+        self.rows: List[dict] = []
+
+    def on_predict_batch_end(self, outputs, batch):
+        losses = outputs.get("losses", {})
+        for i in range(len(batch["basename"])):
+            row = {"basename": batch["basename"][i], "speaker": batch["speaker"][i],
+                   "language": batch["language"][i]}
+            for k, v in losses.items():
+                row[f"{k}_loss"] = float(np.asarray(v).reshape(-1)[0])
+            for key in ("phone_coverage_score", "trigram_coverage_score"):
+                if key in batch:
+                    row[key] = float(batch[key][i])
+            self.rows.append(row)
+
+    def finalize(self) -> Path:
+        self.rows.sort(key=lambda r: (-r.get("total_loss", 0.0),
+                                      r.get("trigram_coverage_score", 0.0)))
+        path = self.save_dir / f"scores-{self.global_step}.psv"
+        write_filelist(self.rows, path)
+        return path
+
+
 def get_synthesis_output_writers(
     output_type: Sequence[SynthesizeOutputFormats],
     output_dir: Path,
@@ -438,10 +470,14 @@ def get_synthesis_output_writers(
     vocoder=None,
     vocoder_global_step: int = 0,
     output_hop_size: Optional[int] = None,
+    return_scores: bool = False,
 ) -> Dict[Any, PredictionWriterBase]:
-    """The writers of `output_type`, keyed by format; wav and
+    """The writers of `output_type`, keyed by format, and with
+    `return_scores` the ``ScorerWriter`` under "score"; wav and
     readalong-html need a vocoder."""
     writers: Dict[Any, PredictionWriterBase] = {}
+    if return_scores:
+        writers["score"] = ScorerWriter(config, global_step, output_dir, output_key)
     needs_wav = (
         SynthesizeOutputFormats.wav in output_type
         or SynthesizeOutputFormats.readalong_html in output_type

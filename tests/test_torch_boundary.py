@@ -44,7 +44,9 @@ def test_importing_every_module_loads_no_jax():
                    "training.preemption", "dataset", "ops.mas", "ops.ctc", "ops.attention",
                    "synthesis.synthesize", "synthesis.writers", "synthesis.griffin_lim",
                    "preprocessing.features", "preprocessing.pipeline", "utils", "models.gst",
-                   "synthesis.streaming", "text.g2p", "text.lexicon", "text.features"):
+                   "synthesis.streaming", "text.g2p", "text.lexicon", "text.features",
+                   "check_data", "preprocessing.f0", "preprocessing.priors",
+                   "preprocessing.stats", "preprocessing.convert", "preprocessing.objective"):
         assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 
@@ -148,3 +150,40 @@ def test_cli_vocoder_commands_refuse_without_card(tmp_path, command):
     )
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+
+
+def test_cli_preprocess_on_device_refuses_without_card(tmp_path):
+    """``preprocess --on-device-spec`` runs its spectral pass on the card
+    unless given ``--device cpu``; it refuses before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    (tmp_path / "config.json").write_text(json.dumps({"preprocessing": {"save_dir": "pre"}}))
+    base = [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", "preprocess",
+            str(tmp_path / "config.json")]
+    out = subprocess.run(base + ["--on-device-spec"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "pre").exists()
+    out = subprocess.run(base + ["--on-device-spec", "--device", "cpu"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "Preprocessed 0 training + 0 validation utterances" in out.stdout
+
+
+def test_cli_check_data_scoring_refuses_without_card(tiny_ckpt, tmp_path):
+    """``check-data --model-path`` scores on the card unless given
+    ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    (tmp_path / "list.psv").write_text("basename|characters\nu0|abc\n")
+    (tmp_path / "config.json").write_text(json.dumps({"preprocessing": {"save_dir": "pre"}}))
+    out = subprocess.run(
+        [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", "check-data",
+         str(tmp_path / "config.json"), "-f", str(tmp_path / "list.psv"),
+         "--no-calculate-stats", "--model-path", str(tiny_ckpt), "-o", str(tmp_path / "out")],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not list((tmp_path / "out").glob("scores-*"))

@@ -225,6 +225,21 @@ def test_teacher_forced_durations_equal(teacher_forced):
     assert len(items) == 3
 
 
+def test_teacher_forced_outputs_carry_the_loss_inputs(teacher_forced):
+    """The teacher-forced forward returns what JAX's returns for the loss:
+    the alignment's log-probabilities, soft and hard alignments, the
+    durations as targets; no pitch or energy targets at inference."""
+    _, jrec, prec, _ = teacher_forced
+    for want, got in zip(jrec.outputs, prec.outputs):
+        assert "pitch_target" not in got and "energy_target" not in got
+        np.testing.assert_array_equal(got["duration_target"], want["duration_target"])
+        np.testing.assert_array_equal(got["attn_hard"], want["attn_hard"])
+        np.testing.assert_array_equal(got["src_lens"], want["src_lens"])
+        for key in ("attn_soft", "attn_logprob"):
+            assert got[key].shape == want[key].shape
+            np.testing.assert_allclose(got[key], want[key], rtol=0, atol=SPEC_ATOL, err_msg=key)
+
+
 def test_teacher_forced_cli_files_equal(teacher_forced):
     root, _, _, items = teacher_forced
     want, got = _files(root / "jax"), _files(root / "port")
