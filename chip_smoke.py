@@ -127,6 +127,18 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     B and C's alpha chain against their plain versions on inputs the run
     gave them; a 2+2-layer f32 model scoring 8 utterances on the card and
     on the CPU (losses within 1e-4 relative, ``SharedBins``).
+ 26. the operator's tools: ``benchmark`` in-process on phase 11's config
+    (the default model at full width, bf16, B 16) in training and inference
+    mode, 5 warmup calls and 5 trials of 50: the printed line parsed, MFU in
+    (0, 100 %], the launches around each run (8 attention_fwd and, in
+    training mode, 1 mas_width1 a call, nothing else), A (p 0) and B against
+    their plain versions on inputs the runs gave them, one run with
+    ``--profile-dir`` whose trace's kernels are listed; one train step more
+    on phase 11's run (keeping 3 checkpoints), then ``average-checkpoints --last 2`` and
+    ``--use-ema`` on its step directories (parameters averaged, buffers the
+    newest's), the EMA average served for one request; ``export-checkpoint``
+    of it synthesizing the step directory's mel; ``doctor`` on phase 24's
+    config exiting 0 with every kernel source built and loaded.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -3321,9 +3333,11 @@ def write_wav_corpus(root: Path, rng) -> list:
                       (np.stack([left, right], 1) * 32767).astype(np.int16))
         rows.append({"basename": f"s{i:02d}", "characters": _sentence(rng, int(12 * seconds))})
     write_filelist(rows, root / "stereo.psv")
-    return [{"label": "wavs", "data_dir": "wavs", "filelist": "wavs.psv"},
-            {"label": "stereo", "data_dir": "stereo", "filelist": "stereo.psv",
-             "sox_effects": STEREO_EFFECTS}]
+    # absolute: a relative data_dir or filelist is read from the working
+    # directory, as in the JAX package
+    return [{"label": "wavs", "data_dir": str(root / "wavs"), "filelist": str(root / "wavs.psv")},
+            {"label": "stereo", "data_dir": str(root / "stereo"),
+             "filelist": str(root / "stereo.psv"), "sox_effects": STEREO_EFFECTS}]
 
 
 def _preprocess_cli(config_path: Path, *flags) -> float:
@@ -3667,6 +3681,237 @@ def phase_check_data(workdir: Path, pre: dict) -> dict:
                 max_abs_err={"attention_fwd": max_abs, "ctc_alpha": alpha_abs})
 
 
+# -- phase 26: the operator's tools -----------------------------------------------
+
+BENCH_WARMUP = 5
+BENCH_REPS = 50
+BENCH_TRIALS = 5  # time_chained's
+BENCH_LINE = re.compile(
+    r"Average forward pass for (\w+) duration after (\d+) repetitions: ([\d.]+) ms "
+    r"Standard Deviation: ([\d.]+) \(best ([\d.]+) ms, ([\d.]+) TFLOP/call, MFU ([\d.]+)%; "
+    r"forced-completion chained timing\)")
+
+
+class KernelInputs:
+    """Keeps the inputs of the first attention_fwd call at the largest T
+    and of the first mas_width1 call while a run goes through the model."""
+
+    def __init__(self):
+        self.captured = {}
+
+    def __enter__(self):
+        from fastspeech2_lightning_tpu_torch.models import conformer, variance_adaptor
+
+        self._saved = [(conformer, "attention_fwd", conformer.attention_fwd),
+                       (variance_adaptor, "mas_width1", variance_adaptor.mas_width1)]
+        real_att, real_mas = (s[2] for s in self._saved)
+        captured = self.captured
+
+        def attention(q, k, v, bias, scale, *args, **kwargs):
+            have = captured.get("attention_fwd")
+            if have is None or q.shape[2] > have[0].shape[2]:
+                captured["attention_fwd"] = (q.clone(), k.clone(), v.clone(), bias.clone(), scale)
+            return real_att(q, k, v, bias, scale, *args, **kwargs)
+
+        def mas(log_attn, in_lens, out_lens):
+            captured.setdefault("mas_width1", (log_attn.clone(), in_lens.clone(),
+                                               out_lens.clone()))
+            return real_mas(log_attn, in_lens, out_lens)
+
+        conformer.attention_fwd = attention
+        variance_adaptor.mas_width1 = mas
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _benchmark_cli(config_path: Path, mode: str, *flags) -> dict:
+    """The port's ``benchmark`` in-process with every counter set to 0 just
+    before it and read just after; its printed lines and parsed fields."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+
+    counters = {**_counters(), "mrf_conv": mrf_conv}
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        cli.main(["benchmark", str(config_path), "--benchmark-type", mode, *flags])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    lines = out.getvalue().strip().splitlines()
+    m = BENCH_LINE.fullmatch(lines[-1]) if lines else None
+    check(m is not None and m[1] == mode, f"benchmark {mode} printed {lines}")
+    mean, std, best, tflop, mfu = map(float, m.groups()[2:])
+    return dict(lines=lines, wall_s=wall, mean_ms=mean, std_ms=std, best_ms=best,
+                tflop_per_call=tflop, mfu_percent=mfu,
+                launches={k: fn.launches for k, fn in counters.items()})
+
+
+def _trace_kernels(trace: Path) -> dict:
+    """The trace's device kernels by name: events and summed microseconds."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            row = kernels.setdefault(e["name"], [0, 0.0])
+            row[0] += 1
+            row[1] += float(e.get("dur", 0.0))
+    return dict(events=len(events), kernels=kernels)
+
+
+def phase_tools(workdir: Path, pre: dict) -> dict:
+    """Phase 26: ``benchmark`` at full width (phase 11's config: the default
+    model in bf16, B 16) in both modes, the launches counted around each run
+    (training: 8 attention_fwd and 1 mas_width1 a call, inference: 8
+    attention_fwd a call, nothing else), the printed MFU in (0, 100 %], A (p
+    0) and B against their plain versions on inputs the runs gave them, a
+    run with ``--profile-dir``; ``average-checkpoints --last 2`` and
+    ``--use-ema`` on phase 11's step directories (one step more makes the
+    second), the average served for one request; ``export-checkpoint`` of
+    it synthesizing the step directory's mel; ``doctor`` on phase 24's
+    config with every kernel row OK."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+    from fastspeech2_lightning_tpu_torch.serving import serve
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import load_train_state, read_meta
+
+    config_path = workdir / "config.json"  # phase 11's
+    flags = ("--warmup-reps", str(BENCH_WARMUP), "--repetitions", str(BENCH_REPS))
+    calls = 1 + BENCH_WARMUP + BENCH_TRIALS * BENCH_REPS  # the FLOP count's call first
+    runs, captured = {}, {}
+    for mode in ("training", "inference"):
+        with KernelInputs() as probe:
+            runs[mode] = run = _benchmark_cli(config_path, mode, *flags)
+        captured[mode] = probe.captured
+        want = {k: 0 for k in CHECK_COUNTERS}
+        want.update(attention_fwd=8 * calls, mas_width1=calls if mode == "training" else 0)
+        check(run["launches"] == want,
+              f"benchmark {mode}: launches {run['launches']}, predicted {want} ({calls} calls)")
+        check(0.0 < run["mfu_percent"] <= 100.0 and run["tflop_per_call"] > 0.0,
+              f"benchmark {mode}: MFU {run['mfu_percent']} %, {run['tflop_per_call']} TFLOP")
+        log(f"benchmark {mode}: {run['lines'][-1]} ({run['wall_s']:.1f} s wall; launches "
+            f"{run['launches']})")
+
+    kernels = {"attention_fwd": {}}
+    for mode in ("training", "inference"):
+        q, k, v, bias, scale = captured[mode]["attention_fwd"]
+        max_abs, rel = errors(attention_fwd(q, k, v, bias, scale),
+                              attention_reference(q.float(), k.float(), v.float(), bias, scale))
+        check(rel <= 2e-2,
+              f"attention_fwd at benchmark {mode}'s shape {list(q.shape)}: rel-L2 {rel}")
+        kernels["attention_fwd"][mode] = dict(shape=list(q.shape), max_abs_err=max_abs,
+                                              rel_l2=rel,
+                                              masked_keys=float((bias < 0).float().mean()))
+    la, in_lens, out_lens = captured["training"]["mas_width1"]
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+          f"mas_width1 at the benchmark shape {list(la.shape)}: differs from the plain version")
+    kernels["mas_width1"] = dict(shape=list(la.shape), max_abs_err=0.0)
+    att = kernels["attention_fwd"]
+    log("benchmark kernels: attention_fwd " + "; ".join(
+        f"{mode}'s decoder {row['shape']} ({row['masked_keys']:.3f} of the keys masked) "
+        f"rel-L2 {row['rel_l2']:.3e} (max-abs {row['max_abs_err']:.3e})"
+        for mode, row in att.items()) + f"; mas_width1 {list(la.shape)} bit-exact")
+
+    prof_dir = workdir / "bench_profile"
+    prof = _benchmark_cli(config_path, "inference", "--warmup-reps", "2", "--repetitions", "5",
+                          "--profile-dir", str(prof_dir))
+    trace = prof_dir / "trace.json"
+    check(prof["lines"][0] == f"Wrote profiler trace to {trace}" and trace.is_file(),
+          f"benchmark --profile-dir printed {prof['lines']}")
+    prof_calls = 2 + BENCH_TRIALS * 5  # the profiler starts after the FLOP count's call
+    check(prof["launches"]["attention_fwd"] == 8 * (1 + prof_calls),
+          f"benchmark --profile-dir: launches {prof['launches']} for 1 + {prof_calls} calls")
+    held = _trace_kernels(trace)
+    top = sorted(held["kernels"].items(), key=lambda kv: -kv[1][1])
+    busy_ms = sum(us for _, us in held["kernels"].values()) / 1e3 / prof_calls
+    log(f"benchmark trace: {held['events']} events, {len(held['kernels'])} kernel names, "
+        f"{sum(n for n, _ in held['kernels'].values())} kernel events; the card busy "
+        f"{busy_ms:.3f} ms a call (kernels summed over the {prof_calls} calls) against the "
+        f"profiled run's {prof['mean_ms']:.3f} ms a timed call")
+    for name, (n, us) in top[:12]:
+        log(f"benchmark trace kernel {name[:70]}: {n} events, {us / 1e3:.3f} ms")
+
+    # average-checkpoints on phase 11's step directories: one step more, keeping the
+    # newest three, makes a second
+    ckpt_dir = workdir / "logs" / "smoke" / "train" / "checkpoints"
+    newest = max(int(p.name.split("=")[1]) for p in ckpt_dir.glob("step=*"))
+    cli.main(["train", str(config_path), "--max-steps", str(newest + 1), "-c",
+              "training.save_top_k_ckpts=3"])
+    steps = sorted(int(p.name.split("=")[1]) for p in ckpt_dir.glob("step=*"))
+    check(len(steps) >= 2 and steps[-1] == newest + 1, f"step directories {steps}")
+    avg, avg_ema = workdir / "averaged", workdir / "averaged_ema"
+    cli.main(["average-checkpoints", str(ckpt_dir), "--last", "2", "-o", str(avg)])
+    cli.main(["average-checkpoints", str(ckpt_dir), "-n", "2", "--use-ema", "-o", str(avg_ema)])
+    for out in (avg, avg_ema):
+        meta = read_meta(out)
+        check(meta["metrics"] == {} and len(meta["averaged_from"]) == 2
+              and meta["global_step"] == steps[-1] and load_train_state(out)["ema"] is None,
+              f"{out.name}: meta {meta['averaged_from']}, {meta['global_step']}")
+    a, b = (torch.load(ckpt_dir / f"step={s}" / "model.ckpt", map_location="cpu",
+                       weights_only=True)["state_dict"] for s in steps[-2:])
+    got = torch.load(avg / "model.ckpt", map_location="cpu", weights_only=True)["state_dict"]
+    name = "mel_linear.weight"
+    check(torch.equal(got[name], ((a[name].double() + b[name].double()) / 2).float())
+          and torch.equal(got["variance_adaptor.pitch_bins"], b["variance_adaptor.pitch_bins"]),
+          "the averaged parameters or the newest buffers")
+    server = serve(avg_ema, port=0, max_batch=BATCH)
+    check(server.synthesizer.device.type == "cuda", "the average did not load on the card")
+    server.start()
+    try:
+        status, body, seconds = _post(server.address, {"text": "the averaged model speaks.",
+                                                       "format": "mel"})
+    finally:
+        server.shutdown()
+    mel = np.load(io.BytesIO(body))
+    check(status == 200 and mel.ndim == 2 and mel.shape[1] == 80 and np.isfinite(mel).all(),
+          f"serving the averaged checkpoint: {status}, {mel.shape}")
+    log(f"average-checkpoints: steps {steps[-2:]} averaged (params and EMA); the EMA average "
+        f"served one request: {mel.shape[0]} frames in {seconds:.3f} s")
+
+    exported = workdir / "export" / "averaged.ckpt"
+    cli.main(["export-checkpoint", str(avg_ema), "-o", str(exported)])
+    texts = ["the exported model speaks."]
+    from_dir = Synthesizer.from_checkpoint(avg_ema).synthesize(texts).mels[0]
+    from_ckpt = Synthesizer.from_checkpoint(exported).synthesize(texts).mels[0]
+    check(np.array_equal(from_dir, from_ckpt),
+          f"export-checkpoint: the .ckpt's mel {from_ckpt.shape} differs from the step "
+          f"directory's {from_dir.shape}")
+    log(f"export-checkpoint: {exported.name} synthesizes the step directory's mel "
+        f"({from_dir.shape[0]} frames, equal)")
+
+    doc = subprocess.run([sys.executable, "-m", PORT, "doctor", str(pre["config_path"]),
+                          "--device-timeout", "120"], cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    rows = doc.stdout.strip().splitlines()
+    for line in rows:
+        log(f"doctor: {line}")
+    kernel_rows = [r for r in rows if r[2:].split(" ")[0].endswith(".cu")]
+    check(doc.returncode == 0 and len(kernel_rows) == 5
+          and all(r.startswith("✓") for r in kernel_rows),
+          f"doctor exited {doc.returncode}: {doc.stdout[-2000:]} {doc.stderr[-2000:]}")
+    return dict(benchmark={m: {k: r[k] for k in ("mean_ms", "std_ms", "best_ms",
+                                                  "tflop_per_call", "mfu_percent", "launches",
+                                                  "wall_s")} for m, r in runs.items()},
+                calls=calls, kernels=kernels,
+                trace=dict(events=held["events"], busy_ms_per_call=busy_ms,
+                           mean_ms=prof["mean_ms"], kernels=dict(top[:20])),
+                averaged_steps=steps[-2:], served_frames=int(mel.shape[0]),
+                doctor=rows)
+
+
 def main() -> None:
     import torch
 
@@ -3707,6 +3952,7 @@ def main() -> None:
                                         voc.pop("config_path"))
         pre = phase_preprocess(Path(workdir))
         checked = phase_check_data(Path(workdir), pre)
+        tools = phase_tools(Path(workdir), pre)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -3724,6 +3970,9 @@ def main() -> None:
         paths["preprocessed_validation"] = pre["validation_launches"][name]
         if name in ("attention_fwd", "mas_width1", "ctc_alpha"):
             paths["check-data"] = checked["launches"][name]
+        if name in ("attention_fwd", "mas_width1"):
+            paths.update({f"benchmark_{mode}": run["launches"][name]
+                          for mode, run in tools["benchmark"].items()})
         if name == "attention_fwd":
             paths.update(conditioned_serving=cond_serve["attention_fwd"],
                          streaming=stream["launches"]["attention_fwd"],
@@ -3812,7 +4061,7 @@ def main() -> None:
                       "conditioned": {"training": cond, "serving": cond_serve},
                       "streaming": stream, "text_levels": levels,
                       "vocoder_training": {**voc, "trained": trained},
-                      "preprocess": pre, "check_data": checked}))
+                      "preprocess": pre, "check_data": checked, "tools": tools}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

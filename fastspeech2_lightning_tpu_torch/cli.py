@@ -14,6 +14,10 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch preprocess CONFIG.json --on-device-spec
     python -m fastspeech2_lightning_tpu_torch check-data CONFIG.json --model-path STEP_DIR
     python -m fastspeech2_lightning_tpu_torch convert-artifacts PREPROCESSED_DIR
+    python -m fastspeech2_lightning_tpu_torch benchmark CONFIG.json --benchmark-type inference
+    python -m fastspeech2_lightning_tpu_torch average-checkpoints CKPT_DIR --last 3 -o AVG_DIR
+    python -m fastspeech2_lightning_tpu_torch export-checkpoint STEP_DIR -o MODEL.ckpt
+    python -m fastspeech2_lightning_tpu_torch doctor CONFIG.json
 
 Every command that reads a config takes the JAX CLI's ``-c key.path=value``
 overrides.
@@ -67,6 +71,12 @@ def _load_config(args):
                                                                   args.config_args))
 
 
+def _refuse_data_parallel(args) -> None:
+    if args.data_parallel is not None and args.data_parallel > 1:
+        raise NotImplementedError(
+            "data-parallel synthesis is not ported yet (later slice: data parallel)")
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m fastspeech2_lightning_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -78,7 +88,7 @@ def _parser() -> argparse.ArgumentParser:
         "or a step=N/ directory the train command wrote.",
     )
     s.add_argument("model_path")
-    s.add_argument("--use-ema", action="store_true",
+    s.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default=False,
                    help="Serve the EMA weights of a step=N/ directory trained with "
                    "training.ema_decay.")
     s.add_argument("--vocoder-path", "-v", default=None)
@@ -91,7 +101,9 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--max-frames", type=int, default=None)
     s.add_argument("--vocoder-precision", choices=["float32", "bfloat16"],
                    default="float32")
-    s.add_argument("--warmup", action="store_true",
+    s.add_argument("--data-parallel", type=int, default=None,
+                   help="Shard each micro-batch over N cards (not ported: above 1 raises).")
+    s.add_argument("--warmup", action=argparse.BooleanOptionalAction, default=False,
                    help="Build the kernels before accepting requests.")
     s.add_argument("--style-reference", "-S", default=None,
                    help="GST style-reference wav applied to every request (the model must "
@@ -112,6 +124,10 @@ def _parser() -> argparse.ArgumentParser:
     t.add_argument("--resume", action=argparse.BooleanOptionalAction, default=True,
                    help="Resume from the newest step=N/ checkpoint of the run's "
                    "directory (default); --no-resume starts fresh.")
+    t.add_argument("--model-parallel", type=int, default=1,
+                   help="Tensor-parallel axis size (not ported: above 1 raises).")
+    t.add_argument("--distributed", action=argparse.BooleanOptionalAction, default=False,
+                   help="Multi-host training (not ported: raises).")
     t.add_argument("--device", default=None,
                    help="'cuda' (default, the current card) or 'cpu'.")
     _config_args(t)
@@ -243,7 +259,125 @@ def _parser() -> argparse.ArgumentParser:
                    help="Re-convert even when the .npy sibling already exists.")
     a.add_argument("--verbose", "-V", action="store_true")
     a.set_defaults(command_parser=a)
+    b = sub.add_parser("benchmark", help="Time forward passes (training or inference mode).")
+    b.add_argument("config")
+    b.add_argument("--benchmark-type", choices=["training", "inference"], default="training")
+    b.add_argument("--warmup-reps", type=int, default=10)
+    b.add_argument("--repetitions", type=int, default=300)
+    b.add_argument("--profile-dir", default=None,
+                   help="Write a torch.profiler Chrome trace of the timed region into this "
+                   "directory.")
+    b.add_argument("--device", default=None,
+                   help="'cuda' (default, the current card) or 'cpu'.")
+    _config_args(b)
+    b.set_defaults(command_parser=b)
+    g = sub.add_parser(
+        "average-checkpoints",
+        help="Uniform parameter averaging over the step=N/ checkpoints under CKPT_DIR "
+        "(a serving artifact: buffers, optimizer state and metadata come from the newest).")
+    g.add_argument("ckpt_dir")
+    g.add_argument("--output", "-o", required=True,
+                   help="Directory to write the averaged checkpoint to.")
+    g.add_argument("--last", "-n", type=int, default=None,
+                   help="Average the N newest checkpoints (default: all under CKPT_DIR).")
+    g.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default=False,
+                   help="Average the EMA shadows instead of the raw parameters.")
+    g.set_defaults(command_parser=g)
+    x = sub.add_parser(
+        "export-checkpoint",
+        help="Write a step=N/ directory's model as a standalone reference-layout Lightning "
+        ".ckpt (loadable by the reference stack and by both packages).")
+    x.add_argument("ckpt_path")
+    x.add_argument("--output", "-o", required=True, help="Output .ckpt file path.")
+    x.set_defaults(command_parser=x)
+    d = sub.add_parser(
+        "doctor",
+        help="Environment diagnostics: versions, the card (probed in a subprocess with a "
+        "timeout), nvcc and every CUDA kernel source, the kernel build cache, and optional "
+        "config/artifact validation. Exit code 1 on hard failures.")
+    d.add_argument("config", nargs="?", default=None)
+    d.add_argument("--device-timeout", type=float, default=60.0,
+                   help="Seconds to wait for the card's initialization before declaring it "
+                   "down (default: 60.0).")
+    d.set_defaults(command_parser=d)
     return p
+
+
+def benchmark_command(args) -> None:
+    """The JAX ``benchmark``'s timing and line: one batch, warmup, 5 trials of
+    ``--repetitions`` chained calls, the mean, spread and best ms a call
+    beside the FLOPs and MFU."""
+    import numpy as np
+    import torch
+
+    _must_exist(args, ("'CONFIG_FILE'", args.config))
+    from .device import resolve_device
+    from .utils.benchmarking import (
+        check_mfu,
+        count_flops,
+        prepare_benchmark,
+        time_chained,
+    )
+
+    device = resolve_device(args.device)
+    config = _load_config(args)
+    bench = prepare_benchmark(config, args.benchmark_type, device)
+    flops = count_flops(bench.fn, bench.batch, torch.zeros((), device=device))
+    profiler = None
+    if args.profile_dir is not None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+    trials = time_chained(bench.fn, [bench.batch], reps=args.repetitions, trials=5,
+                          warmup=args.warmup_reps)
+    if profiler is not None:
+        profiler.stop()
+        trace = Path(args.profile_dir) / "trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(trace))
+        print(f"Wrote profiler trace to {trace}", flush=True)
+    per_call_ms = np.asarray(trials) / args.repetitions * 1000
+    mfu = check_mfu(flops, float(per_call_ms.min()) / 1000)
+    print(
+        f"Average forward pass for {args.benchmark_type} duration after "
+        f"{args.repetitions} repetitions: {per_call_ms.mean():.3f} ms "
+        f"Standard Deviation: {per_call_ms.std():.3f} "
+        f"(best {per_call_ms.min():.3f} ms, {flops / 1e12:.3f} TFLOP/call, "
+        f"MFU {mfu * 100:.1f}%; forced-completion chained timing)", flush=True)
+
+
+def average_checkpoints_command(args) -> None:
+    _must_exist(args, ("'CKPT_DIR'", args.ckpt_dir))
+    from .training.checkpoint import average_checkpoints
+
+    steps = sorted((p for p in Path(args.ckpt_dir).glob("step=*")
+                    if p.is_dir() and p.name.split("=")[1].isdigit()),
+                   key=lambda p: int(p.name.split("=")[1]))
+    if not steps:
+        args.command_parser.error(f"No step=N checkpoints under {args.ckpt_dir}")
+    if args.last:
+        steps = steps[-args.last:]
+    out = average_checkpoints(steps, Path(args.output), use_ema=args.use_ema)
+    print(f"Averaged {len(steps)} checkpoints -> {out}", flush=True)
+
+
+def export_checkpoint_command(args) -> None:
+    """A port ``step=N/``'s ``model.ckpt`` (already in the reference layout)
+    copied to `--output`; an orbax directory is the JAX command's job."""
+    import shutil
+
+    _must_exist(args, ("'CKPT_PATH'", args.ckpt_path))
+    src = Path(args.ckpt_path) / "model.ckpt"
+    if not src.is_file():
+        args.command_parser.error(
+            f"{args.ckpt_path} is not a step=N/ directory holding model.ckpt (an orbax "
+            "checkpoint?): export it with the JAX package's `fs2t export-checkpoint`")
+    out = Path(args.output)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(src, out)
+    print(f"exported {args.ckpt_path} -> {out}", flush=True)
 
 
 def preprocess_command(args) -> None:
@@ -330,9 +464,7 @@ def synthesize(args) -> None:
     if needs_vocoder and args.vocoder_path is None:
         parser.error("Missing --vocoder-path option. A vocoder is required for wav "
                      "and readalong-html output.")
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "data-parallel synthesis is not ported yet (later slice: data parallel)")
+    _refuse_data_parallel(args)
 
     from .checkpoint import load_model_from_checkpoint
     from .synthesis.prepare import prepare_data
@@ -411,8 +543,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         check_data_cli(args)
     elif args.command == "convert-artifacts":
         convert_artifacts_command(args)
+    elif args.command == "benchmark":
+        benchmark_command(args)
+    elif args.command == "average-checkpoints":
+        average_checkpoints_command(args)
+    elif args.command == "export-checkpoint":
+        export_checkpoint_command(args)
+    elif args.command == "doctor":
+        from .doctor import run_doctor
+
+        raise SystemExit(run_doctor(args.config, device_timeout_s=args.device_timeout))
     elif args.command == "train":
         from .training.loop import Trainer
+
+        if args.model_parallel > 1 or args.distributed:
+            raise NotImplementedError("model-parallel and multi-host training are not ported "
+                                      "yet (later slice: data and model parallel)")
 
         trainer = Trainer(_load_config(args), device=args.device)
         rows = trainer.fit(max_steps=args.max_steps, resume=args.resume)
@@ -420,6 +566,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     elif args.command == "serve":
         from .serving import serve
 
+        _refuse_data_parallel(args)
         if args.style_reference is not None and not Path(args.style_reference).exists():
             args.command_parser.error("Invalid value for '--style-reference' / '-S': Path "
                                       f"'{args.style_reference}' does not exist.")

@@ -307,8 +307,9 @@ class FastSpeech2Config(_FromDict):
         """Read a JSON config file: ``path_to_<key>_config_file`` partials are
         the base that the file's inline section overrides
         (``load_partials``, ``config/__init__.py:507-535``), and the relative
-        data, log, filelist and corpus paths resolve against the file's
-        folder (``:483-494``)."""
+        ``save_dir``, training filelists and log directory resolve against
+        the file's folder (``:483-494``); ``source_data``'s ``data_dir`` and
+        ``filelist`` stay as written, relative to the working directory."""
         return load_config_base_command(path)
 
     @classmethod
@@ -317,9 +318,9 @@ class FastSpeech2Config(_FromDict):
         base = path.parent
         p = config.preprocessing
         p.save_dir = _relative_to(base, p.save_dir)
-        for source in p.source_data:
-            source.data_dir = _relative_to(base, source.data_dir)
-            source.filelist = _relative_to(base, source.filelist)
+        # source_data's data_dir and filelist stay as written: the JAX
+        # DatasetSource has no validator for them, so a relative one is read
+        # from the working directory
         t = config.training
         t.training_filelist = _relative_to(base, t.training_filelist)
         t.validation_filelist = _relative_to(base, t.validation_filelist)

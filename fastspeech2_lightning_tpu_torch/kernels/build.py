@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -34,7 +34,7 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def find_nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -52,19 +52,20 @@ def _source_hash(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """csrc/<name>.cu's library for the current sources and flags."""
     return BUILD_DIR / f"{name}-{_source_hash(name)}.so"
 
 
 def _start(name: str):
     """Start nvcc for csrc/<name>.cu; returns (process, tmp path, lib path),
     or None when the library is already built."""
-    lib = _lib_path(name)
+    lib = lib_path(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -83,21 +84,34 @@ def _finish(name: str, started) -> str:
     return out
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named sources, one nvcc each, all started together.
-    Returns name -> compiler output (ptxas register and shared-memory
-    report); an already-built library reports its saved log."""
+def build_each(names: Iterable[str]) -> Dict[str, Union[str, RuntimeError]]:
+    """Compile the named sources, one nvcc each, all started together, and
+    wait for every one. Returns name -> compiler output (ptxas register and
+    shared-memory report; an already-built library reports its saved log),
+    or the RuntimeError of a source nvcc failed on."""
     names = list(names)
     with _lock:
         started = {n: _start(n) for n in names}
-        logs = {}
+        logs: Dict[str, Union[str, RuntimeError]] = {}
         for n in names:
             if started[n] is None:
-                log = _lib_path(n).with_suffix(".log")
+                log = lib_path(n).with_suffix(".log")
                 logs[n] = log.read_text() if log.exists() else ""
             else:
-                logs[n] = _finish(n, started[n])
+                try:
+                    logs[n] = _finish(n, started[n])
+                except RuntimeError as exc:  # reported once every nvcc has ended
+                    logs[n] = exc
         return logs
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """``build_each``, raising the first failure."""
+    logs = build_each(names)
+    for out in logs.values():
+        if isinstance(out, RuntimeError):
+            raise out
+    return logs
 
 
 def all_sources() -> list:
@@ -114,7 +128,7 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     build([name])
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             for entry, argtypes in signatures.items():

@@ -53,6 +53,23 @@ _MAX_T = 1 << 16  # the mask hash packs (row, col) into 32 bits
 _M32 = 0xFFFFFFFF
 
 
+def attention_fwd_flops(B: int, H: int, T: int, dh: int) -> int:
+    """The floating-point operations the plain forward multiplies: Q K^T
+    and P V, each 2 B H T T dh, over every [T, T] entry (the key tiles a
+    kernel skips included), so the count is the same whatever computes it.
+    ``torch.utils.flop_counter`` cannot see a ctypes launch: the wrapper adds
+    this to ``attention_fwd.flops`` where it launches the kernel, and
+    ``utils.benchmarking.count_flops`` adds that counter's change."""
+    return 4 * B * H * T * T * dh
+
+
+def attention_bwd_flops(B: int, H: int, T: int, dh: int) -> int:
+    """The plain backward's products (autograd through the plain forward):
+    the forward's two, and dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q;
+    ``attention_bwd.flops`` counts them as ``attention_fwd_flops`` does."""
+    return 12 * B * H * T * T * dh
+
+
 def attention_reference(q, k, v, key_bias, sm_scale: float) -> torch.Tensor:
     """Plain version at p = 0: f32 scores, softmax, probabilities cast to the
     input dtype, then P V (the JAX einsum path, ``conformer.py:177-186``)."""
@@ -226,10 +243,12 @@ def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
     )
     build.check(lib, err, "attention_fwd")
     attention_fwd.launches += 1
+    attention_fwd.flops += attention_fwd_flops(B, H, T, dh)
     return (o, lse) if with_lse else o
 
 
 attention_fwd.launches = 0
+attention_fwd.flops = 0
 
 
 def attention_bwd_reference(q, k, v, key_bias, seed, p: float, sm_scale: float, do):
@@ -290,10 +309,12 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
     )
     build.check(lib, err, "attention_bwd")
     attention_bwd.launches += 1
+    attention_bwd.flops += attention_bwd_flops(B, H, T, dh)
     return dq_acc.to(q.dtype), dk, dv
 
 
 attention_bwd.launches = 0
+attention_bwd.flops = 0
 
 
 class _AttentionWithDropout(torch.autograd.Function):

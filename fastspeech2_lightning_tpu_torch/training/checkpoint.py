@@ -14,7 +14,9 @@ A checkpoint is a directory ``step=N/`` under the run's ``checkpoints/``:
 Everything is written into ``step=N.tmp`` and renamed to ``step=N`` after
 ``meta.json`` is on disk, so a save killed part way leaves nothing that
 ``latest_checkpoint`` picks. ``AsyncCheckpointWriter`` does the copy to the
-host and the writing on a thread while training goes on."""
+host and the writing on a thread while training goes on.
+``average_checkpoints`` writes the uniform average of several ``step=N/``
+directories as one more (the ``average-checkpoints`` command)."""
 
 from __future__ import annotations
 
@@ -23,11 +25,18 @@ import shutil
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..checkpoint import MODEL_INFO, CheckpointError, write_checkpoint
+from ..checkpoint import (
+    EMBEDDING,
+    MODEL_INFO,
+    CheckpointError,
+    read_checkpoint,
+    write_checkpoint,
+)
+from ..models.fastspeech2 import FastSpeech2
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -96,22 +105,29 @@ def take_snapshot(model, optimizer, ema: Optional[List[torch.Tensor]], step: int
     return _snapshot(packs, optimizer.count, step, epoch)
 
 
+def _publish(path: Path, model_ckpt: Callable[[Path], object], train_state: dict,
+             meta: dict) -> Path:
+    """Write a checkpoint directory: `model_ckpt(file)` writes model.ckpt,
+    then train_state.pt and meta.json, all into ``<path>.tmp``, renamed to
+    `path` (replacing one that exists) once meta.json is on disk."""
+    tmp = path.with_name(f"{path.name}.tmp")
+    for p in (path, tmp):
+        if p.exists():
+            shutil.rmtree(p)
+    tmp.mkdir(parents=True)
+    model_ckpt(tmp / "model.ckpt")
+    torch.save(train_state, tmp / "train_state.pt")
+    with open(tmp / "meta.json", "w", encoding="utf8") as f:
+        json.dump(meta, f, indent=2)
+    tmp.rename(path)
+    return path
+
+
 def save_checkpoint(ckpt_dir: Path, snap: TrainSnapshot, config: dict, stats: Optional[dict],
                     lang2id: dict, speaker2id: dict, symbols: List[str],
                     metrics: Optional[dict] = None) -> Path:
     """Write ``step=N/`` (N = snap.step) under `ckpt_dir`, replacing one that
     exists; `snap` holds host tensors."""
-    ckpt_dir = Path(ckpt_dir)
-    path = ckpt_dir / f"step={snap.step}"
-    tmp = ckpt_dir / f"step={snap.step}.tmp"
-    for p in (path, tmp):
-        if p.exists():
-            shutil.rmtree(p)
-    tmp.mkdir(parents=True)
-    write_checkpoint(tmp / "model.ckpt", snap.state_dict, config, stats, lang2id, speaker2id,
-                     global_step=snap.step)
-    torch.save({"mu": snap.mu, "nu": snap.nu, "count": snap.count, "ema": snap.ema},
-               tmp / "train_state.pt")
     array_keys = ["opt_state", "params"] + (["ema_params"] if snap.ema is not None else [])
     meta = {
         "model_info": dict(MODEL_INFO),
@@ -126,10 +142,63 @@ def save_checkpoint(ckpt_dir: Path, snap: TrainSnapshot, config: dict, stats: Op
         "array_keys": sorted(array_keys),
         "optimizer_format": "per_leaf",
     }
-    with open(tmp / "meta.json", "w", encoding="utf8") as f:
-        json.dump(meta, f, indent=2)
-    tmp.rename(path)
-    return path
+    return _publish(
+        Path(ckpt_dir) / f"step={snap.step}",
+        lambda file: write_checkpoint(file, snap.state_dict, config, stats, lang2id,
+                                      speaker2id, global_step=snap.step),
+        {"mu": snap.mu, "nu": snap.nu, "count": snap.count, "ema": snap.ema}, meta)
+
+
+def average_checkpoints(ckpt_paths: List[Path], out_path: Path, use_ema: bool = False) -> Path:
+    """Uniform parameter averaging over ``step=N/`` directories (the JAX
+    package's ``training/checkpoint.py:324-389``): the model's parameters,
+    or with `use_ema` the EMA weights of ``train_state.pt``, summed in
+    float64 and divided before the cast back to each tensor's dtype. The
+    parameters are told from the buffers by the ``named_parameters()`` of
+    the model the newest checkpoint's config builds: BatchNorm statistics,
+    the variance bins and the other buffers come from the newest checkpoint,
+    as do its AdamW moments and count (the optimizer state is not averaged;
+    the EMA is dropped) and its meta.json, with ``metrics`` emptied and
+    ``averaged_from`` listing the inputs. Written to `out_path` as
+    ``save_checkpoint`` publishes a step directory."""
+    if not ckpt_paths:
+        raise CheckpointError("average_checkpoints: no checkpoints given")
+    ckpt_paths = [Path(p) for p in ckpt_paths]
+    loaded = []
+    for p in ckpt_paths:
+        state = load_train_state(p)
+        if use_ema and state.get("ema") is None:
+            raise CheckpointError(f"{p} has no ema_params (trained without ema_decay)")
+        ckpt, config = read_checkpoint(p / "model.ckpt")
+        loaded.append((read_meta(p), ckpt, config, state))
+    meta, ckpt, config, state = max(loaded, key=lambda m: m[0]["global_step"])
+    sd = ckpt["state_dict"]
+    with torch.device("meta"):
+        model = FastSpeech2(
+            config, n_symbols=sd[EMBEDDING].shape[0],
+            n_speakers=(sd["speaker_embedding.weight"].shape[0]
+                        if "speaker_embedding.weight" in sd else 1),
+            n_languages=(sd["language_embedding.weight"].shape[0]
+                         if "language_embedding.weight" in sd else 1))
+    names = [name for name, _ in model.named_parameters()]
+    trees = [s["ema"] if use_ema else c["state_dict"] for _, c, _, s in loaded]
+    for p, tree in zip(ckpt_paths, trees):
+        if any(name not in tree or tree[name].shape != trees[0][name].shape for name in names):
+            raise CheckpointError(f"{p} has a different parameter structure; cannot average")
+    averaged = dict(sd)
+    for name in names:
+        leaves = [tree[name] for tree in trees]
+        if leaves[0].is_floating_point():
+            total = sum(leaf.to(torch.float64) for leaf in leaves)
+            averaged[name] = (total / len(leaves)).to(leaves[0].dtype)
+        else:
+            averaged[name] = leaves[0]
+    out_ckpt = {**ckpt, "state_dict": averaged}
+    out_meta = {**meta, "metrics": {}, "averaged_from": [str(p) for p in ckpt_paths],
+                "array_keys": ["opt_state", "params"]}
+    train_state = {"mu": state["mu"], "nu": state["nu"], "count": state["count"], "ema": None}
+    return _publish(Path(out_path), lambda file: torch.save(out_ckpt, file), train_state,
+                    out_meta)
 
 
 def load_train_state(path: Path) -> dict:

@@ -147,7 +147,7 @@ class DevicePrefetcher:
             t.join()
 
 
-def _set_bins(model, stats: Stats, config) -> None:
+def set_variance_bins(model, stats: Stats, config) -> None:
     """The variance adaptor's pitch and energy bins from the corpus stats."""
     vp = config.model.variance_predictors
     with torch.no_grad():
@@ -175,7 +175,7 @@ class Trainer:
                             n_speakers=max(len(self.speaker2id), 1),
                             n_languages=max(len(self.lang2id), 1))
         init_like_flax(model, config.training.seed)
-        _set_bins(model, self.stats, config)
+        set_variance_bins(model, self.stats, config)
         self.model = model.to(self.device).train()
         self.optimizer = AdamWNoam(list(self.model.named_parameters()), config.training)
         self.ema = ([p.detach().clone() for p in self.optimizer.params]
@@ -345,7 +345,7 @@ class Trainer:
         meta = read_meta(path) if path.is_dir() else None
         ckpt, _ = read_checkpoint(path / "model.ckpt" if meta else path, self.symbols)
         self.model.load_state_dict(ckpt["state_dict"], strict=True)
-        _set_bins(self.model, self.stats, self.config)
+        set_variance_bins(self.model, self.stats, self.config)
         step, epoch, saved_ema = int(ckpt.get("global_step", 0)), 0, None
         if meta is not None:
             step, epoch = int(meta["global_step"]), int(meta.get("epoch") or 0)

@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax():
                    "preprocessing.features", "preprocessing.pipeline", "utils", "models.gst",
                    "synthesis.streaming", "text.g2p", "text.lexicon", "text.features",
                    "check_data", "preprocessing.f0", "preprocessing.priors",
-                   "preprocessing.stats", "preprocessing.convert", "preprocessing.objective"):
+                   "preprocessing.stats", "preprocessing.convert", "preprocessing.objective",
+                   "utils.benchmarking", "doctor"):
         assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 

@@ -427,20 +427,34 @@ def test_unreadable_override_is_a_usage_error(tmp_path, value):
     assert code == 2 and "--config-args" in err and value.strip() in err
 
 
-def test_config_overrides_and_relative_paths(tmp_path):
+def test_config_overrides_and_relative_paths(tmp_path, monkeypatch):
+    """save_dir resolves against the config's folder; source_data's data_dir
+    and filelist stay as written (read from the working directory), as the
+    JAX config keeps them, here from a working directory other than the
+    config's folder."""
     (tmp_path / "sub").mkdir()
+    (tmp_path / "elsewhere").mkdir()
     (tmp_path / "sub" / "c.json").write_text(json.dumps({"preprocessing": {
-        "save_dir": "pre", "source_data": [{"data_dir": "wavs", "filelist": "list.psv"}]}}))
+        "save_dir": "pre", "source_data": [{"data_dir": "wavs", "filelist": "list.psv"},
+                                           {"data_dir": "./more/wavs", "filelist": "../x.psv"}]}}))
+    monkeypatch.chdir(tmp_path / "elsewhere")
     cfg = load_config_base_command(tmp_path / "sub" / "c.json",
                                    ["preprocessing.train_split=0.5", "preprocessing.cpus=3",
                                     "preprocessing.save_dir=other"])
     base = (tmp_path / "sub").resolve()
     assert cfg.preprocessing.save_dir == str(base / "other")
-    assert cfg.preprocessing.source_data[0].data_dir == str(base / "wavs")
-    assert cfg.preprocessing.source_data[0].filelist == str(base / "list.psv")
     assert (cfg.preprocessing.train_split, cfg.preprocessing.cpus) == (0.5, 3)
     jcfg = JConfig.load_config_from_path(tmp_path / "sub" / "c.json")
     assert str(jcfg.preprocessing.save_dir) == str(base / "pre")
+    port = FastSpeech2Config.from_file(tmp_path / "sub" / "c.json")
+    assert port.preprocessing.save_dir == str(base / "pre")
+    got = [(Path(s.data_dir), Path(s.filelist)) for s in port.preprocessing.source_data]
+    want = [(Path(s.data_dir), Path(s.filelist)) for s in jcfg.preprocessing.source_data]
+    assert got == want == [(Path("wavs"), Path("list.psv")), (Path("more/wavs"), Path("../x.psv"))]
+    # both read the same files: the working directory's, not the config's folder's
+    assert [p.resolve() for p, _ in got] == [(tmp_path / "elsewhere" / "wavs").resolve(),
+                                             (tmp_path / "elsewhere" / "more/wavs").resolve()]
+    assert cfg.preprocessing.source_data[0].filelist == "list.psv"
     with pytest.raises(ValueError, match="key.path=value"):
         load_config_base_command(tmp_path / "sub" / "c.json", ["nothing"])
 

@@ -38,7 +38,7 @@ def old_library(checkout: Path) -> ctypes.CDLL:
     src = checkout / c.PORT / "csrc" / "ctc_banded_lse.cu"
     out = checkout / c.PORT / "_build" / "ctc_banded_lse_df5456f.so"
     out.parent.mkdir(exist_ok=True)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)], check=True,
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)], check=True,
                    capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
     P, I = ctypes.c_void_p, ctypes.c_int
