@@ -139,6 +139,20 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     newest's), the EMA average served for one request; ``export-checkpoint``
     of it synthesizing the step directory's mel; ``doctor`` on phase 24's
     config exiting 0 with every kernel source built and loaded.
+ 27. exported serving: ``export-serving --platforms cuda`` through the CLI
+    on phase 11's newest step=N/ and phase 5's HiFiGAN V1 at B 1 and 8, text
+    buckets 48 and 128 (cut from the default sweep) and the 128-frame window
+    (6 acoustic, 6 vocoder and 1 streaming program): its printed line, wall
+    and size; the artifact through ``ExportedSynthesizer`` on the card
+    (warmup runs all 13), 8 texts at B 8 and one at B 1 against the live
+    Synthesizer of the same directory (durations equal, mels, the vocoder
+    programs against the eager vocoder on their inputs, the wavs before the
+    live path's vocoder edge), the launches around each run (8
+    attention_fwd an acoustic program call, nothing else), A against its
+    plain version on the inputs the exported program gave it (captured by a
+    TorchDispatchMode); request times exported and live in turns, with and
+    without the vocoder; ``serve model.fs2x`` answering a wav, a mel and a
+    low_latency request over HTTP.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -165,6 +179,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import zipfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -3912,6 +3927,258 @@ def phase_tools(workdir: Path, pre: dict) -> dict:
                 doctor=rows)
 
 
+# -- phase 27: export-serving and .fs2x ----------------------------------------------------
+
+
+EXPORT_BATCHES = (1, 8)
+EXPORT_BUCKETS = (48, 128)  # cut from the default sweep (every 16-multiple to the chunker's max)
+EXPORT_TIMED = 10  # request timings a path, in turns
+EXPORT_MEL_REL = 1e-3  # rel-L2 of the bf16 model's mels, exported against live (expect 0)
+EXPORT_WAV_ABS = 1e-5  # max-abs of the f32 vocoder's wavs and of served mels (expect 0)
+
+
+def export_texts(rng) -> list:
+    """Eight texts of 40-124 characters (a character encodes to one symbol)
+    from the serving phase's word list: the eight pad to the 128 bucket and
+    the first alone to the 48 bucket, so the live path runs at the exported
+    programs' own shapes."""
+    texts = []
+    for n in (40, 52, 64, 76, 88, 100, 112, 124):
+        words = []
+        while len(" ".join(words)) < n:
+            words.append(str(rng.choice(WORDS)))
+        texts.append(" ".join(words)[:n - 1].strip() + ".")
+    return texts
+
+
+def op_inputs():
+    """A TorchDispatchMode whose ``captured`` keeps the inputs of the
+    ``fs2t::attention_fwd`` call with the largest T a run makes: an exported
+    graph calls the op itself, past the module attribute ``KernelInputs``
+    patches."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpInputs(TorchDispatchMode):
+        captured = None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket is torch.ops.fs2t.attention_fwd and (
+                    self.captured is None or args[0].shape[2] > self.captured[0].shape[2]):
+                self.captured = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                      for a in args)
+            return func(*args, **(kwargs or {}))
+
+    return OpInputs()
+
+
+def _program_calls(ex) -> list:
+    """Wrap ``ex._run`` to record (entry, inputs, output) of every program
+    call (``del ex._run`` unwraps it); returns the list it appends to."""
+    calls, run = [], ex._run
+
+    def recording(entry, *args):
+        out = run(entry, *args)
+        calls.append((entry, args[1:], out))
+        return out
+
+    ex._run = recording
+    return calls
+
+
+def phase_export_serving(workdir: Path, smi: str) -> dict:
+    """Phase 27: ``export-serving --platforms cuda`` through the CLI on phase
+    11's newest step directory and phase 5's HiFiGAN V1 (6 acoustic, 6
+    vocoder and 1 streaming program); the artifact on the card through
+    ``ExportedSynthesizer`` (warmup runs all 13), 8 texts at B 8 and one at
+    B 1 against the live Synthesizer of the same step directory: durations
+    equal, mels within EXPORT_MEL_REL, each vocoder program's wav equal to
+    the eager vocoder's on the same input, launches 8 attention_fwd an
+    acoustic program call and no other kernel, kernel A against its plain
+    version on the inputs the exported program gave it; ``serve model.fs2x``
+    answering a wav, a mel and a low_latency request over HTTP; request
+    times at B 8 and B 1, exported and live in turns."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+    from fastspeech2_lightning_tpu_torch.serving import serve
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+    from fastspeech2_lightning_tpu_torch.synthesis.exported import (
+        ExportedSynthesizer, default_text_buckets,
+    )
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import latest_checkpoint
+
+    step_dir = latest_checkpoint(workdir / "logs" / "smoke" / "train" / "checkpoints")
+    voc = workdir / "hifigan_v1.npz"  # phase 5's
+    art = workdir / "export" / "model.fs2x"
+    argv = ["export-serving", str(step_dir), "-o", str(art), "-v", str(voc), "--platforms",
+            "cuda", "--streaming-window", str(STREAM_WINDOW)]
+    for B in EXPORT_BATCHES:
+        argv += ["-b", str(B)]
+    for L in EXPORT_BUCKETS:
+        argv += ["--text-bucket", str(L)]
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    export_s = time.time() - t0
+    line = out.getvalue().strip()
+    size_mb = art.stat().st_size / 1e6
+    check(line == f"exported serving artifact -> {art} ({size_mb:.1f} MB)",
+          f"export-serving printed {line!r}")
+
+    t0 = time.time()
+    ex = ExportedSynthesizer(art)
+    meta = ex.meta
+    counts = {k: len(meta[k]) for k in ("acoustic", "vocoder", "vocoder_streaming")}
+    check(ex.device.type == "cuda" and meta["platforms"] == ["cuda"]
+          and counts == {"acoustic": 6, "vocoder": 6, "vocoder_streaming": 1},
+          f"the artifact: platforms {meta['platforms']}, programs {counts}, on {ex.device}")
+    n_warm = ex.warmup(BATCH)
+    load_s = time.time() - t0
+    check(n_warm == sum(counts.values()), f"warmup ran {n_warm} programs of {counts}")
+    sizes = {}
+    with zipfile.ZipFile(art) as zf:
+        for info in zf.infolist():
+            kind = info.filename.split("/")[0] if "/" in info.filename else info.filename
+            sizes[kind] = sizes.get(kind, 0) + info.file_size
+    default_n = len(default_text_buckets(ex.config, ex.stats))
+    log(f"export-serving: {sum(counts.values())} programs ({counts}) for B {EXPORT_BATCHES}, "
+        f"text buckets {EXPORT_BUCKETS} (cut from the default sweep of {default_n} buckets), "
+        f"window {STREAM_WINDOW}, in {export_s:.1f} s; artifact {size_mb:.1f} MB (uncompressed "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in sorted(sizes.items()))
+        + f"); loaded and warmed up (all {n_warm} programs) in {load_s:.1f} s")
+
+    live = Synthesizer.from_checkpoint(step_dir, vocoder_path=voc)
+    calls = _program_calls(ex)
+    texts = export_texts(np.random.default_rng(SEED + 27))
+    buckets = [-(-max(len(ex.text_processor.encode_text(t)) for t in batch) // 16) * 16
+               for batch in (texts, texts[:1])]
+    check(buckets == list(EXPORT_BUCKETS[::-1]), f"the texts pad to the buckets {buckets}")
+    hop = ex.vocoder.hop
+    margin = ex.meta["vocoder_meta"]["margin"]
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = False  # the wavs compare in f32; timed with the default
+    for name, batch in (("B8", texts), ("B1", texts[:1])):
+        counters = {**_counters(), "mrf_conv": mrf_conv}
+        for fn in counters.values():
+            fn.launches = 0
+        del calls[:]
+        with op_inputs() as probe:
+            got = ex.synthesize(batch)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        acoustic = [c for c in calls if "L" in c[0]]
+        want_launches = {k: 0 for k in counters}
+        want_launches["attention_fwd"] = 8 * len(acoustic)
+        check(launches == want_launches,
+              f"exported {name}: launches {launches}, predicted {want_launches} for "
+              f"{len(acoustic)} acoustic program calls")
+        want = live.synthesize(batch)
+        check(all(np.array_equal(a, b) for a, b in zip(got.durations, want.durations)),
+              f"exported {name}: durations differ from the live path's")
+        mel_err = max(errors(torch.as_tensor(a), torch.as_tensor(b))
+                      for a, b in zip(got.mels, want.mels))
+        check(all(a.shape == b.shape for a, b in zip(got.mels, want.mels))
+              and mel_err[1] <= EXPORT_MEL_REL,
+              f"exported {name}: mel against the live path: max-abs {mel_err[0]}, "
+              f"rel-L2 {mel_err[1]}")
+        # each vocoder program against the eager vocoder on its own input
+        voc_err = 0.0
+        for entry, args, wav in calls:
+            if "L" not in entry:
+                voc_err = max(voc_err, float((wav - live.vocoder.device_fn(args[0])).abs().max()))
+        check(voc_err <= EXPORT_WAV_ABS,
+              f"exported {name}: a vocoder program differs from the eager vocoder by {voc_err}")
+        # the live path trims the vocoder's input at its own bucket: samples
+        # whose receptive field ends before it compare
+        lens = [m.shape[0] for m in got.mels]
+        t_need = -(-max(lens) // 128) * 128
+        keep = max(t_need - margin, 0) * hop
+        wav_err = max(float(np.abs(a[:keep] - b[:keep]).max(initial=0.0))
+                      for a, b in zip(got.wavs, want.wavs))
+        check(all(a.shape == b.shape for a, b in zip(got.wavs, want.wavs))
+              and wav_err <= EXPORT_WAV_ABS,
+              f"exported {name}: wav against the live path: max-abs {wav_err}")
+        q, k, v, bias, scale = probe.captured[:5]
+        att_err = errors(attention_fwd(q, k, v, bias, scale),
+                         attention_reference(q.float(), k.float(), v.float(), bias, scale))
+        check(att_err[1] <= 2e-2, f"attention_fwd at the exported program's {list(q.shape)}: "
+              f"rel-L2 {att_err[1]}")
+        runs[name] = dict(
+            programs=[entry.get("file") or entry["files"]["cuda"] for entry, _, _ in calls],
+            launches=launches, frames=lens, mel_max_abs=mel_err[0], mel_rel_l2=mel_err[1],
+            vocoder_max_abs=voc_err, wav_max_abs=wav_err, attention_shape=list(q.shape),
+            attention_max_abs=att_err[0], attention_rel_l2=att_err[1])
+        log(f"exported {name}: programs {runs[name]['programs']}; frames {lens}; launches "
+            f"{launches}; against the live path: durations equal, mel max-abs {mel_err[0]:.3e} "
+            f"(rel-L2 {mel_err[1]:.3e}), wav max-abs {wav_err:.3e} over the samples before "
+            f"frame {t_need - margin}; vocoder programs against the eager vocoder max-abs "
+            f"{voc_err:.3e}; attention_fwd at {list(q.shape)} against its plain version rel-L2 "
+            f"{att_err[1]:.3e}")
+    del ex._run
+    torch.backends.cudnn.allow_tf32 = True
+
+    # request times, exported and live in turns: one synthesize call (mels,
+    # and wavs unless `acoustic`, on the host) between CUDA events
+    timings = {}
+    for name, batch in (("B8", texts), ("B1", texts[:1])):
+        ms = {}
+        order = [(path, vocode) for vocode in (True, False) for path in ("exported", "live")]
+        for i in range(EXPORT_TIMED):
+            for path, vocode in (order if i % 2 == 0 else order[::-1]):
+                syn = ex if path == "exported" else live
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                syn.synthesize(batch, vocode=vocode)
+                end.record()
+                end.synchronize()
+                key = path if vocode else f"{path}_acoustic"
+                ms.setdefault(key, []).append(start.elapsed_time(end))
+        row = timings[name] = {k: statistics.median(v) for k, v in ms.items()}
+        log(f"request at {name}: exported {row['exported']:.3f} ms, live {row['live']:.3f} ms "
+            f"(ratio {row['exported'] / row['live']:.3f}); without the vocoder exported "
+            f"{row['exported_acoustic']:.3f} ms, live {row['live_acoustic']:.3f} ms (ratio "
+            f"{row['exported_acoustic'] / row['live_acoustic']:.3f}); medians of "
+            f"{EXPORT_TIMED}, in turns ({smi})")
+    ex.close()
+
+    server = serve(str(art), port=0, max_batch=BATCH, warmup=True)
+    check(server.synthesizer.device.type == "cuda", "serve(model.fs2x) is not on the card")
+    server.start()
+    try:
+        _, health = _get(server.address, "/health")
+        wav = _post(server.address, {"text": texts[3]})
+        mel = _post(server.address, {"text": texts[3], "format": "mel"})
+        low = _stream_post(server.address, {"text": texts[3], "low_latency": True,
+                                            "window": STREAM_WINDOW})
+    finally:
+        server.shutdown()
+    frames = np.load(io.BytesIO(mel[1]))
+    ref = server.synthesizer.synthesize([texts[3]]).mels[0]
+    check(health.get("status") == "ok" and health.get("has_vocoder") is True,
+          f"/health {health}")
+    check(mel[0] == 200 and frames.shape == ref.shape
+          and float(np.abs(frames - ref).max()) <= EXPORT_WAV_ABS,
+          f"serving model.fs2x: mel {mel[0]}, {frames.shape} against {ref.shape}")
+    for label, (status, body) in (("wav", wav[:2]), ("low_latency", (low[0], low[3]))):
+        pcm = np.frombuffer(body[44:], dtype="<i2")
+        check(status == 200 and body[:4] == b"RIFF" and pcm.size == ref.shape[0] * hop
+              and int(pcm.max()) != int(pcm.min()),
+              f"serving model.fs2x: {label} {status}, {pcm.size} samples for "
+              f"{ref.shape[0]} frames")
+    log(f"serve model.fs2x: wav {wav[2]:.3f} s, mel {mel[2]:.3f} s, low_latency first audio "
+        f"{low[1]:.3f} s and whole body {low[2]:.3f} s ({ref.shape[0]} frames)")
+    return dict(export_s=export_s, artifact_mb=size_mb, entry_bytes=sizes, programs=counts,
+                default_text_buckets=default_n, load_and_warmup_s=load_s, runs=runs,
+                request_ms=timings,
+                serve=dict(wav_s=wav[2], mel_s=mel[2], low_latency_first_s=low[1],
+                           low_latency_s=low[2]))
+
+
 def main() -> None:
     import torch
 
@@ -3953,6 +4220,7 @@ def main() -> None:
         pre = phase_preprocess(Path(workdir))
         checked = phase_check_data(Path(workdir), pre)
         tools = phase_tools(Path(workdir), pre)
+        exported = phase_export_serving(Path(workdir), smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -3974,6 +4242,8 @@ def main() -> None:
             paths.update({f"benchmark_{mode}": run["launches"][name]
                           for mode, run in tools["benchmark"].items()})
         if name == "attention_fwd":
+            paths["exported_serving"] = sum(run["launches"][name]
+                                            for run in exported["runs"].values())
             paths.update(conditioned_serving=cond_serve["attention_fwd"],
                          streaming=stream["launches"]["attention_fwd"],
                          **{f"{level}_serving": levels[level]["attention_fwd"]
@@ -4061,7 +4331,8 @@ def main() -> None:
                       "conditioned": {"training": cond, "serving": cond_serve},
                       "streaming": stream, "text_levels": levels,
                       "vocoder_training": {**voc, "trained": trained},
-                      "preprocess": pre, "check_data": checked, "tools": tools}))
+                      "preprocess": pre, "check_data": checked, "tools": tools,
+                      "export_serving": exported}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,8 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch benchmark CONFIG.json --benchmark-type inference
     python -m fastspeech2_lightning_tpu_torch average-checkpoints CKPT_DIR --last 3 -o AVG_DIR
     python -m fastspeech2_lightning_tpu_torch export-checkpoint STEP_DIR -o MODEL.ckpt
+    python -m fastspeech2_lightning_tpu_torch export-serving MODEL.ckpt -o MODEL.fs2x -v VOCODER.npz
+    python -m fastspeech2_lightning_tpu_torch serve MODEL.fs2x --warmup
     python -m fastspeech2_lightning_tpu_torch doctor CONFIG.json
 
 Every command that reads a config takes the JAX CLI's ``-c key.path=value``
@@ -84,8 +86,9 @@ def _parser() -> argparse.ArgumentParser:
         "serve",
         help="Resident batch-streaming synthesis server (POST /synthesize, "
         "GET /health, GET /stats). MODEL_PATH is a Lightning .ckpt in the "
-        "reference layout (`fs2t export-checkpoint` converts an orbax checkpoint) "
-        "or a step=N/ directory the train command wrote.",
+        "reference layout (`fs2t export-checkpoint` converts an orbax checkpoint), "
+        "a step=N/ directory the train command wrote, or a .fs2x artifact that "
+        "export-serving wrote.",
     )
     s.add_argument("model_path")
     s.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default=False,
@@ -290,6 +293,33 @@ def _parser() -> argparse.ArgumentParser:
     x.add_argument("ckpt_path")
     x.add_argument("--output", "-o", required=True, help="Output .ckpt file path.")
     x.set_defaults(command_parser=x)
+    o = sub.add_parser(
+        "export-serving",
+        help="Trace the serving program set with torch.export and write one self-contained "
+        ".fs2x artifact: `serve MODEL.fs2x` (or ExportedSynthesizer) then runs synthesis with "
+        "no model code or checkpoint (synthesis/exported.py). One program set per platform.")
+    o.add_argument("ckpt_path", help="A reference-layout .ckpt or a step=N/ directory.")
+    o.add_argument("--output", "-o", required=True, help="Output .fs2x artifact path.")
+    o.add_argument("--vocoder-path", "-v", default=None,
+                   help="Also export the HiFiGAN mel->wav programs.")
+    o.add_argument("--batch-size", "-b", dest="batch_sizes", type=int, action="append",
+                   default=None, help="Batch sizes to export programs for (repeatable; "
+                   "default: 1 and 8).")
+    o.add_argument("--text-bucket", dest="text_buckets", type=int, action="append",
+                   default=None, help="Text-length buckets (repeatable). Default: every "
+                   "16-multiple up to the corpus chunker's max emit length.")
+    o.add_argument("--max-frames", type=int, default=None)
+    o.add_argument("--streaming-window", dest="streaming_windows", type=int, action="append",
+                   default=None, help="Low-latency windowed-vocoder window sizes (frames) to "
+                   "export (repeatable; default: 128).")
+    o.add_argument("--platforms", default=None,
+                   help="Comma-separated platforms to export programs for: cpu, cuda (gpu) or "
+                   "cpu,cuda. Default: the device the export runs on.")
+    o.add_argument("--use-ema", action=argparse.BooleanOptionalAction, default=False,
+                   help="Export the EMA weights of a step=N/ directory.")
+    o.add_argument("--device", default=None,
+                   help="'cuda' (default, the current card) or 'cpu': where the export runs.")
+    o.set_defaults(command_parser=o)
     d = sub.add_parser(
         "doctor",
         help="Environment diagnostics: versions, the card (probed in a subprocess with a "
@@ -378,6 +408,26 @@ def export_checkpoint_command(args) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     shutil.copyfile(src, out)
     print(f"exported {args.ckpt_path} -> {out}", flush=True)
+
+
+def export_serving_command(args) -> None:
+    from .synthesis.exported import export_serving_artifact, parse_platforms
+
+    _must_exist(args, ("'CKPT_PATH'", args.ckpt_path),
+                ("'--vocoder-path' / '-v'", args.vocoder_path))
+    try:
+        platforms = parse_platforms(args.platforms)
+    except ValueError as e:
+        args.command_parser.error(f"Invalid value for '--platforms': {e}")
+    out = export_serving_artifact(
+        args.ckpt_path, args.output, vocoder_path=args.vocoder_path,
+        batch_sizes=tuple(args.batch_sizes or (1, 8)),
+        text_buckets=tuple(args.text_buckets) if args.text_buckets else None,
+        max_frames=args.max_frames,
+        streaming_windows=tuple(args.streaming_windows or (128,)),
+        platforms=platforms, use_ema=args.use_ema, device=args.device,
+    )
+    print(f"exported serving artifact -> {out} ({out.stat().st_size / 1e6:.1f} MB)", flush=True)
 
 
 def preprocess_command(args) -> None:
@@ -549,6 +599,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         average_checkpoints_command(args)
     elif args.command == "export-checkpoint":
         export_checkpoint_command(args)
+    elif args.command == "export-serving":
+        export_serving_command(args)
     elif args.command == "doctor":
         from .doctor import run_doctor
 
@@ -566,7 +618,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     elif args.command == "serve":
         from .serving import serve
 
-        _refuse_data_parallel(args)
+        if not str(args.model_path).endswith(".fs2x"):
+            _refuse_data_parallel(args)
         if args.style_reference is not None and not Path(args.style_reference).exists():
             args.command_parser.error("Invalid value for '--style-reference' / '-S': Path "
                                       f"'{args.style_reference}' does not exist.")
@@ -576,7 +629,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             batch_window_ms=args.batch_window_ms, max_frames=args.max_frames,
             vocoder_precision=args.vocoder_precision,
             warmup=args.warmup, device=args.device, use_ema=args.use_ema,
-            style_reference=args.style_reference,
+            style_reference=args.style_reference, data_parallel=args.data_parallel,
         )
         print(f"serving on http://{server.address[0]}:{server.address[1]}", flush=True)
         try:

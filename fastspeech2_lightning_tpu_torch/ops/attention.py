@@ -10,10 +10,16 @@ tensors (or raises) and runs its plain PyTorch version for CPU tensors:
 - ``attention_fwd``: ``csrc/attention_fwd.cu``, the eval conformer's
   attention (p = 0) and the training forward (p > 0, optional log-sum-exp
   output). Plain versions: ``attention_reference``,
-  ``attention_dropout_reference``.
+  ``attention_dropout_reference``. It calls the ``torch.library`` op
+  ``fs2t::attention_fwd`` (CUDA implementation: the ctypes launch; CPU
+  implementation: the plain version in the kernel's output layout; a fake
+  with the kernel's strides; a FLOP formula), so eager serving, the
+  training Function, ``benchmark`` and an exported program
+  (``synthesis/exported.py``) reach kernel A through one registration.
 - ``attention_bwd``: ``csrc/attention_bwd.cu``, dQ, dK and dV with the same
   dropout mask regenerated. Plain version: autograd through
-  ``attention_dropout_reference``.
+  ``attention_dropout_reference``. A ctypes wrapper (no exported or counted
+  path needs it as an op yet).
 - ``attention_with_dropout``: the training entry, a ``torch.autograd.Function``
   over the two kernels on the card; on the CPU autograd runs through the
   plain version.
@@ -40,8 +46,10 @@ sources' headers.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..kernels import build
 
@@ -57,16 +65,18 @@ def attention_fwd_flops(B: int, H: int, T: int, dh: int) -> int:
     """The floating-point operations the plain forward multiplies: Q K^T
     and P V, each 2 B H T T dh, over every [T, T] entry (the key tiles a
     kernel skips included), so the count is the same whatever computes it.
-    ``torch.utils.flop_counter`` cannot see a ctypes launch: the wrapper adds
-    this to ``attention_fwd.flops`` where it launches the kernel, and
-    ``utils.benchmarking.count_flops`` adds that counter's change."""
+    It is the FLOP formula of the op ``fs2t::attention_fwd``, which
+    ``torch.utils.flop_counter.FlopCounterMode`` counts once a call on either
+    device."""
     return 4 * B * H * T * T * dh
 
 
 def attention_bwd_flops(B: int, H: int, T: int, dh: int) -> int:
     """The plain backward's products (autograd through the plain forward):
-    the forward's two, and dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q;
-    ``attention_bwd.flops`` counts them as ``attention_fwd_flops`` does."""
+    the forward's two, and dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q.
+    ``FlopCounterMode`` cannot see A′'s ctypes launch, so the wrapper adds
+    them to ``attention_bwd.flops`` where it launches the kernel and
+    ``utils.benchmarking.count_flops`` adds that counter's change."""
     return 12 * B * H * T * T * dh
 
 
@@ -208,47 +218,89 @@ _FWD_ARGTYPES = (
 )
 
 
-def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
-                  with_lse: bool = False):
-    """[B, H, T, dh] attention output in q's dtype (laid out [B, T, H, dh]
-    so the caller's merge of heads is a view); with `with_lse` also the
-    [B, H, T] f32 log-sum-exp of the scaled, biased scores. `seed` is an
-    int32 tensor of one element, read only when p > 0."""
+def _out_like(q) -> torch.Tensor:
+    """The kernel's [B, H, T, dh] output, laid out [B, T, H, dh] so the
+    caller's merge of heads is a view."""
+    B, H, T, dh = q.shape
+    return torch.empty_strided((B, H, T, dh), (T * H * dh, dh, H * dh, 1), dtype=q.dtype,
+                               device=q.device)
+
+
+def _lse_like(q, with_lse: bool) -> torch.Tensor:
+    """[B, H, T] f32 log-sum-exp, or an empty tensor when it was not asked
+    for (an op has one output structure)."""
+    B, H, T, _ = q.shape
+    return q.new_empty((B, H, T) if with_lse else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("fs2t::attention_fwd", mutates_args=(), device_types="cuda")
+def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_bias: torch.Tensor, sm_scale: float, p: float,
+                      seed: Optional[torch.Tensor], with_lse: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu``."""
     thresh = dropout_threshold(p)
-    if q.device.type == "cpu":
-        o = attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale)
-        if not with_lse:
-            return o
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-        return o, torch.logsumexp(s + key_bias.float()[:, None, None, :], dim=-1)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_fwd: unsupported device {q.device}")
     strides = _check("attention_fwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
     device = q.device
     key_bias = _f32_bias(key_bias, device)
     ends = torch.empty(B, dtype=torch.int32, device=device)  # the kernel's kv_end pre-pass
-    o = torch.empty_strided((B, H, T, dh), (T * H * dh, dh, H * dh, 1), dtype=q.dtype,
-                            device=device)  # laid out [B, T, H, dh]
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=device) if with_lse else None
+    o = _out_like(q)
+    lse = _lse_like(q, with_lse)
     seed_t, seed_ptr = _seed_arg(seed, p, device)
 
     lib = build.load("attention_fwd", {"attention_fwd": _FWD_ARGTYPES})
     err = lib.attention_fwd(
         _DTYPE_CODES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), ends.data_ptr(),
-        o.data_ptr(), None if lse is None else lse.data_ptr(), seed_ptr,
+        o.data_ptr(), lse.data_ptr() if with_lse else None, seed_ptr,
         B, H, T, dh, *strides, *o.stride()[:3],
         sm_scale, thresh, 1.0 / (1.0 - p), _stream(device),
     )
     build.check(lib, err, "attention_fwd")
     attention_fwd.launches += 1
-    attention_fwd.flops += attention_fwd_flops(B, H, T, dh)
+    return o, lse
+
+
+@_attention_fwd_op.register_kernel("cpu")
+def _attention_fwd_cpu(q, k, v, key_bias, sm_scale, p, seed, with_lse):
+    """The plain version, copied into the kernel's output layout."""
+    o = _out_like(q)
+    o.copy_(attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale))
+    lse = _lse_like(q, with_lse)
+    if with_lse:
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+        lse.copy_(torch.logsumexp(s + key_bias.float()[:, None, None, :], dim=-1))
+    return o, lse
+
+
+@_attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v, key_bias, sm_scale, p, seed, with_lse):
+    return _out_like(q), _lse_like(q, with_lse)
+
+
+@register_flop_formula(torch.ops.fs2t.attention_fwd)
+def _attention_fwd_op_flops(q_shape, *args, out_shape=None, **kwargs) -> int:
+    return attention_fwd_flops(*q_shape)
+
+
+def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
+                  with_lse: bool = False):
+    """[B, H, T, dh] attention output in q's dtype (laid out [B, T, H, dh]
+    so the caller's merge of heads is a view); with `with_lse` also the
+    [B, H, T] f32 log-sum-exp of the scaled, biased scores. `seed` is an
+    int32 tensor of one element, read only when p > 0. Runs the op
+    ``fs2t::attention_fwd``: kernel A on the card, the plain version on the
+    CPU, its fake under ``torch.export``."""
+    dropout_threshold(p)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention_fwd: unsupported device {q.device}")
+    o, lse = _attention_fwd_op(q, k, v, key_bias, float(sm_scale), float(p),
+                               seed if p > 0.0 else None, with_lse)
     return (o, lse) if with_lse else o
 
 
 attention_fwd.launches = 0
-attention_fwd.flops = 0
 
 
 def attention_bwd_reference(q, k, v, key_bias, seed, p: float, sm_scale: float, do):

@@ -17,8 +17,10 @@ Long inputs are split with the corpus-informed chunker; each chunk is one
 row of a device batch. A background worker micro-batches chunks across
 concurrent requests (grouped by (language, speaker, controls)) and pads each
 group to `max_batch` rows. A server-wide style reference (a wav) conditions
-every request of a global-style-token model. ``.fs2x`` artifacts are not
-ported yet.
+every request of a global-style-token model. A ``.fs2x`` artifact
+(``export-serving``) serves through ``ExportedSynthesizer``: its exported
+programs answer the batched requests and its window programs the
+low-latency ones.
 """
 
 from __future__ import annotations
@@ -446,23 +448,49 @@ def serve(
     device=None,
     use_ema: bool = False,
     style_reference=None,
+    data_parallel: Optional[int] = None,
 ) -> SynthesisServer:
     """Load once, serve. Returns the (not yet started) server. The model
     runs on the CUDA card unless `device` is "cpu"; warmup builds the kernels
-    and initialises the device libraries before the first request; use_ema
-    serves the EMA weights of a trainer's step=N/ directory; style_reference
-    (a wav) conditions every request of a global-style-token model."""
+    and initialises the device libraries before the first request (for a
+    ``.fs2x`` artifact: runs every exported program once); use_ema serves the
+    EMA weights of a trainer's step=N/ directory; style_reference (a wav)
+    conditions every request of a global-style-token model. A ``.fs2x``
+    artifact refuses the options fixed at export time, with the JAX
+    package's message."""
     from ..synthesis.api import Synthesizer
 
     if str(model_path).endswith(".fs2x"):
-        raise ValueError(
-            ".fs2x serving artifacts hold exported JAX programs; the PyTorch port "
-            "serves Lightning .ckpt files (fs2t export-checkpoint)"
+        from ..synthesis.exported import ExportedSynthesizer
+
+        rejected = {
+            "--vocoder-path": vocoder_path,
+            "--use-ema": use_ema or None,
+            "--data-parallel": data_parallel,
+            "--max-frames": max_frames,
+            "--style-reference": style_reference,
+            "--vocoder-precision": None if vocoder_precision == "float32" else vocoder_precision,
+            "vocoder_fused": vocoder_fused or None,
+        }
+        bad = [k for k, v in rejected.items() if v]
+        if bad:
+            raise ValueError(
+                f"{', '.join(bad)} cannot apply to a .fs2x artifact — these are fixed at "
+                "export time (fs2t export-serving)"
+            )
+        syn = ExportedSynthesizer(model_path, device=device)
+        if warmup:
+            n = syn.warmup(max_batch)
+            logger.info("warmup ran %d exported programs", n)
+        return SynthesisServer(
+            syn, host=host, port=port, max_batch=max_batch,
+            batch_window_ms=batch_window_ms, global_step=syn.global_step,
         )
+
     syn = Synthesizer.from_checkpoint(
         model_path, vocoder_path=vocoder_path, max_frames=max_frames,
         vocoder_precision=vocoder_precision, vocoder_fused=vocoder_fused,
-        device=device, use_ema=use_ema,
+        data_parallel=data_parallel, device=device, use_ema=use_ema,
     )
     if warmup:
         n = syn.warmup(max_batch)

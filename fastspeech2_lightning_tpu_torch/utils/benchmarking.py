@@ -14,14 +14,15 @@ The discipline is the JAX package's:
   and the implied MFU against the card's peak must not exceed 100 %
   (``check_mfu``): above it the timing is broken, not fast.
 
-``FlopCounterMode`` sees the PyTorch operators only: a kernel launched by
-ctypes is invisible to it. The attention wrappers add their plain version's
-products to ``attention_fwd.flops`` and ``attention_bwd.flops`` where they
-launch a kernel (``ops/attention.py``); ``count_flops`` adds the change of
-those counters, so a call counts the same on the card and on the CPU (where
-the plain version runs and the counter does not move). The other kernels'
-plain versions multiply no matrices (MAS, CTC) and count 0; the MRF stage's
-convolutions are not counted on the card (no path timed here runs it).
+``FlopCounterMode`` sees PyTorch operators, and ``torch.library`` ops with a
+FLOP formula: kernel A is the op ``fs2t::attention_fwd``, counted once a call
+at its plain version's products on either device. A kernel launched by
+ctypes is invisible to it: the wrapper of A′ adds its plain version's
+products to ``attention_bwd.flops`` where it launches, and ``count_flops``
+adds that counter's change, so a call counts the same on the card and on the
+CPU. The other kernels' plain versions multiply no matrices (MAS, CTC) and
+count 0; the MRF stage's convolutions are not counted on the card (no path
+timed here runs it).
 
 ``prepare_benchmark`` builds what the command times: the first batch of
 ``BucketedLoader(train, batch_size, seed=0)`` and a model with the flax
@@ -59,21 +60,17 @@ def chainable(apply_fn: Callable[[dict], torch.Tensor], carry_key: str):
     return fn
 
 
-def _kernel_flops() -> int:
-    from ..ops.attention import attention_bwd, attention_fwd
-
-    return attention_fwd.flops + attention_bwd.flops
-
-
 def count_flops(fn: Callable, *args) -> int:
     """FLOPs of one call ``fn(*args)``: FlopCounterMode's total plus what
-    the kernel wrappers counted for their launches during the call."""
+    A′'s wrapper counted for its launches during the call."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    before = _kernel_flops()
+    from ..ops.attention import attention_bwd
+
+    before = attention_bwd.flops
     with FlopCounterMode(display=False) as counter:
         fn(*args)
-    return int(counter.get_total_flops()) + _kernel_flops() - before
+    return int(counter.get_total_flops()) + attention_bwd.flops - before
 
 
 class _Clock:

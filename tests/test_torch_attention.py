@@ -6,7 +6,14 @@
 tests/test_attention_dropout.py runs it) and the eval conformer's einsum
 path (``models/conformer.py:177-186``), in f32 within max-abs 1e-5 (the
 two sum in different orders). The kernel itself is held against this plain
-version on the card by tests/test_torch_kernels.py."""
+version on the card by tests/test_torch_kernels.py.
+
+``attention_fwd`` runs the op ``fs2t::attention_fwd``: it passes
+``torch.library.opcheck`` on the CPU at p 0 and p > 0, with and without the
+log-sum-exp; its fake gives the kernel's strides; ``count_flops`` of an eval
+Conformer counts it once, at its formula, for the same total as the plain
+version's products; and the training Function's gradients equal autograd
+through the plain version."""
 
 import jax
 import jax.numpy as jnp
@@ -84,3 +91,84 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     out = attention_fwd(*t, 0.125)
     assert attention_fwd.launches == before
     np.testing.assert_array_equal(out.numpy(), attention_reference(*t, 0.125).numpy())
+
+
+# -- kernel A as the op fs2t::attention_fwd ---------------------------------------
+
+
+def _op_args(p, with_lse, T=37, dh=64):
+    q, k, v, key_bias = (torch.as_tensor(a) for a in _inputs(T, dh, seed=2))
+    seed = torch.tensor([11], dtype=torch.int32) if p > 0 else None
+    return q, k, v, key_bias, 1.0 / np.sqrt(dh), p, seed, with_lse
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_op_passes_opcheck_on_the_cpu(p, with_lse):
+    torch.library.opcheck(torch.ops.fs2t.attention_fwd.default, _op_args(p, with_lse))
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_fake_strides_equal_the_real_ones(with_lse):
+    """The fake gives the kernel's layout: o [B, T, H, dh] in memory, lse
+    [B, H, T] f32 (empty when not asked for); the CPU implementation copies
+    its result into the same layout."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _op_args(0.2, with_lse)
+    real = torch.ops.fs2t.attention_fwd(*args)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.fs2t.attention_fwd(
+            *(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    B, H, T, dh = args[0].shape
+    assert real[0].stride() == fake[0].stride() == (T * H * dh, dh, H * dh, 1)
+    assert real[1].shape == fake[1].shape == ((B, H, T) if with_lse else (0,))
+    assert real[1].stride() == fake[1].stride() and real[1].dtype == fake[1].dtype
+    o = attention_fwd(*args[:4], args[4], p=0.2, seed=args[6])
+    np.testing.assert_array_equal(o.numpy(), real[0].numpy())
+
+
+def test_count_flops_of_the_eval_forward_is_unchanged(monkeypatch):
+    """The op is counted once, at its formula, where the plain version's two
+    products were counted before it was an op; the total is the same."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fastspeech2_lightning_tpu_torch.models import conformer
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd_flops
+    from fastspeech2_lightning_tpu_torch.utils.benchmarking import count_flops
+
+    torch.manual_seed(0)
+    B, T, d, H, layers = 2, 40, 64, 2, 2
+    block = conformer.Conformer(d, layers, H, 128, 3).eval()
+    x = torch.randn(B, T, d)
+    mask = torch.arange(T)[None] < torch.tensor([[T], [25]])
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as counter:
+            block(x, mask)
+        via_op = count_flops(block, x, mask)
+        share = counter.get_flop_counts()["Global"][torch.ops.fs2t.attention_fwd]
+        assert share == layers * attention_fwd_flops(B, H, T, d // H)
+        monkeypatch.setattr(conformer, "attention_fwd", attention_reference)
+        before = count_flops(block, x, mask)
+    assert via_op == before > share
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_attention_function_gradients_are_unchanged(p):
+    """The training Function's forward reaches A through the op; on CPU
+    tensors its gradients equal autograd through the plain version."""
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        _AttentionWithDropout,
+        attention_dropout_reference,
+    )
+
+    q, k, v, key_bias, scale, _, _, _ = _op_args(p, False)
+    seed = torch.tensor([5], dtype=torch.int32)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(3))
+    grads = []
+    for fn in (_AttentionWithDropout.apply, attention_dropout_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, key_bias, seed, p, scale)
+        grads.append([g.numpy() for g in torch.autograd.grad(out, leaves, do)])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

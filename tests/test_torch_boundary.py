@@ -47,7 +47,7 @@ def test_importing_every_module_loads_no_jax():
                    "synthesis.streaming", "text.g2p", "text.lexicon", "text.features",
                    "check_data", "preprocessing.f0", "preprocessing.priors",
                    "preprocessing.stats", "preprocessing.convert", "preprocessing.objective",
-                   "utils.benchmarking", "doctor"):
+                   "utils.benchmarking", "doctor", "synthesis.exported"):
         assert f"fastspeech2_lightning_tpu_torch.{module}" in loaded
 
 
@@ -115,6 +115,21 @@ def test_cli_serve_refuses_without_card(tiny_ckpt):
     )
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
+
+
+def test_cli_export_serving_refuses_without_card(tiny_ckpt, tmp_path):
+    """The export runs on the card by default, and a cuda program set needs
+    one even when the export runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    for extra in ([], ["--device", "cpu", "--platforms", "cuda"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "fastspeech2_lightning_tpu_torch", "export-serving",
+             str(tiny_ckpt), "-o", str(tmp_path / "m.fs2x"), *extra],
+            cwd=REPO, capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode != 0 and "no CUDA device" in out.stderr, extra
+        assert not (tmp_path / "m.fs2x").exists()
 
 
 def test_cli_train_refuses_without_card(tmp_path):

@@ -28,7 +28,9 @@ with each epilogue mode, and on the edge rows alone, and its stage at the
 three B = 1 shapes of a low-latency window of the V1 vocoder, and raising
 under autograd before it launches;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
-1e-5. Each counts one launch per kernel launch, and each wrapper raises on a
+1e-5; kernel A as the op ``fs2t::attention_fwd`` through
+``torch.library.opcheck``, and a one-layer Conformer exported with
+``torch.export``, saved, loaded and run, launching A and equal to eager. Each counts one launch per kernel launch, and each wrapper raises on a
 shape its kernel does not take. This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -699,6 +701,56 @@ def test_attention_with_dropout_is_an_autograd_function_over_both_kernels(cuda):
     rviews = [ref[:, :, i].transpose(1, 2) for i in range(3)]
     (attention_dropout_reference(*rviews, bias, seed, 0.2, 0.125) * do).sum().backward()
     assert _rel(qkv.grad, ref.grad) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_op_passes_opcheck_on_the_card(cuda, dtype, p, with_lse):
+    """``fs2t::attention_fwd`` on CUDA tensors: its schema, its fake (the
+    kernel's strides), and the same output from repeated launches."""
+    q, k, v, bias, _ = _attention_inputs(cuda, 2, 2, 100, 64, dtype)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda) if p > 0 else None
+    before = attention_fwd.launches
+    torch.library.opcheck(torch.ops.fs2t.attention_fwd.default,
+                          (q, k, v, bias, 0.125, p, seed, with_lse))
+    assert attention_fwd.launches > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_conformer_block_launches_kernel_a(cuda, dtype):
+    """A one-layer Conformer exported on the card, saved, loaded and run:
+    its graph calls the op, each run of the loaded program launches kernel A
+    once, and its output equals the eager block's (f32 within max-abs 1e-6,
+    bf16 within rel-L2 1e-3: the same kernels on the same inputs)."""
+    import io
+
+    from fastspeech2_lightning_tpu_torch.models.conformer import Conformer
+
+    torch.manual_seed(0)
+    block = Conformer(128, 1, 2, 256, 7, dtype=dtype).to(cuda).eval()
+    x = torch.randn(2, 300, 128, device=cuda)
+    mask = torch.arange(300, device=cuda)[None] < torch.tensor([[300], [171]], device=cuda)
+    with torch.no_grad():
+        ep = torch.export.export(block, (x, mask))
+    assert [str(n.target) for n in ep.graph.nodes
+            if "attention" in str(n.target)] == ["fs2t.attention_fwd.default"]
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    loaded = torch.export.load(io.BytesIO(buf.getvalue())).module()
+    with torch.inference_mode():
+        want = block(x, mask)
+        before = attention_fwd.launches
+        got = loaded(x, mask)
+        got = loaded(x, mask)
+        torch.cuda.synchronize()
+    assert attention_fwd.launches == before + 2
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        assert _rel(got, want.float()) <= 1e-3
 
 
 def _poisoned_outputs(monkeypatch):
