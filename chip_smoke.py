@@ -153,6 +153,20 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     TorchDispatchMode); request times exported and live in turns, with and
     without the vocoder; ``serve model.fs2x`` answering a wav, a mel and a
     low_latency request over HTTP.
+ 28. YAML configs and TensorBoard media: phase 11's config written as YAML
+    (a main file and a training partial, with block sequences, a folded
+    string, an IPA escape, and ``training.vocoder_path`` relative to the
+    file naming phase 21's vocoder.npz) equals phase 11's JSON config; the
+    ``train`` CLI on it for 2 steps with a validation at step 2; its event
+    file read back with ``read_events``: every scalar tag at the JAX
+    cadence, the validation losses equal ``val_log.jsonl``'s, the attention
+    and mel PNGs decoded to their sizes, ``pred/wav`` PCM16 at the vocoder's
+    rate, the padded row's length, within one PCM16 step of the vocoder run
+    again on the same mel; ``Trainer.validate(0, 0)`` for the step-0
+    ``gt/`` and ``copy-synthesis/`` clips, checked alike; A, B and
+    ``ctc_alpha`` launches equal in a validation with media and one
+    without, ``mrf_conv`` 0; the two timed in turns (medians of 3), the
+    event file's size, the CRC's MB/s and the YAML parse's ms.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -3930,6 +3944,259 @@ def phase_tools(workdir: Path, pre: dict) -> dict:
 # -- phase 27: export-serving and .fs2x ----------------------------------------------------
 
 
+YAML_TIMED = 3  # validations with media and without, in turns
+
+
+def _yaml_scalar(x) -> str:
+    """A scalar as YAML 1.1 reads it back: strings double-quoted with JSON's
+    escapes (non-ASCII as \\uXXXX), floats always with a dot."""
+    if x is None:
+        return "null"
+    if isinstance(x, bool):
+        return "true" if x else "false"
+    if isinstance(x, int):
+        return str(x)
+    if isinstance(x, float):
+        if math.isnan(x):
+            return ".nan"
+        if math.isinf(x):
+            return ".inf" if x > 0 else "-.inf"
+        r = repr(x)
+        return r if "." in r or "e" not in r else r.replace("e", ".0e")
+    return json.dumps(x)
+
+
+def _yaml_lines(obj, indent: int = 0) -> list:
+    """Block-style YAML of a dict or list: a list under a key at the key's
+    indentation, as ``yaml.safe_dump`` writes it; empty containers in flow
+    style."""
+    pad = " " * indent
+    lines = []
+    items = obj.items() if isinstance(obj, dict) else ((None, v) for v in obj)
+    for key, value in items:
+        head = f"{pad}{key}:" if key is not None else f"{pad}-"
+        nested = isinstance(value, (dict, list, tuple)) and len(value) > 0
+        if not nested:
+            empty = {dict: "{}", list: "[]", tuple: "[]"}.get(type(value))
+            lines.append(f"{head} {empty or _yaml_scalar(value)}")
+        elif key is not None and isinstance(value, dict):
+            lines += [head] + _yaml_lines(value, indent + 2)
+        elif key is not None:
+            lines += [head] + _yaml_lines(list(value), indent)
+        else:  # a collection as a sequence item opens on the dash's line
+            sub = _yaml_lines(value if isinstance(value, dict) else list(value), indent + 2)
+            lines += [f"{pad}- {sub[0][indent + 2:]}"] + sub[1:]
+    return lines
+
+
+def _audio_clip(events: list, tag: str) -> tuple:
+    """(int16 samples, the Summary.Audio fields) of `tag`'s one clip."""
+    from fastspeech2_lightning_tpu_torch.utils.tensorboard import wav_samples
+
+    clips = [v["audio"] for e in events for v in e.get("summary", ()) if v["tag"] == tag]
+    check(len(clips) == 1, f"{len(clips)} clips tagged {tag}")
+    pcm, rate = wav_samples(clips[0]["encoded_audio_string"])
+    check(rate == clips[0]["sample_rate"] and clips[0]["num_channels"] == 1
+          and clips[0]["content_type"] == "audio/wav" and pcm.size == clips[0]["length_frames"],
+          f"{tag}: {({k: v for k, v in clips[0].items() if k != 'encoded_audio_string'})}, "
+          f"{pcm.size} samples at {rate}")
+    return pcm, clips[0]
+
+
+def _check_vocoded(events: list, tag: str, mel, vocoder, hop: int) -> float:
+    """`tag`'s clip: PCM16 at the vocoder's rate, mel frames x hop samples,
+    within one PCM16 step of the vocoder run again on `mel`. Returns the
+    largest difference in PCM16 steps."""
+    import numpy as np
+
+    pcm, clip = _audio_clip(events, tag)
+    again = vocoder.device_fn(mel).float().cpu().numpy()[0]
+    want = np.round(np.clip(again.astype(np.float64), -1, 1) * 32767)
+    diff = float(np.abs(pcm - want).max())
+    check(clip["sample_rate"] == vocoder.sample_rate and pcm.size == mel.shape[1] * hop
+          and diff <= 1 and int(np.abs(pcm).max()) > 0,
+          f"{tag}: {pcm.size} samples at {clip['sample_rate']} for {mel.shape[1]} frames x "
+          f"{hop} at {vocoder.sample_rate}; {diff} PCM16 steps from the vocoder again")
+    return diff
+
+
+def phase_yaml_media(workdir: Path, vocoder_npz: Path, smi: str) -> dict:
+    """Phase 28 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config, load_config_base_command
+    from fastspeech2_lightning_tpu_torch.models.hifigan import load_vocoder_checkpoint
+    from fastspeech2_lightning_tpu_torch.preprocessing.pipeline import load_wav, save_wav
+    from fastspeech2_lightning_tpu_torch.training import loop
+    from fastspeech2_lightning_tpu_torch.utils import plotting
+    from fastspeech2_lightning_tpu_torch.utils.tensorboard import (
+        crc_rate_mb_s, decode_png, read_events, scalars,
+    )
+    from fastspeech2_lightning_tpu_torch.yaml_reader import safe_load
+
+    t_phase = time.time()
+    json_path = workdir / "config.json"  # phase 11's
+    cfg = json.loads(json_path.read_text())
+    training = dict(cfg["training"])
+    training.pop("vocoder_path")
+    filelist = training.pop("training_filelist")
+    contact = "fs2t smoke: the port reads its YAML config, \u0283 and all"
+    main_lines = ["# phase 11's config as YAML; the training section in a partial",
+                  "contact:",
+                  '  contact_name: "fs2t smoke: the port reads its YAML config,',
+                  '    \\u0283 and all"',  # a double-quoted string folded over two lines
+                  "path_to_training_config_file: training.yaml",
+                  "training:",
+                  "  vocoder_path: " + _yaml_scalar(str(vocoder_npz.relative_to(workdir)))]
+    main_lines += _yaml_lines({k: v for k, v in cfg.items() if k != "training"})
+    partial_lines = ["training_filelist: >-", f"  {filelist}"] + _yaml_lines(training)
+    yaml_path, partial_path = workdir / "config.yaml", workdir / "training.yaml"
+    yaml_path.write_text("\n".join(main_lines) + "\n")
+    partial_path.write_text("\n".join(partial_lines) + "\n")
+    texts = [yaml_path.read_text(), partial_path.read_text()]
+    parse_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        raw = [safe_load(t) for t in texts]
+        parse_ms.append((time.perf_counter() - t0) * 1e3)
+    check(raw[0]["contact"]["contact_name"] == contact,
+          f"the folded string read as {raw[0]['contact']['contact_name']!r}")
+    from_yaml, from_json = (FastSpeech2Config.from_file(p) for p in (yaml_path, json_path))
+    check(from_yaml.training.vocoder_path == str(vocoder_npz.resolve()),
+          f"vocoder_path resolved to {from_yaml.training.vocoder_path}")
+    a, b = from_yaml.to_dict(), from_json.to_dict()
+    a["training"].pop("vocoder_path"), b["training"].pop("vocoder_path")
+    check(a == b, "the YAML config differs from phase 11's JSON one")
+    log(f"yaml: {yaml_path.name} + {partial_path.name} ({sum(map(len, texts))} bytes) read "
+        f"in {statistics.median(parse_ms):.2f} ms (median of 5 parses, {smi}); the config "
+        f"equals phase 11's apart from vocoder_path")
+
+    # train from the YAML config through the CLI: 2 steps, a validation at step 2
+    overrides = ["training.val_check_interval=2", "training.logger.version=media"]
+    log_dir = workdir / "logs" / "smoke" / "media"
+    fns = _voc_counters()
+    media_calls = []
+    media = loop.Trainer._log_validation_media
+
+    def recorded(self, step, batch, out):
+        key = "postnet_output" if self.config.model.use_postnet else "output"
+        media_calls.append((step, batch, out[key][:1].detach().clone()))
+        return media(self, step, batch, out)
+
+    loop.Trainer._log_validation_media = recorded
+    try:
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.time()
+        cli.main(["train", str(yaml_path), "--max-steps", "2"]
+                 + [a for o in overrides for a in ("-c", o)])
+        train_s = time.time() - t0
+        launched = {k: fn.launches for k, fn in fns.items()}
+    finally:
+        loop.Trainer._log_validation_media = media
+    (event_file,) = log_dir.glob("events.out.tfevents.*")
+    event_bytes = event_file.stat().st_size
+    events = read_events(event_file)
+    check(events[0].get("file_version") == "brain.Event:2", f"first event {events[0]}")
+    got = scalars(events)
+    train_tags = {f"training/{k}_loss" for k in LOSS_KEYS} | {"training/grad_norm"}
+    val_tags = {f"validation/{k}_loss" for k in LOSS_KEYS}
+    check(set(got) == train_tags | val_tags, f"scalar tags {sorted(got)}")
+    check(all([s for s, _ in got[t]] == [1] for t in train_tags)
+          and all([s for s, _ in got[t]] == [2] for t in val_tags),
+          f"scalar steps {({t: [s for s, _ in v] for t, v in got.items()})}")
+    (val_row,) = _rows(log_dir / "val_log.jsonl")
+    check(all(got[f"validation/{k}_loss"][0][1] == float(np.float32(val_row[k]))
+              for k in LOSS_KEYS), f"validation scalars {got} against {val_row}")
+    (step, batch, mel), = media_calls
+    name = batch["basename"][0]
+    t, l = int(batch["mel_lens"][0]), int(batch["src_lens"][0])
+    images = {v["tag"]: (e["step"], decode_png(v["image"]["encoded_image_string"]))
+              for e in events for v in e.get("summary", ()) if "image" in v}
+    s_att = plotting.scale_for(t, l)
+    n_mels, t_pad = batch["mel"].shape[2], batch["mel"].shape[1]
+    s_mel = plotting.scale_for(n_mels, t_pad)
+    want_images = {f"attention/{name}": (2, (l * s_att, 2 * t * s_att + plotting.GAP, 3)),
+                   f"pred/spec_{name}": (2, (2 * n_mels * s_mel + plotting.GAP, t_pad * s_mel, 3))}
+    check({k: (st, im.shape) for k, (st, im) in images.items()} == want_images,
+          f"images {({k: (st, im.shape) for k, (st, im) in images.items()})}, want {want_images}")
+    audio_tags = {v["tag"] for e in events for v in e.get("summary", ()) if "audio" in v}
+    check(audio_tags == {f"pred/wav_{name}"}, f"audio tags {audio_tags}")
+    vocoder, _, hop = load_vocoder_checkpoint(vocoder_npz, device="cuda")
+    diff = {"pred": _check_vocoded(events, f"pred/wav_{name}", mel, vocoder, hop)}
+    check(launched["mrf_conv"] == 0, f"the run launched mrf_conv {launched['mrf_conv']} times")
+    log(f"yaml train: 2 steps and a validation with media in {train_s:.1f} s; event file "
+        f"{event_bytes} bytes, {len(events)} events; {name}: attention "
+        f"{images[f'attention/{name}'][1].shape}, spec {images[f'pred/spec_{name}'][1].shape}, "
+        f"pred/wav {t_pad * hop} samples within {diff['pred']:.0f} PCM16 steps; launches {launched}")
+
+    # step 0: the preprocessed wav (written for the first validation item) and copy-synthesis
+    config = load_config_base_command(yaml_path, overrides)
+    trainer = loop.Trainer(config)
+    trainer._build_loaders()
+    first = next(iter(trainer.val_loader))
+    trainer._build_loaders()  # validate's first batch is `first` again
+    name0, t0_frames = first["basename"][0], int(first["mel_lens"][0])
+    a_cfg = config.preprocessing.audio
+    rng = np.random.default_rng(SEED + 28)
+    tone = (0.3 * np.sin(2 * np.pi * 180 * np.arange(t0_frames * hop) / a_cfg.input_sampling_rate)
+            + 0.01 * rng.standard_normal(t0_frames * hop)).astype(np.float32)
+    wav_path = Path(config.preprocessing.save_dir) / "audio" / "--".join(
+        [name0, first["speaker"][0], first["language"][0],
+         f"audio-{a_cfg.input_sampling_rate}.wav"])
+    save_wav(wav_path, tone, a_cfg.input_sampling_rate)
+    before = set(log_dir.glob("events.out.tfevents.*"))
+    trainer.validate(0, 0)
+    trainer.close()
+    events0 = [e for path in sorted(log_dir.glob("events.out.tfevents.*"))
+               for e in read_events(path) if e["step"] == 0 and "summary" in e]
+    gt, _ = _audio_clip(events0, f"gt/wav_{name0}")
+    want_gt = np.round(np.clip(load_wav(wav_path, a_cfg.output_sampling_rate), -1, 1) * 32767)
+    check(gt.size == tone.size and np.array_equal(gt, want_gt),
+          f"gt/wav_{name0}: {gt.size} samples against {tone.size}, "
+          f"{np.abs(gt - want_gt).max() if gt.size == want_gt.size else '-'} PCM16 steps off")
+    diff["copy_synthesis"] = _check_vocoded(
+        events0, f"copy-synthesis/wav_{name0}",
+        torch.from_numpy(first["mel"][:1]).cuda(), vocoder, hop)
+    log(f"yaml validate(0, 0): gt/wav_{name0} and copy-synthesis/wav_{name0} "
+        f"({first['mel'].shape[1] * hop} samples, within {diff['copy_synthesis']:.0f} PCM16 "
+        f"steps of the vocoder again); event files {len(before)} -> "
+        f"{len(list(log_dir.glob('events.out.tfevents.*')))}")
+
+    # launches and time of a validation with media and one without, in turns
+    counters = {k: fns[k] for k in ("attention_fwd", "mas_width1", "ctc_alpha", "mrf_conv")}
+    ms = {"media": [], "plain": []}
+    counts = {}
+    with_media = trainer._log_validation_media
+    for i in range(2 * YAML_TIMED):
+        kind = ("media", "plain")[(i + i // 2) % 2]  # media, plain, plain, media, media, plain
+        trainer._log_validation_media = with_media if kind == "media" else (lambda *a: None)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate(3, 0)
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) * 1e3)
+        counts.setdefault(kind, {k: fn.launches for k, fn in counters.items()})
+    trainer.close()
+    check(counts["media"] == counts["plain"] and counts["media"]["mrf_conv"] == 0
+          and all(counts["media"][k] > 0 for k in ("attention_fwd", "mas_width1", "ctc_alpha")),
+          f"launches with media {counts['media']}, without {counts['plain']}")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    crc = crc_rate_mb_s()
+    log(f"yaml validation: with media {med['media']:.1f} ms, without {med['plain']:.1f} ms "
+        f"(the media {med['media'] - med['plain']:.1f} ms; medians of {YAML_TIMED}, in turns; "
+        f"{ms}); launches each {counts['media']}; CRC-32C {crc:.1f} MB/s on the host; "
+        f"phase {time.time() - t_phase:.1f} s ({smi})")
+    return dict(launches=counts["media"], validation_ms=med, validation_ms_runs=ms,
+                media_ms=med["media"] - med["plain"], event_file_bytes=event_bytes,
+                crc_mb_s=crc, yaml_parse_ms=statistics.median(parse_ms), train_s=train_s,
+                pcm_steps_from_vocoder=diff, phase_s=time.time() - t_phase)
+
+
 EXPORT_BATCHES = (1, 8)
 EXPORT_BUCKETS = (48, 128)  # cut from the default sweep (every 16-multiple to the chunker's max)
 EXPORT_TIMED = 10  # request timings a path, in turns
@@ -4215,12 +4482,14 @@ def main() -> None:
         levels = phase_pfs_phones(Path(workdir))
         voc = phase_vocoder_train(Path(workdir))
         voc["card_vs_cpu"] = phase_vocoder_card_vs_cpu(voc["ckpt_dir"], voc["config_path"])
+        vocoder_npz = voc["ckpt_dir"] / "vocoder.npz"
         trained = phase_trained_vocoder(Path(workdir), voc.pop("ckpt_dir"),
                                         voc.pop("config_path"))
         pre = phase_preprocess(Path(workdir))
         checked = phase_check_data(Path(workdir), pre)
         tools = phase_tools(Path(workdir), pre)
         exported = phase_export_serving(Path(workdir), smi)
+        yaml_media = phase_yaml_media(Path(workdir), vocoder_npz, smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -4238,6 +4507,7 @@ def main() -> None:
         paths["preprocessed_validation"] = pre["validation_launches"][name]
         if name in ("attention_fwd", "mas_width1", "ctc_alpha"):
             paths["check-data"] = checked["launches"][name]
+            paths["validation_media"] = yaml_media["launches"][name]
         if name in ("attention_fwd", "mas_width1"):
             paths.update({f"benchmark_{mode}": run["launches"][name]
                           for mode, run in tools["benchmark"].items()})
@@ -4332,7 +4602,7 @@ def main() -> None:
                       "streaming": stream, "text_levels": levels,
                       "vocoder_training": {**voc, "trained": trained},
                       "preprocess": pre, "check_data": checked, "tools": tools,
-                      "export_serving": exported}))
+                      "export_serving": exported, "yaml_media": yaml_media}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

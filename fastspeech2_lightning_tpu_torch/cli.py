@@ -2,7 +2,7 @@
 not a dependency here).
 
     python -m fastspeech2_lightning_tpu_torch serve MODEL.ckpt -v VOCODER.npz --port 8777
-    python -m fastspeech2_lightning_tpu_torch train CONFIG.json --max-steps 1000
+    python -m fastspeech2_lightning_tpu_torch train CONFIG.yaml --max-steps 1000
     python -m fastspeech2_lightning_tpu_torch serve LOGS/.../checkpoints/step=1000 --use-ema
     python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -t "hello" -O spec textgrid
     python -m fastspeech2_lightning_tpu_torch synthesize MODEL.ckpt -f LIST.psv -v griffin-lim
@@ -21,8 +21,8 @@ not a dependency here).
     python -m fastspeech2_lightning_tpu_torch serve MODEL.fs2x --warmup
     python -m fastspeech2_lightning_tpu_torch doctor CONFIG.json
 
-Every command that reads a config takes the JAX CLI's ``-c key.path=value``
-overrides.
+Every command that reads a config takes a YAML file (a ``.json`` one is read as
+JSON, as the JAX CLI does) and the JAX CLI's ``-c key.path=value`` overrides.
 """
 
 from __future__ import annotations
@@ -52,25 +52,11 @@ def _must_exist(args, *named) -> None:
             args.command_parser.error(f"Invalid value for {name}: Path '{path}' does not exist.")
 
 
-def _with_overrides(args, load):
-    """load() of a config with ``args.config_args``; a value the override
-    reader cannot read is a usage error naming it."""
-    from .config import OverrideValueError
-
-    try:
-        return load()
-    except OverrideValueError as e:
-        args.command_parser.error(
-            f"Invalid value for '--config-args' / '-c': {str(e)!r} is not a YAML scalar or "
-            "flow sequence this reader takes")
-
-
 def _load_config(args):
     """The config file of `args` with its ``-c`` overrides."""
     from .config import load_config_base_command
 
-    return _with_overrides(args, lambda: load_config_base_command(args.config,
-                                                                  args.config_args))
+    return load_config_base_command(args.config, args.config_args)
 
 
 def _refuse_data_parallel(args) -> None:
@@ -116,10 +102,11 @@ def _parser() -> argparse.ArgumentParser:
     s.set_defaults(command_parser=s)
     t = sub.add_parser(
         "train",
-        help="Train the acoustic model on a preprocessed corpus. CONFIG is a JSON "
-        "config file (the JAX package's CLI reads the same file); the run writes "
-        "train_log.jsonl, val_log.jsonl and checkpoints/step=N/ under the logger's "
-        "directory. SIGTERM checkpoints the step in flight and exits 0.",
+        help="Train the acoustic model on a preprocessed corpus. CONFIG is a YAML or "
+        "JSON config file (the JAX package's CLI reads the same file); the run writes "
+        "TensorBoard event files with validation media, train_log.jsonl, "
+        "val_log.jsonl and checkpoints/step=N/ under the logger's directory. "
+        "SIGTERM checkpoints the step in flight and exits 0.",
     )
     t.add_argument("config")
     t.add_argument("--max-steps", type=int, default=None,
@@ -527,8 +514,8 @@ def synthesize(args) -> None:
         # inference-time overrides of the checkpoint's config
         from .config import FastSpeech2Config, apply_overrides
 
-        config = _with_overrides(args, lambda: FastSpeech2Config.from_dict(
-            apply_overrides(config.to_dict(), args.config_args)))
+        config = FastSpeech2Config.from_dict(apply_overrides(config.to_dict(),
+                                                             args.config_args))
     teacher_forcing = args.teacher_forcing_directory is not None
     if teacher_forcing:
         # the target mels and priors come from this preprocessed directory

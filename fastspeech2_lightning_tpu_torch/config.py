@@ -6,22 +6,22 @@ A copy of what the port needs of the JAX package's ``config/__init__.py``
 (``config/__init__.py:85-440``). ``from_dict`` reads the JSON config dict a
 checkpoint stores (``config.model_checkpoint_dump()``) and ignores every field
 the port does not read, so a full config loads unchanged. ``from_file``
-reads a config file as the JAX CLI does (``:483-535``): JSON only (this
-package does not read YAML; the JAX CLI reads the same JSON file), partial
-files merged, relative paths resolved against the file's folder.
-``load_config_base_command`` adds the CLI's ``-c key.path=value`` overrides
-(``:626-663``), whose values are read as YAML 1.1 scalars and flow
-sequences by ``parse_override_value`` (the JAX package uses
-``yaml.safe_load``; this package reads the same values without ``yaml``)."""
+reads a config file as the JAX CLI does (``:483-535``): JSON when its suffix
+is ``.json``, YAML otherwise (``yaml_reader.safe_load``, which reads what
+``yaml.safe_load`` reads, without ``yaml``), partial files merged, relative
+paths resolved against the file's folder. ``load_config_base_command`` adds
+the CLI's ``-c key.path=value`` overrides (``:626-663``), each value read as
+YAML, or kept as the raw string where YAML refuses it, as in JAX."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import re
 import typing
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
+
+from .yaml_reader import YAMLError, safe_load
 
 
 def _from_dict(cls, data: Optional[dict]):
@@ -208,8 +208,9 @@ class TrainingConfig(_FromDict):
     Like every key the port does not read, ``steps_per_call``,
     ``fused_optimizer`` and ``prng_impl`` (the JAX trainer's dispatch,
     optimizer layout and random-number generator; the port runs one step a
-    call, one per-parameter AdamW and torch generators) and ``vocoder_path``
-    (validation media, not ported) are ignored."""
+    call, one per-parameter AdamW and torch generators) are ignored.
+    ``vocoder_path`` is the HiFiGAN checkpoint that vocodes the validation
+    audio (``training/loop.py``), relative to the config file's folder."""
 
     batch_size: int = 16
     save_top_k_ckpts: int = 5
@@ -240,6 +241,7 @@ class TrainingConfig(_FromDict):
     halt_on_non_finite: bool = True
     training_filelist: str = "./preprocessed/training_filelist.psv"
     validation_filelist: str = "./preprocessed/validation_filelist.psv"
+    vocoder_path: Optional[str] = None
     logger: LoggerConfig = dataclasses.field(default_factory=LoggerConfig)
 
     def __post_init__(self):
@@ -255,15 +257,16 @@ class TrainingConfig(_FromDict):
 _PARTIAL_KEYS = ("model", "training", "preprocessing", "text")
 
 
-def _read_json(path: Path) -> dict:
-    if path.suffix in (".yaml", ".yml"):
-        raise ValueError(
-            f"{path}: this package reads JSON configs only; write the config as "
-            "JSON (the JAX package's CLI reads the same .json file)"
-        )
+def _read_config_file(path: Path) -> dict:
+    """A config file as the JAX CLI reads it (``config/__init__.py:497-504``):
+    JSON when its suffix is ``.json``, YAML otherwise (``.yaml``, ``.yml``,
+    ``.conf`` or none), an empty YAML file as ``{}``."""
     if not path.exists():
         raise FileNotFoundError(f"Config file not found: {path}")
-    return json.loads(path.read_text(encoding="utf8"))
+    text = path.read_text(encoding="utf8")
+    if path.suffix == ".json":
+        return json.loads(text)
+    return safe_load(text) or {}
 
 
 def _relative_to(base: Path, value: Optional[str]) -> Optional[str]:
@@ -304,12 +307,14 @@ class FastSpeech2Config(_FromDict):
 
     @classmethod
     def from_file(cls, path: Union[str, Path]) -> "FastSpeech2Config":
-        """Read a JSON config file: ``path_to_<key>_config_file`` partials are
-        the base that the file's inline section overrides
-        (``load_partials``, ``config/__init__.py:507-535``), and the relative
-        ``save_dir``, training filelists and log directory resolve against
-        the file's folder (``:483-494``); ``source_data``'s ``data_dir`` and
-        ``filelist`` stay as written, relative to the working directory."""
+        """Read a config file (JSON or YAML, as ``_read_config_file`` says):
+        ``path_to_<key>_config_file`` partials are the base that the file's
+        inline section overrides (``load_partials``,
+        ``config/__init__.py:507-535``), and the relative ``save_dir``,
+        training filelists, log directory and ``vocoder_path`` resolve
+        against the file's folder (``:483-494``); ``source_data``'s
+        ``data_dir`` and ``filelist`` stay as written, relative to the
+        working directory."""
         return load_config_base_command(path)
 
     @classmethod
@@ -324,6 +329,7 @@ class FastSpeech2Config(_FromDict):
         t = config.training
         t.training_filelist = _relative_to(base, t.training_filelist)
         t.validation_filelist = _relative_to(base, t.validation_filelist)
+        t.vocoder_path = _relative_to(base, t.vocoder_path)
         t.logger.save_dir = _relative_to(base, t.logger.save_dir)
         return config
 
@@ -331,7 +337,7 @@ class FastSpeech2Config(_FromDict):
 def _load_raw(path: Path) -> dict:
     """The file's dict with its ``path_to_<key>_config_file`` partials
     merged under its inline sections."""
-    data = _read_json(path)
+    data = _read_config_file(path)
     for key in _PARTIAL_KEYS:
         rel = data.get(f"path_to_{key}_config_file")
         if not rel:
@@ -339,7 +345,7 @@ def _load_raw(path: Path) -> dict:
         partial_path = Path(rel)
         if not partial_path.is_absolute():
             partial_path = (path.parent / partial_path).resolve()
-        merged = _read_json(partial_path)
+        merged = _read_config_file(partial_path)
         if isinstance(data.get(key), dict):
             merged.update(data[key])
         data[key] = merged
@@ -347,173 +353,18 @@ def _load_raw(path: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# -c key.path=value overrides: the values YAML 1.1 (``yaml.safe_load``) gives
+# -c key.path=value overrides
 # ---------------------------------------------------------------------------
 
 
-class OverrideValueError(ValueError):
-    """An override value this reader cannot read as YAML would."""
-
-
-_YAML_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
-                        r"|on|On|ON|off|Off|OFF)$")
-_YAML_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
-                         r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+\.[0-9_]*"
-                         r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-_YAML_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
-                       r"|[-+]?0x[0-9a-fA-F_]+|[-+]?[1-9][0-9_]*(?::[0-5]?[0-9])+)$")
-_YAML_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
-_YAML_TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
-# a plain scalar may not start with these (YAML indicators); '[' and the
-# quotes are read below
-_INDICATORS = set("{}],#&*!|>%@`?")
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n",
-            "v": "\v", "f": "\f", "r": "\r", "e": "\x1b", " ": " ", '"': '"',
-            "/": "/", "\\": "\\", "N": "\x85", "_": "\xa0", "L": "\u2028",
-            "P": "\u2029"}
-
-
-def _sexagesimal(text: str, cast):
-    value, base = 0, 1
-    for part in reversed(text.split(":")):
-        value += cast(part) * base
-        base *= 60
-    return value
-
-
-def _yaml_int(text: str) -> int:
-    text = text.replace("_", "")
-    sign = -1 if text[0] == "-" else 1
-    text = text.lstrip("+-")
-    if text == "0":
-        return 0
-    if text.startswith("0b"):
-        return sign * int(text[2:], 2)
-    if text.startswith("0x"):
-        return sign * int(text[2:], 16)
-    if text[0] == "0":
-        return sign * int(text, 8)
-    if ":" in text:
-        return sign * _sexagesimal(text, int)
-    return sign * int(text)
-
-
-def _yaml_float(text: str) -> float:
-    text = text.replace("_", "").lower()
-    sign = -1.0 if text[0] == "-" else 1.0
-    text = text.lstrip("+-")
-    if text == ".inf":
-        return sign * float("inf")
-    if text == ".nan":
-        return float("nan")
-    if ":" in text:
-        return sign * _sexagesimal(text, float)
-    return sign * float(text)
-
-
-def _plain_scalar(text: str, value: str, flow: bool) -> Any:
-    """A plain (unquoted) scalar resolved as PyYAML's implicit resolvers do."""
-    if text and (text[0] in _INDICATORS or (text[0] == "-" and text[1:2] in ("", " "))):
-        raise OverrideValueError(value)
-    if ": " in text or text.endswith(":") or " #" in text or "\t" in text or (
-            flow and any(c in text for c in ",[]{}")):
-        raise OverrideValueError(value)
-    if _YAML_NULL.match(text):
-        return None
-    if _YAML_BOOL.match(text):
-        return text.lower() in ("yes", "true", "on")
-    if _YAML_FLOAT.match(text):
-        return _yaml_float(text)
-    if _YAML_INT.match(text):
-        return _yaml_int(text)
-    if _YAML_TIMESTAMP.match(text) or text in ("<<", "="):
-        raise OverrideValueError(value)
-    return text
-
-
-def _quoted(text: str, value: str) -> str:
-    quote, body = text[0], text[1:-1]
-    if len(text) < 2 or text[-1] != quote:
-        raise OverrideValueError(value)
-    if quote == "'":
-        if "'" in body.replace("''", ""):
-            raise OverrideValueError(value)
-        return body.replace("''", "'")
-    out, i = [], 0
-    while i < len(body):
-        c = body[i]
-        if c == '"':
-            raise OverrideValueError(value)
-        if c != "\\":
-            out.append(c)
-            i += 1
-            continue
-        nxt = body[i + 1: i + 2]
-        width = {"x": 2, "u": 4, "U": 8}.get(nxt)
-        if width:
-            digits = body[i + 2: i + 2 + width]
-            if len(digits) != width or not re.fullmatch(r"[0-9a-fA-F]+", digits):
-                raise OverrideValueError(value)
-            out.append(chr(int(digits, 16)))
-            i += 2 + width
-        elif nxt in _ESCAPES:
-            out.append(_ESCAPES[nxt])
-            i += 2
-        else:
-            raise OverrideValueError(value)
-    return "".join(out)
-
-
-def _split_flow(body: str, value: str) -> list:
-    """The items of a flow sequence's inside, split at its top-level commas."""
-    items, depth, quote, start = [], 0, None, 0
-    for i, c in enumerate(body):
-        if quote:
-            if c == quote:
-                quote = None
-        elif c in "'\"" and not body[start:i].strip():
-            quote = c
-        elif c == "[":
-            depth += 1
-        elif c == "]":
-            depth -= 1
-        elif c == "," and depth == 0:
-            items.append(body[start:i])
-            start = i + 1
-    if quote or depth:
-        raise OverrideValueError(value)
-    items.append(body[start:])
-    if len(items) == 1 and not items[0].strip():
-        return []
-    if any(not item.strip() for item in items):
-        raise OverrideValueError(value)
-    return items
-
-
-def _node(text: str, value: str, flow: bool) -> Any:
-    text = text.strip(" ")
-    if text.startswith("["):
-        if not text.endswith("]"):
-            raise OverrideValueError(value)
-        return [_node(item, value, True) for item in _split_flow(text[1:-1], value)]
-    if text[:1] in ("'", '"'):
-        return _quoted(text, value)
-    return _plain_scalar(text, value, flow)
-
-
 def parse_override_value(value: str) -> Any:
-    """`value` as ``yaml.safe_load`` reads it (YAML 1.1): ``yes``/``no``/
-    ``on``/``off``/``true``/``false`` are booleans, ``~``, ``null`` and the
-    empty string None, ints in decimal, octal (``010``), hex, binary and
-    base 60, floats only with a dot (``1e3`` stays a string, ``1.0e+3`` is
-    1000.0: the exponent needs its sign), quoted strings, and flow
-    sequences (``[1, 2]``) of these. A value outside that subset (a flow
-    mapping, an anchor, a tag, a date, a comment, a block) raises
-    ``OverrideValueError`` naming it, rather than becoming a string."""
-    if "\n" in value or "\r" in value:
-        raise OverrideValueError(value)
-    return _node(value, value, False)
+    """`value` as ``yaml.safe_load`` reads it, or `value` itself where that
+    raises (``config/__init__.py:630-634``): ``-c training.a=[1, 2`` keeps the
+    string ``"[1, 2"``."""
+    try:
+        return safe_load(value)
+    except YAMLError:
+        return value
 
 
 def apply_overrides(config_dict: dict, overrides: List[str]) -> dict:
@@ -535,7 +386,7 @@ def apply_overrides(config_dict: dict, overrides: List[str]) -> dict:
 
 def load_config_base_command(config_file: Union[str, Path],
                              config_args: Optional[List[str]] = None) -> FastSpeech2Config:
-    """The config of a JSON file with its partials merged and the ``-c``
+    """The config of a file with its partials merged and the ``-c``
     overrides applied before the paths resolve (``:654-663``)."""
     path = Path(config_file)
     raw = _load_raw(path)

@@ -15,6 +15,15 @@ and every loss) and every validation one to
 batches and the wall milliseconds). A non-finite loss raises when
 ``training.halt_on_non_finite`` is set.
 
+The same directory holds a TensorBoard event file (``utils/tensorboard.py``)
+with the JAX trainer's tags (``loop.py:372-383, :677, :692, :724-891``):
+``training/<k>_loss`` and ``training/grad_norm`` at step 1 and every 50th
+step, ``validation/<k>_loss`` after each validation, and the first
+validation batch's media: ``attention/<basename>`` (soft and hard
+alignment), ``pred/spec_<basename>`` (GT and predicted mel with pitch and
+energy), ``pred/wav_<basename>`` through ``training.vocoder_path``, and at
+step 0 ``gt/wav_<basename>`` and ``copy-synthesis/wav_<basename>``.
+
 Checkpoints (``training/checkpoint.py``) follow the JAX trainer's cadence
 and order (``loop.py:687-719``): every ``ckpt_steps`` steps without a
 metric, after every validation with ``validation/total_loss``, at the end of
@@ -45,6 +54,8 @@ from ..models.fastspeech2 import FastSpeech2
 from ..text import TextProcessor
 from ..text.lookups import lookuptables_from_config
 from ..type_definitions import Stats
+from ..utils import plotting
+from ..utils.tensorboard import SummaryWriter
 from .checkpoint import (
     AsyncCheckpointWriter,
     latest_checkpoint,
@@ -59,6 +70,7 @@ from .state import AdamWNoam, init_like_flax
 from .step import batch_to_device, eval_step, train_step
 
 MONITOR = "validation/total_loss"
+LOG_EVERY = 50  # training scalars at step 1 and every LOG_EVERY-th step, as in JAX
 
 
 class TrainingDivergedError(RuntimeError):
@@ -187,6 +199,25 @@ class Trainer:
         self.save_ms: List[float] = []  # the caller's wall time of each save
         self.load_ms: Optional[float] = None
         self._epoch = 0
+        self.loader = self.val_loader = None  # built by fit, or by validate alone
+        self._writer: Optional[SummaryWriter] = None
+        self._media_vocoder = None  # training.vocoder_path's, loaded at its first use
+
+    @property
+    def writer(self) -> SummaryWriter:
+        """The event file writer, opened at its first use; ``close`` ends it."""
+        if self._writer is None:
+            self._writer = SummaryWriter(self.log_dir)
+        return self._writer
+
+    def close(self) -> None:
+        """Close the event file (``fit`` does so on its way out)."""
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+
+    def _log(self, tag: str, value: float, step: int) -> None:
+        self.writer.add_scalar(tag, value, step)
 
     @property
     def ckpt_path(self) -> Optional[Path]:
@@ -195,17 +226,9 @@ class Trainer:
 
     def fit(self, max_steps: Optional[int] = None, resume: bool = True) -> List[dict]:
         """Train; returns the rows logged by this call (one per step)."""
-        cfg = self.config
-        tcfg = cfg.training
+        tcfg = self.config.training
         max_steps = max_steps or tcfg.max_steps
-        train_ds, val_ds = load_datasets(cfg, self.lang2id, self.speaker2id)
-        self.loader = loader = BucketedLoader(
-            train_ds, tcfg.batch_size, n_buckets=tcfg.bucket_count, seed=tcfg.seed,
-            use_weighted_sampler=tcfg.use_weighted_sampler,
-            max_mel_length=cfg.model.max_mel_length)
-        self.val_loader = BucketedLoader(val_ds, min(tcfg.batch_size, max(len(val_ds), 1)),
-                                         n_buckets=tcfg.bucket_count, seed=tcfg.seed,
-                                         max_mel_length=cfg.model.max_mel_length)
+        loader = self._build_loaders()
         step = epoch = 0
         start = latest_checkpoint(self.ckpt_dir) if resume else None
         if start is None and tcfg.finetune_checkpoint:
@@ -222,6 +245,20 @@ class Trainer:
             return self._fit_loop(loader, max_steps, step, epoch, val_interval, preempt)
         finally:
             preempt["disarm"]()
+            self.close()
+
+    def _build_loaders(self) -> BucketedLoader:
+        """The training and validation loaders; returns the training one."""
+        cfg, tcfg = self.config, self.config.training
+        train_ds, val_ds = load_datasets(cfg, self.lang2id, self.speaker2id)
+        self.loader = BucketedLoader(
+            train_ds, tcfg.batch_size, n_buckets=tcfg.bucket_count, seed=tcfg.seed,
+            use_weighted_sampler=tcfg.use_weighted_sampler,
+            max_mel_length=cfg.model.max_mel_length)
+        self.val_loader = BucketedLoader(val_ds, min(tcfg.batch_size, max(len(val_ds), 1)),
+                                         n_buckets=tcfg.bucket_count, seed=tcfg.seed,
+                                         max_mel_length=cfg.model.max_mel_length)
+        return self.loader
 
     def _fit_loop(self, loader, max_steps, step, epoch, val_interval, preempt) -> List[dict]:
         cfg, tcfg = self.config, self.config.training
@@ -257,7 +294,10 @@ class Trainer:
                         if tcfg.halt_on_non_finite and not all(map(math.isfinite, host.values())):
                             raise TrainingDivergedError(
                                 f"non-finite training loss at step {step}: {host}")
-                        if step == 1 or step % 50 == 0:
+                        if step == 1 or step % LOG_EVERY == 0:
+                            for k, v in host.items():
+                                self._log("training/grad_norm" if k == "grad_norm"
+                                          else f"training/{k}_loss", v, step)
                             print(f"step {step} epoch {epoch} total={host['total']:.4f} "
                                   f"spec={host.get('spec', 0.0):.4f} {row['ms']:.1f} ms",
                                   flush=True)
@@ -299,13 +339,23 @@ class Trainer:
     def validate(self, step: int, epoch: int) -> dict:
         """Weighted mean of each loss over the validation batches (each
         batch's mean weighted by its sample_weight sum, so filler rows count
-        for nothing); appends a row to ``val_log.jsonl``."""
+        for nothing); appends a row to ``val_log.jsonl`` and logs the means
+        and the first batch's media to the event file. Outside ``fit`` it
+        builds the loaders itself; ``close`` ends the event file after."""
+        if self.val_loader is None:
+            self._build_loaders()
+            self.log_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         sums: dict = {}
         total_w, n = 0.0, 0
         for batch in self.val_loader:
-            losses, _ = eval_step(self.model, self.config,
-                                  batch_to_device(batch, self.device), epoch)
+            losses, out = eval_step(self.model, self.config,
+                                    batch_to_device(batch, self.device), epoch)
+            if n == 0:
+                try:
+                    self._log_validation_media(step, batch, out)
+                except Exception as e:  # as in JAX, media never stop training
+                    print(f"validation media logging failed: {e}", flush=True)
             w = float(np.sum(batch["sample_weight"]))
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * w
@@ -316,7 +366,79 @@ class Trainer:
                "ms": (time.perf_counter() - t0) * 1e3, **means}
         with open(self.log_dir / "val_log.jsonl", "a", encoding="utf8") as f:
             f.write(json.dumps(row) + "\n")
+        for k, v in means.items():
+            self._log(f"validation/{k}_loss", v, step)
         return means
+
+    def _log_validation_media(self, step: int, batch: dict, out: dict) -> None:
+        """The JAX trainer's validation media (``loop.py:724-891``) for the
+        first item of a validation batch: the soft and hard attention, GT
+        and predicted mels with pitch and energy (phone-level predictions
+        expanded by the durations), the vocoded prediction, and at step 0
+        the preprocessed audio and the vocoded GT mel. Only item 0 of the
+        outputs and its lengths move to the host; the mels are vocoded at
+        their padded width, as in JAX."""
+        cfg = self.config
+        name = batch["basename"][0]
+
+        def row0(x: torch.Tensor) -> np.ndarray:
+            return x[:1].detach().float().cpu().numpy()
+
+        if cfg.model.learn_alignment and out.get("attn_soft") is not None:
+            t, l = int(batch["mel_lens"][0]), int(batch["src_lens"][0])
+            images = plotting.plot_attn_maps(row0(out["attn_soft"][:, :t, :l]),
+                                             row0(out["attn_hard"][:, :t, :l]),
+                                             batch["mel_lens"][:1], batch["src_lens"][:1], n=1)
+            for i, image in enumerate(images):
+                self.writer.add_image(f"attention/{batch['basename'][i]}", image, step)
+        output_key = "postnet_output" if cfg.model.use_postnet else "output"
+        vp = cfg.model.variance_predictors
+        duration = row0(out["duration_target"])[0]
+        curves = {}
+        for kind in ("pitch", "energy"):
+            gt, pred = batch[kind][0], row0(out[f"{kind}_prediction"])[0]
+            if getattr(vp, kind).level == "phone":
+                pred = plotting.expand(pred, duration)
+                if not cfg.model.learn_alignment:
+                    gt = plotting.expand(gt, duration)
+            curves[kind] = (gt, pred)
+        image = plotting.plot_mel(
+            [{"mel": batch["mel"][0].T, "pitch": curves["pitch"][0],
+              "energy": curves["energy"][0]},
+             {"mel": row0(out[output_key])[0].T, "pitch": curves["pitch"][1],
+              "energy": curves["energy"][1]}],
+            self.stats, ["Ground-Truth Spectrogram", "Synthesized Spectrogram"])
+        self.writer.add_image(f"pred/spec_{name}", image, step)
+
+        a = cfg.preprocessing.audio
+        if step == 0:
+            try:
+                from ..preprocessing.pipeline import load_wav
+
+                audio_path = (Path(cfg.preprocessing.save_dir) / "audio" / "--".join(
+                    [name, batch["speaker"][0], batch["language"][0],
+                     f"audio-{a.input_sampling_rate}.wav"]))
+                if audio_path.exists():
+                    self.writer.add_audio(f"gt/wav_{name}",
+                                          load_wav(audio_path, a.output_sampling_rate), step,
+                                          a.output_sampling_rate)
+            except Exception as e:  # as in JAX
+                print(f"gt audio logging failed: {e}", flush=True)
+        if cfg.training.vocoder_path:
+            try:
+                if self._media_vocoder is None:  # loaded once, not at every validation
+                    from ..models.hifigan import load_vocoder_checkpoint
+
+                    self._media_vocoder = load_vocoder_checkpoint(
+                        Path(cfg.training.vocoder_path), device=self.device)[0]
+                vocoder = self._media_vocoder
+                wav = vocoder.device_fn(out[output_key][:1]).float().cpu().numpy()
+                self.writer.add_audio(f"pred/wav_{name}", wav[0], step, vocoder.sample_rate)
+                if step == 0:
+                    cs, sr = vocoder(batch["mel"][:1])
+                    self.writer.add_audio(f"copy-synthesis/wav_{name}", cs[0], step, sr)
+            except Exception as e:  # as in JAX
+                print(f"vocoder audio logging failed: {e}", flush=True)
 
     def _save(self, step: int, metrics: Optional[dict] = None) -> None:
         t0 = time.perf_counter()

@@ -52,6 +52,7 @@ from ..models.hifigan_discriminators import (
     discriminator_forward,
 )
 from ..preprocessing.features import LOG_CLIP, mel_spectrogram_torch
+from ..utils.tensorboard import SummaryWriter
 from .checkpoint import latest_checkpoint
 from .preemption import install_preemption_handler
 
@@ -365,8 +366,10 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
     ``checkpoints/step=N/`` unless `resume` is False. `finetune_from` (a
     .ckpt/.pt or .npz vocoder) starts the generator from its weights, the
     discriminators fresh; with checkpoints to resume it raises. At step 1
-    and every ``log_steps`` steps the losses go to stdout and to
-    ``vocoder_log.jsonl``, and a non-finite one raises. SIGTERM or SIGINT
+    and every ``log_steps`` steps the losses go to stdout, to
+    ``vocoder_log.jsonl`` and to a TensorBoard event file in the log
+    directory as ``vocoder/<k>`` (``vocoder.py:526-531, :585-587``), and a
+    non-finite one raises. SIGTERM or SIGINT
     finishes the step in flight, checkpoints and returns. The run ends with
     a checkpoint at its last step (the JAX loop writes that one twice)."""
     device = resolve_device(device)
@@ -434,6 +437,7 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
                 continue  # the same batch again; the disk is not read twice
 
     threading.Thread(target=produce, name="fs2t-vocoder-crops", daemon=True).start()
+    tb = SummaryWriter(log_dir)
     preempt = install_preemption_handler()
     t0 = time.time()
     first = saved = state.step
@@ -456,6 +460,8 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
                       f"mel_l1={host['mel_l1']:.4f} ({sps:.2f} steps/s)", flush=True)
                 with open(log_path, "a") as f:
                     f.write(json.dumps({"step": step, **host, "steps_per_s": sps}) + "\n")
+                for k, v in host.items():
+                    tb.add_scalar(f"vocoder/{k}", v, step)
                 if not all(np.isfinite(v) for v in host.values()):
                     raise RuntimeError(f"non-finite vocoder loss at step {step}: {host}")
             if step % train_config.ckpt_steps == 0 or step >= max_steps:
@@ -464,6 +470,7 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
     finally:
         stop.set()
         preempt["disarm"]()
+        tb.close()
     if saved != state.step or not (ckpt_dir / "vocoder.npz").exists():
         save_vocoder_checkpoint(ckpt_dir, state)
     print(f"vocoder checkpoint: {ckpt_dir / 'vocoder.npz'}", flush=True)

@@ -15,8 +15,8 @@ with a fresh one at its global step). The checkpoint
 directories a run leaves are those the JAX trainer's cadence rules
 (``loop.py:687-719``, written out here) predict; early stopping, a float
 ``val_check_interval`` and SIGTERM behave as in the JAX trainer. Relative
-paths in a JSON config resolve against its folder, and a YAML path is
-refused."""
+paths in a config resolve against its folder, in JSON, YAML and suffix-less
+files alike."""
 
 import json
 import math
@@ -300,24 +300,46 @@ def test_sigterm_checkpoints_the_logged_step_and_a_rerun_resumes(workspace):
     assert latest_checkpoint(log_dir / "checkpoints").name == f"step={s + 2}"
 
 
-def test_config_paths_resolve_against_the_file_and_yaml_is_refused(tmp_path):
+def test_config_paths_resolve_against_the_file_in_json_yaml_and_suffixless_files(tmp_path):
+    """A JSON config with a partial resolves its paths against its folder;
+    the same config and partial written as YAML, and as files without a
+    suffix, give the same config, and the JAX loader reads each alike."""
+    import yaml
+
+    from fastspeech2_lightning_tpu.config import load_config_base_command as j_load
+
     (tmp_path / "sub").mkdir()
-    (tmp_path / "sub" / "training.json").write_text(json.dumps({"batch_size": 3}))
-    path = tmp_path / "sub" / "config.json"
-    path.write_text(json.dumps({
+    partial = {"batch_size": 3}
+    main = {
         "preprocessing": {"save_dir": "pre"},
         "path_to_training_config_file": "training.json",
         "training": {"seed": 5, "training_filelist": "pre/train.psv",
-                     "val_check_interval": 0.25,
+                     "val_check_interval": 0.25, "vocoder_path": "../voc.npz",
                      "early_stopping": {"metric": "mae", "patience": 7}},
-    }))
+    }
+    (tmp_path / "sub" / "training.json").write_text(json.dumps(partial))
+    path = tmp_path / "sub" / "config.json"
+    path.write_text(json.dumps(main))
     cfg = FastSpeech2Config.from_file(path)
     assert cfg.preprocessing.save_dir == str((tmp_path / "sub" / "pre").resolve())
     assert cfg.training.training_filelist == str((tmp_path / "sub" / "pre" / "train.psv").resolve())
+    assert cfg.training.vocoder_path == str((tmp_path / "voc.npz").resolve())
     assert (cfg.training.batch_size, cfg.training.seed) == (3, 5)
     assert cfg.training.val_check_interval == 0.25
     assert (cfg.training.early_stopping.metric, cfg.training.early_stopping.patience) == ("mae", 7)
     assert (cfg.training.save_top_k_ckpts, cfg.training.ckpt_epochs,
             cfg.training.prefetch_batches) == (5, 1, 2)
-    with pytest.raises(ValueError, match="JSON"):
-        FastSpeech2Config.from_file(tmp_path / "config.yaml")
+    for suffix in (".yaml", ".yml", ""):
+        (tmp_path / "sub" / f"training{suffix}").write_text(yaml.safe_dump(partial))
+        other = tmp_path / "sub" / f"config{suffix or '_plain'}"
+        other.write_text(yaml.safe_dump(
+            {**main, "path_to_training_config_file": f"training{suffix}"}))
+        got = FastSpeech2Config.from_file(other)
+        assert got == cfg, suffix
+        want = j_load(other)
+        assert (want.training.batch_size, want.training.seed) == (3, 5)
+        assert str(want.training.vocoder_path) == got.training.vocoder_path
+        assert str(want.preprocessing.save_dir) == got.preprocessing.save_dir
+    (tmp_path / "sub" / "empty.yaml").write_text("# nothing\n")
+    assert FastSpeech2Config.from_file(tmp_path / "sub" / "empty.yaml") == \
+        FastSpeech2Config._from_raw({}, tmp_path / "sub" / "empty.yaml")
