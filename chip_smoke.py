@@ -47,7 +47,8 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     10 (exit 0, a checkpoint at its last step), its resume to 12, one
     sentence synthesized from step=12 with and without EMA; then timings
     of the 64-utterance validation, synchronous saves, async ones (blocking
-    part, written), a resume's load and steps with ``prefetch_batches`` 2
+    part, written), a resume's load (the first run's step=8/ is kept for
+    phase 29) and steps with ``prefetch_batches`` 2
     and 0 in turns (no save or validation among them) and with async saves;
  12. card against CPU: one f32 train step (2+2 layers, no dropout) from the
     same weights and batch, then one eval step of the same weights;
@@ -167,6 +168,34 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     ``ctc_alpha`` launches equal in a validation with media and one
     without, ``mrf_conv`` 0; the two timed in turns (medians of 3), the
     event file's size, the CRC's MB/s and the YAML parse's ms.
+ 29. distributed training (``phase_distributed``): (i) ``python -m
+    torch.distributed.run --nproc_per_node 1 -m fastspeech2_lightning_tpu_torch
+    train --distributed`` over NCCL on phase 11's config for 8 steps, held to
+    a one-process CLI run of that config: its grad norms, and tensor by
+    tensor its first moments and its update since the initial weights,
+    within 4 x what a second one-process run differs from the first (A'
+    sums dQ with atomics), floored at the median of those distances, plus
+    1e-4; its max-abs from phase 11's step=8/
+    (Adam's bound beside it) and its ms a step beside phase 11's; (ii) two
+    processes on the one card through ``parallel.launch.run_local`` over
+    gloo, data=2, model=2 and data=2 with ZeRO-1, 4 steps of f32 at Noam
+    rates 3.3e-5 to 1e-4 from phase 11's corpus each, held to a one-process
+    f32 run (``_hold_f32``): at step=1/ the update, and the EMA's, tensor by
+    tensor within rel-L2 1e-3 and the weights and EMA element by element
+    within rtol 1e-5 / atol 1e-6, on the elements whose gradient is not
+    zero to rounding (at most 10 % left out), the Adam moments and the
+    first step's losses within rtol 1e-4 (the card sums a rank's rows in
+    another order), each plus 4 x a second one-process run's spread; at
+    step=4/ the grad norms, first moments and updates against one process
+    reported beside that run's (the alignment search's choices drift runs
+    apart after the first step); a ZeRO-1 run with a planted fault (its
+    moments updated, its parameters left as they were) that the step=1/
+    hold must refuse by its update; the launches on
+    each rank a step (8 A, 8 A', 1 B, 1 ``ctc_alpha_beta``, 1 ``ctc_grad``),
+    the peak memory with ZeRO-1 and without; (iii) A and A' at the dropout
+    offsets those ranks pass, against their plain versions, and their masks
+    read back bit for bit.
+    The kernels' line gains these launches as ``distributed``.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -184,7 +213,9 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
+import shutil
 import signal
 import statistics
 import struct
@@ -1440,6 +1471,7 @@ def write_corpus(root: Path, cfg: dict, rng, speakers=("default",),
 
 
 TRAIN_STEPS = 8
+PHASE11_STEP8 = "phase11_step8"  # a copy of phase 11's step=8/, before later runs prune it
 RESUME_STEPS = 12  # the preempted run and its resume go on to here
 TIMED_STEPS = 12  # each timing run's steps
 SAVE_EVERY = 3  # in the timing run with async saves among its steps
@@ -1578,6 +1610,7 @@ def phase_train(workdir: Path) -> dict:
     newest = latest_checkpoint(ckpt_dir)
     check(newest is not None and newest.name == f"step={TRAIN_STEPS}", f"newest {newest}")
     check(not list(ckpt_dir.glob("*.tmp")), "a .tmp checkpoint was left")
+    shutil.copytree(newest, workdir / PHASE11_STEP8)  # phase 29's one-process reference
     check(read_meta(newest)["global_step"] == TRAIN_STEPS, "meta.json global_step")
     kept = sorted(p.name for p in ckpt_dir.iterdir())
     log(f"train: {TRAIN_STEPS} steps in {wall:.1f} s (model build, loader, validations and "
@@ -1613,6 +1646,7 @@ def phase_train(workdir: Path) -> dict:
     timing = _trainer_timings(cfg, workdir)
     return dict(launches=tl, validation_launches=vl,
                 ms_per_step=statistics.median(r["ms"] for r in rows[2:]), peak_gib=peak_gib,
+                totals=[r["total"] for r in rows],
                 shapes=[r["shape"] for r in rows], step_ms=[r["ms"] for r in rows],
                 timing=timing)
 
@@ -4446,6 +4480,637 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
                            low_latency_s=low[2]))
 
 
+DIST_STEPS = 4  # each two-rank run's steps (phase 29)
+DIST_WARMUP = 30  # Noam rates 3.3e-5 .. 1e-4 over them, 33 to 100 times DIST_ATOL
+DIST_RTOL, DIST_ATOL = 1e-5, 1e-6  # tests/test_torch_parallel.py's tolerance
+# the losses, grad norms and Adam moments: the card's f32 kernels sum a
+# rank's 8 rows in another order than one process's 16 (1.3e-5 of the grad
+# norm in one run), so these are held to the port-against-JAX f32 tolerance
+# (tests/test_torch_train_step.py); the CPU tests hold them to 1e-5
+DIST_MOMENT_RTOL = 1e-4
+# the first update, tensor by tensor (the tests' limit), and the share of
+# elements left out of it as zero to rounding. The share bounds what the
+# update check sees, not what it catches: at step=1/ the elements left out
+# follow from the gradients alone, which no fault of the update moves and
+# the moment check holds on every element. The card's f32 sums of a rank's
+# rows leave out 3.8 % at data=2 (0.04 % between two one-process runs), the
+# CPU tests' tiny model 0.1-0.3 %.
+DIST_UPDATE_RTOL, DIST_LEFT_OUT = 1e-3, 0.1
+# a run may differ from one process by this many times what a second
+# one-process run differs from the first (A' sums dQ with atomics)
+DIST_SPREAD = 4.0
+# the floor under that spread where a run is held by it: relative, far below
+# what a wrong gradient moves (a sum taken as a mean halves it)
+DIST_FLOOR = 1e-4
+DIST_LAUNCHES = {"attention_fwd": 8, "attention_bwd": 8, "mas_width1": 1, "ctc_alpha": 0,
+                 "ctc_alpha_beta": 1, "ctc_grad": 1}  # each rank, each step
+
+
+def _dist_config(workdir: Path, version: str, dtype: str = "float32", **training) -> Path:
+    """Phase 11's config (its corpus and buckets, global B 16) with `dtype`,
+    its own log directory and `training` overrides; returns its path."""
+    cfg = json.loads((workdir / "config.json").read_text())
+    cfg["model"]["dtype"] = dtype
+    cfg["training"].update(training)
+    cfg["training"]["logger"]["version"] = version
+    path = workdir / f"config_{version}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _skip_update(optimizer) -> None:
+    """The planted fault: the optimizer updates its moments and leaves the
+    parameters as they were."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.training.state import AdamWNoam
+
+    optimizer._adam = lambda *a: torch.zeros_like(AdamWNoam._adam(optimizer, *a))
+
+
+def _dist_fit(config_path: Path, model_parallel: int, steps: int, fault: str = "") -> dict:
+    """Trainer.fit on the current card under the current process group (or
+    none), the training counters set to 0 before and read after; the rows,
+    the launches of training and validation apart, the peak memory and the
+    initial weights (on the host)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.training.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(FastSpeech2Config.from_file(config_path), device="cuda:0",
+                      model_parallel=model_parallel)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+    if fault == "skip_update":
+        _skip_update(trainer.optimizer)
+    rows = []
+    tl, vl = _train_and_validation_launches(lambda: rows.extend(trainer.fit(max_steps=steps)))
+    torch.cuda.synchronize()
+    return dict(rows=rows, train_launches=tl, validation_launches=vl,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                moments_numel=sum(m.numel() for m in trainer.optimizer.mu), init=init)
+
+
+def _dist_worker(rank: int, world: int, runs: list, model_parallel: int) -> list:
+    """One rank of two-process runs on the one card (gloo): each (config
+    path, fault) of `runs` in turn."""
+    import gc
+
+    sys.path.insert(0, str(HERE))
+    out = []
+    for path, fault in runs:
+        r = _dist_fit(Path(path), model_parallel, DIST_STEPS, fault)
+        r.pop("init")  # the one-process run's is every run's
+        out.append(r)
+        gc.collect()  # the run's trainer goes before the next one's peak is read
+    return out
+
+
+def _dist_step_dir(config_path: Path, step: int) -> Path:
+    cfg = json.loads(config_path.read_text())
+    lg = cfg["training"]["logger"]
+    return config_path.parent / lg["save_dir"] / lg["name"] / lg["version"] / "checkpoints" / \
+        f"step={step}"
+
+
+def _step_state(step_dir: Path) -> dict:
+    """The weights (with the buffers), EMA, Adam moments and update count of
+    a step=N/ directory, on the host."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import load_train_state
+
+    out = load_train_state(step_dir)
+    out["weights"] = torch.load(step_dir / "model.ckpt", map_location="cpu",
+                                weights_only=False)["state_dict"]
+    out["ema"] = out["ema"] or {}
+    return out
+
+
+def _max_abs(a: dict, b: dict) -> dict:
+    """{part: max |a - b|} over the weights, buffers, EMA and moments."""
+    names = set(b["mu"])
+    pairs = {"parameters": [k for k in b["weights"] if k in names],
+             "buffers": [k for k in b["weights"] if k not in names]}
+    out = {}
+    for part, keys in pairs.items():
+        out[part] = max((float((a["weights"][k].double() - b["weights"][k].double()).abs().max())
+                         for k in keys if b["weights"][k].numel()), default=0.0)
+    for part in ("ema", "mu", "nu"):
+        out[part] = max((float((a[part][k].double() - b[part][k].double()).abs().max())
+                         for k in b[part] if b[part][k].numel()), default=0.0)
+    return out
+
+
+def _update_figures(a: dict, b: dict, init: dict) -> dict:
+    """The update since `init` of `a` against `b`'s, tensor by tensor over
+    the elements whose first moments the two agree on (``settled``), for
+    the weights and the EMA: {part: ({name: (rel-L2, left out, elements)},
+    keep)}."""
+    from fastspeech2_lightning_tpu_torch.parallel.launch import settled, update_errors
+
+    keep = settled([(a["mu"], b["mu"])])
+    out = {}
+    for part in ("weights", "ema"):
+        names = [k for k in b["mu"] if k in b[part]]
+        out[part] = (update_errors({k: a[part][k].double() - init[k].double() for k in names},
+                                   {k: b[part][k].double() - init[k].double() for k in names},
+                                   keep), keep)
+    return out
+
+
+def _f32_problems(got: dict, want: dict, again: dict, init: dict) -> list:
+    """What keeps `got` (step=N/ of W ranks, f32) from being `want`'s (one
+    process), each limit plus DIST_SPREAD x what `again` (a second one-process
+    run) differs from `want` in the same measure:
+
+    - the Adam moments element by element, rtol 1e-4 / atol 1e-6;
+    - the update since the initial weights, and the EMA's, tensor by tensor
+      within rel-L2 1e-3, and the weights and EMA element by element within
+      rtol 1e-5 / atol 1e-6, on the elements whose first moments agree to
+      1e-3 relative (``parallel.launch.settled``: Adam turns the sign of a
+      gradient that is zero to rounding into a step of the full rate), at
+      most 1 % of the elements left out;
+    - the buffers, rtol 1e-5 / atol 1e-6, but the running means of the
+      BatchNorms that follow a conv bias (such a bias's gradient is zero to
+      rounding, and the mean moves with it): twice the rates summed."""
+    from fastspeech2_lightning_tpu_torch.training.state import noam_lr
+
+    problems = []
+    if got["count"] != want["count"]:
+        return [f"update counts {got['count']} and {want['count']}"]
+
+    def check_elements(part, k, d, limit):
+        bad = d > limit
+        if bool(bad.any()):
+            problems.append(f"{part} {k}: {int(bad.sum())} of {d.numel()} elements off by up "
+                            f"to {float(d.max()):.3g}")
+
+    for part in ("mu", "nu"):
+        for k, w in want[part].items():
+            spread = float((again[part][k].double() - w.double()).abs().max())
+            check_elements(part, k, (got[part][k].double() - w.double()).abs(),
+                           DIST_ATOL + DIST_MOMENT_RTOL * w.double().abs()
+                           + DIST_SPREAD * spread)
+    figures, own = _update_figures(got, want, init), _update_figures(again, want, init)
+    for part in ("weights", "ema"):
+        errors, keep = figures[part]
+        own_errors, own_keep = own[part]
+        left = sum(e[1] for e in errors.values()) / max(sum(e[2] for e in errors.values()), 1)
+        if left > DIST_LEFT_OUT:
+            problems.append(f"{part}: {left:.3g} of the elements left out as zero to rounding")
+        for k, (err, _, _) in errors.items():
+            if err > DIST_UPDATE_RTOL + DIST_SPREAD * own_errors[k][0]:
+                problems.append(f"{part} {k}: update rel-L2 {err:.3g} (one process against "
+                                f"itself {own_errors[k][0]:.3g})")
+            w = want[part][k].double()
+            spread = (again[part][k].double() - w).abs()[own_keep[k]]
+            spread = float(spread.max()) if spread.numel() else 0.0
+            d = (got[part][k].double() - w).abs()[keep[k]]
+            check_elements(part, k, d, DIST_ATOL + DIST_RTOL * w.abs()[keep[k]]
+                           + DIST_SPREAD * spread)
+    rates = sum(noam_lr(1e-3, DIST_WARMUP, k) for k in range(want["count"]))
+    after_bias = re.compile(r".*(conv_module\.sequential\.3|postnet\.convolutions\.\d\.1)"
+                            r"\.running_mean$")
+    for k, w in want["weights"].items():
+        if k in want["mu"]:
+            continue
+        w = w.double()
+        spread = float((again["weights"][k].double() - w).abs().max()) if w.numel() else 0.0
+        check_elements("buffer", k, (got["weights"][k].double() - w).abs(),
+                       DIST_ATOL + (2 * rates if after_bias.match(k) else 0.0)
+                       + DIST_RTOL * w.abs() + DIST_SPREAD * spread)
+    return problems
+
+
+def _update_summary(got: dict, want: dict, init: dict) -> dict:
+    figures = _update_figures(got, want, init)
+    out = {}
+    for part, (errors, _) in figures.items():
+        out[f"{part}_update_rel_l2"] = max(e[0] for e in errors.values())
+        out[f"{part}_left_out"] = (sum(e[1] for e in errors.values())
+                                   / sum(e[2] for e in errors.values()))
+    return out
+
+
+def _spread_figures(got: dict, want: dict, init: dict, got_norms: list,
+                    want_norms: list) -> dict:
+    """A run against another: the relative difference of each step's grad
+    norm, and, tensor by tensor, the rel-L2 of the first moments and of the
+    update since the initial weights (every element)."""
+    import numpy as np
+
+    from fastspeech2_lightning_tpu_torch.parallel.launch import update_errors
+
+    names = list(want["mu"])
+    every = {k: np.ones(tuple(want["mu"][k].shape), bool) for k in names}
+    mu = update_errors(got["mu"], want["mu"], every)
+    update = update_errors({k: got["weights"][k].double() - init[k].double() for k in names},
+                           {k: want["weights"][k].double() - init[k].double() for k in names},
+                           every)
+    return {"grad_norm": [abs(g - w) / abs(w) for g, w in zip(got_norms, want_norms)],
+            "mu": {k: e[0] for k, e in mu.items()},
+            "update": {k: e[0] for k, e in update.items()}}
+
+
+def _spread_problems(name: str, got: dict, own: dict) -> list:
+    """A run's figures (``_spread_figures`` against one process) each within
+    DIST_SPREAD times a second one-process run's (`own`) plus DIST_FLOOR. A
+    figure of `own` is one sample of the run-to-run noise, so each is
+    floored at the median of its family (a predictor's output bias is one
+    element): each step's grad norm against own's largest up to that step
+    (two runs drift apart as they go), the first moments and the updates
+    tensor by tensor. A gradient summed where it should be averaged, or
+    left unsummed, moves them by far more."""
+    def limit(value, family):
+        return DIST_SPREAD * max(value, statistics.median(family)) + DIST_FLOOR
+
+    problems = []
+    norms = own["grad_norm"]
+    for step, d in enumerate(got["grad_norm"], 1):
+        lim = limit(max(norms[:step]), norms)
+        if d > lim:
+            problems.append(f"{name} step {step} grad norm {d:.3g} relative (limit {lim:.3g})")
+    for part in ("mu", "update"):
+        family = list(own[part].values())
+        for k, err in got[part].items():
+            if err > limit(own[part][k], family):
+                problems.append(f"{name} {part} {k}: rel-L2 {err:.3g} (one process against "
+                                f"itself {own[part][k]:.3g}, median "
+                                f"{statistics.median(family):.3g})")
+    return problems
+
+
+def _spread_summary(got: dict, own: dict) -> dict:
+    """The figures of a run against ``_spread_problems``' limits, each worst
+    one as a share of its limit (1 is the limit)."""
+    def share(part):
+        med = statistics.median(own[part].values())
+        return max(e / (DIST_SPREAD * max(own[part][k], med) + DIST_FLOOR)
+                   for k, e in got[part].items())
+
+    return {"grad_norm_rel": got["grad_norm"], "own_grad_norm_rel": own["grad_norm"],
+            "mu_share_of_limit": share("mu"), "update_share_of_limit": share("update")}
+
+
+def _fmt(values: list) -> str:
+    return "[" + ", ".join(f"{v:.3g}" for v in values) + "]"
+
+
+def _cli_train(config: Path, steps: int, world: int = 0) -> subprocess.Popen:
+    """`train` through the CLI in a subprocess from the config's folder: one
+    process, or `world` ranks of ``train --distributed`` through torchrun
+    over NCCL, with PyTorch's defaults (cuDNN on TF32)."""
+    from fastspeech2_lightning_tpu_torch.parallel.launch import free_port
+
+    env = {**os.environ, "PYTHONPATH": str(HERE)}
+    cmd = [sys.executable, "-m", PORT, "train", str(config), "--max-steps", str(steps)]
+    if world:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+               "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+               *cmd[1:], "--distributed"]
+    return subprocess.Popen(cmd, env=env, cwd=str(config.parent), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc: subprocess.Popen, what: str, steps: int, timeout: float = 900) -> None:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{what} outlived {timeout} s")
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{err[-3000:]}")
+    check(out.count(f"trained {steps} steps") == 1, f"{what} printed {out[-2000:]}")
+
+
+def _initial_weights(config_path: Path) -> dict:
+    """The weights a Trainer of this config starts from (the seed's), on
+    the host."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.training.loop import Trainer
+
+    trainer = Trainer(FastSpeech2Config.from_file(config_path), device="cuda:0")
+    init = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    return init
+
+
+def _f32_reference(workdir: Path) -> dict:
+    """Two one-process f32 runs of phase 11's model and corpus, in this
+    process, DIST_STEPS steps at Noam rates 3.3e-5 to 1e-4 with a validation
+    and a checkpoint after every step (TF32 off): the reference a W-rank f32
+    run is held to and the second run's spread from it. Their training
+    overrides, rows, initial weights and step=1/ and last step's state."""
+    training = dict(val_check_interval=1, async_checkpoint=False,
+                    save_top_k_ckpts=DIST_STEPS + 1, ckpt_epochs=0)
+    training["optimizer"] = {**json.loads((workdir / "config.json").read_text())["training"]
+                             ["optimizer"], "warmup_steps": DIST_WARMUP}
+    paths = [_dist_config(workdir, version, **training)
+             for version in ("one_f32", "one_f32_again")]
+    one, again = (_dist_fit(p, 1, DIST_STEPS) for p in paths)
+    init = one.pop("init")
+    again.pop("init")
+    want, own = ([_step_state(_dist_step_dir(p, s)) for s in (1, DIST_STEPS)] for p in paths)
+    norms = [[r["grad_norm"] for r in run["rows"]] for run in (one, again)]
+    return dict(training=training, one=one, again=again, init=init, want=want, own=own,
+                own_figures=_spread_figures(own[1], want[1], init, norms[1], norms[0]))
+
+
+def _hold_f32(name: str, config: Path, ranks_rows: list, reference: dict) -> dict:
+    """A W-rank f32 run held to the one-process reference (``_f32_reference``)
+    at step=1/, where both start from the same weights, so its update must
+    be one process's (``_f32_problems``), and by its first step's losses
+    and grad norm on each rank (`ranks_rows`, each rank's train rows)
+    within rtol 1e-4 / atol 1e-6 plus DIST_SPREAD x the second run's
+    distance. After the first step the runs drift apart: Adam's full-rate
+    steps on gradients that are zero to rounding, and the alignment
+    search's choices, which set the pitch and energy targets, amplify the
+    summation order. The last step's figures against one process, and the
+    second run's, are reported, not held (finite losses only)."""
+    want, own, init = reference["want"], reference["own"], reference["init"]
+    got = [_step_state(_dist_step_dir(config, s)) for s in (1, DIST_STEPS)]
+    problems = _f32_problems(got[0], want[0], own[0], init)
+    one, again = reference["one"]["rows"], reference["again"]["rows"]
+    for rank, rows in enumerate(ranks_rows):
+        check(len(rows) == DIST_STEPS and all(
+            math.isfinite(r[k]) for r in rows for k in LOSS_KEYS + ("grad_norm",) if k in r),
+            f"{name} rank {rank}: {rows}")
+        for k in [k for k in LOSS_KEYS + ("grad_norm",) if k in one[0]]:
+            if not math.isclose(rows[0][k], one[0][k], rel_tol=DIST_MOMENT_RTOL,
+                                abs_tol=DIST_ATOL + DIST_SPREAD * abs(again[0][k] - one[0][k])):
+                problems.append(f"{name} rank {rank} step 1 {k}: {rows[0][k]} against "
+                                f"{one[0][k]}")
+    check(not problems, f"{name} against one process: {problems[:8]}")
+    figures = _spread_figures(got[1], want[1], init, [r["grad_norm"] for r in ranks_rows[0]],
+                              [r["grad_norm"] for r in one])
+    return dict(step1=dict(_max_abs(got[0], want[0]), **_update_summary(got[0], want[0], init)),
+                last=dict(_spread_summary(figures, reference["own_figures"]),
+                          max_abs=_max_abs(got[1], want[1])))
+
+
+def _bf16_reference(workdir: Path) -> dict:
+    """Two one-process runs of phase 11's config (bf16, B 16, 8 steps)
+    through the CLI, side by side on the card, in the environment the
+    torchrun runs get: the reference a bf16 distributed run is held to, and
+    the second one's spread from it (A' sums dQ with atomics, so no two runs
+    on the card are equal). Their state, grad norms and initial weights."""
+    paths = [_dist_config(workdir, version, dtype="bfloat16")
+             for version in ("one_bf16", "one_bf16_again")]
+    procs = [_cli_train(p, TRAIN_STEPS) for p in paths]
+    for p, proc in zip(paths, procs):
+        _finish(proc, f"train {p.name}", TRAIN_STEPS)
+    ref, again = (_step_state(_dist_step_dir(p, TRAIN_STEPS)) for p in paths)
+    norms = [[r["grad_norm"] for r in _rows(_dist_step_dir(p, TRAIN_STEPS).parents[1]
+                                            / "train_log.jsonl")] for p in paths]
+    init = _initial_weights(paths[0])
+    own = _spread_figures(again, ref, init, norms[1], norms[0])
+    return dict(state=ref, norms=norms[0], init=init, own=own)
+
+
+def _hold_bf16(name: str, config: Path, reference: dict) -> dict:
+    """A bf16 distributed run's step=8/ held to the one-process reference
+    (``_bf16_reference``, ``_spread_problems``); its figures."""
+    step_dir = _dist_step_dir(config, TRAIN_STEPS)
+    got = _step_state(step_dir)
+    norms = [r["grad_norm"] for r in _rows(step_dir.parents[1] / "train_log.jsonl")]
+    figures = _spread_figures(got, reference["state"], reference["init"], norms,
+                              reference["norms"])
+    problems = _spread_problems(name, figures, reference["own"])
+    check(not problems, "; ".join(problems[:8]))
+    return dict(_spread_summary(figures, reference["own"]),
+                max_abs=_max_abs(got, reference["state"]))
+
+
+def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
+    """Phase 29: data- and tensor-parallel training on the card.
+
+    (i) ``python -m torch.distributed.run --nproc_per_node 1 -m
+    fastspeech2_lightning_tpu_torch train --distributed`` over NCCL, phase
+    11's config (bf16, B 16) for 8 steps, held to a one-process CLI run of
+    the same config in the same environment (``_hold_bf16``: grad norms,
+    first moments and updates within 4 x a second one-process run's spread
+    from the first, floored at that spread's median, plus 1e-4), its max-abs from phase 11's step=8/ and its
+    ms a step beside phase 11's. (ii) two processes on the one card through
+    the Python API over gloo (NCCL refuses two ranks on one device): data=2,
+    model=2, and data=2 with the ZeRO-1 optimizer, 4 steps each in f32 at
+    Noam rates 3.3e-5 to 1e-4 from phase 11's corpus, held to a one-process
+    f32 run (``_hold_f32``: step=1/ element by element and by its update,
+    step=4/ reported beside a second one-process run's distance),
+    the launches on each rank a step, the peak memory with ZeRO-1 and
+    without; and a ZeRO-1 run with a planted fault (its parameters left as
+    they were) that the step=1/ hold must refuse. (iii) kernels A and A'
+    at the dropout offsets the two-rank runs pass them, against their plain
+    versions."""
+    from fastspeech2_lightning_tpu_torch.parallel.launch import run_local
+    from fastspeech2_lightning_tpu_torch.training.state import noam_lr
+
+    out = {"card": smi}
+    # (i) torchrun, world 1, NCCL, held to one process in the same environment
+    reference = _bf16_reference(workdir)
+    cfg_i = _dist_config(workdir, "torchrun", dtype="bfloat16")
+    t0 = time.time()
+    _finish(_cli_train(cfg_i, TRAIN_STEPS, world=1), "torchrun train --distributed",
+            TRAIN_STEPS)
+    wall = time.time() - t0
+    rows = _rows(_dist_step_dir(cfg_i, TRAIN_STEPS).parents[1] / "train_log.jsonl")
+    check([r["step"] for r in rows] == list(range(1, TRAIN_STEPS + 1)), f"rows {rows}")
+    held = _hold_bf16("torchrun", cfg_i, reference)
+    opt = json.loads(cfg_i.read_text())["training"]["optimizer"]
+    b1, b2 = opt["betas"]
+    # reported only: an Adam step moves a weight by at most (1 - b1) /
+    # sqrt(1 - b2) times the rate, so any two runs stay within twice that
+    bound = 2 * (1 - b1) / math.sqrt(1 - b2) * sum(
+        noam_lr(opt["learning_rate"], opt["warmup_steps"], k) for k in range(TRAIN_STEPS))
+    p11 = _max_abs(_step_state(_dist_step_dir(cfg_i, TRAIN_STEPS)),
+                   _step_state(workdir / PHASE11_STEP8))
+    loss_rel = max(abs(r["total"] - w) / abs(w) for r, w in zip(rows, phase11["totals"]))
+    ms = statistics.median(r["ms"] for r in rows[2:])
+    out["torchrun"] = dict(wall_s=wall, ms_per_step=ms, phase11_ms_per_step=phase11["ms"],
+                           held=held, phase11_max_abs=p11, phase11_loss_rel=loss_rel,
+                           adam_bound=bound)
+    log(f"phase 29 (i): torchrun --nproc_per_node 1 train --distributed (NCCL, bf16, B 16): "
+        f"{TRAIN_STEPS} steps in {wall:.1f} s wall, median {ms:.1f} ms a step against phase "
+        f"11's {phase11['ms']:.1f}; against one process in the same environment: grad norms "
+        f"{_fmt(held['grad_norm_rel'])} relative step by step (one process against itself "
+        f"{_fmt(held['own_grad_norm_rel'])}), first moments and updates at "
+        f"{held['mu_share_of_limit']:.3g} and {held['update_share_of_limit']:.3g} of their "
+        f"limits; against phase 11's step=8/: parameters max-abs {p11['parameters']:.3g} "
+        f"(Adam's bound {bound:.3g}), mu {p11['mu']:.3g}, losses {loss_rel:.3g} relative "
+        f"({smi})")
+
+    # (ii) two ranks on the one card over gloo, f32
+    reference = _f32_reference(workdir)
+    want, own, init = reference["want"], reference["own"], reference["init"]
+    out["one_process_against_itself"] = dict(
+        step1=dict(_max_abs(own[0], want[0]), **_update_summary(own[0], want[0], init)),
+        last=dict(max_abs=_max_abs(own[1], want[1]), grad_norm_rel=reference["own_figures"]
+                  ["grad_norm"]))
+    log(f"phase 29 (ii): one f32 process against itself: {out['one_process_against_itself']}")
+    results = {}
+    for mp, names in ((1, ("data2", "data2_zero1", "data2_zero1_skips_update")),
+                      (2, ("model2",))):
+        runs_ = [(str(_dist_config(workdir, name, **reference["training"],
+                                   fused_optimizer="zero1" in name)),
+                  "skip_update" if name.endswith("skips_update") else "") for name in names]
+        t0 = time.time()
+        ranks = run_local(_dist_worker, 2, runs_, mp, timeout_s=900.0)
+        wall = time.time() - t0
+        for i, (name, (path, _)) in enumerate(zip(names, runs_)):
+            results[name] = (Path(path), [r[i] for r in ranks], wall)
+    # the planted fault: moments as they should be, the parameters as they were
+    path, _, _ = results.pop("data2_zero1_skips_update")
+    faulty = _f32_problems(_step_state(_dist_step_dir(path, 1)), want[0], own[0], init)
+    updates = sum("update rel-L2" in p for p in faulty)
+    check(updates > 0, f"a ZeRO-1 run that leaves its parameters as they were passed the "
+          f"update comparison: {faulty[:4]}")
+    out["planted_fault"] = dict(name="data2_zero1_skips_update", findings=len(faulty),
+                                updates=updates, first=faulty[:3])
+    log(f"phase 29 (ii): a ZeRO-1 run that updates its moments and leaves its parameters as "
+        f"they were is refused at step=1/ ({len(faulty)} findings, {updates} of them "
+        f"updates; first: {faulty[0]})")
+    one = reference["one"]
+    runs = {}
+    for name in ("data2", "model2", "data2_zero1"):
+        path, ranks, wall = results[name]
+        held = _hold_f32(name, path, [r["rows"] for r in ranks], reference)
+        for rank, r in enumerate(ranks):
+            per_step = {k: v / DIST_STEPS for k, v in r["train_launches"].items()}
+            check(per_step == DIST_LAUNCHES, f"{name} rank {rank}: launches a step {per_step}, "
+                  f"want {DIST_LAUNCHES}")
+            check(all(r["validation_launches"][k] > 0 for k in
+                      ("attention_fwd", "mas_width1", "ctc_alpha")),
+                  f"{name} rank {rank}: validation launches {r['validation_launches']}")
+        runs[name] = dict(wall_s=wall, held=held, peak_gib=[r["peak_gib"] for r in ranks],
+                          moments_numel=[r["moments_numel"] for r in ranks],
+                          ms_per_step=[statistics.median(x["ms"] for x in r["rows"][1:])
+                                       for r in ranks],
+                          launches=[r["train_launches"] for r in ranks],
+                          validation_launches=[r["validation_launches"] for r in ranks])
+        s1, last = held["step1"], held["last"]
+        log(f"phase 29 (ii) {name} (2 ranks, gloo, f32, B 16): {DIST_STEPS} steps, the "
+            f"two-rank call {wall:.1f} s wall; step=1/ against one process: update rel-L2 "
+            f"{s1['weights_update_rel_l2']:.3g} ({s1['weights_left_out']:.3g} of the "
+            f"elements left out), parameters max-abs {s1['parameters']:.3g}, mu "
+            f"{s1['mu']:.3g}; step={DIST_STEPS}/: grad norms {_fmt(last['grad_norm_rel'])} "
+            f"relative (one process against itself {_fmt(last['own_grad_norm_rel'])}), "
+            f"worst first moments and update at {last['mu_share_of_limit']:.3g} and "
+            f"{last['update_share_of_limit']:.3g} of the bf16 hold's limits (reported); peak "
+            f"{', '.join(f'{g:.2f}' for g in runs[name]['peak_gib'])} GiB; launches a step "
+            f"{DIST_LAUNCHES} on each rank ({smi})")
+    n = one["moments_numel"]
+    check(runs["data2_zero1"]["moments_numel"] == [-(-n // 2)] * 2,
+          f"ZeRO-1 moments {runs['data2_zero1']['moments_numel']} of {n}")
+    out.update(one_process=dict(peak_gib=one["peak_gib"], moments_numel=n,
+                                ms_per_step=statistics.median(r["ms"] for r in one["rows"][1:])),
+               runs=runs, note="two ranks share one card: correctness runs, not a scaling "
+               "figure")
+    log(f"phase 29 (ii): one process f32 peak {one['peak_gib']:.2f} GiB; data=2 peak "
+        f"{max(runs['data2']['peak_gib']):.2f} GiB a rank, with ZeRO-1 "
+        f"{max(runs['data2_zero1']['peak_gib']):.2f} ({n} moment elements a tensor in one "
+        f"process, {-(-n // 2)} a rank with ZeRO-1) ({smi})")
+
+    # (iii) A and A' at the offsets the ranks pass, against the plain versions
+    out["kernels"] = _offset_kernels()
+    out["dropout_draw"] = _dropout_draw_ms(smi)
+    out["launches"] = {k: sum(x[k] for run in runs.values()
+                              for part in ("launches", "validation_launches") for x in run[part])
+                       for k in DIST_LAUNCHES}
+    return out
+
+
+def _dropout_draw_ms(smi: str) -> dict:
+    """Wall and kernel ms of ``fast_dropout`` on a data rank's [8, 2016,
+    1024] bf16 block of the top bucket's FFN activations: drawing the global
+    batch's bits (the distributed path) against drawing the block's own
+    (one process on 8 rows). The call copies its scale to the card, so its
+    device time is the sum of its kernels in a profiler trace
+    (``kernels_ms``), not ``device_ms``."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.models.layers import fast_dropout
+    from fastspeech2_lightning_tpu_torch.parallel import ParallelLayout, use_layout
+
+    x = torch.randn(8, 2016, 1024, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"shape": [8, 2016, 1024]}
+    for name, lay in (("local", ParallelLayout()),
+                      ("global", ParallelLayout(world_size=2, rank=1, data_size=2,
+                                                data_rank=1))):
+        with use_layout(lay):
+            out[f"{name}_draw_ms"] = time_ms(lambda: fast_dropout(x, 0.2, gen))
+            out[f"{name}_draw_kernels_ms"] = kernels_ms(lambda: fast_dropout(x, 0.2, gen))
+    log(f"phase 29: fast_dropout on a rank's [8, 2016, 1024] bf16 block: wall "
+        f"{out['global_draw_ms']:.4f} ms drawing the global batch's bits, "
+        f"{out['local_draw_ms']:.4f} drawing its own; kernels {out['global_draw_kernels_ms']} "
+        f"and {out['local_draw_kernels_ms']} ({smi})")
+    return out
+
+
+def _offset_kernels() -> list:
+    """Kernels A and A' on each rank's inputs of the two-rank runs' top
+    bucket, at its dropout offsets, against the plain versions (f32 and
+    bf16, p 0.2), and the mask each kernel draws read back bit for bit
+    (q = k = 0, one-hot values and output gradients)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops import attention
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        attention_bwd, attention_dropout_reference, dropout_keep_mask,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    seed = torch.tensor([-2024], dtype=torch.int32, device="cuda")
+    rows = []
+    # (B, H, row_offset, head_offset): data=2 rank 1 and model=2 rank 1 of a
+    # global (16, 2) batch of phase 11's top bucket
+    for B, H, r0, h0 in ((8, 2, 8, 0), (16, 1, 0, 1)):
+        T, dh = 2016, 128
+        bias, _ = _ragged_bias(B, T, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(dtype)
+                           for _ in range(4))
+            o, lse = attention._launch_fwd(q, k, v, bias, dh ** -0.5, 0.2, seed, True, r0, h0, 2)
+            grads = attention_bwd(q, k, v, bias, seed, 0.2, dh ** -0.5, o, lse, do, r0, h0, 2)
+            torch.cuda.synchronize()
+            qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+            want = attention_dropout_reference(qf, kf, vf, bias, seed, 0.2, dh ** -0.5, r0, h0,
+                                               2)
+            wgrads = torch.autograd.grad(want, (qf, kf, vf), do.float())
+            limit = 1e-5 if dtype == torch.float32 else 2e-2
+            fwd_abs, fwd_rel = errors(o, want.detach())
+            bwd = [errors(a, b) for a, b in zip(grads, wgrads)]
+            check(fwd_rel <= limit and all(r <= limit for _, r in bwd),
+                  f"A/A' at offsets ({r0}, {h0}, 2) {dtype}: forward rel {fwd_rel:.3g}, "
+                  f"backward rel {[r for _, r in bwd]}")
+            rows.append(dict(shape=[B, H, T, dh], offsets=[r0, h0, 2], dtype=str(dtype),
+                             fwd_max_abs=fwd_abs, fwd_rel=fwd_rel,
+                             bwd_max_abs=max(a for a, _ in bwd),
+                             bwd_rel=max(r for _, r in bwd)))
+            del q, k, v, do, o, lse, grads, qf, kf, vf, want, wgrads
+    # the masks, bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        eye = torch.eye(128, device="cuda", dtype=dtype).expand(2, 1, 128, 128).contiguous()
+        zero = torch.zeros_like(eye)
+        bias = torch.zeros(2, 128, device="cuda")
+        o, lse = attention._launch_fwd(zero, zero, eye, bias, 0.1, 0.2, seed, True, 8, 1, 2)
+        _, _, dv = attention_bwd(zero, zero, eye, bias, seed, 0.2, 0.1, o, lse, eye, 8, 1, 2)
+        whole = dropout_keep_mask(int(seed), 10, 2, 128, 0.2, device="cuda")[8:, 1:]
+        check(torch.equal(o != 0, whole) and torch.equal(dv != 0, whole.transpose(-1, -2)),
+              f"the {dtype} kernels' masks at offsets (8, 1, 2) are not the global mask's block")
+    log(f"phase 29 (iii): A and A' at the ranks' offsets against their plain versions: "
+        + "; ".join(f"{r['dtype']} {r['shape']} at {r['offsets']}: forward rel "
+                    f"{r['fwd_rel']:.2e}, backward rel {r['bwd_rel']:.2e}" for r in rows)
+        + "; both kernels' masks at (8, 1, 2) are the global mask's block, bit for bit")
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -4490,6 +5155,8 @@ def main() -> None:
         tools = phase_tools(Path(workdir), pre)
         exported = phase_export_serving(Path(workdir), smi)
         yaml_media = phase_yaml_media(Path(workdir), vocoder_npz, smi)
+        dist = phase_distributed(Path(workdir), {"totals": train["totals"],
+                                                 "ms": train["ms_per_step"]}, smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -4511,6 +5178,7 @@ def main() -> None:
         if name in ("attention_fwd", "mas_width1"):
             paths.update({f"benchmark_{mode}": run["launches"][name]
                           for mode, run in tools["benchmark"].items()})
+        paths["distributed"] = dist["launches"][name]
         if name == "attention_fwd":
             paths["exported_serving"] = sum(run["launches"][name]
                                             for run in exported["runs"].values())
@@ -4602,7 +5270,8 @@ def main() -> None:
                       "streaming": stream, "text_levels": levels,
                       "vocoder_training": {**voc, "trained": trained},
                       "preprocess": pre, "check_data": checked, "tools": tools,
-                      "export_serving": exported, "yaml_media": yaml_media}))
+                      "export_serving": exported, "yaml_media": yaml_media,
+                      "distributed": dist}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

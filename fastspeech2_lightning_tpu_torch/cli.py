@@ -115,11 +115,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="Resume from the newest step=N/ checkpoint of the run's "
                    "directory (default); --no-resume starts fresh.")
     t.add_argument("--model-parallel", type=int, default=1,
-                   help="Tensor-parallel axis size (not ported: above 1 raises).")
+                   help="Tensor-parallel axis size (ranks per model shard; needs "
+                   "--distributed and a world divisible by it).")
     t.add_argument("--distributed", action=argparse.BooleanOptionalAction, default=False,
-                   help="Multi-host training (not ported: raises).")
+                   help="Join the process group of a torchrun launch (or of the "
+                   "FS2T_COORDINATOR_ADDRESS, FS2T_NUM_PROCESSES and FS2T_PROCESS_ID "
+                   "variables): one device per process, NCCL on the cards, gloo with "
+                   "--device cpu.")
     t.add_argument("--device", default=None,
-                   help="'cuda' (default, the current card) or 'cpu'.")
+                   help="'cuda' (default, the current card; cuda:LOCAL_RANK with "
+                   "--distributed) or 'cpu'.")
     _config_args(t)
     t.set_defaults(command_parser=t)
     y = sub.add_parser(
@@ -566,6 +571,37 @@ def synthesize(args) -> None:
     print(f"Wrote outputs to {args.output_dir}", flush=True)
 
 
+def train_command(args) -> None:
+    """``train``; with ``--distributed`` one rank of a process group (one
+    device a process: the JAX package's one-process mesh over several
+    devices is ``torchrun --nproc_per_node N`` here)."""
+    from .parallel import init_distributed, layout
+    from .training.loop import Trainer
+
+    if args.model_parallel < 1:
+        args.command_parser.error("--model-parallel must be at least 1")
+    device, layout_args = args.device, {}
+    if args.distributed:
+        device = init_distributed(args.device)
+        layout_args = {"model_parallel": args.model_parallel}
+    elif args.model_parallel > 1:
+        args.command_parser.error(
+            f"--model-parallel {args.model_parallel} needs one process per device: launch "
+            f"with torchrun (torchrun --nproc_per_node N -m fastspeech2_lightning_tpu_torch "
+            f"train CONFIG --distributed --model-parallel {args.model_parallel})")
+    try:
+        trainer = Trainer(_load_config(args), device=device, **layout_args)
+        rows = trainer.fit(max_steps=args.max_steps, resume=args.resume)
+        if layout().is_main:
+            print(f"trained {len(rows)} steps; checkpoint {trainer.ckpt_path}", flush=True)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
     if args.command == "synthesize":
@@ -593,15 +629,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
         raise SystemExit(run_doctor(args.config, device_timeout_s=args.device_timeout))
     elif args.command == "train":
-        from .training.loop import Trainer
-
-        if args.model_parallel > 1 or args.distributed:
-            raise NotImplementedError("model-parallel and multi-host training are not ported "
-                                      "yet (later slice: data and model parallel)")
-
-        trainer = Trainer(_load_config(args), device=args.device)
-        rows = trainer.fit(max_steps=args.max_steps, resume=args.resume)
-        print(f"trained {len(rows)} steps; checkpoint {trainer.ckpt_path}", flush=True)
+        train_command(args)
     elif args.command == "serve":
         from .serving import serve
 

@@ -205,10 +205,13 @@ class EarlyStoppingConfig(_FromDict):
 @dataclasses.dataclass
 class TrainingConfig(_FromDict):
     """The JAX package's training section (``config/__init__.py:312-441``).
-    Like every key the port does not read, ``steps_per_call``,
-    ``fused_optimizer`` and ``prng_impl`` (the JAX trainer's dispatch,
-    optimizer layout and random-number generator; the port runs one step a
-    call, one per-parameter AdamW and torch generators) are ignored.
+    Like every key the port does not read, ``steps_per_call`` and
+    ``prng_impl`` (the JAX trainer's dispatch and random-number generator;
+    the port runs one step a call and torch generators) are ignored.
+    ``fused_optimizer`` runs AdamW over one flat parameter vector whose
+    moments are split over the data ranks (ZeRO-1, ``training/state.py``
+    ``ZeroAdamWNoam``); under tensor parallelism the trainer keeps
+    per-parameter moments, as the JAX trainer does.
     ``vocoder_path`` is the HiFiGAN checkpoint that vocodes the validation
     audio (``training/loop.py``), relative to the config file's folder."""
 
@@ -219,6 +222,7 @@ class TrainingConfig(_FromDict):
     val_check_interval: Optional[Union[int, float]] = 500  # float: a fraction of an epoch
     prefetch_batches: int = 2
     async_checkpoint: bool = False
+    fused_optimizer: bool = False
     finetune_checkpoint: Optional[str] = None
     early_stopping: EarlyStoppingConfig = dataclasses.field(default_factory=EarlyStoppingConfig)
     bucket_count: int = 4

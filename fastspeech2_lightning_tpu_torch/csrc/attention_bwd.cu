@@ -14,7 +14,8 @@
 // kernel runs: kv_end [B] int32 (as in attention_fwd.cu), D [B, H, T] f32,
 // and dq_acc [B, H, T, dh] f32 contiguous, zeroed there and summed into with
 // atomicAdd. The key bias gets no gradient. The keep mask is regenerated
-// from (seed, b*H + h, row, col) exactly as the forward drew it (common.cuh).
+// from (seed, stream, row, col) exactly as the forward drew it, at the same
+// (row_offset, head_offset, heads_total) (common.cuh dropout_stream).
 //
 // A block whose keys all lie at or past kv_end[b] writes dK = dV = 0 and
 // adds nothing to dQ: exact, since P is 0 in f32 for every key past the
@@ -208,7 +209,7 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int kr[2];
   float kbias[2];
   uint32_t kx[2];
-  const uint32_t key = DROP ? fs2::dropout_key(*drop.seed, static_cast<int>(bh)) : 0u;
+  const uint32_t key = DROP ? drop.key(b, h) : 0u;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     kr[r] = k0 + warp * 16 + g + 8 * r;
@@ -417,7 +418,7 @@ attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     return;
   }
 
-  const uint32_t key = drop.thresh ? fs2::dropout_key(*drop.seed, static_cast<int>(bh)) : 0u;
+  const uint32_t key = drop.thresh ? drop.key(b, h) : 0u;
   const float log_T = logf(static_cast<float>(T_len));
 
   const float* qb = q + b * qs.b + h * qs.h;
@@ -620,9 +621,11 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
                              long long d_sb, long long d_sh, long long d_st,
                              long long o_sb, long long o_sh, long long o_st,
                              float sm_scale, long long thresh, float keep_scale,
+                             int row_offset, int head_offset, int heads_total,
                              void* stream) {
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > 65536 || thresh < 0 || thresh > 0xffffffffLL ||
-      (thresh > 0 && seed == nullptr) || kv_end == nullptr)
+      (thresh > 0 && seed == nullptr) || kv_end == nullptr || row_offset < 0 ||
+      head_offset < 0 || head_offset + H > heads_total)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, o, static_cast<const float*>(key_bias),
                static_cast<int*>(kv_end), static_cast<const float*>(lse),
@@ -630,7 +633,8 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
                T_len, Strides{q_sb, q_sh, q_st}, Strides{k_sb, k_sh, k_st},
                Strides{v_sb, v_sh, v_st}, Strides{d_sb, d_sh, d_st},
                Strides{o_sb, o_sh, o_st}, sm_scale,
-               Dropout{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale},
+               Dropout{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale,
+                       row_offset, head_offset, heads_total},
                static_cast<cudaStream_t>(stream)};
   const bool dropout = thresh > 0;
   if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) || (dh != 64 && dh != 128))

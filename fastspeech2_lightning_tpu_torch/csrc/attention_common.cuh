@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace fs2 {
 namespace attn {
 
@@ -20,6 +22,12 @@ struct Dropout {
   const int* seed;  // device scalar; unread when thresh == 0
   uint32_t thresh;
   float keep_scale;  // 1 / (1 - p)
+  int row_offset, head_offset, heads_total;  // place (b, h) in the global batch
+
+  // the hash key of item b, head h (common.cuh dropout_stream)
+  __device__ __forceinline__ uint32_t key(int b, int h) const {
+    return dropout_key(*seed, dropout_stream(b, h, row_offset, head_offset, heads_total));
+  }
 };
 
 // kv_end[b] = one past item b's last key with bias > kNoKeyBias, or T when

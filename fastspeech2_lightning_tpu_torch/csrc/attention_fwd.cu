@@ -141,7 +141,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = q0 + warp * 16 + g;
   uint32_t rk[2] = {0u, 0u};
   if (DROP) {
-    const uint32_t key = fs2::dropout_key(*drop.seed, b * gridDim.y + h);
+    const uint32_t key = drop.key(b, h);
     rk[0] = (static_cast<uint32_t>(row0) << 16) ^ key;
     rk[1] = (static_cast<uint32_t>(row0 + 8) << 16) ^ key;
   }
@@ -306,7 +306,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
-  const uint32_t key = drop.thresh ? fs2::dropout_key(*drop.seed, b * gridDim.y + h) : 0u;
+  const uint32_t key = drop.thresh ? drop.key(b, h) : 0u;
 
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
@@ -456,14 +456,17 @@ extern "C" int attention_fwd(int dtype, const void* q, const void* k, const void
                              long long v_sb, long long v_sh, long long v_st,
                              long long o_sb, long long o_sh, long long o_st,
                              float sm_scale, long long thresh, float keep_scale,
+                             int row_offset, int head_offset, int heads_total,
                              void* stream) {
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st};
   const Strides vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || T_len <= 0 || T_len > 65536 || thresh < 0 || thresh > 0xffffffffLL ||
-      (thresh > 0 && seed == nullptr) || kv_end == nullptr)
+      (thresh > 0 && seed == nullptr) || kv_end == nullptr || row_offset < 0 ||
+      head_offset < 0 || head_offset + H > heads_total)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale};
+  const Dropout drop{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale,
+                     row_offset, head_offset, heads_total};
   const float* bias = static_cast<const float*>(key_bias);
   int* kend = static_cast<int*>(kv_end);
   float* l = static_cast<float*>(lse);

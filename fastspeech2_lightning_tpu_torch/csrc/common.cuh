@@ -25,10 +25,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Attention-probability dropout mask: a pure function of (seed, b*H + h,
+// Attention-probability dropout mask: a pure function of (seed, stream,
 // query row, key column), so the forward and backward kernels regenerate the
 // same mask whatever their tiling, and ops/attention.py dropout_keep_mask
-// reproduces it exactly. An element is kept iff its 32 bits >= threshold
+// reproduces it exactly. The stream of item b, head h is its global index
+// (b + row_offset) * heads_total + h + head_offset (dropout_stream): a rank
+// of a distributed step passes where its rows and heads lie in the global
+// batch and draws its block of the one-process mask; (0, 0, H) give b*H + h.
+// An element is kept iff its 32 bits >= threshold
 // (threshold = min(floor(p * 2^32), 2^32 - 1)). Rows and columns < 2^16.
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -37,6 +41,11 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x *= 0x846ca68bu;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ int dropout_stream(int b, int h, int row_offset, int head_offset,
+                                              int heads_total) {
+  return (b + row_offset) * heads_total + h + head_offset;
 }
 
 __device__ __forceinline__ uint32_t dropout_key(int seed, int bh) {

@@ -19,7 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -241,16 +241,27 @@ class Bucket:
 
 class BucketedLoader:
     """Static (text, mel) length buckets and shuffled fixed-shape batches
-    (``dataset.py:332-581``, one process): each epoch shuffles within the
-    buckets, cuts batches, fills a bucket's last partial batch with random
-    bucket-mates of sample_weight 0, and shuffles the batch order, all from
-    one numpy generator seeded with `seed`."""
+    (``dataset.py:332-581``): each epoch shuffles within the buckets, cuts
+    batches, fills a bucket's last partial batch with random bucket-mates of
+    sample_weight 0, and shuffles the batch order, all from one numpy
+    generator seeded with `seed`.
+
+    `batch_size` is the global batch size. `shard=(i, n)` yields only data
+    rank i's contiguous rows of each global batch: every rank draws the same
+    plan from the same seed (the same batches, buckets and padding) and
+    collates its own rows. Each batch carries ``n_real_global``, the global
+    batch's real rows, which weights a validation batch alike on every
+    rank."""
 
     def __init__(self, dataset: FastSpeechDataset, batch_size: int, n_buckets: int = 4,
                  seed: int = 0, use_weighted_sampler: bool = False,
-                 max_mel_length: Optional[int] = None):
+                 max_mel_length: Optional[int] = None, shard: Tuple[int, int] = (0, 1)):
+        if shard[1] > 1 and batch_size % shard[1] != 0:
+            raise ValueError(f"global batch_size={batch_size} must divide evenly over "
+                             f"{shard[1]} data ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.rng = np.random.default_rng(seed)
         self.use_weighted_sampler = use_weighted_sampler
         text_lens, mel_lens = [], []
@@ -320,13 +331,19 @@ class BucketedLoader:
         cfg = self.dataset.config
         vp = cfg.model.variance_predictors
         levels = {"pitch": vp.pitch.level, "energy": vp.energy.level}
+        rank, n_ranks = self.shard
+        per = self.batch_size // n_ranks
         for b, chunk, n_real in batches:
+            weights = np.ones(len(chunk), np.float32)
+            weights[n_real:] = 0.0
+            if n_ranks > 1:
+                chunk = chunk[rank * per:(rank + 1) * per]
+                weights = weights[rank * per:(rank + 1) * per]
             batch = collate([self.dataset[int(i)] for i in chunk], b.max_text, b.max_mel,
                             learn_alignment=cfg.model.learn_alignment,
                             variance_levels=levels)
-            weights = np.ones(len(chunk), np.float32)
-            weights[n_real:] = 0.0
             batch["sample_weight"] = weights
+            batch["n_real_global"] = n_real
             yield batch
 
 

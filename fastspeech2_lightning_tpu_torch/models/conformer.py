@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import NEG_INF, attention_fwd, attention_with_dropout
+from ..parallel.mesh import layout as parallel_layout
+from ..parallel.tensor_parallel import ColumnParallelLinear, copy_to_group
 from .layers import BatchNorm1d, Conv1d, LayerNorm, Linear, fast_dropout
 
 
@@ -39,14 +41,21 @@ class FeedForwardModule(nn.Module):
 
     def forward(self, x, gen=None):
         s = self.sequential
-        x = fast_dropout(F.silu(s[1](s[0](x))), self.dropout, gen)
+        # under tensor parallelism s[1] and s[4] are the column- and
+        # row-parallel Linears (parallel/mesh.py shard_model)
+        x = fast_dropout(F.silu(s[1](s[0](x))), self.dropout, gen,
+                         split_cols=isinstance(s[1], ColumnParallelLinear))
         return fast_dropout(s[4](x), self.dropout, gen)
 
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with torchaudio/nn.MultiheadAttention's
     parameter names; its input LayerNorm lives in the layer
-    (``self_attn_layer_norm``)."""
+    (``self_attn_layer_norm``). Under tensor parallelism (``shard``) it
+    holds its model rank's heads: their q, k and v rows of ``in_proj`` and
+    their columns of ``out_proj``, whose products are summed over the model
+    group. The attention dropout mask is drawn for the global (row, head)
+    of each local one, so it is a one-process run's."""
 
     def __init__(self, d, heads, dtype, dropout=0.0, attention_dropout=None):
         super().__init__()
@@ -58,13 +67,34 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj = Linear(d, d, dtype=dtype)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.split = False
+
+    def shard(self) -> None:
+        """Keep this model rank's heads (parallel/mesh.py shard_model)."""
+        from ..parallel.mesh import HEADS, ShardSpec, shard_tensor
+        from ..parallel.tensor_parallel import RowParallelLinear
+
+        lay = parallel_layout()
+        for name in ("in_proj_weight", "in_proj_bias"):
+            full = getattr(self, name)
+            part = shard_tensor(full.detach(), ShardSpec(HEADS, tuple(full.shape)),
+                                lay.model_rank, lay.model_size)
+            setattr(self, name, nn.Parameter(part.clone()))
+        self.out_proj = RowParallelLinear.from_linear(self.out_proj)
+        self.split = True
 
     def forward(self, x, mask, gen=None):
         B, T, d = x.shape
-        h = self.heads
+        h, head0 = self.heads, 0
         dh = d // h
         dt = self.compute_dtype
-        qkv = F.linear(x.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
+        x = x.to(dt)
+        lay = parallel_layout()
+        if self.split:
+            h //= lay.model_size
+            head0 = lay.model_rank * h
+            x = copy_to_group(x, lay.model_group)
+        qkv = F.linear(x, self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
         # [B, T, 3, h, dh] -> three [B, h, T, dh] strided views
         qkv = qkv.view(B, T, 3, h, dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -78,8 +108,10 @@ class SelfAttention(nn.Module):
             seed = torch.randint(-(2**31), 2**31 - 1, (1,), generator=gen,
                                  device=x.device, dtype=torch.int32)
             out = attention_with_dropout(q, k, v, key_bias, seed,
-                                         float(self.attention_dropout), scale)
-        out = out.transpose(1, 2).reshape(B, T, d)
+                                         float(self.attention_dropout), scale,
+                                         row_offset=lay.data_rank * B, head_offset=head0,
+                                         heads_total=self.heads)
+        out = out.transpose(1, 2).reshape(B, T, h * dh)
         return fast_dropout(self.out_proj(out), self.dropout, gen)
 
 

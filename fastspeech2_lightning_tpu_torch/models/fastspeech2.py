@@ -145,7 +145,10 @@ class FastSpeech2(nn.Module):
         attn_prior or duration, speaker_id, language_id, pfs); `gen` draws
         every dropout mask and attention seed, and None is the JAX package's
         ``deterministic=True`` (the eval step). Returns the keys
-        ``compute_loss`` reads."""
+        ``compute_loss`` reads. In a distributed step the batch holds this
+        data rank's rows and the layers read ``parallel.layout()`` (the
+        global rows' dropout bits, synced BatchNorm statistics, the model
+        group of a model split by ``parallel.shard_model``)."""
         inputs, x, src_mask = self._encode(batch["text"], batch["src_lens"],
                                            batch.get("speaker_id"),
                                            batch.get("language_id"), gen, pfs=batch.get("pfs"),

@@ -23,13 +23,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import layout as parallel_layout
 
-def fast_dropout(x: torch.Tensor, rate: float,
-                 gen: Optional[torch.Generator]) -> torch.Tensor:
+
+def fast_dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+                 split_cols: bool = False) -> torch.Tensor:
     """Dropout with the JAX package's FastDropout semantics
     (``layers.py:17-44``): the rate is quantized to t = round(256 * rate),
     one uint8 of random bits per element, keep iff bits >= t, kept values
-    scaled by 256 / (256 - t) in x's dtype. Identity when `gen` is None."""
+    scaled by 256 / (256 - t) in x's dtype. Identity when `gen` is None.
+
+    Under a data-parallel layout (``parallel.layout()``) x holds this data
+    rank's rows of the global batch: the bits of the whole global tensor are
+    drawn and this rank's block kept, so every rank's generator stays in
+    step with a one-process run and the masks are that run's. `split_cols`
+    (x comes out of a column-parallel Linear) says that x's last dim is this
+    model rank's slice of the full one: the full width is drawn too."""
     if gen is None or rate == 0.0:
         return x
     t = int(round(rate * 256.0))
@@ -37,7 +46,19 @@ def fast_dropout(x: torch.Tensor, rate: float,
         return x
     if t >= 256:
         return torch.zeros_like(x)
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, generator=gen, device=x.device)
+    lay = parallel_layout()
+    if lay.data_size == 1 and not split_cols:
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, generator=gen,
+                             device=x.device)
+    else:
+        shape = list(x.shape)
+        shape[0] *= lay.data_size
+        if split_cols:
+            shape[-1] *= lay.model_size
+        bits = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen, device=x.device)
+        bits = bits.narrow(0, lay.data_rank * x.shape[0], x.shape[0])
+        if split_cols:
+            bits = bits.narrow(-1, lay.model_rank * x.shape[-1], x.shape[-1])
     scale = torch.tensor(256.0 / (256 - t), dtype=x.dtype, device=x.device)
     return torch.where(bits >= t, x * scale, torch.zeros_like(x))
 
@@ -86,9 +107,24 @@ class Embedding(nn.Embedding):
     def __init__(self, num, dim, dtype=torch.float32):
         super().__init__(num, dim)
         self.compute_dtype = dtype
+        self.split = False
+
+    def shard(self) -> None:
+        """Keep this model rank's slice of the embedding dim; the forward
+        gathers the full width over the model group."""
+        lay = parallel_layout()
+        n = self.embedding_dim // lay.model_size
+        self.weight = nn.Parameter(
+            self.weight.detach()[:, lay.model_rank * n:(lay.model_rank + 1) * n].clone())
+        self.split = True
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight).to(self.compute_dtype)
+        x = F.embedding(ids, self.weight)
+        if self.split:
+            from ..parallel.tensor_parallel import gather_last_dim
+
+            x = gather_last_dim(x, parallel_layout().model_group)
+        return x.to(self.compute_dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -116,7 +152,12 @@ class BatchNorm1d(nn.BatchNorm1d):
 
     Batch statistics update the running ones as running = 0.9 * running +
     0.1 * batch, with the biased variance (``nn.BatchNorm1d``'s own update
-    takes the unbiased one, so it is written out here)."""
+    takes the unbiased one, so it is written out here). Under a
+    data-parallel layout the batch statistics are those of the global batch:
+    each form's sums and counts are summed over the data group (with a
+    gradient that is summed back) before they are divided, so the running
+    statistics stay equal on every rank; over a group of one rank the sums
+    are this process's, as they were before the layout existed."""
 
     MOMENTUM = 0.9
 
@@ -125,20 +166,28 @@ class BatchNorm1d(nn.BatchNorm1d):
         self.compute_dtype = dtype
 
     def forward(self, x, mask=None, use_running_average: bool = True):
+        from ..parallel.tensor_parallel import all_reduce_sum
+
         if use_running_average:
             y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
             return (y * self.weight + self.bias).to(self.compute_dtype)
+        group = parallel_layout().data_group
         if mask is not None:
             m = mask[:, :, None].to(x.dtype)
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum((0, 1)) / count
-            var = (((x - mean) ** 2) * m).sum((0, 1)) / count
+            count = torch.clamp(all_reduce_sum(m.sum(), group), min=1.0)
+            mean = all_reduce_sum((x * m).sum((0, 1)), group) / count
+            var = all_reduce_sum((((x - mean) ** 2) * m).sum((0, 1)), group) / count
             y = ((x - mean) * torch.rsqrt(var + self.eps)).float() * self.weight + self.bias
         else:
             x32 = x.float()
             dims = tuple(range(x.ndim - 1))
-            mean = x32.mean(dims)
-            var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+            moments = torch.stack([x32.mean(dims), (x32 * x32).mean(dims)])
+            # each rank's means weighted by its share of the positions (1.0
+            # exactly over a group of one rank), summed over the group
+            n = torch.full((), float(x32[..., 0].numel()), device=x.device)
+            moments = all_reduce_sum(moments * (n / all_reduce_sum(n, group)), group)
+            mean = moments[0]
+            var = torch.clamp(moments[1] - mean * mean, min=0.0)
             y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         with torch.no_grad():
             k = self.MOMENTUM

@@ -15,14 +15,16 @@ tensors (or raises) and runs its plain PyTorch version for CPU tensors:
   implementation: the plain version in the kernel's output layout; a fake
   with the kernel's strides; a FLOP formula), so eager serving, the
   training Function, ``benchmark`` and an exported program
-  (``synthesis/exported.py``) reach kernel A through one registration.
+  (``synthesis/exported.py``) reach kernel A through one registration at
+  the default dropout offsets.
 - ``attention_bwd``: ``csrc/attention_bwd.cu``, dQ, dK and dV with the same
   dropout mask regenerated. Plain version: autograd through
   ``attention_dropout_reference``. A ctypes wrapper (no exported or counted
   path needs it as an op yet).
 - ``attention_with_dropout``: the training entry, a ``torch.autograd.Function``
-  over the two kernels on the card; on the CPU autograd runs through the
-  plain version.
+  over the two kernels on the card (A through the op at the default dropout
+  offsets, by its ctypes launch ``_launch_fwd`` at a distributed rank's
+  others); on the CPU autograd runs through the plain version.
 
 The dtype picks the kernel inside each source: bf16 tensors go to the
 tensor-core kernels, f32 tensors to the CUDA-core f32 kernels (which the f32
@@ -32,13 +34,20 @@ the wrappers raise otherwise. Both kernels skip key tiles past ``kv_end``
 (one past each item's last unmasked key), which a pre-pass kernel of the same
 C entry computes on the device.
 
-The dropout mask is a pure function of (seed, b*H + h, query row, key
-column): ``dropout_keep_mask`` computes it in int64 tensors exactly as
-``csrc/common.cuh`` does in 32-bit arithmetic, so the kernels and their plain
-versions agree at p > 0 element for element. The JAX package draws its mask
-from the TPU's hardware generator, so the two packages agree in distribution
-only. The kernels replace ``ops/attention_dropout.py`` (rows 1-5 of PERF.md's
-kernel table) and the library flash attention of the JAX eval conformer
+The dropout mask is a pure function of (seed, (b + row_offset) * heads_total
++ h + head_offset, query row, key column): ``dropout_keep_mask`` computes it
+in int64 tensors exactly as ``csrc/common.cuh`` does in 32-bit arithmetic, so
+the kernels and their plain versions agree at p > 0 element for element.
+The offsets place a data rank's rows and a model rank's heads in the global
+batch of a distributed step (``models/conformer.py``), so each rank draws
+the block of the one-process mask that its rows and heads cover; the
+defaults (0, 0, H) are the mask of one process. They reach the kernels only
+on the training launch path (``attention_with_dropout``, ``attention_bwd``):
+the op ``fs2t::attention_fwd`` keeps its schema and draws the default mask.
+The JAX package draws its mask from the TPU's hardware generator, so the
+two packages agree in distribution only. The kernels replace
+``ops/attention_dropout.py`` (rows 1-5 of PERF.md's kernel table) and the
+library flash attention of the JAX eval conformer
 (``models/conformer.py:142``); their bounds and designs are in the CUDA
 sources' headers.
 """
@@ -109,15 +118,38 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def dropout_keep_mask(seed: int, B: int, H: int, T: int, p: float,
-                      device=None) -> torch.Tensor:
+def _offsets(H: int, row_offset: int, head_offset: int, heads_total: Optional[int]):
+    """(row_offset, head_offset, heads_total) with the default heads_total H,
+    checked to place H heads."""
+    heads_total = H if heads_total is None else int(heads_total)
+    if row_offset < 0 or head_offset < 0 or head_offset + H > heads_total:
+        raise ValueError(f"dropout offsets ({row_offset}, {head_offset}, {heads_total}) do "
+                         f"not place {H} heads")
+    return int(row_offset), int(head_offset), heads_total
+
+
+def _stream_index(B: int, H: int, row_offset: int, head_offset: int,
+                  heads_total: Optional[int], device) -> torch.Tensor:
+    """[B * H] int64: (b + row_offset) * heads_total + h + head_offset, the
+    mask stream of each local (b, h) (``csrc/common.cuh`` dropout_stream)."""
+    row_offset, head_offset, heads_total = _offsets(H, row_offset, head_offset, heads_total)
+    b = torch.arange(B, dtype=torch.int64, device=device)[:, None] + row_offset
+    h = torch.arange(H, dtype=torch.int64, device=device)[None, :] + head_offset
+    return (b * heads_total + h).reshape(-1)
+
+
+def dropout_keep_mask(seed: int, B: int, H: int, T: int, p: float, device=None,
+                      row_offset: int = 0, head_offset: int = 0,
+                      heads_total: Optional[int] = None) -> torch.Tensor:
     """[B, H, T, T] bool keep mask of ``csrc/common.cuh`` (dropout_key,
     dropout_bits) for int32 `seed`: entry (b, h, i, j) depends on nothing
-    but (seed, b*H + h, i, j), so padding T leaves it unchanged."""
+    but (seed, (b + row_offset) * heads_total + h + head_offset, i, j), so
+    padding T leaves it unchanged, and a rank's block at its offsets is the
+    block of the global mask."""
     if T > _MAX_T:
         raise ValueError(f"attention dropout supports T <= {_MAX_T}, got {T}")
     thresh = dropout_threshold(p)
-    bh = torch.arange(B * H, dtype=torch.int64, device=device)
+    bh = _stream_index(B, H, row_offset, head_offset, heads_total, device)
     key = _mix32((int(seed) & _M32) ^ _mix32((_mul32(bh, 0x9E3779B9) + 0x632BE5AB) & _M32))
     pos = torch.arange(T, dtype=torch.int64, device=device)
     cell = (pos[:, None] << 16) | pos[None, :]
@@ -125,18 +157,22 @@ def dropout_keep_mask(seed: int, B: int, H: int, T: int, p: float,
     return (bits >= thresh).view(B, H, T, T)
 
 
-def attention_dropout_reference(q, k, v, key_bias, seed, p: float,
-                                sm_scale: float) -> torch.Tensor:
+def attention_dropout_reference(q, k, v, key_bias, seed, p: float, sm_scale: float,
+                                row_offset: int = 0, head_offset: int = 0,
+                                heads_total: Optional[int] = None) -> torch.Tensor:
     """Plain version with dropout: f32 softmax, kept entries scaled by
     1/(1-p), cast to v's dtype, then P V. At p = 0 it is
-    ``attention_reference``."""
+    ``attention_reference``; the offsets place the mask
+    (``dropout_keep_mask``)."""
     if p == 0.0:
         return attention_reference(q, k, v, key_bias, sm_scale)
     B, H, T, _ = q.shape
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     s = s + key_bias.float()[:, None, None, :]
     prob = torch.softmax(s, dim=-1)
-    keep = dropout_keep_mask(int(seed.reshape(-1)[0]), B, H, T, p, device=q.device)
+    keep = dropout_keep_mask(int(seed.reshape(-1)[0]), B, H, T, p, device=q.device,
+                             row_offset=row_offset, head_offset=head_offset,
+                             heads_total=heads_total)
     keep_scale = torch.tensor(1.0 / (1.0 - p), dtype=torch.float32)
     prob = torch.where(keep, prob * keep_scale.to(prob.device), 0.0)
     return torch.matmul(prob.to(v.dtype), v)
@@ -213,8 +249,8 @@ def _seed_arg(seed, p: float, device):
 
 _FWD_ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
-                                  ctypes.c_void_p]
+    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
@@ -233,15 +269,13 @@ def _lse_like(q, with_lse: bool) -> torch.Tensor:
     return q.new_empty((B, H, T) if with_lse else (0,), dtype=torch.float32)
 
 
-@torch.library.custom_op("fs2t::attention_fwd", mutates_args=(), device_types="cuda")
-def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      key_bias: torch.Tensor, sm_scale: float, p: float,
-                      seed: Optional[torch.Tensor], with_lse: bool
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu``."""
+def _launch_fwd(q, k, v, key_bias, sm_scale: float, p: float, seed, with_lse: bool,
+                row_offset: int = 0, head_offset: int = 0, heads_total: Optional[int] = None):
+    """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu``; (o, lse)."""
     thresh = dropout_threshold(p)
     strides = _check("attention_fwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
+    offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
     key_bias = _f32_bias(key_bias, device)
     ends = torch.empty(B, dtype=torch.int32, device=device)  # the kernel's kv_end pre-pass
@@ -255,11 +289,21 @@ def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), ends.data_ptr(),
         o.data_ptr(), lse.data_ptr() if with_lse else None, seed_ptr,
         B, H, T, dh, *strides, *o.stride()[:3],
-        sm_scale, thresh, 1.0 / (1.0 - p), _stream(device),
+        sm_scale, thresh, 1.0 / (1.0 - p), *offsets, _stream(device),
     )
     build.check(lib, err, "attention_fwd")
     attention_fwd.launches += 1
     return o, lse
+
+
+@torch.library.custom_op("fs2t::attention_fwd", mutates_args=(), device_types="cuda")
+def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_bias: torch.Tensor, sm_scale: float, p: float,
+                      seed: Optional[torch.Tensor], with_lse: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu`` at the
+    default dropout offsets."""
+    return _launch_fwd(q, k, v, key_bias, sm_scale, p, seed, with_lse)
 
 
 @_attention_fwd_op.register_kernel("cpu")
@@ -303,32 +347,39 @@ def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
 attention_fwd.launches = 0
 
 
-def attention_bwd_reference(q, k, v, key_bias, seed, p: float, sm_scale: float, do):
+def attention_bwd_reference(q, k, v, key_bias, seed, p: float, sm_scale: float, do,
+                            row_offset: int = 0, head_offset: int = 0,
+                            heads_total: Optional[int] = None):
     """Plain version of the backward: autograd through the plain forward."""
     with torch.enable_grad():
         qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o = attention_dropout_reference(qr, kr, vr, key_bias, seed, p, sm_scale)
+        o = attention_dropout_reference(qr, kr, vr, key_bias, seed, p, sm_scale,
+                                        row_offset, head_offset, heads_total)
         return torch.autograd.grad(o, (qr, kr, vr), do)
 
 
 _BWD_ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float,
-                                  ctypes.c_void_p]
+    + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
-def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do):
+def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do,
+                  row_offset: int = 0, head_offset: int = 0,
+                  heads_total: Optional[int] = None):
     """(dQ, dK, dV) in q's dtype for the forward's output `o` and
     log-sum-exp `lse` (``attention_fwd(..., with_lse=True)``) and the output
-    gradient `do`; the key bias gets none."""
+    gradient `do`; the key bias gets none. The offsets are the forward's."""
     thresh = dropout_threshold(p)
     if q.device.type == "cpu":
-        return attention_bwd_reference(q, k, v, key_bias, seed, p, sm_scale, do)
+        return attention_bwd_reference(q, k, v, key_bias, seed, p, sm_scale, do,
+                                       row_offset, head_offset, heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
     strides = _check("attention_bwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
+    offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
     for name, t in (("do", do), ("o", o)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != device:
@@ -357,7 +408,7 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
         key_bias.data_ptr(), ends.data_ptr(), lse.data_ptr(), dsum.data_ptr(), seed_ptr,
         dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, dh,
         *strides, *do.stride()[:3], *o.stride()[:3],
-        sm_scale, thresh, 1.0 / (1.0 - p), _stream(device),
+        sm_scale, thresh, 1.0 / (1.0 - p), *offsets, _stream(device),
     )
     build.check(lib, err, "attention_bwd")
     attention_bwd.launches += 1
@@ -370,27 +421,48 @@ attention_bwd.flops = 0
 
 
 class _AttentionWithDropout(torch.autograd.Function):
+    """Kernel A forward and A′ backward on CUDA tensors. At the default
+    offsets A is reached through the op, as every other caller reaches it;
+    a distributed rank's other offsets go to the ctypes launch directly,
+    which the op's schema cannot carry, so ``FlopCounterMode`` does not
+    count those launches (no path counts a distributed step's FLOPs; the
+    op stays for the FLOP formula ``benchmark`` reads)."""
+
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, seed, p, sm_scale):
-        o, lse = attention_fwd(q, k, v, key_bias, sm_scale, p=p, seed=seed, with_lse=True)
+    def forward(ctx, q, k, v, key_bias, seed, p, sm_scale, row_offset=0, head_offset=0,
+                heads_total=None):
+        offsets = (row_offset, head_offset, heads_total)
+        seed_p = seed if p > 0.0 else None
+        if _offsets(q.shape[1], *offsets) == (0, 0, q.shape[1]):
+            o, lse = attention_fwd(q, k, v, key_bias, sm_scale, p=p, seed=seed, with_lse=True)
+        else:
+            o, lse = _launch_fwd(q, k, v, key_bias, sm_scale, p, seed_p, True, *offsets)
         ctx.save_for_backward(q, k, v, key_bias, seed, o, lse)
-        ctx.p, ctx.sm_scale = p, sm_scale
+        ctx.p, ctx.sm_scale, ctx.offsets = p, sm_scale, offsets
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key_bias, seed, o, lse = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, key_bias, seed, ctx.p, ctx.sm_scale, o, lse, do)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = attention_bwd(q, k, v, key_bias, seed, ctx.p, ctx.sm_scale, o, lse, do,
+                                   *ctx.offsets)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def attention_with_dropout(q, k, v, key_bias, seed, p: float, sm_scale: float):
+def attention_with_dropout(q, k, v, key_bias, seed, p: float, sm_scale: float,
+                           row_offset: int = 0, head_offset: int = 0,
+                           heads_total: Optional[int] = None):
     """Training attention, differentiable in q, k and v (JAX
     ``ops/attention_dropout.py::attention_with_dropout``): the kernels on the
     card, autograd through the plain version on the CPU. `seed` is an int32
-    tensor of one element (the JAX package's seed array)."""
+    tensor of one element (the JAX package's seed array). The offsets place
+    a distributed rank's rows and heads; a launch of A at offsets other than
+    the defaults bypasses the op, so ``FlopCounterMode`` does not count it
+    (no path counts a distributed step's FLOPs)."""
     if q.device.type == "cpu":
-        return attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale)
+        return attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale,
+                                           row_offset, head_offset, heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"attention_with_dropout: unsupported device {q.device}")
-    return _AttentionWithDropout.apply(q, k, v, key_bias, seed, p, sm_scale)
+    return _AttentionWithDropout.apply(q, k, v, key_bias, seed, p, sm_scale, row_offset,
+                                       head_offset, heads_total)

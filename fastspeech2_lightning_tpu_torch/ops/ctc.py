@@ -230,12 +230,7 @@ def ctc_forward_sum(logprobs, in_lens, out_lens) -> torch.Tensor:
     return -_final_ll(ctc_alpha(logprobs, out_lens)[:, -1], in_lens)
 
 
-def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob: float = -1.0,
-                       sample_weight=None) -> torch.Tensor:
-    """Forward-sum alignment loss over [B, T_mel, L_text] attention scores
-    (``ops/ctc.py:232-258``): a blank column, key columns past in_len at
-    NEG_INF, log-softmax, CTC with zero_infinity and per-target-length mean;
-    zero-weight rows leave the mean."""
+def _ctc_per_example(attn_logprob, in_lens, out_lens, blank_logprob):
     B, T, L = attn_logprob.shape
     dev = attn_logprob.device
     blank = torch.full((B, T, 1), blank_logprob, dtype=torch.float32, device=dev)
@@ -247,21 +242,46 @@ def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob: float = -
     per_example = ctc_forward_sum(logprobs, in_lens, out_lens)
     per_example = torch.where(torch.isfinite(per_example), per_example, 0.0)
     per_example = torch.where(per_example >= -NEG_INF * 1e-3, 0.0, per_example)
-    per_example = per_example / torch.clamp(in_lens.to(dev).float(), min=1.0)
+    return per_example / torch.clamp(in_lens.to(dev).float(), min=1.0)
+
+
+def attention_ctc_loss(attn_logprob, in_lens, out_lens, blank_logprob: float = -1.0,
+                       sample_weight=None) -> torch.Tensor:
+    """Forward-sum alignment loss over [B, T_mel, L_text] attention scores
+    (``ops/ctc.py:232-258``): a blank column, key columns past in_len at
+    NEG_INF, log-softmax, CTC with zero_infinity and per-target-length mean;
+    zero-weight rows leave the mean."""
+    per_example = _ctc_per_example(attn_logprob, in_lens, out_lens, blank_logprob)
     if sample_weight is None:
         return per_example.mean()
     w = sample_weight.float()
     return (per_example * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+def attention_ctc_loss_parts(attn_logprob, in_lens, out_lens, sample_weight,
+                             blank_logprob: float = -1.0):
+    """(numerator, denominator) of ``attention_ctc_loss`` with weights: the
+    loss is numerator / max(denominator, 1), and a data-parallel step sums
+    the denominator over the data group first."""
+    per_example = _ctc_per_example(attn_logprob, in_lens, out_lens, blank_logprob)
+    w = sample_weight.float()
+    return (per_example * w).sum(), w.sum()
+
+
 def attention_binarization_loss(hard_attention, soft_attention, eps: float = 1e-12,
                                 sample_weight=None) -> torch.Tensor:
     """-sum(log soft | hard == 1) / sum(hard) (``ops/ctc.py:261-275``)."""
+    num, den = attention_binarization_loss_parts(hard_attention, soft_attention, eps,
+                                                 sample_weight)
+    return num / torch.clamp(den, min=1.0)
+
+
+def attention_binarization_loss_parts(hard_attention, soft_attention, eps: float = 1e-12,
+                                      sample_weight=None):
+    """(numerator, denominator) of ``attention_binarization_loss``."""
     log_soft = torch.log(torch.clamp(soft_attention, min=eps))
     hard = hard_attention
     if sample_weight is not None:
         w = sample_weight.to(hard.dtype)
         hard = hard * w.reshape((-1,) + (1,) * (hard.ndim - 1))
-    num = (log_soft * hard).sum()
-    den = torch.clamp(hard.sum(), min=1.0)
-    return -num / den
+    return -(log_soft * hard).sum(), hard.sum()

@@ -9,7 +9,14 @@ A checkpoint is a directory ``step=N/`` under the run's ``checkpoints/``:
 - ``train_state.pt``: the AdamW moments ``mu`` and ``nu`` and the update
   ``count``, and the EMA weights (``ema``, None without ``ema_decay``),
   keyed by parameter name;
-- ``meta.json``: the keys of the JAX package's meta (``:114-135``).
+- ``meta.json``: the keys of the JAX package's meta (``:114-135``), with
+  ``optimizer_format`` "fused" for the flat ZeRO-1 optimizer and "per_leaf"
+  otherwise (the moments are stored per parameter either way).
+
+A run over several ranks saves the full reference layout: the snapshot
+gathers the model-split parameters, EMA and moments and the ZeRO-1 slices
+(every rank takes part), and rank 0 writes (the trainer's ``_save``), so a
+checkpoint reads the same whatever world size wrote it.
 
 Everything is written into ``step=N.tmp`` and renamed to ``step=N`` after
 ``meta.json`` is on disk, so a save killed part way leaves nothing that
@@ -37,6 +44,8 @@ from ..checkpoint import (
     write_checkpoint,
 )
 from ..models.fastspeech2 import FastSpeech2
+from ..parallel.mesh import gather_state_dict
+from .state import ZeroAdamWNoam
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -53,6 +62,7 @@ class TrainSnapshot:
     ema: Optional[Tensors]
     step: int
     epoch: int
+    optimizer_format: str = "per_leaf"
 
 
 class _Packed:
@@ -78,31 +88,41 @@ class _Packed:
 
 
 def _pack_run(model, optimizer, ema: Optional[List[torch.Tensor]]) -> Dict[str, _Packed]:
-    """Copies of the run's tensors on their device, queued on the current
-    stream (so ahead of the next step's in-place updates)."""
+    """Copies of the run's tensors on their device in the full reference
+    layout, queued on the current stream (so ahead of the next step's
+    in-place updates); collective where the run is split over ranks."""
     names = optimizer.names
-    parts = {"state_dict": model.state_dict(), "mu": dict(zip(names, optimizer.mu)),
-             "nu": dict(zip(names, optimizer.nu))}
+    plan = getattr(model, "parallel_plan", None) or {}
+    mu, nu = optimizer.moments()
+    parts = {"state_dict": gather_state_dict(model.state_dict(), plan),
+             "mu": mu, "nu": nu}
     if ema is not None:
-        parts["ema"] = dict(zip(names, ema))
+        parts["ema"] = gather_state_dict(dict(zip(names, ema)), plan)
     return {k: _Packed(v) for k, v in parts.items()}
 
 
-def _snapshot(packs: Dict[str, _Packed], count: int, step: int, epoch: int) -> TrainSnapshot:
+def _optimizer_format(optimizer) -> str:
+    return "fused" if isinstance(optimizer, ZeroAdamWNoam) else "per_leaf"
+
+
+def _snapshot(packs: Dict[str, _Packed], count: int, step: int, epoch: int,
+              optimizer_format: str) -> TrainSnapshot:
     return TrainSnapshot(
         state_dict=packs["state_dict"].unpack(), mu=packs["mu"].unpack(),
         nu=packs["nu"].unpack(), count=int(count),
         ema=packs["ema"].unpack() if "ema" in packs else None, step=int(step), epoch=int(epoch),
+        optimizer_format=optimizer_format,
     )
 
 
 def take_snapshot(model, optimizer, ema: Optional[List[torch.Tensor]], step: int,
                   epoch: int) -> TrainSnapshot:
-    """Host copies of the run's tensors."""
+    """Host copies of the run's tensors in the full reference layout (every
+    rank of a split run calls it)."""
     packs = _pack_run(model, optimizer, ema)
     for pack in packs.values():
         pack.flats = [f.cpu() for f in pack.flats]
-    return _snapshot(packs, optimizer.count, step, epoch)
+    return _snapshot(packs, optimizer.count, step, epoch, _optimizer_format(optimizer))
 
 
 def _publish(path: Path, model_ckpt: Callable[[Path], object], train_state: dict,
@@ -140,7 +160,7 @@ def save_checkpoint(ckpt_dir: Path, snap: TrainSnapshot, config: dict, stats: Op
         "metrics": metrics or {},
         "epoch": snap.epoch,
         "array_keys": sorted(array_keys),
-        "optimizer_format": "per_leaf",
+        "optimizer_format": snap.optimizer_format,
     }
     return _publish(
         Path(ckpt_dir) / f"step={snap.step}",
@@ -230,7 +250,7 @@ class AsyncCheckpointWriter:
              monitor: Optional[str] = None) -> None:
         self.wait()
         packs = _pack_run(model, optimizer, ema)
-        count = int(optimizer.count)
+        count, fmt = int(optimizer.count), _optimizer_format(optimizer)
         device = packs["state_dict"].flats[0].device
         ready = None
         if device.type == "cuda":
@@ -241,7 +261,7 @@ class AsyncCheckpointWriter:
             try:
                 if ready is not None:
                     _to_host(packs, ready, device)
-                save_checkpoint(ckpt_dir, _snapshot(packs, count, step, epoch), config, stats,
+                save_checkpoint(ckpt_dir, _snapshot(packs, count, step, epoch, fmt), config, stats,
                                 lang2id, speaker2id, symbols, metrics=metrics)
                 if keep_top_k is not None and monitor is not None:
                     prune_checkpoints(ckpt_dir, keep_top_k, monitor)

@@ -1,5 +1,5 @@
 """The trainer (counterpart of the JAX package's ``training/loop.py``
-``Trainer.fit``, one device).
+``Trainer.fit``).
 
 ``Trainer(config).fit(max_steps, resume=True)`` reads ``stats.json`` under
 ``preprocessing.save_dir``, builds the model (flax's initial distributions,
@@ -32,10 +32,25 @@ step replaces the earlier one, and ``save_top_k_ckpts`` by the metric (plus
 the newest) are kept. Resume restores the parameters, BatchNorm statistics,
 AdamW moments and count, EMA and epoch; the dropout generator of a step
 depends on the global step only, so a resumed run draws what an
-uninterrupted one would."""
+uninterrupted one would.
+
+Across processes (``train --distributed``; ``parallel/``) every rank runs
+this trainer on its device. ``Trainer(..., model_parallel=N)`` lays the
+world out as (world / N data ranks) x (N model ranks); the model is split
+over the model group (``parallel.shard_model``), the loaders collate each
+data rank's rows of the same global batches, and each step computes the
+one-process step on the global batch (``step.py``). Only rank 0 writes:
+``train_log.jsonl``, ``val_log.jsonl``, the event file with its media, the
+checkpoints (gathered into the full reference layout by every rank, written
+synchronously between two barriers, as the JAX trainer does,
+``loop.py:332-345``) and the prune. A validation weights each batch by its
+global real rows (``n_real_global``) and reports the global losses, so early
+stopping decides alike on every rank, and the preemption flag is reduced
+(MAX) once a step, so all ranks leave at the same step after a SIGTERM."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import queue
@@ -51,6 +66,15 @@ from ..checkpoint import MODEL_VERSION, parse_version, read_checkpoint
 from ..dataset import BucketedLoader, load_datasets
 from ..device import resolve_device
 from ..models.fastspeech2 import FastSpeech2
+from ..parallel.mesh import (
+    all_reduce,
+    barrier,
+    make_layout,
+    set_layout,
+    shard_model,
+    shard_state_dict,
+)
+from ..parallel.mesh import layout as parallel_layout
 from ..text import TextProcessor
 from ..text.lookups import lookuptables_from_config
 from ..type_definitions import Stats
@@ -66,7 +90,7 @@ from .checkpoint import (
     take_snapshot,
 )
 from .preemption import install_preemption_handler
-from .state import AdamWNoam, init_like_flax
+from .state import init_like_flax, make_optimizer
 from .step import batch_to_device, eval_step, train_step
 
 MONITOR = "validation/total_loss"
@@ -170,8 +194,23 @@ def set_variance_bins(model, stats: Stats, config) -> None:
 
 
 class Trainer:
-    def __init__(self, config, device=None, log_dir: Optional[Path] = None):
+    @property
+    def layout(self):
+        """The process layout this trainer installed (``parallel.layout()``)."""
+        return parallel_layout()
+
+    def __init__(self, config, device=None, log_dir: Optional[Path] = None,
+                 model_parallel: int = 1):
         self.config = config
+        # install the process layout (parallel/mesh.py), which every layer,
+        # loss, step and optimizer reads; trivial without a process group
+        lay = make_layout(model_parallel)
+        set_layout(lay)
+        self.is_main = lay.is_main
+        bs = config.training.batch_size
+        if bs % lay.data_size:
+            raise ValueError(f"training.batch_size={bs} must divide evenly over "
+                             f"{lay.data_size} data ranks")
         self.device = resolve_device(device)
         stats_path = Path(config.preprocessing.save_dir) / "stats.json"
         if not stats_path.exists():
@@ -189,13 +228,16 @@ class Trainer:
         init_like_flax(model, config.training.seed)
         set_variance_bins(model, self.stats, config)
         self.model = model.to(self.device).train()
-        self.optimizer = AdamWNoam(list(self.model.named_parameters()), config.training)
+        shard_model(self.model)  # this model rank's slices (none in one process)
+        self.optimizer = make_optimizer(self.model, config.training)
         self.ema = ([p.detach().clone() for p in self.optimizer.params]
                     if config.training.ema_decay > 0 else None)
         logger = config.training.logger
         self.log_dir = Path(log_dir or Path(logger.save_dir) / logger.name / logger.version)
         self.ckpt_dir = self.log_dir / "checkpoints"
-        self._async = AsyncCheckpointWriter() if config.training.async_checkpoint else None
+        # saves across processes are collective and synchronous, as in JAX
+        self._async = (AsyncCheckpointWriter()
+                       if config.training.async_checkpoint and not lay.distributed else None)
         self.save_ms: List[float] = []  # the caller's wall time of each save
         self.load_ms: Optional[float] = None
         self._epoch = 0
@@ -217,7 +259,8 @@ class Trainer:
             self._writer = None
 
     def _log(self, tag: str, value: float, step: int) -> None:
-        self.writer.add_scalar(tag, value, step)
+        if self.is_main:
+            self.writer.add_scalar(tag, value, step)
 
     @property
     def ckpt_path(self) -> Optional[Path]:
@@ -239,7 +282,8 @@ class Trainer:
         if isinstance(val_interval, float):
             # a float is a fraction of an epoch, an int a step count
             val_interval = max(1, round(val_interval * max(len(loader), 1)))
-        self.log_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
         preempt = install_preemption_handler()
         try:
             return self._fit_loop(loader, max_steps, step, epoch, val_interval, preempt)
@@ -251,14 +295,28 @@ class Trainer:
         """The training and validation loaders; returns the training one."""
         cfg, tcfg = self.config, self.config.training
         train_ds, val_ds = load_datasets(cfg, self.lang2id, self.speaker2id)
+        shard = (self.layout.data_rank, self.layout.data_size)
         self.loader = BucketedLoader(
             train_ds, tcfg.batch_size, n_buckets=tcfg.bucket_count, seed=tcfg.seed,
             use_weighted_sampler=tcfg.use_weighted_sampler,
-            max_mel_length=cfg.model.max_mel_length)
-        self.val_loader = BucketedLoader(val_ds, min(tcfg.batch_size, max(len(val_ds), 1)),
-                                         n_buckets=tcfg.bucket_count, seed=tcfg.seed,
-                                         max_mel_length=cfg.model.max_mel_length)
+            max_mel_length=cfg.model.max_mel_length, shard=shard)
+        # across processes the global validation batch must divide over the
+        # data ranks too: the training batch size, with zero-weight fill
+        # (JAX loop.py:400-406)
+        val_bs = (tcfg.batch_size if self.layout.distributed
+                  else min(tcfg.batch_size, max(len(val_ds), 1)))
+        self.val_loader = BucketedLoader(val_ds, val_bs, n_buckets=tcfg.bucket_count,
+                                         seed=tcfg.seed,
+                                         max_mel_length=cfg.model.max_mel_length, shard=shard)
         return self.loader
+
+    def _preempted(self, flag: bool) -> bool:
+        """Whether any rank was signalled (one MAX over the world a step)."""
+        if not self.layout.distributed:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(all_reduce(t, torch.distributed.group.WORLD,
+                               torch.distributed.ReduceOp.MAX).item())
 
     def _fit_loop(self, loader, max_steps, step, epoch, val_interval, preempt) -> List[dict]:
         cfg, tcfg = self.config, self.config.training
@@ -271,7 +329,8 @@ class Trainer:
             # a multiple of `interval` lies in the step window (lo, hi]
             return bool(interval) and hi // interval > lo // interval
 
-        with open(self.log_dir / "train_log.jsonl", "a", encoding="utf8") as log:
+        with (open(self.log_dir / "train_log.jsonl", "a", encoding="utf8") if self.is_main
+              else contextlib.nullcontext()) as log:
             while step < max_steps and epoch < tcfg.max_epochs and not stop:
                 self._epoch = epoch  # checkpoints store the live counter
                 batches = iter(prefetch)
@@ -284,26 +343,30 @@ class Trainer:
                         host = {k: float(v) for k, v in losses.items()}  # waits for the step
                         prev, step = step, step + 1
                         row = {"step": step, "epoch": epoch,
-                               "shape": [*map(int, batch["text"].shape),
+                               # the global batch's [B, L, T]
+                               "shape": [int(batch["text"].shape[0]) * self.layout.data_size,
+                                         int(batch["text"].shape[1]),
                                          int(batch["mel"].shape[1])],
                                "ms": (time.perf_counter() - t0) * 1e3,
                                "wait_ms": (t0 - t_free) * 1e3, **host}
-                        log.write(json.dumps(row) + "\n")
-                        log.flush()
+                        if log is not None:
+                            log.write(json.dumps(row) + "\n")
+                            log.flush()
                         rows.append(row)
                         if tcfg.halt_on_non_finite and not all(map(math.isfinite, host.values())):
                             raise TrainingDivergedError(
                                 f"non-finite training loss at step {step}: {host}")
-                        if step == 1 or step % LOG_EVERY == 0:
+                        if (step == 1 or step % LOG_EVERY == 0) and self.is_main:
                             for k, v in host.items():
                                 self._log("training/grad_norm" if k == "grad_norm"
                                           else f"training/{k}_loss", v, step)
                             print(f"step {step} epoch {epoch} total={host['total']:.4f} "
                                   f"spec={host.get('spec', 0.0):.4f} {row['ms']:.1f} ms",
                                   flush=True)
-                        if preempt["flag"]:
-                            print(f"received signal {preempt['signum']}: checkpointing at "
-                                  f"step {step} and exiting cleanly", flush=True)
+                        if self._preempted(preempt["flag"]):
+                            if preempt["flag"] or self.is_main:
+                                print(f"received signal {preempt['signum']}: checkpointing at "
+                                      f"step {step} and exiting cleanly", flush=True)
                             stop = True
                             break
                         if tcfg.ckpt_steps and crossed(tcfg.ckpt_steps, prev, step):
@@ -318,8 +381,9 @@ class Trainer:
                                 else:
                                     stale += 1
                                     if stale >= es.patience:
-                                        print(f"early stopping: {MONITOR} stale for {stale} "
-                                              "validations", flush=True)
+                                        if self.is_main:
+                                            print(f"early stopping: {MONITOR} stale for "
+                                                  f"{stale} validations", flush=True)
                                         stop = True
                                         break
                         if step >= max_steps:
@@ -338,25 +402,26 @@ class Trainer:
 
     def validate(self, step: int, epoch: int) -> dict:
         """Weighted mean of each loss over the validation batches (each
-        batch's mean weighted by its sample_weight sum, so filler rows count
-        for nothing); appends a row to ``val_log.jsonl`` and logs the means
+        batch's mean weighted by its real rows, ``n_real_global``, so filler
+        rows count for nothing); appends a row to ``val_log.jsonl`` and logs the means
         and the first batch's media to the event file. Outside ``fit`` it
         builds the loaders itself; ``close`` ends the event file after."""
         if self.val_loader is None:
             self._build_loaders()
-            self.log_dir.mkdir(parents=True, exist_ok=True)
+            if self.is_main:
+                self.log_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         sums: dict = {}
         total_w, n = 0.0, 0
         for batch in self.val_loader:
             losses, out = eval_step(self.model, self.config,
                                     batch_to_device(batch, self.device), epoch)
-            if n == 0:
+            if n == 0 and self.is_main:  # rank 0 holds the global batch's row 0
                 try:
                     self._log_validation_media(step, batch, out)
                 except Exception as e:  # as in JAX, media never stop training
                     print(f"validation media logging failed: {e}", flush=True)
-            w = float(np.sum(batch["sample_weight"]))
+            w = float(batch["n_real_global"])  # the global batch's real rows, on every rank
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * w
             total_w += w
@@ -364,8 +429,9 @@ class Trainer:
         means = {k: v / max(total_w, 1e-9) for k, v in sums.items()}
         row = {"step": step, "epoch": epoch, "batches": n,
                "ms": (time.perf_counter() - t0) * 1e3, **means}
-        with open(self.log_dir / "val_log.jsonl", "a", encoding="utf8") as f:
-            f.write(json.dumps(row) + "\n")
+        if self.is_main:
+            with open(self.log_dir / "val_log.jsonl", "a", encoding="utf8") as f:
+                f.write(json.dumps(row) + "\n")
         for k, v in means.items():
             self._log(f"validation/{k}_loss", v, step)
         return means
@@ -445,7 +511,16 @@ class Trainer:
         tcfg = self.config.training
         args = (self.config.to_dict(), self.stats_dict, self.lang2id, self.speaker2id,
                 self.symbols)
-        if self._async is not None:
+        if self.layout.distributed:
+            # every rank gathers (collective); rank 0 writes; no rank reads or
+            # prunes before the write is published (JAX checkpoint.py:95-145)
+            barrier()
+            snap = take_snapshot(self.model, self.optimizer, self.ema, step, self._epoch)
+            if self.is_main:
+                save_checkpoint(self.ckpt_dir, snap, *args, metrics=metrics)
+                prune_checkpoints(self.ckpt_dir, tcfg.save_top_k_ckpts, MONITOR)
+            barrier()
+        elif self._async is not None:
             self._async.save(self.ckpt_dir, self.model, self.optimizer, self.ema, step,
                              self._epoch, *args, metrics=metrics,
                              keep_top_k=tcfg.save_top_k_ckpts, monitor=MONITOR)
@@ -466,7 +541,9 @@ class Trainer:
         path = Path(path)
         meta = read_meta(path) if path.is_dir() else None
         ckpt, _ = read_checkpoint(path / "model.ckpt" if meta else path, self.symbols)
-        self.model.load_state_dict(ckpt["state_dict"], strict=True)
+        plan = self.model.parallel_plan  # a full checkpoint; this rank keeps its slices
+        self.model.load_state_dict(shard_state_dict(ckpt["state_dict"], plan),
+                                   strict=True)
         set_variance_bins(self.model, self.stats, self.config)
         step, epoch, saved_ema = int(ckpt.get("global_step", 0)), 0, None
         if meta is not None:
@@ -477,7 +554,8 @@ class Trainer:
             if not migrated:
                 ts = load_train_state(path)
                 self.optimizer.load_state(ts["mu"], ts["nu"], ts["count"])
-                saved_ema = ts.get("ema")
+                if ts.get("ema") is not None:
+                    saved_ema = shard_state_dict(ts["ema"], plan)
         if self.ema is not None:
             with torch.no_grad():
                 for name, e, p in zip(self.optimizer.names, self.ema, self.optimizer.params):
@@ -486,6 +564,7 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_ms = (time.perf_counter() - t0) * 1e3
-        print(f"resumed from {path} at step {step}, epoch {epoch} "
-              f"({'weights only' if meta is None else 'full state'})", flush=True)
+        if self.is_main:
+            print(f"resumed from {path} at step {step}, epoch {epoch} "
+                  f"({'weights only' if meta is None else 'full state'})", flush=True)
         return step, epoch

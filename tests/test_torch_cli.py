@@ -4,7 +4,8 @@ The two CLIs have the same 13 commands. For each, every long option of the
 JAX click command, with its ``--no-`` form, is an option of the port's
 argparse sub-command; the port's extra ``--device`` is allowed. ``serve --no-use-ema --no-warmup --data-parallel 1`` parses, and
 ``serve --data-parallel 2`` raises as ``synthesize --data-parallel 2``
-does; ``train --model-parallel 2`` and ``--distributed`` raise too. Every
+does; ``train --model-parallel 2`` without ``--distributed`` exits naming
+torchrun, and ``--distributed`` outside a launcher's environment raises. Every
 command that reads a config takes the YAML file ``helpers`` writes with
 ``yaml.safe_dump`` and builds the config its JSON twin gives, and a relative
 ``training.vocoder_path`` resolves as the JAX loader resolves it."""
@@ -78,11 +79,23 @@ def test_serve_data_parallel_above_1_raises_as_synthesize_does(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--model-parallel", "2"], ["--distributed"]])
-def test_train_refuses_model_parallel_and_multi_host(tmp_path, flags):
+def test_train_refuses_model_parallel_and_multi_host(tmp_path, flags, monkeypatch, capsys):
+    """Both modes run (tests/test_torch_distributed_trainer.py); what is
+    refused is a launch that cannot hold them: --model-parallel above 1 in
+    one process exits naming torchrun, and --distributed outside a
+    launcher's environment raises naming its variables."""
     config = tmp_path / "c.json"
     config.write_text("{}")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["train", str(config), *flags, "--device", "cpu"])
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK",
+                 "FS2T_COORDINATOR_ADDRESS", "FS2T_NUM_PROCESSES", "FS2T_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    if "--distributed" in flags:
+        with pytest.raises(ValueError, match="FS2T_COORDINATOR_ADDRESS"):
+            cli.main(["train", str(config), *flags, "--device", "cpu"])
+    else:
+        with pytest.raises(SystemExit) as exit_:
+            cli.main(["train", str(config), *flags, "--device", "cpu"])
+        assert exit_.value.code == 2 and "torchrun" in capsys.readouterr().err
     args = cli._parser().parse_args(["train", str(config), "--no-distributed",
                                      "--model-parallel", "1"])
     assert (args.distributed, args.model_parallel) == (False, 1)

@@ -17,7 +17,9 @@ kernel that read them.
 On a CUDA card (marked ``gpu``; they skip elsewhere): each kernel agrees with
 its plain version, in f32 within relative-L2 1e-5 and in bf16 within 2e-2 of
 the plain version run in f32 on the same bf16-rounded inputs (attention
-forward and backward, dropout included: the same seed gives the same mask;
+forward and backward, dropout included: the same seed gives the same mask,
+read back bit for bit, at the default offsets and at a rank's (row, head)
+offsets, where it is that block of the global mask;
 masks with no valid key, with holes and at tile edges, T off the tiles,
 dh 64 and 128, q, k, v as views of the fused projection; NaN keys and
 values in the tiles past kv_end, which the kernels must not read, and dK and
@@ -54,6 +56,7 @@ from fastspeech2_lightning_tpu_torch.ops.attention import (
     attention_fwd,
     attention_reference,
     attention_with_dropout,
+    dropout_keep_mask,
     kv_end,
 )
 from fastspeech2_lightning_tpu_torch.ops.ctc import (
@@ -329,6 +332,68 @@ def test_attention_kernels_on_mask_edges(cuda, case, dh, dtype, p):
     if case == "skipped_tiles":
         assert poisoned == 6 * (400 - 128) + 4 * (400 - 256)
     _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=clean)
+
+
+OFFSETS = {"default": (0, 0, None), "rank": (3, 1, 4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", list(OFFSETS))
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_draw_the_mask_at_their_offsets(cuda, offsets, dh, dtype):
+    """The keep mask each kernel applies, read back bit for bit: with q = k
+    = 0 every kept probability is 1 / (T (1 - p)) and a dropped one 0, so
+    with one-hot values (T = dh) the forward's output row i is row i of the
+    mask, and with one-hot output gradients A′'s dV is its transpose. At a
+    rank's (row_offset, head_offset, heads_total) it is that block of the
+    global mask; at the defaults it is the mask of one process as before."""
+    B, H, T, p = 2, 2, dh, 0.3
+    row_offset, head_offset, heads_total = OFFSETS[offsets]
+    eye = torch.eye(T, device=cuda, dtype=dtype).expand(B, H, T, T).contiguous()
+    zero = torch.zeros(B, H, T, dh, device=cuda, dtype=dtype)
+    bias = torch.zeros(B, T, device=cuda)
+    seed = torch.tensor([-99], dtype=torch.int32, device=cuda)
+    o, lse = attention._launch_fwd(zero, zero, eye, bias, 0.125, p, seed, True, row_offset,
+                                   head_offset, heads_total)
+    _, _, dv = attention_bwd(zero, zero, eye, bias, seed, p, 0.125, o, lse, eye, row_offset,
+                             head_offset, heads_total)
+    torch.cuda.synchronize()
+    want = dropout_keep_mask(-99, B, H, T, p, device=cuda, row_offset=row_offset,
+                             head_offset=head_offset, heads_total=heads_total)
+    assert torch.equal(o != 0, want)
+    assert torch.equal(dv != 0, want.transpose(-1, -2))
+    if offsets == "default":
+        assert torch.equal(want, dropout_keep_mask(-99, B, H, T, p, device=cuda))
+    else:  # the block of the mask of the global [B + 3 + ..., 4] batch
+        whole = dropout_keep_mask(-99, B + row_offset, heads_total, T, p, device=cuda)
+        assert torch.equal(want, whole[row_offset:, head_offset:head_offset + H])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [37, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_offsets_match_plain_version(cuda, T, dtype):
+    """The training Function (A forward, A′ backward) at nonzero offsets
+    against autograd through the plain version at the same offsets."""
+    B, H, dh, p = 2, 2, 64, 0.2
+    offsets = (5, 2, 6)
+    lens = [T, max(T - 37, 1)]
+    bias = _bias(np.stack([_segments(T, (0, n)) for n in lens])).to(cuda)
+    q, k, v = (t.detach().requires_grad_(True) for t in _fused_qkv(cuda, B, T, H, dh, dtype))
+    do = torch.randn(q.shape, device=cuda, generator=torch.Generator(device=cuda)
+                     .manual_seed(2)).to(dtype)
+    seed = torch.tensor([777], dtype=torch.int32, device=cuda)
+    before = (attention_fwd.launches, attention_bwd.launches)
+    out = attention_with_dropout(q, k, v, bias, seed, p, 0.125, *offsets)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (attention_fwd.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    want = attention_dropout_reference(qf, kf, vf, bias, seed, p, 0.125, *offsets)
+    assert _rel(out, want) <= _tol(dtype)
+    for got, ref in zip(grads, torch.autograd.grad(want, (qf, kf, vf), do.float())):
+        assert _rel(got, ref) <= _tol(dtype)
 
 
 @pytest.mark.gpu
