@@ -570,8 +570,11 @@ cudaError_t launch_f32(const Args& a) {
   cudaError_t err = launch_prepass<float, DH>(a);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_floats<DH>() * sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      attention_bwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, attention_bwd_f32<DH>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.T_len + BK - 1) / BK, a.H, a.B);
   attention_bwd_f32<DH><<<grid, THREADS, smem, a.stream>>>(
@@ -588,9 +591,11 @@ cudaError_t launch_tc(const Args& a) {
   cudaError_t err = launch_prepass<bf16, DH>(a);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes<DH>();
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      attention_bwd_tc<DH, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, attention_bwd_tc<DH, DROP>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.T_len + BK - 1) / BK, a.H, a.B);
   attention_bwd_tc<DH, DROP><<<grid, THREADS, smem, a.stream>>>(

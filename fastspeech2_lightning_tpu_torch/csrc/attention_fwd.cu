@@ -411,8 +411,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const float*
                        Dropout drop, cudaStream_t stream) {
   using namespace f32_fwd;
   const size_t smem = smem_floats<DH>() * sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      attention_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, attention_fwd_f32<DH>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
   attention_fwd_f32<DH><<<grid, THREADS, smem, stream>>>(
@@ -428,9 +431,11 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
                       Dropout drop, cudaStream_t stream) {
   using namespace tc_fwd;
   const size_t smem = smem_bytes<DH>();
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      attention_fwd_tc<DH, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, attention_fwd_tc<DH, DROP>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
   attention_fwd_tc<DH, DROP><<<grid, THREADS, smem, stream>>>(

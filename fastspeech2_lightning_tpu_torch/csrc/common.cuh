@@ -1,11 +1,13 @@
 // Shared helpers for the port's CUDA kernels: dtype conversion to the f32
-// the kernels accumulate in, the attention dropout hash, and the error
-// string every library exports.
+// the kernels accumulate in, the attention dropout hash, the per-device
+// shared-memory opt-in, and the error string every library exports.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace fs2 {
 
@@ -55,6 +57,34 @@ __device__ __forceinline__ uint32_t dropout_key(int seed, int bh) {
 
 __device__ __forceinline__ uint32_t dropout_bits(uint32_t key, int row, int col) {
   return mix32(((static_cast<uint32_t>(row) << 16) | static_cast<uint32_t>(col)) ^ key);
+}
+
+// The max-dynamic-shared-memory opt-in (cudaFuncSetAttribute) is an
+// attribute of a kernel in the current device's context, not of the
+// process: a process that launches on a second card must set it there too,
+// or the first launch that needs more than 48 KiB fails. Each launch site
+// keeps a static SmemOptIn and sets the attribute the first time it
+// launches on a device (two threads that race there set it twice, which is
+// harmless).
+constexpr int kMaxDevices = 64;
+
+struct SmemOptIn {
+  std::atomic<int> state[kMaxDevices];  // 0: not set yet; else 1 + what it returned
+};
+
+template <typename Kernel>
+inline cudaError_t smem_opt_in(SmemOptIn& once, Kernel kernel, int bytes) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int s = once.state[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    s = 1 + static_cast<int>(
+                cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+    once.state[dev].store(s, std::memory_order_release);
+  }
+  return static_cast<cudaError_t>(s - 1);
 }
 
 }  // namespace fs2

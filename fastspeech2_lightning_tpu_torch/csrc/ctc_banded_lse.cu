@@ -303,8 +303,11 @@ ctc_grad_kernel(const float* __restrict__ alphas, const float* __restrict__ beta
 template <int K>
 cudaError_t launch(const float* logprobs, const int* in_lens, const int* out_lens,
                    float* alphas, float* betas, int B, int T, int L, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      ctc_chain_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, ctc_chain_kernel<K>,
       static_cast<int>(sizeof(float) * RING_FRAMES * (MAX_S / 2)));
   if (attr != cudaSuccess) return attr;
   const int S = 2 * L + 1;

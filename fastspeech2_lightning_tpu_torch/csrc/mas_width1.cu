@@ -240,8 +240,11 @@ cudaError_t launch(const void* log_attn, const void* in_lens, const void* out_le
                    void* durations, void* bits, int B, int T, int L, cudaStream_t stream) {
   const int search_warps = (L + 32 * COLS - 1) / (32 * COLS);
   const size_t smem = sizeof(float) * SLOTS * BLOCK * search_warps * 32 * COLS;
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      mas_width1_kernel<COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, mas_width1_kernel<COLS>,
       static_cast<int>(sizeof(float) * SLOTS * BLOCK * MAX_WARPS * 32 * COLS));
   if (attr != cudaSuccess) return attr;
   mas_width1_kernel<COLS><<<B, (search_warps + COPY_WARPS) * 32, smem, stream>>>(

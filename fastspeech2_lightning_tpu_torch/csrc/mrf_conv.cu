@@ -305,9 +305,11 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* r
                    float scale, cudaStream_t stream) {
   using Tile = Tiling<T, C>;
   constexpr size_t smem = Tile::SMEM;
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
-      mrf_conv_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // the opt-in belongs to the kernel in the current device's context, so it
+  // is kept per device: one process may launch on several cards
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, mrf_conv_kernel<T, C>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((T_len + Tile::BM - 1) / Tile::BM, B);
   mrf_conv_kernel<T, C><<<grid, Tile::THREADS, smem, stream>>>(

@@ -7,6 +7,12 @@ rebuilt and an unchanged one is reused. Pointers and the CUDA stream cross
 as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 ``check()`` raises when it is not 0.
 
+A C entry launches on the calling thread's current CUDA device, so
+``launch`` makes the tensors' device current for the call where another
+one is (a process may drive several cards, one thread each); ``count``
+adds to a wrapper's launch counter under a lock, as those threads launch
+at once.
+
 Nothing here runs at import: the CPU tests import every module, and this
 host has no nvcc.
 """
@@ -31,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -145,3 +152,25 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def launch(device, entry, *args) -> int:
+    """``entry(*args)`` (a C entry of a loaded library) with `device` the
+    current CUDA device: ``torch.cuda.device`` is entered only where another
+    device is current, so the common path costs one integer compare."""
+    import torch
+
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return entry(*args)
+    return entry(*args)
+
+
+def count(wrapper, **extra) -> None:
+    """One launch more on `wrapper.launches` (and each of `extra` added to
+    the attribute it names), under a lock: replicas on several threads
+    launch the same kernel at once."""
+    with _count_lock:
+        wrapper.launches += 1
+        for name, n in extra.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)

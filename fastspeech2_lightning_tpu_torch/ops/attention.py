@@ -284,15 +284,15 @@ def _launch_fwd(q, k, v, key_bias, sm_scale: float, p: float, seed, with_lse: bo
     seed_t, seed_ptr = _seed_arg(seed, p, device)
 
     lib = build.load("attention_fwd", {"attention_fwd": _FWD_ARGTYPES})
-    err = lib.attention_fwd(
-        _DTYPE_CODES[q.dtype],
+    err = build.launch(
+        device, lib.attention_fwd, _DTYPE_CODES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), ends.data_ptr(),
         o.data_ptr(), lse.data_ptr() if with_lse else None, seed_ptr,
         B, H, T, dh, *strides, *o.stride()[:3],
         sm_scale, thresh, 1.0 / (1.0 - p), *offsets, _stream(device),
     )
     build.check(lib, err, "attention_fwd")
-    attention_fwd.launches += 1
+    build.count(attention_fwd)
     return o, lse
 
 
@@ -402,8 +402,8 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
     seed_t, seed_ptr = _seed_arg(seed, p, device)
 
     lib = build.load("attention_bwd", {"attention_bwd": _BWD_ARGTYPES})
-    err = lib.attention_bwd(
-        _DTYPE_CODES[q.dtype],
+    err = build.launch(
+        device, lib.attention_bwd, _DTYPE_CODES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
         key_bias.data_ptr(), ends.data_ptr(), lse.data_ptr(), dsum.data_ptr(), seed_ptr,
         dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, dh,
@@ -411,8 +411,7 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
         sm_scale, thresh, 1.0 / (1.0 - p), *offsets, _stream(device),
     )
     build.check(lib, err, "attention_bwd")
-    attention_bwd.launches += 1
-    attention_bwd.flops += attention_bwd_flops(B, H, T, dh)
+    build.count(attention_bwd, flops=attention_bwd_flops(B, H, T, dh))
     return dq_acc.to(q.dtype), dk, dv
 
 

@@ -100,13 +100,13 @@ def mas_width1(log_attn, in_lens, out_lens):
     from ..kernels import build
 
     lib = build.load("mas_width1", {"mas_width1": _ARGTYPES})
-    err = lib.mas_width1(
-        la.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(), hard.data_ptr(),
-        durations.data_ptr(), bits.data_ptr(), B, T, L,
+    err = build.launch(
+        dev, lib.mas_width1, la.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
+        hard.data_ptr(), durations.data_ptr(), bits.data_ptr(), B, T, L,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "mas_width1")
-    mas_width1.launches += 1
+    build.count(mas_width1)
     return hard, durations
 
 

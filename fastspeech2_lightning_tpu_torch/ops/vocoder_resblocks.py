@@ -202,8 +202,8 @@ def mrf_conv(
     from ..kernels import build
 
     lib = build.load("mrf_conv", {"mrf_conv": _ARGTYPES})
-    err = lib.mrf_conv(
-        _DTYPE_CODES[x.dtype],
+    err = build.launch(
+        x.device, lib.mrf_conv, _DTYPE_CODES[x.dtype],
         x.data_ptr(), w.data_ptr(), bias.data_ptr(),
         residual.data_ptr() if residual is not None else None,
         out.data_ptr() if out is not None else None,
@@ -212,7 +212,7 @@ def mrf_conv(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "mrf_conv")
-    mrf_conv.launches += 1
+    build.count(mrf_conv)
 
 
 mrf_conv.launches = 0

@@ -993,3 +993,60 @@ def test_wrappers_raise_on_shapes_their_kernels_do_not_take(cuda):
         mas_width1(torch.zeros(1, 4, 1025, device=cuda), lens, lens)
     with pytest.raises(ValueError, match="states"):
         ctc_alpha(torch.zeros(1, 4, 1026, device=cuda), lens)
+
+
+THREAD_DEVICES = {"one_card": ("cuda:0", "cuda:0"), "two_cards": ("cuda:0", "cuda:1")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", list(THREAD_DEVICES))
+def test_kernels_launched_from_two_threads_at_once(cuda, where):
+    """Kernel A and the MRF stage launched from two threads at once, each on
+    its own stream (as data-parallel replicas run): every output equals the
+    plain version and the counters count every launch. On two cards the
+    second thread's device is not the current one of the thread that built
+    its inputs, so each launch must make its tensors' device current and
+    the shared-memory opt-in must be set on that card too."""
+    import concurrent.futures
+    import threading
+
+    devices = [torch.device(d) for d in THREAD_DEVICES[where]]
+    if max(d.index for d in devices) >= torch.cuda.device_count():
+        pytest.skip(f"needs {max(d.index for d in devices) + 1} cards")
+    iters, B, H, T, dh, C = 20, 4, 2, 300, 128, 64
+    inputs = []
+    for i, dev in enumerate(devices):
+        g = torch.Generator(device=dev).manual_seed(i)
+        q, k, v = (torch.randn(B, H, T, dh, device=dev, generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        bias = torch.where(torch.arange(T, device=dev)[None] < T - 40 * i, 0.0,
+                           attention.NEG_INF).float().expand(B, T).contiguous()
+        x = torch.randn(2, 600, C, device=dev, generator=g)
+        flat = prepare_stage_weights(_stage_blocks(C, dev, seed=i + 1), KS, DILS, torch.float32)
+        inputs.append((dev, q, k, v, bias, x, flat))
+    torch.cuda.synchronize()
+    start = threading.Barrier(len(devices))
+
+    def replica(i):
+        dev, q, k, v, bias, x, flat = inputs[i]
+        stream = torch.cuda.Stream(device=dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream), torch.no_grad():
+            start.wait()
+            for _ in range(iters):
+                o = attention_fwd(q, k, v, bias, 1.0 / math.sqrt(dh))
+                y = fused_mrf_stage(x, flat, KS, DILS)
+            stream.synchronize()
+        return o, y
+
+    a0, m0 = attention_fwd.launches, mrf_conv.launches
+    with torch.cuda.device(devices[0]):
+        with concurrent.futures.ThreadPoolExecutor(len(devices)) as pool:
+            outs = list(pool.map(replica, range(len(devices))))
+    assert attention_fwd.launches - a0 == len(devices) * iters
+    assert mrf_conv.launches - m0 == len(devices) * iters * 18
+    for (dev, q, k, v, bias, x, flat), (o, y), seed in zip(inputs, outs, range(1, 3)):
+        assert o.device == dev and y.device == dev
+        want = attention_reference(q.float(), k.float(), v.float(), bias, 1.0 / math.sqrt(dh))
+        assert _rel(o, want) <= _tol(torch.bfloat16)
+        blocks = _stage_blocks(C, dev, seed=seed)
+        assert _rel(y, mrf_stage_reference(x, blocks, KS, DILS)) <= _mrf_tol(torch.float32)
