@@ -59,12 +59,6 @@ def _load_config(args):
     return load_config_base_command(args.config, args.config_args)
 
 
-def _refuse_data_parallel(args) -> None:
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "data-parallel synthesis is not ported yet (later slice: data parallel)")
-
-
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m fastspeech2_lightning_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -91,7 +85,9 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--vocoder-precision", choices=["float32", "bfloat16"],
                    default="float32")
     s.add_argument("--data-parallel", type=int, default=None,
-                   help="Shard each micro-batch over N cards (not ported: above 1 raises).")
+                   help="Split each micro-batch's rows over N model replicas in this "
+                   "process, one a card (cuda:0 .. cuda:N-1; N CPU replicas with --device "
+                   "cpu); a long request alone is vocoded in windows across them.")
     s.add_argument("--warmup", action=argparse.BooleanOptionalAction, default=False,
                    help="Build the kernels before accepting requests.")
     s.add_argument("--style-reference", "-S", default=None,
@@ -154,7 +150,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="A wav whose style a global-style-token model takes.")
     y.add_argument("--output-dir", "-o", default="synthesis_output")
     y.add_argument("--batch-size", "-b", type=int, default=None)
-    y.add_argument("--data-parallel", type=int, default=None)
+    y.add_argument("--data-parallel", type=int, default=None,
+                   help="Split each batch's rows over N model replicas in this process, one "
+                   "a card (cuda:0 .. cuda:N-1; N CPU replicas with --device cpu); the batch "
+                   "size is rounded down to a multiple of N.")
     y.add_argument("--teacher-forcing-directory", "-T", default=None,
                    help="A preprocessed directory holding the target mels (and attention "
                    "priors or durations) of the filelist's utterances.")
@@ -181,7 +180,11 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--ckpt-steps", type=int, default=5000)
     v.add_argument("--log-steps", type=int, default=50,
                    help="Log the losses at step 1 and every this many steps.")
-    v.add_argument("--data-parallel", type=int, default=None)
+    v.add_argument("--data-parallel", type=int, default=None,
+                   help="Train as N ranks of a torchrun launch, one card each (torchrun "
+                   "--nproc_per_node N ... train-vocoder CONFIG --data-parallel N; gloo with "
+                   "--device cpu): the batch size is rounded up to a multiple of N and split "
+                   "over the ranks, the gradients averaged.")
     v.add_argument("--finetune-from", default=None,
                    help="Initialize the generator from an existing vocoder checkpoint "
                    "(.ckpt torch or .npz); discriminators start fresh.")
@@ -465,12 +468,19 @@ def train_vocoder_command(args) -> None:
                                frames_per_crop=args.frames_per_crop,
                                learning_rate=args.learning_rate, ckpt_steps=args.ckpt_steps,
                                compute_dtype=args.precision, log_steps=args.log_steps)
-    train_vocoder(_load_config(args), train_config=tc,
-                  max_steps=args.max_steps, resume=args.resume,
-                  data_parallel=args.data_parallel,
-                  finetune_from=None if args.finetune_from is None else Path(args.finetune_from),
-                  finetune_mel_dir=None if args.finetune_mels is None else Path(args.finetune_mels),
-                  device=device)
+    try:
+        train_vocoder(
+            _load_config(args), train_config=tc, max_steps=args.max_steps, resume=args.resume,
+            data_parallel=args.data_parallel,
+            finetune_from=None if args.finetune_from is None else Path(args.finetune_from),
+            finetune_mel_dir=None if args.finetune_mels is None else Path(args.finetune_mels),
+            device=device)
+    finally:
+        if (args.data_parallel or 1) > 1:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 def evaluate_vocoder_command(args) -> None:
@@ -506,15 +516,19 @@ def synthesize(args) -> None:
     if needs_vocoder and args.vocoder_path is None:
         parser.error("Missing --vocoder-path option. A vocoder is required for wav "
                      "and readalong-html output.")
-    _refuse_data_parallel(args)
 
     from .checkpoint import load_model_from_checkpoint
+    from .parallel.replicas import replica_devices
     from .synthesis.prepare import prepare_data
     from .synthesis.synthesize import synthesize_items
     from .synthesis.writers import get_synthesis_output_writers
 
+    # --data-parallel N: one model replica a device in this process
+    devices = (replica_devices(None, args.data_parallel, args.device)
+               if (args.data_parallel or 1) > 1 else None)
     model, config, stats, lang2id, speaker2id, global_step = load_model_from_checkpoint(
-        Path(args.model_path), device=args.device, use_ema=args.use_ema)
+        Path(args.model_path), device=devices[0] if devices else args.device,
+        use_ema=args.use_ema)
     if args.config_args:
         # inference-time overrides of the checkpoint's config
         from .config import FastSpeech2Config, apply_overrides
@@ -567,6 +581,7 @@ def synthesize(args) -> None:
         teacher_forcing=teacher_forcing,
         control={"pitch": args.pitch_control, "energy": args.energy_control,
                  "duration": args.duration_control},
+        devices=devices,
     )
     print(f"Wrote outputs to {args.output_dir}", flush=True)
 
@@ -633,8 +648,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     elif args.command == "serve":
         from .serving import serve
 
-        if not str(args.model_path).endswith(".fs2x"):
-            _refuse_data_parallel(args)
         if args.style_reference is not None and not Path(args.style_reference).exists():
             args.command_parser.error("Invalid value for '--style-reference' / '-S': Path "
                                       f"'{args.style_reference}' does not exist.")

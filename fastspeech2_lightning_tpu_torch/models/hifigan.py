@@ -12,14 +12,16 @@ Activations are [B, C, T] here and [B, T, C] inside the fused stage.
 
 ``init_random_hifigan`` draws the JAX package's random generator weights
 (the same numpy draws in the same order); ``HiFiGANGenerator`` holds them as
-``nn.Parameter``s under the state_dict names, for the vocoder trainer."""
+``nn.Parameter``s under the state_dict names, for the vocoder trainer.
+``make_parallel_vocoder_fn`` vocodes over one process's replicas: rows
+apart when there are enough of them, else the frame axis in windows."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -362,4 +364,95 @@ def make_vocoder_fn(
     vocoder.sample_rate = config.sampling_rate
     vocoder.hop = config.total_upsampling
     vocoder.receptive_margin_frames = config.receptive_margin_frames
+    return vocoder
+
+
+def make_parallel_vocoder_fn(
+    params: Dict[str, np.ndarray],
+    config: HiFiGANConfig,
+    devices: Sequence,
+    precision: str = "float32",
+    fused: bool = False,
+    replicas=None,
+):
+    """The vocoder over one process's devices (``hifigan.py:514-629``): a
+    callable as ``make_vocoder_fn``'s, with ``.device_fn(mel, n_real=None)``,
+    ``.device`` (the first device), ``.sample_rate``, ``.hop``,
+    ``.receptive_margin_frames`` and ``._window_cache``, over one
+    ``make_vocoder_fn`` a device run by `replicas` (a
+    ``parallel.replicas.Replicas`` over `devices`; one is made if None).
+
+    `mel` is a [B, T, n_mels] tensor or a list of one row block a device
+    (what each replica of a data-parallel Synthesizer holds); `n_real` is
+    the number of real rows, the rest being fill. With at least one real
+    row a device, each device vocodes its own rows and nothing crosses
+    devices. Otherwise the frame axis is split into N windows of w =
+    ceil(T / N) frames, each with the generator's one-sided receptive field
+    (``receptive_margin_frames``) of true context on both sides (the
+    ``windowed_vocode`` contract): window i emits frames [i w, (i + 1) w),
+    the last one [T - w, T) so that its slice stays inside the signal, and
+    the head is trimmed to (T - w) * hop samples; the pieces equal vocoding
+    the whole mel. A mel too short to split (T <= w + 2 * margin, or fewer
+    than two windows) takes one plain call on the first device. Returns
+    the first `n_real` rows' wav on the first device. With `fused` the MRF
+    kernel runs each replica's supported stages (the JAX function is
+    unfused; the output is the same either way)."""
+    from ..parallel.replicas import Replicas, concat_rows, to_caller
+
+    devices = [torch.device(d) for d in devices]
+    replicas = replicas or Replicas(devices)
+    vocs = [make_vocoder_fn(params, config, precision=precision, fused=fused, device=d)
+            for d in devices]
+    n_dev, dev0 = len(devices), devices[0]
+    margin, hop = config.receptive_margin_frames, config.total_upsampling
+    cache: Dict[tuple, Optional[tuple]] = {}
+
+    def windows(T: int):
+        w = -(-T // n_dev)
+        n_eff = -(-T // w)
+        W = w + 2 * margin
+        if T <= W or n_eff < 2:
+            return None
+        starts = [i * w for i in range(n_eff - 1)] + [T - w]
+        return w, W, [(start, min(max(start - margin, 0), T - W)) for start in starts]
+
+    def run(i: int, mel_i):
+        return None if mel_i is None else vocs[i].device_fn(mel_i)
+
+    def device_fn(mel, n_real: Optional[int] = None) -> torch.Tensor:
+        blocks = list(mel) if isinstance(mel, (list, tuple)) else None
+        rows = sum(int(b.shape[0]) for b in blocks) if blocks else int(mel.shape[0])
+        B = int(n_real) if n_real else rows
+        T = int((blocks[0] if blocks else mel).shape[1])
+        if B >= n_dev:
+            if blocks is None or len(blocks) != n_dev:
+                whole = mel if blocks is None else concat_rows([b.to(dev0) for b in blocks])
+                blocks = [b.to(d) for b, d in zip(torch.tensor_split(whole, n_dev), devices)]
+            wavs = replicas.map(run, blocks)
+            return torch.cat([to_caller(w, dev0) for w in wavs])[:B]
+        if (B, T) not in cache:
+            cache[(B, T)] = windows(T)
+        plan = cache[(B, T)]
+        rows_b = (concat_rows([to_caller(b, dev0) for b in blocks]) if blocks
+                  else mel.to(dev0))[:B]
+        if plan is None:
+            return vocs[0].device_fn(rows_b)
+        w, W, spans = plan
+        ins = [rows_b[:, lo:lo + W].to(d) for (_, lo), d in zip(spans, devices)]
+        wavs = replicas.map(run, ins + [None] * (n_dev - len(ins)))
+        segs = [to_caller(wav, dev0)[:, (start - lo) * hop:(start - lo + w) * hop]
+                for wav, (start, lo) in zip(wavs, spans)]
+        head = torch.cat(segs[:-1], dim=1)[:, :(T - w) * hop]
+        return torch.cat([head, segs[-1]], dim=1)
+
+    def vocoder(mel: np.ndarray):
+        wav = device_fn(torch.as_tensor(np.asarray(mel)))
+        return wav.float().cpu().numpy(), config.sampling_rate
+
+    vocoder.device_fn = device_fn
+    vocoder.device = dev0
+    vocoder.sample_rate = config.sampling_rate
+    vocoder.hop = hop
+    vocoder.receptive_margin_frames = margin
+    vocoder._window_cache = cache  # which (B, T) were window-split, and how
     return vocoder

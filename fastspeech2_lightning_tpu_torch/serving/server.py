@@ -455,9 +455,11 @@ def serve(
     and initialises the device libraries before the first request (for a
     ``.fs2x`` artifact: runs every exported program once); use_ema serves the
     EMA weights of a trainer's step=N/ directory; style_reference (a wav)
-    conditions every request of a global-style-token model. A ``.fs2x``
-    artifact refuses the options fixed at export time, with the JAX
-    package's message."""
+    conditions every request of a global-style-token model; data_parallel
+    N splits each micro-batch's rows over N model replicas in this process,
+    one a card (N CPU replicas with device "cpu"). A ``.fs2x`` artifact
+    refuses the options fixed at export time, with the JAX package's
+    message."""
     from ..synthesis.api import Synthesizer
 
     if str(model_path).endswith(".fs2x"):

@@ -26,7 +26,21 @@ discriminators and both optimizers' state_dicts, host tensors) and
 ``meta.json`` (the JAX package's keys), written into ``step=N.tmp`` and
 renamed; the 5 newest are kept, and each save refreshes
 ``checkpoints/vocoder.npz``, the generator in the JAX package's pytree of
-numpy f32 arrays, which both packages' ``load_vocoder_params`` read."""
+numpy f32 arrays, which both packages' ``load_vocoder_params`` read.
+
+Data parallel (``train_vocoder(data_parallel=N)``, ``torchrun
+--nproc_per_node N ... train-vocoder ... --data-parallel N``; JAX runs one
+process over N chips): N ranks of a ``torch.distributed`` process group,
+one device each. The global batch is the batch size rounded up to a
+multiple of N; every rank's crop loader draws that batch from the same
+seed and keeps its contiguous rows (``parallel.batch_rows``). Each side's
+gradients are averaged over the ranks (``average_gradients``) before its
+optimizer steps, so the replicated weights stay equal; no layer of the
+generator or the discriminators holds batch statistics, so N ranks compute
+one process's step at the global batch up to summation order. The logged
+losses are the ranks' mean, rank 0 alone writes the log and the
+checkpoints (the others wait at a barrier), every rank resumes from the
+newest checkpoint, and the ranks stop together when any one is signalled."""
 
 from __future__ import annotations
 
@@ -51,10 +65,13 @@ from ..models.hifigan_discriminators import (
     Discriminators,
     discriminator_forward,
 )
+from ..parallel.mesh import all_reduce, barrier, batch_rows, make_layout, use_layout
+from ..parallel.mesh import layout as parallel_layout
 from ..preprocessing.features import LOG_CLIP, mel_spectrogram_torch
 from ..utils.tensorboard import SummaryWriter
 from .checkpoint import latest_checkpoint
 from .preemption import install_preemption_handler
+from .state import _all_reduce_buckets
 
 MODEL_INFO = {"name": "HiFiGAN", "version": "1.0"}
 LOSS_KEYS = ("d", "g", "g_adv", "fm", "mel_l1")
@@ -132,6 +149,18 @@ def _step_optimizer(opt: torch.optim.AdamW, lr: float) -> None:
     opt.step()
 
 
+def average_gradients(module: torch.nn.Module) -> None:
+    """Each parameter gradient of `module` replaced by its mean over the
+    data group (bucketed all-reduces); nothing over a group of one."""
+    lay = parallel_layout()
+    if lay.data_group is None:
+        return
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    _all_reduce_buckets(grads, lay.data_group)
+    for g in grads:
+        g.div_(lay.data_size)
+
+
 def make_vocoder_train_step(gen_config: HiFiGANConfig, disc_config: DiscriminatorConfig,
                             train_config: VocoderTrainingConfig, audio_config):
     """-> step(state, batch) -> losses: one D update, then one G update,
@@ -139,7 +168,9 @@ def make_vocoder_train_step(gen_config: HiFiGANConfig, disc_config: Discriminato
     f32 tensors on the state's device. The losses are 0-d f32 tensors on the
     device (read them at a logging step only: each read waits for the card).
     After the step each D parameter's ``.grad`` holds the D update's
-    gradient and each G parameter's the G update's."""
+    gradient and each G parameter's the G update's. Under a data-parallel
+    layout the batch holds this rank's rows, each gradient is the ranks'
+    mean and the losses are this rank's."""
     dt = torch.bfloat16 if train_config.compute_dtype == "bfloat16" else torch.float32
 
     def step(state: VocoderState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -158,6 +189,7 @@ def make_vocoder_train_step(gen_config: HiFiGANConfig, disc_config: Discriminato
             d_loss = d_loss + torch.mean((s[:B] - 1.0) ** 2) + torch.mean(s[B:] ** 2)
         state.opt_d.zero_grad(set_to_none=True)
         d_loss.backward()
+        average_gradients(disc)
         _step_optimizer(state.opt_d, lr)
 
         # 2) generator update against the updated discriminator, which
@@ -181,6 +213,7 @@ def make_vocoder_train_step(gen_config: HiFiGANConfig, disc_config: Discriminato
             total.backward()
         finally:
             disc.requires_grad_(True)
+        average_gradients(gen)
         _step_optimizer(state.opt_g, lr)
         state.step += 1
         return {"d": d_loss.detach(), "g": total.detach(), "g_adv": adv.detach(),
@@ -353,6 +386,54 @@ def load_vocoder_training_checkpoint(path: Path, state: VocoderState) -> Vocoder
 # ---------------------------------------------------------------------------
 
 
+def _launched() -> bool:
+    """Whether this process may join a process group: one exists already,
+    or a launcher's environment names one."""
+    import torch.distributed as dist
+
+    return dist.is_initialized() or bool(
+        os.environ.get("FS2T_COORDINATOR_ADDRESS")
+        or (os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE")))
+
+
+def _join_data_parallel(n: int, device) -> torch.device:
+    """Join the launcher's process group of `n` ranks; this rank's device."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
+    if not _launched():
+        raise ValueError(
+            f"data_parallel={n} trains as {n} processes, one device each: launch them with "
+            f"torchrun (torchrun --nproc_per_node {n} -m fastspeech2_lightning_tpu_torch "
+            f"train-vocoder CONFIG --data-parallel {n})")
+    device = init_distributed(device)
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"--data-parallel {n} needs a process group of {n} ranks; this one "
+                         f"has {world}")
+    return device
+
+
+def _any_rank(flag: bool, device) -> bool:
+    """Whether `flag` is set on any rank of the data group (one MAX
+    all-reduce; the flag itself in one process)."""
+    group = parallel_layout().data_group
+    if group is None:
+        return flag
+    t = torch.tensor([float(flag)], device=device)
+    return bool(all_reduce(t, group, torch.distributed.ReduceOp.MAX).item())
+
+
+def _mean_losses(losses: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The step's losses on the host, averaged over the data group."""
+    vals = torch.stack([losses[k].float() for k in LOSS_KEYS])
+    lay = parallel_layout()
+    if lay.data_group is not None:
+        vals = all_reduce(vals, lay.data_group) / lay.data_size
+    return dict(zip(LOSS_KEYS, vals.tolist()))
+
+
 def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
                   gen_config: Optional[HiFiGANConfig] = None,
                   disc_config: Optional[DiscriminatorConfig] = None,
@@ -371,12 +452,30 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
     directory as ``vocoder/<k>`` (``vocoder.py:526-531, :585-587``), and a
     non-finite one raises. SIGTERM or SIGINT
     finishes the step in flight, checkpoints and returns. The run ends with
-    a checkpoint at its last step (the JAX loop writes that one twice)."""
+    a checkpoint at its last step (the JAX loop writes that one twice).
+    `data_parallel` N > 1 joins the process group of N ranks a launcher
+    (torchrun, or the ``FS2T_*`` variables) started, or the one that exists
+    (``parallel.launch.run_local``), and raises without one; the batch size
+    is rounded up to a multiple of N (``vocoder.py:486-495``)."""
     device = resolve_device(device)
     train_config = train_config or VocoderTrainingConfig()
-    if data_parallel is not None and data_parallel > 1:
-        raise NotImplementedError(
-            "data-parallel vocoder training is not ported yet (later slice: data parallel)")
+    n = 1 if data_parallel is None else int(data_parallel)
+    if n <= 1:
+        return _train_vocoder(config, train_config, gen_config, disc_config, log_dir,
+                              max_steps, resume, finetune_from, finetune_mel_dir, device)
+    from ..dataset import _round_up
+
+    device = _join_data_parallel(n, device)
+    train_config = dataclasses.replace(train_config,
+                                       batch_size=_round_up(train_config.batch_size, n))
+    with use_layout(make_layout(1)):
+        return _train_vocoder(config, train_config, gen_config, disc_config, log_dir,
+                              max_steps, resume, finetune_from, finetune_mel_dir, device)
+
+
+def _train_vocoder(config, train_config, gen_config, disc_config, log_dir, max_steps, resume,
+                   finetune_from, finetune_mel_dir, device) -> VocoderState:
+    is_main = parallel_layout().is_main
     a = config.preprocessing.audio
     ft_sd = None
     if finetune_from is not None:
@@ -388,7 +487,8 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
             raise ValueError("--finetune-from checkpoint architecture differs from the "
                              "requested generator config")
         gen_config = ft_config
-        print(f"fine-tuning generator from {finetune_from} (step {ft_step})")
+        if is_main:
+            print(f"fine-tuning generator from {finetune_from} (step {ft_step})")
     if gen_config is None:
         gen_config = HiFiGANConfig(n_mels=a.n_mels, sampling_rate=a.output_sampling_rate,
                                    hop_size=a.fft_hop_size)
@@ -412,7 +512,8 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
                 f"resume {latest.name} and discard the finetune initialization). Pass "
                 "--no-resume, a fresh log dir, or drop --finetune-from to continue the old run.")
         load_vocoder_training_checkpoint(latest, state)
-        print(f"resumed vocoder training from {latest}")
+        if is_main:
+            print(f"resumed vocoder training from {latest}")
     step_fn = make_vocoder_train_step(gen_config, disc_config, train_config, a)
     loader = VocoderCropLoader(config, train_config, finetune_mel_dir=finetune_mel_dir)
     max_steps = max_steps or train_config.max_steps
@@ -437,41 +538,50 @@ def train_vocoder(config, train_config: Optional[VocoderTrainingConfig] = None,
                 continue  # the same batch again; the disk is not read twice
 
     threading.Thread(target=produce, name="fs2t-vocoder-crops", daemon=True).start()
-    tb = SummaryWriter(log_dir)
+    tb = SummaryWriter(log_dir) if is_main else None
     preempt = install_preemption_handler()
     t0 = time.time()
     first = saved = state.step
     try:
         while state.step < max_steps:
-            if preempt["flag"]:
-                print(f"received signal {preempt['signum']}: checkpointing vocoder at step "
-                      f"{state.step} and exiting cleanly", flush=True)
+            if _any_rank(preempt["flag"], device):
+                if preempt["flag"] or is_main:
+                    print(f"received signal {preempt['signum']}: checkpointing vocoder at "
+                          f"step {state.step} and exiting cleanly", flush=True)
                 break
             batch = q.get()
             if isinstance(batch, Exception):
                 raise batch
-            batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            batch = {k: torch.from_numpy(v).to(device) for k, v in batch_rows(batch).items()}
             losses = step_fn(state, batch)
             step = state.step
             if step % train_config.log_steps == 0 or step == 1:
-                host = {k: float(v) for k, v in losses.items()}
+                host = _mean_losses(losses)
                 sps = (step - first) / max(time.time() - t0, 1e-9)
-                print(f"vocoder step {step} d={host['d']:.4f} g={host['g']:.4f} "
-                      f"mel_l1={host['mel_l1']:.4f} ({sps:.2f} steps/s)", flush=True)
-                with open(log_path, "a") as f:
-                    f.write(json.dumps({"step": step, **host, "steps_per_s": sps}) + "\n")
-                for k, v in host.items():
-                    tb.add_scalar(f"vocoder/{k}", v, step)
+                if is_main:
+                    print(f"vocoder step {step} d={host['d']:.4f} g={host['g']:.4f} "
+                          f"mel_l1={host['mel_l1']:.4f} ({sps:.2f} steps/s)", flush=True)
+                    with open(log_path, "a") as f:
+                        f.write(json.dumps({"step": step, **host, "steps_per_s": sps}) + "\n")
+                    for k, v in host.items():
+                        tb.add_scalar(f"vocoder/{k}", v, step)
                 if not all(np.isfinite(v) for v in host.values()):
                     raise RuntimeError(f"non-finite vocoder loss at step {step}: {host}")
             if step % train_config.ckpt_steps == 0 or step >= max_steps:
-                save_vocoder_checkpoint(ckpt_dir, state)
+                if is_main:
+                    save_vocoder_checkpoint(ckpt_dir, state)
+                barrier()
                 saved = step
     finally:
         stop.set()
         preempt["disarm"]()
-        tb.close()
-    if saved != state.step or not (ckpt_dir / "vocoder.npz").exists():
-        save_vocoder_checkpoint(ckpt_dir, state)
-    print(f"vocoder checkpoint: {ckpt_dir / 'vocoder.npz'}", flush=True)
+        if tb is not None:
+            tb.close()
+    npz = ckpt_dir / "vocoder.npz"
+    if _any_rank(saved != state.step or (is_main and not npz.exists()), device):
+        if is_main:
+            save_vocoder_checkpoint(ckpt_dir, state)
+        barrier()
+    if is_main:
+        print(f"vocoder checkpoint: {npz}", flush=True)
     return state

@@ -3,24 +3,33 @@
 The two CLIs have the same 13 commands. For each, every long option of the
 JAX click command, with its ``--no-`` form, is an option of the port's
 argparse sub-command; the port's extra ``--device`` is allowed. ``serve --no-use-ema --no-warmup --data-parallel 1`` parses, and
-``serve --data-parallel 2`` raises as ``synthesize --data-parallel 2``
-does; ``train --model-parallel 2`` without ``--distributed`` exits naming
+``serve --data-parallel 2 --device cpu`` and ``synthesize --data-parallel 2
+--device cpu`` run on two CPU replicas and give what one replica gives;
+``train --model-parallel 2`` without ``--distributed`` exits naming
 torchrun, and ``--distributed`` outside a launcher's environment raises. Every
 command that reads a config takes the YAML file ``helpers`` writes with
 ``yaml.safe_dump`` and builds the config its JSON twin gives, and a relative
 ``training.vocoder_path`` resolves as the JAX loader resolves it."""
 
 import argparse
+import io
 import json
+import urllib.request
 
 import click
+import numpy as np
 import pytest
+import torch
 import yaml
 
 from fastspeech2_lightning_tpu.cli import app as jax_app
 from fastspeech2_lightning_tpu.config import load_config_base_command as j_load
+from fastspeech2_lightning_tpu.models.torch_export import export_reference_lightning_checkpoint
+from fastspeech2_lightning_tpu.testing import get_stubbed_model, stub_config
 from fastspeech2_lightning_tpu_torch import cli
 from fastspeech2_lightning_tpu_torch import config as config_module
+from fastspeech2_lightning_tpu_torch.serving.server import SynthesisServer
+from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
 
 from helpers import make_training_workspace
 
@@ -66,16 +75,45 @@ def test_serve_takes_the_negated_flags_and_data_parallel():
     assert (args.use_ema, args.warmup, args.data_parallel) == (True, True, None)
 
 
-def test_serve_data_parallel_above_1_raises_as_synthesize_does(tmp_path):
-    model = tmp_path / "m.ckpt"
-    model.write_bytes(b"")
-    with pytest.raises(NotImplementedError) as serve_error:
-        cli.main(["serve", str(model), "--data-parallel", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError) as synth_error:
-        cli.main(["synthesize", str(model), "-t", "hi", "-O", "spec", "--data-parallel", "2",
-                  "--device", "cpu"])
-    assert str(serve_error.value) == str(synth_error.value)
-    assert "data-parallel" in str(serve_error.value)
+def test_serve_data_parallel_above_1_raises_as_synthesize_does(tmp_path, monkeypatch):
+    """Neither raises any more: ``serve --data-parallel 2 --device cpu``
+    serves from two CPU replicas the one-replica Synthesizer's mel, and
+    ``synthesize --data-parallel 2 --device cpu`` writes the spec files one
+    replica writes (within JAX's data-parallel tolerance, 2e-5)."""
+    torch.set_num_threads(2)
+    _, orbax_dir = get_stubbed_model(tmp_path / "m", config=stub_config(dtype="float32"))
+    model = export_reference_lightning_checkpoint(orbax_dir, tmp_path / "m.ckpt")
+    texts = ["hello world", "the quick brown fox", "abc def"]
+    specs = {}
+    for dp in ("1", "2"):
+        out = tmp_path / f"dp{dp}"
+        cli.main(["synthesize", str(model), *[a for t in texts for a in ("-t", t)], "-O",
+                  "spec", "-b", "2", "--data-parallel", dp, "--device", "cpu", "-o", str(out)])
+        specs[dp] = {p.name: np.load(p) for p in sorted(out.glob("**/*.npy"))}
+    assert list(specs["1"]) == list(specs["2"]) and len(specs["1"]) == len(texts)
+    for name, want in specs["1"].items():
+        np.testing.assert_allclose(specs["2"][name], want, rtol=0, atol=2e-5)
+
+    servers = []
+    monkeypatch.setattr(SynthesisServer, "serve_forever", lambda self: servers.append(self))
+    cli.main(["serve", str(model), "--data-parallel", "2", "--device", "cpu", "--port", "0",
+              "--max-frames", "128"])
+    (srv,) = servers
+    assert srv.synthesizer.devices == [torch.device("cpu")] * 2
+    want = Synthesizer.from_checkpoint(model, max_frames=128, device="cpu").synthesize(
+        texts[:1]).mels[0]
+    srv.start()
+    try:
+        req = urllib.request.Request(
+            f"http://{srv.address[0]}:{srv.address[1]}/synthesize",
+            data=json.dumps({"text": texts[0], "format": "mel"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            mel = np.load(io.BytesIO(resp.read()))
+    finally:
+        srv.shutdown()
+    assert mel.shape == want.shape and mel.shape[0] > 0
+    np.testing.assert_allclose(mel, want, rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("flags", [["--model-parallel", "2"], ["--distributed"]])

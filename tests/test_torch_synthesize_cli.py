@@ -225,6 +225,29 @@ def test_teacher_forced_durations_equal(teacher_forced):
     assert len(items) == 3
 
 
+def test_teacher_forced_on_two_replicas_equals_one(teacher_forced):
+    """``synthesize_items(devices=[cpu, cpu])``: each batch's rows split over
+    two replicas, the partial last batch filled with its row 0 and trimmed
+    before the writers: the one-replica outputs (within JAX's data-parallel
+    tolerance, 2e-5; durations equal) and JAX's."""
+    root, jrec, prec, _ = teacher_forced
+    pmodel, pconfig, pstats, plang, pspk, _ = load_model_from_checkpoint(root / "model.ckpt",
+                                                                         device="cpu")
+    rec = _Recorder()
+    synthesize_items(prepare_data(None, None, None, root / "pre" / "training_filelist.psv",
+                                  pconfig, pstats, plang, pspk, split_text=False),
+                     pmodel, pconfig, plang, pspk, {"record": rec}, batch_size=2,
+                     teacher_forcing=True, devices=["cpu", "cpu"])
+    assert [len(o["tgt_lens"]) for o in rec.outputs] == [2, 1]
+    for got, one, want in zip(rec.outputs, prec.outputs, jrec.outputs):
+        assert set(got) == set(one)
+        for key in ("duration_rounded", "tgt_lens", "attn_hard"):
+            np.testing.assert_array_equal(got[key], one[key])
+            np.testing.assert_array_equal(got[key], want[key])
+        np.testing.assert_allclose(got["output"], one["output"], rtol=0, atol=2e-5)
+        np.testing.assert_allclose(got["output"], want["output"], rtol=0, atol=SPEC_ATOL)
+
+
 def test_teacher_forced_outputs_carry_the_loss_inputs(teacher_forced):
     """The teacher-forced forward returns what JAX's returns for the loss:
     the alignment's log-probabilities, soft and hard alignments, the

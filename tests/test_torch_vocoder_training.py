@@ -21,7 +21,16 @@ silence down to rounding level, where the sign of |real - fake|, and then
 Adam's first step, is rounding's choice in each framework.
 
 A bf16 step (parameters cast before the weight norm) gives JAX's bf16
-losses within 2e-2. The crop loader yields JAX's batches for the same
+losses within 2e-2. Two gloo ranks (``parallel.launch.run_local``, the rank
+functions in ``torch_dp_workers.py``) with one row each of the same three
+batches give the one-process losses and JAX's within rtol 2e-4 / atol 2e-5
+(JAX's ``test_vocoder_step_data_parallel_matches_single``), and the
+one-process step-1 update tensor by tensor within rel-L2 1e-3 on the
+elements whose gradient is not zero to rounding (``parallel.launch.settled``);
+skipping the generator's gradient average is refused by that check.
+``train_vocoder(data_parallel=2)`` under a process group logs the one-process
+run's losses, writes ``step=N/`` once and resumes at world 2; without a
+launcher it raises, naming torchrun. The crop loader yields JAX's batches for the same
 workspace and seed, the learning rate is optax's schedule, a save and resume
 continue bit for bit, and ``vocoder.npz`` crosses between the packages both
 ways."""
@@ -29,6 +38,7 @@ ways."""
 import dataclasses
 import json
 import signal
+import types
 import subprocess
 import sys
 import time
@@ -56,9 +66,11 @@ from fastspeech2_lightning_tpu_torch.convert import (
 from fastspeech2_lightning_tpu_torch.models import hifigan as ph
 from fastspeech2_lightning_tpu_torch.models import hifigan_discriminators as pd
 from fastspeech2_lightning_tpu_torch.preprocessing.features import mel_spectrogram_torch
+from fastspeech2_lightning_tpu_torch.parallel.launch import run_local, settled, update_errors
 from fastspeech2_lightning_tpu_torch.training import vocoder as pv
 from fastspeech2_lightning_tpu_torch.training.checkpoint import latest_checkpoint
 
+import torch_dp_workers
 from helpers import make_training_workspace
 
 torch.set_num_threads(2)
@@ -462,7 +474,7 @@ def test_train_vocoder_resumes_and_skips_incomplete(workspace, tmp_path):
     assert json.loads((ckpt / "step=3" / "meta.json").read_text())["global_step"] == 3
 
 
-def test_train_vocoder_errors(workspace, tmp_path):
+def test_train_vocoder_errors(workspace, tmp_path, monkeypatch):
     from fastspeech2_lightning_tpu.testing import get_stubbed_vocoder
 
     _, _, pcfg = workspace
@@ -470,7 +482,9 @@ def test_train_vocoder_errors(workspace, tmp_path):
     with pytest.raises(ValueError, match="upsampling"):
         pv.train_vocoder(pcfg, gen_config=bad, max_steps=1, device="cpu",
                          log_dir=tmp_path / "a")
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    for name in ("MASTER_ADDR", "WORLD_SIZE", "FS2T_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2 .* --data-parallel 2"):
         _train(pcfg, tmp_path, name="b", data_parallel=2)
     _train(pcfg, tmp_path, name="c", max_steps=1)
     _, voc = get_stubbed_vocoder(tmp_path)
@@ -583,3 +597,95 @@ def test_vocoder_npz_crosses_both_ways(jax_runs, tmp_path):
     pfn, pstep, _ = ph.load_vocoder_checkpoint(jax_npz, device="cpu")
     assert pstep == 3
     assert np.abs(pfn(mel)[0] - np.asarray(jfn(mel)[0])).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# data parallel: two gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT_S = 150.0
+AUDIO = types.SimpleNamespace(**{k: getattr(A, k) for k in vars(_Audio) if not k.startswith("_")})
+
+
+@pytest.fixture(scope="module")
+def dp_runs(jax_runs):
+    """Two ranks from the JAX weights on batches 0, 1, 2 (one row each),
+    with and without the generator's gradient average."""
+    gen_sd = hifigan_state_from_jax(jax_runs["state0"]["gen"], P_GEN)
+    disc_sd = discriminators_from_jax(jax_runs["state0"]["disc"])
+    tc = pv.VocoderTrainingConfig(**_tc())
+    ranks = run_local(torch_dp_workers.vocoder_steps, 2, P_GEN, P_DISC, tc, AUDIO, gen_sd,
+                      disc_sd, [_batch(i) for i in range(3)], ("", "skip_g_average"),
+                      timeout_s=DP_TIMEOUT_S)
+    return {fault: [r[fault] for r in ranks] for fault in ranks[0]}
+
+
+def _step1_problems(ranks, port_runs, state0) -> list:
+    """What of the ranks' first step differs from the one-process step
+    beyond summation order: a gradient (the ranks' average) past rel-L2
+    1e-4, more than 1 % of the elements whose gradients differ beyond 1e-3
+    relative (left out of the update check: zero to rounding, where Adam
+    steps at the full rate either way), an update past rel-L2 1e-3 on the
+    others, or a weight on which the ranks disagree."""
+    problems, left, total = [], 0, 0
+    for side, sd0 in (("gen", hifigan_state_from_jax(state0["gen"], P_GEN)),
+                      ("disc", discriminators_from_jax(state0["disc"]))):
+        got_g = ranks[0]["grads"][side]
+        want_g = {k: v.numpy() for k, v in port_runs["grads"][side].items()}
+        problems += [f"{side}.{k} gradient" for k in want_g if _rel(got_g[k], want_g[k]) > 1e-4]
+        keep = settled([(got_g, want_g)])
+        u_got = {k: ranks[0]["params"][side][k] - sd0[k] for k in sd0}
+        u_want = {k: port_runs["params1"][side][k].numpy() - sd0[k] for k in sd0}
+        for k, (rel, out, n) in update_errors(u_got, u_want, keep).items():
+            left, total = left + out, total + n
+            if rel > 1e-3:
+                problems.append(f"{side}.{k} update")
+        problems += [f"{side}.{k} ranks" for k, v in ranks[0]["params"][side].items()
+                     if not np.array_equal(ranks[1]["params"][side][k], v)]
+    if left > 0.01 * total:
+        problems.append(f"{left} of {total} elements left out")
+    return problems
+
+
+def test_data_parallel_steps_match_one_process_and_jax(jax_runs, port_runs, dp_runs):
+    ranks = dp_runs[""]
+    for r in ranks[1:]:  # every rank logs the same mean
+        assert r["losses"] == ranks[0]["losses"]
+    for i in range(3):
+        for k in pv.LOSS_KEYS:
+            got = ranks[0]["losses"][i][k]
+            for want in (port_runs["losses"][i][k], jax_runs["losses"][i][k]):
+                assert abs(got - want) <= 2e-4 * abs(want) + 2e-5, (i, k, got, want)
+    assert _step1_problems(ranks, port_runs, jax_runs["state0"]) == []
+
+
+def test_skipping_the_generator_average_is_refused(jax_runs, port_runs, dp_runs):
+    problems = _step1_problems(dp_runs["skip_g_average"], port_runs, jax_runs["state0"])
+    assert any(p.startswith("gen.") for p in problems), problems
+    assert not any(p.startswith("disc.") for p in problems), problems
+
+
+def test_train_vocoder_data_parallel_writes_once_and_resumes(workspace, tmp_path):
+    """Two ranks of train_vocoder at a global B 2 log the one-process run's
+    losses, rank 0 alone writes step=2/ and the log, and a rerun at world 2
+    resumes from it to step 3, as one process does."""
+    _, _, pcfg = workspace
+    tc = pv.VocoderTrainingConfig(batch_size=2, frames_per_crop=8, ckpt_steps=100, seed=0,
+                                  log_steps=1, compute_dtype="float32")
+    got = run_local(torch_dp_workers.train_vocoder_rank, 2, pcfg, tc, P_GEN, P_DISC,
+                    tmp_path / "dp", (2, 3), timeout_s=DP_TIMEOUT_S)
+    assert [[run["step"] for run in rank] for rank in got] == [[2, 3], [2, 3]]
+    for steps in (2, 3):
+        pv.train_vocoder(pcfg, train_config=tc, gen_config=P_GEN, disc_config=P_DISC,
+                         log_dir=tmp_path / "one", max_steps=steps, device="cpu")
+    ckpt = tmp_path / "dp" / "checkpoints"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["step=2", "step=3", "vocoder.npz"]
+    assert json.loads((ckpt / "step=3" / "meta.json").read_text())["global_step"] == 3
+    rows = [json.loads(line) for line in (tmp_path / "dp" / "vocoder_log.jsonl").open()]
+    want = [json.loads(line) for line in (tmp_path / "one" / "vocoder_log.jsonl").open()]
+    assert [r["step"] for r in rows] == [r["step"] for r in want] == [1, 2, 3]
+    for r, w in zip(rows, want):
+        for k in pv.LOSS_KEYS:
+            assert abs(r[k] - w[k]) <= 2e-4 * abs(w[k]) + 2e-5, (r["step"], k, r[k], w[k])
+    for k, v in got[0][-1]["gen"].items():
+        np.testing.assert_array_equal(got[1][-1]["gen"][k], v)
