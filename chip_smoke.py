@@ -196,6 +196,31 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     offsets those ranks pass, against their plain versions, and their masks
     read back bit for bit.
     The kernels' line gains these launches as ``distributed``.
+ 30. data parallel on the one card (``phase_data_parallel``): (i) phase 5's
+    checkpoint and HiFiGAN V1 (f32, fused) in a Synthesizer on two replicas
+    (``devices=["cuda:0", "cuda:0"]``, a thread and a stream each) against
+    one replica on 3 chunks (padded to 4) and 8: on the rows where both
+    chose the same pitch and energy buckets (``RowBins``; a differing bucket
+    must lie at a bin edge) durations equal, mels within rel-L2 2e-2 (bf16),
+    wavs within 2e-2 and, where the mels are equal, max-abs 1e-4; 8
+    attention_fwd a replica forward and 18 mrf_conv a fused stage; A at a
+    replica's shape against its plain version; B 8 timed on one and two
+    replicas in turns; (ii) the window-parallel vocoder on a B 1 mel of 2047
+    frames over 2 and 4 windows against the plain vocoder (max-abs 1e-4),
+    18 x 3 mrf_conv a window, the MRF stage at a window's shape against its
+    plain version, wall times of both; (iii) a SynthesisServer over each,
+    8 concurrent requests, the two-replica responses held to the one-replica
+    ones; (iv) ``synthesize_items`` on two replicas against one: 5 of phase
+    15's utterances at batch 4 and 3 teacher-forced from phase 11's step=12,
+    spec files within 2e-2, 8 A and (teacher-forced) 1 B a replica batch, B
+    at a replica's shape against its plain version;
+    (v) ``train_vocoder(data_parallel=2)`` as two gloo ranks on the card
+    from phase 21's generator, f32 at global B 16, against one process:
+    step 1's losses within 1e-4 relative, each side's gradient within
+    rel-L2 1e-3 and each tensor's update within 1e-3 (``settled``,
+    ``update_errors``), a run that skips the generator's gradient average
+    refused, no kernel launched. The kernels' line gains these launches as
+    ``data_parallel``.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -5111,6 +5136,712 @@ def _offset_kernels() -> list:
     return rows
 
 
+# -- phase 30: data-parallel serving, bulk synthesis and vocoder training ----
+
+DP_DEVICES = ("cuda:0", "cuda:0")  # two replicas on the one card
+DP_MEL_REL = 2e-2  # a row's bf16 mel, rel-L2 (the bf16 kernels' limit)
+DP_WAV_REL = 2e-2  # a row's f32 wav from that mel, rel-L2
+DP_WAV_ABS = 1e-4  # a row's wav where the mels are equal (f32 vocoder, TF32 off)
+DP_EDGE = 2e-2  # a bucket may differ only where the predictions lie this close
+DP_VOC_T = 2047  # the window-parallel vocoder's mel: divisible by neither 2 nor 4
+DP_VOC_WINDOWS = (2, 4)
+DP_VOC_ABS = 1e-4  # f32, TF32 off: cuDNN may choose another algorithm a window shape
+DP_VOC_BATCH = 16  # vocoder training's global batch: 8 rows a rank
+DP_VOC_STEPS = 2
+DP_LOSS_REL = 1e-4  # step 1's losses, two ranks against one process
+DP_GRAD_REL = 1e-3  # each side's step-1 gradient as one vector (phase 22's limit)
+
+
+class RowBins:
+    """Records the variance adaptor's bucketize calls with the thread that
+    made each (``take`` returns and clears them), to gate a comparison of
+    one replica with several on the rows where both chose the same pitch and
+    energy buckets: a bucket may differ only where the two predictions lie
+    within DP_EDGE, at a bin edge, where a GEMM at another row count may
+    round the other way. A replica's calls come from its worker thread
+    (``fs2t-replica{i}``), one replica's from the caller's."""
+
+    def __enter__(self):
+        import threading
+
+        from fastspeech2_lightning_tpu_torch.models import variance_adaptor
+
+        self._module, self._own = variance_adaptor, variance_adaptor.bucketize
+        self._lock, self.calls = threading.Lock(), []
+
+        def bucketize(values, boundaries):
+            idx = self._own(values, boundaries)
+            with self._lock:
+                self.calls.append((threading.current_thread().name, values.detach().float().cpu(),
+                                   idx.cpu()))
+            return idx
+
+        variance_adaptor.bucketize = bucketize
+        return self
+
+    def __exit__(self, *exc):
+        self._module.bucketize = self._own
+
+    def take(self) -> list:
+        """The calls since the last take as [(values, buckets)] in call
+        order, each over the whole (padded) batch: the replicas' blocks put
+        back together in replica order."""
+        import torch
+
+        with self._lock:
+            calls, self.calls = self.calls, []
+        by = {}
+        for name, v, i in calls:
+            by.setdefault(name, []).append((v, i))
+        names = sorted(by)
+        n = {len(by[k]) for k in names}
+        check(len(n) <= 1, f"replicas made different numbers of bucketize calls: {n}")
+        return [(torch.cat([by[k][j][0] for k in names]), torch.cat([by[k][j][1] for k in names]))
+                for j in range(n.pop() if n else 0)]
+
+
+def _same_bins(a: list, b: list, rows: int) -> list:
+    """[bool] a row: whether two runs' calls (``RowBins.take``) chose the
+    same buckets for the row; where they did not, the predictions must lie
+    within DP_EDGE of each other."""
+    import torch
+
+    if len(a) != len(b):  # one run re-ran at the exact bucket: its first forward's calls
+        a, b = a[:2], b[:2]
+    same = []
+    for r in range(rows):
+        ok = all(torch.equal(x[1][r], y[1][r]) for x, y in zip(a, b))
+        if not ok:
+            gap = max(float((x[0][r] - y[0][r]).abs().max()) for x, y in zip(a, b))
+            check(gap <= DP_EDGE, f"row {r}: buckets differ with predictions {gap} apart")
+        same.append(ok)
+    return same
+
+
+def _rel(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _hold_rows(a, b, same: list, what: str) -> dict:
+    """Two SynthesisResults' rows held to each other where the buckets
+    agree: durations equal, mels within DP_MEL_REL, wavs within DP_WAV_REL
+    (and DP_WAV_ABS where the mels are equal)."""
+    import numpy as np
+
+    mel_rel, wav_rel, wav_abs = [], [], []
+    for r, ok in enumerate(same):
+        if not ok:
+            continue
+        check(np.array_equal(a.durations[r], b.durations[r]), f"{what} row {r}: durations differ")
+        check(a.mels[r].shape == b.mels[r].shape, f"{what} row {r}: mel shapes differ")
+        mel_rel.append(_rel(b.mels[r], a.mels[r]))
+        check(mel_rel[-1] <= DP_MEL_REL, f"{what} row {r}: mel rel-L2 {mel_rel[-1]}")
+        if a.wavs is not None:
+            check(a.wavs[r].shape == b.wavs[r].shape, f"{what} row {r}: wav lengths differ")
+            wav_rel.append(_rel(b.wavs[r], a.wavs[r]))
+            check(wav_rel[-1] <= DP_WAV_REL, f"{what} row {r}: wav rel-L2 {wav_rel[-1]}")
+            if np.array_equal(a.mels[r], b.mels[r]):
+                wav_abs.append(float(np.abs(a.wavs[r] - b.wavs[r]).max(initial=0.0)))
+                check(wav_abs[-1] <= DP_WAV_ABS, f"{what} row {r}: equal mels, wav max-abs "
+                                                 f"{wav_abs[-1]}")
+    return dict(rows=len(same), held=sum(same), mel_rel=max(mel_rel, default=0.0),
+                wav_rel=max(wav_rel, default=0.0), wav_abs_equal_mels=max(wav_abs, default=0.0),
+                equal_mels=len(wav_abs))
+
+
+class _Stages:
+    """Counts the fused MRF stages the vocoder runs, on any thread."""
+
+    def __enter__(self):
+        from fastspeech2_lightning_tpu_torch.models import hifigan
+
+        self._module, self._own, self.shapes = hifigan, hifigan.fused_mrf_stage, []
+        own = self._own
+
+        def stage(x, *args):
+            self.shapes.append(tuple(x.shape))
+            return own(x, *args)
+
+        hifigan.fused_mrf_stage = stage
+        return self
+
+    def __exit__(self, *exc):
+        self._module.fused_mrf_stage = self._own
+
+
+def _dp_synthesizers(workdir: Path):
+    """(one replica, two replicas on the one card) of phase 5's checkpoint
+    and HiFiGAN V1 (f32, fused)."""
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+
+    kw = dict(vocoder_path=workdir / "hifigan_v1.npz", vocoder_fused=True)
+    return (Synthesizer.from_checkpoint(workdir / "model.ckpt", **kw),
+            Synthesizer.from_checkpoint(workdir / "model.ckpt", devices=list(DP_DEVICES), **kw))
+
+
+def _dp_requests(one, two, texts: list, smi: str) -> dict:
+    """(i) the two-replica Synthesizer against one replica on 3 chunks
+    (padded to 4) and 8; the launches of each two-replica call; B 8 timed
+    in turns."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+
+    import threading
+
+    from fastspeech2_lightning_tpu_torch.models import conformer
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_reference
+
+    out = {"launches": {"attention_fwd": 0, "mrf_conv": 0}}
+    captured, own_att = [], conformer.attention_fwd
+
+    def attention(q, k, v, bias, scale, *args, **kwargs):
+        if not captured and threading.current_thread().name.startswith("fs2t-replica1"):
+            captured.append((q.clone(), k.clone(), v.clone(), bias.clone(), scale))
+        return own_att(q, k, v, bias, scale, *args, **kwargs)
+
+    conformer.attention_fwd = attention
+    for B in (3, 8):
+        tx = texts[:B]
+        with RowBins() as bins:
+            a = one.synthesize(tx)
+            ca = bins.take()
+            forwards = _count_forwards(two)
+            with _Stages() as stages:
+                attention_fwd.launches = mrf_conv.launches = 0
+                b = two.synthesize(tx)
+                torch.cuda.synchronize()
+                n_att, n_mrf = attention_fwd.launches, mrf_conv.launches
+            del two._forward
+            cb = bins.take()
+        check(len(b.mels) == len(b.wavs) == B, f"B {B}: {len(b.mels)} rows came back")
+        check(n_att == 8 * len(forwards) and len(forwards) in (2, 4),
+              f"B {B}: {n_att} attention_fwd launches for {len(forwards)} replica forwards")
+        check(n_mrf == MRF_LAUNCHES * len(stages.shapes) and len(stages.shapes) == 2 * 3,
+              f"B {B}: {n_mrf} mrf_conv launches for fused stages {stages.shapes}")
+        out["launches"]["attention_fwd"] += n_att
+        out["launches"]["mrf_conv"] += n_mrf
+        out[f"B{B}"] = dict(_hold_rows(a, b, _same_bins(ca, cb, B), f"(i) B {B}"),
+                            forwards=len(forwards), attention_fwd=n_att, mrf_conv=n_mrf)
+    conformer.attention_fwd = own_att
+    q, k, v, bias, scale = captured[0]
+    got = own_att(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    att_abs, att_rel = errors(got, attention_reference(q.float(), k.float(), v.float(), bias,
+                                                       scale))
+    check(att_rel <= 2e-2, f"attention_fwd at replica 1's shape {list(q.shape)}: rel {att_rel}")
+    out["attention_fwd"] = dict(shape=list(q.shape), max_abs=att_abs, rel=att_rel)
+    tx = texts[:8]
+    ms = {"one": [], "two": []}
+    for name in ("one", "two", "two", "one"):  # in turns
+        syn = one if name == "one" else two
+        ms[name].append(time_ms(lambda: syn.synthesize(tx), warmup=1, iters=5))
+    out["ms_B8"] = {k: _median(v) for k, v in ms.items()}
+    log(f"phase 30 (i): two replicas on the one card against one: "
+        + "; ".join(f"B {B}: rows held {out[f'B{B}']['held']}/{B}, mel rel-L2 max "
+                    f"{out[f'B{B}']['mel_rel']:.2e}, wav rel-L2 max {out[f'B{B}']['wav_rel']:.2e}"
+                    f" ({out[f'B{B}']['equal_mels']} rows with equal mels, wav max-abs "
+                    f"{out[f'B{B}']['wav_abs_equal_mels']:.2e}), {out[f'B{B}']['forwards']} "
+                    f"replica forwards, {out[f'B{B}']['attention_fwd']} A, "
+                    f"{out[f'B{B}']['mrf_conv']} mrf_conv" for B in (3, 8))
+        + f"; A at replica 1's shape {out['attention_fwd']['shape']} rel-L2 {att_rel:.2e}"
+        f"; a B 8 request {out['ms_B8']['two']:.2f} ms on two replicas, "
+        f"{out['ms_B8']['one']:.2f} on one (one card, not scaling; {smi})")
+    return out
+
+
+def _dp_window_vocoder(workdir: Path, smi: str) -> dict:
+    """(ii) the window-parallel vocoder against the plain one on a B 1 mel
+    of DP_VOC_T frames, over 2 and 4 windows on the one card; its mrf_conv
+    launches; the MRF stage at a window's shape against its plain version;
+    wall times of both."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.models import hifigan
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
+        mrf_conv, mrf_stage_reference,
+    )
+
+    vp, vcfg, _ = hifigan.load_vocoder_params(workdir / "hifigan_v1.npz")
+    plain = hifigan.make_vocoder_fn(vp, vcfg, fused=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    mel = torch.randn(1, DP_VOC_T, vcfg.n_mels, device="cuda", generator=g) - 4.0
+    want = plain.device_fn(mel)
+    params = {k: torch.as_tensor(v).cuda() for k, v in vp.items()}
+    out = {"T": DP_VOC_T, "launches": 0}
+    for n in DP_VOC_WINDOWS:
+        voc = hifigan.make_parallel_vocoder_fn(vp, vcfg, ["cuda:0"] * n, fused=True)
+        with _Stages() as stages:
+            captured = []
+            run_stage = stages._module.fused_mrf_stage
+
+            def first(x, *args, run_stage=run_stage):
+                if not captured and x.shape[2] == 32:
+                    captured.append(x.clone())
+                return run_stage(x, *args)
+
+            stages._module.fused_mrf_stage = first
+            mrf_conv.launches = 0
+            got = voc.device_fn(mel)
+            torch.cuda.synchronize()
+            launches = mrf_conv.launches
+        plan = voc._window_cache[(1, DP_VOC_T)]
+        check(plan is not None and len(plan[2]) == n, f"{n} windows: plan {plan}")
+        check(launches == MRF_LAUNCHES * VOC_MRF_STAGES * n and len(stages.shapes) == 3 * n,
+              f"{n} windows: {launches} mrf_conv launches, stages {stages.shapes}")
+        check(got.shape == want.shape, f"{n} windows: wav {tuple(got.shape)}")
+        max_abs = float((got - want).abs().max())
+        check(max_abs <= DP_VOC_ABS, f"{n} windows against the plain vocoder: max-abs {max_abs}")
+        x = captured[0]
+        i = int(math.log2(vcfg.upsample_initial_channel // x.shape[2])) - 1  # its stage
+        blocks = hifigan.stage_params(params, i, len(KS))
+        y = hifigan.fused_mrf_stage(x, hifigan.prepare_stage_weights(blocks, KS, DILS,
+                                                                     torch.float32), KS, DILS)
+        stage_rel = errors(y, mrf_stage_reference(x, blocks, KS, DILS))[1]
+        check(stage_rel <= MRF_LIMIT["float32"], f"the MRF stage at {list(x.shape)}: rel-L2 "
+                                                 f"{stage_rel}")
+        ms = [time_ms(lambda: voc.device_fn(mel), iters=10),
+              time_ms(lambda: plain.device_fn(mel), iters=10)]
+        ms += [time_ms(lambda: plain.device_fn(mel), iters=10),
+               time_ms(lambda: voc.device_fn(mel), iters=10)]
+        out["launches"] += launches
+        out[f"windows_{n}"] = dict(window_frames=plan[1], max_abs=max_abs, mrf_conv=launches,
+                                   stage_shape=list(x.shape), stage_rel=stage_rel,
+                                   ms=_median([ms[0], ms[3]]), plain_ms=_median(ms[1:3]))
+    parts = [f"{n} windows of {w['window_frames']} frames: max-abs {w['max_abs']:.2e} from the "
+             f"plain vocoder, {w['mrf_conv']} mrf_conv, the MRF stage at {w['stage_shape']} "
+             f"rel-L2 {w['stage_rel']:.2e}, wall {w['ms']:.2f} ms against {w['plain_ms']:.2f}"
+             for n, w in ((n, out[f"windows_{n}"]) for n in DP_VOC_WINDOWS)]
+    log(f"phase 30 (ii): window-parallel vocoder, B 1 x {DP_VOC_T} frames, f32 fused, TF32 off: "
+        + "; ".join(parts)
+        + f" (all windows on one card: not scaling; {smi})")
+    return out
+
+
+def dp_request_texts(rng) -> list:
+    """8 texts of 56 characters, one chunk each, so that any batch of them
+    pads to the same 64 symbols: the variance predictors' hidden layers are
+    not masked, so a row's last predictions depend on how much padding
+    follows it (as in the JAX package), and two servers batch the same
+    requests differently."""
+    texts = []
+    while len(texts) < 8:
+        words = []
+        while len(" ".join(words)) < 55:
+            words.append(str(rng.choice(WORDS)))
+        texts.append(" ".join(words)[:55].strip() + ".")
+    return texts
+
+
+def _dp_http(one, two, texts: list, smi: str) -> dict:
+    """(iii) a SynthesisServer over each Synthesizer answering 8 concurrent
+    requests (wav and mel in turns): the two-replica server's responses held
+    to the one-replica server's, each request whose chunks chose the same
+    buckets in both (``RowBins``; a differing one must be at a bin edge);
+    the two-replica server's launches."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import mrf_conv
+    from fastspeech2_lightning_tpu_torch.serving.server import SynthesisServer
+    from fastspeech2_lightning_tpu_torch.synthesis.prepare import chunk_text_for_model
+
+    for t in texts:
+        check(len(chunk_text_for_model(t, None, one.config, one.stats)) == 1,
+              f"(iii) {t!r} chunks")
+    runs = {}
+    for name, syn in (("one", one), ("two", two)):
+        chunks = {}
+        with RowBins() as bins, _Stages() as stages:
+            own = syn.synthesize
+
+            def recording(tx, own=own, chunks=chunks, bins=bins, **kwargs):
+                result = own(tx, **kwargs)
+                calls = bins.take()
+                for i, t in enumerate(tx):  # its symbols: the batches pad to other lengths
+                    n = len(result.durations[i])
+                    chunks.setdefault(t, [(v[i, :n], idx[i, :n]) for v, idx in calls[-2:]])
+                return result
+
+            syn.synthesize = recording
+            forwards = _count_forwards(syn)
+            server = SynthesisServer(syn, port=0, max_batch=BATCH)
+            attention_fwd.launches = mrf_conv.launches = 0
+            server.start()
+            try:
+                with concurrent.futures.ThreadPoolExecutor(len(texts)) as pool:
+                    futures = [pool.submit(_post, server.address,
+                                           {"text": t, "format": "wav" if i % 2 == 0 else "mel"})
+                               for i, t in enumerate(texts)]
+                    responses = [f.result() for f in futures]
+                torch.cuda.synchronize()
+                launches = {"attention_fwd": attention_fwd.launches,
+                            "mrf_conv": mrf_conv.launches}
+            finally:
+                server.shutdown()
+                del syn.synthesize, syn._forward
+        check(launches["attention_fwd"] == 8 * len(forwards) and launches["mrf_conv"] ==
+              MRF_LAUNCHES * len(stages.shapes), f"(iii) {name}: launches {launches} for "
+              f"{len(forwards)} forwards and {len(stages.shapes)} fused stages")
+        runs[name] = dict(responses=responses, chunks=chunks, launches=launches,
+                          forwards=len(forwards))
+    held, rels = 0, []
+    for i, text in enumerate(texts):
+        fmt = "wav" if i % 2 == 0 else "mel"
+        (sa, ba, _), (sb, bb, _) = runs["one"]["responses"][i], runs["two"]["responses"][i]
+        check(sa == sb == 200, f"(iii) request {i}: {sa} and {sb}")
+        same = True
+        for c in chunk_text_for_model(text, None, one.config, one.stats):
+            for (va, ia), (vb, ib) in zip(runs["one"]["chunks"][c], runs["two"]["chunks"][c]):
+                if not torch.equal(ia, ib):
+                    gap = float((va - vb).abs().max())
+                    check(gap <= DP_EDGE, f"(iii) request {i}: buckets differ {gap} apart")
+                    same = False
+        if not same:
+            continue
+        if fmt == "wav":
+            a, b = (np.frombuffer(x[44:], dtype="<i2").astype(np.float64) for x in (ba, bb))
+            limit = DP_WAV_REL
+        else:
+            a, b = (np.load(io.BytesIO(x)) for x in (ba, bb))
+            limit = DP_MEL_REL
+        check(a.shape == b.shape, f"(iii) request {i} ({fmt}): {a.shape} and {b.shape}")
+        rels.append(_rel(b, a))
+        check(rels[-1] <= limit, f"(iii) request {i} ({fmt}): rel-L2 {rels[-1]}")
+        held += 1
+    out = dict(requests=len(texts), held=held, rel=max(rels, default=0.0),
+               launches=runs["two"]["launches"], forwards=runs["two"]["forwards"])
+    log(f"phase 30 (iii): 8 concurrent requests of 56 characters to a server over two "
+        f"replicas: {held} of "
+        f"{len(texts)} held to the one-replica server's (the others' chunks at a bin edge), "
+        f"rel-L2 max {out['rel']:.2e}; {out['forwards']} replica forwards, launches "
+        f"{out['launches']} ({smi})")
+    return out
+
+
+class _BatchFiles:
+    """A writer after the spec writer: a batch's new files and buckets."""
+
+    def __init__(self, out: Path, bins: RowBins):
+        self.out, self.bins, self.seen, self.batches = out, bins, set(), []
+
+    def on_predict_batch_end(self, outputs, batch):
+        files = set(self.out.glob("**/*.npy"))
+        self.batches.append((sorted(p.name for p in files - self.seen), self.bins.take(),
+                             len(outputs["tgt_lens"])))
+        self.seen = files
+
+
+def _dp_bulk(workdir: Path, smi: str) -> dict:
+    """(iv) ``synthesize_items`` on two replicas against one: 5 of phase
+    15's utterances at batch 4 (a partial last batch), and 3 of phase 11's
+    validation utterances teacher-forced from its step=12 (one partial
+    batch): the spec files of each batch whose rows chose the same buckets
+    equal the one-replica run's within DP_MEL_REL, and the launches (8 A a
+    replica batch; 1 B a replica batch when teacher-forced)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.checkpoint import load_model_from_checkpoint
+    from fastspeech2_lightning_tpu_torch.models import variance_adaptor
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+    from fastspeech2_lightning_tpu_torch.synthesis.prepare import prepare_data
+    from fastspeech2_lightning_tpu_torch.synthesis.synthesize import synthesize_items
+    from fastspeech2_lightning_tpu_torch.synthesis.writers import get_synthesis_output_writers
+    from fastspeech2_lightning_tpu_torch.type_definitions import SynthesizeOutputFormats
+
+    lists = {}
+    for kind, src, n in (("free", workdir / "synthesis_filelist.psv", 5),
+                         ("teacher", workdir / "corpus" / "validation_filelist.psv", 3)):
+        lines = src.read_text().splitlines()
+        lists[kind] = workdir / f"dp_{kind}_filelist.psv"
+        lists[kind].write_text("\n".join(lines[: n + 1]) + "\n")
+    step12 = workdir / "logs" / "smoke" / "train" / "checkpoints" / f"step={RESUME_STEPS}"
+    out = {"launches": {"attention_fwd": 0, "mas_width1": 0}}
+    captured, own_mas = [], variance_adaptor.mas_width1
+
+    def mas(log_attn, in_lens, out_lens):
+        if not captured and threading.current_thread().name.startswith("fs2t-replica1"):
+            captured.append((log_attn.clone(), in_lens.clone(), out_lens.clone()))
+        return own_mas(log_attn, in_lens, out_lens)
+
+    variance_adaptor.mas_width1 = mas
+    for kind, ckpt, n in (("free", workdir / "model.ckpt", 5), ("teacher", step12, 3)):
+        teacher = kind == "teacher"
+        model, config, stats, lang2id, speaker2id, step = load_model_from_checkpoint(ckpt)
+        if teacher:
+            config.preprocessing.save_dir = str(workdir / "corpus")
+        key = "postnet_output" if config.model.use_postnet else "output"
+        runs = {}
+        for name, devices in (("one", None), ("two", list(DP_DEVICES))):
+            dest = workdir / f"dp_{kind}_{name}"
+            items = prepare_data(None, None, None, lists[kind], config, stats, lang2id,
+                                 speaker2id, split_text=False if teacher else None)
+            with RowBins() as bins:
+                files = _BatchFiles(dest, bins)
+                writers = get_synthesis_output_writers([SynthesizeOutputFormats.spec], dest,
+                                                       config, key, step)
+                attention_fwd.launches = mas_width1.launches = 0
+                synthesize_items(items, model, config, lang2id, speaker2id,
+                                 {**writers, "files": files}, batch_size=4,
+                                 teacher_forcing=teacher, devices=devices)
+                torch.cuda.synchronize()
+            runs[name] = dict(files=files.batches, launches={
+                "attention_fwd": attention_fwd.launches, "mas_width1": mas_width1.launches})
+        n_batches = -(-n // 4)
+        got = runs["two"]["launches"]
+        check(got == {"attention_fwd": 8 * 2 * n_batches,
+                      "mas_width1": 2 * n_batches if teacher else 0},
+              f"(iv) {kind}: launches {got} for {n_batches} batches on two replicas")
+        for k, v in got.items():
+            out["launches"][k] += v
+        check([b[0] for b in runs["one"]["files"]] == [b[0] for b in runs["two"]["files"]],
+              f"(iv) {kind}: files by batch {runs['one']['files']} and {runs['two']['files']}")
+        check(sum(len(b[0]) for b in runs["two"]["files"]) == n,
+              f"(iv) {kind}: {runs['two']['files']}")
+        held, rels = 0, []
+        for (names, ca, rows), (_, cb, _) in zip(runs["one"]["files"], runs["two"]["files"]):
+            if not all(_same_bins(ca, cb, rows)):
+                continue
+            for fname in names:
+                a, b = (np.load(next((workdir / f"dp_{kind}_{r}").glob(f"**/{fname}")))
+                        for r in ("one", "two"))
+                check(a.shape == b.shape, f"(iv) {kind} {fname}: {a.shape} and {b.shape}")
+                rels.append(_rel(b, a))
+                check(rels[-1] <= DP_MEL_REL, f"(iv) {kind} {fname}: rel-L2 {rels[-1]}")
+                held += 1
+        out[kind] = dict(utterances=n, batches=n_batches, held=held, rel=max(rels, default=0.0),
+                         launches=got)
+    variance_adaptor.mas_width1 = own_mas
+    la, in_lens, out_lens = captured[0]
+    hard, dur = own_mas(la, in_lens, out_lens)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+          f"mas_width1 at replica 1's shape {list(la.shape)}: differs from the plain version")
+    out["mas_width1"] = dict(shape=list(la.shape), bit_exact=True)
+    log("phase 30 (iv): synthesize_items on two replicas against one, batch 4: "
+        + "; ".join(f"{k}: {out[k]['held']} of {out[k]['utterances']} spec files held, rel-L2 "
+                    f"max {out[k]['rel']:.2e}, launches {out[k]['launches']}"
+                    for k in ("free", "teacher"))
+        + f"; mas_width1 at replica 1's shape {list(la.shape)} bit-exact ({smi})")
+    return out
+
+
+def _dp_vocoder_runs(config_path: Path, npz: Path, root: Path, faults, world=None) -> dict:
+    """``train_vocoder`` in f32 at a global B DP_VOC_BATCH from phase 21's
+    generator (the discriminators fresh) on the current card, one process
+    (`world` None) or a rank of `world` (data parallel). For each fault
+    ("" or "skip_g_average": the generator's gradients left this rank's
+    own): one step, whose gradients and weights rank 0 saves to
+    ``<root>/<fault>/step1.pt``; a clean run goes on to DP_VOC_STEPS.
+    Returns a checksum of the weights after step 1 and every kernel's
+    launches."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.models.hifigan import (
+        HiFiGANGenerator, load_vocoder_params,
+    )
+    from fastspeech2_lightning_tpu_torch.training import vocoder as tv
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    config = FastSpeech2Config.from_file(config_path)
+    gen_cfg = load_vocoder_params(npz)[1]
+    tc = tv.VocoderTrainingConfig(batch_size=DP_VOC_BATCH, compute_dtype="float32",
+                                  log_steps=1, ckpt_steps=1000, seed=SEED + 30)
+    counters = _voc_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    own, out = tv.average_gradients, {}
+    for fault in faults:
+        log_dir = Path(root) / (fault or "clean")
+        if fault == "skip_g_average":
+            tv.average_gradients = lambda m: None if isinstance(m, HiFiGANGenerator) else own(m)
+        try:
+            st = tv.train_vocoder(config, tc, gen_cfg, log_dir=log_dir, max_steps=1,
+                                  data_parallel=world, finetune_from=npz, device="cuda:0")
+        finally:
+            tv.average_gradients = own
+        if world is None or torch.distributed.get_rank() == 0:
+            torch.save({f"{side}.{k}": (p.grad.detach().cpu(), p.detach().cpu())
+                        for side, m in (("gen", st.gen), ("disc", st.disc))
+                        for k, p in m.named_parameters()}, log_dir / "step1.pt")
+        out[fault] = float(sum(p.detach().double().sum() for m in (st.gen, st.disc)
+                               for p in m.parameters()))
+        if not fault:
+            tv.train_vocoder(config, tc, gen_cfg, log_dir=log_dir, max_steps=DP_VOC_STEPS,
+                             data_parallel=world, device="cuda:0")
+        del st
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    return out
+
+
+def _dp_vocoder_worker(rank: int, world: int, config_path: str, npz: str, root: str) -> dict:
+    """A rank of phase 30 (v)'s two-process run on the one card (gloo)."""
+    sys.path.insert(0, str(HERE))
+    return _dp_vocoder_runs(Path(config_path), Path(npz), Path(root), ("", "skip_g_average"),
+                            world)
+
+
+def _dp_vocoder_problems(got: Path, want: Path, init: dict) -> tuple:
+    """What of a run's step 1 differs from one process's beyond summation
+    order: a side's gradient as one vector past rel-L2 DP_GRAD_REL, an update
+    past rel-L2 DIST_UPDATE_RTOL on the elements whose gradients agree to
+    1e-3 (``settled``), or more than DIST_LEFT_OUT of the elements left
+    out; and the figures."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.parallel.launch import settled, update_errors
+
+    a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in (got, want))
+    problems, figures = [], {}
+    for side in ("gen", "disc"):
+        keys = [k for k in b if k.startswith(side + ".")]
+        ga = {k: a[k][0].double() for k in keys}
+        gb = {k: b[k][0].double() for k in keys}
+        grad_rel = float(torch.linalg.vector_norm(torch.cat([(ga[k] - gb[k]).ravel()
+                                                             for k in keys]))
+                         / torch.linalg.vector_norm(torch.cat([gb[k].ravel() for k in keys])))
+        keep = settled([(ga, gb)])
+        errs = update_errors({k: a[k][1].double() - init[k] for k in keys},
+                             {k: b[k][1].double() - init[k] for k in keys}, keep)
+        worst = max(errs, key=lambda k: errs[k][0])
+        left = sum(e[1] for e in errs.values()) / sum(e[2] for e in errs.values())
+        figures[side] = dict(grad_rel=grad_rel, update_rel=errs[worst][0], worst=worst,
+                             left_out=left)
+        if grad_rel > DP_GRAD_REL:
+            problems.append(f"{side} gradient rel-L2 {grad_rel:.3g}")
+        if errs[worst][0] > DIST_UPDATE_RTOL:
+            problems.append(f"{worst} update rel-L2 {errs[worst][0]:.3g}")
+        if left > DIST_LEFT_OUT:
+            problems.append(f"{side}: {left:.1%} of the elements left out")
+    return problems, figures
+
+
+def _dp_vocoder_init(npz: Path) -> dict:
+    """The weights every run of (v) starts from: phase 21's generator and
+    the seed's discriminators, as float64 on the host."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.models.hifigan import load_vocoder_params
+    from fastspeech2_lightning_tpu_torch.models.hifigan_discriminators import (
+        DiscriminatorConfig,
+    )
+    from fastspeech2_lightning_tpu_torch.training import vocoder as tv
+
+    sd, gen_cfg, _ = load_vocoder_params(npz)
+    tc = tv.VocoderTrainingConfig(batch_size=DP_VOC_BATCH, seed=SEED + 30)
+    st = tv.create_vocoder_state(gen_cfg, DiscriminatorConfig(), tc, device="cpu")
+    st.gen.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    return {f"{side}.{k}": p.detach().double()
+            for side, m in (("gen", st.gen), ("disc", st.disc)) for k, p in m.named_parameters()}
+
+
+def _dp_vocoder_training(workdir: Path, npz: Path, config_path: Path, smi: str) -> dict:
+    """(v) ``train_vocoder(data_parallel=2)`` as two gloo ranks on the one
+    card (``run_local``), f32 at global B DP_VOC_BATCH, held at step 1 to
+    one process at that batch: the losses within DP_LOSS_REL, the gradients
+    and the update (``_dp_vocoder_problems``); a run that skips the
+    generator's gradient average is refused; no kernel is launched."""
+    from fastspeech2_lightning_tpu_torch.parallel.launch import run_local
+
+    root = workdir / "dp_vocoder"
+    init = _dp_vocoder_init(npz)
+    t0 = time.time()
+    one = _dp_vocoder_runs(config_path, npz, root / "one", ("",))
+    one_s = time.time() - t0
+    t0 = time.time()
+    ranks = run_local(_dp_vocoder_worker, 2, str(config_path), str(npz), str(root / "two"),
+                      timeout_s=600)
+    two_s = time.time() - t0
+    for r in [one] + ranks:
+        check(not any(r["launches"].values()), f"(v) vocoder training launched {r['launches']}")
+    for fault in ("", "skip_g_average"):
+        if not fault:
+            check(ranks[0][fault] == ranks[1][fault],
+                  f"(v) the ranks' weights differ after step 1: {ranks[0][fault]}, "
+                  f"{ranks[1][fault]}")
+    rows = {name: _rows(root / name / "clean" / "vocoder_log.jsonl") for name in ("one", "two")}
+    check([r["step"] for r in rows["two"]] == [r["step"] for r in rows["one"]] == [1, 2],
+          f"(v) the logs' steps: {[r['step'] for r in rows['two']]}, "
+          f"{[r['step'] for r in rows['one']]}")
+    loss_rel = {k: abs(rows["two"][0][k] - rows["one"][0][k]) / abs(rows["one"][0][k])
+                for k in VOC_LOSSES}
+    check(max(loss_rel.values()) <= DP_LOSS_REL, f"(v) step 1 losses: {loss_rel}")
+    step2 = {k: abs(rows["two"][-1][k] - rows["one"][-1][k]) / abs(rows["one"][-1][k])
+             for k in VOC_LOSSES}
+    want = root / "one" / "clean" / "step1.pt"
+    problems, figures = _dp_vocoder_problems(root / "two" / "clean" / "step1.pt", want, init)
+    check(not problems, f"(v) two ranks against one process at step 1: {problems}")
+    fault_problems, fault_figures = _dp_vocoder_problems(
+        root / "two" / "skip_g_average" / "step1.pt", want, init)
+    check(any(p.startswith("gen") for p in fault_problems),
+          f"(v) skipping the generator's gradient average was not refused: {fault_figures}")
+    out = dict(batch=DP_VOC_BATCH, steps=DP_VOC_STEPS, loss_rel_step1=max(loss_rel.values()),
+               loss_rel_step2=max(step2.values()), step1=figures,
+               fault_refused_by=fault_problems, one_process_s=one_s, two_ranks_s=two_s)
+    log(f"phase 30 (v): train_vocoder(data_parallel=2) as two gloo ranks on the one card, f32, "
+        f"global B {DP_VOC_BATCH}: step 1 losses rel {out['loss_rel_step1']:.2e} from one "
+        f"process (step 2 {out['loss_rel_step2']:.2e}, reported); step 1 "
+        + "; ".join(f"{side}: gradient rel-L2 {f['grad_rel']:.2e}, worst update rel-L2 "
+                    f"{f['update_rel']:.2e} ({f['worst']}), {f['left_out']:.2%} left out"
+                    for side, f in figures.items())
+        + f"; the G average skipped: refused by {fault_problems}; no kernel launched; "
+        f"{one_s:.1f} s one process, {two_s:.1f} s two ranks ({smi})")
+    return out
+
+
+def phase_data_parallel(workdir: Path, smi: str) -> dict:
+    """Phase 30: data-parallel serving, bulk synthesis and vocoder training
+    on the one card: (i) the Synthesizer on two replicas against one, (ii)
+    the window-parallel vocoder against the plain one, (iii) the HTTP
+    server on two replicas against one, (iv) ``synthesize_items`` on two
+    replicas against one, (v) ``train_vocoder(data_parallel=2)`` as two
+    ranks against one process. f32 comparisons with TF32 off."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.synthesis.prepare import chunk_text_for_model
+
+    t0 = time.time()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one, two = _dp_synthesizers(workdir)
+        texts = request_texts(np.random.default_rng(SEED + 30))
+        chunks = [c for t in texts for c in chunk_text_for_model(t, None, one.config, one.stats)]
+        out = {"card": smi, "synthesizer": _dp_requests(one, two, chunks, smi)}
+        out["window_vocoder"] = _dp_window_vocoder(workdir, smi)
+        out["http"] = _dp_http(one, two, dp_request_texts(np.random.default_rng(SEED + 31)),
+                               smi)
+        del one, two
+        out["bulk"] = _dp_bulk(workdir, smi)
+        out["vocoder_training"] = _dp_vocoder_training(
+            workdir, workdir / "vlogs" / "vocoder" / "checkpoints" / "vocoder.npz",
+            workdir / "vocoder_config.json", smi)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    syn, http, bulk = out["synthesizer"], out["http"], out["bulk"]
+    out["launches"] = {
+        "attention_fwd": (syn["launches"]["attention_fwd"] + http["launches"]["attention_fwd"]
+                          + bulk["launches"]["attention_fwd"]),
+        "mas_width1": bulk["launches"]["mas_width1"],
+        "mrf_conv": (syn["launches"]["mrf_conv"] + out["window_vocoder"]["launches"]
+                     + http["launches"]["mrf_conv"]),
+    }
+    out["seconds"] = time.time() - t0
+    log(f"phase 30: data parallel in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5157,6 +5888,7 @@ def main() -> None:
         yaml_media = phase_yaml_media(Path(workdir), vocoder_npz, smi)
         dist = phase_distributed(Path(workdir), {"totals": train["totals"],
                                                  "ms": train["ms_per_step"]}, smi)
+        dp = phase_data_parallel(Path(workdir), smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -5179,6 +5911,8 @@ def main() -> None:
             paths.update({f"benchmark_{mode}": run["launches"][name]
                           for mode, run in tools["benchmark"].items()})
         paths["distributed"] = dist["launches"][name]
+        if name in ("attention_fwd", "mas_width1"):
+            paths["data_parallel"] = dp["launches"][name]
         if name == "attention_fwd":
             paths["exported_serving"] = sum(run["launches"][name]
                                             for run in exported["runs"].values())
@@ -5240,10 +5974,12 @@ def main() -> None:
         # serving's vocoder is f32: that row (C = 128) on top; `stages` holds all six,
         # the bf16 C = 128 row first
         entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
-              launches["mrf_conv"] + stream["launches"]["mrf_conv"] + trained["launches"],
+              launches["mrf_conv"] + stream["launches"]["mrf_conv"] + trained["launches"]
+              + dp["launches"]["mrf_conv"],
               launches_by_path={"serving": launches["mrf_conv"],
                                 "streaming": stream["launches"]["mrf_conv"],
-                                "trained_vocoder": trained["launches"]},
+                                "trained_vocoder": trained["launches"],
+                                "data_parallel": dp["launches"]["mrf_conv"]},
               timed=f"one MRF stage: {MRF_LAUNCHES} launches",
               device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
               stages=mrf_rows, stream_window_stages=stream["stages"],
@@ -5271,7 +6007,7 @@ def main() -> None:
                       "vocoder_training": {**voc, "trained": trained},
                       "preprocess": pre, "check_data": checked, "tools": tools,
                       "export_serving": exported, "yaml_media": yaml_media,
-                      "distributed": dist}))
+                      "distributed": dist, "data_parallel": dp}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -426,7 +426,7 @@ def make_parallel_vocoder_fn(
         T = int((blocks[0] if blocks else mel).shape[1])
         if B >= n_dev:
             if blocks is None or len(blocks) != n_dev:
-                whole = mel if blocks is None else concat_rows([b.to(dev0) for b in blocks])
+                whole = mel if blocks is None else concat_rows([to_caller(b, dev0) for b in blocks])
                 blocks = [b.to(d) for b, d in zip(torch.tensor_split(whole, n_dev), devices)]
             wavs = replicas.map(run, blocks)
             return torch.cat([to_caller(w, dev0) for w in wavs])[:B]

@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from ..kernels import build
+
 NEG_INF = -1e15
 MAX_S = 2048  # states per item the kernels take (112 a warp, at most 19 warps)
 
@@ -140,18 +142,10 @@ def _i32(x, dev):
 
 
 def _launch(entry: str, dev, *args) -> None:
-    from ..kernels import build
-
     lib = build.load("ctc_banded_lse", _SIGNATURES)
     err = build.launch(dev, getattr(lib, entry), *args,
                        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, entry)
-
-
-def _count(wrapper) -> None:
-    from ..kernels import build
-
-    build.count(wrapper)
 
 
 def ctc_alpha(logprobs, out_lens) -> torch.Tensor:
@@ -165,7 +159,7 @@ def ctc_alpha(logprobs, out_lens) -> torch.Tensor:
     alphas = torch.empty((B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
     _launch("ctc_alpha", dev, lp.data_ptr(), out_lens.data_ptr(), alphas.data_ptr(), B, T,
             Lp1 - 1)
-    _count(ctc_alpha)
+    build.count(ctc_alpha)
     return alphas
 
 
@@ -185,7 +179,7 @@ def ctc_alpha_beta(logprobs, in_lens, out_lens) -> tuple:
     rows = torch.empty((2, B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
     _launch("ctc_alpha_beta", dev, lp.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
             rows[0].data_ptr(), rows[1].data_ptr(), B, T, Lp1 - 1)
-    _count(ctc_alpha_beta)
+    build.count(ctc_alpha_beta)
     return rows[0], rows[1]
 
 
@@ -206,7 +200,7 @@ def ctc_grad(alphas, betas, out_lens, ll, g) -> torch.Tensor:
     grad = torch.empty((B, T, (S + 1) // 2), dtype=torch.float32, device=dev)
     _launch("ctc_grad", dev, alphas.data_ptr(), betas.data_ptr(), out_lens.data_ptr(),
             ll.data_ptr(), g.data_ptr(), grad.data_ptr(), B, T, (S - 1) // 2)
-    _count(ctc_grad)
+    build.count(ctc_grad)
     return grad
 
 

@@ -122,15 +122,13 @@ def split_rows(x: Rows, n: int) -> List[Rows]:
     return [x[i * per:(i + 1) * per] for i in range(n)]
 
 
-def concat_rows(parts: Sequence[Rows]) -> Rows:
-    """The blocks put back together in order."""
+def concat_rows(parts: Sequence) -> Union[np.ndarray, torch.Tensor]:
+    """The blocks (arrays or tensors) put back together in order."""
     if len(parts) == 1:
         return parts[0]
     if isinstance(parts[0], torch.Tensor):
         return torch.cat(list(parts))
-    if isinstance(parts[0], np.ndarray):
-        return np.concatenate(parts)
-    return [r for p in parts for r in p]
+    return np.concatenate(parts)
 
 
 def split_batch(batch: dict, n: int, n_rows: int) -> List[dict]:

@@ -250,7 +250,7 @@ class Synthesizer:
                 wav_dev = self.vocoder.device_fn(mel_blocks[0])
             elif hasattr(self.vocoder, "_window_cache"):
                 wav_dev = self.vocoder.device_fn(mel_blocks, n_real=B)
-            else:  # Griffin-Lim: on the first device
+            else:  # a vocoder of one device (Griffin-Lim): on the first
                 wav_dev = self.vocoder.device_fn(
                     concat_rows([to_caller(m, self.device) for m in mel_blocks])[:B])
 
