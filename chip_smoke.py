@@ -173,9 +173,11 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     train --distributed`` over NCCL on phase 11's config for 8 steps, held to
     a one-process CLI run of that config: its grad norms, and tensor by
     tensor its first moments and its update since the initial weights,
-    within 4 x what a second one-process run differs from the first (A'
-    sums dQ with atomics), floored at the median of those distances, plus
-    1e-4; its max-abs from phase 11's step=8/
+    within 4 x the largest distance of 4 further one-process runs from the
+    first, figure by figure (``bf16_spread``; A' sums dQ with atomics),
+    floored at the median of those distances, plus 1e-4; a one-process run
+    with its gradients halved before the update, which that hold must
+    refuse; its max-abs from phase 11's step=8/
     (Adam's bound beside it) and its ms a step beside phase 11's; (ii) two
     processes on the one card through ``parallel.launch.run_local`` over
     gloo, data=2, model=2 and data=2 with ZeRO-1, 4 steps of f32 at Noam
@@ -221,6 +223,21 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     ``update_errors``), a run that skips the generator's gradient average
     refused, no kernel launched. The kernels' line gains these launches as
     ``data_parallel``.
+ 31. ``training.steps_per_call`` as CUDA-graph replays of the whole train
+    step (``phase_steps_per_call``): (i) A (p 0.2) with A', B, and C's
+    ``ctc_alpha_beta`` + ``ctc_grad``, each alone in a CUDA graph at
+    training's top bucket (16, 2016, 192), replayed on a new seed or new
+    inputs, each replay held to an eager launch and to the plain version
+    (B bit for bit); (ii) phase 11's config with one bucket, bf16, 8 steps
+    at steps_per_call 4 (every call fuses) held to 5 eager runs by the
+    bf16 hold of phase 29, A, A', B and C launches a step equal, ms and
+    the card's busy share a step at 1 and 4, graphs, capture ms, pool and
+    peak; at 2 + 2 layers in f32 from the same weights, 2 steps at
+    steps_per_call 2, the first replayed step held to the eager step as
+    phase 29 holds its gloo runs, and the attention seeds drawn inside the
+    graph equal the eager step's; (iii)
+    steps_per_call 4 on the 4 buckets: the groups formed, every step
+    logged once. The kernels' line gains the launches as ``steps_per_call``.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -4522,8 +4539,11 @@ DIST_MOMENT_RTOL = 1e-4
 # CPU tests' tiny model 0.1-0.3 %.
 DIST_UPDATE_RTOL, DIST_LEFT_OUT = 1e-3, 0.1
 # a run may differ from one process by this many times what a second
-# one-process run differs from the first (A' sums dQ with atomics)
+# one-process run differs from the first (A' sums dQ with atomics); in the
+# bf16 holds (``bf16_spread``), by this many times the largest distance of
+# BF16_RUNS - 1 further one-process runs from the first, figure by figure
 DIST_SPREAD = 4.0
+BF16_RUNS = 5
 # the floor under that spread where a run is held by it: relative, far below
 # what a wrong gradient moves (a sum taken as a mean halves it)
 DIST_FLOOR = 1e-4
@@ -4553,6 +4573,39 @@ def _skip_update(optimizer) -> None:
     optimizer._adam = lambda *a: torch.zeros_like(AdamWNoam._adam(optimizer, *a))
 
 
+def _halve_grads(optimizer) -> None:
+    """The planted fault: the gradients are halved before the update (a sum
+    over two halves taken as a mean)."""
+    step = optimizer.step
+
+    def halved(grads):
+        for g in grads:
+            g.mul_(0.5)
+        return step(grads)
+
+    optimizer.step = halved
+
+
+FAULTS = {"skip_update": _skip_update, "halve_grads": _halve_grads}
+
+
+def _train_with_fault(config: str, steps: int, fault: str) -> None:
+    """The ``train`` CLI in this process with `fault` planted in the
+    trainer's optimizer (``_cli_train(..., fault=)`` runs it)."""
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.training import loop
+
+    make = loop.make_optimizer
+
+    def planted(model, training_config):
+        optimizer = make(model, training_config)
+        FAULTS[fault](optimizer)
+        return optimizer
+
+    loop.make_optimizer = planted
+    cli.main(["train", config, "--max-steps", str(steps)])
+
+
 def _dist_fit(config_path: Path, model_parallel: int, steps: int, fault: str = "") -> dict:
     """Trainer.fit on the current card under the current process group (or
     none), the training counters set to 0 before and read after; the rows,
@@ -4569,8 +4622,8 @@ def _dist_fit(config_path: Path, model_parallel: int, steps: int, fault: str = "
     trainer = Trainer(FastSpeech2Config.from_file(config_path), device="cuda:0",
                       model_parallel=model_parallel)
     init = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
-    if fault == "skip_update":
-        _skip_update(trainer.optimizer)
+    if fault:
+        FAULTS[fault](trainer.optimizer)
     rows = []
     tl, vl = _train_and_validation_launches(lambda: rows.extend(trainer.fit(max_steps=steps)))
     torch.cuda.synchronize()
@@ -4785,14 +4838,18 @@ def _fmt(values: list) -> str:
     return "[" + ", ".join(f"{v:.3g}" for v in values) + "]"
 
 
-def _cli_train(config: Path, steps: int, world: int = 0) -> subprocess.Popen:
+def _cli_train(config: Path, steps: int, world: int = 0, fault: str = "") -> subprocess.Popen:
     """`train` through the CLI in a subprocess from the config's folder: one
     process, or `world` ranks of ``train --distributed`` through torchrun
-    over NCCL, with PyTorch's defaults (cuDNN on TF32)."""
+    over NCCL, with PyTorch's defaults (cuDNN on TF32); a `fault` of
+    ``FAULTS`` planted in one process's optimizer (``_train_with_fault``)."""
     from fastspeech2_lightning_tpu_torch.parallel.launch import free_port
 
     env = {**os.environ, "PYTHONPATH": str(HERE)}
     cmd = [sys.executable, "-m", PORT, "train", str(config), "--max-steps", str(steps)]
+    if fault:
+        cmd = [sys.executable, "-c", f"import chip_smoke; chip_smoke._train_with_fault("
+               f"{str(config)!r}, {steps}, {fault!r})"]
     if world:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
                "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
@@ -4880,37 +4937,61 @@ def _hold_f32(name: str, config: Path, ranks_rows: list, reference: dict) -> dic
                           max_abs=_max_abs(got[1], want[1])))
 
 
+def bf16_spread(states: list, norms: list, init: dict) -> dict:
+    """The reference of a bf16 hold from BF16_RUNS one-process runs of one
+    config (their step=N/ states and grad norms, the initial weights): the
+    first run is the reference, and each figure of ``_spread_figures`` (a
+    step's grad norm, a tensor's first moments, a tensor's update) gets, as
+    the run-to-run spread the limits scale, the largest distance of any
+    other run from the first. A' sums dQ with atomics, so no two runs on
+    the card are equal, and one run's distance is a noisy sample of that
+    spread (0.4-7 % between two runs' grad norms)."""
+    figures = [_spread_figures(s, states[0], init, n, norms[0])
+               for s, n in zip(states[1:], norms[1:])]
+    own = {"grad_norm": [max(f["grad_norm"][i] for f in figures)
+                         for i in range(len(norms[0]))]}
+    for part in ("mu", "update"):
+        own[part] = {k: max(f[part][k] for f in figures) for k in figures[0][part]}
+    return dict(state=states[0], norms=norms[0], init=init, own=own, runs=len(states))
+
+
 def _bf16_reference(workdir: Path) -> dict:
-    """Two one-process runs of phase 11's config (bf16, B 16, 8 steps)
+    """BF16_RUNS one-process runs of phase 11's config (bf16, B 16, 8 steps)
     through the CLI, side by side on the card, in the environment the
-    torchrun runs get: the reference a bf16 distributed run is held to, and
-    the second one's spread from it (A' sums dQ with atomics, so no two runs
-    on the card are equal). Their state, grad norms and initial weights."""
-    paths = [_dist_config(workdir, version, dtype="bfloat16")
-             for version in ("one_bf16", "one_bf16_again")]
+    torchrun runs get: the reference a bf16 distributed run is held to, with
+    their spread (``bf16_spread``)."""
+    paths = [_dist_config(workdir, f"one_bf16_{i}", dtype="bfloat16")
+             for i in range(BF16_RUNS)]
     procs = [_cli_train(p, TRAIN_STEPS) for p in paths]
     for p, proc in zip(paths, procs):
         _finish(proc, f"train {p.name}", TRAIN_STEPS)
-    ref, again = (_step_state(_dist_step_dir(p, TRAIN_STEPS)) for p in paths)
+    states = [_step_state(_dist_step_dir(p, TRAIN_STEPS)) for p in paths]
     norms = [[r["grad_norm"] for r in _rows(_dist_step_dir(p, TRAIN_STEPS).parents[1]
                                             / "train_log.jsonl")] for p in paths]
-    init = _initial_weights(paths[0])
-    own = _spread_figures(again, ref, init, norms[1], norms[0])
-    return dict(state=ref, norms=norms[0], init=init, own=own)
+    return bf16_spread(states, norms, _initial_weights(paths[0]))
 
 
-def _hold_bf16(name: str, config: Path, reference: dict) -> dict:
-    """A bf16 distributed run's step=8/ held to the one-process reference
-    (``_bf16_reference``, ``_spread_problems``); its figures."""
-    step_dir = _dist_step_dir(config, TRAIN_STEPS)
-    got = _step_state(step_dir)
-    norms = [r["grad_norm"] for r in _rows(step_dir.parents[1] / "train_log.jsonl")]
+def bf16_problems(name: str, got: dict, norms: list, reference: dict) -> tuple:
+    """What keeps a bf16 run (its state and grad norms) from the reference
+    of ``bf16_spread`` (``_spread_problems``), and its figures."""
     figures = _spread_figures(got, reference["state"], reference["init"], norms,
                               reference["norms"])
-    problems = _spread_problems(name, figures, reference["own"])
+    return _spread_problems(name, figures, reference["own"]), dict(
+        _spread_summary(figures, reference["own"]), max_abs=_max_abs(got, reference["state"]))
+
+
+def _hold_bf16(name: str, config: Path, reference: dict, refuse: bool = False) -> dict:
+    """A bf16 run's step=8/ held to the one-process reference
+    (``_bf16_reference``, ``bf16_problems``); its figures. With `refuse`
+    the run carries a planted fault and the hold must find it."""
+    step_dir = _dist_step_dir(config, TRAIN_STEPS)
+    norms = [r["grad_norm"] for r in _rows(step_dir.parents[1] / "train_log.jsonl")]
+    problems, figures = bf16_problems(name, _step_state(step_dir), norms, reference)
+    if refuse:
+        check(problems, f"{name}: a planted fault passed the bf16 hold ({figures})")
+        return dict(figures, findings=len(problems), first=problems[:3])
     check(not problems, "; ".join(problems[:8]))
-    return dict(_spread_summary(figures, reference["own"]),
-                max_abs=_max_abs(got, reference["state"]))
+    return figures
 
 
 def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
@@ -4920,9 +5001,12 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
     fastspeech2_lightning_tpu_torch train --distributed`` over NCCL, phase
     11's config (bf16, B 16) for 8 steps, held to a one-process CLI run of
     the same config in the same environment (``_hold_bf16``: grad norms,
-    first moments and updates within 4 x a second one-process run's spread
-    from the first, floored at that spread's median, plus 1e-4), its max-abs from phase 11's step=8/ and its
-    ms a step beside phase 11's. (ii) two processes on the one card through
+    first moments and updates within 4 x the largest distance of BF16_RUNS
+    - 1 further one-process runs from the first, floored at the median of
+    those distances, plus 1e-4), beside a one-process run with its
+    gradients halved that the hold must refuse; its max-abs from phase
+    11's step=8/ and its ms a step beside phase 11's. (ii) two processes
+    on the one card through
     the Python API over gloo (NCCL refuses two ranks on one device): data=2,
     model=2, and data=2 with the ZeRO-1 optimizer, 4 steps each in f32 at
     Noam rates 3.3e-5 to 1e-4 from phase 11's corpus, held to a one-process
@@ -4937,16 +5021,26 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
     from fastspeech2_lightning_tpu_torch.training.state import noam_lr
 
     out = {"card": smi}
-    # (i) torchrun, world 1, NCCL, held to one process in the same environment
+    # (i) torchrun, world 1, NCCL, held to one process in the same environment;
+    # beside it a one-process run with its gradients halved, which the hold
+    # must refuse
     reference = _bf16_reference(workdir)
     cfg_i = _dist_config(workdir, "torchrun", dtype="bfloat16")
+    cfg_fault = _dist_config(workdir, "one_bf16_halved", dtype="bfloat16")
     t0 = time.time()
-    _finish(_cli_train(cfg_i, TRAIN_STEPS, world=1), "torchrun train --distributed",
-            TRAIN_STEPS)
+    procs = [_cli_train(cfg_i, TRAIN_STEPS, world=1),
+             _cli_train(cfg_fault, TRAIN_STEPS, fault="halve_grads")]
+    _finish(procs[0], "torchrun train --distributed", TRAIN_STEPS)
     wall = time.time() - t0
+    _finish(procs[1], "train with halved gradients", TRAIN_STEPS)
     rows = _rows(_dist_step_dir(cfg_i, TRAIN_STEPS).parents[1] / "train_log.jsonl")
     check([r["step"] for r in rows] == list(range(1, TRAIN_STEPS + 1)), f"rows {rows}")
     held = _hold_bf16("torchrun", cfg_i, reference)
+    refused = _hold_bf16("halved gradients", cfg_fault, reference, refuse=True)
+    log(f"phase 29 (i): the bf16 hold's spread from {reference['runs']} one-process runs: "
+        f"grad norms {_fmt(reference['own']['grad_norm'])} relative at most; a run with its "
+        f"gradients halved is refused ({refused['findings']} findings; first: "
+        f"{refused['first'][0]})")
     opt = json.loads(cfg_i.read_text())["training"]["optimizer"]
     b1, b2 = opt["betas"]
     # reported only: an Adam step moves a weight by at most (1 - b1) /
@@ -4959,7 +5053,9 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
     ms = statistics.median(r["ms"] for r in rows[2:])
     out["torchrun"] = dict(wall_s=wall, ms_per_step=ms, phase11_ms_per_step=phase11["ms"],
                            held=held, phase11_max_abs=p11, phase11_loss_rel=loss_rel,
-                           adam_bound=bound)
+                           adam_bound=bound, reference_runs=reference["runs"],
+                           spread_grad_norm=reference["own"]["grad_norm"],
+                           planted_bf16_fault=refused)
     log(f"phase 29 (i): torchrun --nproc_per_node 1 train --distributed (NCCL, bf16, B 16): "
         f"{TRAIN_STEPS} steps in {wall:.1f} s wall, median {ms:.1f} ms a step against phase "
         f"11's {phase11['ms']:.1f}; against one process in the same environment: grad norms "
@@ -5842,6 +5938,498 @@ def phase_data_parallel(workdir: Path, smi: str) -> dict:
     return out
 
 
+SPC_K = 4  # training.steps_per_call of phase 31's graph runs
+SPC_TOP = (16, 2016, 192)  # training's top bucket: B, T, L
+SPC_F32_LAYERS = 2  # the f32 runs' encoder and decoder layers
+# the f32 runs' steps_per_call and steps: step 1 the eager warm-up, step 2
+# the first replay, from the state an eager run has after step 1 (two eager
+# f32 runs are bit-identical, so step 2 is the captured step against the
+# eager one); EMA decay 0.9, so that a step moves the EMA by far more than
+# its rounding
+SPC_F32_K = 2
+SPC_F32_EMA = 0.9
+SPC_COUNTERS = ("attention_fwd", "attention_bwd", "mas_width1", "ctc_alpha_beta", "ctc_grad")
+
+
+def _spc_config(workdir: Path, version: str, dtype: str = "bfloat16", layers: int = 0,
+                **training) -> Path:
+    """Phase 11's config and corpus with `dtype`, `layers` encoder and
+    decoder layers (0: the default's), its own log directory, a validation
+    and a checkpoint at the end only, and `training` overrides."""
+    cfg = json.loads((workdir / "config.json").read_text())
+    cfg["model"]["dtype"] = dtype
+    if layers:
+        cfg["model"]["encoder"]["layers"] = cfg["model"]["decoder"]["layers"] = layers
+    cfg["training"].update({"val_check_interval": TRAIN_STEPS, "async_checkpoint": False,
+                            "save_top_k_ckpts": 1, "ckpt_epochs": 0, **training})
+    cfg["training"]["logger"]["version"] = version
+    path = workdir / f"config_{version}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _spc_fit(config_path: Path, steps: int = TRAIN_STEPS, seeds: list = None) -> dict:
+    """Trainer.fit in this process (TF32 off); the rows, the training
+    launches, the peak memory, the initial weights, the step=N/ state, the
+    trainer, and with `seeds` the attention seed tensors each dropout call
+    drew (``conformer.attention_with_dropout`` wrapped)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.models import conformer
+    from fastspeech2_lightning_tpu_torch.training.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(FastSpeech2Config.from_file(config_path), device="cuda:0")
+    init = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+    real = conformer.attention_with_dropout
+
+    def recorded(q, k, v, bias, seed, *args, **kwargs):
+        seeds.append(seed)
+        return real(q, k, v, bias, seed, *args, **kwargs)
+
+    if seeds is not None:
+        conformer.attention_with_dropout = recorded
+    rows = []
+    try:
+        t0 = time.time()
+        tl, _ = _train_and_validation_launches(lambda: rows.extend(trainer.fit(max_steps=steps)))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        conformer.attention_with_dropout = real
+    check([r["step"] for r in rows] == list(range(1, steps + 1)) and all(
+        math.isfinite(r[k]) for r in rows for k in LOSS_KEYS + ("grad_norm",)),
+        f"{config_path.name}: rows {rows}")
+    return dict(rows=rows, launches=tl, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                init=init, state=_step_state(_dist_step_dir(config_path, steps)), wall_s=wall,
+                trainer=trainer)
+
+
+def _per_step(launches: dict, steps: int) -> dict:
+    return {k: launches[k] / steps for k in SPC_COUNTERS}
+
+
+def _pool_gib(pool) -> float:
+    """The bytes the CUDA caching allocator holds in graph pool `pool`, in
+    GiB (None where its snapshot names no pools)."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(pool)) / 2**30
+
+
+def _graph_kernels(smi: str) -> dict:
+    """Phase 31 (i): A (p 0.2) with A', B, and C's ctc_alpha_beta +
+    ctc_grad, each alone in a CUDA graph at training's top bucket (B 16,
+    T 2016, L 192; attention bf16 [16, 2, 2016, 128], B and C f32), replayed
+    twice on a new seed in the static seed tensor or new inputs copied into
+    the static ones, each replay held to an eager launch (A, B and C bit
+    for bit; A' sums dQ with atomics into bf16 outputs: rel-L2 1e-2) and to
+    the plain version with the same seed (bf16 2e-2; B bit for bit; C's
+    loss 1e-5 relative and gradient max-abs 1e-5); replay and eager wall
+    ms."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.kernels import build
+    from fastspeech2_lightning_tpu_torch.ops import ctc
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        attention_bwd_reference, attention_dropout_reference, attention_with_dropout,
+    )
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+
+    B, T, L = SPC_TOP
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    out = {}
+
+    def capture(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with build.recording() as counts:
+            with torch.cuda.graph(graph):
+                result = fn()
+        return graph, counts, result
+
+    def replay(graph, counts):
+        graph.replay()
+        build.add(counts)
+        torch.cuda.synchronize()
+
+    # A with A'
+    q, k, v, do = (torch.randn(B, 2, T, 128, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    bias, _ = _ragged_bias(B, T, g)
+    seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+    static = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def att(qkv):
+        o = attention_with_dropout(*qkv, bias, seed, 0.2, 128 ** -0.5)
+        return (o,) + torch.autograd.grad(o, qkv, do)
+
+    graph, counts, outs = capture(lambda: att(static))
+    fwd, bwd = _counters()["attention_fwd"], _counters()["attention_bwd"]
+    check(set(counts) == {(fwd, "launches"), (bwd, "launches"), (bwd, "flops")}
+          and counts[(fwd, "launches")] == counts[(bwd, "launches")] == 1,
+          f"phase 31 (i): A and A' captured {counts}")
+    rows = []
+    for s in (SEED + 101, SEED - 7):
+        seed.fill_(s)
+        replay(graph, counts)
+        eager = att([t.detach().requires_grad_(True) for t in (q, k, v)])
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        want = [attention_dropout_reference(qf, kf, vf, bias, seed, 0.2, 128 ** -0.5),
+                *attention_bwd_reference(qf, kf, vf, bias, seed, 0.2, 128 ** -0.5, do.float())]
+        plain = [errors(a, w)[1] for a, w in zip(outs, want)]
+        vs_eager = [errors(a, e)[1] for a, e in zip(outs, eager)]
+        check(torch.equal(outs[0], eager[0]) and max(vs_eager[1:]) <= 1e-2
+              and max(plain) <= 2e-2,
+              f"phase 31 (i): A/A' replay at seed {s}: rel-L2 to eager {vs_eager}, to the "
+              f"plain version {plain}")
+        rows.append(dict(seed=s, rel_l2_eager=vs_eager, rel_l2_plain=plain))
+    seed.fill_(SEED)
+    replay_ms = time_ms(graph.replay, warmup=1, iters=5)
+    eager_ms = time_ms(lambda: att([t.detach().requires_grad_(True) for t in (q, k, v)]),
+                       warmup=1, iters=5)
+    out["attention"] = dict(shape=[B, 2, T, 128], dtype="bfloat16", p=0.2, replays=rows,
+                            replay_ms=replay_ms, eager_ms=eager_ms)
+    del q, k, v, do, static, outs, graph
+    torch.cuda.empty_cache()
+
+    # B
+    la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+    in_lens = torch.randint(L // 2, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    static_la = la.clone()
+    graph, counts, (hard, durations) = capture(lambda: mas_width1(static_la, in_lens, out_lens))
+    check(counts == {(mas_width1, "launches"): 1}, f"phase 31 (i): B captured {counts}")
+    for _ in range(2):
+        new = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+        static_la.copy_(new)
+        replay(graph, counts)
+        eager = mas_width1(new, in_lens, out_lens)
+        plain = mas_width1_reference(new, in_lens, out_lens)
+        check(torch.equal(hard, eager[0]) and torch.equal(durations, eager[1])
+              and torch.equal(hard, plain[0]) and torch.equal(durations, plain[1]),
+              "phase 31 (i): B's replay differs from an eager launch or the plain version")
+    out["mas"] = dict(shape=[B, T, L], dtype="float32", replays=2, bit_exact=True,
+                      replay_ms=time_ms(graph.replay, warmup=1, iters=5),
+                      eager_ms=time_ms(lambda: mas_width1(static_la, in_lens, out_lens),
+                                       warmup=1, iters=5))
+    del graph, hard, durations
+
+    # C: the loss's forward (both chains) and backward (the gradient)
+    def ctc_inputs():
+        logits = torch.cat([torch.full((B, T, 1), -1.0, device="cuda"),
+                            torch.randn(B, T, L, device="cuda", generator=g)], -1)
+        return torch.log_softmax(torch.where(
+            torch.arange(L + 1, device="cuda") > in_lens[:, None, None], ctc.NEG_INF, logits), -1)
+
+    static_lp = ctc_inputs().requires_grad_(True)
+
+    def c_run(x):
+        loss = ctc.ctc_forward_sum(x, in_lens, out_lens)
+        return (loss,) + torch.autograd.grad(loss.sum(), x)
+
+    graph, counts, (loss, grad) = capture(lambda: c_run(static_lp))
+    check(counts == {(ctc.ctc_alpha_beta, "launches"): 1, (ctc.ctc_grad, "launches"): 1},
+          f"phase 31 (i): C captured {counts}")
+    rows = []
+    for _ in range(2):
+        new = ctc_inputs()
+        with torch.no_grad():
+            static_lp.copy_(new)
+        replay(graph, counts)
+        eager = c_run(new.clone().requires_grad_(True))
+        alphas = ctc.ctc_alpha_reference(new, out_lens)
+        betas = ctc.ctc_beta_reference(new, in_lens, out_lens)
+        ll = ctc._final_ll(alphas[:, -1], in_lens)
+        want_grad = ctc.ctc_grad_reference(alphas, betas, out_lens, ll, torch.ones_like(ll))
+        loss_rel = float(((loss + ll).abs() / ll.abs()).max())
+        grad_abs = float((grad - want_grad).abs().max())
+        check(torch.equal(loss, eager[0]) and torch.equal(grad, eager[1]) and loss_rel <= 1e-5
+              and grad_abs <= 1e-5,
+              f"phase 31 (i): C's replay: equal to eager {torch.equal(loss, eager[0])}, "
+              f"{torch.equal(grad, eager[1])}; loss {loss_rel:.3g} relative, gradient "
+              f"{grad_abs:.3g} max-abs from the plain version")
+        rows.append(dict(loss_rel=loss_rel, grad_max_abs=grad_abs))
+        del alphas, betas
+    out["ctc"] = dict(shape=[B, T, L], dtype="float32", replays=rows,
+                      replay_ms=time_ms(graph.replay, warmup=1, iters=5),
+                      eager_ms=time_ms(lambda: c_run(static_lp), warmup=1, iters=5))
+    del graph, loss, grad, static_lp
+    torch.cuda.empty_cache()
+    log(f"phase 31 (i): kernels in CUDA graphs at (16, 2016, 192), each replay held to an eager "
+        f"launch and the plain version: A+A' {out['attention']['replays']}, replay "
+        f"{out['attention']['replay_ms']:.3f} ms against eager {out['attention']['eager_ms']:.3f}"
+        f"; B bit-exact, replay {out['mas']['replay_ms']:.3f} against "
+        f"{out['mas']['eager_ms']:.3f}; C {rows}, replay {out['ctc']['replay_ms']:.3f} against "
+        f"{out['ctc']['eager_ms']:.3f} ({smi})")
+    return out
+
+
+SPC_GRAD_REL = 1e-4  # step 2's gradient, the whole vector (DIST_MOMENT_RTOL)
+
+
+def _second_step_problems(got: dict, want: dict, first: dict, b1: float) -> tuple:
+    """Step 2 of `got` against `want`, two runs' step=2/ states from the same
+    step=1/ (`first`): step 2's gradient, read off the first moments as
+    (mu2 - b1 mu1) / (1 - b1), as one vector within rel-L2 SPC_GRAD_REL;
+    step 2's update (after minus step=1/) and the EMA's, each as one vector
+    over the elements whose first and second moments both agree to 1e-3
+    relative (``settled``: Adam makes a step of the full rate of a gradient
+    that is zero to rounding, whose sign the summation order decides), within
+    DIST_UPDATE_RTOL, at most DIST_LEFT_OUT left out; the buffers as
+    ``_f32_problems`` holds them. Returns (problems, figures)."""
+    import numpy as np
+
+    from fastspeech2_lightning_tpu_torch.parallel.launch import settled
+
+    names = list(want["mu"])
+    keep = settled([(got["mu"], want["mu"]), (got["nu"], want["nu"])])
+
+    def rel(a, b):
+        a, b = np.concatenate(a), np.concatenate(b)
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    def flat(state, part, k=None, minus=None):
+        out = []
+        for n in names:
+            x = state[part][n].double().numpy().ravel()
+            if minus is not None:
+                x = x - minus[part][n].double().numpy().ravel()
+            out.append(x if k is None else x[keep[n].ravel()])
+        return out
+
+    def grad(state):
+        return [(m - b1 * m1) / (1 - b1)
+                for m, m1 in zip(flat(state, "mu"), flat(first, "mu"))]
+
+    figures = {"grad_rel_l2": rel(grad(got), grad(want)),
+               "left_out": sum(int((~k).sum()) for k in keep.values())
+               / sum(k.size for k in keep.values())}
+    for part in ("weights", "ema"):
+        figures[f"{part}_update_rel_l2"] = rel(flat(got, part, True, first),
+                                               flat(want, part, True, first))
+    problems = []
+    if got["count"] != want["count"]:
+        problems.append(f"update counts {got['count']} and {want['count']}")
+    if figures["grad_rel_l2"] > SPC_GRAD_REL:
+        problems.append(f"step 2's gradient rel-L2 {figures['grad_rel_l2']:.3g}")
+    if figures["left_out"] > DIST_LEFT_OUT:
+        problems.append(f"{figures['left_out']:.3g} of the elements left out")
+    for part in ("weights", "ema"):
+        if figures[f"{part}_update_rel_l2"] > DIST_UPDATE_RTOL:
+            problems.append(f"step 2's {part} update rel-L2 "
+                            f"{figures[f'{part}_update_rel_l2']:.3g}")
+    # the buffers, as the gloo runs' (running means after a conv bias move with it)
+    from fastspeech2_lightning_tpu_torch.training.state import noam_lr
+
+    rates = sum(noam_lr(1e-3, DIST_WARMUP, k) for k in range(want["count"]))
+    after_bias = re.compile(r".*(conv_module\.sequential\.3|postnet\.convolutions\.\d\.1)"
+                            r"\.running_mean$")
+    for k, w in want["weights"].items():
+        if k in want["mu"] or not w.numel():
+            continue
+        d = (got["weights"][k].double() - w.double()).abs()
+        limit = (DIST_ATOL + (2 * rates if after_bias.match(k) else 0.0)
+                 + DIST_RTOL * w.double().abs())
+        if bool((d > limit).any()):
+            problems.append(f"buffer {k}: {int((d > limit).sum())} of {d.numel()} elements off "
+                            f"by up to {float(d.max()):.3g}")
+    return problems, figures
+
+
+def _call_timing(trainer, k: int, iters: int = 3) -> dict:
+    """Wall ms a step of `iters` calls of k steps (the trainer's own call:
+    k graph replays or one eager step, one fetch) on the first batch of its
+    loader, and from a profiler trace of two more calls
+    (``device_busy_ms``) the card's busy ms and span a step and its busy
+    share of the span (None when the trace holds no device event)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.training.loop import GroupedLoader, _row
+    from fastspeech2_lightning_tpu_torch.training.step import batch_to_device
+
+    n, batch = next(iter(GroupedLoader(trainer.loader, k))) if k > 1 else \
+        (1, next(iter(trainer.loader)))
+    check(n == k, f"the first group of the loader has {n} batches, want {k}")
+    db = batch_to_device(batch, trainer.device)
+    step = trainer.optimizer.count
+
+    def call():
+        trainer._train_call(k, db, step, 1)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    wall = (time.perf_counter() - t0) * 1e3 / iters / k
+    busy = device_busy_ms(call)
+    return dict(wall_ms_per_step=wall,
+                busy_ms_per_step=None if busy is None else busy["busy_ms"] / k,
+                span_ms_per_step=None if busy is None else busy["span_ms"] / k,
+                busy_share=None if busy is None else busy["busy_ms"] / busy["span_ms"])
+
+
+def phase_steps_per_call(workdir: Path, smi: str) -> dict:
+    """Phase 31: ``training.steps_per_call`` as CUDA-graph replays of the
+    whole train step. (i) ``_graph_kernels``. (ii) phase 11's config (bf16,
+    full width and depth, B 16) with one length bucket, so every call of 4
+    fuses, 8 steps in this process: BF16_RUNS runs at steps_per_call 1 and
+    one at 4, the latter held to the former by the repaired bf16 hold
+    (``bf16_spread``, ``bf16_problems``); A, A', B and C launches a step
+    equal; ms a step, the card's busy share of a step (profiler) at 1 and
+    4; the graphs captured, the capture's ms, the graph pool's GiB and the
+    peak. At 2 + 2 layers in f32 from the same weights, steps_per_call 2
+    against 1 for 2 steps (step 2 the first replay, from the eager run's
+    state): the graph run's step=2/ held to the eager one's as phase 29
+    holds its gloo runs at step=1/ (``_f32_problems``, plus 4 x a second
+    eager run's distance), both steps' losses within 1e-4 relative plus 4 x
+    that distance, and the attention seeds drawn inside the graph at step 2
+    equal to the eager step's bit for bit. (iii) steps_per_call 4 on phase
+    11's 4 buckets, 8 steps: the groups that formed, every step logged
+    once."""
+    import torch
+
+    out = {"card": smi, "torch": torch.__version__,
+           "registers_generator": hasattr(torch.cuda.CUDAGraph, "register_generator_state")}
+    t_phase = time.time()
+    out["kernels"] = _graph_kernels(smi)
+
+    # (ii) bf16, one bucket: BF16_RUNS eager runs, then the graph run
+    runs = [_spc_fit(_spc_config(workdir, f"spc_k1_{i}", bucket_count=1))
+            for i in range(BF16_RUNS)]
+    graph_run = _spc_fit(_spc_config(workdir, "spc_k4", bucket_count=1, steps_per_call=SPC_K))
+    reference = bf16_spread([r["state"] for r in runs],
+                            [[x["grad_norm"] for x in r["rows"]] for r in runs], runs[0]["init"])
+    problems, held = bf16_problems("steps_per_call 4", graph_run["state"],
+                                   [x["grad_norm"] for x in graph_run["rows"]], reference)
+    check(not problems, "; ".join(problems[:8]))
+    graphs = graph_run["trainer"]._graph
+    check(graphs is not None and len(graphs.graphs) == 1 and len(graphs.capture_ms) == 1,
+          f"phase 31 (ii): graphs captured {None if graphs is None else len(graphs.graphs)}")
+    calls = [r["call_steps"] for r in graph_run["rows"]]
+    check(calls == [SPC_K] * TRAIN_STEPS, f"phase 31 (ii): call sizes {calls}")
+    per_step = [_per_step(r["launches"], TRAIN_STEPS) for r in (runs[0], graph_run)]
+    check(per_step[0] == per_step[1] == {"attention_fwd": 8, "attention_bwd": 8,
+                                         "mas_width1": 1, "ctc_alpha_beta": 1, "ctc_grad": 1},
+          f"phase 31 (ii): launches a step, eager {per_step[0]}, graph {per_step[1]}")
+    timing = {k: _call_timing(r["trainer"], k) for k, r in ((1, runs[-1]), (SPC_K, graph_run))}
+    out["bf16"] = dict(
+        reference_runs=BF16_RUNS, held=held, launches_per_step=per_step[1],
+        launches=graph_run["launches"], graphs=len(graphs.graphs),
+        capture_ms=graphs.capture_ms[0], pool_gib=_pool_gib(graphs.pool),
+        peak_gib={"k1": runs[-1]["peak_gib"], f"k{SPC_K}": graph_run["peak_gib"]},
+        rows_ms_per_step={"k1": statistics.median(x["ms"] for x in runs[-1]["rows"][2:]),
+                          f"k{SPC_K}": statistics.median(x["ms"] for x in
+                                                         graph_run["rows"][SPC_K:])},
+        timing=timing, shape=graph_run["rows"][0]["shape"])
+    bf = out["bf16"]
+    log(f"phase 31 (ii): bf16, one bucket {bf['shape']}, 8 steps: steps_per_call {SPC_K} held "
+        f"to {BF16_RUNS} eager runs (grad norms {_fmt(held['grad_norm_rel'])} relative, spread "
+        f"{_fmt(reference['own']['grad_norm'])}; first moments and updates at "
+        f"{held['mu_share_of_limit']:.3g} and {held['update_share_of_limit']:.3g} of their "
+        f"limits); launches a step {per_step[1]} in both; 1 graph, captured in "
+        f"{bf['capture_ms']:.1f} ms, pool {bf['pool_gib']} GiB, peak {bf['peak_gib']} GiB; "
+        f"a step: {timing} ({smi})")
+    for r in runs[:-1]:
+        del r["trainer"]
+    del runs
+    torch.cuda.empty_cache()
+
+    # (ii) f32, 2 + 2 layers, the same weights: two eager runs, one graph run,
+    # at phase 29's Noam rates (3.3e-5 to 1e-4 over the steps)
+    optimizer = {**json.loads((workdir / "config.json").read_text())["training"]["optimizer"],
+                 "warmup_steps": DIST_WARMUP}
+    f32 = {}
+    for name, k in (("eager", 1), ("again", 1), ("graph", SPC_F32_K)):
+        seeds = []
+        path = _spc_config(workdir, f"spc_f32_{name}", "float32", SPC_F32_LAYERS,
+                           bucket_count=1, steps_per_call=k, val_check_interval=k,
+                           save_top_k_ckpts=SPC_F32_K + 1, optimizer=optimizer,
+                           ema_decay=SPC_F32_EMA)
+        f32[name] = _spc_fit(path, steps=SPC_F32_K, seeds=seeds)
+        f32[name]["seeds"] = seeds
+        f32[name].pop("trainer")
+        if k == 1:
+            f32[name]["first"] = _step_state(_dist_step_dir(path, 1))
+    n_att = 2 * SPC_F32_LAYERS  # dropout attention calls a step
+    eager_seeds = [[int(t) for t in f32["eager"]["seeds"][i * n_att:(i + 1) * n_att]]
+                   for i in range(SPC_F32_K)]
+    graph_seeds = f32["graph"]["seeds"]
+    check(len(graph_seeds) == 2 * n_att, f"phase 31 (ii): {len(graph_seeds)} seed draws "
+          f"recorded in the graph run, want {2 * n_att} (the warm-up's, the capture's)")
+    in_graph = [int(t) for t in graph_seeds[n_att:]]  # the last replay's: step SPC_F32_K
+    check([int(t) for t in graph_seeds[:n_att]] == eager_seeds[0]
+          and in_graph == eager_seeds[-1] and len(set(map(tuple, eager_seeds))) == SPC_F32_K,
+          f"phase 31 (ii): seeds in the graph {in_graph} against eager {eager_seeds}")
+    for name in f32:
+        check(f32[name]["init"].keys() == f32["eager"]["init"].keys() and all(
+            torch.equal(v, f32["eager"]["init"][k]) for k, v in f32[name]["init"].items()),
+            f"phase 31 (ii): the f32 {name} run starts from other weights")
+    one, again, got = (f32[n]["rows"] for n in ("eager", "again", "graph"))
+    loss_problems = [
+        f"step {i + 1} {k}: {g[k]} against {w[k]}" for i, (g, w, a) in
+        enumerate(zip(got, one, again)) for k in LOSS_KEYS + ("grad_norm",)
+        if not math.isclose(g[k], w[k], rel_tol=DIST_MOMENT_RTOL,
+                            abs_tol=DIST_ATOL + DIST_SPREAD * abs(a[k] - w[k]))]
+    b1 = optimizer["betas"][0]
+    first = f32["eager"]["first"]
+    problems, held = _second_step_problems(f32["graph"]["state"], f32["eager"]["state"],
+                                           first, b1)
+    _, own = _second_step_problems(f32["again"]["state"], f32["eager"]["state"], first, b1)
+    check(not loss_problems + problems, f"phase 31 (ii) f32: {(loss_problems + problems)[:8]}")
+    out["f32"] = dict(
+        layers=SPC_F32_LAYERS, steps=SPC_F32_K, seeds_in_graph=in_graph, eager_seeds=eager_seeds,
+        loss_rel=[max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in LOSS_KEYS)
+                  for g, w in zip(got, one)],
+        loss_rel_again=[max(abs(a[k] - w[k]) / max(abs(w[k]), 1e-12) for k in LOSS_KEYS)
+                        for a, w in zip(again, one)],
+        graph=dict(held, max_abs=_max_abs(f32["graph"]["state"], f32["eager"]["state"])),
+        again=dict(own, max_abs=_max_abs(f32["again"]["state"], f32["eager"]["state"])))
+    log(f"phase 31 (ii): f32, {SPC_F32_LAYERS} + {SPC_F32_LAYERS} layers, {SPC_F32_K} steps from "
+        f"the same weights, step 2 the first replay: the seeds drawn inside the graph at step "
+        f"{SPC_F32_K} {in_graph} equal the eager step's; losses {_fmt(out['f32']['loss_rel'])} "
+        f"relative from the eager run (a second eager run {_fmt(out['f32']['loss_rel_again'])}); "
+        f"step 2 against the eager step: {held} (a second eager run: {own})")
+    del f32
+
+    # (iii) the default 4 buckets at steps_per_call 4
+    path = _spc_config(workdir, "spc_buckets", steps_per_call=SPC_K)
+    run = _spc_fit(path)
+    rows = _rows(_dist_step_dir(path, TRAIN_STEPS).parents[1] / "train_log.jsonl")
+    check([r["step"] for r in rows] == list(range(1, TRAIN_STEPS + 1)),
+          f"phase 31 (iii): train_log steps {[r['step'] for r in rows]}")
+    groups = sum(1 for r in rows if r["call_steps"] == SPC_K) // SPC_K
+    graphs = run["trainer"]._graph
+    check(_per_step(run["launches"], TRAIN_STEPS) == per_step[1],
+          f"phase 31 (iii): launches a step {_per_step(run['launches'], TRAIN_STEPS)}")
+    out["buckets"] = dict(groups=groups, calls=[r["call_steps"] for r in rows],
+                          shapes=[r["shape"] for r in rows],
+                          graphs=0 if graphs is None else len(graphs.graphs),
+                          launches=run["launches"])
+    log(f"phase 31 (iii): 4 buckets at steps_per_call {SPC_K}: {groups} groups of {SPC_K} formed "
+        f"in {TRAIN_STEPS} steps (call sizes {out['buckets']['calls']}), "
+        f"{out['buckets']['graphs']} graphs; train_log.jsonl holds steps 1..{TRAIN_STEPS} once")
+    del run
+    torch.cuda.empty_cache()
+    launches = {k: out["bf16"]["launches"][k] + out["buckets"]["launches"][k]
+                for k in SPC_COUNTERS}
+    out["launches"] = launches
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 31: {out['seconds']:.1f} s; the generator registered with each graph: "
+        f"{out['registers_generator']} (torch {torch.__version__})")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5889,6 +6477,7 @@ def main() -> None:
         dist = phase_distributed(Path(workdir), {"totals": train["totals"],
                                                  "ms": train["ms_per_step"]}, smi)
         dp = phase_data_parallel(Path(workdir), smi)
+        spc = phase_steps_per_call(Path(workdir), smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -5911,6 +6500,8 @@ def main() -> None:
             paths.update({f"benchmark_{mode}": run["launches"][name]
                           for mode, run in tools["benchmark"].items()})
         paths["distributed"] = dist["launches"][name]
+        if name in SPC_COUNTERS:
+            paths["steps_per_call"] = spc["launches"][name]
         if name in ("attention_fwd", "mas_width1"):
             paths["data_parallel"] = dp["launches"][name]
         if name == "attention_fwd":
@@ -6007,7 +6598,7 @@ def main() -> None:
                       "vocoder_training": {**voc, "trained": trained},
                       "preprocess": pre, "check_data": checked, "tools": tools,
                       "export_serving": exported, "yaml_media": yaml_media,
-                      "distributed": dist, "data_parallel": dp}))
+                      "distributed": dist, "data_parallel": dp, "steps_per_call": spc}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

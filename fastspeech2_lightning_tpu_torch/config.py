@@ -205,9 +205,13 @@ class EarlyStoppingConfig(_FromDict):
 @dataclasses.dataclass
 class TrainingConfig(_FromDict):
     """The JAX package's training section (``config/__init__.py:312-441``).
-    Like every key the port does not read, ``steps_per_call`` and
-    ``prng_impl`` (the JAX trainer's dispatch and random-number generator;
-    the port runs one step a call and torch generators) are ignored.
+    Like every key the port does not read, ``prng_impl`` (the JAX trainer's
+    random-number generator; the port draws from torch generators) is
+    ignored. ``steps_per_call`` groups that many consecutive same-shape
+    batches into one call with one fetch of their losses: on a card,
+    replays of a captured CUDA graph of the whole train step
+    (``training/step.py`` ``TrainStepGraph``), on the CPU eager steps; at
+    least 1, as JAX's ``ge=1`` asks.
     ``fused_optimizer`` runs AdamW over one flat parameter vector whose
     moments are split over the data ranks (ZeRO-1, ``training/state.py``
     ``ZeroAdamWNoam``); under tensor parallelism the trainer keeps
@@ -223,6 +227,7 @@ class TrainingConfig(_FromDict):
     prefetch_batches: int = 2
     async_checkpoint: bool = False
     fused_optimizer: bool = False
+    steps_per_call: int = 1
     finetune_checkpoint: Optional[str] = None
     early_stopping: EarlyStoppingConfig = dataclasses.field(default_factory=EarlyStoppingConfig)
     bucket_count: int = 4
@@ -249,6 +254,8 @@ class TrainingConfig(_FromDict):
     logger: LoggerConfig = dataclasses.field(default_factory=LoggerConfig)
 
     def __post_init__(self):
+        if self.steps_per_call < 1:
+            raise ValueError("training.steps_per_call must be >= 1")
         if self.attn_bin_loss_warmup_epochs < 1:
             raise ValueError("training.attn_bin_loss_warmup_epochs must be >= 1")
         if not 0.0 <= self.ema_decay < 1.0:

@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from .config import CHARACTERS, PHONOLOGICAL_FEATURES, FastSpeech2Config
+from .exceptions import BadDataError, InvalidConfiguration
 from .text import TextProcessor
 from .text.lookups import LookupTable, load_filelist
 
@@ -138,11 +139,22 @@ class FastSpeechDataset:
             loaded["attn_prior"] = np.load(
                 self.path(item, "attn", f"{rep}-attn-prior.npy")).astype(np.float32)
         else:
-            duration = np.load(self.path(item, "duration", "duration.npy")).astype(np.int32)
-            if int(duration.sum()) != loaded["mel"].shape[0]:
-                raise ValueError(
-                    f"{item['basename']}: durations sum to {int(duration.sum())} but the "
-                    f"mel has {loaded['mel'].shape[0]} frames"
+            try:
+                duration = np.load(self.path(item, "duration", "duration.npy")).astype(np.int32)
+            except FileNotFoundError as e:
+                raise InvalidConfiguration(
+                    "You set model.learn_alignment = false, an advanced "
+                    "configuration which requires providing text/audio "
+                    "alignments before training, but those alignments "
+                    "were not found (fs2/dataset.py:144-152)."
+                ) from e
+            # the durations must sum to the mel's frames (fs2/variance_adaptor.py:289-305)
+            dur_sum, n_frames = int(duration.sum()), int(loaded["mel"].shape[0])
+            if dur_sum != n_frames:
+                raise BadDataError(
+                    f"Something failed with the following items, please "
+                    f"check them for errors: ['{item['basename']}'] (durations "
+                    f"sum to {dur_sum} but the mel has {n_frames} frames)"
                 )
             loaded["duration"] = duration
 

@@ -11,7 +11,9 @@ A C entry launches on the calling thread's current CUDA device, so
 ``launch`` makes the tensors' device current for the call where another
 one is (a process may drive several cards, one thread each); ``count``
 adds to a wrapper's launch counter under a lock, as those threads launch
-at once.
+at once. A capture launches nothing: inside ``recording()`` the counts go
+into the recorder's dict instead, and whoever replays the captured graph
+adds them back (``add``) at every replay.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host has no nvcc.
@@ -19,6 +21,7 @@ host has no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Union
+from typing import Dict, Iterable, Iterator, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -166,11 +169,43 @@ def launch(device, entry, *args) -> int:
     return entry(*args)
 
 
+_recorder: list = []  # the dict counts go into while a graph is captured
+
+
 def count(wrapper, **extra) -> None:
     """One launch more on `wrapper.launches` (and each of `extra` added to
     the attribute it names), under a lock: replicas on several threads
-    launch the same kernel at once."""
+    launch the same kernel at once. Inside ``recording()`` the counts go
+    to the recorder (from every thread: a captured backward runs on the
+    autograd engine's)."""
     with _count_lock:
+        if _recorder:
+            sink = _recorder[-1]
+            for name, n in (("launches", 1), *extra.items()):
+                sink[(wrapper, name)] = sink.get((wrapper, name), 0) + n
+            return
         wrapper.launches += 1
         for name, n in extra.items():
+            setattr(wrapper, name, getattr(wrapper, name) + n)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[dict]:
+    """Within: ``count`` records into the dict yielded, {(wrapper,
+    attribute): n}, and leaves the wrappers as they are (a capture launches
+    nothing)."""
+    sink: dict = {}
+    with _count_lock:
+        _recorder.append(sink)
+    try:
+        yield sink
+    finally:
+        with _count_lock:
+            _recorder[:] = [r for r in _recorder if r is not sink]
+
+
+def add(counts: dict) -> None:
+    """Add a recording's counts to the wrappers (a replay launched them)."""
+    with _count_lock:
+        for (wrapper, name), n in counts.items():
             setattr(wrapper, name, getattr(wrapper, name) + n)

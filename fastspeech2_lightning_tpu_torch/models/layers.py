@@ -59,7 +59,8 @@ def fast_dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
         bits = bits.narrow(0, lay.data_rank * x.shape[0], x.shape[0])
         if split_cols:
             bits = bits.narrow(-1, lay.model_rank * x.shape[-1], x.shape[-1])
-    scale = torch.tensor(256.0 / (256 - t), dtype=x.dtype, device=x.device)
+    # filled on the device: a capture may copy nothing from the host
+    scale = torch.full((), 256.0 / (256 - t), dtype=x.dtype, device=x.device)
     return torch.where(bits >= t, x * scale, torch.zeros_like(x))
 
 

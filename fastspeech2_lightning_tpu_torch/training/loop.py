@@ -15,6 +15,17 @@ and every loss) and every validation one to
 batches and the wall milliseconds). A non-finite loss raises when
 ``training.halt_on_non_finite`` is set.
 
+``training.steps_per_call`` k > 1 groups runs of k consecutive same-shape
+batches into one call (``group_steps``, the JAX trainer's ``_group_steps``,
+``loop.py:64-126``): on a card k replays of the captured train step
+(``step.TrainStepGraph``), on the CPU k eager steps, with one fetch of the
+losses a call; a batch alone runs the eager step. A tail group is split so
+the run stops at exactly ``max_steps``; the log keeps one row a step (its
+``call_steps`` the size of its call, ``ms`` and ``wait_ms`` the call's
+share); the non-finite guard, preemption, validation, checkpoints and early
+stopping act at call boundaries, their step windows quantized up, as in
+JAX (``loop.py:620-690``). Across processes it runs one step a call.
+
 The same directory holds a TensorBoard event file (``utils/tensorboard.py``)
 with the JAX trainer's tags (``loop.py:372-383, :677, :692, :724-891``):
 ``training/<k>_loss`` and ``training/grad_norm`` at step 1 and every 50th
@@ -65,6 +76,7 @@ import torch
 from ..checkpoint import MODEL_VERSION, parse_version, read_checkpoint
 from ..dataset import BucketedLoader, load_datasets
 from ..device import resolve_device
+from ..exceptions import TrainingDivergedError
 from ..models.fastspeech2 import FastSpeech2
 from ..parallel.mesh import (
     all_reduce,
@@ -91,45 +103,116 @@ from .checkpoint import (
 )
 from .preemption import install_preemption_handler
 from .state import init_like_flax, make_optimizer
-from .step import batch_to_device, eval_step, train_step
+from .step import DEVICE_KEYS, TrainStepGraph, batch_to_device, eval_step, train_step
 
 MONITOR = "validation/total_loss"
 LOG_EVERY = 50  # training scalars at step 1 and every LOG_EVERY-th step, as in JAX
+UNSHARDED_ONLY = "steps_per_call > 1 requires an unsharded run; using 1"
 
 
-class TrainingDivergedError(RuntimeError):
-    pass
+def group_steps(loader, k: int):
+    """Yield (n, host batch): runs of k consecutive batches of one
+    signature (every key's shape and dtype, or type) with their device
+    arrays stacked on a new leading axis, and the batches that form no run
+    alone with n = 1 (JAX ``_group_steps``, ``loop.py:64-113``). A change of
+    signature flushes the pending run."""
+    pend: list = []
+    sig = None
+
+    def _sig(b):
+        return tuple(sorted((key, tuple(getattr(v, "shape", ())),
+                             str(getattr(v, "dtype", type(v)))) for key, v in b.items()))
+
+    def _flush():
+        nonlocal pend
+        out = []
+        while pend:
+            if len(pend) >= k:
+                take, pend = pend[:k], pend[k:]
+                keys = [key for key in DEVICE_KEYS if hasattr(take[0].get(key), "shape")]
+                out.append((k, {key: np.stack([b[key] for b in take]) for key in keys}))
+            else:
+                out.append((1, pend.pop(0)))
+        return out
+
+    for b in loader:
+        s = _sig(b)
+        if sig is not None and s != sig:
+            yield from _flush()
+        sig = s
+        pend.append(b)
+        if len(pend) == k:
+            yield from _flush()
+            sig = None
+    yield from _flush()
+
+
+class GroupedLoader:
+    """Re-iterable view of ``group_steps`` (the prefetcher restarts its
+    loader every epoch)."""
+
+    def __init__(self, loader, k: int):
+        self.loader = loader
+        self.k = k
+
+    def __iter__(self):
+        return group_steps(self.loader, self.k)
+
+
+def steps_per_call(k: int, lay, is_main: bool) -> int:
+    """`k`, or 1 under a layout of more than one process, with the JAX
+    trainer's notice (``loop.py:551-560``)."""
+    if k > 1 and lay.distributed:
+        if is_main:
+            print(UNSHARDED_ONLY, flush=True)
+        return 1
+    return k
+
+
+def _row(batch: dict, i: int) -> dict:
+    """Batch i of a stacked batch."""
+    return {k: v[i] for k, v in batch.items()}
 
 
 class DevicePrefetcher:
     """Collates batches and copies them to the device on a thread, `size`
-    batches ahead (``loop.py:128-215``); yields (host batch, device batch).
-    On a card the copies leave pinned buffers on a side stream, and the
-    consumer's stream waits for each batch's event. `size` 0 iterates
-    synchronously. Closing the iterator (early stop, SIGTERM, an error)
-    releases the thread."""
+    batches ahead (``loop.py:128-215``); yields (host batch, device batch),
+    or (n, host batch, device batch) when `grouped` (the loader yields
+    ``group_steps``' (n, batch), n passed through). On a card the copies
+    leave pinned buffers on a side stream, and the consumer's stream waits
+    for each batch's event. `size` 0 iterates synchronously. Closing the
+    iterator (early stop, SIGTERM, an error) releases the thread."""
 
     _SENTINEL = object()
 
-    def __init__(self, loader, device: torch.device, size: int = 2):
+    def __init__(self, loader, device: torch.device, size: int = 2, grouped: bool = False):
         self.loader = loader
         self.device = device
         self.size = size
+        self.grouped = grouped
 
-    def _put(self, batch, stream):
+    def _split(self, item):
+        return item if self.grouped else (1, item)
+
+    def _out(self, n, batch, db):
+        return (n, batch, db) if self.grouped else (batch, db)
+
+    def _put(self, item, stream):
+        n, batch = self._split(item)
         if stream is None:
-            return batch, batch_to_device(batch, self.device), None
+            return n, batch, batch_to_device(batch, self.device), None
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             db = {k: v.pin_memory().to(self.device, non_blocking=True)
                   for k, v in batch_to_device(batch, "cpu").items()}
             event = torch.cuda.Event()
             event.record(stream)
-        return batch, db, event
+        return n, batch, db, event
 
     def __iter__(self):
         if self.size <= 0:
-            for batch in self.loader:
-                yield batch, batch_to_device(batch, self.device)
+            for item in self.loader:
+                n, batch = self._split(item)
+                yield self._out(n, batch, batch_to_device(batch, self.device))
             return
         cuda = self.device.type == "cuda"
         stream = torch.cuda.Stream(self.device) if cuda else None
@@ -169,13 +252,13 @@ class DevicePrefetcher:
                 item = q.get()
                 if item is self._SENTINEL:
                     break
-                batch, db, event = item
+                n, batch, db, event = item
                 if event is not None:
                     current = torch.cuda.current_stream(self.device)
                     current.wait_event(event)
                     for v in db.values():
                         v.record_stream(current)
-                yield batch, db
+                yield self._out(n, batch, db)
             if err:
                 raise err[0]
         finally:
@@ -242,6 +325,7 @@ class Trainer:
         self.load_ms: Optional[float] = None
         self._epoch = 0
         self.loader = self.val_loader = None  # built by fit, or by validate alone
+        self._graph: Optional[TrainStepGraph] = None  # steps_per_call's, on a card
         self._writer: Optional[SummaryWriter] = None
         self._media_vocoder = None  # training.vocoder_path's, loaded at its first use
 
@@ -318,11 +402,32 @@ class Trainer:
         return bool(all_reduce(t, torch.distributed.group.WORLD,
                                torch.distributed.ReduceOp.MAX).item())
 
+    def _train_call(self, n: int, db: dict, step: int, epoch: int) -> List[dict]:
+        """Steps step + 1 .. step + n on `db` (stacked [n, ...] when n > 1);
+        their losses, fetched from the device once."""
+        if n == 1:
+            losses = train_step(self.model, self.optimizer, self.config, db, step, epoch,
+                                self.ema)
+            names, values = list(losses), torch.stack([v.float() for v in losses.values()])[None]
+        elif self.device.type == "cuda":
+            if self._graph is None:
+                self._graph = TrainStepGraph(self.model, self.optimizer, self.config, self.ema)
+            names, values = self._graph.run(db, step, epoch)
+        else:  # the plain version: n eager steps, one fetch
+            calls = [train_step(self.model, self.optimizer, self.config, _row(db, i), step + i,
+                                epoch, self.ema) for i in range(n)]
+            names = list(calls[0])
+            values = torch.stack([torch.stack([c[k].float() for k in names]) for c in calls])
+        return [dict(zip(names, v)) for v in values.cpu().tolist()]  # waits for the call
+
     def _fit_loop(self, loader, max_steps, step, epoch, val_interval, preempt) -> List[dict]:
         cfg, tcfg = self.config, self.config.training
         es = tcfg.early_stopping
         best, stale, stop = float("inf"), 0, False
-        prefetch = DevicePrefetcher(loader, self.device, tcfg.prefetch_batches)
+        k = steps_per_call(tcfg.steps_per_call, self.layout, self.is_main)
+        grouped = k > 1
+        prefetch = DevicePrefetcher(GroupedLoader(loader, k) if grouped else loader,
+                                    self.device, tcfg.prefetch_batches, grouped=grouped)
         rows: List[dict] = []
 
         def crossed(interval, lo, hi):
@@ -336,59 +441,69 @@ class Trainer:
                 batches = iter(prefetch)
                 t_free = time.perf_counter()
                 try:
-                    for batch, db in batches:
-                        t0 = time.perf_counter()
-                        losses = train_step(self.model, self.optimizer, cfg, db, step, epoch,
-                                            self.ema)
-                        host = {k: float(v) for k, v in losses.items()}  # waits for the step
-                        prev, step = step, step + 1
-                        row = {"step": step, "epoch": epoch,
-                               # the global batch's [B, L, T]
-                               "shape": [int(batch["text"].shape[0]) * self.layout.data_size,
-                                         int(batch["text"].shape[1]),
-                                         int(batch["mel"].shape[1])],
-                               "ms": (time.perf_counter() - t0) * 1e3,
-                               "wait_ms": (t0 - t_free) * 1e3, **host}
-                        if log is not None:
-                            log.write(json.dumps(row) + "\n")
-                            log.flush()
-                        rows.append(row)
-                        if tcfg.halt_on_non_finite and not all(map(math.isfinite, host.values())):
-                            raise TrainingDivergedError(
-                                f"non-finite training loss at step {step}: {host}")
-                        if (step == 1 or step % LOG_EVERY == 0) and self.is_main:
-                            for k, v in host.items():
-                                self._log("training/grad_norm" if k == "grad_norm"
-                                          else f"training/{k}_loss", v, step)
-                            print(f"step {step} epoch {epoch} total={host['total']:.4f} "
-                                  f"spec={host.get('spec', 0.0):.4f} {row['ms']:.1f} ms",
-                                  flush=True)
-                        if self._preempted(preempt["flag"]):
-                            if preempt["flag"] or self.is_main:
-                                print(f"received signal {preempt['signum']}: checkpointing at "
-                                      f"step {step} and exiting cleanly", flush=True)
-                            stop = True
+                    for item in batches:
+                        n, batch, db = item if grouped else (1, *item)
+                        if n > 1 and step + n > max_steps:
+                            # split the tail group so the run stops at exactly max_steps
+                            calls = [(1, _row(batch, i), _row(db, i))
+                                     for i in range(max_steps - step)]
+                        else:
+                            calls = [(n, batch, db)]
+                        for n_i, batch_i, db_i in calls:
+                            t0 = time.perf_counter()
+                            hosts = self._train_call(n_i, db_i, step, epoch)
+                            prev, step = step, step + n_i
+                            ms = (time.perf_counter() - t0) * 1e3
+                            text, mel = batch_i["text"], batch_i["mel"]
+                            # the global batch's [B, L, T]
+                            shape = [int(text.shape[-2]) * self.layout.data_size,
+                                     int(text.shape[-1]), int(mel.shape[-2])]
+                            for s, host in enumerate(hosts, prev + 1):
+                                row = {"step": s, "epoch": epoch, "shape": shape,
+                                       "call_steps": n_i, "ms": ms / n_i,
+                                       "wait_ms": (t0 - t_free) * 1e3 / n_i, **host}
+                                if log is not None:
+                                    log.write(json.dumps(row) + "\n")
+                                rows.append(row)
+                            if log is not None:
+                                log.flush()
+                            for s, host in enumerate(hosts, prev + 1):
+                                self._guard_finite(host, s)
+                                if (s == 1 or s % LOG_EVERY == 0) and self.is_main:
+                                    for key, v in host.items():
+                                        self._log("training/grad_norm" if key == "grad_norm"
+                                                  else f"training/{key}_loss", v, s)
+                                    print(f"step {s} epoch {epoch} total={host['total']:.4f} "
+                                          f"spec={host.get('spec', 0.0):.4f} "
+                                          f"{ms / n_i:.1f} ms", flush=True)
+                            if self._preempted(preempt["flag"]):
+                                if preempt["flag"] or self.is_main:
+                                    print(f"received signal {preempt['signum']}: checkpointing "
+                                          f"at step {step} and exiting cleanly", flush=True)
+                                stop = True
+                                break
+                            if tcfg.ckpt_steps and crossed(tcfg.ckpt_steps, prev, step):
+                                self._save(step)
+                            if crossed(val_interval, prev, step) or step >= max_steps:
+                                total = self.validate(step, epoch).get("total")
+                                self._save(step, metrics={MONITOR: total})
+                                if es.metric != "none":
+                                    current = float("inf") if total is None else total
+                                    if current < best - 1e-6:
+                                        best, stale = current, 0
+                                    else:
+                                        stale += 1
+                                        if stale >= es.patience:
+                                            if self.is_main:
+                                                print(f"early stopping: {MONITOR} stale for "
+                                                      f"{stale} validations", flush=True)
+                                            stop = True
+                                            break
+                            if step >= max_steps:
+                                break
+                            t_free = time.perf_counter()
+                        if stop or step >= max_steps:
                             break
-                        if tcfg.ckpt_steps and crossed(tcfg.ckpt_steps, prev, step):
-                            self._save(step)
-                        if crossed(val_interval, prev, step) or step >= max_steps:
-                            total = self.validate(step, epoch).get("total")
-                            self._save(step, metrics={MONITOR: total})
-                            if es.metric != "none":
-                                current = float("inf") if total is None else total
-                                if current < best - 1e-6:
-                                    best, stale = current, 0
-                                else:
-                                    stale += 1
-                                    if stale >= es.patience:
-                                        if self.is_main:
-                                            print(f"early stopping: {MONITOR} stale for "
-                                                  f"{stale} validations", flush=True)
-                                        stop = True
-                                        break
-                        if step >= max_steps:
-                            break
-                        t_free = time.perf_counter()
                 finally:
                     batches.close()
                 epoch += 1
@@ -399,6 +514,16 @@ class Trainer:
         if self._async is not None:
             self._async.wait()
         return rows
+
+    def _guard_finite(self, host: dict, step: int) -> None:
+        """Halt on a non-finite loss (``training.halt_on_non_finite``): one
+        Adam step through a NaN gradient poisons the moments for good."""
+        if self.config.training.halt_on_non_finite and not all(map(math.isfinite,
+                                                                   host.values())):
+            raise TrainingDivergedError(
+                f"non-finite training loss at step {step}: {host} — resume from the "
+                "last good checkpoint (set training.halt_on_non_finite=false to "
+                "override)")
 
     def validate(self, step: int, epoch: int) -> dict:
         """Weighted mean of each loss over the validation batches (each

@@ -47,10 +47,18 @@ def _elem_loss(kind: str, pred, target, sample_weight: Optional[torch.Tensor]
     return (diff * wb).sum(), w.sum() * per_sample
 
 
+def bin_warmup_factor(training_config, epoch: int) -> float:
+    """The binarization loss's linear warmup over epochs, capped at 1."""
+    return min(float(epoch) / training_config.attn_bin_loss_warmup_epochs, 1.0)
+
+
 def compute_loss(config, output: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-                 current_epoch: int = 0) -> Dict[str, torch.Tensor]:
+                 current_epoch: int = 0, bin_warmup: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Weighted losses by name, and their sum under "total"; under a
-    data-parallel layout, this rank's shares of them."""
+    data-parallel layout, this rank's shares of them. `bin_warmup`, a 0-d
+    f32 tensor, stands for ``bin_warmup_factor(current_epoch)`` where a
+    captured graph must read the factor each replay."""
     mcfg, tcfg = config.model, config.training
     vp = mcfg.variance_predictors
     group = parallel_layout().data_group
@@ -93,7 +101,8 @@ def compute_loss(config, output: Dict[str, torch.Tensor], batch: Dict[str, torch
             parts["attn_ctc"] = (*attention_ctc_loss_parts(
                 output["attn_logprob"], batch["src_lens"], batch["mel_lens"], sw),
                 tcfg.attn_ctc_loss_weight)
-        bin_warmup = min(float(current_epoch) / tcfg.attn_bin_loss_warmup_epochs, 1.0)
+        if bin_warmup is None:
+            bin_warmup = bin_warmup_factor(tcfg, current_epoch)
         num, den = attention_binarization_loss_parts(output["attn_hard"], output["attn_soft"],
                                                      sample_weight=sw)
         parts["attn_bin"] = (num, den, (bin_warmup, tcfg.attn_bin_loss_weight))

@@ -21,7 +21,14 @@ group, as ``optax.clip_by_global_norm`` sees the whole tree.
 parameter vector, each data rank holding the moments of a contiguous slice
 and updating that slice, then gathering the updated slices (ZeRO-1). Both
 hand their moments out, and take them in, per parameter in the full
-reference layout, which is what a checkpoint holds."""
+reference layout, which is what a checkpoint holds.
+
+The update count lives on the parameters' device as a 0-d tensor, raised
+inside the step, and the learning rate and bias corrections are computed
+from it there, in f32 as optax computes them: a step copies nothing from
+the host, so a captured CUDA graph of it (``step.py`` ``TrainStepGraph``)
+reads the count each replay. ``count`` is its host mirror for checkpoints,
+raised by an eager step and by the graph's caller at each replay."""
 
 from __future__ import annotations
 
@@ -44,6 +51,19 @@ def noam_lr(base_lr: float, warmup_steps: int, count: int) -> float:
     update count clamped to step >= 1 (``state.py:22-32``)."""
     step = max(float(count), 1.0)
     return base_lr * warmup_steps ** 0.5 * min(step ** -0.5, step * warmup_steps ** -1.5)
+
+
+def noam_lr_device(base_lr: float, warmup_steps: int, count: torch.Tensor) -> torch.Tensor:
+    """``noam_lr`` of the 0-d update count `count`, in f32 on its device, in
+    the JAX schedule's order of operations."""
+    step = torch.clamp(count.float(), min=1.0)
+    return base_lr * (warmup_steps ** 0.5 * torch.minimum(step ** -0.5,
+                                                          step * warmup_steps ** -1.5))
+
+
+def capturing(device) -> bool:
+    """Whether the current CUDA stream is capturing a graph (never on the CPU)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -102,7 +122,9 @@ class AdamWNoam:
         self.split = dict(split or {})
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.device = self.params[0].device
+        self.count = 0  # the host mirror of count_t
+        self.count_t = torch.zeros((), dtype=torch.int32, device=self.device)
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         group = self.layout.model_group
@@ -118,12 +140,19 @@ class AdamWNoam:
         if self.layout.data_group is not None:
             _all_reduce_buckets(grads, self.layout.data_group)
         norm = self._global_norm(grads)
-        count_inc = self.count + 1
-        # bias corrections in f32, as optax computes them
-        c1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** count_inc
-        c2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** count_inc
-        lr = torch.tensor(noam_lr(self.lr, self.warmup, self.count), dtype=torch.float32)
+        count_inc = (self.count_t + 1).float()
+        # bias corrections and rate in f32 on the device, as optax computes them
+        c1 = 1.0 - torch.pow(self.b1, count_inc)
+        c2 = 1.0 - torch.pow(self.b2, count_inc)
+        lr = noam_lr_device(self.lr, self.warmup, self.count_t)
         return norm, norm < self.clip, c1, c2, lr
+
+    def _advance(self) -> None:
+        """One update more: on the device, and on the host outside a capture
+        (a replay's caller raises the mirror)."""
+        self.count_t.add_(1)
+        if not capturing(self.device):
+            self.count += 1
 
     def _adam(self, p, g, mu, nu, norm, keep, c1, c2, lr):
         """The update of one tensor (mu and nu updated in place)."""
@@ -131,8 +160,8 @@ class AdamWNoam:
         g = torch.where(keep, g, (g / norm) * self.clip)
         mu.copy_((1 - b1) * g + b1 * mu)
         nu.copy_((1 - b2) * (g * g) + b2 * nu)
-        update = (mu / c1.to(p.device)) / (torch.sqrt(nu / c2.to(p.device)) + self.eps)
-        return (update + self.weight_decay * p) * (-lr.to(p.device))
+        update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+        return (update + self.weight_decay * p) * (-lr)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
@@ -144,7 +173,7 @@ class AdamWNoam:
             update = self._adam(p, g, mu, nu, norm, keep, c1, c2, lr)
             if not frozen:
                 p.add_(update)
-        self.count += 1
+        self._advance()
         return norm
 
     def moments(self) -> Tuple[dict, dict]:
@@ -166,6 +195,7 @@ class AdamWNoam:
             for name, m in zip(self.names, moments):
                 m.copy_(torch.as_tensor(given[name]))
         self.count = int(count)
+        self.count_t.fill_(self.count)
 
 
 class ZeroAdamWNoam(AdamWNoam):
@@ -209,7 +239,7 @@ class ZeroAdamWNoam(AdamWNoam):
         flat = torch.cat(all_gather(p, self.layout.data_group))
         for param, piece in zip(self.params, flat.split(self.pieces)):
             param.copy_(piece.view_as(param))
-        self.count += 1
+        self._advance()
         return norm
 
     def _full(self, part: torch.Tensor) -> dict:
@@ -231,6 +261,7 @@ class ZeroAdamWNoam(AdamWNoam):
             flat = self._flat([torch.as_tensor(given[n]) for n in self.names])
             part.copy_(flat[self.lo:self.lo + self.slice_numel])
         self.count = int(count)
+        self.count_t.fill_(self.count)
 
 
 def make_optimizer(model: nn.Module, training_config) -> AdamWNoam:

@@ -32,7 +32,12 @@ under autograd before it launches;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
-``torch.export``, saved, loaded and run, launching A and equal to eager. Each counts one launch per kernel launch, and each wrapper raises on a
+``torch.export``, saved, loaded and run, launching A and equal to eager;
+A with A', B, and C's loss forward and backward each captured in a CUDA
+graph and replayed on new seeds or inputs, equal to their eager launches;
+a tiny f32 train step captured by ``TrainStepGraph`` against the eager
+step. Each counts one launch per kernel launch (a replay its capture's
+launches), and each wrapper raises on a
 shape its kernel does not take. This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -1050,3 +1055,252 @@ def test_kernels_launched_from_two_threads_at_once(cuda, where):
         assert _rel(o, want) <= _tol(torch.bfloat16)
         blocks = _stage_blocks(C, dev, seed=seed)
         assert _rel(y, mrf_stage_reference(x, blocks, KS, DILS)) <= _mrf_tol(torch.float32)
+
+
+def _replayed(graph, counts, n: int = 1) -> None:
+    """Replay `graph` n times, adding its capture's launches each time, as
+    ``TrainStepGraph`` does."""
+    for _ in range(n):
+        graph.replay()
+        build.add(counts)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_attention_kernels_under_capture_equal_their_eager_launches(cuda):
+    """A (p 0.2) and A' captured in one CUDA graph through the autograd
+    Function; each replay reads a new seed from the static seed tensor and
+    equals an eager launch with that seed (A bit for bit; A' sums dQ with
+    atomics) and the plain version; launches counted at replay only."""
+    q, k, v, bias, do = _attention_inputs(cuda, 2, 2, 200, 128, torch.float32)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda)
+    static = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def run(qkv, s):
+        out = attention_with_dropout(*qkv, bias, s, 0.2, 0.125)
+        return (out,) + torch.autograd.grad(out, qkv, do)
+
+    run(static, seed)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    f0, b0 = attention_fwd.launches, attention_bwd.launches
+    with build.recording() as counts:
+        with torch.cuda.graph(graph):
+            outs = run(static, seed)
+    assert (attention_fwd.launches, attention_bwd.launches) == (f0, b0)
+    assert counts == {(attention_fwd, "launches"): 1, (attention_bwd, "launches"): 1,
+                      (attention_bwd, "flops"): attention.attention_bwd_flops(2, 2, 200, 128)}
+    for s in (12345, -7):
+        seed.fill_(s)
+        _replayed(graph, counts)
+        eager = run([t.detach().requires_grad_(True) for t in (q, k, v)], seed)
+        assert torch.equal(outs[0], eager[0])
+        for got, want in zip(outs[1:], eager[1:]):
+            assert _rel(got, want) <= 1e-6
+        ref = attention_bwd_reference(q, k, v, bias, seed, 0.2, 0.125, do)
+        assert _rel(outs[0], attention_dropout_reference(q, k, v, bias, seed, 0.2, 0.125)) <= 1e-5
+        for got, want in zip(outs[1:], ref):
+            assert _rel(got, want) <= 1e-5
+    assert (attention_fwd.launches, attention_bwd.launches) == (f0 + 4, b0 + 4)
+
+
+@pytest.mark.gpu
+def test_mas_and_ctc_under_capture_equal_their_eager_launches(cuda):
+    """B, and C's ctc_alpha_beta + ctc_grad (through the loss's autograd
+    Function), each alone in a CUDA graph, replayed on new inputs copied
+    into the static ones: B bit for bit, C equal to an eager launch and
+    within the plain version's limits."""
+    B, T, L = 4, 300, 40
+    lp, in_lens, out_lens = _ctc_inputs(cuda, B, T, L)
+    la = torch.log_softmax(torch.randn(B, T, L, device=cuda), -1)
+    static_la, static_lp = la.clone(), lp.clone().requires_grad_(True)
+
+    def ctc_run(x):
+        loss = ctc_forward_sum(x, in_lens, out_lens)
+        return (loss,) + torch.autograd.grad(loss.sum(), x)
+
+    mas_width1(static_la, in_lens, out_lens)
+    ctc_run(static_lp)
+    torch.cuda.synchronize()
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with build.recording() as mas_counts:
+        with torch.cuda.graph(graphs[0]):
+            hard, durations = mas_width1(static_la, in_lens, out_lens)
+    with build.recording() as ctc_counts:
+        with torch.cuda.graph(graphs[1]):
+            loss, grad = ctc_run(static_lp)
+    assert mas_counts == {(mas_width1, "launches"): 1}
+    assert ctc_counts == {(ctc_alpha_beta, "launches"): 1, (ctc_grad, "launches"): 1}
+    m0, ab0, g0 = mas_width1.launches, ctc_alpha_beta.launches, ctc_grad.launches
+    for seed in (1, 2):
+        new_lp = _ctc_inputs(cuda, B, T, L, seed=seed + 10)[0]
+        new_la = torch.log_softmax(torch.randn(B, T, L, device=cuda), -1)
+        static_la.copy_(new_la)
+        with torch.no_grad():
+            static_lp.copy_(new_lp)
+        _replayed(graphs[0], mas_counts)
+        _replayed(graphs[1], ctc_counts)
+        want_hard, want_dur = mas_width1(new_la, in_lens, out_lens)
+        assert torch.equal(hard, want_hard) and torch.equal(durations, want_dur)
+        assert torch.equal(hard, mas_width1_reference(new_la, in_lens, out_lens)[0])
+        eager = ctc_run(new_lp.clone().requires_grad_(True))
+        assert torch.equal(loss, eager[0]) and torch.equal(grad, eager[1])
+    assert (mas_width1.launches - m0, ctc_alpha_beta.launches - ab0,
+            ctc_grad.launches - g0) == (4, 4, 4)  # two replays and two eager calls each
+
+
+def _tiny_training(cuda, seed: int = 0):
+    """A 1 + 1 layer f32 FastSpeech2 (d 128, two heads of 64, PostNet and
+    every dropout on) on `cuda` with flax's initial distributions, its
+    optimizer and EMA, and 4 ragged batches of one shape stacked [4, ...]."""
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_lightning_tpu_torch.training.state import init_like_flax, make_optimizer
+
+    layers = {"layers": 1, "heads": 2, "input_dim": 128, "feedforward_dim": 256,
+              "conv_kernel_size": 3, "dropout": 0.1}
+    vp = {"input_dim": 128, "n_layers": 2, "n_bins": 16}
+    cfg = FastSpeech2Config.from_dict({
+        "model": {"encoder": layers, "decoder": layers, "dtype": "float32",
+                  "variance_predictors": {"energy": vp, "pitch": vp, "duration": vp},
+                  "max_mel_length": 96},
+        "preprocessing": {"audio": {"n_mels": 20}},
+        "text": {"symbols": {"letters": list("abcdefghijklmnopqrstuvwxyz")}},
+        "training": {"batch_size": 3, "ema_decay": 0.99,
+                     "optimizer": {"warmup_steps": 4}}})
+    model = FastSpeech2(cfg, n_symbols=30)
+    init_like_flax(model, seed)
+    with torch.no_grad():
+        for kind in ("pitch", "energy"):
+            getattr(model.variance_adaptor, f"{kind}_bins").copy_(torch.linspace(-2, 2, 15))
+    model = model.to(cuda).train()
+    opt = make_optimizer(model, cfg.training)
+    ema = [p.detach().clone() for p in opt.params]
+    rng = np.random.default_rng(seed)
+    B, L, T = 3, 12, 80
+    steps = []
+    for _ in range(4):
+        src = rng.integers(L // 2, L + 1, B).astype(np.int32)
+        mel_lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
+        src[0], mel_lens[0] = L, T
+        text = np.zeros((B, L), np.int32)
+        prior = np.zeros((B, T, L), np.float32)
+        for b in range(B):
+            text[b, :src[b]] = rng.integers(1, 30, src[b])
+            centre = np.arange(mel_lens[b])[:, None] / max(mel_lens[b] - 1, 1) * (src[b] - 1)
+            p = np.exp(-((np.arange(src[b])[None] - centre) ** 2) / (2 * (src[b] / 6 + 1) ** 2))
+            prior[b, :mel_lens[b], :src[b]] = p / p.sum(1, keepdims=True)
+        frames = np.arange(T)[None] < mel_lens[:, None]
+        steps.append({
+            "text": text, "src_lens": src, "mel_lens": mel_lens, "attn_prior": prior,
+            "mel": (rng.standard_normal((B, T, 20)) * frames[..., None]).astype(np.float32),
+            "pitch": (rng.standard_normal((B, T)) * frames).astype(np.float32),
+            "energy": (np.abs(rng.standard_normal((B, T))) * frames).astype(np.float32),
+            "speaker_id": np.zeros(B, np.int32), "language_id": np.zeros(B, np.int32),
+            "sample_weight": np.array([1.0, 1.0, 0.0], np.float32)})
+    batches = {k: torch.from_numpy(np.stack([s[k] for s in steps])).to(cuda) for k in steps[0]}
+    return cfg, model, opt, ema, batches
+
+
+@pytest.mark.gpu
+def test_captured_train_step_equals_the_eager_step(cuda, monkeypatch):
+    """A tiny f32 train step captured by ``TrainStepGraph`` against the
+    eager ``train_step`` from the same weights on the same 4 batches, two
+    calls of 2 (step 1 the eager warm-up, steps 2 to 4 replays): the same
+    attention seeds drawn inside the graph, bit for bit; losses within 1e-4
+    relative at steps 1 and 2 and 1e-3 after (the JAX multi-step test's
+    escalation); at step 2, the first replay from the eager run's state,
+    the gradient (read off the first moments) as one vector within rel-L2
+    1e-4 and the update and the EMA's within 1e-3 on the elements whose
+    moments agree (``_step_two_errors``); the update count on the device and
+    the host; and the kernels' launch counters counting every replay."""
+    from fastspeech2_lightning_tpu_torch.models import conformer
+    from fastspeech2_lightning_tpu_torch.training.step import TrainStepGraph, train_step
+
+    seeds = []
+    real = conformer.attention_with_dropout
+
+    def recorded(q, k, v, bias, seed, *args, **kwargs):
+        seeds.append(seed)
+        return real(q, k, v, bias, seed, *args, **kwargs)
+
+    monkeypatch.setattr(conformer, "attention_with_dropout", recorded)
+    fns = (attention_fwd, attention_bwd, mas_width1, ctc_alpha_beta, ctc_grad)
+
+    def launches():
+        return [fn.launches for fn in fns]
+
+    cfg, model, opt, ema, batches = _tiny_training(cuda)
+    start = launches()
+    eager_rows, eager_seeds, eager_states = [], [], []
+    for i in range(4):
+        seeds.clear()
+        losses = train_step(model, opt, cfg, {k: v[i] for k, v in batches.items()}, i, 0, ema)
+        eager_rows.append({k: float(v) for k, v in losses.items()})
+        eager_seeds.append([int(s) for s in seeds])
+        eager_states.append(_train_state(model, opt, ema))
+    per_step = [(n - s) / 4 for n, s in zip(launches(), start)]
+    assert per_step == [2, 2, 1, 1, 1]
+    assert len(set(map(tuple, eager_seeds))) == 4
+
+    cfg, model, opt, ema, batches = _tiny_training(cuda)
+    graph = TrainStepGraph(model, opt, cfg, ema)
+    start = launches()
+    seeds.clear()
+    names, rows = graph.run({k: v[:2] for k, v in batches.items()}, 0, 0)
+    rows = rows.cpu().tolist()
+    assert [int(s) for s in seeds[:2]] == eager_seeds[0]  # the warm-up's
+    captured = seeds[2:4]  # the graph's seed tensors, rewritten by each replay
+    assert [int(s) for s in captured] == eager_seeds[1]
+    assert len(graph.graphs) == 1 and len(graph.capture_ms) == 1
+    second = _train_state(model, opt, ema)
+    names, rows2 = graph.run({k: v[2:] for k, v in batches.items()}, 2, 0)
+    rows += rows2.cpu().tolist()
+    assert [int(s) for s in captured] == eager_seeds[3]
+    assert len(graph.graphs) == 1 and len(seeds) == 4
+    torch.cuda.synchronize()
+    assert [(n - s) / 4 for n, s in zip(launches(), start)] == per_step
+    assert opt.count == 4 and int(opt.count_t) == 4
+    for i, (got, want) in enumerate(zip(rows, eager_rows)):
+        for k, w in want.items():
+            g = got[names.index(k)]
+            assert math.isclose(g, w, rel_tol=1e-4 if i < 2 else 1e-3, abs_tol=1e-6), (i, k, g, w)
+    errors = _step_two_errors(second, eager_states[1], eager_states[0], opt.b1)
+    assert errors["grad"] <= 1e-4 and errors["left_out"] <= 0.1, errors
+    assert errors["weights"] <= 1e-3 and errors["ema"] <= 1e-3, errors
+
+
+def _train_state(model, opt, ema) -> dict:
+    return {"weights": {n: p.detach().double().cpu() for n, p in zip(opt.names, opt.params)},
+            "mu": {n: m.double().cpu() for n, m in zip(opt.names, opt.mu)},
+            "nu": {n: m.double().cpu() for n, m in zip(opt.names, opt.nu)},
+            "ema": {n: e.double().cpu() for n, e in zip(opt.names, ema)}}
+
+
+def _step_two_errors(got: dict, want: dict, first: dict, b1: float) -> dict:
+    """Step 2 of two runs from the same state after step 1 (`first`), as
+    ``chip_smoke._second_step_problems`` holds it: the gradient of step 2,
+    (mu2 - b1 mu1) / (1 - b1), as one vector (rel-L2); the updates of the
+    weights and the EMA since `first` as one vector each over the elements
+    whose first and second moments agree to 1e-3 relative (Adam makes a
+    full-rate step of a gradient that is zero to rounding, whose sign the
+    order of a sum decides), and the share left out."""
+    names = list(want["mu"])
+    keep = {n: (((got["mu"][n] - want["mu"][n]).abs() <= 1e-3 * want["mu"][n].abs())
+                & ((got["nu"][n] - want["nu"][n]).abs() <= 1e-3 * want["nu"][n].abs()))
+            for n in names}
+
+    def rel(a, b):
+        a, b = torch.cat(a), torch.cat(b)
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    def grad(state):
+        return [((state["mu"][n] - b1 * first["mu"][n]) / (1 - b1)).ravel() for n in names]
+
+    out = {"grad": rel(grad(got), grad(want)),
+           "left_out": sum(int((~k).sum()) for k in keep.values())
+           / sum(k.numel() for k in keep.values())}
+    for part in ("weights", "ema"):
+        out[part] = rel([(got[part][n] - first[part][n])[keep[n]] for n in names],
+                        [(want[part][n] - first[part][n])[keep[n]] for n in names])
+    return out

@@ -10,10 +10,12 @@ and the offset kernel checks.
 
 Run it from the root of a checkout:
 
-    python tools/phase29_alone.py
+    python tools/phase29_alone.py [--repeat N]
 
-It prints the card, the log lines, the result as JSON and the seconds the
-whole took."""
+`--repeat N` runs the phase N times in a row on the same phase 11 run (its
+bf16 hold is the check that must pass run after run). It prints the card,
+the log lines, the result of each run as JSON and the seconds the whole
+took."""
 
 import argparse
 import json
@@ -32,7 +34,9 @@ import chip_smoke as smoke  # noqa: E402
 
 
 def main() -> None:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--repeat", type=int, default=1, help="runs of the phase in a row")
+    args = parser.parse_args()
     t0 = time.time()
     smi = smoke.phase_device()
     print(smi, flush=True)
@@ -57,8 +61,17 @@ def main() -> None:
         rows = smoke._rows(run / "train_log.jsonl")
         phase11 = {"totals": [r["total"] for r in rows],
                    "ms": statistics.median(r["ms"] for r in rows[2:])}
-        out = smoke.phase_distributed(wd, phase11, smi)
-        print(json.dumps(out), flush=True)
+        for run in range(args.repeat):
+            t_run = time.time()
+            # each run's CLI and gloo runs write beside the first's
+            work = wd / f"run{run}"
+            work.mkdir()
+            for name in ("corpus", "config.json", smoke.PHASE11_STEP8):
+                (work / name).symlink_to(wd / name)
+            out = smoke.phase_distributed(work, phase11, smi)
+            print(json.dumps(out), flush=True)
+            print(f"phase 29 run {run + 1} of {args.repeat} passed in "
+                  f"{time.time() - t_run:.1f} s", flush=True)
     print(f"phase 29 alone done in {time.time() - t0:.1f} s", flush=True)
 
 
