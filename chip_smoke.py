@@ -232,10 +232,10 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     at steps_per_call 4 (every call fuses) held to 5 eager runs by the
     bf16 hold of phase 29, A, A', B and C launches a step equal, ms and
     the card's busy share a step at 1 and 4, graphs, capture ms, pool and
-    peak; at 2 + 2 layers in f32 from the same weights, 2 steps at
-    steps_per_call 2, the first replayed step held to the eager step as
-    phase 29 holds its gloo runs, and the attention seeds drawn inside the
-    graph equal the eager step's; (iii)
+    peak; at 2 + 2 layers in f32, one replayed step against the eager step
+    from the same state (gradient, update and EMA within 1e-4 to 1e-3,
+    losses within 1e-4), and the attention seeds drawn inside the graph
+    equal the eager step's; (iii)
     steps_per_call 4 on the 4 buckets: the groups formed, every step
     logged once. The kernels' line gains the launches as ``steps_per_call``.
 
@@ -5941,12 +5941,7 @@ def phase_data_parallel(workdir: Path, smi: str) -> dict:
 SPC_K = 4  # training.steps_per_call of phase 31's graph runs
 SPC_TOP = (16, 2016, 192)  # training's top bucket: B, T, L
 SPC_F32_LAYERS = 2  # the f32 runs' encoder and decoder layers
-# the f32 runs' steps_per_call and steps: step 1 the eager warm-up, step 2
-# the first replay, from the state an eager run has after step 1 (two eager
-# f32 runs are bit-identical, so step 2 is the captured step against the
-# eager one); EMA decay 0.9, so that a step moves the EMA by far more than
-# its rounding
-SPC_F32_K = 2
+# the f32 check's EMA decay: a step moves the EMA by far more than its rounding
 SPC_F32_EMA = 0.9
 SPC_COUNTERS = ("attention_fwd", "attention_bwd", "mas_width1", "ctc_alpha_beta", "ctc_grad")
 
@@ -6246,6 +6241,121 @@ def _second_step_problems(got: dict, want: dict, first: dict, b1: float) -> tupl
     return problems, figures
 
 
+def _copy_train_state(dst, src) -> None:
+    """Copy trainer `src`'s weights, buffers, Adam moments and count and EMA
+    into trainer `dst`'s tensors, in place (a captured graph keeps reading
+    them)."""
+    import torch
+
+    with torch.no_grad():
+        for d, s in zip(dst.model.state_dict().values(), src.model.state_dict().values()):
+            d.copy_(s)
+        for a, b in ((dst.optimizer.mu, src.optimizer.mu), (dst.optimizer.nu, src.optimizer.nu),
+                     (dst.ema, src.ema)):
+            for d, s in zip(a, b):
+                d.copy_(s)
+        dst.optimizer.count_t.copy_(src.optimizer.count_t)
+    dst.optimizer.count = src.optimizer.count
+
+
+def _trainer_state(trainer) -> dict:
+    """A trainer's state as ``_step_state`` gives a step=N/ directory's."""
+    opt = trainer.optimizer
+
+    def host(ts):
+        return {n: t.detach().to("cpu", copy=True) for n, t in zip(opt.names, ts)}
+
+    return {"weights": {k: v.detach().to("cpu", copy=True)
+                        for k, v in trainer.model.state_dict().items()},
+            "mu": host(opt.mu), "nu": host(opt.nu), "ema": host(trainer.ema),
+            "count": opt.count}
+
+
+def _f32_captured_step(workdir: Path) -> dict:
+    """Phase 31 (ii) in f32 at 2 + 2 layers: one step replayed from a
+    ``TrainStepGraph`` against the eager step from the same state. Three
+    trainers of one config (one bucket, EMA 0.9, phase 29's Noam rates)
+    take step 1 on the same batch, the graph's as its warm-up before its
+    capture; the eager one's state after step 1 is copied into the other
+    two in place, so that step 2 starts from one state; then step 2 on the
+    same batch, replayed in one and eager in the other two. The replay is
+    held to the first eager step 2 by ``_second_step_problems`` (gradient,
+    update, EMA, buffers) and its losses within 1e-4 relative plus 4 x the
+    second eager step's distance, which is reported; the attention seeds
+    drawn inside the graph equal the eager step's bit for bit."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
+    from fastspeech2_lightning_tpu_torch.models import conformer
+    from fastspeech2_lightning_tpu_torch.training.loop import GroupedLoader, Trainer
+    from fastspeech2_lightning_tpu_torch.training.step import (
+        TrainStepGraph, batch_to_device, train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    optimizer = {**json.loads((workdir / "config.json").read_text())["training"]["optimizer"],
+                 "warmup_steps": DIST_WARMUP}
+    path = _spc_config(workdir, "spc_f32", "float32", SPC_F32_LAYERS, bucket_count=1,
+                       optimizer=optimizer, ema_decay=SPC_F32_EMA)
+    eager, again, graphed = (Trainer(FastSpeech2Config.from_file(path), device="cuda:0")
+                             for _ in range(3))
+    loader = eager._build_loaders()
+    _, host = next(iter(GroupedLoader(loader, 2)))
+    db = batch_to_device(host, eager.device)
+    first, second = ({k: v[i] for k, v in db.items()} for i in (0, 1))
+    graph = TrainStepGraph(graphed.model, graphed.optimizer, graphed.config, graphed.ema)
+    seeds = []
+    real = conformer.attention_with_dropout
+
+    def recorded(q, k, v, bias, seed, *args, **kwargs):
+        seeds.append(seed)
+        return real(q, k, v, bias, seed, *args, **kwargs)
+
+    conformer.attention_with_dropout = recorded
+    try:
+        train_step(eager.model, eager.optimizer, eager.config, first, 0, 0, eager.ema)
+        graph.run({k: v[None] for k, v in first.items()}, 0, 0)  # warm-up, capture
+        captured = seeds[-2 * SPC_F32_LAYERS:]  # the capture's seed tensors
+        start = _trainer_state(eager)
+        for t in (again, graphed):
+            _copy_train_state(t, eager)
+        seeds.clear()
+        rows = {}
+        for name, t in (("eager", eager), ("again", again)):
+            rows[name] = {k: float(v) for k, v in
+                          train_step(t.model, t.optimizer, t.config, second, 1, 0, t.ema).items()}
+        eager_seeds = [int(s) for s in seeds[:2 * SPC_F32_LAYERS]]
+        names, values = graph.run({k: v[None] for k, v in second.items()}, 1, 0)
+        rows["graph"] = dict(zip(names, values[0].tolist()))
+        in_graph = [int(s) for s in captured]  # rewritten by the replay
+    finally:
+        conformer.attention_with_dropout = real
+    check(len(in_graph) == 2 * SPC_F32_LAYERS and in_graph == eager_seeds,
+          f"phase 31 (ii): seeds in the graph {in_graph} against eager {eager_seeds}")
+    states = {name: _trainer_state(t) for name, t in
+              (("eager", eager), ("again", again), ("graph", graphed))}
+    b1 = optimizer["betas"][0]
+    problems, held = _second_step_problems(states["graph"], states["eager"], start, b1)
+    _, own = _second_step_problems(states["again"], states["eager"], start, b1)
+    one, two, got = rows["eager"], rows["again"], rows["graph"]
+    problems += [f"step 2 {k}: {got[k]} against {one[k]}" for k in LOSS_KEYS + ("grad_norm",)
+                 if not math.isclose(got[k], one[k], rel_tol=DIST_MOMENT_RTOL,
+                                     abs_tol=DIST_ATOL + DIST_SPREAD * abs(two[k] - one[k]))]
+    check(not problems, f"phase 31 (ii) f32: {problems[:8]}")
+    out = dict(layers=SPC_F32_LAYERS, seeds_in_graph=in_graph, eager_seeds=eager_seeds,
+               loss_rel=max(abs(got[k] - one[k]) / max(abs(one[k]), 1e-12) for k in LOSS_KEYS),
+               loss_rel_again=max(abs(two[k] - one[k]) / max(abs(one[k]), 1e-12)
+                                  for k in LOSS_KEYS),
+               graph=dict(held, max_abs=_max_abs(states["graph"], states["eager"])),
+               again=dict(own, max_abs=_max_abs(states["again"], states["eager"])))
+    log(f"phase 31 (ii): f32, {SPC_F32_LAYERS} + {SPC_F32_LAYERS} layers, step 2 replayed against "
+        f"the eager step from one state: the seeds drawn inside the graph {in_graph} equal the "
+        f"eager step's; losses {out['loss_rel']:.3g} relative (a second eager step "
+        f"{out['loss_rel_again']:.3g}); {held} (a second eager step: {own})")
+    return out
+
+
 def _call_timing(trainer, k: int, iters: int = 3) -> dict:
     """Wall ms a step of `iters` calls of k steps (the trainer's own call:
     k graph replays or one eager step, one fetch) on the first batch of its
@@ -6288,13 +6398,8 @@ def phase_steps_per_call(workdir: Path, smi: str) -> dict:
     (``bf16_spread``, ``bf16_problems``); A, A', B and C launches a step
     equal; ms a step, the card's busy share of a step (profiler) at 1 and
     4; the graphs captured, the capture's ms, the graph pool's GiB and the
-    peak. At 2 + 2 layers in f32 from the same weights, steps_per_call 2
-    against 1 for 2 steps (step 2 the first replay, from the eager run's
-    state): the graph run's step=2/ held to the eager one's as phase 29
-    holds its gloo runs at step=1/ (``_f32_problems``, plus 4 x a second
-    eager run's distance), both steps' losses within 1e-4 relative plus 4 x
-    that distance, and the attention seeds drawn inside the graph at step 2
-    equal to the eager step's bit for bit. (iii) steps_per_call 4 on phase
+    peak. At 2 + 2 layers in f32, a replayed step against the eager step
+    from one state (``_f32_captured_step``). (iii) steps_per_call 4 on phase
     11's 4 buckets, 8 steps: the groups that formed, every step logged
     once."""
     import torch
@@ -6345,62 +6450,8 @@ def phase_steps_per_call(workdir: Path, smi: str) -> dict:
     del runs
     torch.cuda.empty_cache()
 
-    # (ii) f32, 2 + 2 layers, the same weights: two eager runs, one graph run,
-    # at phase 29's Noam rates (3.3e-5 to 1e-4 over the steps)
-    optimizer = {**json.loads((workdir / "config.json").read_text())["training"]["optimizer"],
-                 "warmup_steps": DIST_WARMUP}
-    f32 = {}
-    for name, k in (("eager", 1), ("again", 1), ("graph", SPC_F32_K)):
-        seeds = []
-        path = _spc_config(workdir, f"spc_f32_{name}", "float32", SPC_F32_LAYERS,
-                           bucket_count=1, steps_per_call=k, val_check_interval=k,
-                           save_top_k_ckpts=SPC_F32_K + 1, optimizer=optimizer,
-                           ema_decay=SPC_F32_EMA)
-        f32[name] = _spc_fit(path, steps=SPC_F32_K, seeds=seeds)
-        f32[name]["seeds"] = seeds
-        f32[name].pop("trainer")
-        if k == 1:
-            f32[name]["first"] = _step_state(_dist_step_dir(path, 1))
-    n_att = 2 * SPC_F32_LAYERS  # dropout attention calls a step
-    eager_seeds = [[int(t) for t in f32["eager"]["seeds"][i * n_att:(i + 1) * n_att]]
-                   for i in range(SPC_F32_K)]
-    graph_seeds = f32["graph"]["seeds"]
-    check(len(graph_seeds) == 2 * n_att, f"phase 31 (ii): {len(graph_seeds)} seed draws "
-          f"recorded in the graph run, want {2 * n_att} (the warm-up's, the capture's)")
-    in_graph = [int(t) for t in graph_seeds[n_att:]]  # the last replay's: step SPC_F32_K
-    check([int(t) for t in graph_seeds[:n_att]] == eager_seeds[0]
-          and in_graph == eager_seeds[-1] and len(set(map(tuple, eager_seeds))) == SPC_F32_K,
-          f"phase 31 (ii): seeds in the graph {in_graph} against eager {eager_seeds}")
-    for name in f32:
-        check(f32[name]["init"].keys() == f32["eager"]["init"].keys() and all(
-            torch.equal(v, f32["eager"]["init"][k]) for k, v in f32[name]["init"].items()),
-            f"phase 31 (ii): the f32 {name} run starts from other weights")
-    one, again, got = (f32[n]["rows"] for n in ("eager", "again", "graph"))
-    loss_problems = [
-        f"step {i + 1} {k}: {g[k]} against {w[k]}" for i, (g, w, a) in
-        enumerate(zip(got, one, again)) for k in LOSS_KEYS + ("grad_norm",)
-        if not math.isclose(g[k], w[k], rel_tol=DIST_MOMENT_RTOL,
-                            abs_tol=DIST_ATOL + DIST_SPREAD * abs(a[k] - w[k]))]
-    b1 = optimizer["betas"][0]
-    first = f32["eager"]["first"]
-    problems, held = _second_step_problems(f32["graph"]["state"], f32["eager"]["state"],
-                                           first, b1)
-    _, own = _second_step_problems(f32["again"]["state"], f32["eager"]["state"], first, b1)
-    check(not loss_problems + problems, f"phase 31 (ii) f32: {(loss_problems + problems)[:8]}")
-    out["f32"] = dict(
-        layers=SPC_F32_LAYERS, steps=SPC_F32_K, seeds_in_graph=in_graph, eager_seeds=eager_seeds,
-        loss_rel=[max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in LOSS_KEYS)
-                  for g, w in zip(got, one)],
-        loss_rel_again=[max(abs(a[k] - w[k]) / max(abs(w[k]), 1e-12) for k in LOSS_KEYS)
-                        for a, w in zip(again, one)],
-        graph=dict(held, max_abs=_max_abs(f32["graph"]["state"], f32["eager"]["state"])),
-        again=dict(own, max_abs=_max_abs(f32["again"]["state"], f32["eager"]["state"])))
-    log(f"phase 31 (ii): f32, {SPC_F32_LAYERS} + {SPC_F32_LAYERS} layers, {SPC_F32_K} steps from "
-        f"the same weights, step 2 the first replay: the seeds drawn inside the graph at step "
-        f"{SPC_F32_K} {in_graph} equal the eager step's; losses {_fmt(out['f32']['loss_rel'])} "
-        f"relative from the eager run (a second eager run {_fmt(out['f32']['loss_rel_again'])}); "
-        f"step 2 against the eager step: {held} (a second eager run: {own})")
-    del f32
+    # (ii) f32, 2 + 2 layers: a captured step against the eager one from one state
+    out["f32"] = _f32_captured_step(workdir)
 
     # (iii) the default 4 buckets at steps_per_call 4
     path = _spc_config(workdir, "spc_buckets", steps_per_call=SPC_K)
