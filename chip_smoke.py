@@ -238,6 +238,24 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     equal the eager step's; (iii)
     steps_per_call 4 on the 4 buckets: the groups formed, every step
     logged once. The kernels' line gains the launches as ``steps_per_call``.
+ 32. the widths of the d-384, 2-head model and HiFiGAN V2
+    (``phase_wide_heads``): (i) A and A' at dh 192 against their plain
+    versions (bf16 at (16, 2, 2048 and 1024, 192) p 0.2 and (8, 2, 1024, 192)
+    p 0 on ragged masks, f32 at (4, 2, 1024, 192)), timed beside SDPA; at dh
+    16, 32, 48 and 96 (padded) and 256 (built) in bf16 and f32, one launch
+    of each a call; dh 320 refused; (ii) V2's four fused MRF stages (C 64,
+    32, 16 and 8, C 8 run at 16) for a B 8, 896-frame mel in f32 and bf16
+    against the plain version, timed; (iii) ESPnet2's LJSpeech
+    ``conformer_fastspeech2`` widths (d 384, 2 heads, feed-forward 1536,
+    conv kernels 7 and 31, 4 + 4 layers, bf16, seeded weights) served with
+    a seeded fused V2 vocoder (f32): 8 concurrent HTTP requests, 8 A a
+    forward, 4 fused stages and 72 ``mrf_conv`` a vocoder call, A and each
+    stage held to their plain versions on inputs the requests gave them;
+    (iv) 4 train steps of that model (B 16) on phase 11's corpus through
+    the ``train`` CLI: 8 A, 8 A', 1 B and 1 + 1 C a step, step ms and peak
+    memory. The kernels' line gains the dh 192 rows (``wide_heads``), the
+    V2 stages (``v2_stages``) and the launches as ``wide_serving`` and
+    ``wide_training``.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -731,14 +749,15 @@ def random_state_dict(cfg: dict, rng) -> dict:
     return sd
 
 
-def random_hifigan_npz(path: Path, rng) -> None:
-    """A seeded HiFiGAN V1 generator (upsample_initial_channel 512) as an
-    .npz of the JAX package's parameter pytree: convs [K, Cin, Cout]."""
+def random_hifigan_npz(path: Path, rng, cfg=None) -> None:
+    """A seeded HiFiGAN generator, V1 (upsample_initial_channel 512) unless
+    `cfg` says otherwise, as an .npz of the JAX package's parameter pytree:
+    convs [K, Cin, Cout]."""
     import numpy as np
 
     from fastspeech2_lightning_tpu_torch.models.hifigan import HiFiGANConfig
 
-    cfg = HiFiGANConfig()
+    cfg = cfg or HiFiGANConfig()
 
     def conv(k, cin, cout, gain=2.0):
         return (rng.standard_normal((k, cin, cout)) * math.sqrt(gain / (k * cin))).astype(
@@ -6481,6 +6500,398 @@ def phase_steps_per_call(workdir: Path, smi: str) -> dict:
     return out
 
 
+# -- phase 32: the d-384, 2-head model and the HiFiGAN V2 vocoder ------------
+
+WIDE_D, WIDE_HEADS, WIDE_FF = 384, 2, 1536  # ESPnet2 LJSpeech conformer_fastspeech2
+# kernels A and A' at dh 192: (B, H, T, dh, p, dtype, with A'); the training
+# buckets' top and a middle one, the serving batch (A alone), f32
+WIDE_ATTENTION = ((16, 2, 2048, 192, 0.2, "bfloat16", True),
+                  (16, 2, 1024, 192, 0.2, "bfloat16", True),
+                  (8, 2, 1024, 192, 0.0, "bfloat16", False),
+                  (4, 2, 1024, 192, 0.2, "float32", True))
+OTHER_HEAD_DIMS = (16, 32, 48, 96, 256)  # padded to 64, 64, 64 and 128; 256 built
+V2_BATCH, V2_FRAMES = 8, 896
+V2_STAGES = ((64, 8), (32, 64), (16, 128), (8, 256))  # (C, samples a mel frame)
+V2_LAUNCHES = len(V2_STAGES) * MRF_LAUNCHES  # a V2 vocoder call, every stage fused
+WIDE_STEPS = 4
+
+
+def wide_config(dtype: str) -> dict:
+    """ESPnet2's LJSpeech ``conformer_fastspeech2`` widths on this
+    package's Conformer: d 384, 2 heads (dh 192), feed-forward 1536, conv
+    kernels 7 (encoder) and 31 (decoder), 4 + 4 layers, and the three
+    variance predictors at 384."""
+    cfg = model_config(dtype)
+    for part, kernel in (("encoder", 7), ("decoder", 31)):
+        cfg["model"][part].update(input_dim=WIDE_D, heads=WIDE_HEADS, feedforward_dim=WIDE_FF,
+                                  conv_kernel_size=kernel, layers=4)
+    for predictor in cfg["model"]["variance_predictors"].values():
+        predictor["input_dim"] = WIDE_D
+    return cfg
+
+
+def _wide_attention() -> dict:
+    """(i) A and A' at dh 192 against their plain versions, timed beside
+    SDPA; at the other head dims, padded or built; dh 320 refused."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        attention_bwd, attention_bwd_reference, attention_dropout_reference, attention_fwd,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    seed = torch.tensor([3217], dtype=torch.int32, device="cuda")
+    fwd_rows, bwd_rows = [], []
+
+    def launched(fn):
+        """fn()'s result, checked to launch each of A and A' at most once."""
+        before = (attention_fwd.launches, attention_bwd.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (attention_fwd.launches - before[0], attention_bwd.launches - before[1])
+
+    def held(B, H, T, dh, p, dt, backward, timed):
+        dtype = getattr(torch, dt)
+        bias, needed = _ragged_bias(B, T, g)
+        q, k, v, do = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
+        scale = 1.0 / math.sqrt(dh)
+        (out, lse), n_fwd = launched(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                                           with_lse=True))
+        check(n_fwd == (1, 0), f"attention_fwd at {B, H, T, dh}: launches {n_fwd}")
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        limit = 1e-5 if dt == "float32" else 2e-2
+        f_abs, f_rel = errors(out, attention_dropout_reference(qf, kf, vf, bias, seed, p, scale))
+        check(f_rel <= limit, f"attention_fwd {B, H, T, dh} {dt} p={p}: rel-L2 {f_rel} > {limit}")
+        grads, b_errs = None, []
+        if backward:
+            grads, n_bwd = launched(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out,
+                                                          lse, do))
+            check(n_bwd == (0, 1), f"attention_bwd at {B, H, T, dh}: launches {n_bwd}")
+            want = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, dof)
+            b_errs = [errors(gt, wt) for gt, wt in zip(grads, want)]
+            del want
+            for name, (_, rel) in zip(("dQ", "dK", "dV"), b_errs):
+                check(grads[0].shape == q.shape and rel <= limit,
+                      f"attention_bwd {name} {B, H, T, dh} {dt} p={p}: rel-L2 {rel} > {limit}")
+        if not timed:
+            return
+        keys = float(needed.sum()) * H * T * dh
+        base = dict(shape=[B, H, T, dh], dtype=dt, p=p, mask="ragged")
+        mask = bias[:, None, None, :].to(dtype)
+
+        def fwd():
+            return attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=backward)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p,
+                                                  scale=scale)
+
+        f_bound = bound_ms(4.0 * keys, 4 * B * H * T * dh * q.element_size() + B * T * 4, dt)
+        row = dict(base, max_abs_err=f_abs, rel_l2=f_rel, ms=time_ms(fwd, iters=10),
+                   plain_ms=time_ms(lambda: attention_dropout_reference(
+                       q, k, v, bias, seed, p, scale), warmup=1, iters=3),
+                   library_ms=time_ms(sdpa, iters=10), bound_ms=f_bound[0],
+                   bound_by=f_bound[1], launches_per_call=1)
+        if dt == "bfloat16":
+            row.update(device_ms=device_ms(fwd), library_device_ms=device_ms(sdpa))
+        fwd_rows.append(row)
+        log(f"phase 32 attention_fwd {B, H, T, dh} {dt} p={p}: max_abs={f_abs:.3e} "
+            f"rel_l2={f_rel:.3e} kernel_ms={row['ms']:.4f} (device "
+            f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} "
+            f"SDPA {row['library_ms']:.4f} (device "
+            f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={f_bound[0]:.4f} "
+            f"({f_bound[1]})")
+        if not backward:
+            return
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=p,
+                                               scale=scale)
+
+        def bwd():
+            return attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+
+        def sdpa_bwd():  # the backward alone, like for like with A'
+            return torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True)
+
+        b_bound = bound_ms(10.0 * keys, 8 * B * H * T * dh * q.element_size() + B * T * 4
+                           + 2 * B * H * T * 4, dt)
+        row = dict(base, max_abs_err=max(e[0] for e in b_errs),
+                   rel_l2=max(e[1] for e in b_errs), ms=time_ms(bwd, iters=10),
+                   plain_ms=time_ms(lambda: attention_bwd_reference(
+                       q, k, v, bias, seed, p, scale, do), warmup=1, iters=3),
+                   library_ms=time_ms(sdpa_bwd, iters=10), bound_ms=b_bound[0],
+                   bound_by=b_bound[1], launches_per_call=1, library="SDPA backward alone")
+        if dt == "bfloat16":
+            row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd))
+        bwd_rows.append(row)
+        log(f"phase 32 attention_bwd {B, H, T, dh} {dt} p={p}: rel_l2 dQ/dK/dV="
+            f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={row['ms']:.4f} (device "
+            f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} SDPA "
+            f"backward {row['library_ms']:.4f} (device "
+            f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={b_bound[0]:.4f} "
+            f"({b_bound[1]})")
+        del o_lib, qg, kg, vg
+
+    for B, H, T, dh, p, dt, backward in WIDE_ATTENTION:
+        held(B, H, T, dh, p, dt, backward, timed=True)
+        torch.cuda.empty_cache()
+    for dh in OTHER_HEAD_DIMS:
+        for dt in ("bfloat16", "float32"):
+            held(4, 2, 512, dh, 0.2, dt, True, timed=False)
+        log(f"phase 32 attention at dh {dh}: A and A' held to the plain version in bf16 and "
+            f"f32 at (4, 2, 512, {dh}), p 0.2")
+    x = torch.zeros(1, 2, 16, 320, device="cuda", dtype=torch.bfloat16)
+    try:
+        attention_fwd(x, x, x, torch.zeros(1, 16, device="cuda"), 0.1)
+        fail("attention_fwd took dh 320")
+    except ValueError as exc:
+        check("256" in str(exc), f"dh 320 refused without naming 256: {exc}")
+    return dict(fwd=fwd_rows, bwd=bwd_rows, held_head_dims=list(OTHER_HEAD_DIMS),
+                refused_head_dim=320)
+
+
+def _v2_stages() -> list:
+    """(ii) HiFiGAN V2's four fused stages for a B 8, 896-frame mel, f32 and
+    bf16, against the plain version, timed; the bound counts the stage's
+    own C (C 8 runs at 16)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
+        fused_mrf_stage, kernel_channels, mrf_conv, mrf_stage_reference, prepare_stage_weights,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    rows = []
+    for C, rate in V2_STAGES:
+        T = V2_FRAMES * rate
+        blocks = _stage_blocks(C, g)
+        x32 = torch.randn(V2_BATCH, T, C, device="cuda", generator=g)
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            x = x32.to(dtype)
+            flat = prepare_stage_weights(blocks, KS, DILS, dtype)
+            before = mrf_conv.launches
+            out = fused_mrf_stage(x, flat, KS, DILS)
+            torch.cuda.synchronize()
+            launches = mrf_conv.launches - before
+            check(launches == MRF_LAUNCHES, f"V2 stage C={C}: {launches} mrf_conv launches")
+            ref_blocks = [{n: w.to(dtype).float() for n, w in p.items()} for p in blocks]
+            max_abs, rel = errors(out, mrf_stage_reference(x.float(), ref_blocks, KS, DILS))
+            check(out.shape == x.shape and rel <= MRF_LIMIT[dt],
+                  f"V2 stage C={C} {dt}: rel-L2 {rel} > {MRF_LIMIT[dt]}")
+            del out
+            typed = [{n: w.to(dtype) for n, w in p.items()} for p in blocks]
+
+            def kernel_fn():
+                return fused_mrf_stage(x, flat, KS, DILS)
+
+            products = 3 if dtype == torch.float32 else 1
+            flops = products * 2.0 * V2_BATCH * T * C * C * 2 * sum(KS) * len(DILS[0])
+            nbytes = 2 * V2_BATCH * T * C * x.element_size() + sum(
+                w.numel() * w.element_size() for p in typed for w in p.values())
+            bound, bound_by = bound_ms(flops, nbytes, "bfloat16")
+            row = dict(shape=[V2_BATCH, T, C], dtype=dt, kernel_channels=kernel_channels(C),
+                       launches_per_stage=launches, max_abs_err=max_abs, rel_l2=rel,
+                       ms=time_ms(kernel_fn, iters=10), device_ms=device_ms(kernel_fn, iters=10),
+                       plain_ms=time_ms(lambda: mrf_stage_reference(x, typed, KS, DILS),
+                                        iters=5),
+                       library_ms=None, bound_ms=bound, bound_by=bound_by,
+                       bound_counts=f"{products} bf16 tensor-core product(s) per multiply-add "
+                                    f"at C = {C}")
+            log(f"phase 32 V2 stage [{V2_BATCH}, {T}, {C}] {dt} (run at C = "
+                f"{row['kernel_channels']}): max_abs={max_abs:.3e} rel_l2={rel:.3e} "
+                f"kernel_ms={row['ms']:.3f} (device {row['device_ms']:.3f}) plain_ms="
+                f"{row['plain_ms']:.3f} bound_ms={bound:.3f} ({bound_by}); {launches} launches")
+            rows.append(row)
+            del x
+        del x32
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return rows
+
+
+def _blocks_from_flat(flat: list, C: int) -> list:
+    """A stage's resblocks in torch Conv1d layout from the weights the
+    kernel was given (``prepare_stage_weights``, f32 pairs summed), cut to
+    the stage's own C: its plain version's weights."""
+    blocks = []
+    for j, dils in enumerate(DILS):
+        p = {}
+        for i in range(len(dils)):
+            for n, name in enumerate((f"convs1.{i}", f"convs2.{i}")):
+                w, b = flat[4 * (j * len(dils) + i) + 2 * n: 4 * (j * len(dils) + i) + 2 * n + 2]
+                w = w.float().sum(0) if w.dim() == 4 else w.float()  # [K, in, out]
+                p[f"{name}.weight"] = w[:, :C, :C].permute(2, 1, 0).contiguous()
+                p[f"{name}.bias"] = b.float()[:C]
+        blocks.append(p)
+    return blocks
+
+
+def _wide_serving(workdir: Path) -> dict:
+    """(iii) The d-384 model (bf16, seeded weights) served with the fused
+    HiFiGAN V2 vocoder (f32): 8 concurrent HTTP requests of 60-400
+    characters; 8 A a forward, 4 fused stages and 72 mrf_conv a vocoder
+    call; A and each stage held to their plain versions on inputs the path
+    gave them."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.checkpoint import write_checkpoint
+    from fastspeech2_lightning_tpu_torch.models import conformer, hifigan
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
+    from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
+        fused_mrf_stage, mrf_conv, mrf_stage_reference,
+    )
+    from fastspeech2_lightning_tpu_torch.serving import serve
+
+    rng = np.random.default_rng(SEED + 34)
+    cfg = wide_config("bfloat16")
+    ckpt = write_checkpoint(workdir / "wide.ckpt", random_state_dict(cfg, rng), cfg, STATS)
+    voc = workdir / "hifigan_v2.npz"
+    # jik876/hifi-gan's config_v2.json: V1 with 128 initial channels, so
+    # stages of C 64, 32, 16 and 8
+    random_hifigan_npz(voc, rng, hifigan.HiFiGANConfig(upsample_initial_channel=128))
+    t0 = time.time()
+    server = serve(ckpt, vocoder_path=voc, port=0, max_batch=BATCH, vocoder_fused=True,
+                   warmup=True)
+    load_s = time.time() - t0
+    syn = server.synthesizer
+    check(syn.device.type == "cuda", f"serve() chose {syn.device}")
+    forwards = _count_forwards(syn)
+    vocoder_calls = []
+    device_fn = syn.vocoder.device_fn
+
+    def counted_vocoder(mel, *args, **kwargs):
+        vocoder_calls.append(tuple(mel.shape))
+        return device_fn(mel, *args, **kwargs)
+
+    syn.vocoder.device_fn = counted_vocoder
+    stages, captured = [], {}
+    real_stage, real_att = hifigan.fused_mrf_stage, conformer.attention_fwd
+
+    def stage(x, flat, *args):
+        stages.append((tuple(x.shape), str(x.dtype)))
+        if ("mrf", x.shape[-1]) not in captured:
+            captured["mrf", x.shape[-1]] = (x.clone(), flat)
+        return real_stage(x, flat, *args)
+
+    def attention(q, k, v, bias, scale, *args, **kwargs):
+        if "attention" not in captured:
+            captured["attention"] = (q.clone(), k.clone(), v.clone(), bias.clone(), scale)
+        return real_att(q, k, v, bias, scale, *args, **kwargs)
+
+    hifigan.fused_mrf_stage, conformer.attention_fwd = stage, attention
+    texts = request_texts(rng)
+    attention_fwd.launches = mrf_conv.launches = 0
+    server.start()
+    try:
+        t0 = time.time()
+        with concurrent.futures.ThreadPoolExecutor(len(texts)) as pool:
+            responses = list(pool.map(lambda it: _post(server.address, {
+                "text": it[1], "format": "wav" if it[0] % 2 == 0 else "mel"}), enumerate(texts)))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"attention_fwd": attention_fwd.launches, "mrf_conv": mrf_conv.launches}
+    finally:
+        server.shutdown()
+        hifigan.fused_mrf_stage, conformer.attention_fwd = real_stage, real_att
+    for i, (status, body, seconds) in enumerate(responses):
+        check(status == 200, f"wide request {i} answered {status}")
+        if i % 2 == 0:
+            check(body[:4] == b"RIFF" and len(body) > 44, f"wide request {i}: no wav")
+            pcm = np.frombuffer(body[44:], dtype="<i2")
+            check(pcm.size % syn.vocoder.hop == 0 and int(pcm.max()) != int(pcm.min()),
+                  f"wide request {i}: {pcm.size} samples, constant or off the hop")
+        else:
+            mel = np.load(io.BytesIO(body))
+            check(mel.shape[1] == 80 and bool(np.isfinite(mel).all()),
+                  f"wide request {i}: mel {mel.shape}")
+    widths = sorted({shape[2] for shape, _ in stages}, reverse=True)
+    check(launches["attention_fwd"] == 8 * len(forwards) and forwards,
+          f"wide serving: {launches['attention_fwd']} A for {len(forwards)} forwards")
+    check(launches["mrf_conv"] == V2_LAUNCHES * len(vocoder_calls) and vocoder_calls,
+          f"wide serving: {launches['mrf_conv']} mrf_conv for {len(vocoder_calls)} vocoder calls")
+    check(len(stages) == len(V2_STAGES) * len(vocoder_calls)
+          and widths == [C for C, _ in V2_STAGES],
+          f"wide serving: fused stages {sorted(set(stages))}")
+
+    q, k, v, bias, scale = captured["attention"]
+    a_abs, a_rel = errors(attention_fwd(q, k, v, bias, scale),
+                          attention_reference(q.float(), k.float(), v.float(), bias, scale))
+    check(a_rel <= 2e-2, f"wide serving: A at {tuple(q.shape)} rel-L2 {a_rel}")
+    torch.backends.cudnn.allow_tf32 = False
+    held = {}
+    for C, _ in V2_STAGES:
+        x, flat = captured[("mrf", C)]
+        _, rel = errors(fused_mrf_stage(x, flat, KS, DILS),
+                        mrf_stage_reference(x.float(), _blocks_from_flat(flat, C), KS, DILS))
+        limit = MRF_LIMIT[str(x.dtype).split(".")[-1]]
+        check(rel <= limit, f"wide serving: stage C={C} at {tuple(x.shape)} rel-L2 {rel}")
+        held[C] = dict(shape=list(x.shape), rel_l2=rel)
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"phase 32 serving: {len(texts)} requests in {wall:.3f} s (load + warmup {load_s:.1f} s); "
+        f"{len(forwards)} forwards, {len(vocoder_calls)} vocoder calls {vocoder_calls}; launches "
+        f"{launches}; A at {tuple(q.shape)} rel-L2 {a_rel:.3e}; stages held "
+        + ", ".join(f"C={C} {h['shape']} {h['rel_l2']:.3e}" for C, h in held.items()))
+    return dict(launches=launches, forwards=len(forwards), vocoder_calls=len(vocoder_calls),
+                wall_s=wall, load_s=load_s, attention_held=dict(shape=list(q.shape),
+                                                                rel_l2=a_rel),
+                stages_held=held)
+
+
+def _wide_training(workdir: Path) -> dict:
+    """(iv) 4 train steps of the d-384 model (bf16, B 16) on phase 11's
+    corpus through the ``train`` CLI: 8 A, 8 A', 1 B and 1 + 1 C a step,
+    the step ms and the peak memory."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+
+    cfg = json.loads((workdir / "config.json").read_text())
+    cfg["model"] = wide_config("bfloat16")["model"]
+    cfg["training"].update(val_check_interval=TRAIN_STEPS, async_checkpoint=False,
+                           save_top_k_ckpts=1, ckpt_epochs=0)
+    cfg["training"]["logger"]["version"] = "wide"
+    path = workdir / "config_wide.json"
+    path.write_text(json.dumps(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    tl, _ = _train_and_validation_launches(
+        lambda: cli.main(["train", str(path), "--max-steps", str(WIDE_STEPS)]))
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = _rows(workdir / "logs" / "smoke" / "wide" / "train_log.jsonl")
+    check(len(rows) == WIDE_STEPS and all(math.isfinite(r["total"]) for r in rows),
+          f"wide training logged {rows}")
+    want = {"attention_fwd": 8 * WIDE_STEPS, "attention_bwd": 8 * WIDE_STEPS,
+            "mas_width1": WIDE_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": WIDE_STEPS,
+            "ctc_grad": WIDE_STEPS}
+    check(tl == want, f"wide training launches {tl}, want {want}")
+    ms = statistics.median(r["ms"] for r in rows[1:])
+    log(f"phase 32 training: {WIDE_STEPS} steps of d {WIDE_D}, {WIDE_HEADS} heads, B 16: "
+        + ", ".join(f"{' x '.join(map(str, r['shape']))} {r['ms']:.1f} ms" for r in rows)
+        + f"; median after the first {ms:.1f} ms; peak {peak_gib:.2f} GiB; launches {tl}")
+    return dict(launches=tl, ms_per_step=ms, step_ms=[r["ms"] for r in rows],
+                shapes=[r["shape"] for r in rows], peak_gib=peak_gib,
+                totals=[r["total"] for r in rows])
+
+
+def phase_wide_heads(workdir: Path, smi: str) -> dict:
+    """Phase 32: the kernels at the widths of the d-384, 2-head model and
+    the HiFiGAN V2 vocoder, then both end to end (``_wide_attention``,
+    ``_v2_stages``, ``_wide_serving``, ``_wide_training``). Needs phase 11's
+    corpus and config.json in `workdir`."""
+    t0 = time.time()
+    out = dict(attention=_wide_attention(), v2_stages=_v2_stages(),
+               serving=_wide_serving(workdir), training=_wide_training(workdir), card=smi)
+    out["seconds"] = time.time() - t0
+    log(f"phase 32: {out['seconds']:.1f} s ({smi})")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -6529,6 +6940,7 @@ def main() -> None:
                                                  "ms": train["ms_per_step"]}, smi)
         dp = phase_data_parallel(Path(workdir), smi)
         spc = phase_steps_per_call(Path(workdir), smi)
+        wide = phase_wide_heads(Path(workdir), smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     tl, vl = train["launches"], train["validation_launches"]
@@ -6555,6 +6967,9 @@ def main() -> None:
             paths["steps_per_call"] = spc["launches"][name]
         if name in ("attention_fwd", "mas_width1"):
             paths["data_parallel"] = dp["launches"][name]
+        paths["wide_training"] = wide["training"]["launches"][name]
+        if name == "attention_fwd":
+            paths["wide_serving"] = wide["serving"]["launches"][name]
         if name == "attention_fwd":
             paths["exported_serving"] = sum(run["launches"][name]
                                             for run in exported["runs"].values())
@@ -6593,14 +7008,15 @@ def main() -> None:
                                 **by_path("attention_fwd")},
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
                              "fastspeech2_lightning_tpu/ops/attention_dropout.py:461"],
-              **device_keys(att), training=train_att["fwd"]),
+              **device_keys(att), training=train_att["fwd"],
+              wide_heads=wide["attention"]["fwd"]),
         entry("attention_bwd", train_att["bwd"], "attention_bwd.cu",
               "ops/attention_dropout.py:190", total("attention_bwd"),
               launches_by_path=by_path("attention_bwd"),
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:494"],
               p=train_att["bwd"]["p"], library="SDPA backward alone",
               library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
-              **device_keys(train_att["bwd"])),
+              **device_keys(train_att["bwd"]), wide_heads=wide["attention"]["bwd"]),
         entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94",
               total("mas_width1"),
               launches_by_path=by_path("mas_width1"),
@@ -6617,11 +7033,13 @@ def main() -> None:
         # the bf16 C = 128 row first
         entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
               launches["mrf_conv"] + stream["launches"]["mrf_conv"] + trained["launches"]
-              + dp["launches"]["mrf_conv"],
+              + dp["launches"]["mrf_conv"] + wide["serving"]["launches"]["mrf_conv"],
               launches_by_path={"serving": launches["mrf_conv"],
                                 "streaming": stream["launches"]["mrf_conv"],
                                 "trained_vocoder": trained["launches"],
-                                "data_parallel": dp["launches"]["mrf_conv"]},
+                                "data_parallel": dp["launches"]["mrf_conv"],
+                                "wide_serving": wide["serving"]["launches"]["mrf_conv"]},
+              v2_stages=wide["v2_stages"],
               timed=f"one MRF stage: {MRF_LAUNCHES} launches",
               device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
               stages=mrf_rows, stream_window_stages=stream["stages"],
@@ -6649,7 +7067,8 @@ def main() -> None:
                       "vocoder_training": {**voc, "trained": trained},
                       "preprocess": pre, "check_data": checked, "tools": tools,
                       "export_serving": exported, "yaml_media": yaml_media,
-                      "distributed": dist, "data_parallel": dp, "steps_per_call": spc}))
+                      "distributed": dist, "data_parallel": dp, "steps_per_call": spc,
+                      "wide_heads": {k: wide[k] for k in ("serving", "training", "seconds")}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

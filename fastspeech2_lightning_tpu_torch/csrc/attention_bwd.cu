@@ -62,11 +62,19 @@
 // blocks that skip past kv_end do not remove a wave, so the skip saves time
 // only where it does (T = 2016). FA3's structure (a producer warp with TMA,
 // dQ through shared memory and a bulk reduce) is the next step.
+// Built for dh 64, 128, 192 and 256 (ops/attention.py zero-pads every other
+// dh up to 256 to the next of them). At 192 and 256 a block takes 64 keys
+// and both warpgroups share them, each keeping half of dK's, dV's and dQ's
+// 64-wide column blocks (tc_bwd::Tiling): 128 keys would need 192 or 256
+// accumulator registers a thread and, at 256, 274 KB of shared memory. The
+// two warpgroups then both compute S^T and dP^T, so the block issues 7
+// products' work for 5.
 //
 // f32 (attention_bwd_f32): the CUDA-core kernel of the f32 card-vs-CPU
 // checks (rel-L2 1e-5): one block of 256 threads per (64-key tile, head,
 // batch), four threads per key row, Q, dO, lse and D staged per 64-row query
-// tile, f32 FMA throughout, dQ by atomicAdd, the same kv_end skip.
+// tile (32 above dh 128), f32 FMA throughout, dQ by atomicAdd, the same
+// kv_end skip.
 
 #include <math.h>
 
@@ -129,17 +137,32 @@ bwd_prepass(const T* __restrict__ dout, const T* __restrict__ o, int H, int T_le
 
 namespace tc_bwd {
 
-constexpr int BK = 128;       // keys per block: two warpgroups of 64
 constexpr int BQ = 64;        // query rows per tile
-constexpr int THREADS = 256;  // 8 warps x 16 key rows
+constexpr int THREADS = 256;  // two warpgroups of 4 warps x 16 key rows
 
+// dh 64 and 128: a block takes 128 keys, 64 a warpgroup, each with its
+// keys' whole dK and dV in registers. dh 192 and 256 ("wide") would need
+// 192 and 256 accumulator registers a thread that way, and 128 keys' tiles
+// would not fit shared memory at 256; there a block takes 64 keys, both
+// warpgroups on the same keys, and warpgroup w keeps the 64-wide column
+// blocks w * CPW .. of dK, dV and dQ (CPW = 2; at 192 warpgroup 1's second
+// block repeats block 2 and is not stored, so both run the same products:
+// no branch on the warpgroup index around a wgmma, which nvcc 12.9 crashes
+// on). Both warpgroups then compute the same S^T and dP^T: 7 products where
+// 5 are needed, and registers as at dh 128.
 template <int DH>
-constexpr size_t smem_bytes() {
+struct Tiling {
+  static constexpr bool WIDE = DH > 128;
+  static constexpr int BK = WIDE ? 64 : 128;  // keys per block
+  static constexpr int NCB = DH / 64;         // 64-wide column blocks of dh
+  static constexpr int CPW = WIDE ? 2 : 0;    // blocks a warpgroup keeps (wide)
+  // dK, dV accumulator n-blocks a thread: all of dh, or CPW column blocks
+  static constexpr int NB_ACC = WIDE ? CPW * 8 : DH / 8;
   // 1024 bytes to align the tiles to the swizzle period; K and V tiles, two
   // stages of Q and dO tiles, the dS^T tile (bf16); two stages of lse and D
-  return 1024 + (2 * BK * DH + 4 * BQ * DH + BK * BQ) * sizeof(bf16) +
-         4 * BQ * sizeof(float);
-}
+  static constexpr size_t SMEM = 1024 + (2 * BK * DH + 4 * BQ * DH + BK * BQ) * sizeof(bf16) +
+                                 4 * BQ * sizeof(float);
+};
 
 }  // namespace tc_bwd
 
@@ -154,10 +177,12 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  Dropout drop) {
   using namespace fs2::tc;
   using namespace tc_bwd;
+  using Tile = Tiling<DH>;
+  constexpr bool WIDE = Tile::WIDE;
+  constexpr int BK = Tile::BK, NCB = Tile::NCB, CPW = Tile::CPW, NB_ACC = Tile::NB_ACC;
   constexpr int KSTEPS = DH / 16;  // k-steps of S^T = K Q^T and dP^T = V dO^T
   constexpr int NB_S = BQ / 8;     // n-blocks of S^T (query columns)
-  constexpr int NB_O = DH / 8;     // n-blocks of dK, dV
-  constexpr int NB_Q = 8;          // n-blocks of a warpgroup's 64 columns of dQ
+  constexpr int NB_Q = 8;          // n-blocks of 64 columns of dQ
   extern __shared__ unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   bf16* Vs = Ks + BK * DH;
@@ -169,7 +194,10 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2;  // warpgroup: keys 64 * wg .. of the block
+  const int wg = warp >> 2;
+  // this warp's 16 key rows of the block: keys 64 * wg .. for dh <= 128,
+  // the same 64 keys in both warpgroups when wide
+  const int kw = WIDE ? (warp & 3) : warp;
   const int g = lane >> 2, t4 = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BK;
@@ -212,15 +240,20 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t key = DROP ? drop.key(b, h) : 0u;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    kr[r] = k0 + warp * 16 + g + 8 * r;
+    kr[r] = k0 + kw * 16 + g + 8 * r;
     kbias[r] = kr[r] < T_len ? key_bias[static_cast<long long>(b) * T_len + kr[r]] : 0.f;
     kx[r] = static_cast<uint32_t>(kr[r]) ^ key;
   }
   const float log2_T = log2f(static_cast<float>(T_len));
 
-  float dka[NB_O][4], dva[NB_O][4];
+  // dK and dV: all of dh, or (wide) CPW 64-wide column blocks of 8 n-blocks,
+  // block c being column block cb(c); cb_kept(c) whether it is this
+  // warpgroup's to store (at dh 192 warpgroup 1's second is a repeat)
+  auto cb = [&](int c) { return min(wg * CPW + c, NCB - 1); };
+  auto cb_kept = [&](int c) { return wg * CPW + c < NCB; };
+  float dka[NB_ACC][4], dva[NB_ACC][4];
 #pragma unroll
-  for (int n = 0; n < NB_O; ++n)
+  for (int n = 0; n < NB_ACC; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
@@ -248,7 +281,7 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       const int col = (kk & 3) * 16;  // within the 64-wide column block kk / 4
-      const int kv_off = (kk >> 2) * BK * 64 + wg * 64 * 64 + col;
+      const int kv_off = (kk >> 2) * BK * 64 + (WIDE ? 0 : wg * 64 * 64) + col;
       const int q_off = (kk >> 2) * BQ * 64 + col;
       wgmma_ss_n64(sp, sw128_desc(Ks + kv_off, 16, 1024), sw128_desc(Qt + q_off, 16, 1024));
       wgmma_ss_n64(dpt, sw128_desc(Vs + kv_off, 16, 1024), sw128_desc(Ot + q_off, 16, 1024));
@@ -289,26 +322,33 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint64_t od = sw128_desc(Ot + kk * 16 * 64, BQ * 128, 1024);
-      const uint64_t qd = sw128_desc(Qt + kk * 16 * 64, BQ * 128, 1024);
-      if constexpr (DH == 128) {
-        wgmma_rs_n128(dva, pa[kk], od);
-        wgmma_rs_n128(dka, sa[kk], qd);
+      if constexpr (WIDE) {
+#pragma unroll
+        for (int c = 0; c < CPW; ++c) {
+          const int off = cb(c) * BQ * 64 + kk * 16 * 64;
+          auto& dvc = *reinterpret_cast<float(*)[8][4]>(&dva[8 * c]);
+          auto& dkc = *reinterpret_cast<float(*)[8][4]>(&dka[8 * c]);
+          wgmma_rs_n64(dvc, pa[kk], sw128_desc(Ot + off, BQ * 128, 1024));
+          wgmma_rs_n64(dkc, sa[kk], sw128_desc(Qt + off, BQ * 128, 1024));
+        }
       } else {
-        wgmma_rs_n64(dva, pa[kk], od);
-        wgmma_rs_n64(dka, sa[kk], qd);
+        wgmma_rs_cols<DH, BQ>(dva, pa[kk], Ot + kk * 16 * 64);
+        wgmma_rs_cols<DH, BQ>(dka, sa[kk], Qt + kk * 16 * 64);
       }
     }
     wgmma_commit();
 
     // dS^T (bf16) to shared memory, [key][query] in the 128-byte-swizzled
-    // layout, while the products run
+    // layout, while the products run (when wide, warpgroup 0's copy: both
+    // hold the same)
+    if (!WIDE || wg == 0) {
 #pragma unroll
-    for (int n = 0; n < NB_S; ++n) {
-      const int row = warp * 16 + g;
-      *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row, n) + 2 * t4) = sa[n >> 1][(n & 1) * 2];
-      *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row + 8, n) + 2 * t4) =
-          sa[n >> 1][(n & 1) * 2 + 1];
+      for (int n = 0; n < NB_S; ++n) {
+        const int row = kw * 16 + g;
+        *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row, n) + 2 * t4) = sa[n >> 1][(n & 1) * 2];
+        *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row + 8, n) + 2 * t4) =
+            sa[n >> 1][(n & 1) * 2 + 1];
+      }
     }
     fence_async_shared();
     wgmma_wait<0>();
@@ -318,33 +358,39 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // this warp's rows are queries 16 (warp % 4) ... At dh 128 warpgroup wg
     // takes dQ's columns [64 wg, 64 wg + 64) over all 128 keys; at dh 64 it
     // takes all columns over keys [64 wg, 64 wg + 64), and the atomics sum
-    // the two halves. (No branch on wg around the products: nvcc 12.9
-    // crashes on one.)
+    // the two halves; wide, it takes its CPW column blocks over the block's
+    // 64 keys, one after the other. (No branch on wg around the products:
+    // nvcc 12.9 crashes on one.)
     {
-      constexpr int DQ_STEPS = DH == 128 ? BK / 16 : BK / 32;
-      const int key0 = DH == 128 ? 0 : 64 * wg;
-      const int cblk = DH == 128 ? wg : 0;
-      float dqa[NB_Q][4];
+      constexpr int DQ_STEPS = WIDE ? BK / 16 : DH == 128 ? BK / 16 : BK / 32;
+      constexpr int DQ_BLOCKS = WIDE ? CPW : 1;
+      const int key0 = WIDE || DH == 128 ? 0 : 64 * wg;
 #pragma unroll
-      for (int n = 0; n < NB_Q; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-      wgmma_fence();
+      for (int c = 0; c < DQ_BLOCKS; ++c) {
+        const int cblk = WIDE ? cb(c) : DH == 128 ? wg : 0;
+        float dqa[NB_Q][4];
 #pragma unroll
-      for (int kk = 0; kk < DQ_STEPS; ++kk) {
-        const int row = key0 + kk * 16;
-        wgmma_ss_n64<1, 1>(dqa, sw128_desc(Ss + row * 64, BK * 128, 1024),
-                           sw128_desc(Ks + cblk * BK * 64 + row * 64, BK * 128, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
+        for (int n = 0; n < NB_Q; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+        wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qrow = q0 + (warp & 3) * 16 + g + 8 * r;
-        if (qrow >= T_len) continue;
-        float* dst = dq_b + static_cast<long long>(qrow) * DH + cblk * 64 + 2 * t4;
+        for (int kk = 0; kk < DQ_STEPS; ++kk) {
+          const int row = key0 + kk * 16;
+          wgmma_ss_n64<1, 1>(dqa, sw128_desc(Ss + row * 64, BK * 128, 1024),
+                             sw128_desc(Ks + cblk * BK * 64 + row * 64, BK * 128, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (WIDE && !cb_kept(c)) continue;
 #pragma unroll
-        for (int n = 0; n < NB_Q; ++n)  // one vector add per column pair (sm_90)
-          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
-                    make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
+        for (int r = 0; r < 2; ++r) {
+          const int qrow = q0 + (warp & 3) * 16 + g + 8 * r;
+          if (qrow >= T_len) continue;
+          float* dst = dq_b + static_cast<long long>(qrow) * DH + cblk * 64 + 2 * t4;
+#pragma unroll
+          for (int n = 0; n < NB_Q; ++n)  // one vector add per column pair (sm_90)
+            atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
+                      make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
+        }
       }
     }
   }
@@ -354,10 +400,13 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (kr[r] >= T_len) continue;
     const long long off = (row_base + kr[r]) * DH + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NB_O; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
+    for (int n = 0; n < NB_ACC; ++n) {
+      // column of n-block n: 8 n, or (wide) in column block cb(n / 8)
+      const int col = WIDE ? cb(n / 8) * 64 + (n % 8) * 8 : n * 8;
+      if (WIDE && !cb_kept(n / 8)) continue;
+      *reinterpret_cast<uint32_t*>(dk + off + col) =
           pack_bf16(dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + col) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
@@ -366,15 +415,21 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 namespace f32_bwd {
 
-constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per block
 constexpr int THREADS = 256;  // 4 threads per key (or query) row
 
+// query rows per tile: 64, and 32 above dh 128, where 64 would take 297 KB
+// of shared memory at dh 256
+template <int DH>
+__host__ __device__ constexpr int bq() {
+  return DH > 128 ? 32 : 64;
+}
+
 template <int DH>
 constexpr size_t smem_floats() {
-  // K, V, Q, dO tiles padded to DH + 1; P-kept and dS tiles [key][query]
-  // padded to BQ + 1; key bias, lse, D.
-  return 4 * 64 * (DH + 1) + 2 * BK * (BQ + 1) + BK + 2 * BQ;
+  // K, V tiles and Q, dO tiles padded to DH + 1; P-kept and dS tiles
+  // [key][query] padded to BQ + 1; key bias, lse, D.
+  return 2 * (BK + bq<DH>()) * (DH + 1) + 2 * BK * (bq<DH>() + 1) + BK + 2 * bq<DH>();
 }
 
 }  // namespace f32_bwd
@@ -389,6 +444,7 @@ attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   int T_len, Strides qs, Strides ks, Strides vs, Strides ds, float sm_scale,
                   Dropout drop) {
   using namespace f32_bwd;
+  constexpr int BQ = bq<DH>();
   extern __shared__ float smem[];
   constexpr int LD = DH + 1;
   constexpr int LP = BQ + 1;
@@ -511,7 +567,7 @@ attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
     // dQ[query row] += sm_scale * dS[:, row] . K
     const int tq = q0 + row;
-    if (tq < T_len) {
+    if (row < BQ && tq < T_len) {
       float acc[NO];
 #pragma unroll
       for (int m = 0; m < NO; ++m) acc[m] = 0.f;
@@ -587,18 +643,18 @@ cudaError_t launch_f32(const Args& a) {
 
 template <int DH, bool DROP>
 cudaError_t launch_tc(const Args& a) {
-  using namespace tc_bwd;
+  using Tile = tc_bwd::Tiling<DH>;
   cudaError_t err = launch_prepass<bf16, DH>(a);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes<DH>();
+  const size_t smem = Tile::SMEM;
   // the opt-in belongs to the kernel in the current device's context, so it
   // is kept per device: one process may launch on several cards
   static fs2::SmemOptIn opt_in;
   const cudaError_t attr = fs2::smem_opt_in(
       opt_in, attention_bwd_tc<DH, DROP>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.T_len + BK - 1) / BK, a.H, a.B);
-  attention_bwd_tc<DH, DROP><<<grid, THREADS, smem, a.stream>>>(
+  const dim3 grid((a.T_len + Tile::BK - 1) / Tile::BK, a.H, a.B);
+  attention_bwd_tc<DH, DROP><<<grid, tc_bwd::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.bias, a.kv_end,
       a.lse, a.dsum, a.dq_acc, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.T_len,
@@ -642,15 +698,19 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
                        row_offset, head_offset, heads_total},
                static_cast<cudaStream_t>(stream)};
   const bool dropout = thresh > 0;
-  if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) || (dh != 64 && dh != 128))
+  if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) || !fs2::attn::built_dh(dh))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = fs2::attn::launch_kv_end(a.bias, B, T_len, a.kv_end, a.stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == fs2::kFloat32 && dh == 64) return launch_f32<64>(a);
-  if (dtype == fs2::kFloat32 && dh == 128) return launch_f32<128>(a);
-  if (dtype == fs2::kBFloat16 && dh == 64)
-    return dropout ? launch_tc<64, true>(a) : launch_tc<64, false>(a);
-  if (dtype == fs2::kBFloat16 && dh == 128)
-    return dropout ? launch_tc<128, true>(a) : launch_tc<128, false>(a);
+#define FS2_BWD_DH(DH)                                                        \
+  if (dh == DH) {                                                             \
+    if (dtype == fs2::kFloat32) return launch_f32<DH>(a);                     \
+    return dropout ? launch_tc<DH, true>(a) : launch_tc<DH, false>(a);        \
+  }
+  FS2_BWD_DH(64)
+  FS2_BWD_DH(128)
+  FS2_BWD_DH(192)
+  FS2_BWD_DH(256)
+#undef FS2_BWD_DH
   return static_cast<int>(cudaErrorInvalidValue);
 }

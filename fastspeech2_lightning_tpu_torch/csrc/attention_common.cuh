@@ -14,6 +14,12 @@ namespace attn {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNoKeyBias = -5e8f;  // a key is valid iff its bias is above this (NEG_INF / 2)
 
+// the head dims the kernels are built for; ops/attention.py pads every
+// other dh up to 256 to the next of them with zero columns
+__host__ __device__ constexpr bool built_dh(int dh) {
+  return dh == 64 || dh == 128 || dh == 192 || dh == 256;
+}
+
 struct Strides {
   long long b, h, t;
 };

@@ -52,8 +52,12 @@
 // the fragment layout), rounds the kept unnormalized exponentials to bf16 as
 // the JAX kernel does (attention_dropout.py:68), and feeds them from
 // registers as the A operand of O += P V (wgmma.m64n{dh}k16, V read from
-// shared memory through the transpose flag). The key loop stops at
-// ceil(kv_end[b] / 64).
+// shared memory through the transpose flag, one m64n128 product per 128
+// columns of dh, or m64n64 per 64 at dh 64 and 192). The key loop stops at
+// ceil(kv_end[b] / 64). Built for dh 64, 128, 192 and 256: the wrapper
+// (ops/attention.py) zero-pads any other dh up to 256 to the next of them.
+// At 192 and 256 a block takes 122 and 162 KB of shared memory, so one
+// block fits an SM where two do at 64 and 128.
 // What limits it: within a block the products and the softmax run one after
 // the other (the second block on the SM overlaps them), and with dropout the
 // hash costs about 10 integer operations per score. A producer warp with
@@ -63,7 +67,8 @@
 // use (rel-L2 1e-5, which TF32 tensor cores would not meet): one block of
 // 256 threads per (64-row query tile, head, batch), four threads per query
 // row, 64-key tiles staged in shared memory, f32 FMA throughout, the same
-// online softmax and the same kv_end bound.
+// online softmax and the same kv_end bound. At dh 256 its tiles take 214 KB
+// (within the 227 KB a block may opt into).
 
 #include <math.h>
 
@@ -235,13 +240,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < BK / 16; ++kk) c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t vd = sw128_desc(Vt + kk * 16 * 64, BK * 128, 1024);
-      if constexpr (DH == 128)
-        wgmma_rs_n128(acc, pa[kk], vd);
-      else
-        wgmma_rs_n64(acc, pa[kk], vd);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_cols<DH, BK>(acc, pa[kk], Vt + kk * 16 * 64);
     wgmma_commit();
     wgmma_wait<0>();
     __syncthreads();  // stage j & 1 is consumed before tile j + 2 refills it
@@ -476,17 +475,21 @@ extern "C" int attention_fwd(int dtype, const void* q, const void* k, const void
   int* kend = static_cast<int*>(kv_end);
   float* l = static_cast<float*>(lse);
   const bool dropout = thresh > 0;
-  if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) || (dh != 64 && dh != 128))
+  if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) || !fs2::attn::built_dh(dh))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = fs2::attn::launch_kv_end(bias, B, T_len, kend, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 #define FS2_FWD_ARGS q, k, v, bias, kend, o, l, B, H, T_len, qs, ks, vs, os, sm_scale, drop, st
-  if (dtype == fs2::kFloat32 && dh == 64) return launch_f32<64>(FS2_FWD_ARGS);
-  if (dtype == fs2::kFloat32 && dh == 128) return launch_f32<128>(FS2_FWD_ARGS);
-  if (dtype == fs2::kBFloat16 && dh == 64)
-    return dropout ? launch_tc<64, true>(FS2_FWD_ARGS) : launch_tc<64, false>(FS2_FWD_ARGS);
-  if (dtype == fs2::kBFloat16 && dh == 128)
-    return dropout ? launch_tc<128, true>(FS2_FWD_ARGS) : launch_tc<128, false>(FS2_FWD_ARGS);
+#define FS2_FWD_DH(DH)                                                                  \
+  if (dh == DH) {                                                                       \
+    if (dtype == fs2::kFloat32) return launch_f32<DH>(FS2_FWD_ARGS);                    \
+    return dropout ? launch_tc<DH, true>(FS2_FWD_ARGS) : launch_tc<DH, false>(FS2_FWD_ARGS); \
+  }
+  FS2_FWD_DH(64)
+  FS2_FWD_DH(128)
+  FS2_FWD_DH(192)
+  FS2_FWD_DH(256)
+#undef FS2_FWD_DH
 #undef FS2_FWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,18 @@
 // One convolution of the HiFiGAN multi-receptive-field (MRF) stage, with its
 // leaky ReLU in front and its residual and stage-average epilogue behind:
 //
-//   y[b, t, co] = bias[co] + sum_tap sum_ci lrelu(x[b, t + (tap - half) * d, ci])
+//   y[b, t, co] = bias[co] + sum_tap sum_ci lrelu(x[b, t + tap * d - left, ci])
 //                                           * w[tap, ci, co]   (+ res[b, t, co])
+//   left = ((K - 1) * d) / 2   (SAME padding; (K - 1) / 2 * d for odd K)
 //   mode 0: out = y        mode 1: acc += scale * y        mode 2: out = acc + scale * y
 //
 // over x, res, out: [B, T, C] (contiguous) and bias: [C] in the input dtype
-// (bf16 or f32), C = 32, 64 or 128, and acc: [B, T, C] f32. The weights are
+// (bf16 or f32), C = 16, 32, 64 or 128, and acc: [B, T, C] f32; the span
+// (K - 1) * d at most 126, which every conv of a stage that the JAX
+// package's gate fuses (a chain within its 64-row halo) keeps to with an odd
+// K. ops/vocoder_resblocks.py pads any other C <= 128 with zero channels up
+// to the next of these widths (C 8 of HiFiGAN V2's last stage to 16). The
+// weights are
 // always bf16: w [K, C, C] (tap, in, out) for bf16 inputs, and for f32 inputs
 // [2, K, C, C], the f32 weights split into a high and a low bf16 part
 // (w = w_hi + w_lo to 2^-16; ops/vocoder_resblocks.py prepare_stage_weights).
@@ -33,12 +39,18 @@
 // f32 accumulators in registers), reducing over (tap, input channel) in
 // steps of 16; for f32 at C = 128, four warpgroups and 256 rows (Tiling).
 //  - The input tile is read from device memory once, with its halo: rows
-//    t0 - half * d .. t0 + 127 + half * d, zero outside [0, T), leaky-ReLU'd
+//    t0 - left .. t0 + 127 + (K - 1) * d - left, zero outside [0, T), leaky-ReLU'd
 //    on the way and stored as bf16 rows of C + 8 elements. Tap `tap` of
 //    output row r is tile row r + tap * d.
 //  - A comes from registers, not from a shared-memory descriptor: dilations
 //    1, 3, 5 shift the rows by odd counts, which the 8-row period of a
 //    swizzled descriptor tile does not allow without its base-offset field.
+//    At C = 16 the products are one warp's mma.sync m16n8k16 pairs on the
+//    same fragments (wgmma's narrowest B in a swizzled tile is 32 wide), B
+//    from a row-major weight tile (rows padded to 24 elements) by
+//    ldmatrix.trans; those stages move 2 bytes for about 2 * 16 * K
+//    operations an element, far below the card's 295 a byte, so the narrower
+//    product costs nothing there.
 //    ldmatrix.x4 reads the 16 x 16 fragment at any row; the 16 bytes of
 //    padding a row put the 8 rows of each 8 x 8 block on different banks at
 //    every C.
@@ -55,6 +67,10 @@
 //    plain version: see PERF.md.
 //  - Epilogue from the accumulator layout (tensor_core.cuh), two
 //    neighbouring channels a store.
+//  - Two builds of each (dtype, C): the input tile sized for spans up to 50
+//    (HiFiGAN V1 and V2: kernel 11 at dilation 5), and for spans up to 126
+//    (a conv of JAX's gate past 50, such as kernel 7 at dilation 9), where
+//    the f32 C = 128 tiling falls back to 128 rows to fit.
 // What limits it is not the tensor cores (29 to 42 % of their rate at
 // C = 128) but how many blocks a multiprocessor holds to hide each block's
 // phases behind another's (tile fill, per-chunk barrier, epilogue): a bf16
@@ -72,26 +88,34 @@ namespace {
 
 using fs2::tc::bf16;
 
-constexpr int MAX_HALO = 50;   // (K - 1) * dilation, at most 10 * 5
+// the span (K - 1) * dilation of a conv: what the narrow build's input tile
+// takes (kernel 11 at dilation 5), and the most any build takes
+constexpr int NARROW_SPAN = 50;
+constexpr int MAX_SPAN = 126;
 constexpr float LRELU_SLOPE = 0.1f;
 
-// The tiling for inputs of type T and C channels (each choice measured
-// against its neighbours on the H100; PERF.md).
-template <typename T, int C>
+// The tiling for inputs of type T, C channels and spans up to MAXH (each
+// choice at spans up to 50 measured against its neighbours on the H100;
+// PERF.md).
+template <typename T, int C, int MAXH>
 struct Tiling {
   static constexpr bool SPLIT = sizeof(T) == 4;
-  // time rows per block, one m64 warpgroup for every 64
-  static constexpr int BM = SPLIT && C == 128 ? 256 : 128;
+  // time rows per block, one m64 warpgroup for every 64 (at f32 C = 128, 256
+  // rows where the input tile leaves room)
+  static constexpr int BM = SPLIT && C == 128 && MAXH <= NARROW_SPAN ? 256 : 128;
   static constexpr int THREADS = 2 * BM;
   // reduction rows (tap, input channel) per weight chunk
   static constexpr int KC = SPLIT && C == 128 ? 32 : 64;
   // weight chunks in the ring
   static constexpr int STAGES = 3;
+  // a weight tile's row stride: C (swizzled), or 24 at C = 16 (row-major,
+  // padded so ldmatrix's 8 rows fall on different banks)
+  static constexpr int WS = C == 16 ? 24 : C;
   // 1024 bytes to align the weight tiles to the swizzle period; per bf16 part
   // (one for bf16 inputs, high and low for f32): the ring of weight chunks
   // and the input tile with its halo, rows padded by 8 elements
   static constexpr size_t SMEM =
-      1024 + (SPLIT ? 2 : 1) * (STAGES * KC * C + (BM + MAX_HALO) * (C + 8)) * sizeof(bf16);
+      1024 + (SPLIT ? 2 : 1) * (STAGES * KC * WS + (BM + MAXH) * (C + 8)) * sizeof(bf16);
   // blocks a multiprocessor holds at the least (the compiler's register budget)
   static constexpr int BLOCKS = SPLIT ? 1 : 2;
 };
@@ -145,12 +169,18 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = fs2::tc::pack_bf16(a, b);
 }
 
-// reduction rows row0 .. row0 + KC - 1 of w [rows_total, C] into a swizzled
-// tile of the ring (NT threads); rows at or past rows_total are zero-filled
+// reduction rows row0 .. row0 + KC - 1 of w [rows_total, C] into a tile of
+// the ring (NT threads): swizzled, or at C = 16 row-major with rows of 24
+// elements; rows at or past rows_total are zero-filled
 template <int C, int KC, int NT>
 __device__ __forceinline__ void load_w_tile(bf16* tile, const bf16* w, int row0,
                                             int rows_total, int tid) {
-  if constexpr (C == 32) {
+  if constexpr (C == 16) {
+    static_assert(KC * 2 <= NT, "one 16-byte copy a thread");
+    const int r = tid >> 1, c = tid & 1, row = row0 + r;  // KC rows x 2 chunks
+    const bool ok = row < rows_total;
+    if (r < KC) fs2::tc::cp_async16(tile + r * 24 + c * 8, w + (ok ? row : 0) * C + c * 8, ok);
+  } else if constexpr (C == 32) {
     static_assert(KC * 4 <= NT, "one 16-byte copy a thread");
     const int r = tid >> 2, c = tid & 3, row = row0 + r;  // KC rows x 4 chunks
     const bool ok = row < rows_total;
@@ -164,8 +194,10 @@ __device__ __forceinline__ void load_w_tile(bf16* tile, const bf16* w, int row0,
 // acc += A(registers) * (k-step kk of a weight tile of KC rows)
 template <int C, int KC>
 __device__ __forceinline__ void product(float (&acc)[C / 8][4], const uint32_t (&a)[4],
-                                        const bf16* tile, int kk) {
-  if constexpr (C == 32)
+                                        const bf16* tile, int kk, int lane) {
+  if constexpr (C == 16)
+    fs2::tc::mma_rs_n16(acc, a, tile + kk * 16 * 24, 24, lane);
+  else if constexpr (C == 32)
     fs2::tc::wgmma_rs_n32(acc, a, fs2::tc::sw64_desc(tile + kk * 16 * 32));
   else if constexpr (C == 64)
     fs2::tc::wgmma_rs_n64(acc, a, fs2::tc::sw128_desc(tile + kk * 16 * 64, KC * 128, 1024));
@@ -173,19 +205,19 @@ __device__ __forceinline__ void product(float (&acc)[C / 8][4], const uint32_t (
     fs2::tc::wgmma_rs_n128(acc, a, fs2::tc::sw128_desc(tile + kk * 16 * 64, KC * 128, 1024));
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(Tiling<T, C>::THREADS, Tiling<T, C>::BLOCKS)
+template <typename T, int C, int MAXH>
+__global__ void __launch_bounds__(Tiling<T, C, MAXH>::THREADS, Tiling<T, C, MAXH>::BLOCKS)
 mrf_conv_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
                 const T* __restrict__ bias, const T* res, T* out, float* acc_buf,
                 int T_len, int K, int dil, int mode, float scale) {
   using namespace fs2::tc;
-  using Tile = Tiling<T, C>;
+  using Tile = Tiling<T, C, MAXH>;
   constexpr bool SPLIT = Tile::SPLIT;
   constexpr int BM = Tile::BM, THREADS = Tile::THREADS, KC = Tile::KC, STAGES = Tile::STAGES;
   constexpr int NL = SPLIT ? 2 : 1;   // bf16 parts of a value
   constexpr int AS = C + 8;           // input tile row stride, elements
-  constexpr int ATILE = (BM + MAX_HALO) * AS;
-  constexpr int WTILE = KC * C;
+  constexpr int ATILE = (BM + MAXH) * AS;
+  constexpr int WTILE = KC * Tile::WS;
   constexpr int CH = C / 8;           // 8-element chunks of a row
   constexpr int NB = C / 8;           // n-blocks of the accumulator
   extern __shared__ unsigned char smem_raw[];
@@ -196,7 +228,7 @@ mrf_conv_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
   const int warp = tid >> 5, lane = tid & 31;
   const int t0 = blockIdx.x * BM;
   const long long b = blockIdx.y;
-  const int halo = (K - 1) / 2 * dil;
+  const int left = (K - 1) * dil / 2;  // input rows before the output row (SAME)
   const int red_rows = K * C;                      // reduction length
   const int n_chunks = (red_rows + KC - 1) / KC;
 
@@ -214,13 +246,13 @@ mrf_conv_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
     cp_async_commit();
   }
 
-  // the input tile, once: lrelu(x) rows t0 - halo .. t0 + BM - 1 + halo
+  // the input tile, once: lrelu(x) rows t0 - left .. t0 + BM - 1 + span - left
   const T* xb = x + b * T_len * C;
-  const int n_fill = (BM + 2 * halo) * CH;
+  const int n_fill = (BM + (K - 1) * dil) * CH;
 #pragma unroll 4
   for (int i = tid; i < n_fill; i += THREADS) {
     const int r = i / CH, c = i % CH;
-    const int t = t0 - halo + r;
+    const int t = t0 - left + r;
     const bool ok = t >= 0 && t < T_len;
     uint32_t hi[4], lo[4];
     load8(xb + static_cast<long long>(ok ? t : 0) * C + c * 8, ok, hi, lo);
@@ -257,17 +289,19 @@ mrf_conv_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
       ldmatrix_x4(a[0][kk], p);
       if (SPLIT) ldmatrix_x4(a[NL - 1][kk], p + ATILE);
     }
-    wgmma_fence();
+    if constexpr (C != 16) wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk) {
-      product<C, KC>(acc, a[0][kk], Wt, kk);
+      product<C, KC>(acc, a[0][kk], Wt, kk, lane);
       if (SPLIT) {
-        product<C, KC>(acc, a[NL - 1][kk], Wt, kk);
-        product<C, KC>(acc, a[0][kk], Wt + WTILE, kk);
+        product<C, KC>(acc, a[NL - 1][kk], Wt, kk, lane);
+        product<C, KC>(acc, a[0][kk], Wt + WTILE, kk, lane);
       }
     }
-    wgmma_commit();
-    wgmma_wait<0>();
+    if constexpr (C != 16) {
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
   }
 
   const int g = lane >> 2, t4 = lane & 3;
@@ -299,34 +333,50 @@ mrf_conv_kernel(const T* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, int MAXH>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* res,
                    void* out, void* acc, int B, int T_len, int K, int dil, int mode,
                    float scale, cudaStream_t stream) {
-  using Tile = Tiling<T, C>;
+  using Tile = Tiling<T, C, MAXH>;
   constexpr size_t smem = Tile::SMEM;
   // the opt-in belongs to the kernel in the current device's context, so it
   // is kept per device: one process may launch on several cards
   static fs2::SmemOptIn opt_in;
   const cudaError_t attr = fs2::smem_opt_in(
-      opt_in, mrf_conv_kernel<T, C>, static_cast<int>(smem));
+      opt_in, mrf_conv_kernel<T, C, MAXH>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((T_len + Tile::BM - 1) / Tile::BM, B);
-  mrf_conv_kernel<T, C><<<grid, Tile::THREADS, smem, stream>>>(
+  mrf_conv_kernel<T, C, MAXH><<<grid, Tile::THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const bf16*>(w), static_cast<const T*>(bias),
       static_cast<const T*>(res), static_cast<T*>(out), static_cast<float*>(acc), T_len, K,
       dil, mode, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int MAXH>
 cudaError_t launch_c(const void* x, const void* w, const void* bias, const void* res,
                      void* out, void* acc, int B, int T_len, int C, int K, int dil,
                      int mode, float scale, cudaStream_t stream) {
-  if (C == 32) return launch<T, 32>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
-  if (C == 64) return launch<T, 64>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
-  if (C == 128) return launch<T, 128>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
+#define FS2_MRF_C(CC) \
+  if (C == CC)        \
+    return launch<T, CC, MAXH>(x, w, bias, res, out, acc, B, T_len, K, dil, mode, scale, stream);
+  FS2_MRF_C(16)
+  FS2_MRF_C(32)
+  FS2_MRF_C(64)
+  FS2_MRF_C(128)
+#undef FS2_MRF_C
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_span(const void* x, const void* w, const void* bias, const void* res,
+                        void* out, void* acc, int B, int T_len, int C, int K, int dil,
+                        int mode, float scale, cudaStream_t stream) {
+  if ((K - 1) * dil <= NARROW_SPAN)
+    return launch_c<T, NARROW_SPAN>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode,
+                                    scale, stream);
+  return launch_c<T, MAX_SPAN>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale,
+                               stream);
 }
 
 }  // namespace
@@ -340,12 +390,12 @@ extern "C" int mrf_conv(int dtype, const void* x, const void* w, const void* bia
                         const void* res, void* out, void* acc, int B, int T_len, int C,
                         int K, int dil, int mode, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || B > 65535 || T_len <= 0 || K <= 0 || K % 2 == 0 || dil <= 0 ||
-      (K - 1) * dil > MAX_HALO || mode < 0 || mode > 2 || x == out)
+  if (B <= 0 || B > 65535 || T_len <= 0 || K <= 0 || dil <= 0 || (K - 1) * dil > MAX_SPAN ||
+      mode < 0 || mode > 2 || x == out)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == fs2::kFloat32)
-    return launch_c<float>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
+    return launch_span<float>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
   if (dtype == fs2::kBFloat16)
-    return launch_c<bf16>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
+    return launch_span<bf16>(x, w, bias, res, out, acc, B, T_len, C, K, dil, mode, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

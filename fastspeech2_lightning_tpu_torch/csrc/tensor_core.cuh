@@ -3,7 +3,7 @@
 // copies into swizzled shared-memory tiles, their wgmma matrix descriptors,
 // ldmatrix for A fragments, and the sm_90a warpgroup product wgmma (bf16 in,
 // f32 accumulators) with one operand from registers or both from shared
-// memory.
+// memory; for a product 16 columns wide, one warp's mma.sync.
 //
 // Register fragments of a warpgroup product m64nNk16 (warp w of the
 // warpgroup holds rows 16w..16w+15; lane = 4 * g + t):
@@ -267,6 +267,51 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[N / 8][4] += A(registers) * B for one k-step, B the N columns of a
+// 128-byte-swizzled MN-major tile of R rows (its 64-wide column blocks R * 64
+// elements apart) from the k-step's first row `b`: one m64n128 product per
+// 128 columns where N is a multiple of 128, else one m64n64 per 64 columns
+// (N = 64 and 192). Each product's accumulators are a slice of d.
+template <int N, int R>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                              const bf16* b) {
+  static_assert(N % 64 == 0, "whole 64-wide column blocks");
+  if constexpr (N % 128 == 0) {
+#pragma unroll
+    for (int c = 0; c < N / 128; ++c)
+      wgmma_rs_n128(*reinterpret_cast<float(*)[16][4]>(&d[16 * c]), a,
+                    sw128_desc(b + 2 * c * R * 64, R * 128, 1024));
+  } else {
+#pragma unroll
+    for (int c = 0; c < N / 64; ++c)
+      wgmma_rs_n64(*reinterpret_cast<float(*)[8][4]>(&d[8 * c]), a,
+                   sw128_desc(b + c * R * 64, R * 128, 1024));
+  }
+}
+
+// d[2][4] += A(registers) * B, one warp's m16n8k16 products (mma.sync) for
+// its 16 rows and 16 columns, B from a row-major [16][16] bf16 block in
+// shared memory (row stride `ld` elements, rows 16-byte aligned) read
+// transposed by ldmatrix. The accumulator and A layouts are a warpgroup
+// product's for this warp (the header), so a kernel can take either.
+__device__ __forceinline__ void mma_rs_n16(float (&d)[2][4], const uint32_t (&a)[4],
+                                           const bf16* b, int ld, int lane) {
+  // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15):
+  // the B fragments (b0, b1) of n-block 0, then of n-block 1
+  const int m = lane >> 3;
+  const bf16* p = b + ((m & 1) * 8 + (lane & 7)) * ld + (m >> 1) * 8;
+  uint32_t f[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
+               : "r"(smem_u32(p)));
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(f[2 * n]), "r"(f[2 * n + 1]));
+}
 
 }  // namespace tc
 }  // namespace fs2

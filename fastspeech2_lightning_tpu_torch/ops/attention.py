@@ -26,6 +26,17 @@ tensors (or raises) and runs its plain PyTorch version for CPU tensors:
   offsets, by its ctypes launch ``_launch_fwd`` at a distributed rank's
   others); on the CPU autograd runs through the plain version.
 
+The kernels are built for head dims 64, 128, 192 and 256
+(``KERNEL_HEAD_DIMS``). Every other dh up to 256 runs at the next of them
+(``kernel_head_dim``): the wrappers zero-pad q, k, v (and o, dO) with
+zero columns and slice o, dQ, dK and dV back, as the JAX package pads dh
+to a multiple of 128 (``attention_dropout.py:222-247``). Zero columns add
+nothing to Q K^T and give zero output columns, so this is exact; the log-sum-
+exp is unchanged, `sm_scale` stays the caller's (from the true dh) and the
+dropout mask does not depend on dh. A launch is counted once and the FLOP
+counts take the true dh. dh above 256 raises a ValueError: the kernels'
+tiles would not fit shared memory and registers.
+
 The dtype picks the kernel inside each source: bf16 tensors go to the
 tensor-core kernels, f32 tensors to the CUDA-core f32 kernels (which the f32
 card-vs-CPU checks hold to rel-L2 1e-5). bf16 q, k, v (and dO) need rows on
@@ -65,7 +76,7 @@ from ..kernels import build
 NEG_INF = -1e9
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SUPPORTED_DH = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 192, 256)  # the widths csrc/attention_*.cu are built for
 _MAX_T = 1 << 16  # the mask hash packs (row, col) into 32 bits
 _M32 = 0xFFFFFFFF
 
@@ -87,6 +98,51 @@ def attention_bwd_flops(B: int, H: int, T: int, dh: int) -> int:
     them to ``attention_bwd.flops`` where it launches the kernel and
     ``utils.benchmarking.count_flops`` adds that counter's change."""
     return 12 * B * H * T * T * dh
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The head dim the kernels run dh at: the least of ``KERNEL_HEAD_DIMS``
+    that holds it. Raises a ValueError above 256."""
+    for width in KERNEL_HEAD_DIMS:
+        if 0 < dh <= width:
+            return width
+    raise ValueError(f"attention kernels take head dims 1 to {KERNEL_HEAD_DIMS[-1]}, got {dh}")
+
+
+def _pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """[..., dh] -> [..., width], contiguous, zero columns past dh."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def padded_fwd(launch, q, k, v, *args):
+    """``launch(q, k, v, *args) -> (o, lse)`` run at the kernels' width: for
+    a dh they are not built for, q, k and v zero-padded to
+    ``kernel_head_dim(dh)`` and o sliced back into q's [B, H, T, dh] in the
+    op's [B, T, H, dh] layout; lse as it comes. Kernel A's padding step (the
+    tests compose it with the plain version)."""
+    dh = q.shape[-1]
+    width = kernel_head_dim(dh)
+    if width == dh:
+        return launch(q, k, v, *args)
+    _same_shape("attention_fwd", q, k, v)
+    o_p, lse = launch(*(_pad_head_dim(t, width) for t in (q, k, v)), *args)
+    o = _out_like(q)
+    o.copy_(o_p[..., :dh])
+    return o, lse
+
+
+def padded_bwd(launch, q, k, v, o, do, *args):
+    """``launch(q, k, v, o, do, *args) -> (dQ, dK, dV)`` run at the kernels'
+    width: q, k, v, o and dO zero-padded as in ``padded_fwd`` and the
+    gradients sliced back to [B, H, T, dh], contiguous. Kernel A′'s padding
+    step."""
+    dh = q.shape[-1]
+    width = kernel_head_dim(dh)
+    if width == dh:
+        return launch(q, k, v, o, do, *args)
+    _same_shape("attention_bwd", q, k, v)
+    grads = launch(*(_pad_head_dim(t, width) for t in (q, k, v, o, do)), *args)
+    return tuple(g[..., :dh].contiguous() for g in grads)
 
 
 def attention_reference(q, k, v, key_bias, sm_scale: float) -> torch.Tensor:
@@ -182,8 +238,8 @@ def _check(name: str, q, k, v, key_bias) -> list:
     """Raise on what the kernels do not take; return the [B, H, T] strides
     of q, k and v, flat (the C entries' stride arguments)."""
     B, H, T, dh = q.shape
-    if dh not in _SUPPORTED_DH:
-        raise ValueError(f"{name}: head dim {dh} not in {_SUPPORTED_DH}")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh} not in {KERNEL_HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
     if T > _MAX_T:
@@ -200,6 +256,12 @@ def _check(name: str, q, k, v, key_bias) -> list:
         raise ValueError(f"{name}: bf16 q, k, v need 16-byte aligned rows "
                          f"(strides over B, H, T in multiples of 8)")
     return [qb, qh, qt, kb, kh, kt, vb, vh, vt]
+
+
+def _same_shape(name: str, q, k, v) -> None:
+    """Raise unless k and v have q's shape (checked before any padding)."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: k and v must match q in shape/dtype/device")
 
 
 def _rows_aligned(t) -> bool:
@@ -271,7 +333,8 @@ def _lse_like(q, with_lse: bool) -> torch.Tensor:
 
 def _launch_fwd(q, k, v, key_bias, sm_scale: float, p: float, seed, with_lse: bool,
                 row_offset: int = 0, head_offset: int = 0, heads_total: Optional[int] = None):
-    """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu``; (o, lse)."""
+    """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu`` at a built
+    head dim; (o, lse)."""
     thresh = dropout_threshold(p)
     strides = _check("attention_fwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
@@ -302,8 +365,8 @@ def _attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       seed: Optional[torch.Tensor], with_lse: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu`` at the
-    default dropout offsets."""
-    return _launch_fwd(q, k, v, key_bias, sm_scale, p, seed, with_lse)
+    default dropout offsets, through the padding step."""
+    return padded_fwd(_launch_fwd, q, k, v, key_bias, sm_scale, p, seed, with_lse)
 
 
 @_attention_fwd_op.register_kernel("cpu")
@@ -377,13 +440,23 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
                                        row_offset, head_offset, heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
+    for name, t in (("do", do), ("o", o)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"attention_bwd: {name} must match q in shape/dtype/device")
+    grads = padded_bwd(_launch_bwd, q, k, v, o, do, key_bias, seed, thresh, p, sm_scale, lse,
+                       row_offset, head_offset, heads_total)
+    build.count(attention_bwd, flops=attention_bwd_flops(*q.shape))
+    return grads
+
+
+def _launch_bwd(q, k, v, o, do, key_bias, seed, thresh: int, p: float, sm_scale: float, lse,
+                row_offset: int, head_offset: int, heads_total: Optional[int]):
+    """Kernel A′: the ctypes launch of ``csrc/attention_bwd.cu`` at a built
+    head dim; (dQ, dK, dV) in q's dtype."""
     strides = _check("attention_bwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
     offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
-    for name, t in (("do", do), ("o", o)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != device:
-            raise ValueError(f"attention_bwd: {name} must match q in shape/dtype/device")
     if lse.shape != (B, H, T):
         raise ValueError("attention_bwd: lse must be [B, H, T]")
     if do.stride(3) != 1 or (do.dtype == torch.bfloat16 and not _rows_aligned(do)):
@@ -411,7 +484,6 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
         sm_scale, thresh, 1.0 / (1.0 - p), *offsets, _stream(device),
     )
     build.check(lib, err, "attention_bwd")
-    build.count(attention_bwd, flops=attention_bwd_flops(B, H, T, dh))
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -435,7 +507,8 @@ class _AttentionWithDropout(torch.autograd.Function):
         if _offsets(q.shape[1], *offsets) == (0, 0, q.shape[1]):
             o, lse = attention_fwd(q, k, v, key_bias, sm_scale, p=p, seed=seed, with_lse=True)
         else:
-            o, lse = _launch_fwd(q, k, v, key_bias, sm_scale, p, seed_p, True, *offsets)
+            o, lse = padded_fwd(_launch_fwd, q, k, v, key_bias, sm_scale, p, seed_p, True,
+                                *offsets)
         ctx.save_for_backward(q, k, v, key_bias, seed, o, lse)
         ctx.p, ctx.sm_scale, ctx.offsets = p, sm_scale, offsets
         return o

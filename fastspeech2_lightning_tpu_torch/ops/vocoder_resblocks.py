@@ -20,6 +20,11 @@ The kernel multiplies in bf16 on the tensor cores. Its weights are always
 bf16 (``prepare_stage_weights``): [K, C, C] for bf16 activations, and for f32
 activations the pair ``split_bf16(w)`` stacked as [2, K, C, C], with which
 the kernel forms a_hi w_hi + a_lo w_hi + a_hi w_lo and stays f32-accurate.
+It is built for C of 16, 32, 64 and 128 (``KERNEL_CHANNELS``); a stage of
+another C <= 128 runs at the next of them (``kernel_channels``): its weights
+and biases are padded with zeros (``prepare_stage_weights``) and its input
+with zero channels, which stay zero through the leaky ReLU, the convs and
+the residuals, so the first C channels are the stage's exactly.
 
 Replaces ``fastspeech2_lightning_tpu/ops/vocoder_resblocks.py:168
 fused_mrf_stage``; the kernel's bound and design are in its source header.
@@ -35,8 +40,10 @@ import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
 HALO = 64  # the JAX kernel's halo; kept for the same routing gate
-KERNEL_CHANNELS = (32, 64, 128)  # the widths csrc/mrf_conv.cu is built for
-KERNEL_MAX_SPAN = 50  # its input tile's halo: (k - 1) * dilation at most
+KERNEL_CHANNELS = (16, 32, 64, 128)  # the widths csrc/mrf_conv.cu is built for
+# the longest conv span (k - 1) * dilation it takes: every conv of a stage
+# that HALO admits, with an odd k (k 3 at dilation 63)
+KERNEL_MAX_SPAN = 126
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -49,20 +56,40 @@ WRITE, ACCUMULATE, FINISH = 0, 1, 2
 
 
 def mrf_stage_supported(C: int, kernel_sizes, dilation_sizes) -> bool:
-    """The routing gate of the JAX package (``vocoder_resblocks.py:214``):
+    """The routing gate of the JAX package (``vocoder_resblocks.py:214-225``):
     the low-channel stages, C <= 128, whose deepest chain's receptive field
-    fits the TPU kernel's halo; and what the CUDA kernel takes: C of 32, 64
-    or 128, odd kernel sizes, (k - 1) * dilation <= 50."""
-    if C not in KERNEL_CHANNELS:
+    fits the TPU kernel's halo. The CUDA kernel takes every such stage
+    (``kernel_channels``; an odd k keeps each conv's span within
+    ``KERNEL_MAX_SPAN``). An even k can pass the halo with a longer span
+    (k 2 counts no receptive field at any dilation): such a stage stays
+    unfused, where the JAX kernel's rolls would wrap."""
+    if C > 128:
         return False
-    for k, dils in zip(kernel_sizes, dilation_sizes):
-        if k % 2 == 0 or (k - 1) * max(dils) > KERNEL_MAX_SPAN:
-            return False
     worst = max(
         sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
         for k, dils in zip(kernel_sizes, dilation_sizes)
     )
-    return worst <= HALO
+    if worst > HALO:
+        return False
+    return all((k - 1) * max(dils) <= KERNEL_MAX_SPAN
+               for k, dils in zip(kernel_sizes, dilation_sizes))
+
+
+def kernel_channels(C: int) -> int:
+    """The width the kernel runs a stage of C channels at: the least of
+    ``KERNEL_CHANNELS`` that holds C (C 8 at 16, 96 at 128)."""
+    for width in KERNEL_CHANNELS:
+        if C <= width:
+            return width
+    raise ValueError(f"the MRF kernel takes C <= {KERNEL_CHANNELS[-1]}, got {C}")
+
+
+def _pad_channels(t: torch.Tensor, width: int, dims: int) -> torch.Tensor:
+    """`t` with its last `dims` axes zero-padded at the end to `width`."""
+    pad = []
+    for size in reversed(t.shape[t.dim() - dims:]):
+        pad += [0, width - size]
+    return F.pad(t, pad) if any(pad) else t
 
 
 def split_bf16(w: torch.Tensor) -> torch.Tensor:
@@ -84,22 +111,26 @@ def prepare_stage_weights(
     """Flatten one stage's resblocks, given in torch Conv1d layout
     (``convs1.{i}.weight`` [C, C, k], ``convs1.{i}.bias`` [C], ...), into
     the kernel's order: for each resblock j, for each dilation i:
-    W1, b1, W2, b2, contiguous. For activations of `dtype` bf16 a W is bf16
-    [k, C, C] (tap, in, out); for f32 it is ``split_bf16`` of that, bf16
-    [2, k, C, C]. The biases are in `dtype`."""
+    W1, b1, W2, b2, contiguous, at the kernel's width Cp =
+    ``kernel_channels(C)`` (zero rows, columns and biases past C). For
+    activations of `dtype` bf16 a W is bf16 [k, Cp, Cp] (tap, in, out); for
+    f32 it is ``split_bf16`` of that, bf16 [2, k, Cp, Cp]. The biases are
+    [Cp] in `dtype`."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"prepare_stage_weights: dtype {dtype} not supported")
+    width = kernel_channels(stage_params[0]["convs1.0.bias"].shape[0])
     flat: List[torch.Tensor] = []
     for j, dils in enumerate(dilation_sizes):
         p = stage_params[j]
         for i in range(len(dils)):
             for name in (f"convs1.{i}", f"convs2.{i}"):
                 w = p[f"{name}.weight"].permute(2, 1, 0)  # [Cout, Cin, k] -> (tap, in, out)
+                w = _pad_channels(w, width, 2)
                 if dtype == torch.float32:
                     flat.append(split_bf16(w).contiguous())
                 else:
                     flat.append(w.contiguous().to(torch.bfloat16))
-                flat.append(p[f"{name}.bias"].contiguous().to(dtype))
+                flat.append(_pad_channels(p[f"{name}.bias"], width, 1).contiguous().to(dtype))
     return flat
 
 
@@ -115,10 +146,12 @@ def mrf_conv_reference(
 ):
     """Plain version of one ``mrf_conv``: y = bias + conv(lrelu(x)) [+ res],
     then the epilogue `mode` into `out` / `acc`, computed in f32. `w` as
-    ``prepare_stage_weights`` gives it, or [K, C, C] in any float type."""
+    ``prepare_stage_weights`` gives it, or [K, C, C] in any float type; of
+    weights and bias padded past x's C only the first C channels count."""
+    C = x.shape[-1]
     xt = F.leaky_relu(x.float(), LRELU_SLOPE).transpose(1, 2)
     y = F.conv1d(
-        xt, _whole_weight(w).permute(2, 1, 0), bias.float(),
+        xt, _whole_weight(w)[:, :C, :C].permute(2, 1, 0), bias.float()[:C],
         padding="same", dilation=dilation,
     ).transpose(1, 2)
     if residual is not None:
@@ -156,11 +189,14 @@ def mrf_conv(
     """One conv of the stage with its epilogue, in place into `out` / `acc`:
     y = bias + sum_tap lrelu(x shifted by (tap - half) * dilation) @ w[tap]
     [+ residual]; WRITE: out = y; ACCUMULATE: acc += scale * y; FINISH:
-    out = acc + scale * y. x, residual, out: [B, T, C] contiguous, C of 32,
-    64 or 128; w as ``prepare_stage_weights`` gives it for x's dtype (bf16
-    [K, C, C], or [2, K, C, C] for f32 x), K odd, (K - 1) * dilation <= 50;
-    bias [C]; acc [B, T, C] f32. `residual` may be `out`; `x` may not (a
-    block of the kernel reads rows its neighbours write)."""
+    out = acc + scale * y, with SAME padding. x, residual, out: [B, T, C]
+    contiguous, C <= 128; w as ``prepare_stage_weights`` gives it for x's
+    dtype (bf16 [K, Cp, Cp], or [2, K, Cp, Cp] for f32 x, at Cp =
+    ``kernel_channels(C)``), (K - 1) * dilation <= 126; bias [Cp]; acc
+    [B, T, C] f32. At C < Cp the operands are copied to Cp channels and
+    back (``fused_mrf_stage`` pads a stage's input once instead). `residual`
+    may be `out`; `x` may not (a block of the kernel reads rows its
+    neighbours write)."""
     _refuse_autograd("mrf_conv", x, w, bias, residual)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mrf_conv: unsupported device {x.device}")
@@ -173,10 +209,15 @@ def mrf_conv(
     K = w.shape[-3]
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"mrf_conv: dtype {x.dtype} not supported")
+    width = kernel_channels(C)
+    if C != width and w.shape[-1] == width:
+        _mrf_conv_padded(x, w, bias, dilation, residual, out, acc, mode, scale)
+        return
     if C not in KERNEL_CHANNELS:
         raise ValueError(f"mrf_conv: C={C} not in {KERNEL_CHANNELS}")
-    if K % 2 == 0 or dilation < 1 or (K - 1) * dilation > KERNEL_MAX_SPAN:
-        raise ValueError(f"mrf_conv: kernel size {K} with dilation {dilation} not supported")
+    if dilation < 1 or (K - 1) * dilation > KERNEL_MAX_SPAN:
+        raise ValueError(f"mrf_conv: kernel size {K} with dilation {dilation} not supported: "
+                         f"(K - 1) * dilation must be at most {KERNEL_MAX_SPAN}")
     want_w = (2, K, C, C) if x.dtype == torch.float32 else (K, C, C)
     if w.shape != want_w or w.dtype != torch.bfloat16 or bias.shape != (C,):
         raise ValueError(
@@ -218,6 +259,22 @@ def mrf_conv(
 mrf_conv.launches = 0
 
 
+def _mrf_conv_padded(x, w, bias, dilation, residual, out, acc, mode, scale) -> None:
+    """``mrf_conv`` of x [B, T, C] with weights prepared at the kernel's
+    width: the operands padded with zero channels, one launch, the first C
+    channels copied back into `out` / `acc`."""
+    width = w.shape[-1]
+    x_p = _pad_channels(x, width, 1).contiguous()
+    res_p = None if residual is None else _pad_channels(residual, width, 1).contiguous()
+    out_p = None if out is None else x_p.new_empty(x_p.shape)
+    acc_p = None if acc is None else _pad_channels(acc, width, 1).contiguous()
+    mrf_conv(x_p, w, bias, dilation, res_p, out_p, acc_p, mode, scale)
+    if out_p is not None and mode != ACCUMULATE:
+        out.copy_(out_p[..., : x.shape[-1]])
+    if acc_p is not None and mode == ACCUMULATE:
+        acc.copy_(acc_p[..., : x.shape[-1]])
+
+
 def fused_mrf_stage(
     x: torch.Tensor,
     flat_weights: Sequence[torch.Tensor],
@@ -225,11 +282,18 @@ def fused_mrf_stage(
     dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
 ) -> torch.Tensor:
     """A whole stage, x [B, T, C] -> mean_j RB_j(x) [B, T, C], as one
-    ``mrf_conv`` per conv. Buffers: t (the inner conv's output), s (the
-    running resblock state, updated in place) and an f32 accumulator of the
-    resblock average, which the last conv of the last resblock writes out.
-    Raises under autograd (``_refuse_autograd``)."""
+    ``mrf_conv`` per conv, with `flat_weights` from ``prepare_stage_weights``.
+    Below the kernel's width (C 8 runs at 16) x is padded with zero
+    channels once and the result sliced back. Buffers: t (the inner conv's
+    output), s (the running resblock state, updated in place) and an f32
+    accumulator of the resblock average, which the last conv of the last
+    resblock writes out. Raises under autograd (``_refuse_autograd``)."""
     _refuse_autograd("fused_mrf_stage", x, *flat_weights)
+    C = x.shape[-1]
+    width = flat_weights[1].shape[0]
+    if C < width:
+        return fused_mrf_stage(_pad_channels(x, width, 1), flat_weights, kernel_sizes,
+                               dilation_sizes)[..., :C]
     x = x.contiguous()
     t = torch.empty_like(x)
     s_buf = torch.empty_like(x)

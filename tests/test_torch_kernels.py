@@ -21,20 +21,23 @@ forward and backward, dropout included: the same seed gives the same mask,
 read back bit for bit, at the default offsets and at a rank's (row, head)
 offsets, where it is that block of the global mask;
 masks with no valid key, with holes and at tile edges, T off the tiles,
-dh 64 and 128, q, k, v as views of the fused projection; NaN keys and
+dh 64, 128, 192 and 256 as built and every other dh to 256 through the
+wrappers' zero padding, q, k, v as views of the fused projection; NaN keys and
 values in the tiles past kv_end, which the kernels must not read, and dK and
 dV exactly 0 there);
 the MRF conv in f32 within 5e-5, since it multiplies f32 inputs as split
 bf16 pairs on the tensor cores, at T off its 128-row tile and under its halo,
-with each epilogue mode, and on the edge rows alone, and its stage at the
-three B = 1 shapes of a low-latency window of the V1 vocoder, and raising
+with each epilogue mode, and on the edge rows alone, at C 16 to 128 and at
+C 8 padded to 16, at spans past 50 and with even kernel sizes, and its stage
+at the three B = 1 shapes of a low-latency window of the V1 vocoder, and raising
 under autograd before it launches;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
 ``torch.export``, saved, loaded and run, launching A and equal to eager;
-A with A', B, and C's loss forward and backward each captured in a CUDA
-graph and replayed on new seeds or inputs, equal to their eager launches;
+A with A' (at dh 128 and 192), B, and C's loss forward and backward each
+captured in a CUDA graph and replayed on new seeds or inputs, equal to
+their eager launches;
 a tiny f32 train step captured by ``TrainStepGraph`` against the eager
 step. Each counts one launch per kernel launch (a replay its capture's
 launches), and each wrapper raises on a
@@ -247,6 +250,8 @@ def test_attention_kernel_matches_plain_version(cuda, B, H, T, dh, dtype):
 
 @pytest.mark.gpu
 def test_attention_kernel_takes_strided_views_and_refuses_other_head_dims(cuda):
+    """Strided views of the fused projection; dh 32 runs padded to 64 (one
+    launch); dh 320, past the widest build, raises."""
     B, T, H, dh = 2, 70, 2, 64
     qkv = torch.randn(B, T, 3, H, dh, device=cuda)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -255,8 +260,14 @@ def test_attention_kernel_takes_strided_views_and_refuses_other_head_dims(cuda):
     want = attention_reference(q, k, v, bias, 0.125)
     assert _rel(out, want) <= 1e-5
     x = torch.randn(1, 2, 16, 32, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    before = attention_fwd.launches
+    out = attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
+    assert attention_fwd.launches == before + 1
+    assert _rel(out, attention_reference(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)) <= 1e-5
+    x = torch.randn(1, 2, 16, 320, device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
+    assert attention_fwd.launches == before + 1
 
 
 # items of one batch for the masks the tile skipping must get right; at
@@ -323,7 +334,7 @@ def _poison_past_kv_end(k, v, bias) -> tuple:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(EDGE_MASKS))
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 def test_attention_kernels_on_mask_edges(cuda, case, dh, dtype, p):
@@ -403,7 +414,7 @@ def test_attention_kernels_at_offsets_match_plain_version(cuda, T, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [37, 1000, 2047])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 def test_attention_kernels_on_T_off_the_tiles(cuda, T, dh, dtype, p):
@@ -412,6 +423,23 @@ def test_attention_kernels_on_T_off_the_tiles(cuda, T, dh, dtype, p):
     q, k, v = _fused_qkv(cuda, 2, T, 2, dh, dtype, seed=T)
     _check_fwd_bwd(cuda, q, k, v, bias, dtype, p)
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [1, 16, 24, 32, 48, 96, 160, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_attention_kernels_at_padded_head_dims(cuda, dh, dtype, p):
+    """A dh the kernels are not built for runs zero-padded to the next
+    build, one launch of each kernel, FLOPs counted at the true dh, the
+    gradients sliced back to [B, H, T, dh]; q, k, v as fused views."""
+    T = 300
+    bias = _bias(np.stack([_segments(T, (0, n)) for n in (T, 171)])).to(cuda)
+    q, k, v = _fused_qkv(cuda, 2, T, 2, dh, dtype, seed=dh)
+    f0, b0, flops0 = attention_fwd.launches, attention_bwd.launches, attention_bwd.flops
+    grads = _check_fwd_bwd(cuda, q, k, v, bias, dtype, p)
+    assert (attention_fwd.launches, attention_bwd.launches) == (f0 + 1, b0 + 1)
+    assert attention_bwd.flops - flops0 == attention.attention_bwd_flops(2, 2, T, dh)
+    assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -515,9 +543,11 @@ def test_plain_version_on_prepared_weights_equals_stage_reference(dtype):
 
 @pytest.mark.parametrize("C,ks,dils,want", [
     (128, KS, DILS, True), (64, KS, DILS, True), (32, KS, DILS, True),
-    (16, KS, DILS, False), (256, KS, DILS, False), (96, KS, DILS, False),
-    (64, (4, 7, 11), DILS, False), (64, (3, 7, 13), DILS, False),
-    (64, (3,), ((1, 26),), False),
+    (16, KS, DILS, True), (8, KS, DILS, True), (96, KS, DILS, True),
+    (256, KS, DILS, False), (129, KS, DILS, False),
+    (64, (4, 7, 11), DILS, True), (64, (3, 7, 13), DILS, False),
+    (64, (3,), ((1, 26),), True), (64, (7,), ((1, 3, 9),), True), (64, (3,), ((63,),), True),
+    (64, (3,), ((64,),), False), (64, (2,), ((200,),), False),
 ])
 def test_mrf_stage_gate_names_what_the_kernel_takes(C, ks, dils, want):
     assert mrf_stage_supported(C, ks, dils) is want
@@ -628,7 +658,7 @@ def test_mrf_stage_at_a_streaming_window_matches_plain_version(cuda, C, T, dtype
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T", [(2, 300), (1, 37), (1, 127), (1, 129), (1, 257), (1, 1000)])
 def test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype, B, T):
@@ -647,7 +677,7 @@ def test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype, B, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", [WRITE, ACCUMULATE, FINISH])
 @pytest.mark.parametrize("K,dil", [(3, 1), (7, 3), (11, 5)])
@@ -655,6 +685,21 @@ def test_mrf_conv_modes_and_edges_match_plain_version(cuda, C, dtype, mode, K, d
     """One conv with `residual is out`, each epilogue mode; the whole output
     and the first and last half * dilation rows (where SAME padding shows) on
     their own."""
+    _check_mrf_conv(cuda, C, dtype, mode, K, dil)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,dil", [(7, 9), (9, 9), (3, 63), (5, 31), (4, 5), (2, 3)])
+def test_mrf_conv_at_wide_spans_even_kernels_and_padded_widths(cuda, C, dtype, K, dil):
+    """Spans (K - 1) * dil past 50 (the wide build, to 126), even kernel
+    sizes (SAME padding: (K - 1) * dil // 2 before), and C of no build,
+    whose operands ``mrf_conv`` pads to the next build's width."""
+    _check_mrf_conv(cuda, C, dtype, FINISH, K, dil)
+
+
+def _check_mrf_conv(cuda, C, dtype, mode, K, dil):
     B, T = 2, 300
     g = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn(B, T, C, device=cuda, generator=g).to(dtype)
@@ -662,17 +707,22 @@ def test_mrf_conv_modes_and_edges_match_plain_version(cuda, C, dtype, mode, K, d
     acc0 = torch.randn(B, T, C, device=cuda, generator=g)
     w32 = torch.randn(K, C, C, device=cuda, generator=g) / math.sqrt(K * C)
     bias = (0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
-    w = split_bf16(w32) if dtype == torch.float32 else w32.to(torch.bfloat16)
-    w_ref = w32 if dtype == torch.float32 else w.float()
-
+    width = vocoder_resblocks.kernel_channels(C)
+    w_k = torch.nn.functional.pad(w32, (0, width - C, 0, width - C))
+    w = split_bf16(w_k) if dtype == torch.float32 else w_k.to(torch.bfloat16)
+    w_ref = w32 if dtype == torch.float32 else w32.to(torch.bfloat16).float()
+    bias_k = torch.nn.functional.pad(bias, (0, width - C))
+    before = mrf_conv.launches
     out, acc = res.clone(), acc0.clone()
-    mrf_conv(x, w, bias, dil, residual=out, out=out, acc=acc, mode=mode, scale=1 / 3)
+    mrf_conv(x, w, bias_k, dil, residual=out, out=out, acc=acc, mode=mode, scale=1 / 3)
     torch.cuda.synchronize()
+    assert mrf_conv.launches == before + 1
+
     want_out, want_acc = res.float(), acc0.clone()
     mrf_conv_reference(x, w_ref, bias, dil, residual=res, out=want_out, acc=want_acc,
                        mode=mode, scale=1 / 3)
     got, want = (acc, want_acc) if mode == ACCUMULATE else (out, want_out)
-    edge = (K - 1) // 2 * dil
+    edge = max((K - 1) * dil // 2, 1)
     tol = _mrf_tol(dtype)
     assert _rel(got, want) <= tol
     assert _rel(got[:, :edge], want[:, :edge]) <= tol
@@ -710,15 +760,19 @@ def test_mrf_conv_raises_on_what_the_kernel_does_not_take(cuda):
         mrf_conv(x, w, bias, dil, out=x if alias else torch.empty_like(x))
 
     call()
+    call(C=16)
+    call(K=4)
+    call(K=11, dil=12)  # span 120: the wide build
     with pytest.raises(ValueError, match="must not alias"):
         call(alias=True)
-    for C in (16, 48, 256):
-        with pytest.raises(ValueError, match="not in"):
-            call(C=C)
+    with pytest.raises(ValueError, match="not in"):
+        call(C=48)  # weights at 48, not prepared at the build's width 64
+    with pytest.raises(ValueError, match="C <= 128"):
+        call(C=256)
     with pytest.raises(ValueError, match="kernel size"):
-        call(K=4)
+        call(K=3, dil=64)
     with pytest.raises(ValueError, match="kernel size"):
-        call(K=11, dil=6)
+        call(K=11, dil=13)
     with pytest.raises(ValueError, match="prepare_stage_weights"):
         call(w=torch.zeros(3, 32, 32, device=cuda))  # f32 weights, not the bf16 pair
     with pytest.raises(ValueError, match="prepare_stage_weights"):
@@ -739,7 +793,8 @@ def _attention_inputs(cuda, B, H, T, dh, dtype, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,T,dh", [(3, 2, 37, 64), (2, 2, 200, 128)])
+@pytest.mark.parametrize("B,H,T,dh", [(3, 2, 37, 64), (2, 2, 200, 128), (3, 2, 200, 192),
+                                      (2, 2, 130, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 def test_attention_dropout_kernels_match_plain_version(cuda, B, H, T, dh, dtype, p):
@@ -989,8 +1044,8 @@ def test_ctc_forward_sum_runs_the_beta_chain_only_for_a_gradient(cuda):
 
 @pytest.mark.gpu
 def test_wrappers_raise_on_shapes_their_kernels_do_not_take(cuda):
-    q = torch.randn(1, 2, 16, 32, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.randn(1, 2, 16, 320, device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         attention_fwd(q, q, q, torch.zeros(1, 16, device=cuda), 0.125, p=0.1,
                       seed=torch.zeros(1, dtype=torch.int32, device=cuda))
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
@@ -1072,7 +1127,19 @@ def test_attention_kernels_under_capture_equal_their_eager_launches(cuda):
     Function; each replay reads a new seed from the static seed tensor and
     equals an eager launch with that seed (A bit for bit; A' sums dQ with
     atomics) and the plain version; launches counted at replay only."""
-    q, k, v, bias, do = _attention_inputs(cuda, 2, 2, 200, 128, torch.float32)
+    _check_capture(cuda, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [192, 96])
+def test_attention_kernels_under_capture_at_wide_and_padded_head_dims(cuda, dh):
+    """As the dh 128 capture, at dh 192 (built, 64 keys a backward block) and
+    96 (padded to 128: the padding copies are captured too)."""
+    _check_capture(cuda, dh)
+
+
+def _check_capture(cuda, dh):
+    q, k, v, bias, do = _attention_inputs(cuda, 2, 2, 200, dh, torch.float32)
     seed = torch.tensor([11], dtype=torch.int32, device=cuda)
     static = [t.clone().requires_grad_(True) for t in (q, k, v)]
 
@@ -1089,7 +1156,7 @@ def test_attention_kernels_under_capture_equal_their_eager_launches(cuda):
             outs = run(static, seed)
     assert (attention_fwd.launches, attention_bwd.launches) == (f0, b0)
     assert counts == {(attention_fwd, "launches"): 1, (attention_bwd, "launches"): 1,
-                      (attention_bwd, "flops"): attention.attention_bwd_flops(2, 2, 200, 128)}
+                      (attention_bwd, "flops"): attention.attention_bwd_flops(2, 2, 200, dh)}
     for s in (12345, -7):
         seed.fill_(s)
         _replayed(graph, counts)

@@ -144,11 +144,12 @@ def test_generator_matches_jax(generator, fused):
 
 
 def test_generator_fused_stage_at_a_kernel_width_matches_jax(monkeypatch):
-    """The narrow generator above has no stage the CUDA kernel takes (C of
-    32, 64 or 128), so its fused=True run takes the unfused branch by the
-    gate. This one's first stage is C = 32 at 320 frames: it goes through
-    ``fused_mrf_stage`` (on the CPU, the plain version on the prepared bf16
-    weight pairs) and must still equal the JAX generator."""
+    """Every stage of this generator passes the gate (C <= 128; JAX's), and
+    those of 256 frames or more are fused: C = 32 at 320 frames, a width the
+    CUDA kernel is built for, C 16 at 2560 (built too), and C 8 and 4 at
+    5120 and 10240, which run at 16 with zero channels. Each goes through ``fused_mrf_stage`` (on the CPU,
+    the plain version on the prepared bf16 weight pairs) and the whole must
+    still equal the JAX generator."""
     kw = dict(GEN_CONFIG, upsample_initial_channel=64)
     jcfg = jax_hifigan.HiFiGANConfig(**kw)
     params = jax_hifigan.init_random_hifigan(jcfg, seed=6)
@@ -165,7 +166,7 @@ def test_generator_fused_stage_at_a_kernel_width_matches_jax(monkeypatch):
 
     monkeypatch.setattr(port_hifigan, "fused_mrf_stage", counting)
     got = port_hifigan.hifigan_generator(sd, torch.as_tensor(mel), cfg, fused=True)
-    assert fused_shapes == [(1, 320, 32)]
+    assert fused_shapes == [(1, 320, 32), (1, 2560, 16), (1, 5120, 8), (1, 10240, 4)]
     assert np.abs(want).max() > 1e-3
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
