@@ -305,8 +305,12 @@ WORDS = ("the a of and to in is was he for it with as his on be at by had are bu
          "years where much your way well down should because each just those people").split()
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """`msg` on its own line, after the seconds since the script started."""
+    print(f"[{time.time() - _T0:.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -6714,23 +6718,6 @@ def _v2_stages() -> list:
     return rows
 
 
-def _blocks_from_flat(flat: list, C: int) -> list:
-    """A stage's resblocks in torch Conv1d layout from the weights the
-    kernel was given (``prepare_stage_weights``, f32 pairs summed), cut to
-    the stage's own C: its plain version's weights."""
-    blocks = []
-    for j, dils in enumerate(DILS):
-        p = {}
-        for i in range(len(dils)):
-            for n, name in enumerate((f"convs1.{i}", f"convs2.{i}")):
-                w, b = flat[4 * (j * len(dils) + i) + 2 * n: 4 * (j * len(dils) + i) + 2 * n + 2]
-                w = w.float().sum(0) if w.dim() == 4 else w.float()  # [K, in, out]
-                p[f"{name}.weight"] = w[:, :C, :C].permute(2, 1, 0).contiguous()
-                p[f"{name}.bias"] = b.float()[:C]
-        blocks.append(p)
-    return blocks
-
-
 def _wide_serving(workdir: Path) -> dict:
     """(iii) The d-384 model (bf16, seeded weights) served with the fused
     HiFiGAN V2 vocoder (f32): 8 concurrent HTTP requests of 60-400
@@ -6823,12 +6810,17 @@ def _wide_serving(workdir: Path) -> dict:
     a_abs, a_rel = errors(attention_fwd(q, k, v, bias, scale),
                           attention_reference(q.float(), k.float(), v.float(), bias, scale))
     check(a_rel <= 2e-2, f"wide serving: A at {tuple(q.shape)} rel-L2 {a_rel}")
+    # the plain version takes the vocoder's own Conv1d weights as loaded from
+    # its file, not those the kernel was given (prepare_stage_weights)
+    params = {n: torch.as_tensor(w).cuda().float()
+              for n, w in hifigan.load_vocoder_params(voc)[0].items()}
     torch.backends.cudnn.allow_tf32 = False
     held = {}
-    for C, _ in V2_STAGES:
+    for i, (C, _) in enumerate(V2_STAGES):
         x, flat = captured[("mrf", C)]
         _, rel = errors(fused_mrf_stage(x, flat, KS, DILS),
-                        mrf_stage_reference(x.float(), _blocks_from_flat(flat, C), KS, DILS))
+                        mrf_stage_reference(x.float(), hifigan.stage_params(params, i, len(KS)),
+                                            KS, DILS))
         limit = MRF_LIMIT[str(x.dtype).split(".")[-1]]
         check(rel <= limit, f"wide serving: stage C={C} at {tuple(x.shape)} rel-L2 {rel}")
         held[C] = dict(shape=list(x.shape), rel_l2=rel)

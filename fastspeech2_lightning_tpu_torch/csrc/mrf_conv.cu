@@ -89,8 +89,13 @@ namespace {
 using fs2::tc::bf16;
 
 // the span (K - 1) * dilation of a conv: what the narrow build's input tile
-// takes (kernel 11 at dilation 5), and the most any build takes
-constexpr int NARROW_SPAN = 50;
+// takes (kernel 11 at dilation 5), and the most any build takes. Compiled
+// with -DFS2_MRF_NARROW_SPAN=126 the source has one build, the wide one
+// (tools/mrf_span_builds.py times the two against each other).
+#ifndef FS2_MRF_NARROW_SPAN
+#define FS2_MRF_NARROW_SPAN 50
+#endif
+constexpr int NARROW_SPAN = FS2_MRF_NARROW_SPAN;
 constexpr int MAX_SPAN = 126;
 constexpr float LRELU_SLOPE = 0.1f;
 
@@ -101,8 +106,8 @@ template <typename T, int C, int MAXH>
 struct Tiling {
   static constexpr bool SPLIT = sizeof(T) == 4;
   // time rows per block, one m64 warpgroup for every 64 (at f32 C = 128, 256
-  // rows where the input tile leaves room)
-  static constexpr int BM = SPLIT && C == 128 && MAXH <= NARROW_SPAN ? 256 : 128;
+  // rows where the input tile leaves room: spans up to 50)
+  static constexpr int BM = SPLIT && C == 128 && MAXH <= 50 ? 256 : 128;
   static constexpr int THREADS = 2 * BM;
   // reduction rows (tap, input channel) per weight chunk
   static constexpr int KC = SPLIT && C == 128 ? 32 : 64;

@@ -443,16 +443,16 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
     for name, t in (("do", do), ("o", o)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"attention_bwd: {name} must match q in shape/dtype/device")
-    grads = padded_bwd(_launch_bwd, q, k, v, o, do, key_bias, seed, thresh, p, sm_scale, lse,
-                       row_offset, head_offset, heads_total)
-    build.count(attention_bwd, flops=attention_bwd_flops(*q.shape))
-    return grads
+    return padded_bwd(_launch_bwd, q, k, v, o, do, key_bias, seed, thresh, p, sm_scale, lse,
+                      row_offset, head_offset, heads_total, attention_bwd_flops(*q.shape))
 
 
 def _launch_bwd(q, k, v, o, do, key_bias, seed, thresh: int, p: float, sm_scale: float, lse,
-                row_offset: int, head_offset: int, heads_total: Optional[int]):
+                row_offset: int, head_offset: int, heads_total: Optional[int], flops: int):
     """Kernel A′: the ctypes launch of ``csrc/attention_bwd.cu`` at a built
-    head dim; (dQ, dK, dV) in q's dtype."""
+    head dim; (dQ, dK, dV) in q's dtype. `flops` is the plain backward's
+    count at the caller's true head dim, which the launch adds to
+    ``attention_bwd.flops``."""
     strides = _check("attention_bwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
     offsets = _offsets(H, row_offset, head_offset, heads_total)
@@ -484,6 +484,7 @@ def _launch_bwd(q, k, v, o, do, key_bias, seed, thresh: int, p: float, sm_scale:
         sm_scale, thresh, 1.0 / (1.0 - p), *offsets, _stream(device),
     )
     build.check(lib, err, "attention_bwd")
+    build.count(attention_bwd, flops=flops)
     return dq_acc.to(q.dtype), dk, dv
 
 

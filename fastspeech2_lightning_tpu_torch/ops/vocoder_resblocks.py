@@ -194,7 +194,9 @@ def mrf_conv(
     dtype (bf16 [K, Cp, Cp], or [2, K, Cp, Cp] for f32 x, at Cp =
     ``kernel_channels(C)``), (K - 1) * dilation <= 126; bias [Cp]; acc
     [B, T, C] f32. At C < Cp the operands are copied to Cp channels and
-    back (``fused_mrf_stage`` pads a stage's input once instead). `residual`
+    back (``_mrf_conv_padded``); that per-call path is for direct callers of
+    one conv only: ``fused_mrf_stage``, the port's one caller, pads a
+    stage's input once and calls this at Cp. `residual`
     may be `out`; `x` may not (a block of the kernel reads rows its
     neighbours write)."""
     _refuse_autograd("mrf_conv", x, w, bias, residual)
@@ -262,7 +264,8 @@ mrf_conv.launches = 0
 def _mrf_conv_padded(x, w, bias, dilation, residual, out, acc, mode, scale) -> None:
     """``mrf_conv`` of x [B, T, C] with weights prepared at the kernel's
     width: the operands padded with zero channels, one launch, the first C
-    channels copied back into `out` / `acc`."""
+    channels copied back into `out` / `acc`. For a direct caller of one
+    conv; ``fused_mrf_stage`` never reaches it."""
     width = w.shape[-1]
     x_p = _pad_channels(x, width, 1).contiguous()
     res_p = None if residual is None else _pad_channels(residual, width, 1).contiguous()

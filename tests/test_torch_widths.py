@@ -306,6 +306,44 @@ def test_mrf_stage_with_zero_channels_equals_the_unpadded_stage(C):
     assert _rel(got, want) <= PAD_REL
 
 
+EVEN_KS, EVEN_DILS = (4,), ((1, 3, 5),)
+
+
+def test_mrf_stage_at_an_even_kernel_size_pads_as_same_where_jax_fused_kernel_shifts():
+    """A stage of k 4 at dilations 1, 3 and 5, which both gates fuse. The
+    port's stage (on the CPU, each conv's plain version with the kernel's
+    offsets) pads as SAME does, (k - 1) * d // 2 before, and equals the JAX
+    package's unfused golden. JAX's fused kernel shifts by (k - 1) // 2 * d,
+    which differs at d 3 and 5, so its output leaves the golden: the
+    difference ROADMAP.md lists."""
+    C, T = 16, 300
+    assert port_mrf.mrf_stage_supported(C, EVEN_KS, EVEN_DILS)
+    assert jax_mrf.mrf_stage_supported(C, EVEN_KS, EVEN_DILS)
+    rng = np.random.default_rng(11)
+    jax_block = {}
+    for i in range(len(EVEN_DILS[0])):
+        for name in ("convs1", "convs2"):
+            w = rng.standard_normal((EVEN_KS[0], C, C)) / math.sqrt(EVEN_KS[0] * C)
+            jax_block[f"{name}_{i}_w"] = w.astype(np.float32)
+            jax_block[f"{name}_{i}_b"] = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    port_block = {f"{name}.{i}.{kind}": torch.from_numpy(
+        jax_block[f"{name}_{i}_{kind[0]}"].transpose(2, 1, 0).copy() if kind == "weight"
+        else jax_block[f"{name}_{i}_{kind[0]}"])
+        for i in range(len(EVEN_DILS[0])) for name in ("convs1", "convs2")
+        for kind in ("weight", "bias")}
+    x = rng.standard_normal((2, T, C)).astype(np.float32)
+    golden = torch.from_numpy(
+        jax_mrf._np_reference_stage(x, [jax_block], EVEN_KS, EVEN_DILS).astype(np.float32))
+    jax_fused = torch.from_numpy(np.asarray(jax_mrf.fused_mrf_stage(
+        jnp.asarray(x), jax_mrf.prepare_stage_weights([jax_block], EVEN_KS, EVEN_DILS,
+                                                      jnp.float32),
+        EVEN_KS, EVEN_DILS, block_t=256, interpret=True)))
+    flat = port_mrf.prepare_stage_weights([port_block], EVEN_KS, EVEN_DILS, torch.float32)
+    port = port_mrf.fused_mrf_stage(torch.from_numpy(x), flat, EVEN_KS, EVEN_DILS)
+    assert _rel(port, golden) <= 1e-5
+    assert _rel(jax_fused, golden) > 0.1
+
+
 # -- HiFiGAN V2 ------------------------------------------------------------------
 
 V2 = dict(upsample_rates=(8, 8, 2, 2), upsample_kernel_sizes=(16, 16, 4, 4),
