@@ -243,19 +243,24 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     versions (bf16 at (16, 2, 2048 and 1024, 192) p 0.2 and (8, 2, 1024, 192)
     p 0 on ragged masks, f32 at (4, 2, 1024, 192)), timed beside SDPA; at dh
     16, 32, 48 and 96 (padded) and 256 (built) in bf16 and f32, one launch
-    of each a call; dh 320 refused; (ii) V2's four fused MRF stages (C 64,
-    32, 16 and 8, C 8 run at 16) for a B 8, 896-frame mel in f32 and bf16
-    against the plain version, timed; (iii) ESPnet2's LJSpeech
+    of each a call; dh 320 refused; (ii) V2's four fused MRF stages (C 64
+    and 32 as 18 ``mrf_conv`` launches each, C 16 and 8 as one
+    ``mrf_stage`` launch each at their own widths) for a B 8, 896-frame mel
+    in f32 and bf16 against the plain version, timed, C 16 and 8 beside
+    the 18-launch chain at the same shape (C 8 padded to 16, as it ran
+    before the whole-stage kernel); (iii) ESPnet2's LJSpeech
     ``conformer_fastspeech2`` widths (d 384, 2 heads, feed-forward 1536,
     conv kernels 7 and 31, 4 + 4 layers, bf16, seeded weights) served with
     a seeded fused V2 vocoder (f32): 8 concurrent HTTP requests, 8 A a
-    forward, 4 fused stages and 72 ``mrf_conv`` a vocoder call, A and each
-    stage held to their plain versions on inputs the requests gave them;
+    forward, 4 fused stages, 36 ``mrf_conv`` and 2 ``mrf_stage`` a vocoder
+    call, A and each stage held to their plain versions on inputs the
+    requests gave them;
     (iv) 4 train steps of that model (B 16) on phase 11's corpus through
     the ``train`` CLI: 8 A, 8 A', 1 B and 1 + 1 C a step, step ms and peak
     memory. The kernels' line gains the dh 192 rows (``wide_heads``), the
-    V2 stages (``v2_stages``) and the launches as ``wide_serving`` and
-    ``wide_training``.
+    V2 stages (``v2_stages`` of ``mrf_conv`` and ``mrf_stage``), the
+    launches as ``wide_serving`` and ``wide_training``, and the
+    ``mrf_stage`` kernel, whose one path is the V2 vocoder's.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -515,13 +520,16 @@ def phase_device() -> str:
     return smi
 
 
+KERNEL_SOURCES = ["attention_bwd", "attention_fwd", "ctc_banded_lse", "mas_width1", "mrf_conv",
+                  "mrf_stage"]
+
+
 def phase_build() -> None:
     from fastspeech2_lightning_tpu_torch.kernels import build
 
     t0 = time.time()
     names = build.all_sources()
-    check(names == ["attention_bwd", "attention_fwd", "ctc_banded_lse", "mas_width1", "mrf_conv"],
-          f"unexpected kernel sources {names}")
+    check(names == KERNEL_SOURCES, f"unexpected kernel sources {names}")
     logs = build.build(names)
     seconds = time.time() - t0
     for name, out in logs.items():
@@ -4027,7 +4035,7 @@ def phase_tools(workdir: Path, pre: dict) -> dict:
     for line in rows:
         log(f"doctor: {line}")
     kernel_rows = [r for r in rows if r[2:].split(" ")[0].endswith(".cu")]
-    check(doc.returncode == 0 and len(kernel_rows) == 5
+    check(doc.returncode == 0 and len(kernel_rows) == len(KERNEL_SOURCES)
           and all(r.startswith("✓") for r in kernel_rows),
           f"doctor exited {doc.returncode}: {doc.stdout[-2000:]} {doc.stderr[-2000:]}")
     return dict(benchmark={m: {k: r[k] for k in ("mean_ms", "std_ms", "best_ms",
@@ -6516,7 +6524,9 @@ WIDE_ATTENTION = ((16, 2, 2048, 192, 0.2, "bfloat16", True),
 OTHER_HEAD_DIMS = (16, 32, 48, 96, 256)  # padded to 64, 64, 64 and 128; 256 built
 V2_BATCH, V2_FRAMES = 8, 896
 V2_STAGES = ((64, 8), (32, 64), (16, 128), (8, 256))  # (C, samples a mel frame)
-V2_LAUNCHES = len(V2_STAGES) * MRF_LAUNCHES  # a V2 vocoder call, every stage fused
+# a V2 vocoder call, every stage fused: C 64 and 32 a conv a launch, C 16
+# and 8 a stage a launch
+V2_LAUNCHES = {"mrf_conv": 2 * MRF_LAUNCHES, "mrf_stage": 2}
 WIDE_STEPS = 4
 
 
@@ -6660,11 +6670,16 @@ def _wide_attention() -> dict:
 def _v2_stages() -> list:
     """(ii) HiFiGAN V2's four fused stages for a B 8, 896-frame mel, f32 and
     bf16, against the plain version, timed; the bound counts the stage's
-    own C (C 8 runs at 16)."""
+    own C. C 64 and 32 take 18 ``mrf_conv`` launches, C 16 and 8 one
+    ``mrf_stage`` launch; those two are timed beside the 18-launch chain at
+    the same shape, in turns (chain, stage, stage, chain), C 8 padded to 16
+    as it ran before the whole-stage kernel."""
     import torch
+    import torch.nn.functional as F
 
     from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
-        fused_mrf_stage, kernel_channels, mrf_conv, mrf_stage_reference, prepare_stage_weights,
+        fused_mrf_stage, mrf_conv, mrf_conv_chain, mrf_route, mrf_stage, mrf_stage_reference,
+        prepare_stage_weights,
     )
 
     torch.backends.cudnn.allow_tf32 = False
@@ -6672,19 +6687,24 @@ def _v2_stages() -> list:
     rows = []
     for C, rate in V2_STAGES:
         T = V2_FRAMES * rate
+        route = mrf_route(C, KS, DILS)
+        want_launches = {"mrf_conv": MRF_LAUNCHES if route == "conv" else 0,
+                         "mrf_stage": 1 if route == "stage" else 0}
         blocks = _stage_blocks(C, g)
         x32 = torch.randn(V2_BATCH, T, C, device="cuda", generator=g)
         for dt in ("float32", "bfloat16"):
             dtype = getattr(torch, dt)
             x = x32.to(dtype)
             flat = prepare_stage_weights(blocks, KS, DILS, dtype)
-            before = mrf_conv.launches
+            before = {"mrf_conv": mrf_conv.launches, "mrf_stage": mrf_stage.launches}
             out = fused_mrf_stage(x, flat, KS, DILS)
             torch.cuda.synchronize()
-            launches = mrf_conv.launches - before
-            check(launches == MRF_LAUNCHES, f"V2 stage C={C}: {launches} mrf_conv launches")
+            launches = {"mrf_conv": mrf_conv.launches - before["mrf_conv"],
+                        "mrf_stage": mrf_stage.launches - before["mrf_stage"]}
+            check(launches == want_launches, f"V2 stage C={C} ({route} route): {launches}")
             ref_blocks = [{n: w.to(dtype).float() for n, w in p.items()} for p in blocks]
-            max_abs, rel = errors(out, mrf_stage_reference(x.float(), ref_blocks, KS, DILS))
+            want = mrf_stage_reference(x.float(), ref_blocks, KS, DILS)
+            max_abs, rel = errors(out, want)
             check(out.shape == x.shape and rel <= MRF_LIMIT[dt],
                   f"V2 stage C={C} {dt}: rel-L2 {rel} > {MRF_LIMIT[dt]}")
             del out
@@ -6698,18 +6718,46 @@ def _v2_stages() -> list:
             nbytes = 2 * V2_BATCH * T * C * x.element_size() + sum(
                 w.numel() * w.element_size() for p in typed for w in p.values())
             bound, bound_by = bound_ms(flops, nbytes, "bfloat16")
-            row = dict(shape=[V2_BATCH, T, C], dtype=dt, kernel_channels=kernel_channels(C),
+            row = dict(shape=[V2_BATCH, T, C], dtype=dt, route=route,
+                       kernel_channels=flat[1].shape[0],
                        launches_per_stage=launches, max_abs_err=max_abs, rel_l2=rel,
-                       ms=time_ms(kernel_fn, iters=10), device_ms=device_ms(kernel_fn, iters=10),
+                       ms=time_ms(kernel_fn, iters=10),
                        plain_ms=time_ms(lambda: mrf_stage_reference(x, typed, KS, DILS),
                                         iters=5),
                        library_ms=None, bound_ms=bound, bound_by=bound_by,
                        bound_counts=f"{products} bf16 tensor-core product(s) per multiply-add "
                                     f"at C = {C}")
-            log(f"phase 32 V2 stage [{V2_BATCH}, {T}, {C}] {dt} (run at C = "
+            if route == "stage":
+                # the 18-launch chain at 16 channels, on the same weights
+                # padded with zero channels
+                blocks16 = [{n: F.pad(w, (0, 0, 0, 16 - C, 0, 16 - C)) if w.dim() == 3
+                             else F.pad(w, (0, 16 - C)) for n, w in p.items()} for p in blocks]
+                flat16 = prepare_stage_weights(blocks16, KS, DILS, dtype)
+                x16 = F.pad(x, (0, 16 - C)).contiguous()
+                _, chain_rel = errors(mrf_conv_chain(x16, flat16, KS, DILS)[..., :C], want)
+                check(chain_rel <= MRF_LIMIT[dt], f"V2 stage C={C} {dt}: the 18-launch chain "
+                                                  f"rel-L2 {chain_rel}")
+
+                def chain_fn():
+                    return mrf_conv_chain(F.pad(x, (0, 16 - C)).contiguous(), flat16, KS, DILS)
+
+                turns = {"chain": [], "stage": []}
+                for name in ("chain", "stage", "stage", "chain"):
+                    turns[name].append(device_ms(chain_fn if name == "chain" else kernel_fn,
+                                                 iters=10))
+                row.update(device_ms=min(turns["stage"]), chain_device_ms=min(turns["chain"]),
+                           device_ms_turns=turns, chain_rel_l2=chain_rel)
+                del blocks16, flat16, x16
+            else:
+                row["device_ms"] = device_ms(kernel_fn, iters=10)
+            del want
+            log(f"phase 32 V2 stage [{V2_BATCH}, {T}, {C}] {dt} ({route} route at C = "
                 f"{row['kernel_channels']}): max_abs={max_abs:.3e} rel_l2={rel:.3e} "
-                f"kernel_ms={row['ms']:.3f} (device {row['device_ms']:.3f}) plain_ms="
-                f"{row['plain_ms']:.3f} bound_ms={bound:.3f} ({bound_by}); {launches} launches")
+                f"kernel_ms={row['ms']:.3f} (device {row['device_ms']:.3f}"
+                + (f"; the 18-launch chain {row['chain_device_ms']:.3f}, turns "
+                   f"{row['device_ms_turns']}" if route == "stage" else "")
+                + f") plain_ms={row['plain_ms']:.3f} bound_ms={bound:.3f} ({bound_by}); "
+                f"launches {launches}")
             rows.append(row)
             del x
         del x32
@@ -6721,9 +6769,9 @@ def _v2_stages() -> list:
 def _wide_serving(workdir: Path) -> dict:
     """(iii) The d-384 model (bf16, seeded weights) served with the fused
     HiFiGAN V2 vocoder (f32): 8 concurrent HTTP requests of 60-400
-    characters; 8 A a forward, 4 fused stages and 72 mrf_conv a vocoder
-    call; A and each stage held to their plain versions on inputs the path
-    gave them."""
+    characters; 8 A a forward, 4 fused stages, 36 mrf_conv and 2
+    mrf_stage a vocoder call; A and each stage held to their plain versions
+    on inputs the path gave them."""
     import numpy as np
     import torch
 
@@ -6731,7 +6779,7 @@ def _wide_serving(workdir: Path) -> dict:
     from fastspeech2_lightning_tpu_torch.models import conformer, hifigan
     from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
     from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
-        fused_mrf_stage, mrf_conv, mrf_stage_reference,
+        fused_mrf_stage, mrf_conv, mrf_stage, mrf_stage_reference,
     )
     from fastspeech2_lightning_tpu_torch.serving import serve
 
@@ -6773,7 +6821,7 @@ def _wide_serving(workdir: Path) -> dict:
 
     hifigan.fused_mrf_stage, conformer.attention_fwd = stage, attention
     texts = request_texts(rng)
-    attention_fwd.launches = mrf_conv.launches = 0
+    attention_fwd.launches = mrf_conv.launches = mrf_stage.launches = 0
     server.start()
     try:
         t0 = time.time()
@@ -6782,7 +6830,8 @@ def _wide_serving(workdir: Path) -> dict:
                 "text": it[1], "format": "wav" if it[0] % 2 == 0 else "mel"}), enumerate(texts)))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = {"attention_fwd": attention_fwd.launches, "mrf_conv": mrf_conv.launches}
+        launches = {"attention_fwd": attention_fwd.launches, "mrf_conv": mrf_conv.launches,
+                    "mrf_stage": mrf_stage.launches}
     finally:
         server.shutdown()
         hifigan.fused_mrf_stage, conformer.attention_fwd = real_stage, real_att
@@ -6800,8 +6849,9 @@ def _wide_serving(workdir: Path) -> dict:
     widths = sorted({shape[2] for shape, _ in stages}, reverse=True)
     check(launches["attention_fwd"] == 8 * len(forwards) and forwards,
           f"wide serving: {launches['attention_fwd']} A for {len(forwards)} forwards")
-    check(launches["mrf_conv"] == V2_LAUNCHES * len(vocoder_calls) and vocoder_calls,
-          f"wide serving: {launches['mrf_conv']} mrf_conv for {len(vocoder_calls)} vocoder calls")
+    check(vocoder_calls and all(launches[name] == n * len(vocoder_calls)
+                                for name, n in V2_LAUNCHES.items()),
+          f"wide serving: launches {launches} for {len(vocoder_calls)} vocoder calls")
     check(len(stages) == len(V2_STAGES) * len(vocoder_calls)
           and widths == [C for C, _ in V2_STAGES],
           f"wide serving: fused stages {sorted(set(stages))}")
@@ -6938,6 +6988,7 @@ def main() -> None:
     tl, vl = train["launches"], train["validation_launches"]
     ctl, cvl = cond["launches"], cond["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
+    stage_rows = [r for r in wide["v2_stages"] if r["route"] == "stage"]
     sl = {name: sum(syn[run]["launches"].get(name, 0) for run in SYN_RUNS)
           for name in SYN_COUNTERS}
 
@@ -7031,11 +7082,20 @@ def main() -> None:
                                 "trained_vocoder": trained["launches"],
                                 "data_parallel": dp["launches"]["mrf_conv"],
                                 "wide_serving": wide["serving"]["launches"]["mrf_conv"]},
-              v2_stages=wide["v2_stages"],
+              v2_stages=[r for r in wide["v2_stages"] if r["route"] == "conv"],
               timed=f"one MRF stage: {MRF_LAUNCHES} launches",
               device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
               stages=mrf_rows, stream_window_stages=stream["stages"],
               serving_vocoder=launches["vocoder"]),
+        # the served V2 vocoder is f32: its longest stage, C 8 at its own
+        # width, on top; `stages` holds C 16 and 8 in f32 and bf16
+        entry("mrf_stage", stage_rows[-2], "mrf_stage.cu", "ops/vocoder_resblocks.py:168",
+              wide["serving"]["launches"]["mrf_stage"],
+              launches_by_path={"wide_serving": wide["serving"]["launches"]["mrf_stage"]},
+              timed="one MRF stage of C <= 16: 1 launch",
+              device_ms=stage_rows[-2]["device_ms"],
+              chain_device_ms=stage_rows[-2]["chain_device_ms"],
+              bound_counts=stage_rows[-2]["bound_counts"], stages=stage_rows),
     ]
     stream.pop("stages")
     log(f"train: median {train['ms_per_step']:.1f} ms/step, peak {train['peak_gib']:.2f} GiB "

@@ -10,9 +10,8 @@
 // (bf16 or f32), C = 16, 32, 64 or 128, and acc: [B, T, C] f32; the span
 // (K - 1) * d at most 126, which every conv of a stage that the JAX
 // package's gate fuses (a chain within its 64-row halo) keeps to with an odd
-// K. ops/vocoder_resblocks.py pads any other C <= 128 with zero channels up
-// to the next of these widths (C 8 of HiFiGAN V2's last stage to 16). The
-// weights are
+// K. ops/vocoder_resblocks.py pads any other C <= 128 that takes this
+// route with zero channels up to the next of these widths. The weights are
 // always bf16: w [K, C, C] (tap, in, out) for bf16 inputs, and for f32 inputs
 // [2, K, C, C], the f32 weights split into a high and a low bf16 part
 // (w = w_hi + w_lo to 2^-16; ops/vocoder_resblocks.py prepare_stage_weights).
@@ -26,10 +25,14 @@
 //   y = mean_j RB_j(x),  RB_j: for each dilation i,
 //   x += conv_{k_j,1}(lrelu(conv_{k_j,d_i}(lrelu(x))))
 // in one launch, each conv as a tap-stacked product [rows, k C] x [k C, C].
-// The stage wrapper (ops/vocoder_resblocks.py) launches this kernel 18 times
-// for a HiFiGAN V1 stage (kernels 3, 7, 11 x dilations 1, 3, 5 x 2 convs).
-// Fusing each resblock's conv pair into one launch, and then the stage, is
-// queued.
+// The stage wrapper (ops/vocoder_resblocks.py mrf_conv_chain) launches this
+// kernel 18 times for a stage of C 32 to 128 (kernels 3, 7, 11 x dilations
+// 1, 3, 5 x 2 convs: HiFiGAN V1's stages, V2's C 64 and 32). A stage of
+// C <= 16 is one launch of csrc/mrf_stage.cu, which keeps the whole chain on
+// chip; this kernel's C 16 build stays for the narrow stages that one does
+// not take (an even k whose chain reaches past its 64-row halo), at C 1 to
+// 16 zero-padded to 16. The C 32 to 128 stages in one launch are queued
+// (ROADMAP.md).
 //
 // Bound: a stage does 2 * B * T * C^2 * 126 operations on 2 * B * T * C
 // elements moved, so it is compute-bound at every C of the V1 stages.

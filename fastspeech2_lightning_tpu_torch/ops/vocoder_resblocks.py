@@ -6,28 +6,34 @@
 over x [B, T, C] (the JAX package's layout), with SAME padding: positions
 outside [0, T) count as zero before every conv.
 
-``fused_mrf_stage`` runs a stage as launches of ``mrf_conv``, one per conv
-(18 for a V1 stage). ``mrf_conv`` launches the CUDA kernel in
-``csrc/mrf_conv.cu`` on a CUDA tensor (or raises) and runs its plain version
-``mrf_conv_reference`` on a CPU tensor. ``mrf_stage_reference`` is the
-unfused resblock group written with ``F.conv1d``, for the CPU and for
-comparison only. The kernel has no backward: ``mrf_conv`` and
-``fused_mrf_stage`` raise a RuntimeError under grad mode when an input
+``fused_mrf_stage`` runs a stage on one of two CUDA kernels (``mrf_route``).
+A stage of C <= 16 whose deepest chain reaches at most ``HALO`` rows (every
+odd k the gate admits) is one launch of ``mrf_stage`` (``csrc/mrf_stage.cu``,
+built for C 8 and 16); the wider stages, and a narrow one of an even k
+reaching past the halo, are ``mrf_conv_chain``: one ``mrf_conv`` launch per
+conv (``csrc/mrf_conv.cu``, built for C 16, 32, 64 and 128; 18 for a V1
+stage). Each wrapper launches its kernel on a CUDA tensor (or raises) and
+runs its plain version (``mrf_stage_plain``, ``mrf_conv_reference``) on a
+CPU tensor. ``mrf_stage_reference`` is the unfused resblock group written
+with ``F.conv1d``, for the CPU and for comparison only. The kernels have no
+backward: the wrappers raise a RuntimeError under grad mode when an input
 requires grad, on either device, as differentiating the JAX package's
 ``pallas_call`` fails; the vocoder trainer runs the generator unfused.
 
-The kernel multiplies in bf16 on the tensor cores. Its weights are always
-bf16 (``prepare_stage_weights``): [K, C, C] for bf16 activations, and for f32
-activations the pair ``split_bf16(w)`` stacked as [2, K, C, C], with which
-the kernel forms a_hi w_hi + a_lo w_hi + a_hi w_lo and stays f32-accurate.
-It is built for C of 16, 32, 64 and 128 (``KERNEL_CHANNELS``); a stage of
-another C <= 128 runs at the next of them (``kernel_channels``): its weights
-and biases are padded with zeros (``prepare_stage_weights``) and its input
-with zero channels, which stay zero through the leaky ReLU, the convs and
-the residuals, so the first C channels are the stage's exactly.
+The kernels multiply in bf16 on the tensor cores. Their weights are always
+bf16 (``prepare_stage_weights``): [K, C, C] for bf16 activations, and for
+f32 activations the pair ``split_bf16(w)`` stacked as [2, K, C, C], with
+which a kernel forms a_hi w_hi + a_lo w_hi + a_hi w_lo and stays
+f32-accurate. A stage runs at the width of the next build that takes it
+(``stage_channels``: C 1-8 at 8, 9-16 at 16 on ``mrf_stage``; the per-conv
+route at 16, 32, 64 or 128): its weights and biases are padded with zeros
+(``prepare_stage_weights``) and its input with zero channels, which stay
+zero through the leaky ReLU, the convs and the residuals, so the first C
+channels are the stage's exactly.
 
 Replaces ``fastspeech2_lightning_tpu/ops/vocoder_resblocks.py:168
-fused_mrf_stage``; the kernel's bound and design are in its source header.
+fused_mrf_stage``; the kernels' bounds and designs are in their source
+headers.
 """
 
 from __future__ import annotations
@@ -39,10 +45,13 @@ import torch
 import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
-HALO = 64  # the JAX kernel's halo; kept for the same routing gate
-KERNEL_CHANNELS = (16, 32, 64, 128)  # the widths csrc/mrf_conv.cu is built for
-# the longest conv span (k - 1) * dilation it takes: every conv of a stage
-# that HALO admits, with an odd k (k 3 at dilation 63)
+HALO = 64  # the JAX kernel's halo: the routing gate's, and mrf_stage's tile margin
+STAGE_CHANNELS = (8, 16)  # the widths csrc/mrf_stage.cu is built for
+CONV_CHANNELS = (16, 32, 64, 128)  # the widths csrc/mrf_conv.cu is built for
+KERNEL_CHANNELS = STAGE_CHANNELS[:1] + CONV_CHANNELS  # every width a stage runs at
+STAGE_MAX_PAIRS = 32  # conv pairs (dilations over all resblocks) mrf_stage takes
+# the longest conv span (k - 1) * dilation mrf_conv takes: every conv of a
+# stage that HALO admits, with an odd k (k 3 at dilation 63)
 KERNEL_MAX_SPAN = 126
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +59,7 @@ _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p]
 )
+_STAGE_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 # epilogue modes of mrf_conv
 WRITE, ACCUMULATE, FINISH = 0, 1, 2
@@ -58,8 +68,8 @@ WRITE, ACCUMULATE, FINISH = 0, 1, 2
 def mrf_stage_supported(C: int, kernel_sizes, dilation_sizes) -> bool:
     """The routing gate of the JAX package (``vocoder_resblocks.py:214-225``):
     the low-channel stages, C <= 128, whose deepest chain's receptive field
-    fits the TPU kernel's halo. The CUDA kernel takes every such stage
-    (``kernel_channels``; an odd k keeps each conv's span within
+    fits the TPU kernel's halo. The CUDA kernels take every such stage
+    (``mrf_route``; an odd k keeps each conv's span within
     ``KERNEL_MAX_SPAN``). An even k can pass the halo with a longer span
     (k 2 counts no receptive field at any dilation): such a stage stays
     unfused, where the JAX kernel's rolls would wrap."""
@@ -75,13 +85,66 @@ def mrf_stage_supported(C: int, kernel_sizes, dilation_sizes) -> bool:
                for k, dils in zip(kernel_sizes, dilation_sizes))
 
 
-def kernel_channels(C: int) -> int:
-    """The width the kernel runs a stage of C channels at: the least of
-    ``KERNEL_CHANNELS`` that holds C (C 8 at 16, 96 at 128)."""
-    for width in KERNEL_CHANNELS:
+def _extent(k: int, d: int) -> int:
+    """The larger of a conv's two SAME extents: (k - 1) * d // 2 rows
+    before, the rest of its span after."""
+    span = (k - 1) * d
+    return max(span // 2, span - span // 2)
+
+
+def stage_reach(kernel_sizes, dilation_sizes) -> int:
+    """The deepest chain's one-sided reach: over each resblock's dilations,
+    the sum of both convs' SAME extents. For an odd k it is the receptive
+    field the gate counts; for an even k it can be more."""
+    return max(sum(_extent(k, d) + _extent(k, 1) for d in dils)
+               for k, dils in zip(kernel_sizes, dilation_sizes))
+
+
+def _stage_fits(kernel_sizes, dilation_sizes) -> bool:
+    """Whether ``mrf_stage``'s 64-row tile margin holds the stage."""
+    return (stage_reach(kernel_sizes, dilation_sizes) <= HALO
+            and sum(len(d) for d in dilation_sizes) <= STAGE_MAX_PAIRS)
+
+
+def mrf_route(C: int, kernel_sizes, dilation_sizes) -> str:
+    """How a stage of C channels runs: "unfused" where the gate
+    (``mrf_stage_supported``) refuses it; "stage", one ``mrf_stage`` launch,
+    at C <= 16 when the deepest chain reaches at most ``HALO`` rows (and it
+    has at most ``STAGE_MAX_PAIRS`` dilations); else "conv", one
+    ``mrf_conv`` launch a conv."""
+    if not mrf_stage_supported(C, kernel_sizes, dilation_sizes):
+        return "unfused"
+    if C <= STAGE_CHANNELS[-1] and _stage_fits(kernel_sizes, dilation_sizes):
+        return "stage"
+    return "conv"
+
+
+def _next_width(C: int, widths) -> int:
+    for width in widths:
         if C <= width:
             return width
-    raise ValueError(f"the MRF kernel takes C <= {KERNEL_CHANNELS[-1]}, got {C}")
+    raise ValueError(f"the MRF kernel takes C <= {widths[-1]}, got {C}")
+
+
+def kernel_channels(C: int) -> int:
+    """The least of ``KERNEL_CHANNELS`` that holds C (C 1-8 at 8, 96 at
+    128): the width a stage of C channels runs at, but for a narrow stage
+    on the per-conv route, which runs at 16 (``stage_channels``)."""
+    return _next_width(C, KERNEL_CHANNELS)
+
+
+def conv_channels(C: int) -> int:
+    """The width ``mrf_conv`` runs C channels at: the least of
+    ``CONV_CHANNELS`` that holds C (C 8 at 16)."""
+    return _next_width(C, CONV_CHANNELS)
+
+
+def stage_channels(C: int, kernel_sizes, dilation_sizes) -> int:
+    """The width a stage of C channels runs at: ``kernel_channels(C)`` on
+    the "stage" route, ``conv_channels(C)`` on the "conv" route."""
+    if mrf_route(C, kernel_sizes, dilation_sizes) == "stage":
+        return kernel_channels(C)
+    return conv_channels(C)
 
 
 def _pad_channels(t: torch.Tensor, width: int, dims: int) -> torch.Tensor:
@@ -110,15 +173,16 @@ def prepare_stage_weights(
 ) -> List[torch.Tensor]:
     """Flatten one stage's resblocks, given in torch Conv1d layout
     (``convs1.{i}.weight`` [C, C, k], ``convs1.{i}.bias`` [C], ...), into
-    the kernel's order: for each resblock j, for each dilation i:
-    W1, b1, W2, b2, contiguous, at the kernel's width Cp =
-    ``kernel_channels(C)`` (zero rows, columns and biases past C). For
+    the kernels' order: for each resblock j, for each dilation i:
+    W1, b1, W2, b2, contiguous, at the stage's width Cp =
+    ``stage_channels(C, ...)`` (zero rows, columns and biases past C). For
     activations of `dtype` bf16 a W is bf16 [k, Cp, Cp] (tap, in, out); for
     f32 it is ``split_bf16`` of that, bf16 [2, k, Cp, Cp]. The biases are
     [Cp] in `dtype`."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"prepare_stage_weights: dtype {dtype} not supported")
-    width = kernel_channels(stage_params[0]["convs1.0.bias"].shape[0])
+    width = stage_channels(stage_params[0]["convs1.0.bias"].shape[0], kernel_sizes,
+                           dilation_sizes)
     flat: List[torch.Tensor] = []
     for j, dils in enumerate(dilation_sizes):
         p = stage_params[j]
@@ -192,7 +256,7 @@ def mrf_conv(
     out = acc + scale * y, with SAME padding. x, residual, out: [B, T, C]
     contiguous, C <= 128; w as ``prepare_stage_weights`` gives it for x's
     dtype (bf16 [K, Cp, Cp], or [2, K, Cp, Cp] for f32 x, at Cp =
-    ``kernel_channels(C)``), (K - 1) * dilation <= 126; bias [Cp]; acc
+    ``conv_channels(C)``), (K - 1) * dilation <= 126; bias [Cp]; acc
     [B, T, C] f32. At C < Cp the operands are copied to Cp channels and
     back (``_mrf_conv_padded``); that per-call path is for direct callers of
     one conv only: ``fused_mrf_stage``, the port's one caller, pads a
@@ -211,12 +275,12 @@ def mrf_conv(
     K = w.shape[-3]
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"mrf_conv: dtype {x.dtype} not supported")
-    width = kernel_channels(C)
+    width = conv_channels(C)
     if C != width and w.shape[-1] == width:
         _mrf_conv_padded(x, w, bias, dilation, residual, out, acc, mode, scale)
         return
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"mrf_conv: C={C} not in {KERNEL_CHANNELS}")
+    if C not in CONV_CHANNELS:
+        raise ValueError(f"mrf_conv: C={C} not in {CONV_CHANNELS}")
     if dilation < 1 or (K - 1) * dilation > KERNEL_MAX_SPAN:
         raise ValueError(f"mrf_conv: kernel size {K} with dilation {dilation} not supported: "
                          f"(K - 1) * dilation must be at most {KERNEL_MAX_SPAN}")
@@ -278,26 +342,113 @@ def _mrf_conv_padded(x, w, bias, dilation, residual, out, acc, mode, scale) -> N
         acc.copy_(acc_p[..., : x.shape[-1]])
 
 
-def fused_mrf_stage(
+def mrf_stage_plain(
     x: torch.Tensor,
     flat_weights: Sequence[torch.Tensor],
     kernel_sizes: Sequence[int] = (3, 7, 11),
     dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
 ) -> torch.Tensor:
-    """A whole stage, x [B, T, C] -> mean_j RB_j(x) [B, T, C], as one
-    ``mrf_conv`` per conv, with `flat_weights` from ``prepare_stage_weights``.
-    Below the kernel's width (C 8 runs at 16) x is padded with zero
-    channels once and the result sliced back. Buffers: t (the inner conv's
-    output), s (the running resblock state, updated in place) and an f32
-    accumulator of the resblock average, which the last conv of the last
-    resblock writes out. Raises under autograd (``_refuse_autograd``)."""
-    _refuse_autograd("fused_mrf_stage", x, *flat_weights)
-    C = x.shape[-1]
-    width = flat_weights[1].shape[0]
-    if C < width:
-        return fused_mrf_stage(_pad_channels(x, width, 1), flat_weights, kernel_sizes,
-                               dilation_sizes)[..., :C]
-    x = x.contiguous()
+    """Plain version of ``mrf_stage``: the stage as ``mrf_conv_reference``
+    calls on the prepared weights (the f32 sum of a split pair), x and
+    every intermediate in f32, the result in x's dtype. Of weights padded
+    past x's C only the first C channels count."""
+    xf = x.float()
+    acc = torch.zeros_like(xf)
+    pos = 0
+    for dils in dilation_sizes:
+        s = xf
+        for d in dils:
+            w1, b1, w2, b2 = flat_weights[pos : pos + 4]
+            pos += 4
+            t, s_next = torch.empty_like(xf), torch.empty_like(xf)
+            mrf_conv_reference(s, w1, b1, d, out=t)
+            mrf_conv_reference(t, w2, b2, 1, residual=s, out=s_next)
+            s = s_next
+        acc += s
+    return (acc / len(kernel_sizes)).to(x.dtype)
+
+
+def mrf_stage(
+    x: torch.Tensor,
+    flat_weights: Sequence[torch.Tensor],
+    kernel_sizes: Sequence[int] = (3, 7, 11),
+    dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+) -> torch.Tensor:
+    """A whole stage in one launch of ``csrc/mrf_stage.cu``: x [B, T, C]
+    contiguous, C 8 or 16, f32 or bf16 -> y [B, T, C] in x's dtype, with
+    `flat_weights` as ``prepare_stage_weights`` gives them at C (bf16
+    [k, C, C], or [2, k, C, C] for f32 x; biases [C] in x's dtype). Takes a
+    stage whose deepest chain reaches at most ``HALO`` rows
+    (``stage_reach``) over at most ``STAGE_MAX_PAIRS`` dilations. On a CPU
+    tensor it runs ``mrf_stage_plain``. Raises under autograd
+    (``_refuse_autograd``) and on anything the kernel does not take."""
+    _refuse_autograd("mrf_stage", x, *flat_weights)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mrf_stage: unsupported device {x.device}")
+    if x.device.type == "cpu":
+        return mrf_stage_plain(x, flat_weights, kernel_sizes, dilation_sizes)
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"mrf_stage: dtype {x.dtype} not supported")
+    if x.dim() != 3 or x.shape[-1] not in STAGE_CHANNELS or not x.is_contiguous():
+        raise ValueError(f"mrf_stage: x must be a contiguous [B, T, C] with C in "
+                         f"{STAGE_CHANNELS}, got {tuple(x.shape)}")
+    B, T, C = x.shape
+    if not 1 <= B <= 65535 or T < 1:
+        raise ValueError(f"mrf_stage: B {B}, T {T} not supported (1 <= B <= 65535, T >= 1)")
+    if len(kernel_sizes) != len(dilation_sizes) or not _stage_fits(kernel_sizes, dilation_sizes):
+        raise ValueError(
+            f"mrf_stage: kernel sizes {tuple(kernel_sizes)} with dilations "
+            f"{tuple(map(tuple, dilation_sizes))}: the deepest chain must reach at most {HALO} "
+            f"rows over at most {STAGE_MAX_PAIRS} dilations")
+    ks = [k for k, dils in zip(kernel_sizes, dilation_sizes) for _ in dils]
+    if len(flat_weights) != 4 * len(ks):
+        raise ValueError(f"mrf_stage: {len(flat_weights)} weights for {len(ks)} conv pairs")
+    for i, (w, bias) in enumerate(zip(flat_weights[0::2], flat_weights[1::2])):
+        k = ks[i // 2]
+        want_w = (2, k, C, C) if x.dtype == torch.float32 else (k, C, C)
+        if w.shape != want_w or w.dtype != torch.bfloat16 or bias.shape != (C,) \
+                or bias.dtype != x.dtype:
+            raise ValueError(
+                f"mrf_stage: conv {i} weights {w.dtype} {tuple(w.shape)}, bias {bias.dtype} "
+                f"{tuple(bias.shape)}: want bf16 {want_w} (prepare_stage_weights) and "
+                f"{x.dtype} [{C}] for {x.dtype} x")
+        if w.device != x.device or bias.device != x.device or not w.is_contiguous() \
+                or not bias.is_contiguous():
+            raise ValueError(f"mrf_stage: conv {i}'s weights must be contiguous on {x.device}")
+    y = torch.empty_like(x)
+
+    from ..kernels import build
+
+    lib = build.load("mrf_stage", {"mrf_stage": _STAGE_ARGTYPES})
+    n = len(flat_weights) // 2
+    err = build.launch(
+        x.device, lib.mrf_stage, _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
+        (ctypes.c_void_p * n)(*(w.data_ptr() for w in flat_weights[0::2])),
+        (ctypes.c_void_p * n)(*(b.data_ptr() for b in flat_weights[1::2])),
+        (ctypes.c_int * len(kernel_sizes))(*kernel_sizes),
+        (ctypes.c_int * len(dilation_sizes))(*(len(d) for d in dilation_sizes)),
+        (ctypes.c_int * len(ks))(*(d for dils in dilation_sizes for d in dils)),
+        len(kernel_sizes), B, T, C, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "mrf_stage")
+    build.count(mrf_stage)
+    return y
+
+
+mrf_stage.launches = 0
+
+
+def mrf_conv_chain(
+    x: torch.Tensor,
+    flat_weights: Sequence[torch.Tensor],
+    kernel_sizes: Sequence[int] = (3, 7, 11),
+    dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+) -> torch.Tensor:
+    """A whole stage as one ``mrf_conv`` per conv (18 for a V1 stage), x
+    [B, T, C] contiguous at the weights' width. Buffers: t (the inner
+    conv's output), s (the running resblock state, updated in place) and an
+    f32 accumulator of the resblock average, which the last conv of the
+    last resblock writes out."""
     t = torch.empty_like(x)
     s_buf = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -320,6 +471,30 @@ def fused_mrf_stage(
                 mrf_conv(t, w2, b2, 1, residual=s, out=out, acc=acc, mode=FINISH,
                          scale=scale)
     return out
+
+
+def fused_mrf_stage(
+    x: torch.Tensor,
+    flat_weights: Sequence[torch.Tensor],
+    kernel_sizes: Sequence[int] = (3, 7, 11),
+    dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+) -> torch.Tensor:
+    """A whole stage, x [B, T, C] -> mean_j RB_j(x) [B, T, C], with
+    `flat_weights` from ``prepare_stage_weights``: one ``mrf_stage`` launch
+    where the weights' width is one of ``STAGE_CHANNELS`` and the stage fits
+    its tile margin, else ``mrf_conv_chain``. Below the weights' width
+    (C 12 runs at 16) x is padded with zero channels once and the result
+    sliced back. Raises under autograd (``_refuse_autograd``)."""
+    _refuse_autograd("fused_mrf_stage", x, *flat_weights)
+    C = x.shape[-1]
+    width = flat_weights[1].shape[0]
+    if C < width:
+        return fused_mrf_stage(_pad_channels(x, width, 1), flat_weights, kernel_sizes,
+                               dilation_sizes)[..., :C]
+    x = x.contiguous()
+    if width in STAGE_CHANNELS and _stage_fits(kernel_sizes, dilation_sizes):
+        return mrf_stage(x, flat_weights, kernel_sizes, dilation_sizes)
+    return mrf_conv_chain(x, flat_weights, kernel_sizes, dilation_sizes)
 
 
 def mrf_stage_reference(

@@ -29,8 +29,12 @@ the MRF conv in f32 within 5e-5, since it multiplies f32 inputs as split
 bf16 pairs on the tensor cores, at T off its 128-row tile and under its halo,
 with each epilogue mode, and on the edge rows alone, at C 16 to 128 and at
 C 8 padded to 16, at spans past 50 and with even kernel sizes, and its stage
-at the three B = 1 shapes of a low-latency window of the V1 vocoder, and raising
-under autograd before it launches;
+(18 launches) at C 32 to 128 and at the three B = 1 shapes of a low-latency
+window of the V1 vocoder, and raising under autograd before it launches;
+the whole-stage MRF kernel (one launch) at C 4 to 16 within the same
+limits, on other stage shapes (k 1 to 65, even k, unequal dilation counts),
+an even-k narrow stage past its halo on the per-conv route instead, and
+raising under autograd before it launches;
 MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
 1e-5; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
@@ -88,6 +92,8 @@ from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
     fused_mrf_stage,
     mrf_conv,
     mrf_conv_reference,
+    mrf_route,
+    mrf_stage,
     mrf_stage_reference,
     mrf_stage_supported,
     prepare_stage_weights,
@@ -119,6 +125,7 @@ def _c_params(source: str, entry: str) -> list:
     ("ctc_banded_lse", "ctc_alpha_beta", ctc._ALPHA_BETA_ARGTYPES),
     ("ctc_banded_lse", "ctc_grad", ctc._GRAD_ARGTYPES),
     ("mrf_conv", "mrf_conv", vocoder_resblocks._ARGTYPES),
+    ("mrf_stage", "mrf_stage", vocoder_resblocks._STAGE_ARGTYPES),
 ])
 def test_c_entries_match_declared_argtypes(source, entry, argtypes):
     assert _c_params(source, entry) == list(argtypes)
@@ -126,7 +133,7 @@ def test_c_entries_match_declared_argtypes(source, entry, argtypes):
 
 def test_every_source_is_built_for_sm_90a():
     assert build.all_sources() == ["attention_bwd", "attention_fwd", "ctc_banded_lse",
-                                   "mas_width1", "mrf_conv"]
+                                   "mas_width1", "mrf_conv", "mrf_stage"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
@@ -489,13 +496,14 @@ KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
 
 
-def _stage_blocks(C, device, seed=1):
-    """One V1 stage's resblocks in torch Conv1d layout, fan-in scaled."""
+def _stage_blocks(C, device, seed=1, ks=KS, dils=DILS):
+    """One stage's resblocks (a V1 stage's by default) in torch Conv1d
+    layout, fan-in scaled."""
     g = torch.Generator(device=device).manual_seed(seed)
     blocks = []
-    for k in KS:
+    for k, ds in zip(ks, dils):
         p = {}
-        for i in range(3):
+        for i in range(len(ds)):
             for name in ("convs1", "convs2"):
                 p[f"{name}.{i}.weight"] = (torch.randn(C, C, k, device=device, generator=g)
                                            / math.sqrt(k * C))
@@ -658,22 +666,65 @@ def test_mrf_stage_at_a_streaming_window_matches_plain_version(cuda, C, T, dtype
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("C", [4, 8, 12, 16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T", [(2, 300), (1, 37), (1, 127), (1, 129), (1, 257), (1, 1000)])
 def test_mrf_stage_kernel_matches_plain_version(cuda, C, dtype, B, T):
-    blocks = _stage_blocks(C, cuda)
+    """A stage of C <= 16 is one launch of the whole-stage kernel, a wider
+    one 18 launches of the conv kernel; both within ``_mrf_tol``, on the
+    whole output and on the first and last 64 rows (where SAME padding
+    shows)."""
+    _check_stage(cuda, C, dtype, B, T, KS, DILS)
+
+
+def _check_stage(cuda, C, dtype, B, T, ks, dils, seed=1):
+    blocks = _stage_blocks(C, cuda, seed=seed, ks=ks, dils=dils)
     g = torch.Generator(device=cuda).manual_seed(T)
     x = torch.randn(B, T, C, device=cuda, generator=g).to(dtype)
-    flat = prepare_stage_weights(blocks, KS, DILS, dtype)
-    before = mrf_conv.launches
-    out = fused_mrf_stage(x, flat, KS, DILS)
+    flat = prepare_stage_weights(blocks, ks, dils, dtype)
+    convs, stages = mrf_conv.launches, mrf_stage.launches
+    out = fused_mrf_stage(x, flat, ks, dils)
     torch.cuda.synchronize()
-    assert mrf_conv.launches == before + 18
+    if mrf_route(C, ks, dils) == "stage":
+        assert (mrf_conv.launches - convs, mrf_stage.launches - stages) == (0, 1)
+    else:
+        assert (mrf_conv.launches - convs, mrf_stage.launches - stages) == \
+            (2 * sum(len(d) for d in dils), 0)
     ref_blocks = [{n: w.to(dtype).float() for n, w in p.items()} for p in blocks]
-    want = mrf_stage_reference(x.float(), ref_blocks, KS, DILS)
+    want = mrf_stage_reference(x.float(), ref_blocks, ks, dils)
     assert out.dtype == dtype and out.shape == x.shape
-    assert _rel(out, want) <= _mrf_tol(dtype)
+    edge = min(T, 64)
+    for part in (slice(None), slice(0, edge), slice(T - edge, T)):
+        assert _rel(out[:, part], want[:, part]) <= _mrf_tol(dtype)
+
+
+# whole-stage shapes besides V1's and V2's (all on the one-launch route):
+# k 1 beside k 5 with unequal dilation counts, an even k within the halo,
+# four dilations, the widest conv (k 65: the largest weight buffers), k 2
+# at a span of 63
+OTHER_STAGES = [((1, 5), ((1, 2), (3,))), ((4,), ((1, 3, 5),)),
+                ((3, 7), ((1, 3, 5, 7), (1, 2))), ((65,), ((1,),)), ((2,), ((63,),))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ks,dils", OTHER_STAGES)
+def test_mrf_stage_kernel_at_other_stage_shapes(cuda, C, dtype, ks, dils):
+    assert mrf_route(C, ks, dils) == "stage"
+    _check_stage(cuda, C, dtype, 2, 300, ks, dils, seed=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_even_kernel_narrow_stage_past_the_halo_takes_the_conv_route(cuda, C, dtype):
+    """k 4 at dilations 9 x 5: JAX's gate counts 50, the chain reads 80
+    rows to one side, past the whole-stage kernel's 64: 10 ``mrf_conv``
+    launches at C 16."""
+    ks, dils = (4,), ((9, 9, 9, 9, 9),)
+    assert mrf_route(C, ks, dils) == "conv"
+    _check_stage(cuda, C, dtype, 2, 300, ks, dils, seed=2)
 
 
 @pytest.mark.gpu
@@ -707,7 +758,7 @@ def _check_mrf_conv(cuda, C, dtype, mode, K, dil):
     acc0 = torch.randn(B, T, C, device=cuda, generator=g)
     w32 = torch.randn(K, C, C, device=cuda, generator=g) / math.sqrt(K * C)
     bias = (0.1 * torch.randn(C, device=cuda, generator=g)).to(dtype)
-    width = vocoder_resblocks.kernel_channels(C)
+    width = vocoder_resblocks.conv_channels(C)
     w_k = torch.nn.functional.pad(w32, (0, width - C, 0, width - C))
     w = split_bf16(w_k) if dtype == torch.float32 else w_k.to(torch.bfloat16)
     w_ref = w32 if dtype == torch.float32 else w32.to(torch.bfloat16).float()
@@ -747,6 +798,45 @@ def test_mrf_kernel_refuses_autograd_on_the_card(cuda):
         fused_mrf_stage(x, flat, KS, DILS)
     torch.cuda.synchronize()
     assert mrf_conv.launches == before + 18
+
+
+@pytest.mark.gpu
+def test_mrf_stage_kernel_refuses_autograd_on_the_card(cuda):
+    """The whole-stage kernel, too, raises under autograd before it launches."""
+    blocks = _stage_blocks(16, cuda)
+    x = torch.randn(1, 300, 16, device=cuda, requires_grad=True)
+    flat = prepare_stage_weights(blocks, KS, DILS, torch.float32)
+    before = mrf_stage.launches
+    for fn in (fused_mrf_stage, mrf_stage):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(x, flat, KS, DILS)
+    assert mrf_stage.launches == before
+    with torch.no_grad():
+        fused_mrf_stage(x, flat, KS, DILS)
+    torch.cuda.synchronize()
+    assert mrf_stage.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_mrf_stage_raises_on_what_the_kernel_does_not_take(cuda):
+    blocks = _stage_blocks(16, cuda)
+    flat = prepare_stage_weights(blocks, KS, DILS, torch.float32)
+    x = torch.zeros(1, 64, 16, device=cuda)
+    mrf_stage(x, flat, KS, DILS)
+    with pytest.raises(ValueError, match="C in"):
+        mrf_stage(torch.zeros(1, 64, 32, device=cuda), flat, KS, DILS)
+    with pytest.raises(ValueError, match="C in"):
+        mrf_stage(torch.zeros(1, 32, 64, device=cuda).transpose(1, 2), flat, KS, DILS)
+    with pytest.raises(ValueError, match="reach at most 64"):
+        mrf_stage(x, flat, (4,), ((9, 9, 9, 9, 9),))
+    with pytest.raises(ValueError, match="weights for"):
+        mrf_stage(x, flat[:-4], KS, DILS)
+    with pytest.raises(ValueError, match="prepare_stage_weights"):
+        mrf_stage(x.bfloat16(), flat, KS, DILS)  # f32 pairs for bf16 x
+    with pytest.raises(ValueError, match="not supported"):
+        mrf_stage(x.half(), flat, KS, DILS)
+    with pytest.raises(ValueError, match="contiguous on"):
+        mrf_stage(x, [w.cpu() if i == 0 else w for i, w in enumerate(flat)], KS, DILS)
 
 
 @pytest.mark.gpu

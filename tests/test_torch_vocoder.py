@@ -1,12 +1,12 @@
 """The PyTorch port's HiFiGAN path (models/hifigan.py, ops/vocoder_resblocks.py)
 against the JAX package on the same random weights.
 
-``mrf_stage_reference`` is the plain version of the CUDA kernel
-``csrc/mrf_conv.cu``: it must equal the JAX Pallas MRF stage
-(``fused_mrf_stage(..., interpret=True)``) and its numpy golden in f32
-within relative 1e-5. The generator, with fused=False and fused=True (the
-stage wrapper's CPU path, 18 plain-version convs a stage, where a stage has a
-width the kernel takes), must equal the
+``mrf_stage_reference`` is the plain version of a stage of the CUDA kernels
+``csrc/mrf_stage.cu`` and ``csrc/mrf_conv.cu``: it must equal the JAX
+Pallas MRF stage (``fused_mrf_stage(..., interpret=True)``) and its numpy
+golden in f32 within relative 1e-5. The generator, with fused=False and
+fused=True (the stage wrapper's CPU path: ``mrf_stage_plain`` for a stage of
+C <= 16, 18 plain-version convs for a wider one), must equal the
 JAX generator within max-abs 1e-5, and the port's .npz/.pt loading must give
 the weights the JAX loader gives. The kernel itself is held against the
 plain version on the card by tests/test_torch_kernels.py."""
@@ -29,6 +29,7 @@ from fastspeech2_lightning_tpu_torch.models import hifigan as port_hifigan
 from fastspeech2_lightning_tpu_torch.ops.vocoder_resblocks import (
     fused_mrf_stage,
     mrf_conv,
+    mrf_stage,
     mrf_stage_reference,
     prepare_stage_weights,
 )
@@ -96,15 +97,15 @@ def test_stage_reference_matches_numpy_golden(stage):
 
 
 def test_stage_wrapper_cpu_path_matches_reference(stage):
-    """fused_mrf_stage's buffer schedule (18 mrf_conv calls with residual,
-    accumulate and finish epilogues) on CPU tensors, which run each conv's
-    plain version and count no launches."""
+    """fused_mrf_stage on CPU tensors at C 16, the whole-stage route: the
+    plain version of the one-launch kernel (``mrf_stage_plain``), which
+    counts no launches."""
     x, _, tblocks = stage
-    before = mrf_conv.launches
+    before = mrf_conv.launches, mrf_stage.launches
     flat = prepare_stage_weights(tblocks, KS, DILS, torch.float32)
     assert len(flat) == 4 * 9
     got = fused_mrf_stage(torch.as_tensor(x), flat, KS, DILS)
-    assert mrf_conv.launches == before
+    assert (mrf_conv.launches, mrf_stage.launches) == before
     want = mrf_stage_reference(torch.as_tensor(x), tblocks, KS, DILS)
     assert _rel(got.numpy(), want.numpy()) <= 1e-5
 
@@ -145,11 +146,12 @@ def test_generator_matches_jax(generator, fused):
 
 def test_generator_fused_stage_at_a_kernel_width_matches_jax(monkeypatch):
     """Every stage of this generator passes the gate (C <= 128; JAX's), and
-    those of 256 frames or more are fused: C = 32 at 320 frames, a width the
-    CUDA kernel is built for, C 16 at 2560 (built too), and C 8 and 4 at
-    5120 and 10240, which run at 16 with zero channels. Each goes through ``fused_mrf_stage`` (on the CPU,
-    the plain version on the prepared bf16 weight pairs) and the whole must
-    still equal the JAX generator."""
+    those of 256 frames or more are fused: C = 32 at 320 frames on the
+    per-conv kernel's route, C 16 at 2560 and C 8 at 5120 on the
+    whole-stage kernel's at their own widths, and C 4 at 10240, which runs
+    at 8 with zero channels. Each goes through ``fused_mrf_stage`` (on the
+    CPU, the route's plain version on the prepared bf16 weight pairs) and
+    the whole must still equal the JAX generator."""
     kw = dict(GEN_CONFIG, upsample_initial_channel=64)
     jcfg = jax_hifigan.HiFiGANConfig(**kw)
     params = jax_hifigan.init_random_hifigan(jcfg, seed=6)

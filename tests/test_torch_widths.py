@@ -17,9 +17,10 @@
   of a sum may differ); dh 257 refused.
 - The port's MRF routing gate equal to the JAX package's over C 1..256, odd
   k 3..13, dilation triples from {1, 2, 3, 5, 7, 9} and single dilations to
-  63; a stage of C 8 to 96 run at the kernel's next width with zero
-  channels, against the unpadded plain stage on the same weights: rel-L2 at
-  most 1e-6 in f32.
+  63; a stage of C 8 to 96 at the width its route runs it at (C 8 at its
+  own width on the whole-stage kernel, 24 at 32 and 96 at 128 with zero
+  channels), against the unpadded plain stage on the same weights: rel-L2
+  at most 1e-6 in f32.
 - The port's HiFiGAN V2 generator (``upsample_initial_channel`` 128, jik876's
   ``config_v2.json``), fused, against the JAX package's ``make_vocoder_fn``
   on a short mel: its four stages C 64, 32, 16 and 8 all fused, within
@@ -288,10 +289,11 @@ def _stage_blocks(C, seed):
 
 @pytest.mark.parametrize("C", [8, 16, 24, 48, 96])
 def test_mrf_stage_with_zero_channels_equals_the_unpadded_stage(C):
-    """``prepare_stage_weights`` pads to the kernel's width with zeros and
-    ``fused_mrf_stage`` pads its input; on the CPU each conv is the plain
-    version on the prepared (split bf16) weights, so the reference is the
-    unpadded plain stage on the same weights rebuilt in f32."""
+    """``prepare_stage_weights`` pads to the route's width with zeros (none
+    at C 8 and 16, the whole-stage kernel's widths) and ``fused_mrf_stage``
+    pads its input; on the CPU the route's plain version runs on the
+    prepared (split bf16) weights, so the reference is the unpadded plain
+    stage on the same weights rebuilt in f32."""
     width = port_mrf.kernel_channels(C)
     blocks = _stage_blocks(C, C)
     flat = port_mrf.prepare_stage_weights(blocks, KS, DILS, torch.float32)
