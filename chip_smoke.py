@@ -109,7 +109,7 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     validation mels vocoded fused (MRF kernel, mrf_conv launches counted)
     and unfused in f32 within 5e-5; one Synthesizer request with it; the
     MRF stage raising under autograd before it launches;
- 24. preprocessing: a seeded wav corpus (128 utterances of 1-11 s of
+ 24. preprocessing: a seeded wav corpus (64 utterances of 1-11 s of
     harmonic tones with vibrato, silences and noise bursts; 16 stereo
     44.1 kHz files under sox effects; one of 12 s and one of 0.3 s that the
     length filter drops) through the ``preprocess`` CLI in a subprocess,
@@ -3409,7 +3409,7 @@ def phase_trained_vocoder(workdir: Path, ckpt_dir: Path, config_path: Path) -> d
 
 # -- phase 24: preprocess a wav corpus, then train on it ------------------------
 
-N_WAVS = 128  # utterances of 1-11 s in the main source
+N_WAVS = 64  # utterances of 1-11 s in the main source
 N_STEREO = 16  # 44.1 kHz stereo files of 1-4 s under sox effects
 STEREO_EFFECTS = [["channels", "1"], ["rate", "22050"]]
 PRE_STEPS = 4
@@ -3911,16 +3911,11 @@ def phase_tools(workdir: Path, pre: dict) -> dict:
     ``--use-ema`` on phase 11's step directories (one step more makes the
     second), the average served for one request; ``export-checkpoint`` of
     it synthesizing the step directory's mel; ``doctor`` on phase 24's
-    config with every kernel row OK."""
-    import numpy as np
+    config with every kernel row OK, run beside the checkpoint tools."""
     import torch
 
-    from fastspeech2_lightning_tpu_torch import cli
     from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
     from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
-    from fastspeech2_lightning_tpu_torch.serving import serve
-    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
-    from fastspeech2_lightning_tpu_torch.training.checkpoint import load_train_state, read_meta
 
     config_path = workdir / "config.json"  # phase 11's
     flags = ("--warmup-reps", str(BENCH_WARMUP), "--repetitions", str(BENCH_REPS))
@@ -3980,6 +3975,43 @@ def phase_tools(workdir: Path, pre: dict) -> dict:
     for name, (n, us) in top[:12]:
         log(f"benchmark trace kernel {name[:70]}: {n} events, {us / 1e3:.3f} ms")
 
+    # the doctor in a subprocess, beside the checkpoint tools
+    doc = subprocess.Popen([sys.executable, "-m", PORT, "doctor", str(pre["config_path"]),
+                            "--device-timeout", "120"], cwd=HERE, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        steps, mel = _checkpoint_tools(workdir, config_path)
+        doc_out, doc_err = doc.communicate(timeout=600)
+    finally:
+        _end([doc])
+    rows = doc_out.strip().splitlines()
+    for line in rows:
+        log(f"doctor: {line}")
+    kernel_rows = [r for r in rows if r[2:].split(" ")[0].endswith(".cu")]
+    check(doc.returncode == 0 and len(kernel_rows) == len(KERNEL_SOURCES)
+          and all(r.startswith("✓") for r in kernel_rows),
+          f"doctor exited {doc.returncode}: {doc_out[-2000:]} {doc_err[-2000:]}")
+    return dict(benchmark={m: {k: r[k] for k in ("mean_ms", "std_ms", "best_ms",
+                                                  "tflop_per_call", "mfu_percent", "launches",
+                                                  "wall_s")} for m, r in runs.items()},
+                calls=calls, kernels=kernels,
+                trace=dict(events=held["events"], busy_ms_per_call=busy_ms,
+                           mean_ms=prof["mean_ms"], kernels=dict(top[:20])),
+                averaged_steps=steps[-2:], served_frames=int(mel.shape[0]),
+                doctor=rows)
+
+
+def _checkpoint_tools(workdir: Path, config_path: Path) -> tuple:
+    """Phase 26's ``average-checkpoints`` and ``export-checkpoint`` on phase
+    11's step directories; the step numbers and the averaged model's mel."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.serving import serve
+    from fastspeech2_lightning_tpu_torch.synthesis.api import Synthesizer
+    from fastspeech2_lightning_tpu_torch.training.checkpoint import load_train_state, read_meta
+
     # average-checkpoints on phase 11's step directories: one step more, keeping the
     # newest three, makes a second
     ckpt_dir = workdir / "logs" / "smoke" / "train" / "checkpoints"
@@ -4027,25 +4059,7 @@ def phase_tools(workdir: Path, pre: dict) -> dict:
           f"directory's {from_dir.shape}")
     log(f"export-checkpoint: {exported.name} synthesizes the step directory's mel "
         f"({from_dir.shape[0]} frames, equal)")
-
-    doc = subprocess.run([sys.executable, "-m", PORT, "doctor", str(pre["config_path"]),
-                          "--device-timeout", "120"], cwd=HERE, capture_output=True, text=True,
-                         timeout=600)
-    rows = doc.stdout.strip().splitlines()
-    for line in rows:
-        log(f"doctor: {line}")
-    kernel_rows = [r for r in rows if r[2:].split(" ")[0].endswith(".cu")]
-    check(doc.returncode == 0 and len(kernel_rows) == len(KERNEL_SOURCES)
-          and all(r.startswith("✓") for r in kernel_rows),
-          f"doctor exited {doc.returncode}: {doc.stdout[-2000:]} {doc.stderr[-2000:]}")
-    return dict(benchmark={m: {k: r[k] for k in ("mean_ms", "std_ms", "best_ms",
-                                                  "tflop_per_call", "mfu_percent", "launches",
-                                                  "wall_s")} for m, r in runs.items()},
-                calls=calls, kernels=kernels,
-                trace=dict(events=held["events"], busy_ms_per_call=busy_ms,
-                           mean_ms=prof["mean_ms"], kernels=dict(top[:20])),
-                averaged_steps=steps[-2:], served_frames=int(mel.shape[0]),
-                doctor=rows)
+    return steps, mel
 
 
 # -- phase 27: export-serving and .fs2x ----------------------------------------------------
@@ -4363,8 +4377,9 @@ def _program_calls(ex) -> list:
 def phase_export_serving(workdir: Path, smi: str) -> dict:
     """Phase 27: ``export-serving --platforms cuda`` through the CLI on phase
     11's newest step directory and phase 5's HiFiGAN V1 (6 acoustic, 6
-    vocoder and 1 streaming program); the artifact on the card through
-    ``ExportedSynthesizer`` (warmup runs all 13), 8 texts at B 8 and one at
+    vocoder and 1 streaming program); the artifact loaded once, by ``serve``,
+    into an ``ExportedSynthesizer`` on the card (warmup runs all 13) that
+    every check runs: 8 texts at B 8 and one at
     B 1 against the live Synthesizer of the same step directory: durations
     equal, mels within EXPORT_MEL_REL, each vocoder program's wav equal to
     the eager vocoder's on the same input, launches 8 attention_fwd an
@@ -4404,15 +4419,19 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
     check(line == f"exported serving artifact -> {art} ({size_mb:.1f} MB)",
           f"export-serving printed {line!r}")
 
+    # the server's synthesizer is the one every check below runs: the
+    # artifact is loaded and its programs warmed up once
     t0 = time.time()
-    ex = ExportedSynthesizer(art)
+    server = serve(str(art), port=0, max_batch=BATCH, warmup=True)
+    load_s = time.time() - t0
+    ex = server.synthesizer
     meta = ex.meta
     counts = {k: len(meta[k]) for k in ("acoustic", "vocoder", "vocoder_streaming")}
-    check(ex.device.type == "cuda" and meta["platforms"] == ["cuda"]
+    check(isinstance(ex, ExportedSynthesizer) and ex.device.type == "cuda"
+          and meta["platforms"] == ["cuda"]
           and counts == {"acoustic": 6, "vocoder": 6, "vocoder_streaming": 1},
           f"the artifact: platforms {meta['platforms']}, programs {counts}, on {ex.device}")
-    n_warm = ex.warmup(BATCH)
-    load_s = time.time() - t0
+    n_warm = ex.warmup(BATCH)  # counts the programs serve()'s warmup ran
     check(n_warm == sum(counts.values()), f"warmup ran {n_warm} programs of {counts}")
     sizes = {}
     with zipfile.ZipFile(art) as zf:
@@ -4518,10 +4537,7 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
             f"{row['exported_acoustic']:.3f} ms, live {row['live_acoustic']:.3f} ms (ratio "
             f"{row['exported_acoustic'] / row['live_acoustic']:.3f}); medians of "
             f"{EXPORT_TIMED}, in turns ({smi})")
-    ex.close()
 
-    server = serve(str(art), port=0, max_batch=BATCH, warmup=True)
-    check(server.synthesizer.device.type == "cuda", "serve(model.fs2x) is not on the card")
     server.start()
     try:
         _, health = _get(server.address, "/health")
@@ -4532,7 +4548,8 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
     finally:
         server.shutdown()
     frames = np.load(io.BytesIO(mel[1]))
-    ref = server.synthesizer.synthesize([texts[3]]).mels[0]
+    ref = ex.synthesize([texts[3]]).mels[0]
+    ex.close()
     check(health.get("status") == "ok" and health.get("has_vocoder") is True,
           f"/health {health}")
     check(mel[0] == 200 and frames.shape == ref.shape
@@ -4696,11 +4713,57 @@ def _step_state(step_dir: Path) -> dict:
     out["weights"] = torch.load(step_dir / "model.ckpt", map_location="cpu",
                                 weights_only=False)["state_dict"]
     out["ema"] = out["ema"] or {}
+    return _card(out)
+
+
+def _card(x):
+    """`x` (a tensor, or dicts, lists and tuples of them) on the card: the
+    holds' float64 arithmetic over a state of 18 M elements takes seconds on
+    the host and milliseconds there. A tensor already there is not copied."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to("cuda")
+    if isinstance(x, dict):
+        return {k: _card(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_card(v) for v in x)
+    return x
+
+
+def _settled(grads: list, noise: float = 1e-3) -> dict:
+    """``parallel.launch.settled`` on the card: the same float64 comparison,
+    {name: bool tensor}."""
+    keep = {}
+    for g_got, g_want in grads:
+        for name, w in g_want.items():
+            gw = _card(w).double()
+            ok = (_card(g_got[name]).double() - gw).abs() <= noise * gw.abs()
+            keep[name] = keep[name] & ok if name in keep else ok
+    return keep
+
+
+def _update_errors(u_got: dict, u_want: dict, keep=None) -> dict:
+    """``parallel.launch.update_errors`` on the card: {name: (rel-L2, elements
+    left out, elements)} over the elements `keep` keeps (all where None)."""
+    import torch
+
+    out = {}
+    for name, w in u_want.items():
+        uw, ug = _card(w).double(), _card(u_got[name]).double()
+        left = 0
+        if keep is not None:
+            k = keep[name]
+            uw, ug, left = uw[k], ug[k], int(k.numel() - k.sum())
+        scale = float(torch.linalg.vector_norm(uw))
+        diff = float(torch.linalg.vector_norm(ug - uw))
+        out[name] = (diff / scale if scale > 0 else diff, left, int(w.numel()))
     return out
 
 
 def _max_abs(a: dict, b: dict) -> dict:
     """{part: max |a - b|} over the weights, buffers, EMA and moments."""
+    a, b = _card(a), _card(b)
     names = set(b["mu"])
     pairs = {"parameters": [k for k in b["weights"] if k in names],
              "buffers": [k for k in b["weights"] if k not in names]}
@@ -4719,15 +4782,14 @@ def _update_figures(a: dict, b: dict, init: dict) -> dict:
     the elements whose first moments the two agree on (``settled``), for
     the weights and the EMA: {part: ({name: (rel-L2, left out, elements)},
     keep)}."""
-    from fastspeech2_lightning_tpu_torch.parallel.launch import settled, update_errors
-
-    keep = settled([(a["mu"], b["mu"])])
+    a, b, init = _card(a), _card(b), _card(init)
+    keep = _settled([(a["mu"], b["mu"])])
     out = {}
     for part in ("weights", "ema"):
         names = [k for k in b["mu"] if k in b[part]]
-        out[part] = (update_errors({k: a[part][k].double() - init[k].double() for k in names},
-                                   {k: b[part][k].double() - init[k].double() for k in names},
-                                   keep), keep)
+        out[part] = (_update_errors({k: a[part][k].double() - init[k].double() for k in names},
+                                    {k: b[part][k].double() - init[k].double() for k in names},
+                                    keep), keep)
     return out
 
 
@@ -4748,6 +4810,7 @@ def _f32_problems(got: dict, want: dict, again: dict, init: dict) -> list:
       rounding, and the mean moves with it): twice the rates summed."""
     from fastspeech2_lightning_tpu_torch.training.state import noam_lr
 
+    got, want, again, init = _card(got), _card(want), _card(again), _card(init)
     problems = []
     if got["count"] != want["count"]:
         return [f"update counts {got['count']} and {want['count']}"]
@@ -4810,16 +4873,11 @@ def _spread_figures(got: dict, want: dict, init: dict, got_norms: list,
     """A run against another: the relative difference of each step's grad
     norm, and, tensor by tensor, the rel-L2 of the first moments and of the
     update since the initial weights (every element)."""
-    import numpy as np
-
-    from fastspeech2_lightning_tpu_torch.parallel.launch import update_errors
-
+    got, want, init = _card(got), _card(want), _card(init)
     names = list(want["mu"])
-    every = {k: np.ones(tuple(want["mu"][k].shape), bool) for k in names}
-    mu = update_errors(got["mu"], want["mu"], every)
-    update = update_errors({k: got["weights"][k].double() - init[k].double() for k in names},
-                           {k: want["weights"][k].double() - init[k].double() for k in names},
-                           every)
+    mu = _update_errors(got["mu"], want["mu"])
+    update = _update_errors({k: got["weights"][k].double() - init[k].double() for k in names},
+                            {k: want["weights"][k].double() - init[k].double() for k in names})
     return {"grad_norm": [abs(g - w) / abs(w) for g, w in zip(got_norms, want_norms)],
             "mu": {k: e[0] for k, e in mu.items()},
             "update": {k: e[0] for k, e in update.items()}}
@@ -4872,11 +4930,13 @@ def _fmt(values: list) -> str:
 def _cli_train(config: Path, steps: int, world: int = 0, fault: str = "") -> subprocess.Popen:
     """`train` through the CLI in a subprocess from the config's folder: one
     process, or `world` ranks of ``train --distributed`` through torchrun
-    over NCCL, with PyTorch's defaults (cuDNN on TF32); a `fault` of
-    ``FAULTS`` planted in one process's optimizer (``_train_with_fault``)."""
+    over NCCL, with PyTorch's defaults (cuDNN on TF32) but one host thread
+    (seven such processes run side by side on the host's cores, as torchrun
+    sets it for more than one rank); a `fault` of ``FAULTS`` planted in one
+    process's optimizer (``_train_with_fault``)."""
     from fastspeech2_lightning_tpu_torch.parallel.launch import free_port
 
-    env = {**os.environ, "PYTHONPATH": str(HERE)}
+    env = {**os.environ, "PYTHONPATH": str(HERE), "OMP_NUM_THREADS": "1"}
     cmd = [sys.executable, "-m", PORT, "train", str(config), "--max-steps", str(steps)]
     if fault:
         cmd = [sys.executable, "-c", f"import chip_smoke; chip_smoke._train_with_fault("
@@ -4900,6 +4960,19 @@ def _finish(proc: subprocess.Popen, what: str, steps: int, timeout: float = 900)
     check(out.count(f"trained {steps} steps") == 1, f"{what} printed {out[-2000:]}")
 
 
+def _end(procs: list) -> None:
+    """End whichever of `procs` is still running (a check failed before
+    they were read): SIGTERM first, which torchrun passes on to its rank."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.communicate(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+
+
 def _initial_weights(config_path: Path) -> dict:
     """The weights a Trainer of this config starts from (the seed's), on
     the host."""
@@ -4915,16 +4988,24 @@ def _initial_weights(config_path: Path) -> dict:
     return init
 
 
-def _f32_reference(workdir: Path) -> dict:
-    """Two one-process f32 runs of phase 11's model and corpus, in this
-    process, DIST_STEPS steps at Noam rates 3.3e-5 to 1e-4 with a validation
-    and a checkpoint after every step (TF32 off): the reference a W-rank f32
-    run is held to and the second run's spread from it. Their training
-    overrides, rows, initial weights and step=1/ and last step's state."""
+def _f32_training(workdir: Path) -> dict:
+    """The training overrides of phase 29's f32 runs: DIST_STEPS steps at
+    Noam rates 3.3e-5 to 1e-4 with a validation and a checkpoint after every
+    step."""
     training = dict(val_check_interval=1, async_checkpoint=False,
                     save_top_k_ckpts=DIST_STEPS + 1, ckpt_epochs=0)
     training["optimizer"] = {**json.loads((workdir / "config.json").read_text())["training"]
                              ["optimizer"], "warmup_steps": DIST_WARMUP}
+    return training
+
+
+def _f32_reference(workdir: Path) -> dict:
+    """Two one-process f32 runs of phase 11's model and corpus, in this
+    process, with ``_f32_training``'s overrides (TF32 off): the reference a
+    W-rank f32 run is held to and the second run's spread from it. Their
+    training overrides, rows, initial weights and step=1/ and last step's
+    state."""
+    training = _f32_training(workdir)
     paths = [_dist_config(workdir, version, **training)
              for version in ("one_f32", "one_f32_again")]
     one, again = (_dist_fit(p, 1, DIST_STEPS) for p in paths)
@@ -4986,16 +5067,23 @@ def bf16_spread(states: list, norms: list, init: dict) -> dict:
     return dict(state=states[0], norms=norms[0], init=init, own=own, runs=len(states))
 
 
-def _bf16_reference(workdir: Path) -> dict:
+def _bf16_reference(workdir: Path, beside=None) -> dict:
     """BF16_RUNS one-process runs of phase 11's config (bf16, B 16, 8 steps)
     through the CLI, side by side on the card, in the environment the
     torchrun runs get: the reference a bf16 distributed run is held to, with
-    their spread (``bf16_spread``)."""
+    their spread (``bf16_spread``). `beside`, if given, is called once they
+    have started and returns when the runs it starts next to them have
+    ended."""
     paths = [_dist_config(workdir, f"one_bf16_{i}", dtype="bfloat16")
              for i in range(BF16_RUNS)]
     procs = [_cli_train(p, TRAIN_STEPS) for p in paths]
-    for p, proc in zip(paths, procs):
-        _finish(proc, f"train {p.name}", TRAIN_STEPS)
+    try:
+        if beside is not None:
+            beside()
+        for p, proc in zip(paths, procs):
+            _finish(proc, f"train {p.name}", TRAIN_STEPS)
+    finally:
+        _end(procs)
     states = [_step_state(_dist_step_dir(p, TRAIN_STEPS)) for p in paths]
     norms = [[r["grad_norm"] for r in _rows(_dist_step_dir(p, TRAIN_STEPS).parents[1]
                                             / "train_log.jsonl")] for p in paths]
@@ -5030,7 +5118,8 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
 
     (i) ``python -m torch.distributed.run --nproc_per_node 1 -m
     fastspeech2_lightning_tpu_torch train --distributed`` over NCCL, phase
-    11's config (bf16, B 16) for 8 steps, held to a one-process CLI run of
+    11's config (bf16, B 16) for 8 steps beside the other CLI runs of (i),
+    held to a one-process CLI run of
     the same config in the same environment (``_hold_bf16``: grad norms,
     first moments and updates within 4 x the largest distance of BF16_RUNS
     - 1 further one-process runs from the first, floored at the median of
@@ -5040,7 +5129,9 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
     on the one card through
     the Python API over gloo (NCCL refuses two ranks on one device): data=2,
     model=2, and data=2 with the ZeRO-1 optimizer, 4 steps each in f32 at
-    Noam rates 3.3e-5 to 1e-4 from phase 11's corpus, held to a one-process
+    Noam rates 3.3e-5 to 1e-4 from phase 11's corpus (data=2's three runs in
+    one pair of ranks, model=2 in another, both beside the one-process runs
+    in this process), held to a one-process
     f32 run (``_hold_f32``: step=1/ element by element and by its update,
     step=4/ reported beside a second one-process run's distance),
     the launches on each rank a step, the peak memory with ZeRO-1 and
@@ -5055,15 +5146,24 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
     # (i) torchrun, world 1, NCCL, held to one process in the same environment;
     # beside it a one-process run with its gradients halved, which the hold
     # must refuse
-    reference = _bf16_reference(workdir)
+    # all seven processes side by side: each pays its start-up once
     cfg_i = _dist_config(workdir, "torchrun", dtype="bfloat16")
     cfg_fault = _dist_config(workdir, "one_bf16_halved", dtype="bfloat16")
-    t0 = time.time()
-    procs = [_cli_train(cfg_i, TRAIN_STEPS, world=1),
-             _cli_train(cfg_fault, TRAIN_STEPS, fault="halve_grads")]
-    _finish(procs[0], "torchrun train --distributed", TRAIN_STEPS)
-    wall = time.time() - t0
-    _finish(procs[1], "train with halved gradients", TRAIN_STEPS)
+    walls = {}
+
+    def torchrun_and_fault():
+        t0 = time.time()
+        procs = [_cli_train(cfg_i, TRAIN_STEPS, world=1),
+                 _cli_train(cfg_fault, TRAIN_STEPS, fault="halve_grads")]
+        try:
+            _finish(procs[0], "torchrun train --distributed", TRAIN_STEPS)
+            walls["torchrun"] = time.time() - t0
+            _finish(procs[1], "train with halved gradients", TRAIN_STEPS)
+        finally:
+            _end(procs)
+
+    reference = _bf16_reference(workdir, beside=torchrun_and_fault)
+    wall = walls["torchrun"]
     rows = _rows(_dist_step_dir(cfg_i, TRAIN_STEPS).parents[1] / "train_log.jsonl")
     check([r["step"] for r in rows] == list(range(1, TRAIN_STEPS + 1)), f"rows {rows}")
     held = _hold_bf16("torchrun", cfg_i, reference)
@@ -5098,17 +5198,10 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
         f"({smi})")
 
     # (ii) two ranks on the one card over gloo, f32
-    reference = _f32_reference(workdir)
-    want, own, init = reference["want"], reference["own"], reference["init"]
-    out["one_process_against_itself"] = dict(
-        step1=dict(_max_abs(own[0], want[0]), **_update_summary(own[0], want[0], init)),
-        last=dict(max_abs=_max_abs(own[1], want[1]), grad_norm_rel=reference["own_figures"]
-                  ["grad_norm"]))
-    log(f"phase 29 (ii): one f32 process against itself: {out['one_process_against_itself']}")
-    results = {}
-    for mp, names in ((1, ("data2", "data2_zero1", "data2_zero1_skips_update")),
-                      (2, ("model2",))):
-        runs_ = [(str(_dist_config(workdir, name, **reference["training"],
+    training, results = _f32_training(workdir), {}
+
+    def ranks_of(mp, names):
+        runs_ = [(str(_dist_config(workdir, name, **training,
                                    fused_optimizer="zero1" in name)),
                   "skip_update" if name.endswith("skips_update") else "") for name in names]
         t0 = time.time()
@@ -5116,6 +5209,23 @@ def phase_distributed(workdir: Path, phase11: dict, smi: str) -> dict:
         wall = time.time() - t0
         for i, (name, (path, _)) in enumerate(zip(names, runs_)):
             results[name] = (Path(path), [r[i] for r in ranks], wall)
+
+    # the two pairs of ranks side by side on the card (each its own process
+    # group and port; a pair's wall is its own start to its end), and beside
+    # them the one-process reference in this process (four pairs, one a
+    # run, took longer: their gloo reductions contend for the host's cores)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        groups = [pool.submit(ranks_of, 1, ("data2", "data2_zero1", "data2_zero1_skips_update")),
+                  pool.submit(ranks_of, 2, ("model2",))]
+        reference = _f32_reference(workdir)
+        for f in groups:
+            f.result()
+    want, own, init = reference["want"], reference["own"], reference["init"]
+    out["one_process_against_itself"] = dict(
+        step1=dict(_max_abs(own[0], want[0]), **_update_summary(own[0], want[0], init)),
+        last=dict(max_abs=_max_abs(own[1], want[1]), grad_norm_rel=reference["own_figures"]
+                  ["grad_norm"]))
+    log(f"phase 29 (ii): one f32 process against itself: {out['one_process_against_itself']}")
     # the planted fault: moments as they should be, the parameters as they were
     path, _, _ = results.pop("data2_zero1_skips_update")
     faulty = _f32_problems(_step_state(_dist_step_dir(path, 1)), want[0], own[0], init)
@@ -5811,11 +5921,12 @@ def _dp_vocoder_runs(config_path: Path, npz: Path, root: Path, faults, world=Non
     return out
 
 
-def _dp_vocoder_worker(rank: int, world: int, config_path: str, npz: str, root: str) -> dict:
-    """A rank of phase 30 (v)'s two-process run on the one card (gloo)."""
+def _dp_vocoder_worker(rank: int, world: int, config_path: str, npz: str, root: str,
+                       fault: str) -> dict:
+    """A rank of one of phase 30 (v)'s two-process runs on the one card
+    (gloo): the clean run (`fault` "") or the one with `fault`."""
     sys.path.insert(0, str(HERE))
-    return _dp_vocoder_runs(Path(config_path), Path(npz), Path(root), ("", "skip_g_average"),
-                            world)
+    return _dp_vocoder_runs(Path(config_path), Path(npz), Path(root), (fault,), world)
 
 
 def _dp_vocoder_problems(got: Path, want: Path, init: dict) -> tuple:
@@ -5826,9 +5937,8 @@ def _dp_vocoder_problems(got: Path, want: Path, init: dict) -> tuple:
     out; and the figures."""
     import torch
 
-    from fastspeech2_lightning_tpu_torch.parallel.launch import settled, update_errors
-
-    a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in (got, want))
+    a, b = (torch.load(p, map_location="cuda", weights_only=True) for p in (got, want))
+    init = _card(init)
     problems, figures = [], {}
     for side in ("gen", "disc"):
         keys = [k for k in b if k.startswith(side + ".")]
@@ -5837,9 +5947,9 @@ def _dp_vocoder_problems(got: Path, want: Path, init: dict) -> tuple:
         grad_rel = float(torch.linalg.vector_norm(torch.cat([(ga[k] - gb[k]).ravel()
                                                              for k in keys]))
                          / torch.linalg.vector_norm(torch.cat([gb[k].ravel() for k in keys])))
-        keep = settled([(ga, gb)])
-        errs = update_errors({k: a[k][1].double() - init[k] for k in keys},
-                             {k: b[k][1].double() - init[k] for k in keys}, keep)
+        keep = _settled([(ga, gb)])
+        errs = _update_errors({k: a[k][1].double() - init[k] for k in keys},
+                              {k: b[k][1].double() - init[k] for k in keys}, keep)
         worst = max(errs, key=lambda k: errs[k][0])
         left = sum(e[1] for e in errs.values()) / sum(e[2] for e in errs.values())
         figures[side] = dict(grad_rel=grad_rel, update_rel=errs[worst][0], worst=worst,
@@ -5881,14 +5991,21 @@ def _dp_vocoder_training(workdir: Path, npz: Path, config_path: Path, smi: str) 
     from fastspeech2_lightning_tpu_torch.parallel.launch import run_local
 
     root = workdir / "dp_vocoder"
-    init = _dp_vocoder_init(npz)
+    init = _card(_dp_vocoder_init(npz))
+    # the clean and the faulty two-rank runs, each its own process group,
+    # side by side with the one-process run in this process
     t0 = time.time()
-    one = _dp_vocoder_runs(config_path, npz, root / "one", ("",))
-    one_s = time.time() - t0
-    t0 = time.time()
-    ranks = run_local(_dp_vocoder_worker, 2, str(config_path), str(npz), str(root / "two"),
-                      timeout_s=600)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        groups = [pool.submit(run_local, _dp_vocoder_worker, 2, str(config_path), str(npz),
+                              str(root / "two"), fault, timeout_s=600)
+                  for fault in ("", "skip_g_average")]
+        one = _dp_vocoder_runs(config_path, npz, root / "one", ("",))
+        one_s = time.time() - t0
+        clean, faulty = (g.result() for g in groups)
     two_s = time.time() - t0
+    ranks = [{**c, **f, "launches": {k: c["launches"][k] + f["launches"][k]
+                                     for k in c["launches"]}}
+             for c, f in zip(clean, faulty)]
     for r in [one] + ranks:
         check(not any(r["launches"].values()), f"(v) vocoder training launched {r['launches']}")
     for fault in ("", "skip_g_average"):
@@ -5922,7 +6039,7 @@ def _dp_vocoder_training(workdir: Path, npz: Path, config_path: Path, smi: str) 
                     f"{f['update_rel']:.2e} ({f['worst']}), {f['left_out']:.2%} left out"
                     for side, f in figures.items())
         + f"; the G average skipped: refused by {fault_problems}; no kernel launched; "
-        f"{one_s:.1f} s one process, {two_s:.1f} s two ranks ({smi})")
+        f"side by side, {one_s:.1f} s one process, {two_s:.1f} s the three runs ({smi})")
     return out
 
 
@@ -6945,46 +7062,57 @@ def main() -> None:
     import numpy as np
 
     t_start = time.time()
-    smi = phase_device()
-    phase_build()
-    att = phase_attention()[0]
-    mrf_rows = phase_mrf()
-    phase_attention_train()
-    mas = phase_mas()
-    ctc_1024 = phase_ctc()
+    spent = {}  # seconds each phase took, in the order they ran
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        name = fn.__name__.removeprefix("phase_")
+        spent[name] = round(spent.get(name, 0.0) + time.time() - t0, 1)
+        return out
+
+    smi = timed(phase_device)
+    timed(phase_build)
+    att = timed(phase_attention)[0]
+    mrf_rows = timed(phase_mrf)
+    timed(phase_attention_train)
+    mas = timed(phase_mas)
+    ctc_1024 = timed(phase_ctc)
     cfg = model_config("bfloat16")
     sd = random_state_dict(cfg, np.random.default_rng(SEED))
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_serving(Path(workdir), sd, cfg)
-        phase_card_vs_cpu(sd)
-        train = phase_train(Path(workdir))
-        phase_train_card_vs_cpu(Path(workdir))
-        train_att = phase_attention_buckets(Path(workdir))
-        ctc_rows = phase_ctc_buckets(Path(workdir), train["shapes"])
-        syn = phase_synthesize(Path(workdir))
-        phase_synthesize_card_vs_cpu(Path(workdir))
-        cond = phase_train_conditioned(Path(workdir), train)
-        phase_train_card_vs_cpu(Path(workdir), conditioned=True)
-        cond_serve = phase_serve_conditioned(Path(workdir), cond.pop("step_dir"))
-        stream = phase_streaming(Path(workdir))
-        levels = phase_pfs_phones(Path(workdir))
-        voc = phase_vocoder_train(Path(workdir))
-        voc["card_vs_cpu"] = phase_vocoder_card_vs_cpu(voc["ckpt_dir"], voc["config_path"])
+        launches = timed(phase_serving, Path(workdir), sd, cfg)
+        timed(phase_card_vs_cpu, sd)
+        train = timed(phase_train, Path(workdir))
+        timed(phase_train_card_vs_cpu, Path(workdir))
+        train_att = timed(phase_attention_buckets, Path(workdir))
+        ctc_rows = timed(phase_ctc_buckets, Path(workdir), train["shapes"])
+        syn = timed(phase_synthesize, Path(workdir))
+        timed(phase_synthesize_card_vs_cpu, Path(workdir))
+        cond = timed(phase_train_conditioned, Path(workdir), train)
+        timed(phase_train_card_vs_cpu, Path(workdir), conditioned=True)
+        cond_serve = timed(phase_serve_conditioned, Path(workdir), cond.pop("step_dir"))
+        stream = timed(phase_streaming, Path(workdir))
+        levels = timed(phase_pfs_phones, Path(workdir))
+        voc = timed(phase_vocoder_train, Path(workdir))
+        voc["card_vs_cpu"] = timed(phase_vocoder_card_vs_cpu, voc["ckpt_dir"],
+                                   voc["config_path"])
         vocoder_npz = voc["ckpt_dir"] / "vocoder.npz"
-        trained = phase_trained_vocoder(Path(workdir), voc.pop("ckpt_dir"),
-                                        voc.pop("config_path"))
-        pre = phase_preprocess(Path(workdir))
-        checked = phase_check_data(Path(workdir), pre)
-        tools = phase_tools(Path(workdir), pre)
-        exported = phase_export_serving(Path(workdir), smi)
-        yaml_media = phase_yaml_media(Path(workdir), vocoder_npz, smi)
-        dist = phase_distributed(Path(workdir), {"totals": train["totals"],
-                                                 "ms": train["ms_per_step"]}, smi)
-        dp = phase_data_parallel(Path(workdir), smi)
-        spc = phase_steps_per_call(Path(workdir), smi)
-        wide = phase_wide_heads(Path(workdir), smi)
+        trained = timed(phase_trained_vocoder, Path(workdir), voc.pop("ckpt_dir"),
+                        voc.pop("config_path"))
+        pre = timed(phase_preprocess, Path(workdir))
+        checked = timed(phase_check_data, Path(workdir), pre)
+        tools = timed(phase_tools, Path(workdir), pre)
+        exported = timed(phase_export_serving, Path(workdir), smi)
+        yaml_media = timed(phase_yaml_media, Path(workdir), vocoder_npz, smi)
+        dist = timed(phase_distributed, Path(workdir), {"totals": train["totals"],
+                                                        "ms": train["ms_per_step"]}, smi)
+        dp = timed(phase_data_parallel, Path(workdir), smi)
+        spc = timed(phase_steps_per_call, Path(workdir), smi)
+        wide = timed(phase_wide_heads, Path(workdir), smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
+    log(f"seconds a phase: {json.dumps(spent)}")
     tl, vl = train["launches"], train["validation_launches"]
     ctl, cvl = cond["launches"], cond["validation_launches"]
     ctc = ctc_rows[-1]  # the top bucket
