@@ -242,8 +242,8 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     (``phase_wide_heads``): (i) A and A' at dh 192 against their plain
     versions (bf16 at (16, 2, 2048 and 1024, 192) p 0.2 and (8, 2, 1024, 192)
     p 0 on ragged masks, f32 at (4, 2, 1024, 192)), timed beside SDPA; at dh
-    16, 32, 48 and 96 (padded) and 256 (built) in bf16 and f32, one launch
-    of each a call; dh 320 refused; (ii) V2's four fused MRF stages (C 64
+    16, 32, 48 and 96 (padded), 256 (built) and 320 (padded to 384) in
+    bf16 and f32, one launch of each a call; (ii) V2's four fused MRF stages (C 64
     and 32 as 18 ``mrf_conv`` launches each, C 16 and 8 as one
     ``mrf_stage`` launch each at their own widths) for a B 8, 896-frame mel
     in f32 and bf16 against the plain version, timed, C 16 and 8 beside
@@ -261,6 +261,25 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     V2 stages (``v2_stages`` of ``mrf_conv`` and ``mrf_stage``), the
     launches as ``wide_serving`` and ``wide_training``, and the
     ``mrf_stage`` kernel, whose one path is the V2 vocoder's.
+ 33. head dims above 256 and texts of 1024 symbols or more
+    (``phase_long_shapes``): (i) A and A' at dh 257, 320, 384, 512 and 768
+    (bf16 p 0.2 and f32 p 0 at (4, 1, 1024, dh), ragged masks) against
+    their plain versions, one launch each, and timed beside SDPA at
+    (16, 1, 2048, 384) and (16, 1, 1024, 512); B at L 1025, 2048 and 8191
+    bit for bit and C's three entries at S 2049, 4097 and 16383 (2048
+    frames, 2000 labels) within phase 10's limits, both timed at
+    (16, 2048, 2000); (ii) phase 32's
+    d-384 model at one head (dh 384) served (8 HTTP requests, 8 A a
+    forward) and trained 2 steps at B 16 (8 A and 8 A' a step); (iii) the
+    default model at ``model.max_length`` 2048 trained 2 steps and
+    validated once on 4 seeded utterances of 1101-2040 symbols and 2048
+    frames: B at L 2048, ``ctc_alpha_beta`` and ``ctc_grad`` at S up to
+    4081, ``ctc_alpha`` in validation, finite losses, and every MAS
+    launch's durations equal to the plain version's on its log-attention.
+    The kernels' line gains a ``long_shapes`` record for A, A', B and C's
+    three entries (shapes held, errors, device ms, launches) and the
+    launches as ``one_head_serving``, ``one_head_training``,
+    ``long_training`` and ``long_validation``.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -1319,8 +1338,9 @@ def phase_mas() -> dict:
             return mas_width1(la, in_lens, out_lens)
 
         kernel, kernel_dev = time_ms(kernel_fn, iters=10), device_ms(kernel_fn)
-        plain = time_ms(lambda: mas_width1_reference(la, in_lens, out_lens), warmup=1,
-                        iters=2)
+        # the plain version (a loop of small launches a row) ran warm above
+        plain = time_ms(lambda: mas_width1_reference(la, in_lens, out_lens), warmup=0,
+                        iters=1)
         # bytes these lengths need: the valid part of log_attn read once,
         # both outputs written once whole (the zeros too)
         nbytes = 4 * (int((in_lens * out_lens).sum()) + B * T * L + B * L)
@@ -1337,13 +1357,13 @@ def phase_mas() -> dict:
 # -- phase 10: CTC (kernel C) ------------------------------------------------
 
 
-def ctc_case(B, T, L, in_lens, out_lens, seed: int) -> dict:
+def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
     """Kernel C at one shape against its plain version, on log-probabilities
     made as attention_ctc_loss makes them: the gradient-free forward
     (ctc_alpha), the forward with both chains (ctc_alpha_beta) and the
-    backward (ctc_grad). Wall and device ms of each, of their plain versions
-    and of F.ctc_loss (forward, and forward + backward); the bound of each
-    launch from the bytes these lengths need."""
+    backward (ctc_grad). With `timed`, wall and device ms of each, of their
+    plain versions and of F.ctc_loss (forward, and forward + backward); the
+    bound of each launch from the bytes these lengths need."""
     import torch
     import torch.nn.functional as F
 
@@ -1390,6 +1410,15 @@ def ctc_case(B, T, L, in_lens, out_lens, seed: int) -> dict:
           f"of {rows_scale}")
     check(loss_rel <= 1e-5, f"{what}: loss rel {loss_rel} > 1e-5")
     check(grad_abs <= 1e-5, f"{what}: grad max-abs {grad_abs} > 1e-5")
+    if not timed:
+        log(f"{what}: loss rel={loss_rel:.3e} grad max_abs={grad_abs:.3e} (alpha/beta rows "
+            f"max_abs {rows_abs:.3e} of {rows_scale:.3e}, gradient on the same rows "
+            f"{grad_same_abs:.3e})")
+        del lp, alphas, betas, grad, want_grad, alphas_only
+        torch.cuda.empty_cache()
+        return dict(shape=[B, T, L], states=S, dtype="float32", loss_rel=loss_rel,
+                    grad_max_abs=grad_abs, rows_max_abs=rows_abs, rows_scale=rows_scale,
+                    grad_same_rows_max_abs=grad_same_abs)
 
     targets = torch.arange(1, L + 1, device="cuda").expand(B, L)
     lp_tbc = lp.transpose(0, 1).contiguous()
@@ -1414,10 +1443,12 @@ def ctc_case(B, T, L, in_lens, out_lens, seed: int) -> dict:
     # the sum of its kernels in a profiler trace
     ms = {k: (time_ms(fn, iters=10), (kernels_ms if k.startswith("lib") else device_ms)(fn))
           for k, fn in fns.items()}
-    plain = {"fwd": time_ms(lambda: ctc.ctc_alpha_reference(lp, out_lens), warmup=1, iters=2),
+    # the plain chains (a loop of small launches a frame, a second or more
+    # at the top bucket) ran warm in the check above: one call each
+    plain = {"fwd": time_ms(lambda: ctc.ctc_alpha_reference(lp, out_lens), warmup=0, iters=1),
              "fwd_grad": time_ms(lambda: (ctc.ctc_alpha_reference(lp, out_lens),
                                           ctc.ctc_beta_reference(lp, in_lens, out_lens)),
-                                 warmup=1, iters=2),
+                                 warmup=0, iters=1),
              "bwd": time_ms(lambda: ctc.ctc_grad_reference(alphas, betas, out_lens, ll, gvec),
                             warmup=1, iters=2)}
     # bytes these lengths need: the live frames' logprobs rows read once, every
@@ -1494,14 +1525,16 @@ N_VAL = 64  # validation list: batches of 16 across the buckets
 
 
 def write_corpus(root: Path, cfg: dict, rng, speakers=("default",),
-                 languages=("default",)) -> None:
+                 languages=("default",), n_train: int = N_UTTS, n_val: int = N_VAL,
+                 chars=(20, 200), frames: int = 0) -> None:
     """A seeded preprocessed corpus in the layout the dataset reads: per
     utterance a mel spec [n_mels, T], frame-level pitch and energy, a
-    diagonal attention prior [T, L]; stats.json and the filelists (N_UTTS
-    training utterances, N_VAL others for validation). Texts of 20-200
-    characters, mels of 100-2000 frames (one of exactly 2000, so a bucket
-    pads above 1536 frames). Utterance i is spoken by speaker i mod S in
-    language (i div S) mod N; the texts and lengths depend on `rng` alone."""
+    diagonal attention prior [T, L]; stats.json and the filelists (n_train
+    training utterances, n_val others for validation). Texts of `chars`
+    characters (20-200), mels of 100-2000 frames (one of exactly 2000, so a
+    bucket pads above 1536 frames), or of `frames` each. Utterance i is
+    spoken by speaker i mod S in language (i div S) mod N; the texts and
+    lengths depend on `rng` alone."""
     import numpy as np
 
     from fastspeech2_lightning_tpu_torch.config import FastSpeech2Config
@@ -1515,14 +1548,19 @@ def write_corpus(root: Path, cfg: dict, rng, speakers=("default",),
     for kind in ("spec", "pitch", "energy", "attn"):
         (root / kind).mkdir(parents=True, exist_ok=True)
     rows = []
-    for i in range(N_UTTS + N_VAL):
-        n_chars = int(rng.integers(20, 201))
+    for i in range(n_train + n_val):
+        n_chars = int(rng.integers(chars[0], chars[1] + 1))
+        if frames and i == 0:  # the longest text the range allows
+            n_chars = chars[1]
         words = []
         while len(" ".join(words)) < n_chars:
             words.append(str(rng.choice(WORDS)))
         text = " ".join(words)[:n_chars].strip()
         L = len(tp.encode_text(text))
-        T = 2000 if i == 0 else int(np.clip(L * rng.uniform(6, 10), 100, 2000))
+        if frames:
+            T = frames
+        else:
+            T = 2000 if i == 0 else int(np.clip(L * rng.uniform(6, 10), 100, 2000))
         spk, lang = speakers[i % len(speakers)], languages[i // len(speakers) % len(languages)]
         name = f"utt{i:03d}--{spk}--{lang}--"
         mel = (rng.standard_normal((n_mels, T)) - 4.0).astype(np.float32)
@@ -1538,8 +1576,8 @@ def write_corpus(root: Path, cfg: dict, rng, speakers=("default",),
                 (prior / prior.sum(1, keepdims=True)).astype(np.float32))
         rows.append(f"utt{i:03d}|{spk}|{lang}|{text}")
     header = "basename|speaker|language|characters"
-    (root / "training_filelist.psv").write_text("\n".join([header] + rows[:N_UTTS]) + "\n")
-    (root / "validation_filelist.psv").write_text("\n".join([header] + rows[N_UTTS:]) + "\n")
+    (root / "training_filelist.psv").write_text("\n".join([header] + rows[:n_train]) + "\n")
+    (root / "validation_filelist.psv").write_text("\n".join([header] + rows[n_train:]) + "\n")
     (root / "stats.json").write_text(json.dumps(STATS))
 
 
@@ -6638,7 +6676,8 @@ WIDE_ATTENTION = ((16, 2, 2048, 192, 0.2, "bfloat16", True),
                   (16, 2, 1024, 192, 0.2, "bfloat16", True),
                   (8, 2, 1024, 192, 0.0, "bfloat16", False),
                   (4, 2, 1024, 192, 0.2, "float32", True))
-OTHER_HEAD_DIMS = (16, 32, 48, 96, 256)  # padded to 64, 64, 64 and 128; 256 built
+# padded to 64, 64, 64 and 128; 256 built; 320 padded to 384 (groups of 128)
+OTHER_HEAD_DIMS = (16, 32, 48, 96, 256, 320)
 V2_BATCH, V2_FRAMES = 8, 896
 V2_STAGES = ((64, 8), (32, 64), (16, 128), (8, 256))  # (C, samples a mel frame)
 # a V2 vocoder call, every stage fused: C 64 and 32 a conv a launch, C 16
@@ -6647,23 +6686,37 @@ V2_LAUNCHES = {"mrf_conv": 2 * MRF_LAUNCHES, "mrf_stage": 2}
 WIDE_STEPS = 4
 
 
-def wide_config(dtype: str) -> dict:
+def wide_config(dtype: str, heads: int = WIDE_HEADS) -> dict:
     """ESPnet2's LJSpeech ``conformer_fastspeech2`` widths on this
-    package's Conformer: d 384, 2 heads (dh 192), feed-forward 1536, conv
-    kernels 7 (encoder) and 31 (decoder), 4 + 4 layers, and the three
-    variance predictors at 384."""
+    package's Conformer: d 384, 2 heads (dh 192; `heads` 1 gives dh 384),
+    feed-forward 1536, conv kernels 7 (encoder) and 31 (decoder), 4 + 4
+    layers, and the three variance predictors at 384."""
     cfg = model_config(dtype)
     for part, kernel in (("encoder", 7), ("decoder", 31)):
-        cfg["model"][part].update(input_dim=WIDE_D, heads=WIDE_HEADS, feedforward_dim=WIDE_FF,
+        cfg["model"][part].update(input_dim=WIDE_D, heads=heads, feedforward_dim=WIDE_FF,
                                   conv_kernel_size=kernel, layers=4)
     for predictor in cfg["model"]["variance_predictors"].values():
         predictor["input_dim"] = WIDE_D
     return cfg
 
 
-def _wide_attention() -> dict:
-    """(i) A and A' at dh 192 against their plain versions, timed beside
-    SDPA; at the other head dims, padded or built; dh 320 refused."""
+def _launched(fn):
+    """fn()'s result and the launches of A and A' it made."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import attention_bwd, attention_fwd
+
+    before = (attention_fwd.launches, attention_bwd.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (attention_fwd.launches - before[0], attention_bwd.launches - before[1])
+
+
+def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_rows, bwd_rows):
+    """A (and with `backward` A') at (B, H, T, dh) on a ragged key mask
+    against the plain versions in f32 on the same inputs, one launch each;
+    with `timed`, wall, device, plain and SDPA ms beside the bound appended
+    to `fwd_rows` and `bwd_rows`. Returns the shape and its errors."""
     import torch
     import torch.nn.functional as F
 
@@ -6671,117 +6724,112 @@ def _wide_attention() -> dict:
         attention_bwd, attention_bwd_reference, attention_dropout_reference, attention_fwd,
     )
 
+    dtype = getattr(torch, dt)
+    bias, needed = _ragged_bias(B, T, g)
+    q, k, v, do = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(dh)
+    (out, lse), n_fwd = _launched(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                                        with_lse=True))
+    check(n_fwd == (1, 0), f"attention_fwd at {B, H, T, dh}: launches {n_fwd}")
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    limit = 1e-5 if dt == "float32" else 2e-2
+    f_abs, f_rel = errors(out, attention_dropout_reference(qf, kf, vf, bias, seed, p, scale))
+    check(f_rel <= limit, f"attention_fwd {B, H, T, dh} {dt} p={p}: rel-L2 {f_rel} > {limit}")
+    held = dict(shape=[B, H, T, dh], dtype=dt, p=p, fwd_max_abs=f_abs, fwd_rel_l2=f_rel)
+    grads, b_errs = None, []
+    if backward:
+        grads, n_bwd = _launched(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out,
+                                                       lse, do))
+        check(n_bwd == (0, 1), f"attention_bwd at {B, H, T, dh}: launches {n_bwd}")
+        want = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, dof)
+        b_errs = [errors(gt, wt) for gt, wt in zip(grads, want)]
+        del want
+        for name, (_, rel) in zip(("dQ", "dK", "dV"), b_errs):
+            check(grads[0].shape == q.shape and rel <= limit,
+                  f"attention_bwd {name} {B, H, T, dh} {dt} p={p}: rel-L2 {rel} > {limit}")
+        held.update(bwd_max_abs=max(e[0] for e in b_errs), bwd_rel_l2=max(e[1] for e in b_errs))
+    if not timed:
+        return held
+    keys = float(needed.sum()) * H * T * dh
+    base = dict(shape=[B, H, T, dh], dtype=dt, p=p, mask="ragged")
+    mask = bias[:, None, None, :].to(dtype)
+
+    def fwd():
+        return attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=backward)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p,
+                                              scale=scale)
+
+    f_bound = bound_ms(4.0 * keys, 4 * B * H * T * dh * q.element_size() + B * T * 4, dt)
+    row = dict(base, max_abs_err=f_abs, rel_l2=f_rel, ms=time_ms(fwd, iters=10),
+               plain_ms=time_ms(lambda: attention_dropout_reference(
+                   q, k, v, bias, seed, p, scale), warmup=1, iters=3),
+               library_ms=time_ms(sdpa, iters=10), bound_ms=f_bound[0],
+               bound_by=f_bound[1], launches_per_call=1)
+    if dt == "bfloat16":
+        row.update(device_ms=device_ms(fwd), library_device_ms=device_ms(sdpa))
+    fwd_rows.append(row)
+    log(f"{label} attention_fwd {B, H, T, dh} {dt} p={p}: max_abs={f_abs:.3e} "
+        f"rel_l2={f_rel:.3e} kernel_ms={row['ms']:.4f} (device "
+        f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} "
+        f"SDPA {row['library_ms']:.4f} (device "
+        f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={f_bound[0]:.4f} "
+        f"({f_bound[1]})")
+    if not backward:
+        return held
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=p,
+                                           scale=scale)
+
+    def bwd():
+        return attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+
+    def sdpa_bwd():  # the backward alone, like for like with A'
+        return torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True)
+
+    b_bound = bound_ms(10.0 * keys, 8 * B * H * T * dh * q.element_size() + B * T * 4
+                       + 2 * B * H * T * 4, dt)
+    row = dict(base, max_abs_err=max(e[0] for e in b_errs),
+               rel_l2=max(e[1] for e in b_errs), ms=time_ms(bwd, iters=10),
+               plain_ms=time_ms(lambda: attention_bwd_reference(
+                   q, k, v, bias, seed, p, scale, do), warmup=1, iters=3),
+               library_ms=time_ms(sdpa_bwd, iters=10), bound_ms=b_bound[0],
+               bound_by=b_bound[1], launches_per_call=1, library="SDPA backward alone")
+    if dt == "bfloat16":
+        row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd))
+    bwd_rows.append(row)
+    log(f"{label} attention_bwd {B, H, T, dh} {dt} p={p}: rel_l2 dQ/dK/dV="
+        f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={row['ms']:.4f} (device "
+        f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} SDPA "
+        f"backward {row['library_ms']:.4f} (device "
+        f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={b_bound[0]:.4f} "
+        f"({b_bound[1]})")
+    del o_lib, qg, kg, vg
+    return held
+
+
+def _wide_attention() -> dict:
+    """(i) A and A' at dh 192 against their plain versions, timed beside
+    SDPA; at the other head dims, padded or built (dh 320 padded to 384)."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 32)
     seed = torch.tensor([3217], dtype=torch.int32, device="cuda")
     fwd_rows, bwd_rows = [], []
-
-    def launched(fn):
-        """fn()'s result, checked to launch each of A and A' at most once."""
-        before = (attention_fwd.launches, attention_bwd.launches)
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (attention_fwd.launches - before[0], attention_bwd.launches - before[1])
-
-    def held(B, H, T, dh, p, dt, backward, timed):
-        dtype = getattr(torch, dt)
-        bias, needed = _ragged_bias(B, T, g)
-        q, k, v, do = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(dtype)
-                       for _ in range(4))
-        scale = 1.0 / math.sqrt(dh)
-        (out, lse), n_fwd = launched(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
-                                                           with_lse=True))
-        check(n_fwd == (1, 0), f"attention_fwd at {B, H, T, dh}: launches {n_fwd}")
-        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-        limit = 1e-5 if dt == "float32" else 2e-2
-        f_abs, f_rel = errors(out, attention_dropout_reference(qf, kf, vf, bias, seed, p, scale))
-        check(f_rel <= limit, f"attention_fwd {B, H, T, dh} {dt} p={p}: rel-L2 {f_rel} > {limit}")
-        grads, b_errs = None, []
-        if backward:
-            grads, n_bwd = launched(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out,
-                                                          lse, do))
-            check(n_bwd == (0, 1), f"attention_bwd at {B, H, T, dh}: launches {n_bwd}")
-            want = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, dof)
-            b_errs = [errors(gt, wt) for gt, wt in zip(grads, want)]
-            del want
-            for name, (_, rel) in zip(("dQ", "dK", "dV"), b_errs):
-                check(grads[0].shape == q.shape and rel <= limit,
-                      f"attention_bwd {name} {B, H, T, dh} {dt} p={p}: rel-L2 {rel} > {limit}")
-        if not timed:
-            return
-        keys = float(needed.sum()) * H * T * dh
-        base = dict(shape=[B, H, T, dh], dtype=dt, p=p, mask="ragged")
-        mask = bias[:, None, None, :].to(dtype)
-
-        def fwd():
-            return attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=backward)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p,
-                                                  scale=scale)
-
-        f_bound = bound_ms(4.0 * keys, 4 * B * H * T * dh * q.element_size() + B * T * 4, dt)
-        row = dict(base, max_abs_err=f_abs, rel_l2=f_rel, ms=time_ms(fwd, iters=10),
-                   plain_ms=time_ms(lambda: attention_dropout_reference(
-                       q, k, v, bias, seed, p, scale), warmup=1, iters=3),
-                   library_ms=time_ms(sdpa, iters=10), bound_ms=f_bound[0],
-                   bound_by=f_bound[1], launches_per_call=1)
-        if dt == "bfloat16":
-            row.update(device_ms=device_ms(fwd), library_device_ms=device_ms(sdpa))
-        fwd_rows.append(row)
-        log(f"phase 32 attention_fwd {B, H, T, dh} {dt} p={p}: max_abs={f_abs:.3e} "
-            f"rel_l2={f_rel:.3e} kernel_ms={row['ms']:.4f} (device "
-            f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} "
-            f"SDPA {row['library_ms']:.4f} (device "
-            f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={f_bound[0]:.4f} "
-            f"({f_bound[1]})")
-        if not backward:
-            return
-        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, dropout_p=p,
-                                               scale=scale)
-
-        def bwd():
-            return attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
-
-        def sdpa_bwd():  # the backward alone, like for like with A'
-            return torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True)
-
-        b_bound = bound_ms(10.0 * keys, 8 * B * H * T * dh * q.element_size() + B * T * 4
-                           + 2 * B * H * T * 4, dt)
-        row = dict(base, max_abs_err=max(e[0] for e in b_errs),
-                   rel_l2=max(e[1] for e in b_errs), ms=time_ms(bwd, iters=10),
-                   plain_ms=time_ms(lambda: attention_bwd_reference(
-                       q, k, v, bias, seed, p, scale, do), warmup=1, iters=3),
-                   library_ms=time_ms(sdpa_bwd, iters=10), bound_ms=b_bound[0],
-                   bound_by=b_bound[1], launches_per_call=1, library="SDPA backward alone")
-        if dt == "bfloat16":
-            row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd))
-        bwd_rows.append(row)
-        log(f"phase 32 attention_bwd {B, H, T, dh} {dt} p={p}: rel_l2 dQ/dK/dV="
-            f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={row['ms']:.4f} (device "
-            f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} SDPA "
-            f"backward {row['library_ms']:.4f} (device "
-            f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={b_bound[0]:.4f} "
-            f"({b_bound[1]})")
-        del o_lib, qg, kg, vg
-
     for B, H, T, dh, p, dt, backward in WIDE_ATTENTION:
-        held(B, H, T, dh, p, dt, backward, timed=True)
+        _held_attention("phase 32", B, H, T, dh, p, dt, backward, True, g, seed, fwd_rows,
+                        bwd_rows)
         torch.cuda.empty_cache()
     for dh in OTHER_HEAD_DIMS:
         for dt in ("bfloat16", "float32"):
-            held(4, 2, 512, dh, 0.2, dt, True, timed=False)
+            _held_attention("phase 32", 4, 2, 512, dh, 0.2, dt, True, False, g, seed, fwd_rows,
+                            bwd_rows)
         log(f"phase 32 attention at dh {dh}: A and A' held to the plain version in bf16 and "
             f"f32 at (4, 2, 512, {dh}), p 0.2")
-    x = torch.zeros(1, 2, 16, 320, device="cuda", dtype=torch.bfloat16)
-    try:
-        attention_fwd(x, x, x, torch.zeros(1, 16, device="cuda"), 0.1)
-        fail("attention_fwd took dh 320")
-    except ValueError as exc:
-        check("256" in str(exc), f"dh 320 refused without naming 256: {exc}")
-    return dict(fwd=fwd_rows, bwd=bwd_rows, held_head_dims=list(OTHER_HEAD_DIMS),
-                refused_head_dim=320)
+    return dict(fwd=fwd_rows, bwd=bwd_rows, held_head_dims=list(OTHER_HEAD_DIMS))
 
 
 def _v2_stages() -> list:
@@ -6883,10 +6931,10 @@ def _v2_stages() -> list:
     return rows
 
 
-def _wide_serving(workdir: Path) -> dict:
-    """(iii) The d-384 model (bf16, seeded weights) served with the fused
-    HiFiGAN V2 vocoder (f32): 8 concurrent HTTP requests of 60-400
-    characters; 8 A a forward, 4 fused stages, 36 mrf_conv and 2
+def _wide_serving(workdir: Path, heads: int = WIDE_HEADS, label: str = "phase 32") -> dict:
+    """(iii) The d-384 model (bf16, seeded weights, `heads` heads) served
+    with the fused HiFiGAN V2 vocoder (f32): 8 concurrent HTTP requests of
+    60-400 characters; 8 A a forward, 4 fused stages, 36 mrf_conv and 2
     mrf_stage a vocoder call; A and each stage held to their plain versions
     on inputs the path gave them."""
     import numpy as np
@@ -6901,8 +6949,9 @@ def _wide_serving(workdir: Path) -> dict:
     from fastspeech2_lightning_tpu_torch.serving import serve
 
     rng = np.random.default_rng(SEED + 34)
-    cfg = wide_config("bfloat16")
-    ckpt = write_checkpoint(workdir / "wide.ckpt", random_state_dict(cfg, rng), cfg, STATS)
+    cfg = wide_config("bfloat16", heads)
+    ckpt = write_checkpoint(workdir / f"wide_h{heads}.ckpt", random_state_dict(cfg, rng), cfg,
+                            STATS)
     voc = workdir / "hifigan_v2.npz"
     # jik876/hifi-gan's config_v2.json: V1 with 128 initial channels, so
     # stages of C 64, 32, 16 and 8
@@ -6992,7 +7041,7 @@ def _wide_serving(workdir: Path) -> dict:
         check(rel <= limit, f"wide serving: stage C={C} at {tuple(x.shape)} rel-L2 {rel}")
         held[C] = dict(shape=list(x.shape), rel_l2=rel)
     torch.backends.cudnn.allow_tf32 = True
-    log(f"phase 32 serving: {len(texts)} requests in {wall:.3f} s (load + warmup {load_s:.1f} s); "
+    log(f"{label} serving: {len(texts)} requests in {wall:.3f} s (load + warmup {load_s:.1f} s); "
         f"{len(forwards)} forwards, {len(vocoder_calls)} vocoder calls {vocoder_calls}; launches "
         f"{launches}; A at {tuple(q.shape)} rel-L2 {a_rel:.3e}; stages held "
         + ", ".join(f"C={C} {h['shape']} {h['rel_l2']:.3e}" for C, h in held.items()))
@@ -7002,35 +7051,37 @@ def _wide_serving(workdir: Path) -> dict:
                 stages_held=held)
 
 
-def _wide_training(workdir: Path) -> dict:
-    """(iv) 4 train steps of the d-384 model (bf16, B 16) on phase 11's
-    corpus through the ``train`` CLI: 8 A, 8 A', 1 B and 1 + 1 C a step,
-    the step ms and the peak memory."""
+def _wide_training(workdir: Path, heads: int = WIDE_HEADS, steps: int = WIDE_STEPS,
+                   label: str = "phase 32") -> dict:
+    """(iv) `steps` train steps of the d-384 model (bf16, B 16, `heads`
+    heads) on phase 11's corpus through the ``train`` CLI: 8 A, 8 A', 1 B
+    and 1 + 1 C a step, the step ms and the peak memory."""
     import torch
 
     from fastspeech2_lightning_tpu_torch import cli
 
     cfg = json.loads((workdir / "config.json").read_text())
-    cfg["model"] = wide_config("bfloat16")["model"]
+    cfg["model"] = wide_config("bfloat16", heads)["model"]
     cfg["training"].update(val_check_interval=TRAIN_STEPS, async_checkpoint=False,
                            save_top_k_ckpts=1, ckpt_epochs=0)
-    cfg["training"]["logger"]["version"] = "wide"
-    path = workdir / "config_wide.json"
+    version = "wide" if heads == WIDE_HEADS else f"wide_h{heads}"
+    cfg["training"]["logger"]["version"] = version
+    path = workdir / f"config_{version}.json"
     path.write_text(json.dumps(cfg))
     torch.cuda.reset_peak_memory_stats()
     tl, _ = _train_and_validation_launches(
-        lambda: cli.main(["train", str(path), "--max-steps", str(WIDE_STEPS)]))
+        lambda: cli.main(["train", str(path), "--max-steps", str(steps)]))
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    rows = _rows(workdir / "logs" / "smoke" / "wide" / "train_log.jsonl")
-    check(len(rows) == WIDE_STEPS and all(math.isfinite(r["total"]) for r in rows),
+    rows = _rows(workdir / "logs" / "smoke" / version / "train_log.jsonl")
+    check(len(rows) == steps and all(math.isfinite(r["total"]) for r in rows),
           f"wide training logged {rows}")
-    want = {"attention_fwd": 8 * WIDE_STEPS, "attention_bwd": 8 * WIDE_STEPS,
-            "mas_width1": WIDE_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": WIDE_STEPS,
-            "ctc_grad": WIDE_STEPS}
+    want = {"attention_fwd": 8 * steps, "attention_bwd": 8 * steps,
+            "mas_width1": steps, "ctc_alpha": 0, "ctc_alpha_beta": steps,
+            "ctc_grad": steps}
     check(tl == want, f"wide training launches {tl}, want {want}")
     ms = statistics.median(r["ms"] for r in rows[1:])
-    log(f"phase 32 training: {WIDE_STEPS} steps of d {WIDE_D}, {WIDE_HEADS} heads, B 16: "
+    log(f"{label} training: {steps} steps of d {WIDE_D}, {heads} heads, B 16: "
         + ", ".join(f"{' x '.join(map(str, r['shape']))} {r['ms']:.1f} ms" for r in rows)
         + f"; median after the first {ms:.1f} ms; peak {peak_gib:.2f} GiB; launches {tl}")
     return dict(launches=tl, ms_per_step=ms, step_ms=[r["ms"] for r in rows],
@@ -7048,6 +7099,224 @@ def phase_wide_heads(workdir: Path, smi: str) -> dict:
                serving=_wide_serving(workdir), training=_wide_training(workdir), card=smi)
     out["seconds"] = time.time() - t0
     log(f"phase 32: {out['seconds']:.1f} s ({smi})")
+    return out
+
+# -- phase 33: head dims above 256 and texts of 1024 symbols or more ----------
+
+LONG_HEAD_DIMS = (257, 320, 384, 512, 768)  # A and A' at (4, 1, 1024, dh)
+# timed beside SDPA: (B, H, T, dh, p, dtype, with A')
+LONG_ATTENTION = ((16, 1, 2048, 384, 0.2, "bfloat16", True),
+                  (16, 1, 1024, 512, 0.2, "bfloat16", True))
+LONG_MAS = ((2, 1100, 1025), (2, 2048, 2048), (1, 8192, 8191))  # (B, T, L)
+# (B, T, L, in_len of item 0) at S 2049, 4097, 16383; the last over 2048
+# frames (the card tests hold S 16383 over 8192 frames at in_len L)
+LONG_CTC = ((2, 1100, 1024, 1024), (2, 2100, 2048, 2048), (1, 2048, 8191, 2000))
+LONG_TIMED = (16, 2048, 2000)  # B and C timed at (B, T, L)
+LONG_HEADS = 1  # the d-384 model at dh 384
+LONG_STEPS = 2
+LONG_MAX_LENGTH = 2048
+LONG_UTTS = 4  # training utterances; as many validate
+LONG_CHARS = (1101, 2040)
+LONG_FRAMES = 2048
+
+
+def _long_attention() -> dict:
+    """(i) A and A' at dh 257 to 768 (bf16 at p 0.2, f32 at p 0) against the
+    plain versions at (4, 1, 1024, dh), and timed beside SDPA at
+    (16, 1, 2048, 384) and (16, 1, 1024, 512)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    seed = torch.tensor([3317], dtype=torch.int32, device="cuda")
+    fwd_rows, bwd_rows, held = [], [], []
+    for dh in LONG_HEAD_DIMS:
+        for p, dt in ((0.2, "bfloat16"), (0.0, "float32")):
+            held.append(_held_attention("phase 33", 4, 1, 1024, dh, p, dt, True, False, g, seed,
+                                        fwd_rows, bwd_rows))
+        log(f"phase 33 attention at dh {dh}: A and A' held to the plain version at "
+            f"(4, 1, 1024, {dh}), bf16 p 0.2 (rel-L2 {held[-2]['fwd_rel_l2']:.3e} / "
+            f"{held[-2]['bwd_rel_l2']:.3e}) and f32 p 0 ({held[-1]['fwd_rel_l2']:.3e} / "
+            f"{held[-1]['bwd_rel_l2']:.3e})")
+    for B, H, T, dh, p, dt, backward in LONG_ATTENTION:
+        held.append(_held_attention("phase 33", B, H, T, dh, p, dt, backward, True, g, seed,
+                                    fwd_rows, bwd_rows))
+        torch.cuda.empty_cache()
+    return dict(held=held, fwd=fwd_rows, bwd=bwd_rows)
+
+
+def _long_mas() -> dict:
+    """(i) B at L 1025, 2048 and 8191 (T >= L) against its plain version,
+    bit for bit, and timed at LONG_TIMED (lengths drawn as phase 7 draws
+    them, item 0 full)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    held = []
+    for B, T, L in LONG_MAS:
+        la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+        in_lens = torch.tensor([L, L - 7][:B], device="cuda")
+        out_lens = torch.tensor([T, T - 13][:B], device="cuda")
+        hard, dur = mas_width1(la, in_lens, out_lens)
+        torch.cuda.synchronize()
+        want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+        check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+              f"mas_width1 {B, T, L}: path differs from the plain version")
+        check(torch.equal(dur.sum(1), out_lens.int()), f"mas_width1 {B, T, L}: durations")
+        held.append(dict(shape=[B, T, L], exact=True))
+        del la, hard, dur, want_hard, want_dur
+    B, T, L = LONG_TIMED
+    la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+    in_lens = torch.randint(max(L // 4, 1), L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 4, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+          f"mas_width1 {B, T, L}: path differs from the plain version")
+    del hard, dur, want_hard, want_dur
+
+    def kernel_fn():
+        return mas_width1(la, in_lens, out_lens)
+
+    kernel, kernel_dev = time_ms(kernel_fn, iters=10), device_ms(kernel_fn, iters=10)
+    plain = time_ms(lambda: mas_width1_reference(la, in_lens, out_lens), warmup=0, iters=1)
+    nbytes = 4 * (int((in_lens * out_lens).sum()) + B * T * L + B * L)
+    bound = bound_ms(0.0, nbytes, "float32")
+    log(f"phase 33 mas_width1 held bit for bit at {[h['shape'] for h in held]}; "
+        f"B={B} T={T} L={L}: bit-exact, kernel_ms={kernel:.4f} (device {kernel_dev:.4f}) "
+        f"plain_ms={plain:.2f} bound_ms={bound[0]:.4f} ({bound[1]})")
+    del la
+    torch.cuda.empty_cache()
+    return dict(held=held, timed=dict(shape=[B, T, L], dtype="float32", max_abs_err=0.0,
+                                      ms=kernel, device_ms=kernel_dev, plain_ms=plain,
+                                      library_ms=None, bound_ms=bound[0], bound_by=bound[1]))
+
+
+def _long_ctc() -> dict:
+    """(i) C's three entries at S 2049, 4097 and 16383 against the plain
+    versions (phase 10's limits), and timed at LONG_TIMED."""
+    import torch
+
+    held = []
+    for i, (B, T, L, n_in) in enumerate(LONG_CTC):
+        held.append(ctc_case(B, T, L, [n_in, n_in - 9][:B], [T, T - 21][:B], SEED + 36 + i,
+                             timed=False))
+    B, T, L = LONG_TIMED
+    g = torch.Generator(device="cuda").manual_seed(SEED + 39)
+    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    return dict(held=held, timed=ctc_case(B, T, L, in_lens, out_lens, SEED + 39))
+
+
+def _long_training(workdir: Path) -> dict:
+    """(iii) The default model at ``model.max_length`` 2048 (bf16, B 16):
+    LONG_STEPS train steps and one validation on LONG_UTTS seeded
+    utterances of 1101-2040 symbols and 2048 frames each (and as many
+    validating), through the ``train`` CLI. B runs at L up to 2048, C's
+    chains at S up to 4081; the durations of every MAS launch equal the
+    plain version's on the log-attention it was given."""
+    import numpy as np
+    import torch
+
+    from fastspeech2_lightning_tpu_torch import cli
+    from fastspeech2_lightning_tpu_torch.models import variance_adaptor
+    from fastspeech2_lightning_tpu_torch.ops import ctc
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1_reference
+
+    cfg = model_config("bfloat16")
+    cfg["model"]["max_length"] = LONG_MAX_LENGTH
+    write_corpus(workdir / "long_corpus", cfg, np.random.default_rng(SEED + 33),
+                 n_train=LONG_UTTS, n_val=LONG_UTTS, chars=LONG_CHARS, frames=LONG_FRAMES)
+    cfg["preprocessing"]["save_dir"] = "long_corpus"
+    cfg["training"].update(batch_size=16, training_filelist="long_corpus/training_filelist.psv",
+                           validation_filelist="long_corpus/validation_filelist.psv",
+                           val_check_interval=LONG_STEPS, save_top_k_ckpts=1,
+                           async_checkpoint=False, ckpt_epochs=0)
+    cfg["training"]["logger"].update(save_dir="logs", name="smoke", version="long")
+    path = workdir / "config_long.json"
+    path.write_text(json.dumps(cfg))
+
+    mas_calls, ctc_calls = [], []
+    real_mas, real_launch = variance_adaptor.mas_width1, ctc._launch
+
+    def mas(la, in_lens, out_lens):
+        hard, dur = real_mas(la, in_lens, out_lens)
+        mas_calls.append((la.detach().clone(), in_lens.clone(), out_lens.clone(), dur.clone()))
+        return hard, dur
+
+    def launch(entry, dev, *args):
+        ctc_calls.append((entry, args[-3:]))  # (B, T, L) end every entry's arguments
+        return real_launch(entry, dev, *args)
+
+    variance_adaptor.mas_width1, ctc._launch = mas, launch
+    t0 = time.time()
+    try:
+        tl, vl = _train_and_validation_launches(
+            lambda: cli.main(["train", str(path), "--max-steps", str(LONG_STEPS)]))
+    finally:
+        variance_adaptor.mas_width1, ctc._launch = real_mas, real_launch
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    log_dir = workdir / "logs" / "smoke" / "long"
+    rows, val_rows = _rows(log_dir / "train_log.jsonl"), _rows(log_dir / "val_log.jsonl")
+    check(len(rows) == LONG_STEPS and all(all(math.isfinite(r[k]) for k in LOSS_KEYS)
+                                          for r in rows), f"long training logged {rows}")
+    check(len(val_rows) == 1 and all(math.isfinite(val_rows[0][k]) for k in LOSS_KEYS),
+          f"long validation logged {val_rows}")
+    n_val = val_rows[0]["batches"]
+    want_t = {"attention_fwd": 8 * LONG_STEPS, "attention_bwd": 8 * LONG_STEPS,
+              "mas_width1": LONG_STEPS, "ctc_alpha": 0, "ctc_alpha_beta": LONG_STEPS,
+              "ctc_grad": LONG_STEPS}
+    want_v = {"attention_fwd": 8 * n_val, "attention_bwd": 0, "mas_width1": n_val,
+              "ctc_alpha": n_val, "ctc_alpha_beta": 0, "ctc_grad": 0}
+    check(tl == want_t, f"long training launches {tl}, predicted {want_t}")
+    check(vl == want_v, f"long validation launches {vl}, predicted {want_v}")
+    mas_L = max(la.shape[2] for la, *_ in mas_calls)
+    states = {e: max((2 * a[2] + 1 for name, a in ctc_calls if name == e), default=0)
+              for e in ("ctc_alpha", "ctc_alpha_beta", "ctc_grad")}
+    check(mas_L == LONG_MAX_LENGTH and max(r["shape"][1] for r in rows) == LONG_MAX_LENGTH,
+          f"MAS at L up to {mas_L}, steps {[r['shape'] for r in rows]}")
+    check(states["ctc_alpha_beta"] >= 2 * 2040 + 1 and states["ctc_grad"] >= 2 * 2040 + 1,
+          f"C at S up to {states}")
+    for la, in_lens, out_lens, dur in mas_calls:
+        _, want = mas_width1_reference(la, in_lens, out_lens)
+        check(torch.equal(dur, want), f"MAS durations at {tuple(la.shape)} differ from the "
+              f"plain version's on the same log-attention")
+    shapes = [r["shape"] for r in rows]
+    log(f"phase 33 long texts: {LONG_STEPS} steps of the default model at max_length "
+        f"{LONG_MAX_LENGTH}, B x L x T {shapes}, "
+        + ", ".join(f"{r['ms']:.1f} ms" for r in rows)
+        + f"; one validation of {n_val} batch(es), total {val_rows[0]['total']:.4f}; MAS at L up "
+        f"to {mas_L} ({len(mas_calls)} calls, durations equal to the plain version's), C at S "
+        f"up to {states}; launches training {tl}, validation {vl}; {wall:.1f} s")
+    del mas_calls
+    torch.cuda.empty_cache()
+    return dict(launches=tl, validation_launches=vl, shapes=shapes,
+                step_ms=[r["ms"] for r in rows], totals=[r["total"] for r in rows],
+                validation_total=val_rows[0]["total"], mas_max_L=mas_L, ctc_max_S=states)
+
+
+def phase_long_shapes(workdir: Path, smi: str) -> dict:
+    """Phase 33: the kernels at head dims above 256 and at texts of 1024
+    symbols or more against their plain versions and timed
+    (``_long_attention``, ``_long_mas``, ``_long_ctc``); the d-384 model
+    at one head (dh 384) served and trained; the default model trained at
+    ``max_length`` 2048 (``_long_training``). Needs phase 11's corpus and
+    config.json in `workdir`."""
+    t0 = time.time()
+    out = dict(attention=_long_attention(), mas=_long_mas(), ctc=_long_ctc())
+    out["one_head_serving"] = _wide_serving(workdir, heads=LONG_HEADS, label="phase 33")
+    out["one_head_training"] = _wide_training(workdir, heads=LONG_HEADS, steps=LONG_STEPS,
+                                              label="phase 33")
+    out["long_training"] = _long_training(workdir)
+    out["card"] = smi
+    out["seconds"] = time.time() - t0
+    log(f"phase 33: {out['seconds']:.1f} s ({smi})")
     return out
 
 
@@ -7110,6 +7379,7 @@ def main() -> None:
         dp = timed(phase_data_parallel, Path(workdir), smi)
         spc = timed(phase_steps_per_call, Path(workdir), smi)
         wide = timed(phase_wide_heads, Path(workdir), smi)
+        long = timed(phase_long_shapes, Path(workdir), smi)
         pre["config_path"], pre["step_dir"] = (str(pre[k].relative_to(workdir))
                                                for k in ("config_path", "step_dir"))
     log(f"seconds a phase: {json.dumps(spent)}")
@@ -7141,6 +7411,11 @@ def main() -> None:
         paths["wide_training"] = wide["training"]["launches"][name]
         if name == "attention_fwd":
             paths["wide_serving"] = wide["serving"]["launches"][name]
+        paths["one_head_training"] = long["one_head_training"]["launches"][name]
+        if name == "attention_fwd":
+            paths["one_head_serving"] = long["one_head_serving"]["launches"][name]
+        paths["long_training"] = long["long_training"]["launches"][name]
+        paths["long_validation"] = long["long_training"]["validation_launches"][name]
         if name == "attention_fwd":
             paths["exported_serving"] = sum(run["launches"][name]
                                             for run in exported["runs"].values())
@@ -7153,13 +7428,32 @@ def main() -> None:
     def total(name):
         return sum(by_path(name).values())
 
+    def long_launches(name):
+        """The launches of `name` on phase 33's paths."""
+        keys = ("one_head_training", "one_head_serving", "long_training", "long_validation")
+        return sum(n for k, n in by_path(name).items() if k in keys)
+
+    def ctc_long(name, part):
+        timed_row = long["ctc"]["timed"]
+        return dict(held=long["ctc"]["held"], timed=dict(
+            timed_row[part], shape=timed_row["shape"],
+            library=timed_row["library"]["lib_fwd_bwd" if part == "bwd" else "lib_fwd"]),
+            launches=long_launches(name), max_states=long["long_training"]["ctc_max_S"][name])
+
     def ctc_entry(name, part, library, library_key, **extra):
         lib = ctc["library"][library_key]
         row = dict(ctc[part], shape=ctc["shape"], dtype="float32", library_ms=lib["ms"])
         return entry(name, row, "ctc_banded_lse.cu", "ops/ctc_pallas.py:120",
                      total(name), launches_by_path=by_path(name), library=library,
                      library_device_ms=lib["device_ms"], device_ms=row["device_ms"],
-                     ns_per_frame=row["ns_per_frame"], **extra)
+                     ns_per_frame=row["ns_per_frame"], long_shapes=ctc_long(name, part),
+                     **extra)
+
+    def attention_long(part):
+        held = [{k: h[k] for k in ("shape", "dtype", "p", f"{part}_max_abs", f"{part}_rel_l2")}
+                for h in long["attention"]["held"] if f"{part}_rel_l2" in h]
+        return dict(held=held, timed=long["attention"][part],
+                    launches=long_launches(f"attention_{part}"))
 
     def entry(name, row, source, replaces, n, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -7180,18 +7474,21 @@ def main() -> None:
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:167",
                              "fastspeech2_lightning_tpu/ops/attention_dropout.py:461"],
               **device_keys(att), training=train_att["fwd"],
-              wide_heads=wide["attention"]["fwd"]),
+              wide_heads=wide["attention"]["fwd"], long_shapes=attention_long("fwd")),
         entry("attention_bwd", train_att["bwd"], "attention_bwd.cu",
               "ops/attention_dropout.py:190", total("attention_bwd"),
               launches_by_path=by_path("attention_bwd"),
               also_replaces=["fastspeech2_lightning_tpu/ops/attention_dropout.py:494"],
               p=train_att["bwd"]["p"], library="SDPA backward alone",
               library_fwd_bwd_ms=train_att["bwd"]["library_fwd_bwd_ms"],
-              **device_keys(train_att["bwd"]), wide_heads=wide["attention"]["bwd"]),
+              **device_keys(train_att["bwd"]), wide_heads=wide["attention"]["bwd"],
+              long_shapes=attention_long("bwd")),
         entry("mas_width1", mas, "mas_width1.cu", "ops/mas_pallas.py:94",
               total("mas_width1"),
               launches_by_path=by_path("mas_width1"),
-              device_ms=mas["device_ms"], training_shape=mas["training_shape"]),
+              device_ms=mas["device_ms"], training_shape=mas["training_shape"],
+              long_shapes=dict(long["mas"], launches=long_launches("mas_width1"),
+                               max_text_length=long["long_training"]["mas_max_L"])),
         # the training forward (both chains, one launch) and backward, and the
         # validation forward (the alpha chain alone), at the top bucket; all
         # buckets and (16, 1024, 160) ride along
@@ -7204,12 +7501,15 @@ def main() -> None:
         # the bf16 C = 128 row first
         entry("mrf_conv", mrf_rows[1], "mrf_conv.cu", "ops/vocoder_resblocks.py:168",
               launches["mrf_conv"] + stream["launches"]["mrf_conv"] + trained["launches"]
-              + dp["launches"]["mrf_conv"] + wide["serving"]["launches"]["mrf_conv"],
+              + dp["launches"]["mrf_conv"] + wide["serving"]["launches"]["mrf_conv"]
+              + long["one_head_serving"]["launches"]["mrf_conv"],
               launches_by_path={"serving": launches["mrf_conv"],
                                 "streaming": stream["launches"]["mrf_conv"],
                                 "trained_vocoder": trained["launches"],
                                 "data_parallel": dp["launches"]["mrf_conv"],
-                                "wide_serving": wide["serving"]["launches"]["mrf_conv"]},
+                                "wide_serving": wide["serving"]["launches"]["mrf_conv"],
+                                "one_head_serving":
+                                    long["one_head_serving"]["launches"]["mrf_conv"]},
               v2_stages=[r for r in wide["v2_stages"] if r["route"] == "conv"],
               timed=f"one MRF stage: {MRF_LAUNCHES} launches",
               device_ms=mrf_rows[1]["device_ms"], bound_counts=mrf_rows[1]["bound_counts"],
@@ -7218,8 +7518,11 @@ def main() -> None:
         # the served V2 vocoder is f32: its longest stage, C 8 at its own
         # width, on top; `stages` holds C 16 and 8 in f32 and bf16
         entry("mrf_stage", stage_rows[-2], "mrf_stage.cu", "ops/vocoder_resblocks.py:168",
-              wide["serving"]["launches"]["mrf_stage"],
-              launches_by_path={"wide_serving": wide["serving"]["launches"]["mrf_stage"]},
+              wide["serving"]["launches"]["mrf_stage"]
+              + long["one_head_serving"]["launches"]["mrf_stage"],
+              launches_by_path={"wide_serving": wide["serving"]["launches"]["mrf_stage"],
+                                "one_head_serving":
+                                    long["one_head_serving"]["launches"]["mrf_stage"]},
               timed="one MRF stage of C <= 16: 1 launch",
               device_ms=stage_rows[-2]["device_ms"],
               chain_device_ms=stage_rows[-2]["chain_device_ms"],
@@ -7248,7 +7551,9 @@ def main() -> None:
                       "preprocess": pre, "check_data": checked, "tools": tools,
                       "export_serving": exported, "yaml_media": yaml_media,
                       "distributed": dist, "data_parallel": dp, "steps_per_call": spc,
-                      "wide_heads": {k: wide[k] for k in ("serving", "training", "seconds")}}))
+                      "wide_heads": {k: wide[k] for k in ("serving", "training", "seconds")},
+                      "long_shapes": {k: long[k] for k in ("one_head_serving", "one_head_training",
+                                                           "long_training", "seconds")}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -63,7 +63,8 @@
 // only where it does (T = 2016). FA3's structure (a producer warp with TMA,
 // dQ through shared memory and a bulk reduce) is the next step.
 // Built for dh 64, 128, 192 and 256 (ops/attention.py zero-pads every other
-// dh up to 256 to the next of them). At 192 and 256 a block takes 64 keys
+// dh up to 256 to the next of them; wider ones take the kernels at the end of
+// this header). At 192 and 256 a block takes 64 keys
 // and both warpgroups share them, each keeping half of dK's, dV's and dQ's
 // 64-wide column blocks (tc_bwd::Tiling): 128 keys would need 192 or 256
 // accumulator registers a thread and, at 256, 274 KB of shared memory. The
@@ -75,6 +76,26 @@
 // batch), four threads per key row, Q, dO, lse and D staged per 64-row query
 // tile (32 above dh 128), f32 FMA throughout, dQ by atomicAdd, the same
 // kv_end skip.
+//
+// Wide head dims (attention_common.cuh wide_dh, as in attention_fwd.cu):
+// attention_bwd_tc_wide and attention_bwd_f32_wide. A block takes 64 keys
+// and one group of NG columns of dK, dV and dQ (bf16: 256 where 256 divides
+// dh, else 128; f32: 128), blockIdx.x = key tile * groups + group. S^T =
+// K Q^T and dP^T = V dO^T stream over the full dh in 64-wide chunks of K, V,
+// Q and dO (a two-stage ring in bf16) into the same registers; the group's
+// columns of K stay in shared memory for dQ = dS K, and those of Q and dO
+// arrive once a query tile for dK and dV. In bf16 both warpgroups take the
+// block's 64 keys, as the dh-192/256 tiling does, each keeping NG / 128 of
+// the group's 64-wide column blocks of dK, dV and dQ. D = rowsum(dO * O)
+// comes from the pre-pass over the full dh (bwd_prepass with DH = 0); dQ
+// goes into the f32 buffer's group columns by atomicAdd. The mask is
+// regenerated per (row, col), so every group drops the same entries. Shared
+// memory a block: bf16 169.5 KB at NG 256 and 121.5 KB at NG 128; f32
+// 130 KB. The cost: every group recomputes S^T and dP^T, and both bf16
+// warpgroups compute them, so the blocks of a (b, h) issue
+// 8 T^2 dh x groups + 6 T^2 dh operations for the function's 10 T^2 dh: 3x
+// at dh 384 (three groups of 128), 2.2x at dh 512 (two of 256). At NG 256
+// the kernel spills about 260 bytes (nvcc 12.9); NG 128 does not spill.
 
 #include <math.h>
 
@@ -91,28 +112,38 @@ using fs2::tc::bf16;
 
 constexpr float kNoKeyLse = -5e8f;  // lse below this: the item has no valid key
 
-// dK = dV = 0 for a block's rows [k0, k0 + rows) below T (16-byte stores)
-template <int DH, int THREADS, typename T>
-__device__ __forceinline__ void zero_rows(T* dk, T* dv, long long row_base, int k0, int rows,
-                                          int T_len, int tid) {
-  constexpr int CH = DH * sizeof(T) / 16;
+// dK = dV = 0 for a block's rows [k0, k0 + rows) below T, in W columns from
+// col0 of rows `ld` elements long (16-byte stores)
+template <int W, int THREADS, typename T>
+__device__ __forceinline__ void zero_cols(T* dk, T* dv, long long row_base, int k0, int rows,
+                                          int T_len, int tid, int ld, int col0) {
+  constexpr int CH = W * sizeof(T) / 16;
   const uint4 z = make_uint4(0u, 0u, 0u, 0u);
   for (int i = tid; i < rows * CH; i += THREADS) {
     const int t = k0 + i / CH;
     if (t >= T_len) continue;
-    const long long off = (row_base + t) * DH * static_cast<long long>(sizeof(T)) / 16 + i % CH;
+    const long long off =
+        ((row_base + t) * ld + col0) * static_cast<long long>(sizeof(T)) / 16 + i % CH;
     reinterpret_cast<uint4*>(dk)[off] = z;
     reinterpret_cast<uint4*>(dv)[off] = z;
   }
 }
 
+// ... over whole rows of DH
+template <int DH, int THREADS, typename T>
+__device__ __forceinline__ void zero_rows(T* dk, T* dv, long long row_base, int k0, int rows,
+                                          int T_len, int tid) {
+  zero_cols<DH, THREADS>(dk, dv, row_base, k0, rows, T_len, tid, DH, 0);
+}
+
 // Pre-pass: D = rowsum(dO * O) per (b, h, t) row, and that row of dq_acc
-// zeroed; one warp per row.
+// zeroed; one warp per row. DH = 0: the head dim is the runtime `dh` (a
+// wide one).
 template <typename T, int DH>
 __global__ void __launch_bounds__(256)
 bwd_prepass(const T* __restrict__ dout, const T* __restrict__ o, int H, int T_len,
             Strides ds, Strides os, float* __restrict__ dsum, float* __restrict__ dq_acc,
-            long long rows) {
+            long long rows, int dh) {
   const long long r = blockIdx.x * 8LL + (threadIdx.x >> 5);
   if (r >= rows) return;
   const int lane = threadIdx.x & 31;
@@ -121,12 +152,17 @@ bwd_prepass(const T* __restrict__ dout, const T* __restrict__ o, int H, int T_le
   const long long h = bh % H, b = bh / H;
   const T* drow = dout + b * ds.b + h * ds.h + t * ds.t;
   const T* orow = o + b * os.b + h * os.h + t * os.t;
+  const int width = DH > 0 ? DH : dh;
   float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < DH / 32; ++i) {
-    const int d = lane + 32 * i;
+  auto add = [&](int d) {
     acc = fmaf(fs2::to_f32(drow[d]), fs2::to_f32(orow[d]), acc);
-    dq_acc[r * DH + d] = 0.f;
+    dq_acc[r * width + d] = 0.f;
+  };
+  if constexpr (DH > 0) {
+#pragma unroll
+    for (int i = 0; i < DH / 32; ++i) add(lane + 32 * i);
+  } else {
+    for (int d = lane; d < dh; d += 32) add(d);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -164,7 +200,87 @@ struct Tiling {
                                  4 * BQ * sizeof(float);
 };
 
+// A wide head dim (attention_common.cuh wide_dh): 64 keys a block, both
+// warpgroups on them as in the wide Tiling, and one group of NG columns of
+// dK, dV and dQ a block (blockIdx.x = key tile * groups + group), warpgroup
+// w keeping column blocks w * CPW .. of the group. S^T = K Q^T and
+// dP^T = V dO^T stream over dh in 64-wide chunks of K, V, Q and dO through a
+// two-stage ring; the group's columns of K stay, and those of Q and dO
+// arrive per query tile, for dK, dV and dQ.
+template <int NG>
+struct WideTiling {
+  static constexpr int BK = 64;
+  static constexpr int CW = fs2::attn::CHUNK;
+  static constexpr int CPW = NG / 128;        // 64-wide column blocks a warpgroup keeps
+  static constexpr int NB_ACC = CPW * 8;      // dK, dV accumulator n-blocks a thread
+  static constexpr int STAGE = (2 * BK + 2 * BQ) * CW;  // K, V, Q, dO chunks of a stage
+  // 1024 bytes to align the tiles to the swizzle period; the K group tile,
+  // the Q and dO group tiles, two chunk stages, the dS^T tile (bf16); lse, D
+  static constexpr size_t SMEM =
+      1024 + (BK * NG + 2 * BQ * NG + 2 * STAGE + BK * BQ) * sizeof(bf16) + 2 * BQ * sizeof(float);
+};
+
 }  // namespace tc_bwd
+
+// One query tile of the bf16 backward once S^T and dP^T for this thread's
+// two key rows are in `sp` and `dpt` (query columns q0 + ..): P^T, the keep
+// mask and dS^T = P^T * (keep * dP^T / (1 - p) - D) on the f32 accumulators,
+// then keep * P / (1 - p) and dS^T as the bf16 A fragments `pa`, `sa` of
+// dV's and dK's products. Lt, Dt: the tile's lse and D.
+template <bool DROP>
+__device__ __forceinline__ void bwd_fragments(float (&sp)[tc_bwd::BQ / 8][4],
+                                              float (&dpt)[tc_bwd::BQ / 8][4],
+                                              uint32_t (&pa)[tc_bwd::BQ / 16][4],
+                                              uint32_t (&sa)[tc_bwd::BQ / 16][4],
+                                              const int (&kr)[2], const float (&kbias)[2],
+                                              const uint32_t (&kx)[2], const float* Lt,
+                                              const float* Dt, int q0, int T_len, float sm_scale,
+                                              float log2_T, const Dropout& drop, int t4) {
+  using namespace fs2::tc;
+  constexpr int BQ = tc_bwd::BQ;
+  constexpr int NB_S = BQ / 8;
+#pragma unroll
+  for (int n = 0; n < NB_S; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int c = n * 8 + 2 * t4 + (e & 1);
+      const int qrow = q0 + c;
+      float p = 0.f;
+      if (kr[r] < T_len && qrow < T_len) {
+        const float lq = Lt[c];
+        const float x = fmaf(sp[n][e], sm_scale, kbias[r]);
+        p = fast_exp2((x - lq) * kLog2e - (lq < kNoKeyLse ? log2_T : 0.f));
+      }
+      const bool keep =
+          !DROP || fs2::mix32((static_cast<uint32_t>(qrow) << 16) ^ kx[r]) >= drop.thresh;
+      sp[n][e] = keep ? p * drop.keep_scale : 0.f;
+      dpt[n][e] = p * ((keep ? dpt[n][e] * drop.keep_scale : 0.f) - Dt[c]);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    c_to_a(pa[kk], sp[2 * kk], sp[2 * kk + 1]);
+    c_to_a(sa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+  }
+}
+
+// dS^T (the A fragments `sa`) to shared memory, [key][query] in the
+// 128-byte-swizzled layout of a BK-row tile: this warp's 16 key rows from
+// kw * 16
+template <int BK>
+__device__ __forceinline__ void store_ds(bf16* Ss, const uint32_t (&sa)[tc_bwd::BQ / 16][4],
+                                         int kw, int g, int t4) {
+  using namespace fs2::tc;
+  constexpr int NB_S = tc_bwd::BQ / 8;
+  const int row = kw * 16 + g;
+#pragma unroll
+  for (int n = 0; n < NB_S; ++n) {
+    *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row, n) + 2 * t4) = sa[n >> 1][(n & 1) * 2];
+    *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row + 8, n) + 2 * t4) =
+        sa[n >> 1][(n & 1) * 2 + 1];
+  }
+}
 
 template <int DH, bool DROP>
 __global__ void __launch_bounds__(tc_bwd::THREADS, 1)
@@ -289,33 +405,9 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_commit();
     wgmma_wait<0>();
 
-    // P^T (f32) and keep * P / (1 - p) as the A fragments of dV's product;
-    // then dS^T = P^T * (keep * dP^T / (1 - p) - D) in place of dP^T
     uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
-#pragma unroll
-    for (int n = 0; n < NB_S; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int c = n * 8 + 2 * t4 + (e & 1);
-        const int qrow = q0 + c;
-        float p = 0.f;
-        if (kr[r] < T_len && qrow < T_len) {
-          const float lq = Lt[c];
-          const float x = fmaf(sp[n][e], sm_scale, kbias[r]);
-          p = fast_exp2((x - lq) * kLog2e - (lq < kNoKeyLse ? log2_T : 0.f));
-        }
-        const bool keep =
-            !DROP || fs2::mix32((static_cast<uint32_t>(qrow) << 16) ^ kx[r]) >= drop.thresh;
-        sp[n][e] = keep ? p * drop.keep_scale : 0.f;
-        dpt[n][e] = p * ((keep ? dpt[n][e] * drop.keep_scale : 0.f) - Dt[c]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      c_to_a(pa[kk], sp[2 * kk], sp[2 * kk + 1]);
-      c_to_a(sa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
-    }
+    bwd_fragments<DROP>(sp, dpt, pa, sa, kr, kbias, kx, Lt, Dt, q0, T_len, sm_scale, log2_T,
+                        drop, t4);
 
     // dV += (keep P / (1 - p))^T dO and dK += dS^T Q, A from registers, B
     // (dO, Q) from shared memory read transposed
@@ -341,15 +433,7 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // dS^T (bf16) to shared memory, [key][query] in the 128-byte-swizzled
     // layout, while the products run (when wide, warpgroup 0's copy: both
     // hold the same)
-    if (!WIDE || wg == 0) {
-#pragma unroll
-      for (int n = 0; n < NB_S; ++n) {
-        const int row = kw * 16 + g;
-        *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row, n) + 2 * t4) = sa[n >> 1][(n & 1) * 2];
-        *reinterpret_cast<uint32_t*>(Ss + sw128<BK>(row + 8, n) + 2 * t4) =
-            sa[n >> 1][(n & 1) * 2 + 1];
-      }
-    }
+    if (!WIDE || wg == 0) store_ds<BK>(Ss, sa, kw, g, t4);
     fence_async_shared();
     wgmma_wait<0>();
     __syncthreads();
@@ -411,6 +495,209 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int NG, bool DROP>
+__global__ void __launch_bounds__(tc_bwd::THREADS, 1)
+attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ key_bias, const int* __restrict__ kv_end,
+                      const float* __restrict__ lse, const float* __restrict__ dsum,
+                      float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      int T_len, int dh, Strides qs, Strides ks, Strides vs, Strides ds,
+                      float sm_scale, Dropout drop) {
+  using namespace fs2::tc;
+  using namespace tc_bwd;
+  using Tile = WideTiling<NG>;
+  constexpr int BK = Tile::BK, CW = Tile::CW, CPW = Tile::CPW, NB_ACC = Tile::NB_ACC;
+  constexpr int NB_S = BQ / 8;  // n-blocks of S^T (query columns)
+  constexpr int NB_Q = 8;       // n-blocks of 64 columns of dQ
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Kg = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* Qg = Kg + BK * NG;      // [BQ * NG]
+  bf16* Og = Qg + BQ * NG;      // [BQ * NG], dO
+  bf16* Ch = Og + BQ * NG;      // [2][STAGE]: K, V chunks [BK * CW], Q, dO chunks [BQ * CW]
+  bf16* Ss = Ch + 2 * Tile::STAGE;                    // [BK][BQ], dS^T
+  float* Ls = reinterpret_cast<float*>(Ss + BK * BQ);  // [BQ]
+  float* Dd = Ls + BQ;                                 // [BQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, kw = warp & 3;  // both warpgroups on the block's 64 keys
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_groups = dh / NG;
+  const int g0 = (blockIdx.x % n_groups) * NG;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = (blockIdx.x / n_groups) * BK;
+  const long long bh = static_cast<long long>(b) * gridDim.y + h;
+  const long long row_base = bh * T_len;
+
+  if (k0 >= min(max(kv_end[b], 1), T_len)) {
+    zero_cols<NG, THREADS>(dk, dv, row_base, k0, BK, T_len, tid, dh, g0);
+    return;
+  }
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* db = dout + b * ds.b + h * ds.h;
+  const float* lse_b = lse + row_base;
+  const float* dsum_b = dsum + row_base;
+  float* dq_b = dq_acc + row_base * dh;
+  const int n_chunks = dh / CW;
+  const int n_qt = (T_len + BQ - 1) / BQ;
+  const int n_steps = n_qt * n_chunks;
+
+  // step st: chunk st % n_chunks of the K and V tiles and of query tile
+  // st / n_chunks's Q and dO tiles, into stage st & 1
+  auto load_chunk = [&](int st) {
+    const int i = st / n_chunks, c = st - i * n_chunks;
+    bf16* stage = Ch + (st & 1) * Tile::STAGE;
+    load_tile<BK, CW, THREADS>(stage, kb + c * CW, ks.t, k0, T_len, tid);
+    load_tile<BK, CW, THREADS>(stage + BK * CW, vb + c * CW, vs.t, k0, T_len, tid);
+    load_tile<BQ, CW, THREADS>(stage + 2 * BK * CW, qb + c * CW, qs.t, i * BQ, T_len, tid);
+    load_tile<BQ, CW, THREADS>(stage + (2 * BK + BQ) * CW, db + c * CW, ds.t, i * BQ, T_len,
+                               tid);
+  };
+  // query tile i's group columns of Q and dO, its lse and D
+  auto load_group = [&](int i) {
+    const int q0 = i * BQ;
+    load_tile<BQ, NG, THREADS>(Qg, qb + g0, qs.t, q0, T_len, tid);
+    load_tile<BQ, NG, THREADS>(Og, db + g0, ds.t, q0, T_len, tid);
+    const int r = tid & (BQ - 1);
+    const bool ok = q0 + r < T_len;
+    if (tid < BQ)
+      cp_async4(Ls + r, lse_b + (ok ? q0 + r : 0), ok);
+    else if (tid < 2 * BQ)
+      cp_async4(Dd + r, dsum_b + (ok ? q0 + r : 0), ok);
+  };
+
+  load_tile<BK, NG, THREADS>(Kg, kb + g0, ks.t, k0, T_len, tid);
+  load_chunk(0);
+  cp_async_commit();
+
+  // this thread's two key rows: bias, validity, dropout hash prefix
+  int kr[2];
+  float kbias[2];
+  uint32_t kx[2];
+  const uint32_t key = DROP ? drop.key(b, h) : 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kr[r] = k0 + kw * 16 + g + 8 * r;
+    kbias[r] = kr[r] < T_len ? key_bias[static_cast<long long>(b) * T_len + kr[r]] : 0.f;
+    kx[r] = static_cast<uint32_t>(kr[r]) ^ key;
+  }
+  const float log2_T = log2f(static_cast<float>(T_len));
+
+  auto cb = [&](int c) { return wg * CPW + c; };  // the group's column block of block c
+  float dka[NB_ACC][4], dva[NB_ACC][4];
+#pragma unroll
+  for (int n = 0; n < NB_ACC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int i = 0, st = 0; i < n_qt; ++i) {
+    const int q0 = i * BQ;
+    float sp[NB_S][4], dpt[NB_S][4];
+#pragma unroll
+    for (int n = 0; n < NB_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[n][e] = dpt[n][e] = 0.f;
+    for (int c = 0; c < n_chunks; ++c, ++st) {
+      if (st + 1 < n_steps) load_chunk(st + 1);
+      // the group tiles of query tile i: their last readers (tile i - 1's
+      // products) finished before the barrier that ended tile i - 1
+      if (c == 0) load_group(i);
+      cp_async_commit();
+      cp_async_wait<1>();  // step st's chunks landed (and, from c = 1, tile i's group tiles)
+      fence_async_shared();
+      __syncthreads();
+      const bf16* stage = Ch + (st & 1) * Tile::STAGE;
+      const bf16* Kt = stage;
+      const bf16* Vt = stage + BK * CW;
+      const bf16* Qt = stage + 2 * BK * CW;
+      const bf16* Ot = stage + (2 * BK + BQ) * CW;
+      // S^T += K Q^T and dP^T += V dO^T over this chunk, all from shared memory
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CW / 16; ++kk) {
+        wgmma_ss_n64(sp, sw128_desc(Kt + kk * 16, 16, 1024), sw128_desc(Qt + kk * 16, 16, 1024));
+        wgmma_ss_n64(dpt, sw128_desc(Vt + kk * 16, 16, 1024), sw128_desc(Ot + kk * 16, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncthreads();  // stage st & 1 is consumed before step st + 2 refills it
+    }
+
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+    bwd_fragments<DROP>(sp, dpt, pa, sa, kr, kbias, kx, Ls, Dd, q0, T_len, sm_scale, log2_T,
+                        drop, t4);
+
+    // dV += (keep P / (1 - p))^T dO and dK += dS^T Q on this warpgroup's
+    // column blocks of the group, B (dO, Q) read transposed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int c = 0; c < CPW; ++c) {
+        const int off = cb(c) * BQ * 64 + kk * 16 * 64;
+        auto& dvc = *reinterpret_cast<float(*)[8][4]>(&dva[8 * c]);
+        auto& dkc = *reinterpret_cast<float(*)[8][4]>(&dka[8 * c]);
+        wgmma_rs_n64(dvc, pa[kk], sw128_desc(Og + off, BQ * 128, 1024));
+        wgmma_rs_n64(dkc, sa[kk], sw128_desc(Qg + off, BQ * 128, 1024));
+      }
+    }
+    wgmma_commit();
+
+    // dS^T (bf16) to shared memory, [key][query] swizzled, while the products
+    // run (warpgroup 0's copy: both hold the same)
+    if (wg == 0) store_ds<BK>(Ss, sa, kw, g, t4);
+    fence_async_shared();
+    wgmma_wait<0>();
+    __syncthreads();
+
+    // dQ = dS K on this warpgroup's column blocks of the group over the
+    // block's 64 keys; this warp's rows are queries 16 (warp % 4) ..
+#pragma unroll
+    for (int c = 0; c < CPW; ++c) {
+      float dqa[NB_Q][4];
+#pragma unroll
+      for (int n = 0; n < NB_Q; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const int row = kk * 16;
+        wgmma_ss_n64<1, 1>(dqa, sw128_desc(Ss + row * 64, BK * 128, 1024),
+                           sw128_desc(Kg + cb(c) * BK * 64 + row * 64, BK * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qrow = q0 + kw * 16 + g + 8 * r;
+        if (qrow >= T_len) continue;
+        float* dst = dq_b + static_cast<long long>(qrow) * dh + g0 + cb(c) * 64 + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < NB_Q; ++n)  // one vector add per column pair (sm_90)
+          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
+                    make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
+      }
+    }
+    __syncthreads();  // Ss, Qg, Og and Ls, Dd are consumed before tile i + 1 refills them
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kr[r] >= T_len) continue;
+    const long long off = (row_base + kr[r]) * dh + g0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NB_ACC; ++n) {
+      const int col = cb(n / 8) * 64 + (n % 8) * 8;
+      *reinterpret_cast<uint32_t*>(dk + off + col) =
+          pack_bf16(dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dv + off + col) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
 // -- f32: CUDA cores ----------------------------------------------------------
 
 namespace f32_bwd {
@@ -432,7 +719,89 @@ constexpr size_t smem_floats() {
   return 2 * (BK + bq<DH>()) * (DH + 1) + 2 * BK * (bq<DH>() + 1) + BK + 2 * bq<DH>();
 }
 
+// a wide head dim: 32 query rows a tile; K, V, Q and dO chunks padded to 65
+// columns, the K group tile and the Q and dO group tiles padded to NG + 1,
+// P-kept and dS tiles, key bias, lse, D
+constexpr int WIDE_BQ = 32;
+template <int NG>
+constexpr size_t wide_smem_floats() {
+  constexpr int CW = fs2::attn::CHUNK;
+  return 2 * (BK + WIDE_BQ) * (CW + 1) + (BK + 2 * WIDE_BQ) * (NG + 1) +
+         2 * BK * (WIDE_BQ + 1) + BK + 2 * WIDE_BQ;
+}
+
 }  // namespace f32_bwd
+
+// One query tile of the f32 backward once this thread's S^T and dP^T
+// entries (key `row`, queries part + 4 j) are in `s` and `dp`: form the kept
+// P and dS in shared memory (PK, SS: [key][query], BQ + 1 a row), add this
+// thread's NO columns part + 4 m of dV and dK from the dO and Q tiles `Os`,
+// `Qs` (LDQ floats a row), and add dQ = sm_scale * dS K from the K tile `Ks`
+// (LDK a row) into dq_b's rows of `ld` floats at column col0 + part + 4 m.
+// Holds a barrier.
+template <int NO, int BQ, int LDQ, int LDK>
+__device__ __forceinline__ void f32_bwd_tile(const float (&s)[BQ / 4], const float (&dp)[BQ / 4],
+                                             float (&dk_acc)[NO], float (&dv_acc)[NO],
+                                             float bias, const float* Ls, const float* Dd,
+                                             float* PK, float* SS, const float* Qs,
+                                             const float* Os, const float* Ks, float* dq_b,
+                                             int ld, int col0, int row, int part, int q0, int k0,
+                                             int T_len, bool key_ok, float sm_scale,
+                                             float log_T, uint32_t key, const Dropout& drop) {
+  constexpr int BK = f32_bwd::BK;
+  constexpr int LP = BQ + 1;
+  constexpr int NS = BQ / 4;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int qc = part + 4 * j;
+    float pk = 0.f, dsv = 0.f;
+    if (key_ok && q0 + qc < T_len) {
+      const float lq = Ls[qc];
+      const float p = expf((s[j] * sm_scale + bias - lq) - (lq < kNoKeyLse ? log_T : 0.f));
+      bool keep = true;
+      if (drop.thresh) keep = fs2::dropout_bits(key, q0 + qc, k0 + row) >= drop.thresh;
+      const float dprob = keep ? dp[j] * drop.keep_scale : 0.f;
+      pk = keep ? p * drop.keep_scale : 0.f;
+      dsv = p * (dprob - Dd[qc]);
+    }
+    PK[row * LP + qc] = pk;
+    SS[row * LP + qc] = dsv;
+  }
+  __syncthreads();  // the tile's kept P and dS are in shared memory
+
+  // dV[row] += PK[row] . dO,  dK[row] += dS[row] . Q
+  const float* pkrow = PK + row * LP;
+  const float* ssrow = SS + row * LP;
+#pragma unroll 2
+  for (int qc = 0; qc < BQ; ++qc) {
+    const float pk = pkrow[qc], dsv = ssrow[qc];
+    const float* dorow = Os + qc * LDQ + part;
+    const float* qrow = Qs + qc * LDQ + part;
+#pragma unroll
+    for (int m = 0; m < NO; ++m) {
+      dv_acc[m] = fmaf(pk, dorow[4 * m], dv_acc[m]);
+      dk_acc[m] = fmaf(dsv, qrow[4 * m], dk_acc[m]);
+    }
+  }
+
+  // dQ[query row] += sm_scale * dS[:, row] . K
+  const int tq = q0 + row;
+  if (row < BQ && tq < T_len) {
+    float acc[NO];
+#pragma unroll
+    for (int m = 0; m < NO; ++m) acc[m] = 0.f;
+#pragma unroll 2
+    for (int kr = 0; kr < BK; ++kr) {
+      const float dsv = SS[kr * LP + row];
+      const float* kr_row = Ks + kr * LDK + part;
+#pragma unroll
+      for (int m = 0; m < NO; ++m) acc[m] = fmaf(dsv, kr_row[4 * m], acc[m]);
+    }
+    float* dqrow = dq_b + static_cast<long long>(tq) * ld + col0 + part;
+#pragma unroll
+    for (int m = 0; m < NO; ++m) atomicAdd(dqrow + 4 * m, acc[m] * sm_scale);
+  }
+}
 
 template <int DH>
 __global__ void __launch_bounds__(f32_bwd::THREADS)
@@ -531,61 +900,151 @@ attention_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         dp[j] = fmaf(vv, Ds[(part + 4 * j) * LD + d], dp[j]);
       }
     }
-    const float bias = Bs[row];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int qc = part + 4 * j;
-      float pk = 0.f, dsv = 0.f;
-      if (key_ok && q0 + qc < T_len) {
-        const float lq = Ls[qc];
-        const float p = expf((s[j] * sm_scale + bias - lq) - (lq < kNoKeyLse ? log_T : 0.f));
-        bool keep = true;
-        if (drop.thresh) keep = fs2::dropout_bits(key, q0 + qc, k0 + row) >= drop.thresh;
-        const float dprob = keep ? dp[j] * drop.keep_scale : 0.f;
-        pk = keep ? p * drop.keep_scale : 0.f;
-        dsv = p * (dprob - Dd[qc]);
-      }
-      PK[row * LP + qc] = pk;
-      SS[row * LP + qc] = dsv;
-    }
-    __syncthreads();  // the tile's kept P and dS are in shared memory
-
-    // dV[row] += PK[row] . dO,  dK[row] += dS[row] . Q
-    const float* pkrow = PK + row * LP;
-    const float* ssrow = SS + row * LP;
-#pragma unroll 2
-    for (int qc = 0; qc < BQ; ++qc) {
-      const float pk = pkrow[qc], dsv = ssrow[qc];
-      const float* dorow = Ds + qc * LD + part;
-      const float* qrow = Qs + qc * LD + part;
-#pragma unroll
-      for (int m = 0; m < NO; ++m) {
-        dv_acc[m] = fmaf(pk, dorow[4 * m], dv_acc[m]);
-        dk_acc[m] = fmaf(dsv, qrow[4 * m], dk_acc[m]);
-      }
-    }
-
-    // dQ[query row] += sm_scale * dS[:, row] . K
-    const int tq = q0 + row;
-    if (row < BQ && tq < T_len) {
-      float acc[NO];
-#pragma unroll
-      for (int m = 0; m < NO; ++m) acc[m] = 0.f;
-#pragma unroll 2
-      for (int kr = 0; kr < BK; ++kr) {
-        const float dsv = SS[kr * LP + row];
-        const float* kr_row = Ks + kr * LD + part;
-#pragma unroll
-        for (int m = 0; m < NO; ++m) acc[m] = fmaf(dsv, kr_row[4 * m], acc[m]);
-      }
-      float* dqrow = dq_b + static_cast<long long>(tq) * DH + part;
-#pragma unroll
-      for (int m = 0; m < NO; ++m) atomicAdd(dqrow + 4 * m, acc[m] * sm_scale);
-    }
+    f32_bwd_tile<NO, BQ, LD, LD>(s, dp, dk_acc, dv_acc, Bs[row], Ls, Dd, PK, SS, Qs, Ds, Ks,
+                                 dq_b, DH, 0, row, part, q0, k0, T_len, key_ok, sm_scale,
+                                 log_T, key, drop);
   }
 
   if (key_ok) {
     const long long off = (bh * T_len + k0 + row) * DH + part;
+#pragma unroll
+    for (int m = 0; m < NO; ++m) {
+      dk[off + 4 * m] = dk_acc[m] * sm_scale;
+      dv[off + 4 * m] = dv_acc[m];
+    }
+  }
+}
+
+// A wide head dim in f32: blockIdx.x = key tile * groups + group, the block's
+// columns [NG * group, NG * group + NG) of dK, dV and dQ. Per query tile, S^T
+// and dP^T are summed over dh in 64-wide chunks of K, V, Q and dO staged
+// one after the other (the same order over d as the kernel above); the
+// group's columns of K stay, and those of Q and dO are staged with the
+// first chunk, for f32_bwd_tile.
+template <int NG>
+__global__ void __launch_bounds__(f32_bwd::THREADS)
+attention_bwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ key_bias, const int* __restrict__ kv_end,
+                       const float* __restrict__ lse, const float* __restrict__ dsum,
+                       float* __restrict__ dq_acc, float* __restrict__ dk,
+                       float* __restrict__ dv, int T_len, int dh, Strides qs, Strides ks,
+                       Strides vs, Strides ds, float sm_scale, Dropout drop) {
+  using namespace f32_bwd;
+  constexpr int BQ = WIDE_BQ;
+  constexpr int CW = fs2::attn::CHUNK;
+  constexpr int LC = CW + 1;  // chunk rows
+  constexpr int LG = NG + 1;  // group rows
+  constexpr int LP = BQ + 1;
+  constexpr int NO = NG / 4;  // accumulator columns per thread
+  constexpr int NS = BQ / 4;  // score columns per thread
+  extern __shared__ float smem[];
+  float* Kc = smem;
+  float* Vc = Kc + BK * LC;
+  float* Qc = Vc + BK * LC;
+  float* Oc = Qc + BQ * LC;  // dO chunk
+  float* Kg = Oc + BQ * LC;
+  float* Qg = Kg + BK * LG;
+  float* Og = Qg + BQ * LG;  // dO group columns
+  float* PK = Og + BQ * LG;
+  float* SS = PK + BK * LP;
+  float* Bs = SS + BK * LP;
+  float* Ls = Bs + BK;
+  float* Dd = Ls + BQ;
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;  // key row for dK/dV, query row for dQ
+  const int part = tid & 3;
+  const int n_groups = dh / NG;
+  const int g0 = (blockIdx.x % n_groups) * NG;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k0 = (blockIdx.x / n_groups) * BK;
+  const long long bh = static_cast<long long>(b) * gridDim.y + h;
+
+  if (k0 >= min(max(kv_end[b], 1), T_len)) {
+    zero_cols<NG, THREADS>(dk, dv, bh * T_len, k0, BK, T_len, tid, dh, g0);
+    return;
+  }
+
+  const uint32_t key = drop.thresh ? drop.key(b, h) : 0u;
+  const float log_T = logf(static_cast<float>(T_len));
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const float* db = dout + b * ds.b + h * ds.h;
+  const float* lse_b = lse + bh * T_len;
+  const float* dsum_b = dsum + bh * T_len;
+  float* dq_b = dq_acc + bh * T_len * dh;
+
+  for (int i = tid; i < BK * NG; i += THREADS) {
+    const int r = i / NG, d = i % NG, t = k0 + r;
+    Kg[r * LG + d] = t < T_len ? kb[t * ks.t + g0 + d] : 0.f;
+  }
+  if (tid < BK) {
+    const int t = k0 + tid;
+    Bs[tid] = t < T_len ? key_bias[static_cast<long long>(b) * T_len + t] : 0.f;
+  }
+
+  float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+  for (int m = 0; m < NO; ++m) dk_acc[m] = dv_acc[m] = 0.f;
+  const bool key_ok = k0 + row < T_len;
+
+  for (int q0 = 0; q0 < T_len; q0 += BQ) {
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j] = dp[j] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += CW) {
+      __syncthreads();  // the previous chunk (and query tile) is consumed
+      for (int i = tid; i < BK * CW; i += THREADS) {
+        const int r = i / CW, d = i % CW, t = k0 + r;
+        const bool ok = t < T_len;
+        Kc[r * LC + d] = ok ? kb[t * ks.t + c0 + d] : 0.f;
+        Vc[r * LC + d] = ok ? vb[t * vs.t + c0 + d] : 0.f;
+      }
+      for (int i = tid; i < BQ * CW; i += THREADS) {
+        const int r = i / CW, d = i % CW, t = q0 + r;
+        const bool ok = t < T_len;
+        Qc[r * LC + d] = ok ? qb[t * qs.t + c0 + d] : 0.f;
+        Oc[r * LC + d] = ok ? db[t * ds.t + c0 + d] : 0.f;
+      }
+      if (c0 == 0) {
+        for (int i = tid; i < BQ * NG; i += THREADS) {
+          const int r = i / NG, d = i % NG, t = q0 + r;
+          const bool ok = t < T_len;
+          Qg[r * LG + d] = ok ? qb[t * qs.t + g0 + d] : 0.f;
+          Og[r * LG + d] = ok ? db[t * ds.t + g0 + d] : 0.f;
+        }
+        if (tid < BQ) {
+          const int t = q0 + tid;
+          Ls[tid] = t < T_len ? lse_b[t] : 0.f;
+          Dd[tid] = t < T_len ? dsum_b[t] : 0.f;
+        }
+      }
+      __syncthreads();
+
+      // S^T and dP^T for key `row` against queries part + 4j
+      const float* krow = Kc + row * LC;
+      const float* vrow = Vc + row * LC;
+#pragma unroll 2
+      for (int d = 0; d < CW; ++d) {
+        const float kv = krow[d], vv = vrow[d];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          s[j] = fmaf(kv, Qc[(part + 4 * j) * LC + d], s[j]);
+          dp[j] = fmaf(vv, Oc[(part + 4 * j) * LC + d], dp[j]);
+        }
+      }
+    }
+    f32_bwd_tile<NO, BQ, LG, LG>(s, dp, dk_acc, dv_acc, Bs[row], Ls, Dd, PK, SS, Qg, Og, Kg,
+                                 dq_b, dh, g0, row, part, q0, k0, T_len, key_ok, sm_scale,
+                                 log_T, key, drop);
+  }
+
+  if (key_ok) {
+    const long long off = (bh * T_len + k0 + row) * dh + g0 + part;
 #pragma unroll
     for (int m = 0; m < NO; ++m) {
       dk[off + 4 * m] = dk_acc[m] * sm_scale;
@@ -604,7 +1063,7 @@ struct Args {
   float* dsum;
   float* dq_acc;
   void *dk, *dv;
-  int B, H, T_len;
+  int B, H, T_len, dh;
   Strides qs, ks, vs, ds, os;
   float sm_scale;
   Dropout drop;
@@ -616,7 +1075,7 @@ cudaError_t launch_prepass(const Args& a) {
   const long long rows = static_cast<long long>(a.B) * a.H * a.T_len;
   bwd_prepass<T, DH><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, a.stream>>>(
       static_cast<const T*>(a.dout), static_cast<const T*>(a.o), a.H, a.T_len, a.ds, a.os,
-      a.dsum, a.dq_acc, rows);
+      a.dsum, a.dq_acc, rows, a.dh);
   return cudaGetLastError();
 }
 
@@ -662,6 +1121,45 @@ cudaError_t launch_tc(const Args& a) {
   return cudaGetLastError();
 }
 
+// a wide head dim: one block per (key tile, column group), head, item
+template <int NG>
+cudaError_t launch_f32_wide(const Args& a) {
+  using namespace f32_bwd;
+  cudaError_t err = launch_prepass<float, 0>(a);
+  if (err != cudaSuccess) return err;
+  const size_t smem = wide_smem_floats<NG>() * sizeof(float);
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, attention_bwd_f32_wide<NG>, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.T_len + BK - 1) / BK * (a.dh / NG), a.H, a.B);
+  attention_bwd_f32_wide<NG><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.bias, a.kv_end,
+      a.lse, a.dsum, a.dq_acc, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.T_len,
+      a.dh, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.drop);
+  return cudaGetLastError();
+}
+
+template <int NG, bool DROP>
+cudaError_t launch_tc_wide(const Args& a) {
+  using Tile = tc_bwd::WideTiling<NG>;
+  cudaError_t err = launch_prepass<bf16, 0>(a);
+  if (err != cudaSuccess) return err;
+  const size_t smem = Tile::SMEM;
+  static fs2::SmemOptIn opt_in;
+  const cudaError_t attr = fs2::smem_opt_in(
+      opt_in, attention_bwd_tc_wide<NG, DROP>, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.T_len + Tile::BK - 1) / Tile::BK * (a.dh / NG), a.H, a.B);
+  attention_bwd_tc_wide<NG, DROP><<<grid, tc_bwd::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.bias, a.kv_end,
+      a.lse, a.dsum, a.dq_acc, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.T_len,
+      a.dh, a.qs, a.ks, a.vs, a.ds, a.sm_scale, a.drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 FS2_EXPORT_ERROR_STRING
@@ -691,17 +1189,24 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
   const Args a{q, k, v, dout, o, static_cast<const float*>(key_bias),
                static_cast<int*>(kv_end), static_cast<const float*>(lse),
                static_cast<float*>(dsum), static_cast<float*>(dq_acc), dk, dv, B, H,
-               T_len, Strides{q_sb, q_sh, q_st}, Strides{k_sb, k_sh, k_st},
+               T_len, dh, Strides{q_sb, q_sh, q_st}, Strides{k_sb, k_sh, k_st},
                Strides{v_sb, v_sh, v_st}, Strides{d_sb, d_sh, d_st},
                Strides{o_sb, o_sh, o_st}, sm_scale,
                Dropout{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale,
                        row_offset, head_offset, heads_total},
                static_cast<cudaStream_t>(stream)};
   const bool dropout = thresh > 0;
-  if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) || !fs2::attn::built_dh(dh))
+  if ((dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) ||
+      !(fs2::attn::built_dh(dh) || fs2::attn::wide_dh(dh)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = fs2::attn::launch_kv_end(a.bias, B, T_len, a.kv_end, a.stream);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (fs2::attn::wide_dh(dh)) {
+    if (dtype == fs2::kFloat32) return launch_f32_wide<128>(a);
+    if (fs2::attn::group_width(true, dh) == 256)
+      return dropout ? launch_tc_wide<256, true>(a) : launch_tc_wide<256, false>(a);
+    return dropout ? launch_tc_wide<128, true>(a) : launch_tc_wide<128, false>(a);
+  }
 #define FS2_BWD_DH(DH)                                                        \
   if (dh == DH) {                                                             \
     if (dtype == fs2::kFloat32) return launch_f32<DH>(a);                     \

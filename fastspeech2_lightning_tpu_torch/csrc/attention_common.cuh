@@ -20,6 +20,22 @@ __host__ __device__ constexpr bool built_dh(int dh) {
   return dh == 64 || dh == 128 || dh == 192 || dh == 256;
 }
 
+// Head dims above 256 run at a multiple of 128 (ops/attention.py pads to
+// it, as the JAX package pads every dh): each block takes one group of
+// group_width() output columns and streams the products over the full dh
+// (S = Q K^T, and in the backward also dP = dO V^T) through shared memory in
+// CHUNK-wide column chunks, recomputing them in every group.
+constexpr int CHUNK = 64;
+
+__host__ __device__ constexpr bool wide_dh(int dh) { return dh > 256 && dh % 128 == 0; }
+
+// the output columns a block of a wide head dim takes: 256 where they
+// divide dh in bf16 (the accumulators of the dh-256 kernels), else 128; the
+// f32 CUDA-core kernels take 128
+__host__ __device__ constexpr int group_width(bool bf16, int dh) {
+  return bf16 && dh % 256 == 0 ? 256 : 128;
+}
+
 struct Strides {
   long long b, h, t;
 };

@@ -49,7 +49,7 @@
 //  - States in registers: a lane holds K consecutive states from an even
 //    one, so a frame needs one shuffle (the top state of the lane below):
 //    K = 2 up to S = 448 (every training bucket: at most 8 warps, two a
-//    scheduler), K = 4 above (at most 19 warps at the limit S = 2047).
+//    scheduler), K = 4 above (at most 19 warps at the ring's limit S = 2047).
 //  - No barrier a frame: each warp's first four lanes carry the 4 K states
 //    left of its 28 K (a halo, recomputed with the same arithmetic). A halo
 //    state stays right two states less each frame, so the halo serves 2 K
@@ -72,6 +72,25 @@
 // subnormal and infinite arguments (bit-equal over [1, 3], the only sums an
 // lse takes) moved nothing, so the chain's latency, not issue, sets the
 // time.
+// Past S = 2047 (texts of 1024 symbols or more, up to S = 16383, 8191
+// symbols, the S that the JAX package's own Pallas gate admits at B 16): a
+// ring of 32 frames would take 32 (L + 1) floats, more shared memory than a
+// block has. There the chains run without ring and copy warp
+// (ctc_chain_direct_kernel, run_chain_direct): each lane reads its own
+// emissions from device memory one frame ahead, into registers. States
+// stay in registers with the same halo, and the arithmetic and its order
+// are run_chain's (chain_frame is the one frame update both call), so the
+// rows are the plain version's to the bit as before. K = 8 states a lane
+// up to 24 warps (S <= 5376); K = 32 beyond, at most 19 warps at
+// S = 16383, where the 32 states, their emissions and the lse temporaries
+// spill about 450 bytes a thread (nvcc 12.9). Alternatives set aside: a
+// thread-block cluster of several blocks an item, the halo through
+// distributed shared memory, would spread a chain over SMs but puts a
+// cluster barrier on every meet; more warps a block cannot hold more
+// states (32 warps x 28 lanes x 16 states is 14336 < 16383 at the 64
+// registers a thread such a block allows). The output rows are
+// [B, T, S] f32 (512 MB each at B 16, T 2048, S 4001), as in JAX.
+//
 // Design of the gradient: one warp a (b, t) row over all SMs, the even-state
 // sum by shuffles within the warp; a padded frame writes its zeros without
 // reading alpha or beta.
@@ -84,7 +103,8 @@
 namespace {
 
 constexpr float NEG_INF = -1e15f;
-constexpr int MAX_S = 2048;
+constexpr int MAX_S = 16383;               // states an item (L <= 8191)
+constexpr int RING_S = 2047;               // the ring chains' reach (L <= 1023)
 constexpr int HALO_LANES = 4;              // lanes a warp spends on its halo
 constexpr int RING_FRAMES = 32;            // frames the emission ring holds
 constexpr int GRAD_ROWS = 8;               // (b, t) rows a gradient block
@@ -103,7 +123,7 @@ constexpr int K_SHORT = 2, K_LONG = 4;  // two states a lane up to 8 warps (S <=
 constexpr int SHORT_S = 8 * Layout<K_SHORT>::OWN;
 template <int K>
 constexpr int max_warps() {
-  return K == K_SHORT ? 8 : (MAX_S - 1 + Layout<K>::OWN - 1) / Layout<K>::OWN;
+  return K == K_SHORT ? 8 : (RING_S + Layout<K>::OWN - 1) / Layout<K>::OWN;
 }
 constexpr int HALO_FLOATS = max_warps<K_LONG>() * HALO_LANES * K_LONG;  // floats a meet
 
@@ -130,6 +150,61 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float q = expf((c_max ? b : c) - m);
   const float out = m + logf(c_max ? (p + q) + 1.f : (1.f + p) + q);
   return m > 0.5f * NEG_INF ? out : NEG_INF;
+}
+
+// One frame of a chain: this lane's K states x (alpha_{t-1}, or w_{t+1})
+// become the frame's, given their emissions e; the owned ones are stored at
+// o[k] (alpha) or o[-k] (beta). `init`: beta's first frame (T - 1).
+template <int K, bool BETA>
+__device__ __forceinline__ void chain_frame(float (&x)[K], const float (&e)[K], bool init,
+                                            float* o, const bool (&keep)[K], int first, int S,
+                                            int s_blank, int s_label) {
+  // the top state of the lane below; lane 0 (a halo lane, whose leftmost
+  // state is not right after a frame anyway) takes its own: in warp 0
+  // every state left of 0 stays <= NEG_INF whatever it takes
+  const float left = __shfl_up_sync(FULL, x[K - 1], 1);
+  float v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float p1 = k >= 1 ? x[k - 1] : left;
+    v[k] = k & 1 ? lse3(x[k], p1, k >= 2 ? x[k - 2] : left) : lse2(x[k], p1);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (BETA) {
+      if (init) {
+        const int s = S - 1 - (first + k);
+        v[k] = s == s_blank || s == s_label ? 0.f : NEG_INF;
+      } else {
+        v[k] = fmaxf(v[k], NEG_INF);
+      }
+      x[k] = v[k] + e[k];
+    } else {
+      v[k] = fmaxf(v[k] + e[k], NEG_INF);
+      x[k] = v[k];
+    }
+    if (keep[k]) o[BETA ? -k : k] = v[k];
+  }
+}
+
+// Meet m of a chain's warps, at barrier 1 over the block (the copy warp
+// hands a ring chunk over at the same barrier): from the second meet on,
+// this warp's top HALO_LANES lanes hand their states on through `meet`
+// ([warp][HALO_LANES * K] floats), and its first HALO_LANES lanes take the
+// warp below's as their halo.
+template <int K>
+__device__ __forceinline__ void meet_halo(float (&x)[K], float* meet, int m, int warp,
+                                          int lane) {
+  constexpr int H = HALO_LANES * K;
+  if (m > 0 && lane >= 32 - HALO_LANES) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) meet[warp * H + (lane - (32 - HALO_LANES)) * K + k] = x[k];
+  }
+  bar_sync(1, blockDim.x);
+  if (m > 0 && warp > 0 && lane < HALO_LANES) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[k] = meet[(warp - 1) * H + lane * K + k];
+  }
 }
 
 // One chain of one item: chain warps 0 .. n_warps - 1, then the copy warp.
@@ -198,48 +273,13 @@ __device__ __forceinline__ void run_chain(const float* __restrict__ lp, float* _
     float e[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) e[k] = k & 1 ? row[col[k / 2]] : row[0];
-    // the top state of the lane below; lane 0 (a halo lane, whose leftmost
-    // state is not right after a frame anyway) takes its own: in warp 0
-    // every state left of 0 stays <= NEG_INF whatever it takes
-    const float left = __shfl_up_sync(FULL, x[K - 1], 1);
-    float v[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float p1 = k >= 1 ? x[k - 1] : left;
-      v[k] = k & 1 ? lse3(x[k], p1, k >= 2 ? x[k - 2] : left) : lse2(x[k], p1);
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (BETA) {
-        if (init) {
-          const int s = S - 1 - (first + k);
-          v[k] = s == s_blank || s == s_label ? 0.f : NEG_INF;
-        } else {
-          v[k] = fmaxf(v[k], NEG_INF);
-        }
-        x[k] = v[k] + e[k];
-      } else {
-        v[k] = fmaxf(v[k] + e[k], NEG_INF);
-        x[k] = v[k];
-      }
-      if (keep[k]) o[BETA ? -k : k] = v[k];
-    }
+    chain_frame<K, BETA>(x, e, init, o, keep, first, S, s_blank, s_label);
     o += row_step;
   };
 
   // the halo floats of warp w at meet m: halo[m & 1][w][HALO_LANES * K]
-  constexpr int H = HALO_LANES * K;
   for (int m = 0; m < n_chunks; ++m) {
-    float* meet = halo + (m & 1) * HALO_FLOATS;
-    if (m > 0 && lane >= 32 - HALO_LANES) {  // meet, and hand the top states on as a halo
-#pragma unroll
-      for (int k = 0; k < K; ++k) meet[warp * H + (lane - (32 - HALO_LANES)) * K + k] = x[k];
-    }
-    bar_sync(1, blockDim.x);
-    if (m > 0 && warp > 0 && lane < HALO_LANES) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) x[k] = meet[(warp - 1) * H + lane * K + k];
-    }
+    meet_halo<K>(x, halo + (m & 1) * HALO_FLOATS, m, warp, lane);
     const float* rows = ring + (m % SLOTS) * CHUNK * Lp1;
     const int n = min(CHUNK, T - m * CHUNK);
     if (m > 0 && n == CHUNK) {
@@ -250,6 +290,100 @@ __device__ __forceinline__ void run_chain(const float* __restrict__ lp, float* _
       for (int i = 0; i < n; ++i) step(rows + i * Lp1, m == 0 && i == 0);
     }
   }
+}
+
+// Past the ring's reach (S > 2047) a row of emissions is up to 32 KB, and
+// a ring of a few chunks would not fit shared memory: no copy warp and no
+// ring. Each lane reads its own emissions (the blank and K / 2 labels) from
+// device memory one frame ahead of the chain, into registers; the reads do
+// not depend on the chain, and a frame at K = 8 or 32 holds enough lse's to
+// cover their latency. The warps meet every 2 K frames for the halo only.
+// K = 8 up to 24 warps (S <= 5376), K = 32 beyond (at most 19 warps at
+// S = 16383); the states, the halo and the arithmetic are run_chain's.
+constexpr int K_WIDE = 8, K_HUGE = 32;
+template <int K>
+constexpr int direct_warps() {
+  return K == K_WIDE ? 24 : (MAX_S + Layout<K>::OWN - 1) / Layout<K>::OWN;
+}
+constexpr int WIDE_S = direct_warps<K_WIDE>() * Layout<K_WIDE>::OWN;
+
+template <int K, bool BETA>
+__device__ __forceinline__ void run_chain_direct(const float* __restrict__ lp,
+                                                 float* __restrict__ out, float* halo, int T,
+                                                 int L, int in_len, int out_len) {
+  using Lay = Layout<K>;
+  constexpr int CHUNK = Lay::CHUNK, OWN = Lay::OWN;
+  const int S = 2 * L + 1, Lp1 = L + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int n_chunks = (T + CHUNK - 1) / CHUNK;
+
+  // as in run_chain: this lane's states, the columns of its odd states (any
+  // finite column outside [0, S)), which it stores, and where
+  const int first = warp * OWN - HALO_LANES * K + lane * K;
+  const int col0 = BETA ? L - first / 2 : first / 2 + 1;  // column of state first + 1
+  bool keep[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) keep[k] = lane >= HALO_LANES && first + k >= 0 && first + k < S;
+  float* o = out + (BETA ? static_cast<long long>(T - 1) * S + (S - 1 - first) : first);
+  const long long row_step = BETA ? -S : S;
+  const int s_blank = min(max(2 * in_len, 0), S - 1);
+  const int s_label = min(max(2 * in_len - 1, 0), S - 1);
+
+  float x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = !BETA && first + k == 0 ? 0.f : NEG_INF;
+
+  // the emissions of step j (frame T - 1 - j for beta): the blank and the
+  // labels; a padded frame (t >= out_len) emits blank 0 and labels NEG_INF
+  // (a label column clamped to 0 reads the blank's 0), as the ring holds it
+  float blank, label[K / 2];
+  auto fetch = [&](int j) {
+    const int t = BETA ? T - 1 - j : j;
+    const float* row = lp + static_cast<long long>(t) * Lp1;
+    const bool live = t < out_len;
+    blank = live ? __ldg(row) : 0.f;
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const int c = min(max(BETA ? col0 - i : col0 + i, 0), L);
+      label[i] = live ? __ldg(row + c) : (c == 0 ? 0.f : NEG_INF);
+    }
+  };
+  fetch(0);
+
+  for (int m = 0; m < n_chunks; ++m) {
+    meet_halo<K>(x, halo + (m & 1) * n_warps * HALO_LANES * K, m, warp, lane);
+    const int n = min(CHUNK, T - m * CHUNK);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      const int j = m * CHUNK + i;
+      float e[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = k & 1 ? label[k / 2] : blank;
+      if (j + 1 < T) fetch(j + 1);
+      chain_frame<K, BETA>(x, e, j == 0, o, keep, first, S, s_blank, s_label);
+      o += row_step;
+    }
+  }
+}
+
+// blocks 0 .. B-1: alpha of item b; blocks B .. 2B-1 (when betas is given):
+// beta of item b - B. Dynamic shared memory: the halo, two meets of
+// n_warps * HALO_LANES * K floats.
+template <int K>
+__global__ void __launch_bounds__(direct_warps<K>() * 32)
+ctc_chain_direct_kernel(const float* __restrict__ logprobs, const int* __restrict__ in_lens,
+                        const int* __restrict__ out_lens, float* __restrict__ alphas,
+                        float* __restrict__ betas, int B, int T, int L) {
+  extern __shared__ float halo[];
+  const bool beta = blockIdx.x >= B;
+  const int b = beta ? blockIdx.x - B : blockIdx.x;
+  const long long S = 2 * L + 1;
+  const float* lp = logprobs + static_cast<long long>(b) * T * (L + 1);
+  if (beta)
+    run_chain_direct<K, true>(lp, betas + b * T * S, halo, T, L, in_lens[b], out_lens[b]);
+  else
+    run_chain_direct<K, false>(lp, alphas + b * T * S, halo, T, L, 0, out_lens[b]);
 }
 
 // blocks 0 .. B-1: alpha of item b; blocks B .. 2B-1 (when betas is given):
@@ -308,7 +442,7 @@ cudaError_t launch(const float* logprobs, const int* in_lens, const int* out_len
   static fs2::SmemOptIn opt_in;
   const cudaError_t attr = fs2::smem_opt_in(
       opt_in, ctc_chain_kernel<K>,
-      static_cast<int>(sizeof(float) * RING_FRAMES * (MAX_S / 2)));
+      static_cast<int>(sizeof(float) * RING_FRAMES * ((RING_S + 1) / 2)));
   if (attr != cudaSuccess) return attr;
   const int S = 2 * L + 1;
   const int threads = ((S + Layout<K>::OWN - 1) / Layout<K>::OWN + 1) * 32;
@@ -318,15 +452,30 @@ cudaError_t launch(const float* logprobs, const int* in_lens, const int* out_len
   return cudaGetLastError();
 }
 
-// two states a lane up to 8 warps (every training bucket), four beyond
+template <int K>
+cudaError_t launch_direct(const float* logprobs, const int* in_lens, const int* out_lens,
+                          float* alphas, float* betas, int B, int T, int L,
+                          cudaStream_t stream) {
+  const int warps = (2 * L + 1 + Layout<K>::OWN - 1) / Layout<K>::OWN;
+  const size_t smem = sizeof(float) * 2 * warps * HALO_LANES * K;
+  ctc_chain_direct_kernel<K><<<betas ? 2 * B : B, warps * 32, smem, stream>>>(
+      logprobs, in_lens, out_lens, alphas, betas, B, T, L);
+  return cudaGetLastError();
+}
+
+// two states a lane up to 8 warps (every training bucket), four up to the
+// ring's reach, then the direct chains at eight and 32
 cudaError_t launch_chains(const void* logprobs, const void* in_lens, const void* out_lens,
                           void* alphas, void* betas, int B, int T, int L, cudaStream_t stream) {
   if (B <= 0 || T <= 0 || L <= 0 || 2 * L + 1 > MAX_S) return cudaErrorInvalidValue;
   const auto lp = static_cast<const float*>(logprobs);
   const auto il = static_cast<const int*>(in_lens), ol = static_cast<const int*>(out_lens);
   const auto al = static_cast<float*>(alphas), be = static_cast<float*>(betas);
-  if (2 * L + 1 <= SHORT_S) return launch<K_SHORT>(lp, il, ol, al, be, B, T, L, stream);
-  return launch<K_LONG>(lp, il, ol, al, be, B, T, L, stream);
+  const int S = 2 * L + 1;
+  if (S <= SHORT_S) return launch<K_SHORT>(lp, il, ol, al, be, B, T, L, stream);
+  if (S <= RING_S) return launch<K_LONG>(lp, il, ol, al, be, B, T, L, stream);
+  if (S <= WIDE_S) return launch_direct<K_WIDE>(lp, il, ol, al, be, B, T, L, stream);
+  return launch_direct<K_HUGE>(lp, il, ol, al, be, B, T, L, stream);
 }
 
 }  // namespace

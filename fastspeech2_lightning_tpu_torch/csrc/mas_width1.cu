@@ -28,9 +28,10 @@
 //    card's bandwidth; the kernel writes only the ones and the counts.
 //  - Forward: only the rows below out_len, only the warps that cover in_len.
 //    A lane of a search warp holds one, two or four columns (for L up to
-//    256, 512, 1024), 32 apart (so a ballot over the warp is one word of 32
-//    neighbouring columns), and keeps their P[i-1, j] in registers: at most
-//    eight warps step a row. The left neighbour comes by shuffle.
+//    256, 512, 1024; past 1024 the direct kernel's 4 or 16), 32 apart (so
+//    a ballot over the warp is one word of 32 neighbouring columns), and
+//    keeps their P[i-1, j] in registers: at most eight warps step a row
+//    (16 in the direct kernel). The left neighbour comes by shuffle.
 //  - No barrier a row. A warp also carries the 32 columns left of its own
 //    (a halo, recomputed with the same adds and maxes, so bit-equal where
 //    valid). A halo column stays valid one row less for every column it
@@ -51,6 +52,9 @@
 //  - A warp's 32 move decisions of a row are one ballot word (T*L/8 bytes
 //    per item: the DP table never reaches device memory), and the words of
 //    32 rows leave in one store.
+//  - Texts past the ring's reach (1024 < L <= 8192): the direct kernel at
+//    the end of this file (at most 16 search warps, each lane's columns
+//    read from device memory a row ahead; no ring).
 //  - Backtrack: warp 0 takes 32 rows at a time. From column c the path falls
 //    by at most one a row, so the 32 rows' decisions all lie in columns
 //    c - 31 .. c: two words a row, loaded by the 32 lanes together and
@@ -67,8 +71,10 @@
 namespace {
 
 constexpr float NEG_INF = -1e9f;
-constexpr int MAX_L = 1024;
+constexpr int MAX_L = 8192;
+constexpr int RING_L = 1024;              // the ring kernel's reach
 constexpr int MAX_WARPS = 8;              // search warps, each over 32 * COLS columns
+constexpr int DIRECT_WARPS = 16;          // search warps of the direct kernel (L > RING_L)
 constexpr int COPY_WARPS = 4;
 constexpr int BLOCK = 16;                 // rows between two barriers; at most the halo's 32
 constexpr int SLOTS = 3;                  // row blocks in the shared-memory ring
@@ -77,6 +83,86 @@ constexpr unsigned FULL = 0xffffffffu;
 // barrier `id` over n threads of the block (n a multiple of 32)
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Warp 0's backtrack from (n - 1, in_len - 1) over the decision words
+// bits_b [ceil(L / 32)][T] of item b: the ones of hard and the durations.
+__device__ __forceinline__ void backtrack(float* __restrict__ hard, int* __restrict__ durations,
+                                          const uint32_t* bits_b, int b, int T, int L,
+                                          int in_len, int n, int lane) {
+  float* hard_b = hard + static_cast<long long>(b) * T * L;
+  int* dur_b = durations + static_cast<long long>(b) * L;
+  int c = in_len - 1;  // the path's column at row `top`
+  for (int top = n - 1; top >= 0; top -= 32) {
+    const int i = top - lane;  // this lane's row
+    uint32_t w_hi = 0u, w_lo = 0u;
+    if (i >= 1) {  // row 0 decides nothing
+      const uint32_t* word = bits_b + static_cast<long long>(c >> 5) * T + i;
+      w_hi = word[0];
+      if (c >= 32) w_lo = word[-T];
+    }
+    // bit p of the window: the decision at column c - 31 + p
+    const uint32_t window = static_cast<uint32_t>(
+        ((static_cast<uint64_t>(w_hi) << 32) | w_lo) >> ((c & 31) + 1));
+    int p = 31, my_c = c;
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const uint32_t wl = __shfl_sync(FULL, window, l);
+      if (lane == l) my_c = c;
+      const int mv = (wl >> p) & 1;
+      c -= mv;
+      p -= mv;
+    }
+    const bool on = i >= 0;
+    if (on) hard_b[static_cast<long long>(i) * L + my_c] = 1.f;
+    // durations: each run of equal columns among these rows adds its length
+    const uint32_t rows = __ballot_sync(FULL, on);
+    const int above = __shfl_up_sync(FULL, my_c, 1);
+    const bool start = on && (lane == 0 || above != my_c);
+    const uint32_t starts = __ballot_sync(FULL, start);
+    if (start) {
+      const uint32_t later = starts & ~((2u << lane) - 1u);
+      const int end = later ? __ffs(later) - 1 : __popc(rows);
+      atomicAdd(dur_b + my_c, end - lane);
+    }
+  }
+}
+
+// One row i of the search for this lane: the move decisions of its owned
+// columns (lane i % 32 keeps row i's ballot words), the new P[i, j] in cur,
+// and the words of 32 rows out to bits_b after every 32nd row and the last
+// (n - 1). la(g): row i's log-attention at the lane's halo column (g = 0,
+// read only when warp > 0) or at owned column g - 1.
+template <int COLS, typename Row>
+__device__ __forceinline__ void mas_row(float (&cur)[COLS + 1], uint32_t (&keep)[COLS],
+                                        const Row& la, int i, int n, int warp, int lane,
+                                        int n_groups, uint32_t* bits_b, int T) {
+  // the left neighbour: the lane before, for lane 0 lane 31 of the 32
+  // columns before. Left of column 0 (warp 0's cur[0]) and of the halo's
+  // first column (not valid past a block's first row anyway) is -inf:
+  // below every P, so no move and the same max.
+  float rot[COLS + 1], left[COLS + 1];
+#pragma unroll
+  for (int g = 0; g <= COLS; ++g) rot[g] = __shfl_sync(FULL, cur[g], (lane + 31) & 31);
+  left[0] = lane == 0 ? -INFINITY : rot[0];
+#pragma unroll
+  for (int g = 1; g <= COLS; ++g) left[g] = lane == 0 ? rot[g - 1] : rot[g];
+#pragma unroll
+  for (int k = 0; k < COLS; ++k) {
+    const uint32_t word = __ballot_sync(FULL, left[1 + k] >= cur[1 + k]);
+    if (lane == (i & 31)) keep[k] = word;
+  }
+  if (warp > 0) cur[0] = fmaxf(fmaxf(la(0), NEG_INF) + fmaxf(cur[0], left[0]), NEG_INF);
+#pragma unroll
+  for (int k = 0; k < COLS; ++k)
+    cur[1 + k] = fmaxf(fmaxf(la(1 + k), NEG_INF) + fmaxf(cur[1 + k], left[1 + k]), NEG_INF);
+  if ((i & 31) == 31 || i == n - 1) {  // 32 rows' words in one store a column group
+    const int r = (i & ~31) + lane;
+#pragma unroll
+    for (int k = 0; k < COLS; ++k)
+      if (r <= i && k < n_groups)
+        bits_b[static_cast<long long>(warp * COLS + k) * T + r] = keep[k];
+  }
 }
 
 // COLS: column groups a lane owns, 32 k + lane of its warp's 32 * COLS
@@ -164,75 +250,15 @@ mas_width1_kernel(const float* __restrict__ log_attn, const int* __restrict__ in
 #pragma unroll 4
     for (int i = max(i0, 1); i < last; ++i) {
       const float* x = row + (i - i0) * row_floats;
-      // the left neighbour: the lane before, for lane 0 lane 31 of the 32
-      // columns before. Left of column 0 (warp 0's cur[0]) and of the halo's
-      // first column (not valid past a block's first row anyway) is -inf:
-      // below every P, so no move and the same max.
-      float rot[COLS + 1], left[COLS + 1];
-#pragma unroll
-      for (int g = 0; g <= COLS; ++g) rot[g] = __shfl_sync(FULL, cur[g], (lane + 31) & 31);
-      left[0] = lane == 0 ? -INFINITY : rot[0];
-#pragma unroll
-      for (int g = 1; g <= COLS; ++g) left[g] = lane == 0 ? rot[g - 1] : rot[g];
-#pragma unroll
-      for (int k = 0; k < COLS; ++k) {
-        const uint32_t word = __ballot_sync(FULL, left[1 + k] >= cur[1 + k]);
-        if (lane == (i & 31)) keep[k] = word;
-      }
-      if (warp > 0) cur[0] = fmaxf(fmaxf(x[-32], NEG_INF) + fmaxf(cur[0], left[0]), NEG_INF);
-#pragma unroll
-      for (int k = 0; k < COLS; ++k)
-        cur[1 + k] = fmaxf(fmaxf(x[32 * k], NEG_INF) + fmaxf(cur[1 + k], left[1 + k]), NEG_INF);
-      if ((i & 31) == 31 || i == n - 1) {  // 32 rows' words in one store a column group
-        const int r = (i & ~31) + lane;
-#pragma unroll
-        for (int k = 0; k < COLS; ++k)
-          if (r <= i && k < n_groups)
-            bits_b[static_cast<long long>(warp * COLS + k) * T + r] = keep[k];
-      }
+      mas_row<COLS>(cur, keep, [&](int g) { return g == 0 ? x[-32] : x[32 * (g - 1)]; }, i, n,
+                    warp, lane, n_groups, bits_b, T);
     }
   }
   // every warp's decision words are visible to warp 0
   if (n_warps > 1) bar_sync(2, n_warps * 32);
   __syncwarp();
   if (warp != 0) return;
-
-  float* hard_b = hard + static_cast<long long>(b) * T * L;
-  int* dur_b = durations + static_cast<long long>(b) * L;
-  int c = in_len - 1;  // the path's column at row `top`
-  for (int top = n - 1; top >= 0; top -= 32) {
-    const int i = top - lane;  // this lane's row
-    uint32_t w_hi = 0u, w_lo = 0u;
-    if (i >= 1) {  // row 0 decides nothing
-      const uint32_t* word = bits_b + static_cast<long long>(c >> 5) * T + i;
-      w_hi = word[0];
-      if (c >= 32) w_lo = word[-T];
-    }
-    // bit p of the window: the decision at column c - 31 + p
-    const uint32_t window = static_cast<uint32_t>(
-        ((static_cast<uint64_t>(w_hi) << 32) | w_lo) >> ((c & 31) + 1));
-    int p = 31, my_c = c;
-#pragma unroll
-    for (int l = 0; l < 32; ++l) {
-      const uint32_t wl = __shfl_sync(FULL, window, l);
-      if (lane == l) my_c = c;
-      const int mv = (wl >> p) & 1;
-      c -= mv;
-      p -= mv;
-    }
-    const bool on = i >= 0;
-    if (on) hard_b[static_cast<long long>(i) * L + my_c] = 1.f;
-    // durations: each run of equal columns among these rows adds its length
-    const uint32_t rows = __ballot_sync(FULL, on);
-    const int above = __shfl_up_sync(FULL, my_c, 1);
-    const bool start = on && (lane == 0 || above != my_c);
-    const uint32_t starts = __ballot_sync(FULL, start);
-    if (start) {
-      const uint32_t later = starts & ~((2u << lane) - 1u);
-      const int end = later ? __ffs(later) - 1 : __popc(rows);
-      atomicAdd(dur_b + my_c, end - lane);
-    }
-  }
+  backtrack(hard, durations, bits_b, b, T, L, in_len, n, lane);
 }
 
 template <int COLS>
@@ -248,6 +274,86 @@ cudaError_t launch(const void* log_attn, const void* in_lens, const void* out_le
       static_cast<int>(sizeof(float) * SLOTS * BLOCK * MAX_WARPS * 32 * COLS));
   if (attr != cudaSuccess) return attr;
   mas_width1_kernel<COLS><<<B, (search_warps + COPY_WARPS) * 32, smem, stream>>>(
+      static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
+      static_cast<const int*>(out_lens), static_cast<float*>(hard),
+      static_cast<int*>(durations), static_cast<uint32_t*>(bits), T, L);
+  return cudaGetLastError();
+}
+
+// Past the ring's reach (L > 1024) a block of 16 rows is 64 KB or more, and
+// a ring of three would not fit shared memory. There the search warps (at
+// most 16, each over 32 * COLS columns: COLS = 4 up to L 2048, 16 up to
+// 8192) read their own columns of each row from device memory, coalesced
+// (a warp's 32 lanes read 32 neighbouring columns), one row ahead of the
+// row they step, into registers; no copy warps, and the warps meet every
+// 16 rows for the halo alone. A row's adds, maxes and decisions, the
+// decision words and the backtrack are the ring kernel's.
+template <int COLS>
+__global__ void __launch_bounds__(DIRECT_WARPS * 32)
+mas_width1_direct_kernel(const float* __restrict__ log_attn, const int* __restrict__ in_lens,
+                         const int* __restrict__ out_lens, float* __restrict__ hard,
+                         int* __restrict__ durations, uint32_t* bits, int T, int L) {
+  __shared__ float halo[2][DIRECT_WARPS][32];  // each warp's last 32 columns, by block parity
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int in_len = in_lens[b];
+  const int n = min(out_lens[b], T);  // rows on the path
+  if (n <= 0 || in_len <= 0 || in_len > L) return;
+  const int n_warps = (in_len + 32 * COLS - 1) / (32 * COLS);  // search warps at work
+  if (warp >= n_warps) return;
+  const float* la_b = log_attn + static_cast<long long>(b) * T * L;
+
+  const int jw = warp * 32 * COLS + lane;  // this lane's columns: jw + 32 k, and jw - 32 (halo)
+  const int n_groups = min(COLS, (in_len - warp * 32 * COLS + 31) >> 5);  // with a live column
+  uint32_t* bits_b = bits + static_cast<long long>(b) * ((L + 31) / 32) * T;
+  // row i's values at this lane's columns: nx[0] the halo column (warp > 0),
+  // nx[1 + k] owned column k, 0 past L (as the ring's zero fill)
+  float nx[COLS + 1];
+  auto fetch = [&](int i) {
+    const float* row = la_b + static_cast<long long>(i) * L;
+    nx[0] = warp > 0 ? __ldg(row + jw - 32) : 0.f;
+#pragma unroll
+    for (int k = 0; k < COLS; ++k) nx[1 + k] = jw + 32 * k < L ? __ldg(row + jw + 32 * k) : 0.f;
+  };
+  fetch(0);
+  float cur[COLS + 1];  // P[i - 1, j], as in the ring kernel
+  cur[0] = warp > 0 ? fmaxf(nx[0], NEG_INF) + NEG_INF : -INFINITY;
+#pragma unroll
+  for (int k = 0; k < COLS; ++k)
+    cur[1 + k] = fmaxf(nx[1 + k], NEG_INF) + (jw + 32 * k == 0 ? 0.f : NEG_INF);
+  if (n > 1) fetch(1);
+  uint32_t keep[COLS] = {};  // lane r: the decision words of row (i & ~31) + r
+  for (int i0 = 0; i0 < n; i0 += BLOCK) {
+    const int block = i0 / BLOCK;
+    if (i0 > 0) {  // meet, and take the halo afresh
+      halo[block & 1][warp][lane] = cur[COLS];
+      bar_sync(1, n_warps * 32);
+      if (warp > 0) cur[0] = halo[block & 1][warp - 1][lane];
+    }
+    const int last = min(n, i0 + BLOCK);
+#pragma unroll 2
+    for (int i = max(i0, 1); i < last; ++i) {
+      float x[COLS + 1];
+#pragma unroll
+      for (int g = 0; g <= COLS; ++g) x[g] = nx[g];
+      if (i + 1 < n) fetch(i + 1);
+      mas_row<COLS>(cur, keep, [&](int g) { return x[g]; }, i, n, warp, lane, n_groups, bits_b,
+                    T);
+    }
+  }
+  // every warp's decision words are visible to warp 0
+  if (n_warps > 1) bar_sync(2, n_warps * 32);
+  __syncwarp();
+  if (warp != 0) return;
+  backtrack(hard, durations, bits_b, b, T, L, in_len, n, lane);
+}
+
+template <int COLS>
+cudaError_t launch_direct(const void* log_attn, const void* in_lens, const void* out_lens,
+                          void* hard, void* durations, void* bits, int B, int T, int L,
+                          cudaStream_t stream) {
+  const int search_warps = (L + 32 * COLS - 1) / (32 * COLS);
+  mas_width1_direct_kernel<COLS><<<B, search_warps * 32, 0, stream>>>(
       static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
       static_cast<const int*>(out_lens), static_cast<float*>(hard),
       static_cast<int*>(durations), static_cast<uint32_t*>(bits), T, L);
@@ -272,6 +378,8 @@ extern "C" int mas_width1(const void* log_attn, const void* in_lens, const void*
 #define FS2_MAS_ARGS log_attn, in_lens, out_lens, hard, durations, bits, B, T, L, st
   if (L <= 32 * MAX_WARPS) return static_cast<int>(launch<1>(FS2_MAS_ARGS));
   if (L <= 64 * MAX_WARPS) return static_cast<int>(launch<2>(FS2_MAS_ARGS));
-  return static_cast<int>(launch<4>(FS2_MAS_ARGS));
+  if (L <= RING_L) return static_cast<int>(launch<4>(FS2_MAS_ARGS));
+  if (L <= 128 * DIRECT_WARPS) return static_cast<int>(launch_direct<4>(FS2_MAS_ARGS));
+  return static_cast<int>(launch_direct<16>(FS2_MAS_ARGS));
 #undef FS2_MAS_ARGS
 }

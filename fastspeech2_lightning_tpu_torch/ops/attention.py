@@ -27,15 +27,17 @@ tensors (or raises) and runs its plain PyTorch version for CPU tensors:
   others); on the CPU autograd runs through the plain version.
 
 The kernels are built for head dims 64, 128, 192 and 256
-(``KERNEL_HEAD_DIMS``). Every other dh up to 256 runs at the next of them
-(``kernel_head_dim``): the wrappers zero-pad q, k, v (and o, dO) with
-zero columns and slice o, dQ, dK and dV back, as the JAX package pads dh
-to a multiple of 128 (``attention_dropout.py:222-247``). Zero columns add
+(``KERNEL_HEAD_DIMS``) and for every multiple of 128 above 256, where a
+block takes one group of at most 256 output columns and streams the
+products over the full dh (``csrc/attention_common.cuh`` wide_dh). Every
+other dh runs at the next of them (``kernel_head_dim``): up to 256 the
+next build, above it the next multiple of 128, as the JAX package pads dh
+(``attention_dropout.py:222-247``). The wrappers zero-pad q, k, v (and o,
+dO) with zero columns and slice o, dQ, dK and dV back. Zero columns add
 nothing to Q K^T and give zero output columns, so this is exact; the log-sum-
 exp is unchanged, `sm_scale` stays the caller's (from the true dh) and the
 dropout mask does not depend on dh. A launch is counted once and the FLOP
-counts take the true dh. dh above 256 raises a ValueError: the kernels'
-tiles would not fit shared memory and registers.
+counts take the true dh.
 
 The dtype picks the kernel inside each source: bf16 tensors go to the
 tensor-core kernels, f32 tensors to the CUDA-core f32 kernels (which the f32
@@ -102,11 +104,19 @@ def attention_bwd_flops(B: int, H: int, T: int, dh: int) -> int:
 
 def kernel_head_dim(dh: int) -> int:
     """The head dim the kernels run dh at: the least of ``KERNEL_HEAD_DIMS``
-    that holds it. Raises a ValueError above 256."""
+    that holds it, and above 256 the next multiple of 128 (``_round_up_128``
+    of the JAX package)."""
+    if dh <= 0:
+        raise ValueError(f"attention kernels take head dims of 1 or more, got {dh}")
     for width in KERNEL_HEAD_DIMS:
-        if 0 < dh <= width:
+        if dh <= width:
             return width
-    raise ValueError(f"attention kernels take head dims 1 to {KERNEL_HEAD_DIMS[-1]}, got {dh}")
+    return -(-dh // 128) * 128
+
+
+def _kernel_takes(dh: int) -> bool:
+    """Whether the kernels run dh as it is (no padding step)."""
+    return dh in KERNEL_HEAD_DIMS or (dh > KERNEL_HEAD_DIMS[-1] and dh % 128 == 0)
 
 
 def _pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -238,8 +248,9 @@ def _check(name: str, q, k, v, key_bias) -> list:
     """Raise on what the kernels do not take; return the [B, H, T] strides
     of q, k and v, flat (the C entries' stride arguments)."""
     B, H, T, dh = q.shape
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {dh} not in {KERNEL_HEAD_DIMS}")
+    if not _kernel_takes(dh):
+        raise ValueError(f"{name}: head dim {dh} is not in {KERNEL_HEAD_DIMS} or a multiple "
+                         f"of 128 above them")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
     if T > _MAX_T:

@@ -24,7 +24,7 @@ import torch
 from ..kernels import build
 
 NEG_INF = -1e15
-MAX_S = 2048  # states per item the kernels take (112 a warp, at most 19 warps)
+MAX_S = 16383  # states per item the kernels take: texts up to 8191 symbols
 
 
 def _state_labels(L: int, device) -> torch.Tensor:
@@ -130,7 +130,8 @@ def _check(name: str, x, S: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if S > MAX_S:
-        raise ValueError(f"{name}: {S} states > {MAX_S}")
+        raise ValueError(f"{name}: {S} states > {MAX_S} (texts of more than "
+                         f"{(MAX_S - 1) // 2} symbols)")
 
 
 def _f32(x, dev):

@@ -6,7 +6,8 @@
 CUDA tensor launches ``csrc/mas_width1.cu`` (which replaces
 ``ops/mas_pallas.py:94 mas_width1_pallas``) or raises; a CPU tensor runs
 ``mas_width1_reference``, its plain version. There is no scan fallback: a
-shape the kernel does not take raises. The search takes no gradient. The C
+text longer than ``MAX_L`` raises, where the JAX package runs its XLA scan
+(ROADMAP.md lists the difference). The search takes no gradient. The C
 entry zeroes both outputs on the stream before the kernel writes its ones.
 
 Recurrence (``ops/mas.py:30-51``; adds and maxes in one order, exact in f32):
@@ -23,7 +24,7 @@ import ctypes
 import torch
 
 NEG_INF = -1e9
-MAX_L = 1024  # eight warps of 128 text positions
+MAX_L = 8192  # sixteen warps of 512 text positions (csrc/mas_width1.cu)
 
 
 def _masked(log_attn, in_lens, out_lens):

@@ -22,9 +22,11 @@ read back bit for bit, at the default offsets and at a rank's (row, head)
 offsets, where it is that block of the global mask;
 masks with no valid key, with holes and at tile edges, T off the tiles,
 dh 64, 128, 192 and 256 as built and every other dh to 256 through the
-wrappers' zero padding, q, k, v as views of the fused projection; NaN keys and
-values in the tiles past kv_end, which the kernels must not read, and dK and
-dV exactly 0 there);
+wrappers' zero padding, the wide head dims 384 to 768 (one block a group of
+output columns) and dh 257 and 320 padded to 384, q, k, v as views of the
+fused projection; NaN keys and values in the tiles past kv_end, which the
+kernels must not read, and dK and dV exactly 0 there; the wide kernels' mask
+read back bit for bit across their column groups);
 the MRF conv in f32 within 5e-5, since it multiplies f32 inputs as split
 bf16 pairs on the tensor cores, at T off its 128-row tile and under its halo,
 with each epilogue mode, and on the edge rows alone, at C 16 to 128 and at
@@ -35,11 +37,12 @@ the whole-stage MRF kernel (one launch) at C 4 to 16 within the same
 limits, on other stage shapes (k 1 to 65, even k, unequal dilation counts),
 an even-k narrow stage past its halo on the per-conv route instead, and
 raising under autograd before it launches;
-MAS exactly; CTC loss within relative 1e-5 and its gradient within max-abs
-1e-5; kernel A as the op ``fs2t::attention_fwd`` through
+MAS exactly, texts of 1025 to 8191 symbols on the direct kernel included;
+CTC loss within relative 1e-5 and its gradient within max-abs 1e-5, at
+S 2049 to 16383 on the direct chains too; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
 ``torch.export``, saved, loaded and run, launching A and equal to eager;
-A with A' (at dh 128 and 192), B, and C's loss forward and backward each
+A with A' (at dh 128, 192, 96 and 384), B, and C's loss forward and backward each
 captured in a CUDA graph and replayed on new seeds or inputs, equal to
 their eager launches;
 a tiny f32 train step captured by ``TrainStepGraph`` against the eager
@@ -257,8 +260,9 @@ def test_attention_kernel_matches_plain_version(cuda, B, H, T, dh, dtype):
 
 @pytest.mark.gpu
 def test_attention_kernel_takes_strided_views_and_refuses_other_head_dims(cuda):
-    """Strided views of the fused projection; dh 32 runs padded to 64 (one
-    launch); dh 320, past the widest build, raises."""
+    """Strided views of the fused projection; dh 32 runs padded to 64 and
+    dh 320 padded to 384 (one launch each); the launch itself refuses a
+    head dim the kernels are not built for."""
     B, T, H, dh = 2, 70, 2, 64
     qkv = torch.randn(B, T, 3, H, dh, device=cuda)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -266,15 +270,17 @@ def test_attention_kernel_takes_strided_views_and_refuses_other_head_dims(cuda):
     out = attention_fwd(q, k, v, bias, 0.125)
     want = attention_reference(q, k, v, bias, 0.125)
     assert _rel(out, want) <= 1e-5
-    x = torch.randn(1, 2, 16, 32, device=cuda)
     before = attention_fwd.launches
-    out = attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
-    assert attention_fwd.launches == before + 1
-    assert _rel(out, attention_reference(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)) <= 1e-5
+    for width in (32, 320):
+        x = torch.randn(1, 2, 16, width, device=cuda)
+        out = attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
+        want = attention_reference(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
+        assert out.shape == x.shape and _rel(out, want) <= 1e-5
+    assert attention_fwd.launches == before + 2
     x = torch.randn(1, 2, 16, 320, device=cuda)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        attention_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125)
-    assert attention_fwd.launches == before + 1
+    with pytest.raises(ValueError, match="head dim 320"):
+        attention._launch_fwd(x, x, x, torch.zeros(1, 16, device=cuda), 0.125, 0.0, None, False)
+    assert attention_fwd.launches == before + 2
 
 
 # items of one batch for the masks the tile skipping must get right; at
@@ -447,6 +453,73 @@ def test_attention_kernels_at_padded_head_dims(cuda, dh, dtype, p):
     assert (attention_fwd.launches, attention_bwd.launches) == (f0 + 1, b0 + 1)
     assert attention_bwd.flops - flops0 == attention.attention_bwd_flops(2, 2, T, dh)
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [257, 320, 384, 512, 640, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_attention_kernels_at_wide_head_dims(cuda, dh, dtype, p):
+    """dh above 256 runs at the next multiple of 128, one block a group of
+    output columns (128 or 256 wide): ragged keys with NaN past kv_end, T
+    off the tiles, one launch of each kernel, FLOPs at the true dh."""
+    T = 300
+    bias = _bias(np.stack([_segments(T, (0, n)) for n in (T, 171)])).to(cuda)
+    q, k, v = _fused_qkv(cuda, 2, T, 1, dh, dtype, seed=dh)
+    clean, poisoned = _poison_past_kv_end(k, v, bias)
+    assert poisoned == T - 256
+    f0, b0, flops0 = attention_fwd.launches, attention_bwd.launches, attention_bwd.flops
+    grads = _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=clean)
+    assert (attention_fwd.launches, attention_bwd.launches) == (f0 + 1, b0 + 1)
+    assert attention_bwd.flops - flops0 == attention.attention_bwd_flops(2, 1, T, dh)
+    assert all(g.shape == q.shape for g in grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(EDGE_MASKS))
+@pytest.mark.parametrize("dh", [384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_wide_attention_kernels_on_mask_edges(cuda, case, dh, dtype, p):
+    """The mask edges of ``test_attention_kernels_on_mask_edges`` at the
+    wide head dims (groups of 128 and of 256 columns in bf16)."""
+    bias = _bias(np.stack(EDGE_MASKS[case])).to(cuda)
+    q, k, v = _fused_qkv(cuda, bias.shape[0], bias.shape[1], 1, dh, dtype)
+    clean, _ = _poison_past_kv_end(k, v, bias)
+    _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [37, 1000, 2047])
+@pytest.mark.parametrize("dh", [384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_attention_kernels_on_T_off_the_tiles(cuda, T, dh, dtype):
+    lens = [T, max(T - 37, 1)]
+    bias = _bias(np.stack([_segments(T, (0, n)) for n in lens])).to(cuda)
+    q, k, v = _fused_qkv(cuda, 2, T, 1, dh, dtype, seed=T)
+    _check_fwd_bwd(cuda, q, k, v, bias, dtype, 0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [384, 512, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_attention_kernels_draw_one_mask_across_column_groups(cuda, dh, dtype):
+    """With q = k = 0 and one-hot values (T = dh) the forward's output is
+    the keep mask, each column group of blocks writing its own columns, and
+    A′'s dV (one-hot output gradients) its transpose: read back bit for bit,
+    the groups drew the same mask as one block over all columns would."""
+    B, H, T, p = 1, 2, dh, 0.3
+    eye = torch.eye(T, device=cuda, dtype=dtype).expand(B, H, T, T).contiguous()
+    zero = torch.zeros(B, H, T, dh, device=cuda, dtype=dtype)
+    bias = torch.zeros(B, T, device=cuda)
+    seed = torch.tensor([-99], dtype=torch.int32, device=cuda)
+    o, lse = attention_fwd(zero, zero, eye, bias, 0.125, p=p, seed=seed, with_lse=True)
+    _, _, dv = attention_bwd(zero, zero, eye, bias, seed, p, 0.125, o, lse, eye)
+    torch.cuda.synchronize()
+    want = dropout_keep_mask(-99, B, H, T, p, device=cuda)
+    assert torch.equal(o != 0, want)
+    assert torch.equal(dv != 0, want.transpose(-1, -2))
+    torch.testing.assert_close(lse, torch.full_like(lse, math.log(T)))
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -984,7 +1057,9 @@ def _poisoned_outputs(monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,L", [(4, 300, 40), (3, 160, 1000), (2, 2048, 160),
                                    (16, 2016, 192), (3, 100, 1024), (4, 70, 33), (3, 200, 300),
-                                   (2, 100, 512), (2, 100, 256), (2, 100, 257)])
+                                   (2, 100, 512), (2, 100, 256), (2, 100, 257),
+                                   (3, 1100, 1025), (2, 2100, 2048), (2, 2100, 2049),
+                                   (2, 600, 4100), (1, 8192, 8191), (1, 300, 8192)])
 def test_mas_kernel_equals_plain_version(cuda, monkeypatch, B, T, L):
     g = torch.Generator(device=cuda).manual_seed(2)
     la = torch.log_softmax(torch.randn(B, T, L, device=cuda, generator=g), -1)
@@ -1072,7 +1147,9 @@ def test_ctc_wrappers_run_their_plain_versions_on_the_cpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,L", [(3, 120, 20), (2, 300, 160), (16, 2016, 192), (16, 512, 64),
-                                   (4, 64, 1023), (4, 50, 1), (5, 9, 300)])
+                                   (4, 64, 1023), (4, 50, 1), (5, 9, 300),
+                                   (4, 1100, 1024), (4, 2100, 2048), (2, 300, 2687),
+                                   (2, 300, 2688), (2, 8192, 8191)])
 def test_ctc_kernels_match_plain_version(cuda, monkeypatch, B, T, L):
     """Both chains and the gradient against the plain version, every output
     written (NaN before the call), edge and infeasible items included; an
@@ -1134,15 +1211,24 @@ def test_ctc_forward_sum_runs_the_beta_chain_only_for_a_gradient(cuda):
 
 @pytest.mark.gpu
 def test_wrappers_raise_on_shapes_their_kernels_do_not_take(cuda):
+    """dh 320, L 1025 and S 2051, past the kernels' earlier reach, compute
+    and agree with the plain versions; a text past 8192 symbols (MAS) or
+    8191 (CTC, S 16385) raises."""
     q = torch.randn(1, 2, 16, 320, device=cuda)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        attention_fwd(q, q, q, torch.zeros(1, 16, device=cuda), 0.125, p=0.1,
-                      seed=torch.zeros(1, dtype=torch.int32, device=cuda))
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bias = torch.zeros(1, 16, device=cuda)
+    out = attention_fwd(q, q, q, bias, 0.125, p=0.1, seed=seed)
+    assert _rel(out, attention_dropout_reference(q, q, q, bias, seed, 0.1, 0.125)) <= 1e-5
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    la = torch.log_softmax(torch.randn(1, 4, 1025, device=cuda), -1)
+    assert all(torch.equal(a, b) for a, b in
+               zip(mas_width1(la, lens, lens), mas_width1_reference(la, lens, lens)))
+    lp, in_lens, out_lens = _ctc_inputs(cuda, 1, 8, 1025)
+    _rows_agree(ctc_alpha(lp, out_lens), ctc_alpha_reference(lp, out_lens))
     with pytest.raises(ValueError, match="text length"):
-        mas_width1(torch.zeros(1, 4, 1025, device=cuda), lens, lens)
+        mas_width1(torch.zeros(1, 4, 8193, device=cuda), lens, lens)
     with pytest.raises(ValueError, match="states"):
-        ctc_alpha(torch.zeros(1, 4, 1026, device=cuda), lens)
+        ctc_alpha(torch.zeros(1, 4, 8193, device=cuda), lens)
 
 
 THREAD_DEVICES = {"one_card": ("cuda:0", "cuda:0"), "two_cards": ("cuda:0", "cuda:1")}
@@ -1221,10 +1307,11 @@ def test_attention_kernels_under_capture_equal_their_eager_launches(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [192, 96])
+@pytest.mark.parametrize("dh", [192, 96, 384])
 def test_attention_kernels_under_capture_at_wide_and_padded_head_dims(cuda, dh):
-    """As the dh 128 capture, at dh 192 (built, 64 keys a backward block) and
-    96 (padded to 128: the padding copies are captured too)."""
+    """As the dh 128 capture, at dh 192 (built, 64 keys a backward block),
+    96 (padded to 128: the padding copies are captured too) and 384 (three
+    column groups a query or key tile)."""
     _check_capture(cuda, dh)
 
 

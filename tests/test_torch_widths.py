@@ -14,7 +14,8 @@
   composed with the plain versions, against the plain versions unpadded,
   forward and backward, p 0 and 0.2 with one seed, for dh from 16 to 256:
   rel-L2 at most 1e-6 in f32 (zero columns add exact zeros; only the order
-  of a sum may differ); dh 257 refused.
+  of a sum may differ); above 256 the width is the next multiple of 128
+  (``test_torch_long_shapes.py`` holds the padding step there).
 - The port's MRF routing gate equal to the JAX package's over C 1..256, odd
   k 3..13, dilation triples from {1, 2, 3, 5, 7, 9} and single dilations to
   63; a stage of C 8 to 96 at the width its route runs it at (C 8 at its
@@ -236,17 +237,9 @@ def test_padding_step_with_plain_versions_equals_them_unpadded(dh, p):
 
 
 @pytest.mark.parametrize("dh,width", [(1, 64), (64, 64), (65, 128), (129, 192), (192, 192),
-                                      (193, 256), (256, 256)])
+                                      (193, 256), (256, 256), (257, 384), (385, 512)])
 def test_kernel_head_dim_is_the_next_build(dh, width):
     assert attention.kernel_head_dim(dh) == width
-
-
-def test_padding_step_refuses_dh_above_256():
-    q, k, v, do, bias = _attention_inputs(257)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        attention.padded_fwd(_plain_fwd, q, k, v, bias, 0.1, 0.0, None, False)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        attention.padded_bwd(_plain_bwd, q, k, v, q, do, bias, None, 0.0, 0.1)
 
 
 # -- the MRF gate and zero-channel padding ----------------------------------------
