@@ -6676,7 +6676,7 @@ WIDE_ATTENTION = ((16, 2, 2048, 192, 0.2, "bfloat16", True),
                   (16, 2, 1024, 192, 0.2, "bfloat16", True),
                   (8, 2, 1024, 192, 0.0, "bfloat16", False),
                   (4, 2, 1024, 192, 0.2, "float32", True))
-# padded to 64, 64, 64 and 128; 256 built; 320 padded to 384 (groups of 128)
+# padded to 64, 64, 64 and 128; 256 built; 320 padded to 384 (A: groups of 128, A′: 192)
 OTHER_HEAD_DIMS = (16, 32, 48, 96, 256, 320)
 V2_BATCH, V2_FRAMES = 8, 896
 V2_STAGES = ((64, 8), (32, 64), (16, 128), (8, 256))  # (C, samples a mel frame)
@@ -6710,6 +6710,24 @@ def _launched(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (attention_fwd.launches - before[0], attention_bwd.launches - before[1])
+
+
+def bwd_products_issued(dh: int) -> float:
+    """The products bf16 kernel A′ issues over the function's five (S^T, dP^T,
+    dV, dK, dQ; ``csrc/attention_bwd.cu``'s header) at head dim dh: each
+    once per (key tile, query tile) at the kernel's head dim up to 256;
+    above it every column group (256 columns where they divide the head
+    dim, else 192 where they do, else 128) recomputes S^T and dP^T over the
+    full dh, (4 groups + 6) T^2 dh operations for the function's 10 T^2 dh;
+    times the zero padding (the kernel's head dim over dh)."""
+    from fastspeech2_lightning_tpu_torch.ops.attention import kernel_head_dim
+
+    width = kernel_head_dim(dh)
+    ratio = 1.0
+    if width > 256:
+        group = next(n for n in (256, 192, 128) if width % n == 0)
+        ratio = (4 * width // group + 6) / 10
+    return ratio * width / dh
 
 
 def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_rows, bwd_rows):
@@ -6797,22 +6815,27 @@ def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_row
                    q, k, v, bias, seed, p, scale, do), warmup=1, iters=3),
                library_ms=time_ms(sdpa_bwd, iters=10), bound_ms=b_bound[0],
                bound_by=b_bound[1], launches_per_call=1, library="SDPA backward alone")
+    issued = ""
     if dt == "bfloat16":
-        row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd))
+        row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd),
+                   products_issued=bwd_products_issued(dh))
+        issued = f"; products issued / the function's {row['products_issued']:.2f}"
     bwd_rows.append(row)
     log(f"{label} attention_bwd {B, H, T, dh} {dt} p={p}: rel_l2 dQ/dK/dV="
         f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={row['ms']:.4f} (device "
         f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} SDPA "
         f"backward {row['library_ms']:.4f} (device "
         f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={b_bound[0]:.4f} "
-        f"({b_bound[1]})")
+        f"({b_bound[1]}){issued}")
     del o_lib, qg, kg, vg
     return held
 
 
 def _wide_attention() -> dict:
     """(i) A and A' at dh 192 against their plain versions, timed beside
-    SDPA; at the other head dims, padded or built (dh 320 padded to 384)."""
+    SDPA, with A′'s products issued over the function's
+    (``bwd_products_issued``); at the other head dims, padded or built (dh
+    320 padded to 384)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7123,7 +7146,8 @@ LONG_FRAMES = 2048
 def _long_attention() -> dict:
     """(i) A and A' at dh 257 to 768 (bf16 at p 0.2, f32 at p 0) against the
     plain versions at (4, 1, 1024, dh), and timed beside SDPA at
-    (16, 1, 2048, 384) and (16, 1, 1024, 512)."""
+    (16, 1, 2048, 384) and (16, 1, 1024, 512), with A′'s products issued
+    over the function's."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False

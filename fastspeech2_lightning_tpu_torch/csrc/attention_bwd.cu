@@ -37,14 +37,14 @@
 //
 // Two kernels; the dtype picks one (not a fallback):
 //
-// bf16 (attention_bwd_tc): FA2's backward on Hopper warpgroup products, one
-// launch after two small pre-passes (kv_end, and D = rowsum(dO * O) with the
-// f32 dQ buffer zeroed). One block of two warpgroups per (128-key tile,
-// head, batch), each warpgroup 64 keys (each warp 16), with dK and dV
-// accumulated in registers (f32). K and V stay in shared memory; the block
-// loops over 64-row query tiles whose Q, dO, lse and D stream through a
-// two-stage cp.async ring. All tiles use the 128-byte-swizzled layout of
-// tensor_core.cuh. Per query tile a warpgroup computes S^T = K Q^T and
+// bf16, dh 64 and 128 (attention_bwd_tc): FA2's backward on Hopper
+// warpgroup products, one launch after two small pre-passes (kv_end, and
+// D = rowsum(dO * O) with the f32 dQ buffer zeroed). One block of two
+// warpgroups per (128-key tile, head, batch), each warpgroup 64 keys (each
+// warp 16), with dK and dV accumulated in registers (f32). K and V stay in
+// shared memory; the block loops over 64-row query tiles whose Q, dO, lse
+// and D stream through a two-stage cp.async ring. All tiles use the
+// 128-byte-swizzled layout of tensor_core.cuh. Per query tile a warpgroup computes S^T = K Q^T and
 // dP^T = V dO^T with wgmma.m64n64k16 (all operands from shared memory),
 // forms P^T, the keep mask and dS^T on the f32 accumulators in registers,
 // rounds keep * P / (1 - p) and dS to bf16 (as the JAX kernel does,
@@ -64,12 +64,31 @@
 // dQ through shared memory and a bulk reduce) is the next step.
 // Built for dh 64, 128, 192 and 256 (ops/attention.py zero-pads every other
 // dh up to 256 to the next of them; wider ones take the kernels at the end of
-// this header). At 192 and 256 a block takes 64 keys
-// and both warpgroups share them, each keeping half of dK's, dV's and dQ's
-// 64-wide column blocks (tc_bwd::Tiling): 128 keys would need 192 or 256
-// accumulator registers a thread and, at 256, 274 KB of shared memory. The
-// two warpgroups then both compute S^T and dP^T, so the block issues 7
-// products' work for 5.
+// this header).
+//
+// dh 192 and 256 (attention_bwd_tc_split): 128 keys a block with dK and dV
+// over the whole dh would need 192-256 accumulator registers a thread, so a
+// block takes 64 keys and splits every product and every score between its
+// two warpgroups, as FA3's head-dim-256 backward does. Per query tile,
+// warpgroup w computes S^T and dP^T for the block's 64 keys and the query
+// columns [32 w, 32 w + 32) (m64n32, K and V as A, its 32 rows of Q and dO
+// as B), runs the exponential, the hash and dS on that half of the tile, and
+// writes keep * P / (1 - p) and dS^T as bf16 to two shared [key][query]
+// tiles; after one barrier over the block it computes dQ = dS K, dV +=
+// (keep P)^T dO and dK += dS^T Q on its own half of the columns, both
+// operands from shared memory (dQ's products committed first, so its
+// atomics overlap dK's and dV's). Warpgroup w owns columns: at 256 the
+// 64-wide blocks 2w and 2w + 1 (one m64n128 a k-step); at 192 block w and
+// the half [32 w, 32 w + 32) of block 2 (m64n64 + m64n32), so no block is
+// computed twice and no block is padded. Each warpgroup's share is chosen by
+// address arithmetic: nvcc 12.9 crashes on a wgmma inside a branch on the
+// warpgroup index. Issued per (key tile, query tile): S^T, dP^T, dV, dK and
+// dQ once each, 5 products for the function's 5 (1.0x). Shared memory a
+// block: 162 KB at dh 192, 210 KB at 256. Registers: dK and dV W floats a
+// thread together (96 at 192, 128 at 256, W = dh / 2), S^T and dP^T 32, dQ
+// 48 at 192 and, in two 64-column parts, 32 at 256 (split_products); ptxas
+// (nvcc 12.9): 235 registers at 192, 247 and 255 (with dropout) at 256, no
+// spill.
 //
 // f32 (attention_bwd_f32): the CUDA-core kernel of the f32 card-vs-CPU
 // checks (rel-L2 1e-5): one block of 256 threads per (64-key tile, head,
@@ -79,23 +98,32 @@
 //
 // Wide head dims (attention_common.cuh wide_dh, as in attention_fwd.cu):
 // attention_bwd_tc_wide and attention_bwd_f32_wide. A block takes 64 keys
-// and one group of NG columns of dK, dV and dQ (bf16: 256 where 256 divides
-// dh, else 128; f32: 128), blockIdx.x = key tile * groups + group. S^T =
-// K Q^T and dP^T = V dO^T stream over the full dh in 64-wide chunks of K, V,
-// Q and dO (a two-stage ring in bf16) into the same registers; the group's
-// columns of K stay in shared memory for dQ = dS K, and those of Q and dO
-// arrive once a query tile for dK and dV. In bf16 both warpgroups take the
-// block's 64 keys, as the dh-192/256 tiling does, each keeping NG / 128 of
-// the group's 64-wide column blocks of dK, dV and dQ. D = rowsum(dO * O)
-// comes from the pre-pass over the full dh (bwd_prepass with DH = 0); dQ
-// goes into the f32 buffer's group columns by atomicAdd. The mask is
-// regenerated per (row, col), so every group drops the same entries. Shared
-// memory a block: bf16 169.5 KB at NG 256 and 121.5 KB at NG 128; f32
-// 130 KB. The cost: every group recomputes S^T and dP^T, and both bf16
-// warpgroups compute them, so the blocks of a (b, h) issue
-// 8 T^2 dh x groups + 6 T^2 dh operations for the function's 10 T^2 dh: 3x
-// at dh 384 (three groups of 128), 2.2x at dh 512 (two of 256). At NG 256
-// the kernel spills about 260 bytes (nvcc 12.9); NG 128 does not spill.
+// and one group of NG columns of dK, dV and dQ, blockIdx.x = key tile *
+// groups + group: in bf16 256 where 256 divides dh, else 192 where 192
+// does (dh 384: two groups, each warpgroup's 96 columns as at dh 192), else
+// 128; in f32 128. S^T = K Q^T and dP^T = V dO^T stream over the full dh in
+// 64-wide chunks of K, V, Q and dO (a two-stage ring in bf16) into the same
+// registers; the group's columns of K stay in shared memory for dQ = dS K,
+// and those of Q and dO arrive once a query tile for dK and dV. In bf16 the
+// two warpgroups split the work as the dh 192/256 kernel does: each streams
+// S^T and dP^T for its 32 query columns and owns NG / 2 of the group's
+// columns of dK, dV and dQ, with the kept P^T and dS^T in shared memory
+// between them. D = rowsum(dO * O) comes from the pre-pass over the full dh
+// (bwd_prepass with DH = 0); dQ goes into the f32 buffer's group columns by
+// atomicAdd. The mask is regenerated per (row, col), so every group drops
+// the same entries. Shared memory a block: bf16 177.5 KB at NG 256, 153.5
+// KB at 192, 129.5 KB at 128; f32 130 KB. The cost left: every group
+// recomputes S^T and dP^T over the full dh (one tile of it fits neither
+// shared memory nor registers), so the blocks of a (b, h) issue
+// 4 T^2 dh x groups + 6 T^2 dh operations for the function's 10 T^2 dh:
+// 1.4x at dh 384 (two groups of 192) and at 512 (two of 256), 1.8x at 768
+// (three of 256). A three-stage ring loaded two chunks ahead (one barrier a
+// chunk), and dK's and dV's products left running into the next tile, were
+// both slower on the card (PERF.md). ptxas (nvcc 12.9): NG 128 220-222
+// registers and NG 192 252-254, no spill; NG 256 255 and 108-116 bytes of
+// spill, which the SASS shows to be the group tiles' load addresses, stored
+// once before the query-tile loop and reloaded once a query tile, none
+// inside the chunk or product loops.
 
 #include <math.h>
 
@@ -177,74 +205,108 @@ constexpr int BQ = 64;        // query rows per tile
 constexpr int THREADS = 256;  // two warpgroups of 4 warps x 16 key rows
 
 // dh 64 and 128: a block takes 128 keys, 64 a warpgroup, each with its
-// keys' whole dK and dV in registers. dh 192 and 256 ("wide") would need
-// 192 and 256 accumulator registers a thread that way, and 128 keys' tiles
-// would not fit shared memory at 256; there a block takes 64 keys, both
-// warpgroups on the same keys, and warpgroup w keeps the 64-wide column
-// blocks w * CPW .. of dK, dV and dQ (CPW = 2; at 192 warpgroup 1's second
-// block repeats block 2 and is not stored, so both run the same products:
-// no branch on the warpgroup index around a wgmma, which nvcc 12.9 crashes
-// on). Both warpgroups then compute the same S^T and dP^T: 7 products where
-// 5 are needed, and registers as at dh 128.
+// keys' whole dK and dV in registers.
 template <int DH>
 struct Tiling {
-  static constexpr bool WIDE = DH > 128;
-  static constexpr int BK = WIDE ? 64 : 128;  // keys per block
-  static constexpr int NCB = DH / 64;         // 64-wide column blocks of dh
-  static constexpr int CPW = WIDE ? 2 : 0;    // blocks a warpgroup keeps (wide)
-  // dK, dV accumulator n-blocks a thread: all of dh, or CPW column blocks
-  static constexpr int NB_ACC = WIDE ? CPW * 8 : DH / 8;
+  static constexpr int BK = 128;  // keys per block
   // 1024 bytes to align the tiles to the swizzle period; K and V tiles, two
   // stages of Q and dO tiles, the dS^T tile (bf16); two stages of lse and D
   static constexpr size_t SMEM = 1024 + (2 * BK * DH + 4 * BQ * DH + BK * BQ) * sizeof(bf16) +
                                  4 * BQ * sizeof(float);
 };
 
-// A wide head dim (attention_common.cuh wide_dh): 64 keys a block, both
-// warpgroups on them as in the wide Tiling, and one group of NG columns of
-// dK, dV and dQ a block (blockIdx.x = key tile * groups + group), warpgroup
-// w keeping column blocks w * CPW .. of the group. S^T = K Q^T and
-// dP^T = V dO^T stream over dh in 64-wide chunks of K, V, Q and dO through a
-// two-stage ring; the group's columns of K stay, and those of Q and dO
-// arrive per query tile, for dK, dV and dQ.
+// Above dh 128 a block takes 64 keys and its two warpgroups split the work
+// of every (key tile, query tile) between them: warpgroup w computes S^T
+// and dP^T for the query columns [32 w, 32 w + 32) of the tile (m64n32) and
+// runs their exponential, hash and dS, writing keep * P / (1 - p) and dS^T
+// to two shared [key][query] tiles; after one barrier it computes dV, dK
+// and dQ on its own half of the columns, reading those tiles as A.
+constexpr int SPLIT_BK = 64;  // keys per block
+constexpr int HALF_Q = BQ / 2;  // query columns of S^T and dP^T a warpgroup
+
+// dh 192 and 256: K and V tiles, two stages of Q and dO tiles, the kept-P^T
+// and dS^T tiles (bf16), two stages of lse and D, and 1024 bytes to align
+// the tiles to the swizzle period
+template <int DH>
+struct SplitTiling {
+  static constexpr size_t SMEM =
+      1024 + (2 * SPLIT_BK * DH + 4 * BQ * DH + 2 * SPLIT_BK * BQ) * sizeof(bf16) +
+      4 * BQ * sizeof(float);
+};
+
+// A wide head dim (attention_common.cuh wide_dh): 64 keys and one group of
+// NG = 128, 192 or 256 columns of dK, dV and dQ a block (blockIdx.x = key
+// tile * groups + group), split between the warpgroups as above. S^T =
+// K Q^T and dP^T = V dO^T stream over dh in 64-wide chunks of K, V, Q and
+// dO through a two-stage ring; the group's columns of K stay, and those of
+// Q and dO arrive per query tile, for dK, dV and dQ.
 template <int NG>
 struct WideTiling {
-  static constexpr int BK = 64;
   static constexpr int CW = fs2::attn::CHUNK;
-  static constexpr int CPW = NG / 128;        // 64-wide column blocks a warpgroup keeps
-  static constexpr int NB_ACC = CPW * 8;      // dK, dV accumulator n-blocks a thread
-  static constexpr int STAGE = (2 * BK + 2 * BQ) * CW;  // K, V, Q, dO chunks of a stage
+  static constexpr int STAGE = (2 * SPLIT_BK + 2 * BQ) * CW;  // K, V, Q, dO chunks of a stage
   // 1024 bytes to align the tiles to the swizzle period; the K group tile,
-  // the Q and dO group tiles, two chunk stages, the dS^T tile (bf16); lse, D
-  static constexpr size_t SMEM =
-      1024 + (BK * NG + 2 * BQ * NG + 2 * STAGE + BK * BQ) * sizeof(bf16) + 2 * BQ * sizeof(float);
+  // the Q and dO group tiles, two chunk stages, the kept-P^T and dS^T tiles
+  // (bf16); lse, D
+  static constexpr size_t SMEM = 1024 +
+                                 (SPLIT_BK * NG + 2 * BQ * NG + 2 * STAGE + 2 * SPLIT_BK * BQ) *
+                                     sizeof(bf16) +
+                                 2 * BQ * sizeof(float);
 };
+
+// Column n-block n (8 columns) of the W columns of dK, dV and dQ that
+// warpgroup wg owns, W = DH / 2 (or NG / 2): W 128, the 64-wide column
+// blocks 2 wg and 2 wg + 1; W 64 (a group of 128), block wg; W 96 (dh 192,
+// a group of 192), block wg and the half [32 wg, 32 wg + 32) of block 2, so
+// no block is computed twice.
+template <int W>
+__device__ __forceinline__ int half_col(int wg, int n) {
+  if constexpr (W == 96) return n < 8 ? 64 * wg + 8 * n : 128 + 32 * wg + 8 * (n - 8);
+  return W * wg + 8 * n;
+}
+
+// d += A B over warpgroup wg's W columns for one k-step: A the descriptor
+// `a` (TA as wgmma_ss_n64), B read transposed from the k-step's first row
+// `b` of a 128-byte-swizzled MN-major tile of R rows, its 64-wide column
+// blocks R * 64 elements apart. One m64n128 product at W 128, m64n64 at 64,
+// m64n64 + m64n32 at 96. Each warpgroup's share is picked by its address,
+// never by a branch around a wgmma (nvcc 12.9 crashes on one).
+template <int W, int TA, int R>
+__device__ __forceinline__ void wgmma_half_cols(float (&d)[W / 8][4], uint64_t a, const bf16* b,
+                                                int wg) {
+  using namespace fs2::tc;
+  if constexpr (W == 128) {
+    wgmma_ss_n128<TA, 1>(d, a, sw128_desc(b + 2 * wg * R * 64, R * 128, 1024));
+  } else if constexpr (W == 64) {
+    wgmma_ss_n64<TA, 1>(d, a, sw128_desc(b + wg * R * 64, R * 128, 1024));
+  } else {
+    static_assert(W == 96, "a warpgroup's columns: 64, 96 or 128");
+    wgmma_ss_n64<TA, 1>(*reinterpret_cast<float(*)[8][4]>(&d[0]), a,
+                        sw128_desc(b + wg * R * 64, R * 128, 1024));
+    wgmma_ss_n32<TA, 1>(*reinterpret_cast<float(*)[4][4]>(&d[8]), a,
+                        sw128_desc(b + 2 * R * 64 + 32 * wg, R * 128, 1024));
+  }
+}
 
 }  // namespace tc_bwd
 
-// One query tile of the bf16 backward once S^T and dP^T for this thread's
-// two key rows are in `sp` and `dpt` (query columns q0 + ..): P^T, the keep
-// mask and dS^T = P^T * (keep * dP^T / (1 - p) - D) on the f32 accumulators,
-// then keep * P / (1 - p) and dS^T as the bf16 A fragments `pa`, `sa` of
-// dV's and dK's products. Lt, Dt: the tile's lse and D.
-template <bool DROP>
-__device__ __forceinline__ void bwd_fragments(float (&sp)[tc_bwd::BQ / 8][4],
-                                              float (&dpt)[tc_bwd::BQ / 8][4],
-                                              uint32_t (&pa)[tc_bwd::BQ / 16][4],
-                                              uint32_t (&sa)[tc_bwd::BQ / 16][4],
-                                              const int (&kr)[2], const float (&kbias)[2],
-                                              const uint32_t (&kx)[2], const float* Lt,
-                                              const float* Dt, int q0, int T_len, float sm_scale,
-                                              float log2_T, const Dropout& drop, int t4) {
+// P^T, the keep mask and dS^T = P^T * (keep * dP^T / (1 - p) - D) on the f32
+// accumulators of S^T (`sp`) and dP^T (`dpt`) for this thread's two key
+// rows and NB n-blocks of query columns c0 + 8 n + ..: `sp` becomes
+// keep * P / (1 - p) and `dpt` dS^T. Lt, Dt: the query tile's lse and D.
+template <bool DROP, int NB>
+__device__ __forceinline__ void bwd_scores(float (&sp)[NB][4], float (&dpt)[NB][4],
+                                           const int (&kr)[2], const float (&kbias)[2],
+                                           const uint32_t (&kx)[2], const float* Lt,
+                                           const float* Dt, int q0, int c0, int T_len,
+                                           float sm_scale, float log2_T, const Dropout& drop,
+                                           int t4) {
   using namespace fs2::tc;
-  constexpr int BQ = tc_bwd::BQ;
-  constexpr int NB_S = BQ / 8;
 #pragma unroll
-  for (int n = 0; n < NB_S; ++n) {
+  for (int n = 0; n < NB; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
-      const int c = n * 8 + 2 * t4 + (e & 1);
+      const int c = c0 + n * 8 + 2 * t4 + (e & 1);
       const int qrow = q0 + c;
       float p = 0.f;
       if (kr[r] < T_len && qrow < T_len) {
@@ -258,6 +320,25 @@ __device__ __forceinline__ void bwd_fragments(float (&sp)[tc_bwd::BQ / 8][4],
       dpt[n][e] = p * ((keep ? dpt[n][e] * drop.keep_scale : 0.f) - Dt[c]);
     }
   }
+}
+
+// One query tile of the dh 64/128 backward once S^T and dP^T for this
+// thread's two key rows are in `sp` and `dpt` (query columns q0 + ..):
+// bwd_scores, then keep * P / (1 - p) and dS^T as the bf16 A fragments
+// `pa`, `sa` of dV's and dK's products.
+template <bool DROP>
+__device__ __forceinline__ void bwd_fragments(float (&sp)[tc_bwd::BQ / 8][4],
+                                              float (&dpt)[tc_bwd::BQ / 8][4],
+                                              uint32_t (&pa)[tc_bwd::BQ / 16][4],
+                                              uint32_t (&sa)[tc_bwd::BQ / 16][4],
+                                              const int (&kr)[2], const float (&kbias)[2],
+                                              const uint32_t (&kx)[2], const float* Lt,
+                                              const float* Dt, int q0, int T_len, float sm_scale,
+                                              float log2_T, const Dropout& drop, int t4) {
+  using namespace fs2::tc;
+  constexpr int BQ = tc_bwd::BQ;
+  bwd_scores<DROP, BQ / 8>(sp, dpt, kr, kbias, kx, Lt, Dt, q0, 0, T_len, sm_scale, log2_T, drop,
+                           t4);
 #pragma unroll
   for (int kk = 0; kk < BQ / 16; ++kk) {
     c_to_a(pa[kk], sp[2 * kk], sp[2 * kk + 1]);
@@ -282,6 +363,25 @@ __device__ __forceinline__ void store_ds(bf16* Ss, const uint32_t (&sa)[tc_bwd::
   }
 }
 
+// This thread's NB n-blocks of a score tile (f32 accumulators of two key
+// rows, query columns c0 + 8 n + ..) rounded to bf16 into the
+// 128-byte-swizzled [key][query] tile `St` of BK rows (one 64-wide column
+// block): this warp's 16 key rows from kw * 16.
+template <int BK, int NB>
+__device__ __forceinline__ void store_scores(bf16* St, const float (&s)[NB][4], int kw, int c0,
+                                             int g, int t4) {
+  using namespace fs2::tc;
+  const int row = kw * 16 + g;
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const int chunk = c0 / 8 + n;
+    *reinterpret_cast<uint32_t*>(St + sw128<BK>(row, chunk) + 2 * t4) =
+        pack_bf16(s[n][0], s[n][1]);
+    *reinterpret_cast<uint32_t*>(St + sw128<BK>(row + 8, chunk) + 2 * t4) =
+        pack_bf16(s[n][2], s[n][3]);
+  }
+}
+
 template <int DH, bool DROP>
 __global__ void __launch_bounds__(tc_bwd::THREADS, 1)
 attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -293,9 +393,9 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  Dropout drop) {
   using namespace fs2::tc;
   using namespace tc_bwd;
-  using Tile = Tiling<DH>;
-  constexpr bool WIDE = Tile::WIDE;
-  constexpr int BK = Tile::BK, NCB = Tile::NCB, CPW = Tile::CPW, NB_ACC = Tile::NB_ACC;
+  static_assert(DH == 64 || DH == 128, "dh 64 and 128; above, attention_bwd_tc_split");
+  constexpr int BK = Tiling<DH>::BK;
+  constexpr int NB_ACC = DH / 8;   // dK, dV accumulator n-blocks a thread: all of dh
   constexpr int KSTEPS = DH / 16;  // k-steps of S^T = K Q^T and dP^T = V dO^T
   constexpr int NB_S = BQ / 8;     // n-blocks of S^T (query columns)
   constexpr int NB_Q = 8;          // n-blocks of 64 columns of dQ
@@ -311,9 +411,7 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2;
-  // this warp's 16 key rows of the block: keys 64 * wg .. for dh <= 128,
-  // the same 64 keys in both warpgroups when wide
-  const int kw = WIDE ? (warp & 3) : warp;
+  const int kw = warp;  // this warp's 16 key rows of the block: keys 64 * wg ..
   const int g = lane >> 2, t4 = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BK;
@@ -362,11 +460,6 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float log2_T = log2f(static_cast<float>(T_len));
 
-  // dK and dV: all of dh, or (wide) CPW 64-wide column blocks of 8 n-blocks,
-  // block c being column block cb(c); cb_kept(c) whether it is this
-  // warpgroup's to store (at dh 192 warpgroup 1's second is a repeat)
-  auto cb = [&](int c) { return min(wg * CPW + c, NCB - 1); };
-  auto cb_kept = [&](int c) { return wg * CPW + c < NCB; };
   float dka[NB_ACC][4], dva[NB_ACC][4];
 #pragma unroll
   for (int n = 0; n < NB_ACC; ++n)
@@ -397,7 +490,7 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
       const int col = (kk & 3) * 16;  // within the 64-wide column block kk / 4
-      const int kv_off = (kk >> 2) * BK * 64 + (WIDE ? 0 : wg * 64 * 64) + col;
+      const int kv_off = (kk >> 2) * BK * 64 + wg * 64 * 64 + col;
       const int q_off = (kk >> 2) * BQ * 64 + col;
       wgmma_ss_n64(sp, sw128_desc(Ks + kv_off, 16, 1024), sw128_desc(Qt + q_off, 16, 1024));
       wgmma_ss_n64(dpt, sw128_desc(Vs + kv_off, 16, 1024), sw128_desc(Ot + q_off, 16, 1024));
@@ -414,26 +507,14 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      if constexpr (WIDE) {
-#pragma unroll
-        for (int c = 0; c < CPW; ++c) {
-          const int off = cb(c) * BQ * 64 + kk * 16 * 64;
-          auto& dvc = *reinterpret_cast<float(*)[8][4]>(&dva[8 * c]);
-          auto& dkc = *reinterpret_cast<float(*)[8][4]>(&dka[8 * c]);
-          wgmma_rs_n64(dvc, pa[kk], sw128_desc(Ot + off, BQ * 128, 1024));
-          wgmma_rs_n64(dkc, sa[kk], sw128_desc(Qt + off, BQ * 128, 1024));
-        }
-      } else {
-        wgmma_rs_cols<DH, BQ>(dva, pa[kk], Ot + kk * 16 * 64);
-        wgmma_rs_cols<DH, BQ>(dka, sa[kk], Qt + kk * 16 * 64);
-      }
+      wgmma_rs_cols<DH, BQ>(dva, pa[kk], Ot + kk * 16 * 64);
+      wgmma_rs_cols<DH, BQ>(dka, sa[kk], Qt + kk * 16 * 64);
     }
     wgmma_commit();
 
     // dS^T (bf16) to shared memory, [key][query] in the 128-byte-swizzled
-    // layout, while the products run (when wide, warpgroup 0's copy: both
-    // hold the same)
-    if (!WIDE || wg == 0) store_ds<BK>(Ss, sa, kw, g, t4);
+    // layout, while the products run
+    store_ds<BK>(Ss, sa, kw, g, t4);
     fence_async_shared();
     wgmma_wait<0>();
     __syncthreads();
@@ -442,39 +523,33 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // this warp's rows are queries 16 (warp % 4) ... At dh 128 warpgroup wg
     // takes dQ's columns [64 wg, 64 wg + 64) over all 128 keys; at dh 64 it
     // takes all columns over keys [64 wg, 64 wg + 64), and the atomics sum
-    // the two halves; wide, it takes its CPW column blocks over the block's
-    // 64 keys, one after the other. (No branch on wg around the products:
-    // nvcc 12.9 crashes on one.)
+    // the two halves. (No branch on wg around the products: nvcc 12.9
+    // crashes on one.)
     {
-      constexpr int DQ_STEPS = WIDE ? BK / 16 : DH == 128 ? BK / 16 : BK / 32;
-      constexpr int DQ_BLOCKS = WIDE ? CPW : 1;
-      const int key0 = WIDE || DH == 128 ? 0 : 64 * wg;
+      constexpr int DQ_STEPS = DH == 128 ? BK / 16 : BK / 32;
+      const int key0 = DH == 128 ? 0 : 64 * wg;
+      const int cblk = DH == 128 ? wg : 0;
+      float dqa[NB_Q][4];
 #pragma unroll
-      for (int c = 0; c < DQ_BLOCKS; ++c) {
-        const int cblk = WIDE ? cb(c) : DH == 128 ? wg : 0;
-        float dqa[NB_Q][4];
+      for (int n = 0; n < NB_Q; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+      wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < NB_Q; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-        wgmma_fence();
+      for (int kk = 0; kk < DQ_STEPS; ++kk) {
+        const int row = key0 + kk * 16;
+        wgmma_ss_n64<1, 1>(dqa, sw128_desc(Ss + row * 64, BK * 128, 1024),
+                           sw128_desc(Ks + cblk * BK * 64 + row * 64, BK * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-        for (int kk = 0; kk < DQ_STEPS; ++kk) {
-          const int row = key0 + kk * 16;
-          wgmma_ss_n64<1, 1>(dqa, sw128_desc(Ss + row * 64, BK * 128, 1024),
-                             sw128_desc(Ks + cblk * BK * 64 + row * 64, BK * 128, 1024));
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        if (WIDE && !cb_kept(c)) continue;
+      for (int r = 0; r < 2; ++r) {
+        const int qrow = q0 + (warp & 3) * 16 + g + 8 * r;
+        if (qrow >= T_len) continue;
+        float* dst = dq_b + static_cast<long long>(qrow) * DH + cblk * 64 + 2 * t4;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int qrow = q0 + (warp & 3) * 16 + g + 8 * r;
-          if (qrow >= T_len) continue;
-          float* dst = dq_b + static_cast<long long>(qrow) * DH + cblk * 64 + 2 * t4;
-#pragma unroll
-          for (int n = 0; n < NB_Q; ++n)  // one vector add per column pair (sm_90)
-            atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
-                      make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
-        }
+        for (int n = 0; n < NB_Q; ++n)  // one vector add per column pair (sm_90)
+          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
+                    make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
       }
     }
   }
@@ -485,14 +560,235 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long long off = (row_base + kr[r]) * DH + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NB_ACC; ++n) {
-      // column of n-block n: 8 n, or (wide) in column block cb(n / 8)
-      const int col = WIDE ? cb(n / 8) * 64 + (n % 8) * 8 : n * 8;
-      if (WIDE && !cb_kept(n / 8)) continue;
+      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
+          pack_bf16(dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
+          pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+// One query tile's products once the block's kept-P^T and dS^T tiles are
+// in `Ps`, `Ss` (and a barrier has passed): warpgroup wg's W columns of
+// dQ = dS K (A = dS^T read transposed, B the K tile `Kt` of BK rows), added
+// to the f32 buffer's rows q0 + .. of `ld` floats at columns col0 + .. by
+// atomicAdd, and of dV += P^T dO and dK += dS^T Q (A = the tiles as
+// stored, B the dO and Q tiles `Ot`, `Qt` of BQ rows). dQ's first part is
+// committed before dK's and dV's products, so its atomics overlap them. At
+// W 128 dQ goes in two 64-column parts, the second after dK and dV: 32 of
+// its accumulators live beside dK's and dV's 128 instead of 64, which keeps
+// the kernel from spilling. Returns when all are done.
+template <int W, int BK>
+__device__ __forceinline__ void split_products(float (&dka)[W / 8][4], float (&dva)[W / 8][4],
+                                               const bf16* Ps, const bf16* Ss, const bf16* Kt,
+                                               const bf16* Qt, const bf16* Ot, float* dq_b,
+                                               long long ld, int col0, int q0, int T_len,
+                                               float sm_scale, int wg, int kw, int g, int t4) {
+  using namespace fs2::tc;
+  using namespace tc_bwd;
+  constexpr int PARTS = W == 128 ? 2 : 1;
+  constexpr int NP = W / PARTS / 8;  // dQ accumulator n-blocks of a part
+  // part j of dQ: its products, then its atomics once they are done
+  auto dq_products = [&](float (&dqa)[NP][4], int j) {
+#pragma unroll
+    for (int n = 0; n < NP; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t a = sw128_desc(Ss + kk * 16 * 64, BK * 128, 1024);
+      if constexpr (PARTS == 2)  // the 64-wide column block 2 wg + j
+        wgmma_ss_n64<1, 1>(dqa, a,
+                           sw128_desc(Kt + kk * 16 * 64 + (2 * wg + j) * BK * 64, BK * 128, 1024));
+      else
+        wgmma_half_cols<W, 1, BK>(dqa, a, Kt + kk * 16 * 64, wg);
+    }
+    wgmma_commit();
+  };
+  auto dq_atomics = [&](const float (&dqa)[NP][4], int j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qrow = q0 + kw * 16 + g + 8 * r;
+      if (qrow >= T_len) continue;
+      float* dst = dq_b + qrow * ld + col0 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NP; ++n)  // one vector add per column pair (sm_90)
+        atomicAdd(reinterpret_cast<float2*>(dst + half_col<W>(wg, NP * j + n)),
+                  make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
+    }
+  };
+  {
+    float dqa[NP][4];
+    dq_products(dqa, 0);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_half_cols<W, 0, BQ>(dva, sw128_desc(Ps + kk * 16, 16, 1024), Ot + kk * 16 * 64, wg);
+      wgmma_half_cols<W, 0, BQ>(dka, sw128_desc(Ss + kk * 16, 16, 1024), Qt + kk * 16 * 64, wg);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // dQ's products are done; dK's and dV's run on
+    dq_atomics(dqa, 0);
+  }
+  if constexpr (PARTS == 2) {
+    float dqa[NP][4];
+    dq_products(dqa, 1);
+    wgmma_wait<0>();
+    dq_atomics(dqa, 1);
+  }
+  wgmma_wait<0>();
+}
+
+// dK (times sm_scale) and dV of this thread's two key rows `kr` on
+// warpgroup wg's W columns, from column col0 of rows `ld` elements long
+template <int W>
+__device__ __forceinline__ void store_split_dkdv(bf16* dk, bf16* dv, const float (&dka)[W / 8][4],
+                                                 const float (&dva)[W / 8][4],
+                                                 const int (&kr)[2], long long row_base,
+                                                 long long ld, int col0, int T_len,
+                                                 float sm_scale, int wg, int t4) {
+  using namespace fs2::tc;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kr[r] >= T_len) continue;
+    const long long off = (row_base + kr[r]) * ld + col0 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n) {
+      const int col = tc_bwd::half_col<W>(wg, n);
       *reinterpret_cast<uint32_t*>(dk + off + col) =
           pack_bf16(dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
       *reinterpret_cast<uint32_t*>(dv + off + col) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
+}
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(tc_bwd::THREADS, 1)
+attention_bwd_tc_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ key_bias, const int* __restrict__ kv_end,
+                       const float* __restrict__ lse, const float* __restrict__ dsum,
+                       float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       int T_len, Strides qs, Strides ks, Strides vs, Strides ds,
+                       float sm_scale, Dropout drop) {
+  using namespace fs2::tc;
+  using namespace tc_bwd;
+  static_assert(DH == 192 || DH == 256, "dh 192 and 256");
+  constexpr int BK = SPLIT_BK;
+  constexpr int W = DH / 2;        // columns of dK, dV and dQ a warpgroup
+  constexpr int KSTEPS = DH / 16;  // k-steps of S^T = K Q^T and dP^T = V dO^T
+  constexpr int NB_S = HALF_Q / 8;  // n-blocks of this warpgroup's S^T and dP^T
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* Vs = Ks + BK * DH;
+  bf16* Qs = Vs + BK * DH;      // [2][BQ * DH]
+  bf16* Os = Qs + 2 * BQ * DH;  // [2][BQ * DH], the dO tiles
+  bf16* Ps = Os + 2 * BQ * DH;  // [BK][BQ], keep * P^T / (1 - p)
+  bf16* Ss = Ps + BK * BQ;      // [BK][BQ], dS^T
+  float* Ls = reinterpret_cast<float*>(Ss + BK * BQ);  // [2][BQ]
+  float* Dd = Ls + 2 * BQ;                             // [2][BQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, kw = warp & 3;  // this warp's 16 keys, in either warpgroup
+  const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = wg * HALF_Q;  // this warpgroup's query columns of a tile's S^T and dP^T
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
+  const long long bh = static_cast<long long>(b) * gridDim.y + h;
+  const long long row_base = bh * T_len;
+
+  if (k0 >= min(max(kv_end[b], 1), T_len)) {
+    zero_rows<DH, THREADS>(dk, dv, row_base, k0, BK, T_len, tid);
+    return;
+  }
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* db = dout + b * ds.b + h * ds.h;
+  const float* lse_b = lse + row_base;
+  const float* dsum_b = dsum + row_base;
+  float* dq_b = dq_acc + row_base * DH;
+
+  auto load_q = [&](int stage, int q0) {
+    load_tile<BQ, DH, THREADS>(Qs + stage * BQ * DH, qb, qs.t, q0, T_len, tid);
+    load_tile<BQ, DH, THREADS>(Os + stage * BQ * DH, db, ds.t, q0, T_len, tid);
+    const int i = tid & (BQ - 1);
+    const bool ok = q0 + i < T_len;
+    if (tid < BQ)
+      cp_async4(Ls + stage * BQ + i, lse_b + (ok ? q0 + i : 0), ok);
+    else if (tid < 2 * BQ)
+      cp_async4(Dd + stage * BQ + i, dsum_b + (ok ? q0 + i : 0), ok);
+  };
+
+  load_tile<BK, DH, THREADS>(Ks, kb, ks.t, k0, T_len, tid);
+  load_tile<BK, DH, THREADS>(Vs, vb, vs.t, k0, T_len, tid);
+  load_q(0, 0);
+  cp_async_commit();
+
+  // this thread's two key rows: bias, validity, dropout hash prefix
+  int kr[2];
+  float kbias[2];
+  uint32_t kx[2];
+  const uint32_t key = DROP ? drop.key(b, h) : 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kr[r] = k0 + kw * 16 + g + 8 * r;
+    kbias[r] = kr[r] < T_len ? key_bias[static_cast<long long>(b) * T_len + kr[r]] : 0.f;
+    kx[r] = static_cast<uint32_t>(kr[r]) ^ key;
+  }
+  const float log2_T = log2f(static_cast<float>(T_len));
+
+  float dka[W / 8][4], dva[W / 8][4];
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int n_qt = (T_len + BQ - 1) / BQ;
+  for (int i = 0; i < n_qt; ++i) {
+    cp_async_wait<0>();  // query tile i (and K, V) landed
+    fence_async_shared();
+    __syncthreads();  // ... for every thread; tile i - 1's products are done with Ps, Ss
+                      // and with the Q, dO stage that tile i + 1 refills
+    if (i + 1 < n_qt) load_q((i + 1) & 1, (i + 1) * BQ);
+    cp_async_commit();
+    const bf16* Qt = Qs + (i & 1) * BQ * DH;
+    const bf16* Ot = Os + (i & 1) * BQ * DH;
+    const float* Lt = Ls + (i & 1) * BQ;
+    const float* Dt = Dd + (i & 1) * BQ;
+    const int q0 = i * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for the block's 64 keys and this
+    // warpgroup's 32 query columns (m64n32, all operands from shared memory)
+    float sp[NB_S][4], dpt[NB_S][4];
+#pragma unroll
+    for (int n = 0; n < NB_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[n][e] = dpt[n][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int col = (kk & 3) * 16;  // within the 64-wide column block kk / 4
+      const int kv_off = (kk >> 2) * BK * 64 + col;
+      const int q_off = (kk >> 2) * BQ * 64 + c0 * 64 + col;
+      wgmma_ss_n32(sp, sw128_desc(Ks + kv_off, 16, 1024), sw128_desc(Qt + q_off, 16, 1024));
+      wgmma_ss_n32(dpt, sw128_desc(Vs + kv_off, 16, 1024), sw128_desc(Ot + q_off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    bwd_scores<DROP, NB_S>(sp, dpt, kr, kbias, kx, Lt, Dt, q0, c0, T_len, sm_scale, log2_T,
+                           drop, t4);
+    store_scores<BK, NB_S>(Ps, sp, kw, c0, g, t4);
+    store_scores<BK, NB_S>(Ss, dpt, kw, c0, g, t4);
+    fence_async_shared();
+    __syncthreads();  // the tile's kept P^T and dS^T are whole in shared memory
+
+    split_products<W, BK>(dka, dva, Ps, Ss, Ks, Qt, Ot, dq_b, DH, 0, q0, T_len, sm_scale, wg, kw,
+                          g, t4);
+  }
+
+  store_split_dkdv<W>(dk, dv, dka, dva, kr, row_base, DH, 0, T_len, sm_scale, wg, t4);
 }
 
 template <int NG, bool DROP>
@@ -507,22 +803,24 @@ attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using namespace fs2::tc;
   using namespace tc_bwd;
   using Tile = WideTiling<NG>;
-  constexpr int BK = Tile::BK, CW = Tile::CW, CPW = Tile::CPW, NB_ACC = Tile::NB_ACC;
-  constexpr int NB_S = BQ / 8;  // n-blocks of S^T (query columns)
-  constexpr int NB_Q = 8;       // n-blocks of 64 columns of dQ
+  constexpr int BK = SPLIT_BK, CW = Tile::CW;
+  constexpr int W = NG / 2;         // columns of the group a warpgroup owns
+  constexpr int NB_S = HALF_Q / 8;  // n-blocks of this warpgroup's S^T and dP^T
   extern __shared__ unsigned char smem_raw[];
   bf16* Kg = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   bf16* Qg = Kg + BK * NG;      // [BQ * NG]
   bf16* Og = Qg + BQ * NG;      // [BQ * NG], dO
   bf16* Ch = Og + BQ * NG;      // [2][STAGE]: K, V chunks [BK * CW], Q, dO chunks [BQ * CW]
-  bf16* Ss = Ch + 2 * Tile::STAGE;                    // [BK][BQ], dS^T
+  bf16* Ps = Ch + 2 * Tile::STAGE;                     // [BK][BQ], keep * P^T / (1 - p)
+  bf16* Ss = Ps + BK * BQ;                             // [BK][BQ], dS^T
   float* Ls = reinterpret_cast<float*>(Ss + BK * BQ);  // [BQ]
   float* Dd = Ls + BQ;                                 // [BQ]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2, kw = warp & 3;  // both warpgroups on the block's 64 keys
+  const int wg = warp >> 2, kw = warp & 3;  // this warp's 16 keys, in either warpgroup
   const int g = lane >> 2, t4 = lane & 3;
+  const int c0 = wg * HALF_Q;  // this warpgroup's query columns of a tile's S^T and dP^T
   const int n_groups = dh / NG;
   const int g0 = (blockIdx.x % n_groups) * NG;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -587,10 +885,9 @@ attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float log2_T = log2f(static_cast<float>(T_len));
 
-  auto cb = [&](int c) { return wg * CPW + c; };  // the group's column block of block c
-  float dka[NB_ACC][4], dva[NB_ACC][4];
+  float dka[W / 8][4], dva[W / 8][4];
 #pragma unroll
-  for (int n = 0; n < NB_ACC; ++n)
+  for (int n = 0; n < W / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
@@ -613,89 +910,34 @@ attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* stage = Ch + (st & 1) * Tile::STAGE;
       const bf16* Kt = stage;
       const bf16* Vt = stage + BK * CW;
-      const bf16* Qt = stage + 2 * BK * CW;
-      const bf16* Ot = stage + (2 * BK + BQ) * CW;
-      // S^T += K Q^T and dP^T += V dO^T over this chunk, all from shared memory
+      const bf16* Qt = stage + 2 * BK * CW + c0 * CW;  // this warpgroup's 32 query rows
+      const bf16* Ot = stage + (2 * BK + BQ) * CW + c0 * CW;
+      // S^T += K Q^T and dP^T += V dO^T over this chunk for this
+      // warpgroup's query columns, all from shared memory
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < CW / 16; ++kk) {
-        wgmma_ss_n64(sp, sw128_desc(Kt + kk * 16, 16, 1024), sw128_desc(Qt + kk * 16, 16, 1024));
-        wgmma_ss_n64(dpt, sw128_desc(Vt + kk * 16, 16, 1024), sw128_desc(Ot + kk * 16, 16, 1024));
+        wgmma_ss_n32(sp, sw128_desc(Kt + kk * 16, 16, 1024), sw128_desc(Qt + kk * 16, 16, 1024));
+        wgmma_ss_n32(dpt, sw128_desc(Vt + kk * 16, 16, 1024), sw128_desc(Ot + kk * 16, 16, 1024));
       }
       wgmma_commit();
       wgmma_wait<0>();
       __syncthreads();  // stage st & 1 is consumed before step st + 2 refills it
     }
 
-    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
-    bwd_fragments<DROP>(sp, dpt, pa, sa, kr, kbias, kx, Ls, Dd, q0, T_len, sm_scale, log2_T,
-                        drop, t4);
-
-    // dV += (keep P / (1 - p))^T dO and dK += dS^T Q on this warpgroup's
-    // column blocks of the group, B (dO, Q) read transposed
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-#pragma unroll
-      for (int c = 0; c < CPW; ++c) {
-        const int off = cb(c) * BQ * 64 + kk * 16 * 64;
-        auto& dvc = *reinterpret_cast<float(*)[8][4]>(&dva[8 * c]);
-        auto& dkc = *reinterpret_cast<float(*)[8][4]>(&dka[8 * c]);
-        wgmma_rs_n64(dvc, pa[kk], sw128_desc(Og + off, BQ * 128, 1024));
-        wgmma_rs_n64(dkc, sa[kk], sw128_desc(Qg + off, BQ * 128, 1024));
-      }
-    }
-    wgmma_commit();
-
-    // dS^T (bf16) to shared memory, [key][query] swizzled, while the products
-    // run (warpgroup 0's copy: both hold the same)
-    if (wg == 0) store_ds<BK>(Ss, sa, kw, g, t4);
+    bwd_scores<DROP, NB_S>(sp, dpt, kr, kbias, kx, Ls, Dd, q0, c0, T_len, sm_scale, log2_T,
+                           drop, t4);
+    store_scores<BK, NB_S>(Ps, sp, kw, c0, g, t4);
+    store_scores<BK, NB_S>(Ss, dpt, kw, c0, g, t4);
     fence_async_shared();
-    wgmma_wait<0>();
-    __syncthreads();
+    __syncthreads();  // the tile's kept P^T and dS^T are whole in shared memory
 
-    // dQ = dS K on this warpgroup's column blocks of the group over the
-    // block's 64 keys; this warp's rows are queries 16 (warp % 4) ..
-#pragma unroll
-    for (int c = 0; c < CPW; ++c) {
-      float dqa[NB_Q][4];
-#pragma unroll
-      for (int n = 0; n < NB_Q; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const int row = kk * 16;
-        wgmma_ss_n64<1, 1>(dqa, sw128_desc(Ss + row * 64, BK * 128, 1024),
-                           sw128_desc(Kg + cb(c) * BK * 64 + row * 64, BK * 128, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qrow = q0 + kw * 16 + g + 8 * r;
-        if (qrow >= T_len) continue;
-        float* dst = dq_b + static_cast<long long>(qrow) * dh + g0 + cb(c) * 64 + 2 * t4;
-#pragma unroll
-        for (int n = 0; n < NB_Q; ++n)  // one vector add per column pair (sm_90)
-          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
-                    make_float2(dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale));
-      }
-    }
-    __syncthreads();  // Ss, Qg, Og and Ls, Dd are consumed before tile i + 1 refills them
+    split_products<W, BK>(dka, dva, Ps, Ss, Kg, Qg, Og, dq_b, dh, g0, q0, T_len, sm_scale, wg, kw,
+                          g, t4);
+    __syncthreads();  // Ps, Ss, Qg, Og and Ls, Dd are consumed before tile i + 1 refills them
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kr[r] >= T_len) continue;
-    const long long off = (row_base + kr[r]) * dh + g0 + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < NB_ACC; ++n) {
-      const int col = cb(n / 8) * 64 + (n % 8) * 8;
-      *reinterpret_cast<uint32_t*>(dk + off + col) =
-          pack_bf16(dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
-      *reinterpret_cast<uint32_t*>(dv + off + col) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
-  }
+  store_split_dkdv<W>(dk, dv, dka, dva, kr, row_base, dh, g0, T_len, sm_scale, wg, t4);
 }
 
 // -- f32: CUDA cores ----------------------------------------------------------
@@ -1100,20 +1342,32 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+// the bf16 kernel of a built dh (both take the same arguments)
+template <int DH, bool DROP>
+auto bwd_tc_kernel() {
+  if constexpr (DH > 128)
+    return attention_bwd_tc_split<DH, DROP>;
+  else
+    return attention_bwd_tc<DH, DROP>;
+}
+
 template <int DH, bool DROP>
 cudaError_t launch_tc(const Args& a) {
-  using Tile = tc_bwd::Tiling<DH>;
   cudaError_t err = launch_prepass<bf16, DH>(a);
   if (err != cudaSuccess) return err;
-  const size_t smem = Tile::SMEM;
+  // dh 64, 128: 128 keys a block; 192, 256: 64 keys, the work split between
+  // the warpgroups
+  constexpr bool SPLIT = DH > 128;
+  constexpr int BK = SPLIT ? tc_bwd::SPLIT_BK : tc_bwd::Tiling<DH>::BK;
+  const size_t smem = SPLIT ? tc_bwd::SplitTiling<DH>::SMEM : tc_bwd::Tiling<DH>::SMEM;
+  const auto kernel = bwd_tc_kernel<DH, DROP>();
   // the opt-in belongs to the kernel in the current device's context, so it
   // is kept per device: one process may launch on several cards
   static fs2::SmemOptIn opt_in;
-  const cudaError_t attr = fs2::smem_opt_in(
-      opt_in, attention_bwd_tc<DH, DROP>, static_cast<int>(smem));
+  const cudaError_t attr = fs2::smem_opt_in(opt_in, kernel, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.T_len + Tile::BK - 1) / Tile::BK, a.H, a.B);
-  attention_bwd_tc<DH, DROP><<<grid, tc_bwd::THREADS, smem, a.stream>>>(
+  const dim3 grid((a.T_len + BK - 1) / BK, a.H, a.B);
+  kernel<<<grid, tc_bwd::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.bias, a.kv_end,
       a.lse, a.dsum, a.dq_acc, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.T_len,
@@ -1151,7 +1405,7 @@ cudaError_t launch_tc_wide(const Args& a) {
   const cudaError_t attr = fs2::smem_opt_in(
       opt_in, attention_bwd_tc_wide<NG, DROP>, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.T_len + Tile::BK - 1) / Tile::BK * (a.dh / NG), a.H, a.B);
+  const dim3 grid((a.T_len + tc_bwd::SPLIT_BK - 1) / tc_bwd::SPLIT_BK * (a.dh / NG), a.H, a.B);
   attention_bwd_tc_wide<NG, DROP><<<grid, tc_bwd::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.bias, a.kv_end,
@@ -1205,6 +1459,8 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
     if (dtype == fs2::kFloat32) return launch_f32_wide<128>(a);
     if (fs2::attn::group_width(true, dh) == 256)
       return dropout ? launch_tc_wide<256, true>(a) : launch_tc_wide<256, false>(a);
+    if (dh % 192 == 0)  // two warpgroups of 96 columns, as at dh 192
+      return dropout ? launch_tc_wide<192, true>(a) : launch_tc_wide<192, false>(a);
     return dropout ? launch_tc_wide<128, true>(a) : launch_tc_wide<128, false>(a);
   }
 #define FS2_BWD_DH(DH)                                                        \

@@ -1,8 +1,9 @@
 """The default shapes' kernel times of two trees on one card, in turns.
 
 Runs ``chip_smoke.py``'s phases 3 (A at serving shapes), 7-8 (A and A' at
-the training shapes), 9 (MAS), 10 (CTC) and phase 32's attention part (A and
-A' at dh 192) from each tree given, one process a tree, in the order given
+the training shapes), 9 (MAS), 10 (CTC), phase 32's attention part (A and
+A' at dh 192) and phase 33's (A and A' at dh 257-768, timed at dh 384 and
+512) from each tree given, one process a tree, in the order given
 (parent, change, change, parent), and prints every device time those phases
 log, one row a timed line, each tree's runs beside the others and the
 change's mean over the parent's. A tree is a checkout's root; an older one
@@ -12,7 +13,8 @@ is unpacked where ``.gitignore`` keeps it out of the commit:
     python tools/default_shapes_ab.py _archive/parent . . _archive/parent
 
 Each tree builds its own kernels into its own ``_build/``. ``--json PATH``
-writes the rows as JSON too."""
+writes the rows as JSON too, with every run's log lines (wall ms, bounds,
+errors)."""
 
 import argparse
 import json
@@ -41,6 +43,7 @@ c.phase_attention_train()
 c.phase_mas()
 c.phase_ctc()
 c._wide_attention()
+c._long_attention()
 print("AB_LINES " + json.dumps({"card": smi, "lines": lines}), flush=True)
 """
 
@@ -69,10 +72,11 @@ def main() -> None:
     parser.add_argument("trees", nargs="+", type=Path)
     parser.add_argument("--json", type=Path, help="also write the rows here")
     args = parser.parse_args()
-    runs = []
+    runs, logs = [], []
     for tree in args.trees:
         out = run_tree(tree.resolve())
         print(f"{tree}: {out['card']}", flush=True)
+        logs.append(dict(tree=str(tree), card=out["card"], lines=out["lines"]))
         # a line's name: its text before the first colon, figures masked
         timed = [(re.sub(r"\d+\.\d+", "#", x.split(":")[0]), device_times(x))
                  for x in out["lines"]]
@@ -94,7 +98,7 @@ def main() -> None:
               + f"; change / parent {[round(r, 4) for r in ratio]}", flush=True)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps(rows, indent=1))
+        args.json.write_text(json.dumps(dict(rows=rows, runs=logs), indent=1))
 
 
 if __name__ == "__main__":
