@@ -6713,21 +6713,16 @@ def _launched(fn):
 
 
 def bwd_products_issued(dh: int) -> float:
-    """The products bf16 kernel A′ issues over the function's five (S^T, dP^T,
-    dV, dK, dQ; ``csrc/attention_bwd.cu``'s header) at head dim dh: each
-    once per (key tile, query tile) at the kernel's head dim up to 256;
-    above it every column group (256 columns where they divide the head
-    dim, else 192 where they do, else 128) recomputes S^T and dP^T over the
-    full dh, (4 groups + 6) T^2 dh operations for the function's 10 T^2 dh;
-    times the zero padding (the kernel's head dim over dh)."""
-    from fastspeech2_lightning_tpu_torch.ops.attention import kernel_head_dim
+    """The products bf16 kernel A′ issues over the function's five at head
+    dim dh, by the count in ``csrc/attention_bwd.cu``'s header: (4 G + 6)
+    T^2 dh' for the function's 10 T^2 dh', with G the column groups its C
+    entry runs dh' = kernel_head_dim(dh) in (each recomputes S^T and dP^T;
+    one group issues each product once), times the zero padding dh' / dh.
+    Read from the kernel's routing for the log, not measured."""
+    from fastspeech2_lightning_tpu_torch.ops.attention import bwd_column_groups, kernel_head_dim
 
     width = kernel_head_dim(dh)
-    ratio = 1.0
-    if width > 256:
-        group = next(n for n in (256, 192, 128) if width % n == 0)
-        ratio = (4 * width // group + 6) / 10
-    return ratio * width / dh
+    return (4 * bwd_column_groups(dh) + 6) / 10 * width / dh
 
 
 def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_rows, bwd_rows):
@@ -6817,9 +6812,8 @@ def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_row
                bound_by=b_bound[1], launches_per_call=1, library="SDPA backward alone")
     issued = ""
     if dt == "bfloat16":
-        row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd),
-                   products_issued=bwd_products_issued(dh))
-        issued = f"; products issued / the function's {row['products_issued']:.2f}"
+        row.update(device_ms=device_ms(bwd), library_device_ms=device_ms(sdpa_bwd))
+        issued = f"; products issued / the function's {bwd_products_issued(dh):.2f}"
     bwd_rows.append(row)
     log(f"{label} attention_bwd {B, H, T, dh} {dt} p={p}: rel_l2 dQ/dK/dV="
         f"{'/'.join(f'{e[1]:.3e}' for e in b_errs)} kernel_ms={row['ms']:.4f} (device "

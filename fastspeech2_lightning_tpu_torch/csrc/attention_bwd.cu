@@ -88,7 +88,10 @@
 // thread together (96 at 192, 128 at 256, W = dh / 2), S^T and dP^T 32, dQ
 // 48 at 192 and, in two 64-column parts, 32 at 256 (split_products); ptxas
 // (nvcc 12.9): 235 registers at 192, 247 and 255 (with dropout) at 256, no
-// spill.
+// spill. attention_bwd_tc_wide run as one group of the whole dh would do
+// the same work, but loads K, Q and dO twice (as chunks and as group tiles)
+// and holds two barriers a chunk: 1.22-1.28x this kernel's time on the card
+// (tools/bwd_split_vs_wide.py, PERF.md), so both stay.
 //
 // f32 (attention_bwd_f32): the CUDA-core kernel of the f32 card-vs-CPU
 // checks (rel-L2 1e-5): one block of 256 threads per (64-key tile, head,
@@ -99,10 +102,11 @@
 // Wide head dims (attention_common.cuh wide_dh, as in attention_fwd.cu):
 // attention_bwd_tc_wide and attention_bwd_f32_wide. A block takes 64 keys
 // and one group of NG columns of dK, dV and dQ, blockIdx.x = key tile *
-// groups + group: in bf16 256 where 256 divides dh, else 192 where 192
-// does (dh 384: two groups, each warpgroup's 96 columns as at dh 192), else
-// 128; in f32 128. S^T = K Q^T and dP^T = V dO^T stream over the full dh in
-// 64-wide chunks of K, V, Q and dO (a two-stage ring in bf16) into the same
+// groups + group, NG = attention_common.cuh group_width(bf16, dh, true): in
+// bf16 256 where 256 divides dh, else 192 where 192 does (dh 384: two
+// groups, each warpgroup's 96 columns as at dh 192), else 128; in f32 128.
+// S^T = K Q^T and dP^T = V dO^T stream over the full dh in 64-wide chunks
+// of K, V, Q and dO (a two-stage ring in bf16) into the same
 // registers; the group's columns of K stay in shared memory for dQ = dS K,
 // and those of Q and dO arrive once a query tile for dK and dV. In bf16 the
 // two warpgroups split the work as the dh 192/256 kernel does: each streams
@@ -1418,6 +1422,16 @@ cudaError_t launch_tc_wide(const Args& a) {
 
 FS2_EXPORT_ERROR_STRING
 
+// The column groups of dK, dV and dQ the kernel of `dtype` runs head dim
+// dh in: 1 at a built dh, dh / group_width above 256; 0 for a dtype or dh
+// the C entry refuses.
+extern "C" int attention_bwd_column_groups(int dtype, int dh) {
+  if (dtype != fs2::kFloat32 && dtype != fs2::kBFloat16) return 0;
+  if (fs2::attn::built_dh(dh)) return 1;
+  if (!fs2::attn::wide_dh(dh)) return 0;
+  return dh / fs2::attn::group_width(dtype == fs2::kBFloat16, dh, true);
+}
+
 // Strides are in elements; for bf16 every row of q, k, v and do starts on
 // 16 bytes (the wrapper checks); dk, dv, lse are contiguous. kv_end, dsum
 // and dq_acc are scratch (contiguous) that the pre-pass kernels fill:
@@ -1457,11 +1471,11 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
   if (err != cudaSuccess) return static_cast<int>(err);
   if (fs2::attn::wide_dh(dh)) {
     if (dtype == fs2::kFloat32) return launch_f32_wide<128>(a);
-    if (fs2::attn::group_width(true, dh) == 256)
-      return dropout ? launch_tc_wide<256, true>(a) : launch_tc_wide<256, false>(a);
-    if (dh % 192 == 0)  // two warpgroups of 96 columns, as at dh 192
-      return dropout ? launch_tc_wide<192, true>(a) : launch_tc_wide<192, false>(a);
-    return dropout ? launch_tc_wide<128, true>(a) : launch_tc_wide<128, false>(a);
+    switch (fs2::attn::group_width(true, dh, true)) {
+      case 256: return dropout ? launch_tc_wide<256, true>(a) : launch_tc_wide<256, false>(a);
+      case 192: return dropout ? launch_tc_wide<192, true>(a) : launch_tc_wide<192, false>(a);
+      default: return dropout ? launch_tc_wide<128, true>(a) : launch_tc_wide<128, false>(a);
+    }
   }
 #define FS2_BWD_DH(DH)                                                        \
   if (dh == DH) {                                                             \

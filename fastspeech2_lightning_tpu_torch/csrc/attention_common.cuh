@@ -29,11 +29,14 @@ constexpr int CHUNK = 64;
 
 __host__ __device__ constexpr bool wide_dh(int dh) { return dh > 256 && dh % 128 == 0; }
 
-// the output columns a block of a wide head dim takes: 256 where they
-// divide dh in bf16 (the accumulators of the dh-256 kernels), else 128; the
-// f32 CUDA-core kernels take 128
-__host__ __device__ constexpr int group_width(bool bf16, int dh) {
-  return bf16 && dh % 256 == 0 ? 256 : 128;
+// the output columns a block of a wide head dim takes: in bf16 256 where
+// they divide dh (the accumulators of the dh-256 kernels); in the bf16
+// backward, else 192 where they divide dh (each warpgroup 96 columns, as in
+// the dh-192 backward); else 128; the f32 CUDA-core kernels take 128
+__host__ __device__ constexpr int group_width(bool bf16, int dh, bool backward = false) {
+  if (!bf16) return 128;
+  if (dh % 256 == 0) return 256;
+  return backward && dh % 192 == 0 ? 192 : 128;
 }
 
 struct Strides {

@@ -437,6 +437,18 @@ _BWD_ARGTYPES = (
     + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
+_BWD_ENTRIES = {"attention_bwd": _BWD_ARGTYPES,
+                "attention_bwd_column_groups": [ctypes.c_int, ctypes.c_int]}
+
+
+def bwd_column_groups(dh: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The column groups of dK, dV and dQ kernel A′ runs head dim `dh` in,
+    as its C entry routes it (``csrc/attention_common.cuh`` group_width) at
+    ``kernel_head_dim(dh)``: 1 up to 256, and above it the padded head dim
+    over the group width. Each group recomputes S^T and dP^T. Builds the
+    kernel's source on first use, so it needs nvcc."""
+    lib = build.load("attention_bwd", _BWD_ENTRIES)
+    return lib.attention_bwd_column_groups(_DTYPE_CODES[dtype], kernel_head_dim(dh))
 
 
 def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do,
@@ -485,7 +497,7 @@ def _launch_bwd(q, k, v, o, do, key_bias, seed, thresh: int, p: float, sm_scale:
     dv = torch.empty_like(dk)
     seed_t, seed_ptr = _seed_arg(seed, p, device)
 
-    lib = build.load("attention_bwd", {"attention_bwd": _BWD_ARGTYPES})
+    lib = build.load("attention_bwd", _BWD_ENTRIES)
     err = build.launch(
         device, lib.attention_bwd, _DTYPE_CODES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),

@@ -25,7 +25,8 @@ dh 64, 128, 192 and 256 as built and every other dh to 256 through the
 wrappers' zero padding, the wide head dims 384 to 768 (one block a group of
 output columns) and dh 257 and 320 padded to 384, q, k, v as views of the
 fused projection; A′'s dK and dV bit for bit the same over two bf16
-launches at dh 160 to 512, and dQ at most one bf16 rounding step apart;
+launches at dh 160 to 512, and dQ element by element at most one bf16
+rounding step and what reordering its f32 sum can move it apart;
 NaN keys and values in the tiles past kv_end, which the kernels must not
 read, and dK and dV exactly 0 there; at T = 1 (one key: dQ and dK are 0
 in exact arithmetic) dQ and dK within the limit of the rounding of their
@@ -49,7 +50,7 @@ S 2049 to 16383 on the direct chains too; kernel A as the op ``fs2t::attention_f
 A with A' (at dh 128; at 96, 160, 192, 256, 384 and 512 in f32 and
 bf16), B, and C's loss forward and backward each captured in a CUDA graph
 and replayed on new seeds or inputs, equal to their eager launches (bf16
-dQ within one rounding step);
+dQ element by element as between two launches);
 a tiny f32 train step captured by ``TrainStepGraph`` against the eager
 step. Each counts one launch per kernel launch (a replay its capture's
 launches), and each wrapper raises on a
@@ -128,6 +129,8 @@ def _c_params(source: str, entry: str) -> list:
 @pytest.mark.parametrize("source,entry,argtypes", [
     ("attention_fwd", "attention_fwd", attention._FWD_ARGTYPES),
     ("attention_bwd", "attention_bwd", attention._BWD_ARGTYPES),
+    ("attention_bwd", "attention_bwd_column_groups",
+     attention._BWD_ENTRIES["attention_bwd_column_groups"]),
     ("mas_width1", "mas_width1", mas._ARGTYPES),
     ("ctc_banded_lse", "ctc_alpha", ctc._ALPHA_ARGTYPES),
     ("ctc_banded_lse", "ctc_alpha_beta", ctc._ALPHA_BETA_ARGTYPES),
@@ -244,10 +247,29 @@ def _tol(dtype):
     return 1e-5 if dtype == torch.float32 else 2e-2
 
 
-# bf16 dQ from two launches: the same f32 terms summed by atomics in
-# another order, so each element at most one bf16 rounding step (2^-7 of it)
-# apart
-DQ_RUN_TO_RUN = 2.0 ** -7
+def _assert_dq_launches_agree(a, b, q, k, v, bias, seed, p, scale, do):
+    """bf16 dQ of two A′ launches on the same inputs, element by element.
+    Each launch adds the same f32 terms into an element, one from each key
+    tile, by atomics in an order that varies, then rounds to bf16. Two
+    orders of n f32 terms differ by at most 2 (n - 1) 2^-24 times the sum of
+    their magnitudes, which sm_scale (|dS| |K|) bounds (n: T / 64 key tiles
+    or fewer); the roundings add one bf16 step, at most 2^-7 of the
+    larger."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    B, H, T, _ = q.shape
+    prob = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                         + bias.float()[:, None, None, :], dim=-1)
+    keep = dropout_keep_mask(int(seed.reshape(-1)[0]), B, H, T, p, device=q.device)
+    dprob = torch.where(keep, torch.matmul(dof, vf.transpose(-1, -2)) / (1.0 - p), 0.0)
+    ds = prob * (dprob - (prob * dprob).sum(-1, keepdim=True))
+    terms = scale * torch.matmul(ds.abs(), kf.abs())
+    reorder = 2 * (-(-T // 64) - 1) * 2.0 ** -24 * terms
+    af, bf = a.float(), b.float()
+    limit = 2.0 ** -7 * torch.maximum(af.abs(), bf.abs()) + reorder
+    apart = (af - bf).abs() > limit
+    assert not bool(apart.any()), (
+        f"dQ of two launches apart at {int(apart.sum())} elements, the worst "
+        f"{float(((af - bf).abs() - limit).max())} past its limit")
 
 
 @pytest.mark.gpu
@@ -477,6 +499,16 @@ def test_attention_kernels_at_padded_head_dims(cuda, dh, dtype, p):
 
 
 @pytest.mark.gpu
+def test_bwd_column_groups_follow_the_group_width(cuda):
+    """A′'s column groups as its C entry routes them: one up to dh 256, then
+    groups of 256 where 256 divides the padded dh, else of 192 in bf16,
+    else of 128 (always 128 in f32)."""
+    want = {64: 1, 160: 1, 256: 1, 257: 2, 384: 2, 512: 2, 640: 5, 768: 3}
+    assert {dh: attention.bwd_column_groups(dh) for dh in want} == want
+    assert attention.bwd_column_groups(384, torch.float32) == 3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dh", [257, 320, 384, 512, 640, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
@@ -566,9 +598,10 @@ def test_bf16_backward_dk_dv_are_deterministic(cuda, dh, p):
     """Two launches of A′ in bf16 on the same inputs (ragged keys, T off the
     tiles) give the same dK and dV bit for bit: each block sums its keys'
     dK and dV over the query tiles in one order, whichever warpgroup owns a
-    column. dQ is summed across key tiles by atomics, so its launches differ
-    by at most one bf16 rounding step, and each stays within the plain
-    version's limit."""
+    column. dQ is summed across key tiles by atomics, so each element of the
+    two launches' dQ differs by at most one bf16 rounding step and what
+    reordering its f32 sum can move it (``_assert_dq_launches_agree``), and
+    each stays within the plain version's limit."""
     T = 1100
     bias = _bias(np.stack([_segments(T, (0, n)) for n in (T, 777)])).to(cuda)
     q, k, v = _fused_qkv(cuda, 2, T, 2, dh, torch.bfloat16, seed=dh)
@@ -581,7 +614,7 @@ def test_bf16_backward_dk_dv_are_deterministic(cuda, dh, p):
     second = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
-    assert _rel(first[0], second[0].float()) <= DQ_RUN_TO_RUN
+    _assert_dq_launches_agree(first[0], second[0], q, k, v, bias, seed, p, scale, do)
     want = attention_bwd_reference(q.float(), k.float(), v.float(), bias, seed, p, scale,
                                    do.float())
     for grads in (first, second):
@@ -1397,7 +1430,7 @@ def _check_capture(cuda, dh, dtype=torch.float32):
             for got, want in zip(outs[1:], eager[1:]):
                 assert _rel(got, want) <= 1e-6
         else:  # dK and dV are summed in a fixed order, dQ by atomics
-            assert _rel(outs[1], eager[1]) <= DQ_RUN_TO_RUN
+            _assert_dq_launches_agree(outs[1], eager[1], q, k, v, bias, seed, 0.2, 0.125, do)
             assert torch.equal(outs[2], eager[2]) and torch.equal(outs[3], eager[3])
         ref = attention_bwd_reference(qf, kf, vf, bias, seed, 0.2, 0.125, dof)
         assert _rel(outs[0], attention_dropout_reference(qf, kf, vf, bias, seed, 0.2,
