@@ -6676,7 +6676,8 @@ WIDE_ATTENTION = ((16, 2, 2048, 192, 0.2, "bfloat16", True),
                   (16, 2, 1024, 192, 0.2, "bfloat16", True),
                   (8, 2, 1024, 192, 0.0, "bfloat16", False),
                   (4, 2, 1024, 192, 0.2, "float32", True))
-# padded to 64, 64, 64 and 128; 256 built; 320 padded to 384 (A: groups of 128, A′: 192)
+# padded to 64, 64, 64 and 128; 256 built; 320 padded to 384 (bf16 A: one block a
+# query tile, f32 A: groups of 128; A′: groups of 192)
 OTHER_HEAD_DIMS = (16, 32, 48, 96, 256, 320)
 V2_BATCH, V2_FRAMES = 8, 896
 V2_STAGES = ((64, 8), (32, 64), (16, 128), (8, 256))  # (C, samples a mel frame)
@@ -6723,6 +6724,18 @@ def bwd_products_issued(dh: int) -> float:
 
     width = kernel_head_dim(dh)
     return (4 * bwd_column_groups(dh) + 6) / 10 * width / dh
+
+
+def fwd_products_issued(dh: int) -> float:
+    """The products bf16 kernel A issues over the function's two at head
+    dim dh: (2 G + 2) T^2 dh' for the function's 4 T^2 dh', with G the
+    column groups its C entry runs dh' = kernel_head_dim(dh) in
+    (``attention_fwd_column_groups``: each group recomputes S = Q K^T; one
+    group issues each product once), times the zero padding dh' / dh. Read
+    from the kernel's routing for the log, not measured."""
+    from fastspeech2_lightning_tpu_torch.ops.attention import fwd_column_groups, kernel_head_dim
+
+    return (2 * fwd_column_groups(dh) + 2) / 4 * kernel_head_dim(dh) / dh
 
 
 def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_rows, bwd_rows):
@@ -6781,15 +6794,17 @@ def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_row
                    q, k, v, bias, seed, p, scale), warmup=1, iters=3),
                library_ms=time_ms(sdpa, iters=10), bound_ms=f_bound[0],
                bound_by=f_bound[1], launches_per_call=1)
+    issued = ""
     if dt == "bfloat16":
         row.update(device_ms=device_ms(fwd), library_device_ms=device_ms(sdpa))
+        issued = f"; products issued / the function's {fwd_products_issued(dh):.2f}"
     fwd_rows.append(row)
     log(f"{label} attention_fwd {B, H, T, dh} {dt} p={p}: max_abs={f_abs:.3e} "
         f"rel_l2={f_rel:.3e} kernel_ms={row['ms']:.4f} (device "
         f"{row.get('device_ms', float('nan')):.4f}) plain_ms={row['plain_ms']:.4f} "
         f"SDPA {row['library_ms']:.4f} (device "
         f"{row.get('library_device_ms', float('nan')):.4f}) bound_ms={f_bound[0]:.4f} "
-        f"({f_bound[1]})")
+        f"({f_bound[1]}){issued}")
     if not backward:
         return held
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
@@ -6827,9 +6842,9 @@ def _held_attention(label, B, H, T, dh, p, dt, backward, timed, g, seed, fwd_row
 
 def _wide_attention() -> dict:
     """(i) A and A' at dh 192 against their plain versions, timed beside
-    SDPA, with A′'s products issued over the function's
-    (``bwd_products_issued``); at the other head dims, padded or built (dh
-    320 padded to 384)."""
+    SDPA, with A's and A′'s products issued over the function's
+    (``fwd_products_issued``, ``bwd_products_issued``); at the other head
+    dims, padded or built (dh 320 padded to 384)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7121,9 +7136,17 @@ def phase_wide_heads(workdir: Path, smi: str) -> dict:
 # -- phase 33: head dims above 256 and texts of 1024 symbols or more ----------
 
 LONG_HEAD_DIMS = (257, 320, 384, 512, 768)  # A and A' at (4, 1, 1024, dh)
-# timed beside SDPA: (B, H, T, dh, p, dtype, with A')
+# timed beside SDPA: (B, H, T, dh, p, dtype, with A'); the one-head d-384
+# model's training shape, dh 512, and that model's serving batch (last, so
+# the earlier shapes keep their random draws)
 LONG_ATTENTION = ((16, 1, 2048, 384, 0.2, "bfloat16", True),
-                  (16, 1, 1024, 512, 0.2, "bfloat16", True))
+                  (16, 1, 1024, 512, 0.2, "bfloat16", True),
+                  (8, 1, 1024, 384, 0.0, "bfloat16", False))
+# A past the dropout hash's T limit, at p 0 (B, H, T, dh), held on slices of
+# query rows (rows are independent); item 0 has every key valid, item 1 its
+# last 1000 masked
+LONG_T_ATTENTION = ((2, 1, 65600, 64), (2, 2, 65600, 192))
+LONG_T_ROWS = ((0, 256), (32768, 33024), (65344, 65600))
 LONG_MAS = ((2, 1100, 1025), (2, 2048, 2048), (1, 8192, 8191))  # (B, T, L)
 # (B, T, L, in_len of item 0) at S 2049, 4097, 16383; the last over 2048
 # frames (the card tests hold S 16383 over 8192 frames at in_len L)
@@ -7140,8 +7163,9 @@ LONG_FRAMES = 2048
 def _long_attention() -> dict:
     """(i) A and A' at dh 257 to 768 (bf16 at p 0.2, f32 at p 0) against the
     plain versions at (4, 1, 1024, dh), and timed beside SDPA at
-    (16, 1, 2048, 384) and (16, 1, 1024, 512), with A′'s products issued
-    over the function's."""
+    (16, 1, 2048, 384), (16, 1, 1024, 512) and the serving (8, 1, 1024,
+    384) p 0 (A alone), with A's and A′'s products issued over the
+    function's; A at T 65600, p 0 (``_long_T_attention``)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7160,7 +7184,45 @@ def _long_attention() -> dict:
         held.append(_held_attention("phase 33", B, H, T, dh, p, dt, backward, True, g, seed,
                                     fwd_rows, bwd_rows))
         torch.cuda.empty_cache()
-    return dict(held=held, fwd=fwd_rows, bwd=bwd_rows)
+    return dict(held=held, fwd=fwd_rows, bwd=bwd_rows, long_t=_long_T_attention(g))
+
+
+def _long_T_attention(g) -> list:
+    """A at T 65600 (past the 65536 its dropout hash allows) at p 0, where
+    no bit is drawn, bf16, on a batch of an item whose keys are all valid
+    (so key tiles past 65536 are read) and one whose last 1000 are masked:
+    one launch each, the output finite, and held to the plain version in f32
+    on slices of query rows (each row's output depends on its own query
+    alone)."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        attention_fwd, attention_reference, kernel_head_dim,
+    )
+
+    rows = []
+    for B, H, T, dh in LONG_T_ATTENTION:
+        bias = torch.zeros(B, T, device="cuda")
+        bias[1:, T - 1000:] = -1e9
+        q, k, v = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(dh)
+        (out, lse), n = _launched(lambda: attention_fwd(q, k, v, bias, scale, with_lse=True))
+        check(n == (1, 0) and bool(torch.isfinite(out).all()),
+              f"attention_fwd at {B, H, T, dh} p 0: launches {n}, finite "
+              f"{bool(torch.isfinite(out).all())}")
+        worst = 0.0
+        for r0, r1 in LONG_T_ROWS:
+            want = attention_reference(q[:, :, r0:r1].float(), k.float(), v.float(), bias, scale)
+            worst = max(worst, errors(out[:, :, r0:r1], want)[1])
+        check(worst <= 2e-2, f"attention_fwd at {B, H, T, dh} p 0: rel-L2 {worst} > 2e-2")
+        rows.append(dict(shape=[B, H, T, dh], p=0.0, rows=[list(r) for r in LONG_T_ROWS],
+                         rel_l2=worst, kernel_head_dim=kernel_head_dim(dh)))
+        log(f"phase 33 attention_fwd at T {T}, dh {dh}, p 0: held on rows {LONG_T_ROWS}, "
+            f"rel-L2 {worst:.3e}")
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _long_mas() -> dict:
@@ -7470,8 +7532,11 @@ def main() -> None:
     def attention_long(part):
         held = [{k: h[k] for k in ("shape", "dtype", "p", f"{part}_max_abs", f"{part}_rel_l2")}
                 for h in long["attention"]["held"] if f"{part}_rel_l2" in h]
-        return dict(held=held, timed=long["attention"][part],
-                    launches=long_launches(f"attention_{part}"))
+        out = dict(held=held, timed=long["attention"][part],
+                   launches=long_launches(f"attention_{part}"))
+        if part == "fwd":  # A at T 65600, p 0
+            out["past_dropout_t_limit"] = long["attention"]["long_t"]
+        return out
 
     def entry(name, row, source, replaces, n, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

@@ -1437,7 +1437,8 @@ extern "C" int attention_bwd_column_groups(int dtype, int dh) {
 // and dq_acc are scratch (contiguous) that the pre-pass kernels fill:
 // kv_end[b], D = rowsum(dO * O), and dq_acc zeroed. Launches the two
 // pre-passes and the kernel on `stream`. `seed` may be null when
-// thresh == 0. Returns a cudaError_t code.
+// thresh == 0. T is bounded only with dropout (thresh > 0): T <= 65536, as
+// in attention_fwd.cu. Returns a cudaError_t code.
 extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const void* o, const void* key_bias,
                              void* kv_end, const void* lse, void* dsum, const void* seed,
@@ -1450,9 +1451,9 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
                              float sm_scale, long long thresh, float keep_scale,
                              int row_offset, int head_offset, int heads_total,
                              void* stream) {
-  if (B <= 0 || H <= 0 || T_len <= 0 || T_len > 65536 || thresh < 0 || thresh > 0xffffffffLL ||
-      (thresh > 0 && seed == nullptr) || kv_end == nullptr || row_offset < 0 ||
-      head_offset < 0 || head_offset + H > heads_total)
+  if (B <= 0 || H <= 0 || T_len <= 0 || (thresh > 0 && T_len > fs2::kMaxDropoutT) ||
+      thresh < 0 || thresh > 0xffffffffLL || (thresh > 0 && seed == nullptr) ||
+      kv_end == nullptr || row_offset < 0 || head_offset < 0 || head_offset + H > heads_total)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, o, static_cast<const float*>(key_bias),
                static_cast<int*>(kv_end), static_cast<const float*>(lse),

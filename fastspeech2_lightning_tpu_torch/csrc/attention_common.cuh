@@ -21,20 +21,25 @@ __host__ __device__ constexpr bool built_dh(int dh) {
 }
 
 // Head dims above 256 run at a multiple of 128 (ops/attention.py pads to
-// it, as the JAX package pads every dh): each block takes one group of
-// group_width() output columns and streams the products over the full dh
-// (S = Q K^T, and in the backward also dP = dO V^T) through shared memory in
-// CHUNK-wide column chunks, recomputing them in every group.
+// it, as the JAX package pads every dh). The kernels stream the products
+// over dh (S = Q K^T, and in the backward also dP = dO V^T) through shared
+// memory in CHUNK-wide column chunks. A block takes group_width() output
+// columns; where that is less than dh, every group recomputes the streamed
+// products.
 constexpr int CHUNK = 64;
+constexpr int kSplitFwdMaxDh = 768;  // the widest dh of attention_fwd_tc_split
 
 __host__ __device__ constexpr bool wide_dh(int dh) { return dh > 256 && dh % 128 == 0; }
 
-// the output columns a block of a wide head dim takes: in bf16 256 where
-// they divide dh (the accumulators of the dh-256 kernels); in the bf16
-// backward, else 192 where they divide dh (each warpgroup 96 columns, as in
-// the dh-192 backward); else 128; the f32 CUDA-core kernels take 128
+// the output columns a block of a wide head dim takes: the bf16 forward
+// the whole dh up to kSplitFwdMaxDh (its two warpgroups split the columns;
+// each score once); above, and in the bf16 backward, 256 where they divide
+// dh (the accumulators of the dh-256 kernels); in the backward, else 192
+// where they divide dh (each warpgroup 96 columns, as in the dh-192
+// backward); else 128; the f32 CUDA-core kernels take 128
 __host__ __device__ constexpr int group_width(bool bf16, int dh, bool backward = false) {
   if (!bf16) return 128;
+  if (!backward && dh <= kSplitFwdMaxDh) return dh;
   if (dh % 256 == 0) return 256;
   return backward && dh % 192 == 0 ? 192 : 128;
 }

@@ -35,7 +35,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // of a distributed step passes where its rows and heads lie in the global
 // batch and draws its block of the one-process mask; (0, 0, H) give b*H + h.
 // An element is kept iff its 32 bits >= threshold
-// (threshold = min(floor(p * 2^32), 2^32 - 1)). Rows and columns < 2^16.
+// (threshold = min(floor(p * 2^32), 2^32 - 1)). Rows and columns < 2^16, so
+// the kernels take T <= kMaxDropoutT when they draw a mask (p > 0); at p = 0
+// no bit is drawn and T is not bounded by it.
+constexpr int kMaxDropoutT = 1 << 16;
+
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7feb352du;

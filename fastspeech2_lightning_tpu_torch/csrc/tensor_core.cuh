@@ -153,6 +153,68 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// -- mbarriers, named barriers and the tensor memory accelerator (TMA) ---------
+//
+// A tile that a kernel loads with TMA lands in the 128-byte-swizzled layout
+// above: each copy is one box of 64 bf16 columns (128 bytes) by R rows of a
+// tensor map made with CU_TENSOR_MAP_SWIZZLE_128B, written to a 1024-byte
+// aligned address, with rows past the tensor's end zero-filled. Its
+// completion is counted in bytes on an mbarrier (complete_tx), so a
+// consumer that waits on that barrier may read the tile with wgmma at once:
+// both the copy and wgmma are in the async proxy.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// after the barriers are initialised, before any other thread uses them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival, and `bytes` more for the barrier's phase to wait for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// a box of the 4-D tensor map `map` at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst`; its bytes complete on `bar`. `map` is a
+// __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// hardware barrier `id` (1-15; 0 is __syncthreads') over `n` threads: wait
+// for them, or count this warp's threads in and go on
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // order register writes (accumulators, A fragments) before the next wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -341,6 +403,21 @@ __device__ __forceinline__ void wgmma_rs_cols(float (&d)[N / 8][4], const uint32
       wgmma_rs_n64(*reinterpret_cast<float(*)[8][4]>(&d[8 * c]), a,
                    sw128_desc(b + c * R * 64, R * 128, 1024));
   }
+}
+
+// As wgmma_rs_cols, with A the K-major shared-memory descriptor `a` (N a
+// multiple of 64: one m64n128 product per 128 columns, and an m64n64 for the
+// last 64 where N is an odd multiple of 64).
+template <int N, int R>
+__device__ __forceinline__ void wgmma_ss_cols(float (&d)[N / 8][4], uint64_t a, const bf16* b) {
+  static_assert(N % 64 == 0, "whole 64-wide column blocks");
+#pragma unroll
+  for (int c = 0; c < N / 128; ++c)
+    wgmma_ss_n128<0, 1>(*reinterpret_cast<float(*)[16][4]>(&d[16 * c]), a,
+                        sw128_desc(b + 2 * c * R * 64, R * 128, 1024));
+  if constexpr (N % 128 != 0)
+    wgmma_ss_n64<0, 1>(*reinterpret_cast<float(*)[8][4]>(&d[N / 8 - 8]), a,
+                       sw128_desc(b + (N / 64 - 1) * R * 64, R * 128, 1024));
 }
 
 // d[2][4] += A(registers) * B, one warp's m16n8k16 products (mma.sync) for

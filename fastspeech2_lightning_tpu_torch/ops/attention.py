@@ -27,9 +27,11 @@ tensors (or raises) and runs its plain PyTorch version for CPU tensors:
   others); on the CPU autograd runs through the plain version.
 
 The kernels are built for head dims 64, 128, 192 and 256
-(``KERNEL_HEAD_DIMS``) and for every multiple of 128 above 256, where a
-block takes one group of at most 256 output columns and streams the
-products over the full dh (``csrc/attention_common.cuh`` wide_dh). Every
+(``KERNEL_HEAD_DIMS``) and for every multiple of 128 above 256, where they
+stream the products over the full dh (``csrc/attention_common.cuh``
+wide_dh): A in bf16 up to 768 in one block that computes each score once
+for all its output columns, above that and in A′ in groups of at most 256
+columns (``fwd_column_groups``, ``bwd_column_groups``). Every
 other dh runs at the next of them (``kernel_head_dim``): up to 256 the
 next build, above it the next multiple of 128, as the JAX package pads dh
 (``attention_dropout.py:222-247``). The wrappers zero-pad q, k, v (and o,
@@ -51,6 +53,9 @@ The dropout mask is a pure function of (seed, (b + row_offset) * heads_total
 + h + head_offset, query row, key column): ``dropout_keep_mask`` computes it
 in int64 tensors exactly as ``csrc/common.cuh`` does in 32-bit arithmetic, so
 the kernels and their plain versions agree at p > 0 element for element.
+The hash packs (query row, key column) into 32 bits, so with dropout T is at
+most 65536 (every entry raises past it, before any work:
+``check_dropout_length``); at p = 0 no bit is drawn and T is not bounded.
 The offsets place a data rank's rows and a model rank's heads in the global
 batch of a distributed step (``models/conformer.py``), so each rank draws
 the block of the one-process mask that its rows and heads cover; the
@@ -79,7 +84,7 @@ NEG_INF = -1e9
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)  # the widths csrc/attention_*.cu are built for
-_MAX_T = 1 << 16  # the mask hash packs (row, col) into 32 bits
+_MAX_T = 1 << 16  # with dropout: the mask hash packs (row, col) into 32 bits
 _M32 = 0xFFFFFFFF
 
 
@@ -212,8 +217,7 @@ def dropout_keep_mask(seed: int, B: int, H: int, T: int, p: float, device=None,
     but (seed, (b + row_offset) * heads_total + h + head_offset, i, j), so
     padding T leaves it unchanged, and a rank's block at its offsets is the
     block of the global mask."""
-    if T > _MAX_T:
-        raise ValueError(f"attention dropout supports T <= {_MAX_T}, got {T}")
+    check_dropout_length("dropout_keep_mask", T, p)
     thresh = dropout_threshold(p)
     bh = _stream_index(B, H, row_offset, head_offset, heads_total, device)
     key = _mix32((int(seed) & _M32) ^ _mix32((_mul32(bh, 0x9E3779B9) + 0x632BE5AB) & _M32))
@@ -244,7 +248,16 @@ def attention_dropout_reference(q, k, v, key_bias, seed, p: float, sm_scale: flo
     return torch.matmul(prob.to(v.dtype), v)
 
 
-def _check(name: str, q, k, v, key_bias) -> list:
+def check_dropout_length(name: str, T: int, p: float) -> None:
+    """Raise where dropout at p would draw its mask past T = 65536: the hash
+    packs (query row, key column) into 32 bits (``csrc/common.cuh``
+    dropout_bits). At p = 0 no bit is drawn and T is not bounded."""
+    if p > 0.0 and T > _MAX_T:
+        raise ValueError(f"{name}: attention dropout (p = {p}) takes T <= {_MAX_T}: its mask "
+                         f"hashes (query row, key column) packed into 32 bits; T = {T}")
+
+
+def _check(name: str, q, k, v, key_bias, p: float) -> list:
     """Raise on what the kernels do not take; return the [B, H, T] strides
     of q, k and v, flat (the C entries' stride arguments)."""
     B, H, T, dh = q.shape
@@ -253,8 +266,7 @@ def _check(name: str, q, k, v, key_bias) -> list:
                          f"of 128 above them")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
-    if T > _MAX_T:
-        raise ValueError(f"{name}: T = {T} > {_MAX_T}")
+    check_dropout_length(name, T, p)
     if (k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype
             or k.get_device() != q.get_device() or v.get_device() != q.get_device()):
         raise ValueError(f"{name}: k and v must match q in shape/dtype/device")
@@ -325,6 +337,19 @@ _FWD_ARGTYPES = (
     + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_float]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
+_FWD_ENTRIES = {"attention_fwd": _FWD_ARGTYPES,
+                "attention_fwd_column_groups": [ctypes.c_int, ctypes.c_int]}
+
+
+def fwd_column_groups(dh: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The column groups of O kernel A runs head dim `dh` in, as its C entry
+    routes it (``csrc/attention_common.cuh`` group_width) at
+    ``kernel_head_dim(dh)``: 1 up to 256 and, in bf16, up to 768 (one block
+    computes each score once for all its columns); above, the padded head dim
+    over the group width, each group recomputing S. Builds the kernel's
+    source on first use, so it needs nvcc."""
+    lib = build.load("attention_fwd", _FWD_ENTRIES)
+    return lib.attention_fwd_column_groups(_DTYPE_CODES[dtype], kernel_head_dim(dh))
 
 
 def _out_like(q) -> torch.Tensor:
@@ -347,7 +372,7 @@ def _launch_fwd(q, k, v, key_bias, sm_scale: float, p: float, seed, with_lse: bo
     """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu`` at a built
     head dim; (o, lse)."""
     thresh = dropout_threshold(p)
-    strides = _check("attention_fwd", q, k, v, key_bias)
+    strides = _check("attention_fwd", q, k, v, key_bias, p)
     B, H, T, dh = q.shape
     offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
@@ -357,7 +382,7 @@ def _launch_fwd(q, k, v, key_bias, sm_scale: float, p: float, seed, with_lse: bo
     lse = _lse_like(q, with_lse)
     seed_t, seed_ptr = _seed_arg(seed, p, device)
 
-    lib = build.load("attention_fwd", {"attention_fwd": _FWD_ARGTYPES})
+    lib = build.load("attention_fwd", _FWD_ENTRIES)
     err = build.launch(
         device, lib.attention_fwd, _DTYPE_CODES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), ends.data_ptr(),
@@ -411,6 +436,7 @@ def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
     ``fs2t::attention_fwd``: kernel A on the card, the plain version on the
     CPU, its fake under ``torch.export``."""
     dropout_threshold(p)
+    check_dropout_length("attention_fwd", q.shape[2], p)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     o, lse = _attention_fwd_op(q, k, v, key_bias, float(sm_scale), float(p),
@@ -458,6 +484,7 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
     log-sum-exp `lse` (``attention_fwd(..., with_lse=True)``) and the output
     gradient `do`; the key bias gets none. The offsets are the forward's."""
     thresh = dropout_threshold(p)
+    check_dropout_length("attention_bwd", q.shape[2], p)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, key_bias, seed, p, sm_scale, do,
                                        row_offset, head_offset, heads_total)
@@ -476,7 +503,7 @@ def _launch_bwd(q, k, v, o, do, key_bias, seed, thresh: int, p: float, sm_scale:
     head dim; (dQ, dK, dV) in q's dtype. `flops` is the plain backward's
     count at the caller's true head dim, which the launch adds to
     ``attention_bwd.flops``."""
-    strides = _check("attention_bwd", q, k, v, key_bias)
+    strides = _check("attention_bwd", q, k, v, key_bias, p)
     B, H, T, dh = q.shape
     offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
@@ -555,6 +582,7 @@ def attention_with_dropout(q, k, v, key_bias, seed, p: float, sm_scale: float,
     a distributed rank's rows and heads; a launch of A at offsets other than
     the defaults bypasses the op, so ``FlopCounterMode`` does not count it
     (no path counts a distributed step's FLOPs)."""
+    check_dropout_length("attention_with_dropout", q.shape[2], p)
     if q.device.type == "cpu":
         return attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale,
                                            row_offset, head_offset, heads_total)

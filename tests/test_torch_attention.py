@@ -13,7 +13,9 @@ version on the card by tests/test_torch_kernels.py.
 log-sum-exp; its fake gives the kernel's strides; ``count_flops`` of an eval
 Conformer counts it once, at its formula, for the same total as the plain
 version's products; and the training Function's gradients equal autograd
-through the plain version."""
+through the plain version. With dropout (p > 0) every entry refuses T
+past 65536 before any work (the mask hash packs (row, col) into 32 bits);
+at p 0 the launch's checks take any T."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from fastspeech2_lightning_tpu.ops.attention_dropout import NEG_INF, attention_with_dropout
+from fastspeech2_lightning_tpu_torch.ops import attention
 from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd, attention_reference
 
 torch.set_num_threads(2)
@@ -172,3 +175,47 @@ def test_attention_function_gradients_are_unchanged(p):
         grads.append([g.numpy() for g in torch.autograd.grad(out, leaves, do)])
     for got, want in zip(*grads):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+DROPOUT_ENTRIES = {
+    "attention_fwd": lambda q, b, s: attention.attention_fwd(q, q, q, b, 0.125, p=0.2, seed=s),
+    "attention_with_dropout": lambda q, b, s: attention.attention_with_dropout(
+        q, q, q, b, s, 0.2, 0.125),
+    "attention_bwd": lambda q, b, s: attention.attention_bwd(
+        q, q, q, b, s, 0.2, 0.125, q, torch.zeros(q.shape[:3]), q),
+    "dropout_keep_mask": lambda q, b, s: attention.dropout_keep_mask(3, 1, 1, q.shape[2], 0.2),
+}
+
+
+@pytest.mark.parametrize("entry", list(DROPOUT_ENTRIES))
+def test_dropout_past_65536_keys_raises_before_any_work(entry, monkeypatch):
+    """p > 0 at T 65537: the mask hash packs (query row, key column) into 32
+    bits (``csrc/common.cuh`` dropout_bits), so every entry refuses before it
+    computes anything, with a message that names the limit and its cause."""
+    def no_work(*args, **kwargs):
+        raise AssertionError("work started")
+
+    for name in ("attention_dropout_reference", "attention_bwd_reference", "_mix32"):
+        monkeypatch.setattr(attention, name, no_work)
+    T = (1 << 16) + 1
+    q = torch.zeros(1, 1, T, 8)
+    seed = torch.tensor([1], dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"T <= 65536: its mask hashes \(query row, key column\) "
+                                         r"packed into 32 bits; T = 65537"):
+        DROPOUT_ENTRIES[entry](q, torch.zeros(1, T), seed)
+
+
+def test_no_dropout_past_65536_keys_passes_the_wrappers_checks():
+    """At p 0 no bit is drawn, so T is not bounded: the launch's checks pass
+    at T 65537 (what the kernels do there is held on the card,
+    tests/test_torch_kernels.py), and the refusal starts at p > 0 above 65536
+    keys only."""
+    T = (1 << 16) + 1
+    q = torch.zeros(1, 2, T, 64, dtype=torch.bfloat16)
+    bias = torch.zeros(1, T)
+    strides = attention._check("attention_fwd", q, q, q, bias, 0.0)
+    assert strides == list(q.stride()[:3]) * 3
+    attention.check_dropout_length("attention_fwd", T, 0.0)
+    attention.check_dropout_length("attention_fwd", 1 << 16, 0.2)
+    with pytest.raises(ValueError, match="T <= 65536"):
+        attention._check("attention_fwd", q, q, q, bias, 0.2)

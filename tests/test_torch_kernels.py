@@ -22,9 +22,16 @@ read back bit for bit, at the default offsets and at a rank's (row, head)
 offsets, where it is that block of the global mask;
 masks with no valid key, with holes and at tile edges, T off the tiles,
 dh 64, 128, 192 and 256 as built and every other dh to 256 through the
-wrappers' zero padding, the wide head dims 384 to 768 (one block a group of
-output columns) and dh 257 and 320 padded to 384, q, k, v as views of the
-fused projection; A′'s dK and dV bit for bit the same over two bf16
+wrappers' zero padding, the wide head dims 384 to 768 (A in one block
+computing each score once, A′ a block a group of output columns), dh
+257 and 320 padded to 384 and dh 769 and 1000 padded to 896 and 1024 (A
+a block a group of output columns), q, k, v as views of the fused
+projection; A's bf16 kernels above dh 128 on full and ragged masks and an
+item with no valid key, at T 1 to 1000 across the 64- and 128-row tiles
+and at a rank's offsets, with its log-sum-exp and A′ fed it, and at p 0
+bit for bit the launch without a seed; A and A′ at T 65600 at p 0 (past
+the dropout hash's 65536, with every key of one item valid; held on slices
+of rows and keys) and their refusal at p 0.2; A′'s dK and dV bit for bit the same over two bf16
 launches at dh 160 to 512, and dQ element by element at most one bf16
 rounding step and what reordering its f32 sum can move it apart;
 NaN keys and values in the tiles past kv_end, which the kernels must not
@@ -47,7 +54,7 @@ CTC loss within relative 1e-5 and its gradient within max-abs 1e-5, at
 S 2049 to 16383 on the direct chains too; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
 ``torch.export``, saved, loaded and run, launching A and equal to eager;
-A with A' (at dh 128; at 96, 160, 192, 256, 384 and 512 in f32 and
+A with A' (at dh 128; at 96, 160, 192, 256, 384, 512 and 768 in f32 and
 bf16), B, and C's loss forward and backward each captured in a CUDA graph
 and replayed on new seeds or inputs, equal to their eager launches (bf16
 dQ element by element as between two launches);
@@ -128,6 +135,8 @@ def _c_params(source: str, entry: str) -> list:
 
 @pytest.mark.parametrize("source,entry,argtypes", [
     ("attention_fwd", "attention_fwd", attention._FWD_ARGTYPES),
+    ("attention_fwd", "attention_fwd_column_groups",
+     attention._FWD_ENTRIES["attention_fwd_column_groups"]),
     ("attention_bwd", "attention_bwd", attention._BWD_ARGTYPES),
     ("attention_bwd", "attention_bwd_column_groups",
      attention._BWD_ENTRIES["attention_bwd_column_groups"]),
@@ -330,21 +339,33 @@ EDGE_MASKS = {
 }
 
 
-def _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=None):
+def _check_fwd_bwd(cuda, q, k, v, bias, dtype, p, ref_kv=None, offsets=None):
     """Both kernels against the plain version in f32 on the same inputs
     (or on `ref_kv` in place of k and v), the same seed (so the same dropout
-    mask)."""
+    mask); with `offsets` (row_offset, head_offset, heads_total) A by its
+    launch at those offsets and its log-sum-exp against the plain one too:
+    within 1e-5 (f32 exponentials and sums in another order; relative 1e-6
+    where an item with no valid key sits at -1e9)."""
     g = torch.Generator(device=cuda).manual_seed(5)
     do = torch.randn(q.shape, device=cuda, generator=g).to(dtype)
     seed = torch.tensor([4321], dtype=torch.int32, device=cuda)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    out, lse = attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
-    grads = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+    offs = offsets or (0, 0, None)
+    if offsets is None:
+        out, lse = attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
+    else:
+        out, lse = attention.padded_fwd(attention._launch_fwd, q, k, v, bias, scale, p,
+                                        seed if p > 0 else None, True, *offs)
+    grads = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do, *offs)
     torch.cuda.synchronize()
     k, v = ref_kv or (k, v)
     qf, kf, vf = q.float(), k.float(), v.float()
-    assert _rel(out, attention_dropout_reference(qf, kf, vf, bias, seed, p, scale)) <= _tol(dtype)
-    want = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, do.float())
+    assert _rel(out, attention_dropout_reference(qf, kf, vf, bias, seed, p, scale,
+                                                 *offs)) <= _tol(dtype)
+    if offsets is not None:
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * scale + bias[:, None, None, :]
+        torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6, atol=1e-5)
+    want = attention_bwd_reference(qf, kf, vf, bias, seed, p, scale, do.float(), *offs)
     for got, ref, other in zip(grads, want, (kf, qf, None)):
         assert got.dtype == dtype
         if q.shape[2] == 1 and other is not None:
@@ -498,6 +519,94 @@ def test_attention_kernels_at_padded_head_dims(cuda, dh, dtype, p):
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
+# kernel A's bf16 kernels above dh 128: attention_fwd_tc_pair at 129-256
+# (padded to 192 or 256), attention_fwd_tc_split at 257-768 (padded to a
+# multiple of 128)
+PAIR_AND_SPLIT_HEAD_DIMS = [160, 192, 200, 256, 257, 320, 384, 512, 768]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", PAIR_AND_SPLIT_HEAD_DIMS)
+@pytest.mark.parametrize("T", [1, 63, 65, 127, 129, 1000])
+@pytest.mark.parametrize("p", [0.0, 0.2])
+@pytest.mark.parametrize("offsets", list(OFFSETS))
+def test_attention_above_dh_128_against_plain_version(cuda, dh, T, p, offsets):
+    """A in bf16 above dh 128 (two warpgroups on shared K and V tiles to
+    256; each score once, the columns split, above) on a batch of a full
+    mask, a ragged one and an item with no valid key, at T off the 64- and
+    128-row tiles, at the default and at a rank's (row, head) offsets: its
+    output and log-sum-exp against the plain version, and A′ fed that
+    log-sum-exp against autograd through the plain version. At p 0 no bit
+    is drawn: the launch with a seed and the log-sum-exp equals the launch
+    without either, bit for bit."""
+    B, H = 3, 2
+    bias = _bias(np.stack([_segments(T, (0, n)) for n in (T, max(T - 37, 1), 0)])).to(cuda)
+    q, k, v = _fused_qkv(cuda, B, T, H, dh, torch.bfloat16, seed=dh + T)
+    _check_fwd_bwd(cuda, q, k, v, bias, torch.bfloat16, p, offsets=OFFSETS[offsets])
+    if p == 0.0:
+        seed = torch.tensor([4321], dtype=torch.int32, device=cuda)
+        with_seed, _ = attention_fwd(q, k, v, bias, 0.1, p=0.0, seed=seed, with_lse=True)
+        assert torch.equal(with_seed, attention_fwd(q, k, v, bias, 0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,dh", [(1, 64), (2, 192)])
+def test_attention_past_the_dropout_limit_at_p0(cuda, H, dh):
+    """T 65600 at p 0, where no dropout bit is drawn, on a batch of one item
+    whose 65600 keys are all valid (key tiles past 65536 are read) and one
+    whose last 1000 are masked: A and A′ launch once each, their outputs are
+    finite, and they equal the plain version's in f32, A on slices of query
+    rows (a row's output depends on its own query alone), A′'s dQ on the
+    same rows and its dK, dV on slices of keys against autograd through the
+    plain version over every row, 2048 rows at a time; at p 0.2 both
+    wrappers refuse before they launch, naming the 32-bit (row, col)
+    hash."""
+    T, chunk = 65600, 2048
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v, do = (torch.randn(2, H, T, dh, device=cuda, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.zeros(2, T, device=cuda)
+    bias[1, T - 1000:] = attention.NEG_INF
+    scale = 1.0 / math.sqrt(dh)
+    before = attention_fwd.launches, attention_bwd.launches
+    out, lse = attention_fwd(q, k, v, bias, scale, with_lse=True)
+    dq, dk, dv = attention_bwd(q, k, v, bias, None, 0.0, scale, out, lse, do)
+    torch.cuda.synchronize()
+    assert (attention_fwd.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+    kf, vf = (t.float().requires_grad_(True) for t in (k, v))
+    rows = ((0, 256), (32768, 33024), (T - 64, T))  # each within one chunk
+    for r0 in range(0, T, chunk):
+        qc = q[:, :, r0:r0 + chunk].float().requires_grad_(True)
+        want = attention_reference(qc, kf, vf, bias, scale)
+        want.backward(do[:, :, r0:r0 + chunk].float())
+        want = want.detach()
+        for a, b in rows:
+            if r0 <= a < r0 + chunk:
+                assert _rel(out[:, :, a:b], want[:, :, a - r0:b - r0]) <= _tol(torch.bfloat16)
+                assert _rel(dq[:, :, a:b], qc.grad[:, :, a - r0:b - r0]) <= _tol(torch.bfloat16)
+        del qc, want
+    for a, b in ((0, 256), (32768, 33024), (T - 256, T)):
+        assert _rel(dk[:, :, a:b], kf.grad[:, :, a:b]) <= _tol(torch.bfloat16)
+        assert _rel(dv[:, :, a:b], vf.grad[:, :, a:b]) <= _tol(torch.bfloat16)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="packed into 32 bits"):
+        attention_fwd(q, k, v, bias, scale, p=0.2, seed=seed)
+    with pytest.raises(ValueError, match="packed into 32 bits"):
+        attention_bwd(q, k, v, bias, seed, 0.2, scale, out, lse, do)
+    assert (attention_fwd.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_fwd_column_groups_follow_the_group_width(cuda):
+    """A's column groups as its C entry routes them: one up to dh 256 and,
+    in bf16, up to 768 (each score once); above, groups of 256 where 256
+    divides the padded dh, else of 128 (always 128 in f32)."""
+    want = {64: 1, 160: 1, 256: 1, 257: 1, 384: 1, 512: 1, 640: 1, 768: 1, 896: 7, 1024: 4}
+    assert {dh: attention.fwd_column_groups(dh) for dh in want} == want
+    assert attention.fwd_column_groups(384, torch.float32) == 3
+
+
 @pytest.mark.gpu
 def test_bwd_column_groups_follow_the_group_width(cuda):
     """A′'s column groups as its C entry routes them: one up to dh 256, then
@@ -509,13 +618,16 @@ def test_bwd_column_groups_follow_the_group_width(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [257, 320, 384, 512, 640, 768])
+@pytest.mark.parametrize("dh", [257, 320, 384, 512, 640, 768, 769, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.2])
 def test_attention_kernels_at_wide_head_dims(cuda, dh, dtype, p):
-    """dh above 256 runs at the next multiple of 128, one block a group of
-    output columns (128, 192 or 256 wide): ragged keys with NaN past kv_end, T
-    off the tiles, one launch of each kernel, FLOPs at the true dh."""
+    """dh above 256 runs at the next multiple of 128: bf16 A in one block a
+    query tile to 768 and above it (769 padded to 896, 1000 to 1024) one
+    block a group of output columns (128 or 256 wide), A′ and the f32
+    kernels in groups (128, 192 or 256 wide): ragged keys with NaN past
+    kv_end, T off the tiles, one launch of each kernel, FLOPs at the true
+    dh."""
     T = 300
     bias = _bias(np.stack([_segments(T, (0, n)) for n in (T, 171)])).to(cuda)
     q, k, v = _fused_qkv(cuda, 2, T, 1, dh, dtype, seed=dh)
@@ -544,7 +656,7 @@ def test_wide_attention_kernels_on_mask_edges(cuda, case, dh, dtype, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [1, 37, 63, 65, 1000, 1100, 2047])
-@pytest.mark.parametrize("dh", [257, 384, 512, 768])
+@pytest.mark.parametrize("dh", [257, 384, 512, 768, 769, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_attention_kernels_on_T_off_the_tiles(cuda, T, dh, dtype):
     lens = [T, max(T - 37, 1)]
@@ -554,7 +666,7 @@ def test_wide_attention_kernels_on_T_off_the_tiles(cuda, T, dh, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [384, 512, 768])
+@pytest.mark.parametrize("dh", [384, 512, 768, 896, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_attention_kernels_draw_one_mask_across_column_groups(cuda, dh, dtype):
     """With q = k = 0 and one-hot values (T = dh) the forward's output is
@@ -1391,13 +1503,15 @@ def test_attention_kernels_under_capture_equal_their_eager_launches(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [192, 96, 384, 256, 160, 512])
+@pytest.mark.parametrize("dh", [192, 96, 384, 256, 160, 512, 768])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernels_under_capture_at_wide_and_padded_head_dims(cuda, dh, dtype):
-    """As the dh 128 capture, at dh 192 and 256 (built, 64 keys a backward
-    block split between the warpgroups in bf16), 96 and 160 (padded to 128
-    and 192: the padding copies are captured too), 384 and 512 (A's three
-    groups of 128 and A′'s two of 192 at 384, two of 256 at 512)."""
+    """As the dh 128 capture, at dh 192 and 256 (built; in bf16 A's two
+    warpgroups on shared K and V tiles, its TMA maps encoded at capture,
+    and 64 keys a backward block split between the warpgroups), 96 and 160
+    (padded to 128 and 192: the padding copies are captured too), 384, 512
+    and 768 (A in one group, each score once, in bf16; A′'s two groups of
+    192 at 384, of 256 at 512, three at 768)."""
     _check_capture(cuda, dh, dtype)
 
 

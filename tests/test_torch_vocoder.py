@@ -179,6 +179,99 @@ def test_receptive_margin_matches_jax():
                 == jax_hifigan.HiFiGANConfig(**kw).receptive_margin_frames)
 
 
+# jik876/hifi-gan's config_v3.json layout (resblock "2": one dilated conv a
+# dilation, no second conv) at a narrow width
+V3_CONFIG = dict(
+    resblock="2",
+    upsample_rates=(8, 8, 4),
+    upsample_kernel_sizes=(16, 16, 8),
+    upsample_initial_channel=32,
+    resblock_kernel_sizes=(3, 5, 7),
+    resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)),
+    n_mels=20,
+)
+
+
+@pytest.fixture(scope="module")
+def generator_v3():
+    """A resblock-2 generator (V3's layout, stage channels 16/8/4): the JAX
+    init's conv_pre, upsampling and conv_post weights times 3, and each
+    resblock's ``convs_{i}`` drawn here with non-zero biases (the JAX init
+    draws the type-1 names only); the JAX output on a mel whose stages reach
+    T 320, 2560 and 10240 (past the fused gate's 256)."""
+    cfg = jax_hifigan.HiFiGANConfig(**V3_CONFIG)
+    params = jax_hifigan.init_random_hifigan(cfg, seed=8)
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a) * 3.0, params)
+    rng = np.random.default_rng(9)
+    ch = cfg.upsample_initial_channel
+    for i in range(len(cfg.upsample_rates)):
+        ch //= 2
+        for j, (k, dils) in enumerate(zip(cfg.resblock_kernel_sizes,
+                                          cfg.resblock_dilation_sizes)):
+            block = {}
+            for di in range(len(dils)):
+                block[f"convs_{di}_w"] = (rng.standard_normal((k, ch, ch)) * 0.1).astype(np.float32)
+                block[f"convs_{di}_b"] = (rng.standard_normal(ch) * 0.1).astype(np.float32)
+            params[f"res_{i}_{j}"] = block
+    mel = np.random.default_rng(10).standard_normal((2, 40, 20)).astype(np.float32)
+    want = np.asarray(jax_hifigan.hifigan_generator(params, jnp.asarray(mel), cfg))
+    return cfg, params, mel, want
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_resblock2_generator_matches_jax(generator_v3, fused, monkeypatch):
+    """Type "2" through the weight bridge (``resblocks.{r}.convs.{i}``) equals
+    the JAX generator at 1e-5, fused or not: JAX fuses type-1 stages only
+    (``models/hifigan.py``, ``config.resblock == "1"``), though the first
+    stage (C 16, T 320) passes the kernel's gate, so the port routes no
+    type-2 stage to ``fused_mrf_stage``."""
+    _, params, mel, want = generator_v3
+    cfg = port_hifigan.HiFiGANConfig(**V3_CONFIG)
+    sd = {k: torch.as_tensor(v) for k, v in hifigan_state_from_jax(params, cfg).items()}
+    assert "resblocks.8.convs.1.weight" in sd and not any("convs1" in k for k in sd)
+    assert port_hifigan.mrf_stage_supported(16, cfg.resblock_kernel_sizes,
+                                            cfg.resblock_dilation_sizes)
+    routed = []
+
+    def counting(x, *args):
+        routed.append(tuple(x.shape))
+        return fused_mrf_stage(x, *args)
+
+    monkeypatch.setattr(port_hifigan, "fused_mrf_stage", counting)
+    got = port_hifigan.hifigan_generator(sd, torch.as_tensor(mel), cfg, fused=fused)
+    assert routed == []
+    assert got.shape == want.shape == (2, 40 * 256)
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_resblock2_trainable_generator_and_vocoder_fn_match_jax(generator_v3):
+    """The vocoder trainer's ``HiFiGANGenerator`` (its ``convs`` parameters)
+    and ``make_vocoder_fn(fused=True)`` on a type-2 state_dict give the JAX
+    output at 1e-5."""
+    _, params, mel, want = generator_v3
+    cfg = port_hifigan.HiFiGANConfig(**V3_CONFIG)
+    sd = hifigan_state_from_jax(params, cfg)
+    gen = port_hifigan.HiFiGANGenerator(cfg, sd, device="cpu")
+    assert {k for k, _ in gen.named_parameters()} == set(sd)
+    with torch.no_grad():
+        got = gen(torch.as_tensor(mel))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    wav, _ = port_hifigan.make_vocoder_fn(sd, cfg, fused=True, device="cpu")(mel)
+    np.testing.assert_allclose(wav, want, rtol=0, atol=1e-5)
+
+
+def test_resblock2_receptive_margin_matches_jax():
+    for kw in (V3_CONFIG, dict(V3_CONFIG, upsample_rates=(8, 8, 2, 2),
+                               upsample_kernel_sizes=(16, 16, 4, 4))):
+        margin = port_hifigan.HiFiGANConfig(**kw).receptive_margin_frames
+        assert margin == jax_hifigan.HiFiGANConfig(**kw).receptive_margin_frames
+    # a type-2 stage's convs reach (k - 1) / 2 * d, not type 1's twice-applied reach
+    assert (port_hifigan.HiFiGANConfig(**V3_CONFIG).receptive_margin_frames
+            < port_hifigan.HiFiGANConfig(**dict(V3_CONFIG, resblock="1"))
+            .receptive_margin_frames)
+
+
 def test_npz_loading_matches_jax_loader(generator, tmp_path):
     jcfg, params, mel, want = generator
     path = tmp_path / "voc.npz"

@@ -1,13 +1,18 @@
 """The default shapes' kernel times of two trees on one card, in turns.
 
-Runs ``chip_smoke.py``'s phases 3 (A at serving shapes), 7-8 (A and A' at
-the training shapes), 9 (MAS), 10 (CTC), phase 32's attention part (A and
-A' at dh 192) and phase 33's (A and A' at dh 257-768, timed at dh 384 and
-512) from each tree given, one process a tree, in the order given
-(parent, change, change, parent), and prints every device time those phases
-log, one row a timed line, each tree's runs beside the others and the
-change's mean over the parent's. A tree is a checkout's root; an older one
-is unpacked where ``.gitignore`` keeps it out of the commit:
+Times A alone at ``EXTRA_FWD``'s shapes (dh 256 and 768, the dh-384
+serving batch, and dh 128 at the default model's training and serving
+batches), first, so that every tree reaches them in the same state, then
+runs ``chip_smoke.py``'s phases 3 (A
+at serving shapes), 7-8 (A and A' at the training shapes), 9 (MAS), 10
+(CTC), phase 32's attention part (A and A' at dh 192) and phase 33's (A and
+A' at dh 257-768, timed at dh 384 and 512 and A at the dh-384 serving
+shape), from each tree given, one process a tree, in the order given
+(parent, change, change, parent), and prints every device time logged, one
+row a timed line, each tree's runs beside the others and the change's mean
+over the parent's, and the seconds each phase took. A tree
+is a checkout's root; an older one is unpacked where ``.gitignore`` keeps it
+out of the commit:
 
     git archive <parent> | tar -x -C _archive/parent
     python tools/default_shapes_ab.py _archive/parent . . _archive/parent
@@ -25,10 +30,17 @@ import subprocess
 import sys
 from pathlib import Path
 
+# (B, H, T, dh, p): A alone, bf16, on ragged key masks (chip_smoke._ragged_bias);
+# the dh-384 serving shape too, which an older tree's phase 33 may not time
+EXTRA_FWD = ((16, 2, 2048, 256, 0.2), (16, 1, 1024, 768, 0.2), (8, 1, 1024, 384, 0.0),
+             (16, 2, 1024, 128, 0.2), (8, 2, 1024, 128, 0.0))
+
 RUN = r"""
-import json, sys
+import json, math, sys, time
 sys.path.insert(0, ".")
+import torch
 import chip_smoke as c
+from fastspeech2_lightning_tpu_torch.ops.attention import attention_fwd
 lines = []
 real_log = c.log
 def log(msg):
@@ -38,13 +50,27 @@ c.log = log
 smi = c.phase_device()
 c.phase_build()
 lines.clear()
-c.phase_attention()
-c.phase_attention_train()
-c.phase_mas()
-c.phase_ctc()
-c._wide_attention()
-c._long_attention()
-print("AB_LINES " + json.dumps({"card": smi, "lines": lines}), flush=True)
+for B, H, T, dh, p in json.loads(sys.argv[1]):
+    g = torch.Generator(device="cuda").manual_seed(1000 + dh + T)
+    bias, needed = c._ragged_bias(B, T, g)
+    q, k, v = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    seed = torch.tensor([3217], dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(dh)
+    ms = c.device_ms(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                           with_lse=p > 0))
+    bound = c.bound_ms(4.0 * float(needed.sum()) * H * T * dh,
+                       4 * B * H * T * dh * 2 + B * T * 4, "bfloat16")
+    log(f"A alone {B, H, T, dh} p={p}: device {ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
+    del q, k, v
+    torch.cuda.empty_cache()
+seconds = {}
+for fn in (c.phase_attention, c.phase_attention_train, c.phase_mas, c.phase_ctc,
+           c._wide_attention, c._long_attention):
+    t0 = time.perf_counter()
+    fn()
+    seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
+print("AB_LINES " + json.dumps({"card": smi, "lines": lines, "seconds": seconds}), flush=True)
 """
 
 
@@ -59,8 +85,8 @@ def device_times(line: str) -> list:
 
 def run_tree(tree: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, env=env, capture_output=True,
-                          text=True)
+    proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(EXTRA_FWD)], cwd=tree, env=env,
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"{tree}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     line = next(x for x in proc.stdout.splitlines() if x.startswith("AB_LINES "))
@@ -75,20 +101,29 @@ def main() -> None:
     runs, logs = [], []
     for tree in args.trees:
         out = run_tree(tree.resolve())
-        print(f"{tree}: {out['card']}", flush=True)
-        logs.append(dict(tree=str(tree), card=out["card"], lines=out["lines"]))
-        # a line's name: its text before the first colon, figures masked
-        timed = [(re.sub(r"\d+\.\d+", "#", x.split(":")[0]), device_times(x))
-                 for x in out["lines"]]
-        runs.append((str(tree), [t for t in timed if t[1]]))
-    names = [name for name, _ in runs[0][1]]
+        print(f"{tree}: {out['card']}; seconds a step {out['seconds']}", flush=True)
+        logs.append(dict(tree=str(tree), card=out["card"], seconds=out["seconds"],
+                         lines=out["lines"]))
+        # a line's name: its text before the first colon, figures masked, with
+        # its occurrence among lines of that name (a tree may log a line the
+        # other lacks, so rows are matched by name, not by position)
+        timed, seen = {}, {}
+        for x in out["lines"]:
+            figures = device_times(x)
+            if not figures:
+                continue
+            name = re.sub(r"\d+\.\d+", "#", x.split(":")[0])
+            seen[name] = seen.get(name, 0) + 1
+            timed[name if seen[name] == 1 else f"{name} ({seen[name]})"] = figures
+        runs.append((str(tree), timed))
+    names = list(dict.fromkeys(n for _, timed in runs for n in timed))
     parent = {str(args.trees[0])}
     rows = []
-    for i, name in enumerate(names):
+    for name in names:
         figures = {}
         for tree, timed in runs:
-            if i < len(timed) and timed[i][0] == name:
-                figures.setdefault(tree, []).append(timed[i][1])
+            if name in timed:
+                figures.setdefault(tree, []).append(timed[name])
         by_tree = {t: [statistics.mean(col) for col in zip(*fs)] for t, fs in figures.items()}
         base = [v for t, v in by_tree.items() if t in parent]
         other = [v for t, v in by_tree.items() if t not in parent]
