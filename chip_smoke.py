@@ -268,7 +268,8 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     (16, 1, 2048, 384) and (16, 1, 1024, 512); B at L 1025, 2048 and 8191
     bit for bit and C's three entries at S 2049, 4097 and 16383 (2048
     frames, 2000 labels) within phase 10's limits, both timed at
-    (16, 2048, 2000); (ii) phase 32's
+    (16, 2048, 2000) and alone (no plain version) at (16, 2048, 8191),
+    with the cluster layout each launch takes logged; (ii) phase 32's
     d-384 model at one head (dh 384) served (8 HTTP requests, 8 A a
     forward) and trained 2 steps at B 16 (8 A and 8 A' a step); (iii) the
     default model at ``model.max_length`` 2048 trained 2 steps and
@@ -1357,6 +1358,23 @@ def phase_mas() -> dict:
 # -- phase 10: CTC (kernel C) ------------------------------------------------
 
 
+def ctc_bounds(B, T, L, out_lens) -> dict:
+    """Kernel C's bounds (ms, what binds) at these lengths: ``fwd``
+    (ctc_alpha), ``fwd_grad`` (ctc_alpha_beta) and ``bwd`` (ctc_grad). Bytes:
+    the live frames' logprobs rows read once, every row written once; the
+    gradient reads the live frames' alpha and beta rows. Operations: about
+    ten a state and frame (exp and log as one each)."""
+    S = 2 * L + 1
+    frames = int(out_lens.clamp(max=T).sum())
+    rows_bytes = B * T * S * 4
+    return {"fwd": bound_ms(10.0 * B * T * S, frames * (L + 1) * 4 + rows_bytes + B * 4,
+                            "float32"),
+            "fwd_grad": bound_ms(20.0 * B * T * S, frames * (L + 1) * 4 + 2 * rows_bytes
+                                 + 2 * B * 4, "float32"),
+            "bwd": bound_ms(3.0 * frames * S, 2 * frames * S * 4 + B * T * (L + 1) * 4
+                            + 3 * B * 4, "float32")}
+
+
 def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
     """Kernel C at one shape against its plain version, on log-probabilities
     made as attention_ctc_loss makes them: the gradient-free forward
@@ -1451,17 +1469,7 @@ def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
                                  warmup=0, iters=1),
              "bwd": time_ms(lambda: ctc.ctc_grad_reference(alphas, betas, out_lens, ll, gvec),
                             warmup=1, iters=2)}
-    # bytes these lengths need: the live frames' logprobs rows read once, every
-    # row written once; the gradient reads the live frames' alpha and beta
-    # rows. Operations: about ten a state and frame (exp and log as one each).
-    frames = int(out_lens.clamp(max=T).sum())
-    rows_bytes = B * T * S * 4
-    bounds = {"fwd": bound_ms(10.0 * B * T * S, frames * (L + 1) * 4 + rows_bytes + B * 4,
-                              "float32"),
-              "fwd_grad": bound_ms(20.0 * B * T * S, frames * (L + 1) * 4 + 2 * rows_bytes
-                                   + 2 * B * 4, "float32"),
-              "bwd": bound_ms(3.0 * frames * S, 2 * frames * S * 4 + B * T * (L + 1) * 4
-                              + 3 * B * 4, "float32")}
+    bounds = ctc_bounds(B, T, L, out_lens)
     errs = {"fwd": rows_abs, "fwd_grad": rows_abs, "bwd": grad_same_abs}
     row = dict(shape=[B, T, L], dtype="float32", loss_rel=loss_rel, grad_max_abs=grad_abs)
     for k in ("fwd", "fwd_grad", "bwd"):
@@ -7152,6 +7160,7 @@ LONG_MAS = ((2, 1100, 1025), (2, 2048, 2048), (1, 8192, 8191))  # (B, T, L)
 # frames (the card tests hold S 16383 over 8192 frames at in_len L)
 LONG_CTC = ((2, 1100, 1024, 1024), (2, 2100, 2048, 2048), (1, 2048, 8191, 2000))
 LONG_TIMED = (16, 2048, 2000)  # B and C timed at (B, T, L)
+LONG_KERNEL_ONLY = (16, 2048, 8191)  # B and C timed alone (no plain version) at (B, T, L)
 LONG_HEADS = 1  # the d-384 model at dh 384
 LONG_STEPS = 2
 LONG_MAX_LENGTH = 2048
@@ -7231,7 +7240,9 @@ def _long_mas() -> dict:
     them, item 0 full)."""
     import torch
 
-    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1, mas_width1_reference
+    from fastspeech2_lightning_tpu_torch.ops.mas import (
+        cluster_layout, mas_width1, mas_width1_reference,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 35)
     held = []
@@ -7271,9 +7282,17 @@ def _long_mas() -> dict:
         f"plain_ms={plain:.2f} bound_ms={bound[0]:.4f} ({bound[1]})")
     del la
     torch.cuda.empty_cache()
-    return dict(held=held, timed=dict(shape=[B, T, L], dtype="float32", max_abs_err=0.0,
-                                      ms=kernel, device_ms=kernel_dev, plain_ms=plain,
-                                      library_ms=None, bound_ms=bound[0], bound_by=bound[1]))
+    timed = dict(shape=[B, T, L], dtype="float32", max_abs_err=0.0, ms=kernel,
+                 device_ms=kernel_dev, plain_ms=plain, library_ms=None, bound_ms=bound[0],
+                 bound_by=bound[1])
+
+    layouts = {n: cluster_layout(n) for n in sorted({s[2] for s in LONG_MAS}
+                                                  | {LONG_TIMED[2], LONG_KERNEL_ONLY[2]})}
+    log("phase 33 mas_width1 cluster layouts: "
+        + "; ".join(f"L {n}: {d['blocks']} block(s) of {d['slice']} columns, halo {d['edge']} "
+                    f"taken every {d['meet']} rows, {d['max_active_clusters']} clusters at once"
+                    for n, d in layouts.items()))
+    return dict(held=held, timed=timed)
 
 
 def _long_ctc() -> dict:
@@ -7290,7 +7309,78 @@ def _long_ctc() -> dict:
     in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
     out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
     in_lens[0], out_lens[0] = L, T
-    return dict(held=held, timed=ctc_case(B, T, L, in_lens, out_lens, SEED + 39))
+    timed = ctc_case(B, T, L, in_lens, out_lens, SEED + 39)
+    _log_ctc_layouts()
+    return dict(held=held, timed=timed)
+
+
+def _chains_alone() -> dict:
+    """B and C's three entries timed alone (device ms, no plain version) at
+    LONG_KERNEL_ONLY, on inputs drawn as ``tools/default_shapes_ab.py``
+    draws its ``EXTRA_CHAINS`` (so that a shape times the same inputs in
+    both): a generator seeded 2000 + L, in_lens from [L/4, L] and out_lens
+    from [T/2, T] with item 0 full, then B's log-attention, then C's
+    logits."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops import ctc
+    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1
+
+    B, T, L = LONG_KERNEL_ONLY
+    g = torch.Generator(device="cuda").manual_seed(2000 + L)
+    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+    alone = device_ms(lambda: mas_width1(la, in_lens, out_lens), iters=10)
+    bound = bound_ms(0.0, 4 * (int((in_lens * out_lens).sum()) + B * T * L + B * L), "float32")
+    log(f"phase 33 mas_width1 alone at B={B} T={T} L={L}: device {alone:.4f} "
+        f"bound_ms={bound[0]:.4f} ({bound[1]})")
+    mas_row = dict(shape=[B, T, L], dtype="float32", device_ms=alone, bound_ms=bound[0],
+                   bound_by=bound[1])
+    del la
+    logits = torch.cat([torch.full((B, T, 1), -1.0, device="cuda"),
+                        torch.randn(B, T, L, device="cuda", generator=g)], -1)
+    lp = torch.log_softmax(torch.where(torch.arange(L + 1, device="cuda")
+                                       > in_lens[:, None, None], ctc.NEG_INF, logits), -1)
+    del logits
+    gvec = torch.rand(B, device="cuda", generator=g)
+    alphas, betas = ctc.ctc_alpha_beta(lp, in_lens, out_lens)
+    ll = ctc._final_ll(alphas[:, -1], in_lens)
+    check(bool(torch.isfinite(ll).all()), f"ctc_alpha_beta at {B, T, L}: a loss not finite")
+    fns = {"fwd": lambda: ctc.ctc_alpha(lp, out_lens),
+           "fwd_grad": lambda: ctc.ctc_alpha_beta(lp, in_lens, out_lens),
+           "bwd": lambda: ctc.ctc_grad(alphas, betas, out_lens, ll, gvec)}
+    bounds = ctc_bounds(B, T, L, out_lens)
+    ctc_rows = {}
+    for k, fn in fns.items():
+        ms = device_ms(fn, iters=5)
+        ctc_rows[k] = dict(shape=[B, T, L], dtype="float32", device_ms=ms, bound_ms=bounds[k][0],
+                           bound_by=bounds[k][1], ns_per_frame=ms * 1e6 / T)
+    log(f"phase 33 C alone at B={B} T={T} L={L} (S {2 * L + 1}): device ms "
+        + ", ".join(f"{k} {r['device_ms']:.4f} (bound {r['bound_ms']:.4f}, {r['bound_by']})"
+                    for k, r in ctc_rows.items()))
+    del lp, alphas, betas
+    torch.cuda.empty_cache()
+    return dict(mas=mas_row, ctc=ctc_rows)
+
+
+def _log_ctc_layouts() -> None:
+    """Log the cluster layout C's chains take at phase 33's shapes: B chains
+    for ``ctc_alpha``, 2B for ``ctc_alpha_beta``."""
+    from fastspeech2_lightning_tpu_torch.ops.ctc import cluster_layout
+
+    shapes = sorted({(s[0], s[2]) for s in LONG_CTC}
+                    | {(LONG_TIMED[0], LONG_TIMED[2]), (LONG_KERNEL_ONLY[0], LONG_KERNEL_ONLY[2])})
+    out = {}
+    for B, L in shapes:
+        for chains in (B, 2 * B):
+            d = cluster_layout(chains, L)
+            out[f"{chains} chains, S {2 * L + 1}"] = d
+    log("phase 33 C cluster layouts: " + "; ".join(
+        f"{k}: {d['blocks']} block(s) of {d['warps']} warps ({d['states']} states), halo "
+        f"{d['halo']} taken every {d['meet']} frames, {d['max_active_clusters']} clusters at once"
+        for k, d in out.items()))
 
 
 def _long_training(workdir: Path) -> dict:
@@ -7330,7 +7420,8 @@ def _long_training(workdir: Path) -> dict:
         return hard, dur
 
     def launch(entry, dev, *args):
-        ctc_calls.append((entry, args[-3:]))  # (B, T, L) end every entry's arguments
+        # (B, T, L) end ctc_grad's arguments and come before the chains' layout
+        ctc_calls.append((entry, args[-3:] if entry == "ctc_grad" else args[-6:-3]))
         return real_launch(entry, dev, *args)
 
     variance_adaptor.mas_width1, ctc._launch = mas, launch
@@ -7384,12 +7475,15 @@ def _long_training(workdir: Path) -> dict:
 def phase_long_shapes(workdir: Path, smi: str) -> dict:
     """Phase 33: the kernels at head dims above 256 and at texts of 1024
     symbols or more against their plain versions and timed
-    (``_long_attention``, ``_long_mas``, ``_long_ctc``); the d-384 model
+    (``_long_attention``, ``_long_mas``, ``_long_ctc``, ``_chains_alone``);
+    the d-384 model
     at one head (dh 384) served and trained; the default model trained at
     ``max_length`` 2048 (``_long_training``). Needs phase 11's corpus and
     config.json in `workdir`."""
     t0 = time.time()
     out = dict(attention=_long_attention(), mas=_long_mas(), ctc=_long_ctc())
+    alone = _chains_alone()
+    out["mas"]["kernel_only"], out["ctc"]["kernel_only"] = alone["mas"], alone["ctc"]
     out["one_head_serving"] = _wide_serving(workdir, heads=LONG_HEADS, label="phase 33")
     out["one_head_training"] = _wide_training(workdir, heads=LONG_HEADS, steps=LONG_STEPS,
                                               label="phase 33")
@@ -7518,7 +7612,8 @@ def main() -> None:
         return dict(held=long["ctc"]["held"], timed=dict(
             timed_row[part], shape=timed_row["shape"],
             library=timed_row["library"]["lib_fwd_bwd" if part == "bwd" else "lib_fwd"]),
-            launches=long_launches(name), max_states=long["long_training"]["ctc_max_S"][name])
+            kernel_only=long["ctc"]["kernel_only"][part], launches=long_launches(name),
+            max_states=long["long_training"]["ctc_max_S"][name])
 
     def ctc_entry(name, part, library, library_key, **extra):
         lib = ctc["library"][library_key]

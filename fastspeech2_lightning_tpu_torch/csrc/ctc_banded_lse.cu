@@ -72,23 +72,18 @@
 // subnormal and infinite arguments (bit-equal over [1, 3], the only sums an
 // lse takes) moved nothing, so the chain's latency, not issue, sets the
 // time.
-// Past S = 2047 (texts of 1024 symbols or more, up to S = 16383, 8191
-// symbols, the S that the JAX package's own Pallas gate admits at B 16): a
-// ring of 32 frames would take 32 (L + 1) floats, more shared memory than a
-// block has. There the chains run without ring and copy warp
-// (ctc_chain_direct_kernel, run_chain_direct): each lane reads its own
-// emissions from device memory one frame ahead, into registers. States
-// stay in registers with the same halo, and the arithmetic and its order
-// are run_chain's (chain_frame is the one frame update both call), so the
-// rows are the plain version's to the bit as before. K = 8 states a lane
-// up to 24 warps (S <= 5376); K = 32 beyond, at most 19 warps at
-// S = 16383, where the 32 states, their emissions and the lse temporaries
-// spill about 450 bytes a thread (nvcc 12.9). Alternatives set aside: a
-// thread-block cluster of several blocks an item, the halo through
-// distributed shared memory, would spread a chain over SMs but puts a
-// cluster barrier on every meet; more warps a block cannot hold more
-// states (32 warps x 28 lanes x 16 states is 14336 < 16383 at the 64
-// registers a thread such a block allows). The output rows are
+// Texts past the ring's reach (S > 2047: 1024 symbols or more, up to
+// S = 16383, 8191 symbols, the S that the JAX package's own Pallas gate
+// admits at B 16): a ring of 32 frames over the whole row would take
+// 32 (L + 1) floats, more shared memory than a block has. There a chain is
+// spread over a thread-block cluster (ctc_chain_cluster_kernel, below the
+// ring kernel's run_chain): each block runs the ring kernel at K = 4 on a
+// slice of the states, stages only its slice's emission columns, and takes
+// its first warp's halo from the block on its left through distributed
+// shared memory, a wait on an mbarrier of its own instead of a barrier of
+// the cluster. slice_layout picks the blocks a chain (2 to 8) from the
+// waves of clusters the card runs them in and the warps a block takes. The
+// output rows are
 // [B, T, S] f32 (512 MB each at B 16, T 2048, S 4001), as in JAX.
 //
 // Design of the gradient: one warp a (b, t) row over all SMs, the even-state
@@ -97,6 +92,7 @@
 
 #include <math.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -187,23 +183,25 @@ __device__ __forceinline__ void chain_frame(float (&x)[K], const float (&e)[K], 
   }
 }
 
-// Meet m of a chain's warps, at barrier 1 over the block (the copy warp
-// hands a ring chunk over at the same barrier): from the second meet on,
+// Meet m of a chain's warps, at barrier 1 over the block (the copy warps
+// hand a ring chunk over at the same barrier): from the second meet on,
 // this warp's top HALO_LANES lanes hand their states on through `meet`
 // ([warp][HALO_LANES * K] floats), and its first HALO_LANES lanes take the
-// warp below's as their halo.
+// warp below's as their halo; warp 0 takes `edge_in`'s (the block on the
+// left's, in a cluster) unless it is null.
 template <int K>
-__device__ __forceinline__ void meet_halo(float (&x)[K], float* meet, int m, int warp,
-                                          int lane) {
+__device__ __forceinline__ void meet_halo(float (&x)[K], float* meet, const float* edge_in,
+                                          int m, int warp, int lane) {
   constexpr int H = HALO_LANES * K;
   if (m > 0 && lane >= 32 - HALO_LANES) {
 #pragma unroll
     for (int k = 0; k < K; ++k) meet[warp * H + (lane - (32 - HALO_LANES)) * K + k] = x[k];
   }
   bar_sync(1, blockDim.x);
-  if (m > 0 && warp > 0 && lane < HALO_LANES) {
+  if (m > 0 && (warp > 0 || edge_in) && lane < HALO_LANES) {
+    const float* from = warp > 0 ? meet + (warp - 1) * H : edge_in;
 #pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = meet[(warp - 1) * H + lane * K + k];
+    for (int k = 0; k < K; ++k) x[k] = from[lane * K + k];
   }
 }
 
@@ -279,7 +277,7 @@ __device__ __forceinline__ void run_chain(const float* __restrict__ lp, float* _
 
   // the halo floats of warp w at meet m: halo[m & 1][w][HALO_LANES * K]
   for (int m = 0; m < n_chunks; ++m) {
-    meet_halo<K>(x, halo + (m & 1) * HALO_FLOATS, m, warp, lane);
+    meet_halo<K>(x, halo + (m & 1) * HALO_FLOATS, nullptr, m, warp, lane);
     const float* rows = ring + (m % SLOTS) * CHUNK * Lp1;
     const int n = min(CHUNK, T - m * CHUNK);
     if (m > 0 && n == CHUNK) {
@@ -292,36 +290,192 @@ __device__ __forceinline__ void run_chain(const float* __restrict__ lp, float* _
   }
 }
 
-// Past the ring's reach (S > 2047) a row of emissions is up to 32 KB, and
-// a ring of a few chunks would not fit shared memory: no copy warp and no
-// ring. Each lane reads its own emissions (the blank and K / 2 labels) from
-// device memory one frame ahead of the chain, into registers; the reads do
-// not depend on the chain, and a frame at K = 8 or 32 holds enough lse's to
-// cover their latency. The warps meet every 2 K frames for the halo only.
-// K = 8 up to 24 warps (S <= 5376), K = 32 beyond (at most 19 warps at
-// S = 16383); the states, the halo and the arithmetic are run_chain's.
-constexpr int K_WIDE = 8, K_HUGE = 32;
-template <int K>
-constexpr int direct_warps() {
-  return K == K_WIDE ? 24 : (MAX_S + Layout<K>::OWN - 1) / Layout<K>::OWN;
-}
-constexpr int WIDE_S = direct_warps<K_WIDE>() * Layout<K_WIDE>::OWN;
+// -- texts past the ring's reach: a cluster of blocks a chain -----------------
+//
+// Past S = 2047 a ring of 32 frames over the whole row of emissions would
+// not fit one block's shared memory, and one block's issue rate would set
+// the pace of a chain of more states. So a chain's states (in its own
+// order: s' for beta) are cut into contiguous slices, one block of a
+// thread-block cluster each (slice_layout picks how many). Each block is
+// the ring kernel at K = 4 on its slice: n_warps chain warps of 28 K
+// owned states, the first carrying the 4 K states left of the slice as its
+// halo, and four copy warps (one a scheduler) staging only the emission
+// columns of the block's states (the blank, then a window of n_warps 14 K
+// + 2 K labels) into its own 32-frame ring, 16-24 frames ahead, handed over
+// at the named barrier where the warps meet every 2 K frames. A courier
+// warp carries the halo across the block boundary: after a meet it stores
+// the last chain warp's top states into the next block's shared memory
+// (st.shared::cluster) and arrives on an mbarrier there; before a meet it
+// waits on its own block's mbarrier and puts what arrived where warp 0
+// takes it after the meet, as every other warp takes its neighbour's.
+// Nothing flows leftwards, so a block runs ahead of the one on its right by
+// up to EDGE_SLOTS hand-overs, no meet waits on the whole cluster, and no
+// chain warp waits on the cluster at all. The arithmetic and its order are
+// run_chain's (chain_frame is the one frame update both call), so the rows
+// are the plain version's to the bit.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md; tools/default_shapes_ab.py
+// in turns with the direct chains this replaced, in parentheses): at
+// (16, 2048, 2000), S 4001, ctc_alpha 0.885 ms (3.227; 16 chains in
+// clusters of 6 blocks of 6 warps) and ctc_alpha_beta 1.107 (3.376; 32
+// chains, 3 blocks of 12 warps); at S 8193 1.275 (23.85) and 2.379 (24.77);
+// at S 16383 2.300 (39.79, one wave of 6 blocks of 25 warps) and 4.599
+// (43.80, two waves). A frame takes longer the more chain warps a block
+// has (at S 4001, 6 warps 429 ns, 9 511, 12 535, 18 813;
+// tools/cluster_chain_variants.py): the chain is bound by its SM's issue
+// and the lse's latency, so narrower slices on more SMs are faster, up to
+// the waves the cluster sizes force (the card holds 15 clusters of 8, 17
+// of 6, 30 of 4, 39 of 3; slice_layout). The same card read other times for
+// the same build on other calls (PERF.md): compare only within a call.
+// Alternatives set aside (tools/cluster_chain_variants.py, one call,
+// ctc_alpha and ctc_alpha_beta ms at S 4001 unless said):
+//  - the direct chains (K = 8 or 32 states a lane, emissions read from
+//    device memory a frame ahead, 32 spilling 450 bytes a thread);
+//  - a barrier of the cluster at every meet: a hand-over runs one way, so
+//    an mbarrier in the receiving block does;
+//  - the hand-over carried by a chain warp or a copy warp: a release at
+//    cluster scope waits for the thread's memory operations, a copy warp's
+//    cp.async in flight among them, so it has a warp of its own;
+//  - one copy warp (1.121, 2.367) or two (0.840, 1.392) against four
+//    (0.878, 1.102);
+//  - other layouts: 2 x 18 warps 1.666 and 1.779, 3 x 12 1.095 and 1.100,
+//    4 x 9 1.046 and 1.962 (two waves), 6 x 6 0.878 and 1.651 (two waves),
+//    8 x 5 1.719 and 2.378; a second block an SM allowed (no SM_ALONE; 8 x
+//    5 then): 1.152 and 1.795; at S 16383, 8 blocks of 19 warps (two and
+//    three waves) 3.063 and 4.742 against 2.290 and 4.641;
+//  - at most 19 chain warps a block (768 threads): 0.940 and 1.183, the
+//    chain kept to 40 registers; at S 16383 3.293 and 4.724;
+//  - a wider halo at the block boundary than between warps: the hand-over
+//    rides the warps' own meet every 2 K frames and costs the chain nothing.
+constexpr int K_SLICE = K_LONG;
+using SliceLayout = Layout<K_SLICE>;
+constexpr int EDGE = HALO_LANES * K_SLICE;          // halo states a block takes from its left
+constexpr int EDGE_SLOTS = 4;                       // hand-overs in flight between two blocks
+// The choices below are macros so that tools/cluster_chain_variants.py can
+// build the source with others (-D) and time them against these defaults.
+#ifndef FS2T_CTC_COPY_WARPS
+#define FS2T_CTC_COPY_WARPS 4
+#endif
+#ifndef FS2T_CTC_SLICE_WARPS
+#define FS2T_CTC_SLICE_WARPS 0
+#endif
+#ifndef FS2T_CTC_BLOCKS
+#define FS2T_CTC_BLOCKS 0
+#endif
+#ifndef FS2T_CTC_SM_ALONE_KB
+#define FS2T_CTC_SM_ALONE_KB 120
+#endif
+constexpr int SLICE_COPY_WARPS = FS2T_CTC_COPY_WARPS;  // one a scheduler: the copies spread evenly
+// chain warps a block at most: with the copy warps and the courier, 1024
+// threads (3024 states, so S 16383 fits 6 blocks: one wave of 16 chains)
+constexpr int SLICE_WARPS =
+    FS2T_CTC_SLICE_WARPS > 0 ? FS2T_CTC_SLICE_WARPS : 32 - SLICE_COPY_WARPS - 1;
+constexpr int MAX_CLUSTER = 8;                      // blocks a chain at most (portable clusters)
+// blocks a chain where slice_layout does not pick (0: it picks)
+constexpr int FORCED_CLUSTER = FS2T_CTC_BLOCKS;
+// dynamic shared memory of at least this keeps a second block off the SM:
+// a slice's chain is bound by the issue and latency of the SM it runs on
+constexpr size_t SM_ALONE = FS2T_CTC_SM_ALONE_KB * size_t{1024};
 
-template <int K, bool BETA>
-__device__ __forceinline__ void run_chain_direct(const float* __restrict__ lp,
-                                                 float* __restrict__ out, float* halo, int T,
-                                                 int L, int in_len, int out_len) {
-  using Lay = Layout<K>;
-  constexpr int CHUNK = Lay::CHUNK, OWN = Lay::OWN;
+// floats of a ring frame: the blank, then the window of label columns
+__host__ __device__ constexpr int slice_row(int warps) {
+  return 1 + warps * SliceLayout::OWN / 2 + EDGE / 2;
+}
+
+inline size_t slice_smem(int warps) {
+  const size_t ring = sizeof(float) * RING_FRAMES * slice_row(warps);
+  return ring > SM_ALONE ? ring : SM_ALONE;
+}
+
+// One block's slice of one chain: chain warps 0 .. n_warps - 1 over states
+// rank W .. rank W + W - 1 (W = 28 K n_warps, in the chain's order), then
+// the copy warp.
+template <bool BETA>
+__device__ __forceinline__ void run_chain_slice(const float* __restrict__ lp,
+                                                float* __restrict__ out, float* ring,
+                                                float* meet, float (*edge)[EDGE],
+                                                float (*edge_in)[EDGE], uint64_t* full,
+                                                uint64_t* empty, int T, int L, int in_len,
+                                                int out_len, int rank, int size) {
+  constexpr int K = K_SLICE, CHUNK = SliceLayout::CHUNK, SLOTS = SliceLayout::SLOTS;
+  constexpr int OWN = SliceLayout::OWN;
   const int S = 2 * L + 1, Lp1 = L + 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
+  const int n_warps = (blockDim.x >> 5) - SLICE_COPY_WARPS - 1;  // then the copy warps, the courier
   const int n_chunks = (T + CHUNK - 1) / CHUNK;
+  const int W = n_warps * OWN, s0 = rank * W;
+  const int rf = slice_row(n_warps);
+  // the window's first label column: the odd states of this block's lanes
+  // (halo included) read columns cw0 .. cw0 + rf - 2; ring slot 0 is the blank
+  const int cw0 = BETA ? L - (s0 + W) / 2 + 1 : s0 / 2 - EDGE / 2 + 1;
 
-  // as in run_chain: this lane's states, the columns of its odd states (any
-  // finite column outside [0, S)), which it stores, and where
-  const int first = warp * OWN - HALO_LANES * K + lane * K;
-  const int col0 = BETA ? L - first / 2 : first / 2 + 1;  // column of state first + 1
+  if (warp == n_warps + SLICE_COPY_WARPS) {
+    // the courier: the halo across the block boundaries, hand-over m - 1 at
+    // meet m (lanes 0 .. EDGE - 1): from the left block's `edge` slot into
+    // edge_in before the meet, and from the last chain warp's top states in
+    // `meet` into the right block's slot after it, so the chain warps never
+    // wait on the cluster. A warp of its own: a release waits for its
+    // thread's memory operations, which for a copy warp would be cp.async
+    // copies still in flight
+    const bool carries = lane < EDGE;
+    for (int m = 0; m < n_chunks; ++m) {
+      const int slot = (m - 1) % EDGE_SLOTS;
+      const uint32_t parity = ((m - 1) / EDGE_SLOTS) & 1;
+      if (carries && m > 0 && rank > 0) {
+        fs2::cluster::wait(&full[slot], parity);
+        edge_in[m & 1][lane] = edge[slot][lane];
+        fs2::cluster::arrive(fs2::cluster::map(&empty[slot], rank - 1));
+      }
+      __syncwarp();
+      bar_sync(1, blockDim.x);
+      if (carries && m > 0 && rank + 1 < size) {
+        const float v = meet[(m & 1) * SLICE_WARPS * EDGE + (n_warps - 1) * EDGE + lane];
+        fs2::cluster::wait(&empty[slot], parity ^ 1);  // the right block took the slot's last
+        fs2::cluster::store(fs2::cluster::map(&edge[slot][lane], rank + 1), v);
+        fs2::cluster::arrive(fs2::cluster::map(&full[slot], rank + 1));
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  if (warp >= n_warps) {  // copy warps: chunk m (steps CHUNK m ..) into ring slot m % SLOTS
+    const int c0 = (warp - n_warps) * 32 + lane;  // of the copy lanes
+    auto copy_chunk = [&](int m) {
+      if (m < n_chunks) {
+        float* dst = ring + (m % SLOTS) * CHUNK * rf;
+        for (int j = m * CHUNK; j < min(T, (m + 1) * CHUNK); ++j, dst += rf) {
+          const int t = BETA ? T - 1 - j : j;
+          if (t < out_len) {
+            const float* src = lp + static_cast<long long>(t) * Lp1;
+            for (int i = c0; i < rf; i += 32 * SLICE_COPY_WARPS) {
+              const int c = i == 0 ? 0 : cw0 + i - 1;
+              fs2::tc::cp_async4(dst + i, c >= 0 && c <= L ? src + c : lp, c >= 0 && c <= L);
+            }
+          } else {
+            for (int i = c0; i < rf; i += 32 * SLICE_COPY_WARPS) dst[i] = i == 0 ? 0.f : NEG_INF;
+          }
+        }
+      }
+      fs2::tc::cp_async_commit();
+    };
+    for (int m = 0; m < SLOTS - 1; ++m) copy_chunk(m);
+    for (int m = 0; m < n_chunks; ++m) {
+      if (m > 0) copy_chunk(m + SLOTS - 2);
+      fs2::tc::cp_async_wait<SLOTS - 2>();  // chunk m has landed
+      bar_sync(1, blockDim.x);               // and is handed over
+    }
+    return;
+  }
+
+  // as in run_chain: this lane's states, where its odd states' columns lie
+  // in the ring (a column clamped to 0 reads the blank), which it stores
+  const int first = s0 + warp * OWN - EDGE + lane * K;
+  int off[K / 2];
+#pragma unroll
+  for (int j = 0; j < K / 2; ++j) {
+    const int c = min(max(BETA ? L - first / 2 - j : first / 2 + 1 + j, 0), L);
+    off[j] = c == 0 ? 0 : 1 + c - cw0;
+  }
   bool keep[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) keep[k] = lane >= HALO_LANES && first + k >= 0 && first + k < S;
@@ -334,56 +488,61 @@ __device__ __forceinline__ void run_chain_direct(const float* __restrict__ lp,
 #pragma unroll
   for (int k = 0; k < K; ++k) x[k] = !BETA && first + k == 0 ? 0.f : NEG_INF;
 
-  // the emissions of step j (frame T - 1 - j for beta): the blank and the
-  // labels; a padded frame (t >= out_len) emits blank 0 and labels NEG_INF
-  // (a label column clamped to 0 reads the blank's 0), as the ring holds it
-  float blank, label[K / 2];
-  auto fetch = [&](int j) {
-    const int t = BETA ? T - 1 - j : j;
-    const float* row = lp + static_cast<long long>(t) * Lp1;
-    const bool live = t < out_len;
-    blank = live ? __ldg(row) : 0.f;
+  auto step = [&](const float* row, bool init) {
+    float e[K];
 #pragma unroll
-    for (int i = 0; i < K / 2; ++i) {
-      const int c = min(max(BETA ? col0 - i : col0 + i, 0), L);
-      label[i] = live ? __ldg(row + c) : (c == 0 ? 0.f : NEG_INF);
-    }
+    for (int k = 0; k < K; ++k) e[k] = k & 1 ? row[off[k / 2]] : row[0];
+    chain_frame<K, BETA>(x, e, init, o, keep, first, S, s_blank, s_label);
+    o += row_step;
   };
-  fetch(0);
 
   for (int m = 0; m < n_chunks; ++m) {
-    meet_halo<K>(x, halo + (m & 1) * n_warps * HALO_LANES * K, m, warp, lane);
+    meet_halo<K>(x, meet + (m & 1) * SLICE_WARPS * EDGE, rank > 0 ? edge_in[m & 1] : nullptr,
+                 m, warp, lane);
+    const float* rows = ring + (m % SLOTS) * CHUNK * rf;
     const int n = min(CHUNK, T - m * CHUNK);
-#pragma unroll 1
-    for (int i = 0; i < n; ++i) {
-      const int j = m * CHUNK + i;
-      float e[K];
+    if (m > 0 && n == CHUNK) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) e[k] = k & 1 ? label[k / 2] : blank;
-      if (j + 1 < T) fetch(j + 1);
-      chain_frame<K, BETA>(x, e, j == 0, o, keep, first, S, s_blank, s_label);
-      o += row_step;
+      for (int i = 0; i < CHUNK; ++i) step(rows + i * rf, false);
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) step(rows + i * rf, m == 0 && i == 0);
     }
   }
 }
 
-// blocks 0 .. B-1: alpha of item b; blocks B .. 2B-1 (when betas is given):
-// beta of item b - B. Dynamic shared memory: the halo, two meets of
-// n_warps * HALO_LANES * K floats.
-template <int K>
-__global__ void __launch_bounds__(direct_warps<K>() * 32)
-ctc_chain_direct_kernel(const float* __restrict__ logprobs, const int* __restrict__ in_lens,
-                        const int* __restrict__ out_lens, float* __restrict__ alphas,
-                        float* __restrict__ betas, int B, int T, int L) {
-  extern __shared__ float halo[];
-  const bool beta = blockIdx.x >= B;
-  const int b = beta ? blockIdx.x - B : blockIdx.x;
+// clusters 0 .. B-1: alpha of item b; B .. 2B-1 (when betas is given):
+// beta of item b - B; block `rank` of a cluster runs slice `rank`
+__global__ void __launch_bounds__((SLICE_WARPS + SLICE_COPY_WARPS + 1) * 32)
+ctc_chain_cluster_kernel(const float* __restrict__ logprobs, const int* __restrict__ in_lens,
+                         const int* __restrict__ out_lens, float* __restrict__ alphas,
+                         float* __restrict__ betas, int B, int T, int L) {
+  extern __shared__ float ring[];  // [RING_FRAMES][slice_row(n_warps)]
+  __shared__ float meet[2 * SLICE_WARPS * EDGE];
+  __shared__ float edge[EDGE_SLOTS][EDGE];  // the left block's top states, handed over
+  __shared__ float edge_in[2][EDGE];        // the same, for warp 0, by chunk parity
+  __shared__ uint64_t full[EDGE_SLOTS], empty[EDGE_SLOTS];
+  const int rank = fs2::cluster::rank(), size = fs2::cluster::size();
+  const int chain = blockIdx.x / size;
+  const bool beta = chain >= B;
+  const int b = beta ? chain - B : chain;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < EDGE_SLOTS; ++s) {
+      fs2::tc::mbar_init(&full[s], EDGE);
+      fs2::tc::mbar_init(&empty[s], EDGE);
+    }
+    fs2::tc::mbar_init_fence();
+  }
+  fs2::cluster::sync();  // every block's mbarriers are set before any arrives on them
   const long long S = 2 * L + 1;
   const float* lp = logprobs + static_cast<long long>(b) * T * (L + 1);
   if (beta)
-    run_chain_direct<K, true>(lp, betas + b * T * S, halo, T, L, in_lens[b], out_lens[b]);
+    run_chain_slice<true>(lp, betas + b * T * S, ring, meet, edge, edge_in, full, empty, T, L,
+                          in_lens[b], out_lens[b], rank, size);
   else
-    run_chain_direct<K, false>(lp, alphas + b * T * S, halo, T, L, 0, out_lens[b]);
+    run_chain_slice<false>(lp, alphas + b * T * S, ring, meet, edge, edge_in, full, empty, T, L,
+                           0, out_lens[b], rank, size);
+  fs2::cluster::sync();  // no block leaves while a neighbour may still touch its shared memory
 }
 
 // blocks 0 .. B-1: alpha of item b; blocks B .. 2B-1 (when betas is given):
@@ -452,19 +611,57 @@ cudaError_t launch(const float* logprobs, const int* in_lens, const int* out_len
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t launch_direct(const float* logprobs, const int* in_lens, const int* out_lens,
-                          float* alphas, float* betas, int B, int T, int L,
-                          cudaStream_t stream) {
-  const int warps = (2 * L + 1 + Layout<K>::OWN - 1) / Layout<K>::OWN;
-  const size_t smem = sizeof(float) * 2 * warps * HALO_LANES * K;
-  ctc_chain_direct_kernel<K><<<betas ? 2 * B : B, warps * 32, smem, stream>>>(
-      logprobs, in_lens, out_lens, alphas, betas, B, T, L);
-  return cudaGetLastError();
+fs2::SmemOptIn slice_opt_in;  // the launch's and the layout query's, per device
+fs2::cluster::Occupancy slice_occupancy;
+
+// The layout of `chains` chains of S states past the ring's reach. A
+// frame on a block of w chain warps takes a floor and about 20-35 ns more
+// a warp (the timings above), and the card holds `active` clusters of a
+// layout at once, so the chains take ceil(chains / active) waves of that
+// each: slice_layout picks the cluster size c, from the fewest blocks that
+// hold S to MAX_CLUSTER, with the least waves x (w + 7), a block taking
+// w = ceil(ceil(S / c) / 112) warps; on a tie, fewer waves.
+cudaError_t slice_layout(int chains, int S, int* size, int* warps, int* active) {
+  const cudaError_t attr = fs2::smem_opt_in(slice_opt_in, ctc_chain_cluster_kernel,
+                                            static_cast<int>(slice_smem(SLICE_WARPS)));
+  if (attr != cudaSuccess) return attr;
+  constexpr int OWN = SliceLayout::OWN;
+  const int fewest = (S + SLICE_WARPS * OWN - 1) / (SLICE_WARPS * OWN);
+  if (fewest > MAX_CLUSTER) return cudaErrorInvalidValue;
+  long best = -1, best_waves = 0;
+  const int first = FORCED_CLUSTER > fewest ? FORCED_CLUSTER : fewest;
+  const int last = FORCED_CLUSTER > 0 ? FORCED_CLUSTER : MAX_CLUSTER;
+  for (int c = first; c <= last; ++c) {
+    const int w = ((S + c - 1) / c + OWN - 1) / OWN;
+    const int sz = (S + w * OWN - 1) / (w * OWN);
+    int n = 0;
+    const cudaError_t err = fs2::cluster::max_active(slice_occupancy, ctc_chain_cluster_kernel,
+                                                     sz, (w + SLICE_COPY_WARPS + 1) * 32,
+                                                     slice_smem(w), &n);
+    if (err != cudaSuccess) return err;
+    if (n < 1) continue;
+    const long waves = (chains + n - 1) / n, cost = waves * (w + 7);
+    if (best < 0 || cost < best || (cost == best && waves < best_waves)) {
+      best = cost, best_waves = waves;
+      *size = sz, *warps = w, *active = n;
+    }
+  }
+  return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+cudaError_t launch_slices(const float* logprobs, const int* in_lens, const int* out_lens,
+                          float* alphas, float* betas, int B, int T, int L, cudaStream_t stream) {
+  const int chains = betas ? 2 * B : B;
+  int size = 0, warps = 0, active = 0;
+  const cudaError_t err = slice_layout(chains, 2 * L + 1, &size, &warps, &active);
+  if (err != cudaSuccess) return err;
+  return fs2::cluster::launch(slice_occupancy, ctc_chain_cluster_kernel, chains * size, size,
+                              (warps + SLICE_COPY_WARPS + 1) * 32, slice_smem(warps), stream,
+                              logprobs, in_lens, out_lens, alphas, betas, B, T, L);
 }
 
 // two states a lane up to 8 warps (every training bucket), four up to the
-// ring's reach, then the direct chains at eight and 32
+// ring's reach, then a cluster of blocks a chain
 cudaError_t launch_chains(const void* logprobs, const void* in_lens, const void* out_lens,
                           void* alphas, void* betas, int B, int T, int L, cudaStream_t stream) {
   if (B <= 0 || T <= 0 || L <= 0 || 2 * L + 1 > MAX_S) return cudaErrorInvalidValue;
@@ -474,28 +671,65 @@ cudaError_t launch_chains(const void* logprobs, const void* in_lens, const void*
   const int S = 2 * L + 1;
   if (S <= SHORT_S) return launch<K_SHORT>(lp, il, ol, al, be, B, T, L, stream);
   if (S <= RING_S) return launch<K_LONG>(lp, il, ol, al, be, B, T, L, stream);
-  if (S <= WIDE_S) return launch_direct<K_WIDE>(lp, il, ol, al, be, B, T, L, stream);
-  return launch_direct<K_HUGE>(lp, il, ol, al, be, B, T, L, stream);
+  return launch_slices(lp, il, ol, al, be, B, T, L, stream);
 }
 
 }  // namespace
 
 FS2_EXPORT_ERROR_STRING
 
+// The slice layout the cluster kernel was built for, as ops/ctc.py names it
+// (WARP_STATES, HALO_STATES, MEET_FRAMES): a launch given another refuses.
+static bool layout_is(int warp_states, int halo, int meet) {
+  return warp_states == SliceLayout::OWN && halo == EDGE && meet == SliceLayout::CHUNK;
+}
+
 // The alpha chain alone (a forward that needs no gradient). Returns a
 // cudaError_t code (0 on success).
 extern "C" int ctc_alpha(const void* logprobs, const void* out_lens, void* alphas, int B, int T,
-                         int L, void* stream) {
+                         int L, int warp_states, int halo, int meet, void* stream) {
+  if (!layout_is(warp_states, halo, meet)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chains(logprobs, nullptr, out_lens, alphas, nullptr, B, T, L,
                                         static_cast<cudaStream_t>(stream)));
 }
 
 // The alpha and beta chains side by side, one launch.
 extern "C" int ctc_alpha_beta(const void* logprobs, const void* in_lens, const void* out_lens,
-                              void* alphas, void* betas, int B, int T, int L, void* stream) {
-  if (!betas) return static_cast<int>(cudaErrorInvalidValue);
+                              void* alphas, void* betas, int B, int T, int L, int warp_states,
+                              int halo, int meet, void* stream) {
+  if (!betas || !layout_is(warp_states, halo, meet))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chains(logprobs, in_lens, out_lens, alphas, betas, B, T, L,
                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The layout of a launch of `chains` chains (B for ctc_alpha, 2B for
+// ctc_alpha_beta) at L labels: out[0] blocks a chain (1: the ring kernel),
+// out[1] states a block owns, out[2] its chain warps, out[3] halo states a
+// warp (and a block) takes from its left, out[4] frames between two meets,
+// out[5] the clusters of out[0] blocks the card holds at once (0 for the
+// ring kernel).
+extern "C" int ctc_cluster_layout(int chains, int L, int* out) {
+  const int S = 2 * L + 1;
+  if (chains <= 0 || L <= 0 || S > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= RING_S) {
+    const int K = S <= SHORT_S ? K_SHORT : K_LONG, own = (32 - HALO_LANES) * K;
+    const int warps = (S + own - 1) / own;
+    out[0] = 1, out[1] = warps * own, out[2] = warps, out[3] = HALO_LANES * K, out[4] = K * 2;
+    out[5] = 0;
+    return 0;
+  }
+  const cudaError_t err = slice_layout(chains, S, &out[0], &out[2], &out[5]);
+  out[1] = out[2] * SliceLayout::OWN, out[3] = EDGE, out[4] = SliceLayout::CHUNK;
+  return static_cast<int>(err);
+}
+
+// The limits the layouts keep to, as ops/ctc.py names them: out[0] RING_S
+// (one block a chain up to here), out[1] MAX_CLUSTER (blocks a chain at
+// most), out[2] SLICE_WARPS (chain warps a block at most).
+extern "C" int ctc_cluster_limits(int* out) {
+  out[0] = RING_S, out[1] = MAX_CLUSTER, out[2] = SLICE_WARPS;
+  return 0;
 }
 
 // The posterior gradient d(g . -ll)/d logprobs from the alpha and beta rows.

@@ -28,10 +28,10 @@
 //    card's bandwidth; the kernel writes only the ones and the counts.
 //  - Forward: only the rows below out_len, only the warps that cover in_len.
 //    A lane of a search warp holds one, two or four columns (for L up to
-//    256, 512, 1024; past 1024 the direct kernel's 4 or 16), 32 apart (so
-//    a ballot over the warp is one word of 32 neighbouring columns), and
-//    keeps their P[i-1, j] in registers: at most eight warps step a row
-//    (16 in the direct kernel). The left neighbour comes by shuffle.
+//    256, 512, and past 512), 32 apart (so a ballot over the warp is one
+//    word of 32 neighbouring columns), and keeps their P[i-1, j] in
+//    registers: at most eight warps step a row in a block. The left
+//    neighbour comes by shuffle.
 //  - No barrier a row. A warp also carries the 32 columns left of its own
 //    (a halo, recomputed with the same adds and maxes, so bit-equal where
 //    valid). A halo column stays valid one row less for every column it
@@ -52,9 +52,11 @@
 //  - A warp's 32 move decisions of a row are one ballot word (T*L/8 bytes
 //    per item: the DP table never reaches device memory), and the words of
 //    32 rows leave in one store.
-//  - Texts past the ring's reach (1024 < L <= 8192): the direct kernel at
-//    the end of this file (at most 16 search warps, each lane's columns
-//    read from device memory a row ahead; no ring).
+//  - Texts past the ring's reach (1024 < L <= 8192): a cluster of blocks an
+//    item, each the ring kernel at L 1024 on its own slice of 1024 columns,
+//    the halo across a block boundary handed over through distributed
+//    shared memory (mas_width1_cluster_kernel, at the end of this file,
+//    with its measured times).
 //  - Backtrack: warp 0 takes 32 rows at a time. From column c the path falls
 //    by at most one a row, so the 32 rows' decisions all lie in columns
 //    c - 31 .. c: two words a row, loaded by the 32 lanes together and
@@ -65,6 +67,7 @@
 
 #include <math.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -72,9 +75,18 @@ namespace {
 
 constexpr float NEG_INF = -1e9f;
 constexpr int MAX_L = 8192;
-constexpr int RING_L = 1024;              // the ring kernel's reach
+// The ring kernel's reach, and whether the cluster kernel's copy warps
+// stage the rows: macros so that tools/cluster_chain_variants.py can build
+// the source with the cluster kernel from L 513 (one block a cluster) and
+// without its copies (a timing only: the path is then wrong).
+#ifndef FS2T_MAS_RING_L
+#define FS2T_MAS_RING_L 1024
+#endif
+#ifndef FS2T_MAS_STAGE
+#define FS2T_MAS_STAGE 1
+#endif
+constexpr int RING_L = FS2T_MAS_RING_L;
 constexpr int MAX_WARPS = 8;              // search warps, each over 32 * COLS columns
-constexpr int DIRECT_WARPS = 16;          // search warps of the direct kernel (L > RING_L)
 constexpr int COPY_WARPS = 4;
 constexpr int BLOCK = 16;                 // rows between two barriers; at most the halo's 32
 constexpr int SLOTS = 3;                  // row blocks in the shared-memory ring
@@ -131,12 +143,13 @@ __device__ __forceinline__ void backtrack(float* __restrict__ hard, int* __restr
 // One row i of the search for this lane: the move decisions of its owned
 // columns (lane i % 32 keeps row i's ballot words), the new P[i, j] in cur,
 // and the words of 32 rows out to bits_b after every 32nd row and the last
-// (n - 1). la(g): row i's log-attention at the lane's halo column (g = 0,
-// read only when warp > 0) or at owned column g - 1.
+// (n - 1), as words word0 + k of the item's. la(g): row i's log-attention at
+// the lane's halo column (g = 0, read only with `halo`) or at owned column
+// g - 1.
 template <int COLS, typename Row>
 __device__ __forceinline__ void mas_row(float (&cur)[COLS + 1], uint32_t (&keep)[COLS],
-                                        const Row& la, int i, int n, int warp, int lane,
-                                        int n_groups, uint32_t* bits_b, int T) {
+                                        const Row& la, int i, int n, bool halo, int word0,
+                                        int lane, int n_groups, uint32_t* bits_b, int T) {
   // the left neighbour: the lane before, for lane 0 lane 31 of the 32
   // columns before. Left of column 0 (warp 0's cur[0]) and of the halo's
   // first column (not valid past a block's first row anyway) is -inf:
@@ -152,7 +165,7 @@ __device__ __forceinline__ void mas_row(float (&cur)[COLS + 1], uint32_t (&keep)
     const uint32_t word = __ballot_sync(FULL, left[1 + k] >= cur[1 + k]);
     if (lane == (i & 31)) keep[k] = word;
   }
-  if (warp > 0) cur[0] = fmaxf(fmaxf(la(0), NEG_INF) + fmaxf(cur[0], left[0]), NEG_INF);
+  if (halo) cur[0] = fmaxf(fmaxf(la(0), NEG_INF) + fmaxf(cur[0], left[0]), NEG_INF);
 #pragma unroll
   for (int k = 0; k < COLS; ++k)
     cur[1 + k] = fmaxf(fmaxf(la(1 + k), NEG_INF) + fmaxf(cur[1 + k], left[1 + k]), NEG_INF);
@@ -161,7 +174,7 @@ __device__ __forceinline__ void mas_row(float (&cur)[COLS + 1], uint32_t (&keep)
 #pragma unroll
     for (int k = 0; k < COLS; ++k)
       if (r <= i && k < n_groups)
-        bits_b[static_cast<long long>(warp * COLS + k) * T + r] = keep[k];
+        bits_b[static_cast<long long>(word0 + k) * T + r] = keep[k];
   }
 }
 
@@ -194,7 +207,7 @@ mas_width1_kernel(const float* __restrict__ log_attn, const int* __restrict__ in
     const int c = (warp - first_copy_warp) * 32 + lane;  // of 128 copy lanes
     const int n_blocks = (n + BLOCK - 1) / BLOCK;
     const int width = n_warps * 32 * COLS;
-    const bool wide = (L & 3) == 0;
+    const bool wide = (L & 3) == 0 && (reinterpret_cast<uintptr_t>(log_attn) & 15) == 0;
     auto copy_block = [&](int m) {
       if (m < n_blocks) {
         const int last = min(n, (m + 1) * BLOCK);
@@ -251,7 +264,7 @@ mas_width1_kernel(const float* __restrict__ log_attn, const int* __restrict__ in
     for (int i = max(i0, 1); i < last; ++i) {
       const float* x = row + (i - i0) * row_floats;
       mas_row<COLS>(cur, keep, [&](int g) { return g == 0 ? x[-32] : x[32 * (g - 1)]; }, i, n,
-                    warp, lane, n_groups, bits_b, T);
+                    warp > 0, warp * COLS, lane, n_groups, bits_b, T);
     }
   }
   // every warp's decision words are visible to warp 0
@@ -280,96 +293,249 @@ cudaError_t launch(const void* log_attn, const void* in_lens, const void* out_le
   return cudaGetLastError();
 }
 
-// Past the ring's reach (L > 1024) a block of 16 rows is 64 KB or more, and
-// a ring of three would not fit shared memory. There the search warps (at
-// most 16, each over 32 * COLS columns: COLS = 4 up to L 2048, 16 up to
-// 8192) read their own columns of each row from device memory, coalesced
-// (a warp's 32 lanes read 32 neighbouring columns), one row ahead of the
-// row they step, into registers; no copy warps, and the warps meet every
-// 16 rows for the halo alone. A row's adds, maxes and decisions, the
-// decision words and the backtrack are the ring kernel's.
-template <int COLS>
-__global__ void __launch_bounds__(DIRECT_WARPS * 32)
-mas_width1_direct_kernel(const float* __restrict__ log_attn, const int* __restrict__ in_lens,
-                         const int* __restrict__ out_lens, float* __restrict__ hard,
-                         int* __restrict__ durations, uint32_t* bits, int T, int L) {
-  __shared__ float halo[2][DIRECT_WARPS][32];  // each warp's last 32 columns, by block parity
-  const int b = blockIdx.x;
+// -- texts past the ring's reach: a cluster of blocks an item ------------------
+//
+// Past L 1024 a block of 16 rows is 64 KB or more, and a ring of three over
+// the whole row would not fit one block's shared memory. So an item's
+// columns are cut into slices of SLICE_L (1024, the ring kernel's widest),
+// one block of a thread-block cluster each (ceil(L / 1024) blocks: 2 at L
+// 2000, 8 at 8192). Each block is the ring kernel at L 1024 on its slice:
+// eight search warps of four column groups, four copy warps staging its
+// columns (and the 32 left of them) of 16 rows at a time into its own ring
+// of three, the warps meeting at a named barrier every 16 rows. Warp 0 of a
+// block right of the first carries the 32 columns left of its slice as its
+// halo, as every other warp does, and takes them afresh at each meet from
+// the last warp of the block on its left. A courier warp in each block
+// carries them: after a meet it stores the last search warp's 32 columns
+// into the next block's shared memory (st.shared::cluster) and arrives on
+// an mbarrier there; before a meet it waits on its own block's mbarrier
+// and puts what arrived where warp 0 reads it after the meet. Nothing flows
+// leftwards, so a hand-over is a wait on that mbarrier, not a barrier of
+// the cluster, and no search warp waits on the cluster: the block on the
+// left runs ahead by up to EDGE_SLOTS hand-overs, and the one on its right
+// pays the hand-over's latency once, not at each meet. A block whose slice
+// starts past in_len has nothing to do and gets nothing. Every block's
+// decision words go to `bits`; after one cluster barrier (release and
+// acquire at cluster scope: the words are ordered before the backtrack
+// reads them, and no block leaves while a neighbour may still touch its
+// shared memory) warp 0 of the first block runs the backtrack. The row
+// arithmetic is mas_row's, so the path is the ring kernel's, bit for bit.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md, tools/default_shapes_ab.py):
+// at (16, 2048, 2000) 0.499 ms of device time, 244 ns a row (the ring
+// kernel at L 1000: 197), against 1.135 for the direct kernel it replaced;
+// at L 4096 0.586 (1.384); at L 8191 1.155 (2.037), two waves: the card
+// holds 15 clusters of 8 such blocks at once. What sets a block's row is
+// its copy warps: at L 1000 one block a cluster took 221 ns a row, 178
+// with the copies taken out (tools/cluster_chain_variants.py). Alternatives
+// set aside:
+//  - the direct kernel this one replaced (16 warps, each lane's columns
+//    read from device memory a row ahead, no ring): a device-memory round
+//    trip a row;
+//  - a barrier of the cluster at every meet: a hand-over runs one way, so
+//    an mbarrier in the receiving block does;
+//  - the hand-over carried by a search warp or a copy warp: a release at
+//    cluster scope waits for the thread's memory operations, a copy warp's
+//    cp.async in flight among them, so it has a warp of its own;
+//  - the cluster scheduling policies Spread and LoadBalancing: 0.500 and
+//    0.500 against 0.500 (tools/cluster_chain_variants.py).
+constexpr int SLICE_L = 1024;           // columns a block owns: MAX_WARPS warps of 4 groups
+constexpr int SLICE_COLS = 4;
+constexpr int EDGE = 32;                // halo columns a block takes from its left neighbour
+constexpr int EDGE_SLOTS = 4;           // hand-overs in flight between two neighbours
+constexpr int SLICE_ROW = EDGE + SLICE_L;  // a ring row: the halo's columns, then the slice's
+constexpr int COURIER = MAX_WARPS + COPY_WARPS;  // the warp that carries the halo across blocks
+constexpr int CLUSTER_THREADS = (COURIER + 1) * 32;
+constexpr size_t CLUSTER_SMEM = sizeof(float) * SLOTS * BLOCK * SLICE_ROW;
+// copies a copy lane makes of a ring row: four columns each (rows on 16
+// bytes), or one
+constexpr int WIDE_CHUNKS = (SLICE_ROW + 4 * 32 * COPY_WARPS - 1) / (4 * 32 * COPY_WARPS);
+constexpr int NARROW_CHUNKS = (SLICE_ROW + 32 * COPY_WARPS - 1) / (32 * COPY_WARPS);
+fs2::SmemOptIn cluster_opt_in;  // the launch's and the layout query's, per device
+fs2::cluster::Occupancy cluster_occupancy;
+
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restrict__ in_lens,
+                          const int* __restrict__ out_lens, float* __restrict__ hard,
+                          int* __restrict__ durations, uint32_t* bits, int T, int L) {
+  constexpr int COLS = SLICE_COLS;
+  extern __shared__ float ring[];            // [SLOTS * BLOCK][SLICE_ROW]
+  __shared__ float halo[2][MAX_WARPS][32];   // each warp's last 32 columns, by block parity
+  __shared__ float edge[EDGE_SLOTS][32];     // the left block's last 32 columns, handed over
+  __shared__ float edge_in[2][32];           // the same, for warp 0, by block parity
+  __shared__ uint64_t full[EDGE_SLOTS], empty[EDGE_SLOTS];
+  const int rank = fs2::cluster::rank();
+  const int b = blockIdx.x / fs2::cluster::size();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int in_len = in_lens[b];
   const int n = min(out_lens[b], T);  // rows on the path
+  // lengths outside [1, L] leave the item all zero: every block of the
+  // cluster returns here alike, before any cluster barrier
   if (n <= 0 || in_len <= 0 || in_len > L) return;
-  const int n_warps = (in_len + 32 * COLS - 1) / (32 * COLS);  // search warps at work
-  if (warp >= n_warps) return;
-  const float* la_b = log_attn + static_cast<long long>(b) * T * L;
-
-  const int jw = warp * 32 * COLS + lane;  // this lane's columns: jw + 32 k, and jw - 32 (halo)
-  const int n_groups = min(COLS, (in_len - warp * 32 * COLS + 31) >> 5);  // with a live column
-  uint32_t* bits_b = bits + static_cast<long long>(b) * ((L + 31) / 32) * T;
-  // row i's values at this lane's columns: nx[0] the halo column (warp > 0),
-  // nx[1 + k] owned column k, 0 past L (as the ring's zero fill)
-  float nx[COLS + 1];
-  auto fetch = [&](int i) {
-    const float* row = la_b + static_cast<long long>(i) * L;
-    nx[0] = warp > 0 ? __ldg(row + jw - 32) : 0.f;
-#pragma unroll
-    for (int k = 0; k < COLS; ++k) nx[1 + k] = jw + 32 * k < L ? __ldg(row + jw + 32 * k) : 0.f;
-  };
-  fetch(0);
-  float cur[COLS + 1];  // P[i - 1, j], as in the ring kernel
-  cur[0] = warp > 0 ? fmaxf(nx[0], NEG_INF) + NEG_INF : -INFINITY;
-#pragma unroll
-  for (int k = 0; k < COLS; ++k)
-    cur[1 + k] = fmaxf(nx[1 + k], NEG_INF) + (jw + 32 * k == 0 ? 0.f : NEG_INF);
-  if (n > 1) fetch(1);
-  uint32_t keep[COLS] = {};  // lane r: the decision words of row (i & ~31) + r
-  for (int i0 = 0; i0 < n; i0 += BLOCK) {
-    const int block = i0 / BLOCK;
-    if (i0 > 0) {  // meet, and take the halo afresh
-      halo[block & 1][warp][lane] = cur[COLS];
-      bar_sync(1, n_warps * 32);
-      if (warp > 0) cur[0] = halo[block & 1][warp - 1][lane];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < EDGE_SLOTS; ++s) {
+      fs2::tc::mbar_init(&full[s], 32);
+      fs2::tc::mbar_init(&empty[s], 32);
     }
-    const int last = min(n, i0 + BLOCK);
-#pragma unroll 2
-    for (int i = max(i0, 1); i < last; ++i) {
-      float x[COLS + 1];
+    fs2::tc::mbar_init_fence();
+  }
+  fs2::cluster::sync();  // every block's mbarriers are set before any arrives on them
+  const int c0 = rank * SLICE_L;  // this block's first column
+  const int n_warps =
+      in_len > c0 ? min(MAX_WARPS, (in_len - c0 + 32 * COLS - 1) / (32 * COLS)) : 0;
+  const bool feeds = in_len > c0 + SLICE_L;  // the next block has a live column (and all 8 here)
+  uint32_t* bits_b = bits + static_cast<long long>(b) * ((L + 31) / 32) * T;
+  if (n_warps > 0) {
+    const int n_meet = (n_warps + COPY_WARPS + 1) * 32;  // threads at a block's barrier
+    const int n_blocks = (n + BLOCK - 1) / BLOCK;         // meets, the first included
+    const float* la_b = log_attn + static_cast<long long>(b) * T * L;
+    if (warp >= MAX_WARPS && warp < COURIER) {
+      // copy warps: the rows of block m, columns c0 - 32 .. c0 + 128 n_warps - 1
+      // (zero outside [0, L)), into ring rows (row % 48). A lane's columns are
+      // the same in every row, so where they lie and whether they are in the
+      // text is settled once: a row's copies are then a pointer step and
+      // WIDE_CHUNKS (or NARROW_CHUNKS) cp.async, with no index arithmetic
+      const int c = (warp - MAX_WARPS) * 32 + lane;  // of 128 copy lanes
+      const int width = EDGE + n_warps * 32 * COLS;
+      const bool wide = (L & 3) == 0 && (reinterpret_cast<uintptr_t>(log_attn) & 15) == 0;
+      const int step = wide ? 4 : 1;  // columns a copy
+      int at[NARROW_CHUNKS];          // ring column of copy k (width or more: none)
+      int from[NARROW_CHUNKS];        // its log_attn column, or -1 (zero fill)
 #pragma unroll
-      for (int g = 0; g <= COLS; ++g) x[g] = nx[g];
-      if (i + 1 < n) fetch(i + 1);
-      mas_row<COLS>(cur, keep, [&](int g) { return x[g]; }, i, n, warp, lane, n_groups, bits_b,
-                    T);
+      for (int k = 0; k < NARROW_CHUNKS; ++k) {
+        at[k] = step * (c + 32 * COPY_WARPS * k);
+        const int g = c0 - EDGE + at[k];
+        from[k] = g >= 0 && g < L ? g : -1;
+      }
+      auto copy_block = [&](int m) {
+        if (m < n_blocks) {
+          const int last = min(n, (m + 1) * BLOCK);
+          float* dst = ring + (m % SLOTS) * BLOCK * SLICE_ROW;
+          const float* src = la_b + static_cast<long long>(m) * BLOCK * L;
+          for (int i = m * BLOCK; i < last; ++i, dst += SLICE_ROW, src += L) {
+            if (!FS2T_MAS_STAGE) continue;  // a timing only: nothing staged
+            if (wide) {
+#pragma unroll
+              for (int k = 0; k < WIDE_CHUNKS; ++k)
+                if (at[k] < width)
+                  fs2::tc::cp_async16(dst + at[k], from[k] >= 0 ? src + from[k] : la_b,
+                                      from[k] >= 0);
+            } else {
+#pragma unroll
+              for (int k = 0; k < NARROW_CHUNKS; ++k)
+                if (at[k] < width)
+                  fs2::tc::cp_async4(dst + at[k], from[k] >= 0 ? src + from[k] : la_b,
+                                     from[k] >= 0);
+            }
+          }
+        }
+        fs2::tc::cp_async_commit();
+      };
+      copy_block(0);
+      copy_block(1);
+      for (int m = 0; m < n_blocks; ++m) {
+        if (m > 0) copy_block(m + 1);
+        fs2::tc::cp_async_wait<1>();  // block m has landed
+        bar_sync(1, n_meet);          // and is handed over
+      }
+    } else if (warp == COURIER) {
+      // the halo across the block boundaries, hand-over m - 1 at meet m (the
+      // columns of row 16 m - 1): from the left block's `edge` slot into
+      // edge_in before the meet, and from the last search warp's `halo` into
+      // the right block's slot after it. A warp of its own: a release waits
+      // for its thread's memory operations, which for a copy warp would be
+      // cp.async copies still in flight
+      for (int m = 0; m < n_blocks; ++m) {
+        const int slot = (m - 1) % EDGE_SLOTS;
+        const uint32_t parity = ((m - 1) / EDGE_SLOTS) & 1;
+        if (m > 0 && rank > 0) {
+          fs2::cluster::wait(&full[slot], parity);
+          edge_in[m & 1][lane] = edge[slot][lane];
+          fs2::cluster::arrive(fs2::cluster::map(&empty[slot], rank - 1));
+        }
+        bar_sync(1, n_meet);
+        if (m > 0 && feeds) {
+          const float v = halo[m & 1][MAX_WARPS - 1][lane];
+          fs2::cluster::wait(&empty[slot], parity ^ 1);  // the right block took the slot's last
+          fs2::cluster::store(fs2::cluster::map(&edge[slot][lane], rank + 1), v);
+          fs2::cluster::arrive(fs2::cluster::map(&full[slot], rank + 1));
+        }
+      }
+    } else if (warp < n_warps) {
+      const int jw = c0 + warp * 32 * COLS + lane;  // columns jw + 32 k, and jw - 32 (halo)
+      const bool has_halo = warp > 0 || rank > 0;
+      const int n_groups = min(COLS, (in_len - (jw - lane) + 31) >> 5);  // with a live column
+      const int word0 = (c0 >> 5) + warp * COLS;
+      float cur[COLS + 1];  // P[i - 1, j] of the halo column and the owned ones
+      uint32_t keep[COLS] = {};
+      for (int i0 = 0; i0 < n; i0 += BLOCK) {
+        const int block = i0 / BLOCK;
+        const float* row =
+            ring + (block % SLOTS) * BLOCK * SLICE_ROW + EDGE + warp * 32 * COLS + lane;
+        if (i0 == 0) {
+          bar_sync(1, n_meet);
+          cur[0] = has_halo ? fmaxf(row[-32], NEG_INF) + NEG_INF : -INFINITY;
+#pragma unroll
+          for (int k = 0; k < COLS; ++k)
+            cur[1 + k] = fmaxf(row[32 * k], NEG_INF) + (jw + 32 * k == 0 ? 0.f : NEG_INF);
+        } else {  // meet, and take the halo afresh (warp 0: from the block on the left)
+          halo[block & 1][warp][lane] = cur[COLS];
+          bar_sync(1, n_meet);
+          if (warp > 0)
+            cur[0] = halo[block & 1][warp - 1][lane];
+          else if (rank > 0)
+            cur[0] = edge_in[block & 1][lane];
+        }
+        const int last = min(n, i0 + BLOCK);
+#pragma unroll 4
+        for (int i = max(i0, 1); i < last; ++i) {
+          const float* x = row + (i - i0) * SLICE_ROW;
+          mas_row<COLS>(cur, keep, [&](int g) { return g == 0 ? x[-32] : x[32 * (g - 1)]; }, i,
+                        n, has_halo, word0, lane, n_groups, bits_b, T);
+        }
+      }
     }
   }
-  // every warp's decision words are visible to warp 0
-  if (n_warps > 1) bar_sync(2, n_warps * 32);
+  // every block's decision words are out before the backtrack reads them,
+  // and no block leaves while a neighbour may still touch its shared memory
+  fs2::cluster::sync();
+  if (rank != 0 || warp != 0) return;
   __syncwarp();
-  if (warp != 0) return;
   backtrack(hard, durations, bits_b, b, T, L, in_len, n, lane);
 }
 
-template <int COLS>
-cudaError_t launch_direct(const void* log_attn, const void* in_lens, const void* out_lens,
-                          void* hard, void* durations, void* bits, int B, int T, int L,
-                          cudaStream_t stream) {
-  const int search_warps = (L + 32 * COLS - 1) / (32 * COLS);
-  mas_width1_direct_kernel<COLS><<<B, search_warps * 32, 0, stream>>>(
-      static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
-      static_cast<const int*>(out_lens), static_cast<float*>(hard),
-      static_cast<int*>(durations), static_cast<uint32_t*>(bits), T, L);
-  return cudaGetLastError();
+cudaError_t launch_cluster(const void* log_attn, const void* in_lens, const void* out_lens,
+                           void* hard, void* durations, void* bits, int B, int T, int L,
+                           cudaStream_t stream) {
+  const cudaError_t attr = fs2::smem_opt_in(cluster_opt_in, mas_width1_cluster_kernel,
+                                            static_cast<int>(CLUSTER_SMEM));
+  if (attr != cudaSuccess) return attr;
+  const int size = (L + SLICE_L - 1) / SLICE_L;
+  return fs2::cluster::launch(
+      cluster_occupancy, mas_width1_cluster_kernel, B * size, size, CLUSTER_THREADS, CLUSTER_SMEM,
+      stream, static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
+      static_cast<const int*>(out_lens), static_cast<float*>(hard), static_cast<int*>(durations),
+      static_cast<uint32_t*>(bits), T, L);
 }
 
 }  // namespace
 
 FS2_EXPORT_ERROR_STRING
 
-// Zeroes hard and durations on `stream`, then launches the search there.
-// Returns a cudaError_t code (0 on success).
+// The cluster layout the kernel was built for, as ops/mas.py names it
+// (SLICE_L, EDGE, MEET_ROWS): a launch given another refuses.
+static bool layout_is(int slice, int edge, int meet) {
+  return slice == SLICE_L && edge == EDGE && meet == BLOCK;
+}
+
+// Zeroes hard and durations on `stream`, then launches the search there:
+// the ring kernel up to L 1024, the cluster kernel past it. Returns a
+// cudaError_t code (0 on success).
 extern "C" int mas_width1(const void* log_attn, const void* in_lens, const void* out_lens,
                           void* hard, void* durations, void* bits, int B, int T, int L,
-                          void* stream) {
-  if (B <= 0 || T <= 0 || L <= 0 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+                          int slice, int edge, int meet, void* stream) {
+  if (B <= 0 || T <= 0 || L <= 0 || L > MAX_L || !layout_is(slice, edge, meet))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(hard, 0, sizeof(float) * B * T * L, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -379,7 +545,26 @@ extern "C" int mas_width1(const void* log_attn, const void* in_lens, const void*
   if (L <= 32 * MAX_WARPS) return static_cast<int>(launch<1>(FS2_MAS_ARGS));
   if (L <= 64 * MAX_WARPS) return static_cast<int>(launch<2>(FS2_MAS_ARGS));
   if (L <= RING_L) return static_cast<int>(launch<4>(FS2_MAS_ARGS));
-  if (L <= 128 * DIRECT_WARPS) return static_cast<int>(launch_direct<4>(FS2_MAS_ARGS));
-  return static_cast<int>(launch_direct<16>(FS2_MAS_ARGS));
+  return static_cast<int>(launch_cluster(FS2_MAS_ARGS));
 #undef FS2_MAS_ARGS
+}
+
+// The layout a launch at text length L takes: out[0] blocks an item (1: the
+// ring kernel), out[1] columns a block owns, out[2] halo columns a block
+// takes from its left neighbour, out[3] rows between two meets, out[4] the
+// clusters of out[0] blocks the card holds at once (0 for the ring kernel).
+extern "C" int mas_width1_cluster_layout(int L, int* out) {
+  if (L <= 0 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+  if (L <= RING_L) {
+    out[0] = 1, out[1] = L, out[2] = 32, out[3] = BLOCK, out[4] = 0;
+    return 0;
+  }
+  cudaError_t err = fs2::smem_opt_in(cluster_opt_in, mas_width1_cluster_kernel,
+                                     static_cast<int>(CLUSTER_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int size = (L + SLICE_L - 1) / SLICE_L;
+  out[0] = size, out[1] = SLICE_L, out[2] = EDGE, out[3] = BLOCK;
+  err = fs2::cluster::max_active(cluster_occupancy, mas_width1_cluster_kernel, size,
+                                 CLUSTER_THREADS, CLUSTER_SMEM, &out[4]);
+  return static_cast<int>(err);
 }

@@ -3,7 +3,10 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 compiled on first use for Hopper (``sm_90a``) into ``_build/`` beside this
 package, named by a hash of the sources and flags so an edited source is
-rebuilt and an unchanged one is reused. Pointers and the CUDA stream cross
+rebuilt and an unchanged one is reused. A source may also be built with
+-D macros of its own (``load(..., defines=...)``), into a library beside
+the default one, and put under the wrappers for a while (``using``): the
+tools that time a kernel against variants of itself do so. Pointers and the CUDA stream cross
 as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 ``check()`` raises when it is not 0.
 
@@ -29,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, Union
+from typing import Dict, Iterable, Iterator, Sequence, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -41,7 +44,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Union[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -54,28 +57,29 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(name: str, defines: Sequence[str] = ()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def lib_path(name: str) -> Path:
-    """csrc/<name>.cu's library for the current sources and flags."""
-    return BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+def lib_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """csrc/<name>.cu's library for the current sources and flags, and the
+    -D macros `defines` (``"-DNAME=VALUE"``) where given."""
+    return BUILD_DIR / f"{name}-{_source_hash(name, defines)}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: Sequence[str] = ()):
     """Start nvcc for csrc/<name>.cu; returns (process, tmp path, lib path),
     or None when the library is already built."""
-    lib = lib_path(name)
+    lib = lib_path(name, defines)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -99,20 +103,32 @@ def build_each(names: Iterable[str]) -> Dict[str, Union[str, RuntimeError]]:
     wait for every one. Returns name -> compiler output (ptxas register and
     shared-memory report; an already-built library reports its saved log),
     or the RuntimeError of a source nvcc failed on."""
-    names = list(names)
+    return _build_all([(n, ()) for n in names], key=lambda n, d: n)
+
+
+def _build_all(builds, key) -> dict:
     with _lock:
-        started = {n: _start(n) for n in names}
-        logs: Dict[str, Union[str, RuntimeError]] = {}
-        for n in names:
-            if started[n] is None:
-                log = lib_path(n).with_suffix(".log")
-                logs[n] = log.read_text() if log.exists() else ""
+        started = [(n, d, _start(n, d)) for n, d in builds]
+        logs: dict = {}
+        for n, d, s in started:
+            if s is None:
+                log = lib_path(n, d).with_suffix(".log")
+                logs[key(n, d)] = log.read_text() if log.exists() else ""
             else:
                 try:
-                    logs[n] = _finish(n, started[n])
+                    logs[key(n, d)] = _finish(n, s)
                 except RuntimeError as exc:  # reported once every nvcc has ended
-                    logs[n] = exc
+                    logs[key(n, d)] = exc
         return logs
+
+
+def build_variants(builds: Iterable[Tuple[str, Sequence[str]]]) -> None:
+    """Compile each (source name, -D macros) pair given, one nvcc each, all
+    started together; raises the first failure."""
+    logs = _build_all([(n, tuple(d)) for n, d in builds], key=lambda n, d: (n, *d))
+    for out in logs.values():
+        if isinstance(out, RuntimeError):
+            raise out
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -128,25 +144,45 @@ def all_sources() -> list:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+def load(name: str, signatures: Dict[str, list], defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built on first use, with the
     argument types of its C entries (`signatures`: entry -> argtypes; every
-    entry returns an int error code) declared."""
-    lib = _libs.get(name)
+    entry returns an int error code) declared. With `defines` (-D macros),
+    the source built with them: a library of its own, which the wrappers
+    call only inside ``using``."""
+    key = (name, *defines) if defines else name
+    lib = _libs.get(key)
     if lib is not None:
         return lib
-    build([name])
+    build_variants([(name, defines)])
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(lib_path(name)))
+        if key not in _libs:
+            lib = ctypes.CDLL(str(lib_path(name, defines)))
             lib.error_string.argtypes = [ctypes.c_int]
             lib.error_string.restype = ctypes.c_char_p
             for entry, argtypes in signatures.items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return _libs[name]
+            _libs[key] = lib
+        return _libs[key]
+
+
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL) -> Iterator[None]:
+    """Within: the wrappers of csrc/<name>.cu call `lib` (a build of it with
+    other macros, from ``load``); after, the library they called before."""
+    with _lock:
+        before = _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield
+    finally:
+        with _lock:
+            if before is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = before
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -9,7 +9,11 @@ gradient d(-ll)/dy_t(c) = -sum over states s with label c of
 exp(alpha + beta - ll) from their rows (``ctc_grad``). Each wrapper launches
 its CUDA kernel in ``csrc/ctc_banded_lse.cu`` (which replaces
 ``ops/ctc_pallas.py:120 banded_lse_scan_pallas``) for CUDA tensors, or
-raises, and runs its plain version for CPU tensors. Padded frames
+raises, and runs its plain version for CPU tensors. Past ``RING_S``
+states a chain is spread over a thread-block cluster, a block a slice of
+whole warps of ``WARP_STATES`` states, each taking the ``HALO_STATES`` left
+of its slice from its neighbour every ``MEET_FRAMES`` frames
+(``cluster_layout`` reads the layout a launch takes). Padded frames
 (t >= out_len) emit blank with certainty, so alpha at T-1 equals alpha at
 out_len-1; they get no gradient. Labels are the text positions 1..in_len, so
 every skip transition is legal.
@@ -25,6 +29,20 @@ from ..kernels import build
 
 NEG_INF = -1e15
 MAX_S = 16383  # states per item the kernels take: texts up to 8191 symbols
+RING_S = 2047  # one block a chain up to here
+# The cluster layout past RING_S, passed to the C entries (which refuse any
+# other): a block's chain warps own WARP_STATES states each (28 lanes of 4)
+# and its first warp carries the HALO_STATES left of its slice, recomputed
+# every frame and taken afresh from the block on its left every MEET_FRAMES
+# frames. A halo state stays right two states less a frame (the skip
+# transition), so MEET_FRAMES <= HALO_STATES / 2 keeps every owned state the
+# plain version's. A chain takes at most MAX_CLUSTER blocks of at most
+# SLICE_WARPS warps.
+WARP_STATES = 112
+HALO_STATES = 16
+MEET_FRAMES = 8
+MAX_CLUSTER = 8
+SLICE_WARPS = 27
 
 
 def _state_labels(L: int, device) -> torch.Tensor:
@@ -119,11 +137,27 @@ def ctc_grad_reference(alphas, betas, out_lens, ll, g) -> torch.Tensor:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ALPHA_ARGTYPES = [_P] * 3 + [_I] * 3 + [_P]
-_ALPHA_BETA_ARGTYPES = [_P] * 5 + [_I] * 3 + [_P]
+_ALPHA_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
+_ALPHA_BETA_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
 _GRAD_ARGTYPES = [_P] * 6 + [_I] * 3 + [_P]
+_LAYOUT_ARGTYPES = [_I, _I, _P]
 _SIGNATURES = {"ctc_alpha": _ALPHA_ARGTYPES, "ctc_alpha_beta": _ALPHA_BETA_ARGTYPES,
-               "ctc_grad": _GRAD_ARGTYPES}
+               "ctc_grad": _GRAD_ARGTYPES, "ctc_cluster_layout": _LAYOUT_ARGTYPES,
+               "ctc_cluster_limits": [_P]}
+_LAYOUT = (WARP_STATES, HALO_STATES, MEET_FRAMES)
+
+
+def cluster_layout(chains: int, L: int) -> dict:
+    """The layout the C entries launch `chains` chains (B for ``ctc_alpha``,
+    2B for ``ctc_alpha_beta``) of 2L + 1 states in: blocks a chain (1: the
+    ring kernel), states a block owns and its chain warps, halo states a
+    block takes from its left, frames between two meets, and the clusters of
+    that many blocks the current card holds at once (0 for the ring kernel).
+    Builds the kernel's source on first use, so it needs nvcc and a card."""
+    lib = build.load("ctc_banded_lse", _SIGNATURES)
+    out = (ctypes.c_int * 6)()
+    build.check(lib, lib.ctc_cluster_layout(chains, L, out), "ctc_cluster_layout")
+    return dict(zip(("blocks", "states", "warps", "halo", "meet", "max_active_clusters"), out))
 
 
 def _check(name: str, x, S: int) -> None:
@@ -159,7 +193,7 @@ def ctc_alpha(logprobs, out_lens) -> torch.Tensor:
     lp, out_lens = _f32(logprobs, dev), _i32(out_lens, dev)
     alphas = torch.empty((B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
     _launch("ctc_alpha", dev, lp.data_ptr(), out_lens.data_ptr(), alphas.data_ptr(), B, T,
-            Lp1 - 1)
+            Lp1 - 1, *_LAYOUT)
     build.count(ctc_alpha)
     return alphas
 
@@ -179,7 +213,7 @@ def ctc_alpha_beta(logprobs, in_lens, out_lens) -> tuple:
     in_lens, out_lens = _i32(in_lens, dev), _i32(out_lens, dev)
     rows = torch.empty((2, B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
     _launch("ctc_alpha_beta", dev, lp.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
-            rows[0].data_ptr(), rows[1].data_ptr(), B, T, Lp1 - 1)
+            rows[0].data_ptr(), rows[1].data_ptr(), B, T, Lp1 - 1, *_LAYOUT)
     build.count(ctc_alpha_beta)
     return rows[0], rows[1]
 

@@ -5,7 +5,11 @@
 [B, T, L] f32 (zero on frames >= out_len) and the durations [B, L] int32. A
 CUDA tensor launches ``csrc/mas_width1.cu`` (which replaces
 ``ops/mas_pallas.py:94 mas_width1_pallas``) or raises; a CPU tensor runs
-``mas_width1_reference``, its plain version. There is no scan fallback: a
+``mas_width1_reference``, its plain version. Past ``RING_L`` columns the
+kernel spreads an item over a thread-block cluster: a block a slice of
+``SLICE_L`` columns, each taking the ``EDGE_COLUMNS`` left of its slice from
+its neighbour every ``MEET_ROWS`` rows (``cluster_layout`` reads the layout
+a launch takes from the C entry). There is no scan fallback: a
 text longer than ``MAX_L`` raises, where the JAX package runs its XLA scan
 (ROADMAP.md lists the difference). The search takes no gradient. The C
 entry zeroes both outputs on the stream before the kernel writes its ones.
@@ -24,7 +28,17 @@ import ctypes
 import torch
 
 NEG_INF = -1e9
-MAX_L = 8192  # sixteen warps of 512 text positions (csrc/mas_width1.cu)
+MAX_L = 8192  # eight blocks of SLICE_L columns (csrc/mas_width1.cu)
+RING_L = 1024  # one block an item up to here
+# The cluster layout past RING_L, passed to the C entry (which refuses any
+# other): a block owns SLICE_L columns and carries the EDGE_COLUMNS left of
+# them, recomputed every row and taken afresh from the block on its left
+# every MEET_ROWS rows. A halo column stays right one row less for every
+# column it lies further left, so MEET_ROWS <= EDGE_COLUMNS keeps every
+# owned column the plain version's.
+SLICE_L = 1024
+EDGE_COLUMNS = 32
+MEET_ROWS = 16
 
 
 def _masked(log_attn, in_lens, out_lens):
@@ -49,7 +63,16 @@ def mas_width1_reference(log_attn, in_lens, out_lens):
         shifted = torch.cat([neg, prev[:, :-1]], dim=1)
         moves[:, i] = (shifted >= prev) & ~first_col
         prev = torch.clamp(la[:, i] + torch.maximum(prev, shifted), min=NEG_INF)
+    return mas_backtrack(moves, in_lens, out_lens)
 
+
+@torch.no_grad()
+def mas_backtrack(moves, in_lens, out_lens):
+    """The plain version's backtrack over its move decisions [B, T, L] (row
+    i, column j: the path into (i, j) came from (i - 1, j - 1)): the one-hot
+    path and the durations."""
+    B, T, L = moves.shape
+    dev = moves.device
     in_lens = in_lens.long()
     out_lens = out_lens.long()
     ok = (out_lens > 0) & (in_lens > 0) & (in_lens <= L)
@@ -75,7 +98,24 @@ def backtrack_window(word_hi: int, word_lo: int, c: int) -> int:
     return (((word_hi << 32) | word_lo) >> ((c & 31) + 1)) & 0xFFFFFFFF
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ENTRIES = {"mas_width1": _ARGTYPES,
+            "mas_width1_cluster_layout": [ctypes.c_int, ctypes.c_void_p]}
+
+
+def cluster_layout(L: int) -> dict:
+    """The layout the C entry launches text length `L` in: blocks an item
+    (1: the ring kernel), columns a block owns, halo columns a block takes
+    from its left neighbour, rows between two meets, and the clusters of
+    that many blocks the current card holds at once (0 for the ring
+    kernel). Builds the kernel's source on first use, so it needs nvcc and
+    a card."""
+    from ..kernels import build
+
+    lib = build.load("mas_width1", _ENTRIES)
+    out = (ctypes.c_int * 5)()
+    build.check(lib, lib.mas_width1_cluster_layout(L, out), "mas_width1_cluster_layout")
+    return dict(zip(("blocks", "slice", "edge", "meet", "max_active_clusters"), out))
 
 
 @torch.no_grad()
@@ -100,11 +140,11 @@ def mas_width1(log_attn, in_lens, out_lens):
 
     from ..kernels import build
 
-    lib = build.load("mas_width1", {"mas_width1": _ARGTYPES})
+    lib = build.load("mas_width1", _ENTRIES)
     err = build.launch(
         dev, lib.mas_width1, la.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
-        hard.data_ptr(), durations.data_ptr(), bits.data_ptr(), B, T, L,
-        torch.cuda.current_stream(dev).cuda_stream,
+        hard.data_ptr(), durations.data_ptr(), bits.data_ptr(), B, T, L, SLICE_L, EDGE_COLUMNS,
+        MEET_ROWS, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "mas_width1")
     build.count(mas_width1)

@@ -49,9 +49,13 @@ the whole-stage MRF kernel (one launch) at C 4 to 16 within the same
 limits, on other stage shapes (k 1 to 65, even k, unequal dilation counts),
 an even-k narrow stage past its halo on the per-conv route instead, and
 raising under autograd before it launches;
-MAS exactly, texts of 1025 to 8191 symbols on the direct kernel included;
-CTC loss within relative 1e-5 and its gradient within max-abs 1e-5, at
-S 2049 to 16383 on the direct chains too; kernel A as the op ``fs2t::attention_fwd`` through
+MAS exactly, texts of 1025 to 8192 symbols on the cluster kernel included
+(in_len on and one past a slice boundary, B 1 and 16, a log-attention
+that starts 4 bytes past 16), and its layout query against ``ops/mas.py``'s
+constants; CTC loss within relative 1e-5 and its gradient within max-abs
+1e-5, at S 2049 to 16383 on the cluster chains too (B 1 to 16), and their
+layout query against ``ops/ctc.py``'s constants; a launch given another
+layout than the kernels were built for raises; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
 ``torch.export``, saved, loaded and run, launching A and equal to eager;
 A with A' (at dh 128; at 96, 160, 192, 256, 384, 512 and 768 in f32 and
@@ -141,8 +145,11 @@ def _c_params(source: str, entry: str) -> list:
     ("attention_bwd", "attention_bwd_column_groups",
      attention._BWD_ENTRIES["attention_bwd_column_groups"]),
     ("mas_width1", "mas_width1", mas._ARGTYPES),
+    ("mas_width1", "mas_width1_cluster_layout", mas._ENTRIES["mas_width1_cluster_layout"]),
     ("ctc_banded_lse", "ctc_alpha", ctc._ALPHA_ARGTYPES),
     ("ctc_banded_lse", "ctc_alpha_beta", ctc._ALPHA_BETA_ARGTYPES),
+    ("ctc_banded_lse", "ctc_cluster_layout", ctc._LAYOUT_ARGTYPES),
+    ("ctc_banded_lse", "ctc_cluster_limits", ctc._SIGNATURES["ctc_cluster_limits"]),
     ("ctc_banded_lse", "ctc_grad", ctc._GRAD_ARGTYPES),
     ("mrf_conv", "mrf_conv", vocoder_resblocks._ARGTYPES),
     ("mrf_stage", "mrf_stage", vocoder_resblocks._STAGE_ARGTYPES),
@@ -155,6 +162,21 @@ def test_every_source_is_built_for_sm_90a():
     assert build.all_sources() == ["attention_bwd", "attention_fwd", "ctc_banded_lse",
                                    "mas_width1", "mrf_conv", "mrf_stage"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_variant_macros_default_in_the_sources():
+    """Every -D macro tools/cluster_chain_variants.py builds a variant with
+    is one a kernel source (or header) defines with a default, so that the
+    default build is the kernels' own; a build with macros is a library of
+    its own."""
+    tool = (build.CSRC_DIR.parents[1] / "tools" / "cluster_chain_variants.py").read_text()
+    macros = set(re.findall(r"-D(FS2T_[A-Z0-9_]+)=", tool))
+    assert len(macros) == 7
+    sources = "".join(p.read_text() for p in sorted(build.CSRC_DIR.glob("*.cu*")))
+    for name in macros:
+        assert re.search(rf"#ifndef {name}\n#define {name} ", sources), name
+    assert build.lib_path("ctc_banded_lse") != build.lib_path(
+        "ctc_banded_lse", ("-DFS2T_CTC_COPY_WARPS=2",))
 
 
 def test_wrappers_raise_on_a_device_without_kernel():
@@ -1255,7 +1277,8 @@ def _poisoned_outputs(monkeypatch):
                                    (16, 2016, 192), (3, 100, 1024), (4, 70, 33), (3, 200, 300),
                                    (2, 100, 512), (2, 100, 256), (2, 100, 257),
                                    (3, 1100, 1025), (2, 2100, 2048), (2, 2100, 2049),
-                                   (2, 600, 4100), (1, 8192, 8191), (1, 300, 8192)])
+                                   (2, 600, 4100), (1, 8192, 8191), (1, 300, 8192),
+                                   (1, 1100, 1025), (16, 600, 2000), (4, 40, 3073)])
 def test_mas_kernel_equals_plain_version(cuda, monkeypatch, B, T, L):
     g = torch.Generator(device=cuda).manual_seed(2)
     la = torch.log_softmax(torch.randn(B, T, L, device=cuda, generator=g), -1)
@@ -1294,6 +1317,61 @@ def test_mas_kernel_on_length_edges(cuda, monkeypatch):
         assert not hard[b].any() and not dur[b].any()
     assert dur[4].tolist()[:33] == [1] * 33  # in_len = out_len: one frame a symbol
     assert int(dur[0, 0]) == T and int(dur[1, L - 1]) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [2049, 3000])
+def test_mas_kernel_at_slice_boundaries(cuda, monkeypatch, L):
+    """The cluster kernel with in_len inside the first slice, on a slice
+    boundary and one past it (the next block with nothing to do, or one
+    live column), and lengths outside [1, L], which leave the item zero."""
+    T = 1100
+    in_lens = torch.tensor([500, 1024, 1025, 2048, 2049, 1, L, 0, L + 1], device=cuda)
+    out_lens = torch.tensor([T, 1050, T, T - 1, 1100, 1, 900, T, T], device=cuda)
+    B = len(in_lens)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    la = torch.log_softmax(torch.randn(B, T, L, device=cuda, generator=g), -1)
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    _poisoned_outputs(monkeypatch)
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.equal(hard, want_hard) and torch.equal(dur, want_dur)
+    assert not hard[-2:].any() and not dur[-2:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [64, 1000, 2048])
+def test_mas_kernel_takes_a_log_attention_off_16_bytes(cuda, L):
+    """A contiguous view starting 4 bytes past a 16-byte boundary: the copy
+    warps stage it four bytes a copy instead of 16."""
+    B, T = 2, 300
+    g = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.log_softmax(torch.randn(B * T * L + 1, device=cuda, generator=g), -1)
+    la = flat[1:].view(B, T, L)
+    assert la.data_ptr() % 16 == 4 and la.is_contiguous()
+    in_lens = torch.tensor([L, L - 3], device=cuda)
+    out_lens = torch.tensor([T, T - 7], device=cuda)
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    assert torch.equal(hard, want_hard) and torch.equal(dur, want_dur)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 1024, 1025, 2000, 4096, 8192])
+def test_mas_cluster_layout_follows_the_python_constants(cuda, L):
+    """The layout the C entry reports: one block up to RING_L, past it
+    ceil(L / SLICE_L) blocks of SLICE_L columns taking EDGE_COLUMNS from the
+    left every MEET_ROWS rows, of which the card holds a cluster at least."""
+    got = mas.cluster_layout(L)
+    if L <= mas.RING_L:
+        assert got["blocks"] == 1 and got["max_active_clusters"] == 0
+        return
+    assert got["blocks"] == -(-L // mas.SLICE_L) <= 8
+    assert (got["slice"], got["edge"], got["meet"]) == (mas.SLICE_L, mas.EDGE_COLUMNS,
+                                                       mas.MEET_ROWS)
+    assert got["max_active_clusters"] >= 1
 
 
 def _ctc_inputs(dev, B, T, L, seed=3):
@@ -1345,7 +1423,9 @@ def test_ctc_wrappers_run_their_plain_versions_on_the_cpu():
 @pytest.mark.parametrize("B,T,L", [(3, 120, 20), (2, 300, 160), (16, 2016, 192), (16, 512, 64),
                                    (4, 64, 1023), (4, 50, 1), (5, 9, 300),
                                    (4, 1100, 1024), (4, 2100, 2048), (2, 300, 2687),
-                                   (2, 300, 2688), (2, 8192, 8191)])
+                                   (2, 300, 2688), (2, 8192, 8191), (1, 700, 8191),
+                                   (1, 600, 1024), (16, 300, 2000), (2, 600, 2000),
+                                   (3, 50, 1100), (16, 100, 8191)])
 def test_ctc_kernels_match_plain_version(cuda, monkeypatch, B, T, L):
     """Both chains and the gradient against the plain version, every output
     written (NaN before the call), edge and infeasible items included; an
@@ -1380,6 +1460,56 @@ def test_ctc_kernels_match_plain_version(cuda, monkeypatch, B, T, L):
     assert not grad[torch.arange(T, device=cuda)[None] >= out_lens[:, None]].any()
     if B >= 4 and L > 1:
         assert float(ll[3]) < 1e-3 * ctc.NEG_INF  # infeasible: ll on the NEG_INF scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains,L", [(1, 1023), (1, 1024), (4, 1100), (16, 2000), (32, 2000),
+                                      (32, 2048), (1, 8191), (16, 8191), (32, 8191), (2, 500)])
+def test_ctc_cluster_layout_follows_the_python_constants(cuda, chains, L):
+    """The limits the C entries keep to are ops/ctc.py's (RING_S,
+    MAX_CLUSTER, SLICE_WARPS), and the layout they report: one block a chain
+    up to RING_S; past it at most MAX_CLUSTER blocks of at most SLICE_WARPS
+    warps of WARP_STATES states that hold S between them, taking HALO_STATES
+    from the left every MEET_FRAMES frames; one chain in the narrowest
+    slices MAX_CLUSTER blocks allow (it takes one wave at any size); the
+    chains' clusters all on the card at once where the fewest blocks that
+    hold S take at most 64 SMs in all."""
+    limits = (ctypes.c_int * 3)()
+    lib = build.load("ctc_banded_lse", ctc._SIGNATURES)
+    assert lib.ctc_cluster_limits(limits) == 0
+    assert tuple(limits) == (ctc.RING_S, ctc.MAX_CLUSTER, ctc.SLICE_WARPS)
+    S = 2 * L + 1
+    got = ctc.cluster_layout(chains, L)
+    if S <= ctc.RING_S:
+        assert got["blocks"] == 1 and got["max_active_clusters"] == 0
+        return
+    if chains == 1:
+        warps = -(-(-(-S // ctc.MAX_CLUSTER)) // ctc.WARP_STATES)
+        assert (got["warps"], got["blocks"]) == (warps, -(-S // (warps * ctc.WARP_STATES)))
+    assert (got["halo"], got["meet"]) == (ctc.HALO_STATES, ctc.MEET_FRAMES)
+    assert got["states"] == got["warps"] * ctc.WARP_STATES
+    assert 1 <= got["warps"] <= ctc.SLICE_WARPS and 1 <= got["blocks"] <= ctc.MAX_CLUSTER
+    assert got["blocks"] * got["states"] >= S > (got["blocks"] - 1) * got["states"]
+    assert got["max_active_clusters"] >= 1
+    if chains * -(-S // (ctc.SLICE_WARPS * ctc.WARP_STATES)) <= 64:
+        assert got["max_active_clusters"] >= chains
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_another_cluster_layout(cuda, monkeypatch):
+    """The layout constants cross to the C entries, which refuse any other
+    than they were built for: a Python constant that drifted raises."""
+    la = torch.log_softmax(torch.randn(1, 8, 1100, device=cuda), -1)
+    lens = torch.tensor([1100], device=cuda)
+    lp, in_lens, out_lens = _ctc_inputs(cuda, 1, 8, 1100)
+    monkeypatch.setattr(mas, "SLICE_L", 512)
+    with pytest.raises(RuntimeError, match="mas_width1"):
+        mas_width1(la, lens, lens)
+    monkeypatch.setattr(ctc, "_LAYOUT", (ctc.WARP_STATES, ctc.HALO_STATES, 2 * ctc.MEET_FRAMES))
+    with pytest.raises(RuntimeError, match="ctc_alpha"):
+        ctc_alpha(lp, out_lens)
+    with pytest.raises(RuntimeError, match="ctc_alpha_beta"):
+        ctc_alpha_beta(lp, in_lens, out_lens)
 
 
 @pytest.mark.gpu
@@ -1555,12 +1685,13 @@ def _check_capture(cuda, dh, dtype=torch.float32):
 
 
 @pytest.mark.gpu
-def test_mas_and_ctc_under_capture_equal_their_eager_launches(cuda):
+@pytest.mark.parametrize("B,T,L", [(4, 300, 40), (2, 2100, 2048)])
+def test_mas_and_ctc_under_capture_equal_their_eager_launches(cuda, B, T, L):
     """B, and C's ctc_alpha_beta + ctc_grad (through the loss's autograd
     Function), each alone in a CUDA graph, replayed on new inputs copied
     into the static ones: B bit for bit, C equal to an eager launch and
-    within the plain version's limits."""
-    B, T, L = 4, 300, 40
+    within the plain version's limits; at a default shape (the ring
+    kernels) and past the rings' reach (the cluster kernels)."""
     lp, in_lens, out_lens = _ctc_inputs(cuda, B, T, L)
     la = torch.log_softmax(torch.randn(B, T, L, device=cuda), -1)
     static_la, static_lp = la.clone(), lp.clone().requires_grad_(True)

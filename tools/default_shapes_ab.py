@@ -2,12 +2,14 @@
 
 Times A alone at ``EXTRA_FWD``'s shapes (dh 256 and 768, the dh-384
 serving batch, and dh 128 at the default model's training and serving
-batches), first, so that every tree reaches them in the same state, then
-runs ``chip_smoke.py``'s phases 3 (A
+batches) and B and C's three entries alone at ``EXTRA_CHAINS``' (texts of
+4096 and 8191 symbols), first, so that every tree reaches them in the same
+state, then runs ``chip_smoke.py``'s phases 3 (A
 at serving shapes), 7-8 (A and A' at the training shapes), 9 (MAS), 10
 (CTC), phase 32's attention part (A and A' at dh 192) and phase 33's (A and
 A' at dh 257-768, timed at dh 384 and 512 and A at the dh-384 serving
-shape), from each tree given, one process a tree, in the order given
+shape; B and C at texts of 1024-8191 symbols, timed at (16, 2048, 2000)),
+from each tree given, one process a tree, in the order given
 (parent, change, change, parent), and prints every device time logged, one
 row a timed line, each tree's runs beside the others and the change's mean
 over the parent's, and the seconds each phase took. A tree
@@ -34,6 +36,10 @@ from pathlib import Path
 # the dh-384 serving shape too, which an older tree's phase 33 may not time
 EXTRA_FWD = ((16, 2, 2048, 256, 0.2), (16, 1, 1024, 768, 0.2), (8, 1, 1024, 384, 0.0),
              (16, 2, 1024, 128, 0.2), (8, 2, 1024, 128, 0.0))
+# (B, T, L): B and C alone (no plain version), lengths drawn from [L/4, L]
+# and [T/2, T], item 0 full; at (16, 2048, 8191) the inputs of
+# chip_smoke._chains_alone, drawn alike (inline below: an older tree lacks it)
+EXTRA_CHAINS = ((16, 2048, 4096), (16, 2048, 8191))
 
 RUN = r"""
 import json, math, sys, time
@@ -64,9 +70,33 @@ for B, H, T, dh, p in json.loads(sys.argv[1]):
     log(f"A alone {B, H, T, dh} p={p}: device {ms:.4f} bound_ms={bound[0]:.4f} ({bound[1]})")
     del q, k, v
     torch.cuda.empty_cache()
+from fastspeech2_lightning_tpu_torch.ops import ctc
+from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1
+for B, T, L in json.loads(sys.argv[2]):
+    g = torch.Generator(device="cuda").manual_seed(2000 + L)
+    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+    log(f"B alone {B, T, L}: device {c.device_ms(lambda: mas_width1(la, in_lens, out_lens)):.4f}")
+    del la
+    logits = torch.cat([torch.full((B, T, 1), -1.0, device="cuda"),
+                        torch.randn(B, T, L, device="cuda", generator=g)], -1)
+    lp = torch.log_softmax(torch.where(torch.arange(L + 1, device="cuda")
+                                       > in_lens[:, None, None], ctc.NEG_INF, logits), -1)
+    del logits
+    gvec = torch.rand(B, device="cuda", generator=g)
+    alphas, betas = ctc.ctc_alpha_beta(lp, in_lens, out_lens)
+    ll = ctc._final_ll(alphas[:, -1], in_lens)
+    for name, fn in (("ctc_alpha", lambda: ctc.ctc_alpha(lp, out_lens)),
+                     ("ctc_alpha_beta", lambda: ctc.ctc_alpha_beta(lp, in_lens, out_lens)),
+                     ("ctc_grad", lambda: ctc.ctc_grad(alphas, betas, out_lens, ll, gvec))):
+        log(f"C {name} alone {B, T, L}: device {c.device_ms(fn, iters=5):.4f}")
+    del lp, alphas, betas
+    torch.cuda.empty_cache()
 seconds = {}
 for fn in (c.phase_attention, c.phase_attention_train, c.phase_mas, c.phase_ctc,
-           c._wide_attention, c._long_attention):
+           c._wide_attention, c._long_attention, c._long_mas, c._long_ctc):
     t0 = time.perf_counter()
     fn()
     seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
@@ -85,8 +115,9 @@ def device_times(line: str) -> list:
 
 def run_tree(tree: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(EXTRA_FWD)], cwd=tree, env=env,
-                          capture_output=True, text=True)
+    proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(EXTRA_FWD),
+                           json.dumps(EXTRA_CHAINS)], cwd=tree, env=env, capture_output=True,
+                          text=True)
     if proc.returncode != 0:
         sys.exit(f"{tree}: exit {proc.returncode}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     line = next(x for x in proc.stdout.splitlines() if x.startswith("AB_LINES "))
