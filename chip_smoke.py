@@ -112,8 +112,9 @@ its own entry points and fails, exiting non-zero, if any phase fails:
  24. preprocessing: a seeded wav corpus (64 utterances of 1-11 s of
     harmonic tones with vibrato, silences and noise bursts; 16 stereo
     44.1 kHz files under sox effects; one of 12 s and one of 0.3 s that the
-    length filter drops) through the ``preprocess`` CLI in a subprocess,
-    on the host with 4 workers and with the spectral pass on the card: the
+    length filter drops) through the ``preprocess`` CLI in two subprocesses
+    side by side, on the host with 4 workers and with the spectral pass on
+    the card (4 workers): the
     filelists (the same split both times), one artifact of each kind an
     utterance, frame counts that agree, the card's spec and energy against
     the host's (the JAX package's tolerances, 2e-2 and 1e-1), stats.json
@@ -142,10 +143,10 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     config exiting 0 with every kernel source built and loaded.
  27. exported serving: ``export-serving --platforms cuda`` through the CLI
     on phase 11's newest step=N/ and phase 5's HiFiGAN V1 at B 1 and 8, text
-    buckets 48 and 128 (cut from the default sweep) and the 128-frame window
-    (6 acoustic, 6 vocoder and 1 streaming program): its printed line, wall
-    and size; the artifact through ``ExportedSynthesizer`` on the card
-    (warmup runs all 13), 8 texts at B 8 and one at B 1 against the live
+    buckets 48 and 128 (cut from the default sweep), frames capped at the
+    128 bucket's 1536 and the 128-frame window (4 acoustic, 4 vocoder and 1
+    streaming program): its printed line, wall and size; the artifact
+    through ``ExportedSynthesizer`` on the card (warmup runs all 9), 8 texts at B 8 and one at B 1 against the live
     Synthesizer of the same directory (durations equal, mels, the vocoder
     programs against the eager vocoder on their inputs, the wavs before the
     live path's vocoder edge), the launches around each run (8
@@ -276,11 +277,21 @@ its own entry points and fails, exiting non-zero, if any phase fails:
     validated once on 4 seeded utterances of 1101-2040 symbols and 2048
     frames: B at L 2048, ``ctc_alpha_beta`` and ``ctc_grad`` at S up to
     4081, ``ctc_alpha`` in validation, finite losses, and every MAS
-    launch's durations equal to the plain version's on its log-attention.
-    The kernels' line gains a ``long_shapes`` record for A, A', B and C's
-    three entries (shapes held, errors, device ms, launches) and the
-    launches as ``one_head_serving``, ``one_head_training``,
-    ``long_training`` and ``long_validation``.
+    launch's durations equal to the plain version's on its log-attention;
+    (iv) the same model at ``max_length`` 9000 and ``max_mel_length`` 9216
+    trained 2 steps and validated once on 2 seeded utterances of 8193-8992
+    symbols and 9216 frames (B 2): B past 8192 columns and C past 16383
+    states, in panels, on both paths, each step's ms and the peak memory
+    logged; (v) B in panels bit for bit at L 8193, 12000 and 16385 and C's
+    entries at S 16385 and 24001 (rows and loss bit for bit), both timed
+    alone at (4, 16384, 16384) and (4, 16384, 12000) beside their plain
+    versions, ``F.ctc_loss`` and their bounds; A and A' at (1, 2, 65600,
+    128), p 0.2, held on query rows and keys across 65536 and timed (A at p
+    0 too). The kernels' line gains a ``long_shapes`` record for A, A', B
+    and C's three entries (shapes held, errors, device ms, launches, and
+    ``panels`` / ``dropout_past_65536``) and the launches as
+    ``one_head_serving``, ``one_head_training``, ``long_training``,
+    ``long_validation``, ``panel_training`` and ``panel_validation``.
 
 f32 comparisons run with TF32 off. Wall times are medians of CUDA-event
 timings of single calls (host time included where the call is shorter than
@@ -297,6 +308,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -544,14 +556,41 @@ KERNEL_SOURCES = ["attention_bwd", "attention_fwd", "ctc_banded_lse", "mas_width
                   "mrf_stage"]
 
 
-def phase_build() -> None:
+def start_build():
+    """nvcc for every kernel source, one process each, started from a thread
+    so that it runs while torch loads: a future of (name -> compiler output
+    or the RuntimeError of a source that failed, seconds), or None where no
+    nvcc is found (``phase_build`` then builds, and fails there). The
+    thread is joined at exit, so no nvcc outlives the script."""
+    from fastspeech2_lightning_tpu_torch.kernels import build
+
+    try:
+        build.find_nvcc()
+    except RuntimeError:
+        return None
+    t0 = time.time()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(lambda: (build.build_each(build.all_sources()), time.time() - t0))
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_build(early=None) -> None:
+    """Every kernel source built (``build.build``), or the builds `early`
+    (``start_build``) started waited for."""
     from fastspeech2_lightning_tpu_torch.kernels import build
 
     t0 = time.time()
     names = build.all_sources()
     check(names == KERNEL_SOURCES, f"unexpected kernel sources {names}")
-    logs = build.build(names)
-    seconds = time.time() - t0
+    if early is None:
+        logs = build.build(names)
+        seconds = time.time() - t0
+    else:
+        logs, seconds = early.result()
+        for out in logs.values():
+            if isinstance(out, RuntimeError):
+                raise out
     for name, out in logs.items():
         for line in out.splitlines():
             entry = re.search(r"entry function '(\S+)'", line)
@@ -1375,11 +1414,13 @@ def ctc_bounds(B, T, L, out_lens) -> dict:
                             + 3 * B * 4, "float32")}
 
 
-def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
+def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True,
+             exact: bool = False) -> dict:
     """Kernel C at one shape against its plain version, on log-probabilities
     made as attention_ctc_loss makes them: the gradient-free forward
     (ctc_alpha), the forward with both chains (ctc_alpha_beta) and the
-    backward (ctc_grad). With `timed`, wall and device ms of each, of their
+    backward (ctc_grad). With `exact`, the rows and the loss must equal the
+    plain version's bit for bit. With `timed`, wall and device ms of each, of their
     plain versions and of F.ctc_loss (forward, and forward + backward); the
     bound of each launch from the bytes these lengths need."""
     import torch
@@ -1415,6 +1456,7 @@ def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
     rows_scale = max(float(want_alphas[live].abs().max()), float(want_betas[live_b].abs().max()))
     rows_apart = not (torch.equal(alphas > 0.5 * ctc.NEG_INF, live)
                       and torch.equal(betas > 0.5 * ctc.NEG_INF, live_b))
+    rows_equal = torch.equal(alphas, want_alphas) and torch.equal(betas, want_betas)
     loss_rel = float(((ll - want_ll).abs() / want_ll.abs()).max())
     grad_abs = float((grad - want_grad).abs().max())
     grad_same_abs = float((grad - same_in_grad).abs().max())
@@ -1428,6 +1470,8 @@ def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
           f"of {rows_scale}")
     check(loss_rel <= 1e-5, f"{what}: loss rel {loss_rel} > 1e-5")
     check(grad_abs <= 1e-5, f"{what}: grad max-abs {grad_abs} > 1e-5")
+    check(not exact or (rows_equal and torch.equal(ll, want_ll)),
+          f"{what}: rows equal {rows_equal}, loss rel {loss_rel}: not bit for bit")
     if not timed:
         log(f"{what}: loss rel={loss_rel:.3e} grad max_abs={grad_abs:.3e} (alpha/beta rows "
             f"max_abs {rows_abs:.3e} of {rows_scale:.3e}, gradient on the same rows "
@@ -1436,7 +1480,7 @@ def ctc_case(B, T, L, in_lens, out_lens, seed: int, timed: bool = True) -> dict:
         torch.cuda.empty_cache()
         return dict(shape=[B, T, L], states=S, dtype="float32", loss_rel=loss_rel,
                     grad_max_abs=grad_abs, rows_max_abs=rows_abs, rows_scale=rows_scale,
-                    grad_same_rows_max_abs=grad_same_abs)
+                    grad_same_rows_max_abs=grad_same_abs, rows_equal=rows_equal)
 
     targets = torch.arange(1, L + 1, device="cuda").expand(B, L)
     lp_tbc = lp.transpose(0, 1).contiguous()
@@ -3568,9 +3612,15 @@ def phase_preprocess(workdir: Path) -> dict:
     log(f"preprocess: {N_WAVS + 2} wavs of 0.3-12 s and {N_STEREO} stereo 44.1 kHz wavs "
         f"written in {time.time() - t0:.1f} s")
 
-    walls = {"host": _preprocess_cli(config_path, "--host-spec", "--cpus", str(PRE_CPUS)),
-             "device": _preprocess_cli(config_path, "--on-device-spec", "--cpus",
-                                       str(PRE_CPUS), "-c", "preprocessing.save_dir=pre_dev")}
+    # the two runs side by side (each subprocess spends seconds importing and
+    # reaching the card before it works; 2 x PRE_CPUS workers on the host)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {"host": pool.submit(_preprocess_cli, config_path, "--host-spec", "--cpus",
+                                    str(PRE_CPUS)),
+                "device": pool.submit(_preprocess_cli, config_path, "--on-device-spec",
+                                      "--cpus", str(PRE_CPUS), "-c",
+                                      "preprocessing.save_dir=pre_dev")}
+        walls = {k: f.result() for k, f in runs.items()}
     host, dev = root / "pre_host", root / "pre_dev"
     n_train = int(n_kept * 0.9)
     for tree in (host, dev):
@@ -3633,7 +3683,7 @@ def phase_preprocess(workdir: Path) -> dict:
     log(f"preprocess: {n_kept} utterances, {audio_s:.1f} s of audio; host pass ({PRE_CPUS} "
         f"workers) {walls['host']:.1f} s wall, {n_kept / walls['host']:.2f} utterances/s; "
         f"device pass {walls['device']:.1f} s wall, {n_kept / walls['device']:.2f} "
-        f"utterances/s; the card's batch of {DEVICE_BATCH} x {batch.shape[1]} samples "
+        f"utterances/s (the two runs side by side); the card's batch of {DEVICE_BATCH} x {batch.shape[1]} samples "
         f"{pass_ms:.3f} ms with its copies ({pass_dev:.4f} device); card against host max-abs "
         f"spec {worst['spec']:.3e}, energy {worst['energy']:.3e}")
 
@@ -4366,6 +4416,10 @@ def phase_yaml_media(workdir: Path, vocoder_npz: Path, smi: str) -> dict:
 
 EXPORT_BATCHES = (1, 8)
 EXPORT_BUCKETS = (48, 128)  # cut from the default sweep (every 16-multiple to the chunker's max)
+# the frame cap: the 128 bucket's own estimate, so no program at the model's
+# max_mel_length (2048) is exported; only a warmup ran those (phase 11's
+# 8-step model predicts 17-49 frames a text, far from any cap)
+EXPORT_MAX_FRAMES = 1536
 EXPORT_TIMED = 10  # request timings a path, in turns
 EXPORT_MEL_REL = 1e-3  # rel-L2 of the bf16 model's mels, exported against live (expect 0)
 EXPORT_WAV_ABS = 1e-5  # max-abs of the f32 vocoder's wavs and of served mels (expect 0)
@@ -4422,9 +4476,9 @@ def _program_calls(ex) -> list:
 
 def phase_export_serving(workdir: Path, smi: str) -> dict:
     """Phase 27: ``export-serving --platforms cuda`` through the CLI on phase
-    11's newest step directory and phase 5's HiFiGAN V1 (6 acoustic, 6
+    11's newest step directory and phase 5's HiFiGAN V1 (4 acoustic, 4
     vocoder and 1 streaming program); the artifact loaded once, by ``serve``,
-    into an ``ExportedSynthesizer`` on the card (warmup runs all 13) that
+    into an ``ExportedSynthesizer`` on the card (warmup runs all 9) that
     every check runs: 8 texts at B 8 and one at
     B 1 against the live Synthesizer of the same step directory: durations
     equal, mels within EXPORT_MEL_REL, each vocoder program's wav equal to
@@ -4450,7 +4504,8 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
     voc = workdir / "hifigan_v1.npz"  # phase 5's
     art = workdir / "export" / "model.fs2x"
     argv = ["export-serving", str(step_dir), "-o", str(art), "-v", str(voc), "--platforms",
-            "cuda", "--streaming-window", str(STREAM_WINDOW)]
+            "cuda", "--streaming-window", str(STREAM_WINDOW), "--max-frames",
+            str(EXPORT_MAX_FRAMES)]
     for B in EXPORT_BATCHES:
         argv += ["-b", str(B)]
     for L in EXPORT_BUCKETS:
@@ -4466,19 +4521,37 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
           f"export-serving printed {line!r}")
 
     # the server's synthesizer is the one every check below runs: the
-    # artifact is loaded and its programs warmed up once
+    # artifact is loaded and its programs warmed up once, the count its
+    # warmup returned read from the server's log record
+    warm_counts = []
+
+    class WarmupCount(logging.Handler):
+        def emit(self, record):
+            if record.msg == "warmup ran %d exported programs":
+                warm_counts.append(record.args[0])
+
+    server_log = logging.getLogger("fastspeech2_lightning_tpu_torch.serving.server")
+    handler, level = WarmupCount(), server_log.level
+    server_log.addHandler(handler)
+    server_log.setLevel(logging.INFO)
     t0 = time.time()
-    server = serve(str(art), port=0, max_batch=BATCH, warmup=True)
+    try:
+        server = serve(str(art), port=0, max_batch=BATCH, warmup=True)
+    finally:
+        server_log.removeHandler(handler)
+        server_log.setLevel(level)
     load_s = time.time() - t0
     ex = server.synthesizer
     meta = ex.meta
     counts = {k: len(meta[k]) for k in ("acoustic", "vocoder", "vocoder_streaming")}
     check(isinstance(ex, ExportedSynthesizer) and ex.device.type == "cuda"
           and meta["platforms"] == ["cuda"]
-          and counts == {"acoustic": 6, "vocoder": 6, "vocoder_streaming": 1},
+          and meta["max_frames"] == EXPORT_MAX_FRAMES
+          and counts == {"acoustic": 4, "vocoder": 4, "vocoder_streaming": 1},
           f"the artifact: platforms {meta['platforms']}, programs {counts}, on {ex.device}")
-    n_warm = ex.warmup(BATCH)  # counts the programs serve()'s warmup ran
-    check(n_warm == sum(counts.values()), f"warmup ran {n_warm} programs of {counts}")
+    n_warm = warm_counts[0] if len(warm_counts) == 1 else None
+    check(n_warm == sum(counts.values()) == len(ex._programs),
+          f"warmup ran {warm_counts} programs of {counts}; {len(ex._programs)} loaded")
     sizes = {}
     with zipfile.ZipFile(art) as zf:
         for info in zf.infolist():
@@ -4487,6 +4560,7 @@ def phase_export_serving(workdir: Path, smi: str) -> dict:
     default_n = len(default_text_buckets(ex.config, ex.stats))
     log(f"export-serving: {sum(counts.values())} programs ({counts}) for B {EXPORT_BATCHES}, "
         f"text buckets {EXPORT_BUCKETS} (cut from the default sweep of {default_n} buckets), "
+        f"frames to {EXPORT_MAX_FRAMES}, "
         f"window {STREAM_WINDOW}, in {export_s:.1f} s; artifact {size_mb:.1f} MB (uncompressed "
         + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in sorted(sizes.items()))
         + f"); loaded and warmed up (all {n_warm} programs) in {load_s:.1f} s")
@@ -7167,6 +7241,28 @@ LONG_MAX_LENGTH = 2048
 LONG_UTTS = 4  # training utterances; as many validate
 LONG_CHARS = (1101, 2040)
 LONG_FRAMES = 2048
+# past one cluster's reach, where B and C run in panels: B held bit for bit
+# at (B, T, L) one past a panel, in the middle of one, one past two (item 1
+# ragged); C at S 16385 over T >= L frames and at S 24001 over 7000 (the
+# text too long for them, but both chains cross the panel boundary near
+# 12544 states), (B, T, L, in_len); B and C timed alone at (B, T, L)
+# (``tools/panel_timing.py`` times their plain versions and F.ctc_loss);
+# A and A' at T 65600, p 0.2, every key valid, held on query rows and keys
+# that cross 65536
+PANEL_MAS = ((2, 8200, 8193), (2, 12010, 12000), (2, 16390, 16385))
+PANEL_CTC = ((1, 8200, 8192, 8192), (1, 7000, 12000, 12000))
+PANEL_MAS_TIMED = (4, 16384, 16384)
+PANEL_CTC_TIMED = (4, 16384, 12000)
+PANEL_ATTENTION = (1, 2, 65600, 128)
+PANEL_P = 0.2
+PANEL_SPANS = ((0, 256), (65408, 65600))
+PANEL_ROWS = 2048  # the plain version's query rows a pass
+# (iv) the default model trained past 8192 symbols: 2 utterances of
+# 8193-8992 symbols and 9216 frames (and 2 validating), B 2
+PANEL_MAX_LENGTH = 9000
+PANEL_FRAMES = 9216
+PANEL_CHARS = (8193, 8992)
+PANEL_UTTS = 2
 
 
 def _long_attention() -> dict:
@@ -7232,6 +7328,187 @@ def _long_T_attention(g) -> list:
         del q, k, v, out, lse
         torch.cuda.empty_cache()
     return rows
+
+
+def _panel_attention() -> dict:
+    """(v) A and A' at PANEL_ATTENTION, p PANEL_P, bf16, every key valid
+    (past the 65536 frames the dropout hash took before it keyed on the
+    full (row, col)): one launch each, finite, held in f32 to the plain
+    version on PANEL_SPANS' query rows (A's output, A′'s dQ) and keys (dK,
+    dV), which cross 65536: PANEL_ROWS query rows a pass against every key,
+    with the mask of those rows alone (``dropout_keep_mask(rows=...)``),
+    through autograd; device ms of A (and of A at p 0 on the same inputs),
+    A′ and SDPA's forward and backward beside the bounds; the plain
+    version's forward and backward over every row timed as it runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastspeech2_lightning_tpu_torch.ops.attention import (
+        attention_bwd, attention_fwd, dropout_keep_mask,
+    )
+
+    B, H, T, dh = PANEL_ATTENTION
+    p = PANEL_P
+    g = torch.Generator(device="cuda").manual_seed(SEED + 233)
+    q, k, v, do = (torch.randn(B, H, T, dh, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.zeros(B, T, device="cuda")
+    seed = torch.tensor([2333], dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(dh)
+    (out, lse), n_fwd = _launched(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                                        with_lse=True))
+    grads, n_bwd = _launched(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do))
+    what = f"attention at {B, H, T, dh} p {p}"
+    check(n_fwd == (1, 0) and n_bwd == (0, 1), f"{what}: launches {n_fwd}, {n_bwd}")
+    check(all(bool(torch.isfinite(t).all()) for t in (out, *grads)), f"{what}: not finite")
+
+    def rows(qc, kf, vf, r0):
+        s = torch.matmul(qc, kf.transpose(-1, -2)) * scale + bias[:, None, None, :]
+        prob = torch.softmax(s, dim=-1)
+        keep = dropout_keep_mask(int(seed), B, H, T, p, device="cuda",
+                                 rows=(r0, r0 + qc.shape[2]))
+        return torch.matmul(torch.where(keep, prob / (1.0 - p), 0.0), vf)
+
+    # pass boundaries PANEL_ROWS apart, each span inside one pass
+    bounds = sorted({x for x in range(0, T, PANEL_ROWS)
+                     if not any(a < x < b for a, b in PANEL_SPANS)}
+                    | {a for a, _ in PANEL_SPANS} | {T})
+    check(all(b - a <= PANEL_ROWS for a, b in PANEL_SPANS), f"spans {PANEL_SPANS}")
+    kf, vf = (t.float().requires_grad_(True) for t in (k, v))
+    errs = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    t0 = time.perf_counter()
+    for r0, r1 in zip(bounds, bounds[1:]):
+        qc = q[:, :, r0:r1].float().requires_grad_(True)
+        want = rows(qc, kf, vf, r0)
+        want.backward(do[:, :, r0:r1].float())
+        for a, b in PANEL_SPANS:
+            if r0 <= a and b <= r1:
+                errs["out"] = max(errs["out"], errors(out[:, :, a:b],
+                                                      want.detach()[:, :, a - r0:b - r0])[1])
+                errs["dq"] = max(errs["dq"], errors(grads[0][:, :, a:b],
+                                                    qc.grad[:, :, a - r0:b - r0])[1])
+        del qc, want
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3  # the forward and backward over every row
+    for a, b in PANEL_SPANS:
+        errs["dk"] = max(errs["dk"], errors(grads[1][:, :, a:b], kf.grad[:, :, a:b])[1])
+        errs["dv"] = max(errs["dv"], errors(grads[2][:, :, a:b], vf.grad[:, :, a:b])[1])
+    check(max(errs.values()) <= 2e-2, f"{what}: rel-L2 {errs} > 2e-2 on {PANEL_SPANS}")
+    del kf, vf
+    torch.cuda.empty_cache()
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=p, scale=scale)
+    ms = dict(
+        fwd=device_ms(lambda: attention_fwd(q, k, v, bias, scale, p=p, seed=seed,
+                                            with_lse=True), iters=5),
+        fwd_p0=device_ms(lambda: attention_fwd(q, k, v, bias, scale, with_lse=True), iters=5),
+        bwd=device_ms(lambda: attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do),
+                      iters=3),
+        sdpa=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=p,
+                                                              scale=scale), iters=5),
+        sdpa_bwd=device_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                        retain_graph=True), iters=3))
+    keys = float(B * H * T) * T * dh
+    f_bound = bound_ms(4.0 * keys, 4 * B * H * T * dh * 2 + B * T * 4, "bfloat16")
+    b_bound = bound_ms(10.0 * keys, 8 * B * H * T * dh * 2 + B * T * 4 + 2 * B * H * T * 4,
+                       "bfloat16")
+    log(f"phase 33 {what}: A and A' held on rows and keys {PANEL_SPANS}: rel-L2 out "
+        f"{errs['out']:.3e}, dQ {errs['dq']:.3e}, dK {errs['dk']:.3e}, dV {errs['dv']:.3e}; "
+        f"A device {ms['fwd']:.4f} (at p 0 {ms['fwd_p0']:.4f}, ratio "
+        f"{ms['fwd'] / ms['fwd_p0']:.3f}) bound_ms={f_bound[0]:.4f} ({f_bound[1]}), SDPA "
+        f"{ms['sdpa']:.4f}; A' device {ms['bwd']:.4f} bound_ms={b_bound[0]:.4f} "
+        f"({b_bound[1]}), SDPA backward {ms['sdpa_bwd']:.4f}; the plain version's forward "
+        f"and backward over every row {plain_ms:.1f} ms")
+    del q, k, v, do, out, lse, grads, o_lib, qg, kg, vg
+    torch.cuda.empty_cache()
+    base = dict(shape=[B, H, T, dh], dtype="bfloat16", p=p, mask="full",
+                spans=[list(s) for s in PANEL_SPANS])
+    return dict(
+        fwd=dict(base, max_rel_l2=errs["out"], device_ms=ms["fwd"], p0_device_ms=ms["fwd_p0"],
+                 library_device_ms=ms["sdpa"], bound_ms=f_bound[0], bound_by=f_bound[1]),
+        bwd=dict(base, max_rel_l2=max(errs["dq"], errs["dk"], errs["dv"]),
+                 device_ms=ms["bwd"], plain_ms=plain_ms, library_device_ms=ms["sdpa_bwd"],
+                 library="SDPA backward alone", bound_ms=b_bound[0], bound_by=b_bound[1]))
+
+
+def _panel_chains() -> dict:
+    """(v) Texts past one cluster's reach, which B and C run in panels: B
+    bit for bit at PANEL_MAS; C's three entries at PANEL_CTC (rows and loss
+    bit for bit, the gradient within 1e-5); B at PANEL_MAS_TIMED and C at
+    PANEL_CTC_TIMED timed alone (device ms) beside their bounds, on
+    ``chain_lengths``. Their plain versions there
+    take seconds a call (6 s for B, 24 s for C's two chains):
+    ``tools/panel_timing.py`` times them and ``F.ctc_loss``."""
+    import torch
+
+    from fastspeech2_lightning_tpu_torch.ops import ctc
+    from fastspeech2_lightning_tpu_torch.ops.mas import (
+        cluster_layout, mas_width1, mas_width1_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 230)
+    mas_held = []
+    for B, T, L in PANEL_MAS:
+        la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
+        in_lens = torch.tensor([L, L - 7][:B], device="cuda")
+        out_lens = torch.tensor([T, T - 13][:B], device="cuda")
+        hard, dur = mas_width1(la, in_lens, out_lens)
+        torch.cuda.synchronize()
+        want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+        check(torch.equal(hard, want_hard) and torch.equal(dur, want_dur),
+              f"mas_width1 {B, T, L}: path differs from the plain version")
+        mas_held.append(dict(shape=[B, T, L], exact=True, panels=cluster_layout(L)["panels"]))
+        del la, hard, dur, want_hard, want_dur
+    torch.cuda.empty_cache()
+
+    B, T, L = PANEL_MAS_TIMED
+    gen, in_lens, out_lens = chain_lengths(B, T, L)
+    la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=gen), -1)
+    alone = device_ms(lambda: mas_width1(la, in_lens, out_lens), iters=5)
+    bound = bound_ms(0.0, 4 * (int((in_lens * out_lens).sum()) + B * T * L + B * L), "float32")
+    layout = cluster_layout(L)
+    log(f"phase 33 mas_width1 in panels: held bit for bit at {[h['shape'] for h in mas_held]} "
+        f"({[h['panels'] for h in mas_held]} panels); alone at B={B} T={T} L={L} "
+        f"({layout['panels']} panels of {layout['blocks']} blocks): device {alone:.4f} "
+        f"bound_ms={bound[0]:.4f} ({bound[1]})")
+    mas_timed = dict(shape=[B, T, L], dtype="float32", device_ms=alone, bound_ms=bound[0],
+                     bound_by=bound[1], panels=layout["panels"])
+    del la
+    torch.cuda.empty_cache()
+
+    ctc_held = [ctc_case(B, T, L, [n_in], [T], SEED + 231 + i, timed=False, exact=True)
+                for i, (B, T, L, n_in) in enumerate(PANEL_CTC)]
+    B, T, L = PANEL_CTC_TIMED
+    gen, in_lens, out_lens = chain_lengths(B, T, L)
+    logits = torch.cat([torch.full((B, T, 1), -1.0, device="cuda"),
+                        torch.randn(B, T, L, device="cuda", generator=gen)], -1)
+    lp = torch.log_softmax(torch.where(torch.arange(L + 1, device="cuda")
+                                       > in_lens[:, None, None], ctc.NEG_INF, logits), -1)
+    del logits
+    gvec = torch.rand(B, device="cuda", generator=gen)
+    alphas, betas = ctc.ctc_alpha_beta(lp, in_lens, out_lens)
+    ll = ctc._final_ll(alphas[:, -1], in_lens)
+    check(bool(torch.isfinite(ll).all()), f"ctc_alpha_beta at {B, T, L}: a loss not finite")
+    fns = {"fwd": lambda: ctc.ctc_alpha(lp, out_lens),
+           "fwd_grad": lambda: ctc.ctc_alpha_beta(lp, in_lens, out_lens),
+           "bwd": lambda: ctc.ctc_grad(alphas, betas, out_lens, ll, gvec)}
+    bounds = ctc_bounds(B, T, L, out_lens)
+    rows = {k: dict(shape=[B, T, L], dtype="float32", device_ms=device_ms(fn, iters=3),
+                    bound_ms=bounds[k][0], bound_by=bounds[k][1])
+            for k, fn in fns.items()}
+    layouts = {chains: ctc.cluster_layout(chains, L) for chains in (B, 2 * B)}
+    log(f"phase 33 C in panels: held bit for bit at {[h['shape'] for h in ctc_held]} (S "
+        f"{[h['states'] for h in ctc_held]}); alone at B={B} T={T} L={L} (S {2 * L + 1}; "
+        + "; ".join(f"{n} chains: {d['panels']} panels of {d['blocks']} blocks of {d['warps']} "
+                    f"warps" for n, d in layouts.items())
+        + "): device ms "
+        + ", ".join(f"{k} {r['device_ms']:.4f} (bound {r['bound_ms']:.4f}, {r['bound_by']})"
+                    for k, r in rows.items()))
+    del lp, alphas, betas
+    torch.cuda.empty_cache()
+    return dict(mas=dict(held=mas_held, timed=mas_timed),
+                ctc=dict(held=ctc_held, timed=rows,
+                         panels={n: d["panels"] for n, d in layouts.items()}))
 
 
 def _long_mas() -> dict:
@@ -7314,6 +7591,20 @@ def _long_ctc() -> dict:
     return dict(held=held, timed=timed)
 
 
+def chain_lengths(B: int, T: int, L: int):
+    """The lengths B and C are timed alone on (``tools/default_shapes_ab.py``'s
+    ``EXTRA_CHAINS`` draw them alike): a generator seeded 2000 + L, in_lens
+    from [L/4, L] and out_lens from [T/2, T], item 0 full. Returns the
+    generator too: the inputs are drawn on after."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(2000 + L)
+    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
+    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+    in_lens[0], out_lens[0] = L, T
+    return g, in_lens, out_lens
+
+
 def _chains_alone() -> dict:
     """B and C's three entries timed alone (device ms, no plain version) at
     LONG_KERNEL_ONLY, on inputs drawn as ``tools/default_shapes_ab.py``
@@ -7327,10 +7618,7 @@ def _chains_alone() -> dict:
     from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1
 
     B, T, L = LONG_KERNEL_ONLY
-    g = torch.Generator(device="cuda").manual_seed(2000 + L)
-    in_lens = torch.randint(L // 4, L + 1, (B,), device="cuda", generator=g)
-    out_lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
-    in_lens[0], out_lens[0] = L, T
+    g, in_lens, out_lens = chain_lengths(B, T, L)
     la = torch.log_softmax(torch.randn(B, T, L, device="cuda", generator=g), -1)
     alone = device_ms(lambda: mas_width1(la, in_lens, out_lens), iters=10)
     bound = bound_ms(0.0, 4 * (int((in_lens * out_lens).sum()) + B * T * L + B * L), "float32")
@@ -7383,32 +7671,44 @@ def _log_ctc_layouts() -> None:
         for k, d in out.items()))
 
 
-def _long_training(workdir: Path) -> dict:
+def _long_training(workdir: Path, panels: bool = False) -> dict:
     """(iii) The default model at ``model.max_length`` 2048 (bf16, B 16):
     LONG_STEPS train steps and one validation on LONG_UTTS seeded
     utterances of 1101-2040 symbols and 2048 frames each (and as many
     validating), through the ``train`` CLI. B runs at L up to 2048, C's
     chains at S up to 4081; the durations of every MAS launch equal the
-    plain version's on the log-attention it was given."""
+    plain version's on the log-attention it was given. With `panels`, (iv):
+    the same at ``max_length`` PANEL_MAX_LENGTH and ``max_mel_length``
+    PANEL_FRAMES on PANEL_UTTS utterances of PANEL_CHARS symbols and
+    PANEL_FRAMES frames (as many validating), B 2: B past PANEL_L columns and
+    C past PANEL_S states, both in panels, on the training and the
+    validation paths."""
     import numpy as np
     import torch
 
     from fastspeech2_lightning_tpu_torch import cli
     from fastspeech2_lightning_tpu_torch.models import variance_adaptor
     from fastspeech2_lightning_tpu_torch.ops import ctc
-    from fastspeech2_lightning_tpu_torch.ops.mas import mas_width1_reference
+    from fastspeech2_lightning_tpu_torch.ops.mas import PANEL_L, mas_width1_reference
 
+    version = "panels" if panels else "long"
+    max_length, utts, chars, frames, batch, seed = (
+        (PANEL_MAX_LENGTH, PANEL_UTTS, PANEL_CHARS, PANEL_FRAMES, PANEL_UTTS, SEED + 34)
+        if panels else (LONG_MAX_LENGTH, LONG_UTTS, LONG_CHARS, LONG_FRAMES, 16, SEED + 33))
     cfg = model_config("bfloat16")
-    cfg["model"]["max_length"] = LONG_MAX_LENGTH
-    write_corpus(workdir / "long_corpus", cfg, np.random.default_rng(SEED + 33),
-                 n_train=LONG_UTTS, n_val=LONG_UTTS, chars=LONG_CHARS, frames=LONG_FRAMES)
-    cfg["preprocessing"]["save_dir"] = "long_corpus"
-    cfg["training"].update(batch_size=16, training_filelist="long_corpus/training_filelist.psv",
-                           validation_filelist="long_corpus/validation_filelist.psv",
+    cfg["model"]["max_length"] = max_length
+    if panels:
+        cfg["model"]["max_mel_length"] = PANEL_FRAMES
+    write_corpus(workdir / f"{version}_corpus", cfg, np.random.default_rng(seed),
+                 n_train=utts, n_val=utts, chars=chars, frames=frames)
+    cfg["preprocessing"]["save_dir"] = f"{version}_corpus"
+    cfg["training"].update(batch_size=batch,
+                           training_filelist=f"{version}_corpus/training_filelist.psv",
+                           validation_filelist=f"{version}_corpus/validation_filelist.psv",
                            val_check_interval=LONG_STEPS, save_top_k_ckpts=1,
                            async_checkpoint=False, ckpt_epochs=0)
-    cfg["training"]["logger"].update(save_dir="logs", name="smoke", version="long")
-    path = workdir / "config_long.json"
+    cfg["training"]["logger"].update(save_dir="logs", name="smoke", version=version)
+    path = workdir / f"config_{version}.json"
     path.write_text(json.dumps(cfg))
 
     mas_calls, ctc_calls = [], []
@@ -7421,10 +7721,12 @@ def _long_training(workdir: Path) -> dict:
 
     def launch(entry, dev, *args):
         # (B, T, L) end ctc_grad's arguments and come before the chains' layout
-        ctc_calls.append((entry, args[-3:] if entry == "ctc_grad" else args[-6:-3]))
+        n = len(ctc._LAYOUT)
+        ctc_calls.append((entry, args[-3:] if entry == "ctc_grad" else args[-3 - n:-n]))
         return real_launch(entry, dev, *args)
 
     variance_adaptor.mas_width1, ctc._launch = mas, launch
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     try:
         tl, vl = _train_and_validation_launches(
@@ -7433,7 +7735,8 @@ def _long_training(workdir: Path) -> dict:
         variance_adaptor.mas_width1, ctc._launch = real_mas, real_launch
     torch.cuda.synchronize()
     wall = time.time() - t0
-    log_dir = workdir / "logs" / "smoke" / "long"
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log_dir = workdir / "logs" / "smoke" / version
     rows, val_rows = _rows(log_dir / "train_log.jsonl"), _rows(log_dir / "val_log.jsonl")
     check(len(rows) == LONG_STEPS and all(all(math.isfinite(r[k]) for k in LOSS_KEYS)
                                           for r in rows), f"long training logged {rows}")
@@ -7450,26 +7753,36 @@ def _long_training(workdir: Path) -> dict:
     mas_L = max(la.shape[2] for la, *_ in mas_calls)
     states = {e: max((2 * a[2] + 1 for name, a in ctc_calls if name == e), default=0)
               for e in ("ctc_alpha", "ctc_alpha_beta", "ctc_grad")}
-    check(mas_L == LONG_MAX_LENGTH and max(r["shape"][1] for r in rows) == LONG_MAX_LENGTH,
-          f"MAS at L up to {mas_L}, steps {[r['shape'] for r in rows]}")
-    check(states["ctc_alpha_beta"] >= 2 * 2040 + 1 and states["ctc_grad"] >= 2 * 2040 + 1,
-          f"C at S up to {states}")
+    L_max = max(r["shape"][1] for r in rows)
+    if panels:  # past one cluster on both paths
+        check(mas_L == L_max > PANEL_L and all(la.shape[2] > PANEL_L for la, *_ in mas_calls),
+              f"MAS at L {[la.shape[2] for la, *_ in mas_calls]}, steps "
+              f"{[r['shape'] for r in rows]}: not all past {PANEL_L}")
+        check(min(states.values()) > ctc.PANEL_S, f"C at S up to {states}: not past "
+              f"{ctc.PANEL_S} on both paths")
+    else:
+        check(mas_L == LONG_MAX_LENGTH and L_max == LONG_MAX_LENGTH,
+              f"MAS at L up to {mas_L}, steps {[r['shape'] for r in rows]}")
+        check(states["ctc_alpha_beta"] >= 2 * 2040 + 1 and states["ctc_grad"] >= 2 * 2040 + 1,
+              f"C at S up to {states}")
     for la, in_lens, out_lens, dur in mas_calls:
         _, want = mas_width1_reference(la, in_lens, out_lens)
         check(torch.equal(dur, want), f"MAS durations at {tuple(la.shape)} differ from the "
               f"plain version's on the same log-attention")
     shapes = [r["shape"] for r in rows]
-    log(f"phase 33 long texts: {LONG_STEPS} steps of the default model at max_length "
-        f"{LONG_MAX_LENGTH}, B x L x T {shapes}, "
+    log(f"phase 33 {version} texts: {LONG_STEPS} steps of the default model at max_length "
+        f"{max_length}, B x L x T {shapes}, "
         + ", ".join(f"{r['ms']:.1f} ms" for r in rows)
-        + f"; one validation of {n_val} batch(es), total {val_rows[0]['total']:.4f}; MAS at L up "
-        f"to {mas_L} ({len(mas_calls)} calls, durations equal to the plain version's), C at S "
-        f"up to {states}; launches training {tl}, validation {vl}; {wall:.1f} s")
+        + f"; peak {peak_gib:.2f} GiB; one validation of {n_val} batch(es), total "
+        f"{val_rows[0]['total']:.4f}; MAS at L up to {mas_L} ({len(mas_calls)} calls, "
+        f"durations equal to the plain version's), C at S up to {states}; launches training "
+        f"{tl}, validation {vl}; {wall:.1f} s")
     del mas_calls
     torch.cuda.empty_cache()
     return dict(launches=tl, validation_launches=vl, shapes=shapes,
                 step_ms=[r["ms"] for r in rows], totals=[r["total"] for r in rows],
-                validation_total=val_rows[0]["total"], mas_max_L=mas_L, ctc_max_S=states)
+                validation_total=val_rows[0]["total"], mas_max_L=mas_L, ctc_max_S=states,
+                peak_gib=peak_gib)
 
 
 def phase_long_shapes(workdir: Path, smi: str) -> dict:
@@ -7478,8 +7791,11 @@ def phase_long_shapes(workdir: Path, smi: str) -> dict:
     (``_long_attention``, ``_long_mas``, ``_long_ctc``, ``_chains_alone``);
     the d-384 model
     at one head (dh 384) served and trained; the default model trained at
-    ``max_length`` 2048 (``_long_training``). Needs phase 11's corpus and
-    config.json in `workdir`."""
+    ``max_length`` 2048 (``_long_training``); B and C past one cluster's
+    reach (in panels) and A and A′ with dropout past 65536 frames held and
+    timed (``_panel_chains``, ``_panel_attention``), and the default model
+    trained past 8192 symbols (``_long_training(panels=True)``). Needs phase
+    11's corpus and config.json in `workdir`."""
     t0 = time.time()
     out = dict(attention=_long_attention(), mas=_long_mas(), ctc=_long_ctc())
     alone = _chains_alone()
@@ -7488,6 +7804,8 @@ def phase_long_shapes(workdir: Path, smi: str) -> dict:
     out["one_head_training"] = _wide_training(workdir, heads=LONG_HEADS, steps=LONG_STEPS,
                                               label="phase 33")
     out["long_training"] = _long_training(workdir)
+    out["panels"] = dict(_panel_chains(), attention=_panel_attention())
+    out["panel_training"] = _long_training(workdir, panels=True)
     out["card"] = smi
     out["seconds"] = time.time() - t0
     log(f"phase 33: {out['seconds']:.1f} s ({smi})")
@@ -7495,13 +7813,14 @@ def phase_long_shapes(workdir: Path, smi: str) -> dict:
 
 
 def main() -> None:
+    if not (HERE / PORT / "__init__.py").is_file():
+        fail(f"{PORT}/ is not beside this script: run it from a checkout of the repository")
+    sys.path.insert(0, str(HERE))
+    early_build = start_build()  # nvcc runs while torch loads and reaches the card
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on a CUDA card")
-    if not (HERE / PORT / "__init__.py").is_file():
-        fail(f"{PORT}/ is not beside this script: run it from a checkout of the repository")
-    sys.path.insert(0, str(HERE))
     import numpy as np
 
     t_start = time.time()
@@ -7515,7 +7834,7 @@ def main() -> None:
         return out
 
     smi = timed(phase_device)
-    timed(phase_build)
+    timed(phase_build, early_build)
     att = timed(phase_attention)[0]
     mrf_rows = timed(phase_mrf)
     timed(phase_attention_train)
@@ -7590,6 +7909,8 @@ def main() -> None:
             paths["one_head_serving"] = long["one_head_serving"]["launches"][name]
         paths["long_training"] = long["long_training"]["launches"][name]
         paths["long_validation"] = long["long_training"]["validation_launches"][name]
+        paths["panel_training"] = long["panel_training"]["launches"][name]
+        paths["panel_validation"] = long["panel_training"]["validation_launches"][name]
         if name == "attention_fwd":
             paths["exported_serving"] = sum(run["launches"][name]
                                             for run in exported["runs"].values())
@@ -7604,16 +7925,21 @@ def main() -> None:
 
     def long_launches(name):
         """The launches of `name` on phase 33's paths."""
-        keys = ("one_head_training", "one_head_serving", "long_training", "long_validation")
+        keys = ("one_head_training", "one_head_serving", "long_training", "long_validation",
+                "panel_training", "panel_validation")
         return sum(n for k, n in by_path(name).items() if k in keys)
 
     def ctc_long(name, part):
         timed_row = long["ctc"]["timed"]
+        panels = long["panels"]["ctc"]
         return dict(held=long["ctc"]["held"], timed=dict(
             timed_row[part], shape=timed_row["shape"],
             library=timed_row["library"]["lib_fwd_bwd" if part == "bwd" else "lib_fwd"]),
             kernel_only=long["ctc"]["kernel_only"][part], launches=long_launches(name),
-            max_states=long["long_training"]["ctc_max_S"][name])
+            max_states=long["long_training"]["ctc_max_S"][name],
+            panels=dict(held=panels["held"], timed=panels["timed"][part],
+                        panels_by_chains=panels["panels"],
+                        max_states_trained=long["panel_training"]["ctc_max_S"][name]))
 
     def ctc_entry(name, part, library, library_key, **extra):
         lib = ctc["library"][library_key]
@@ -7631,6 +7957,7 @@ def main() -> None:
                    launches=long_launches(f"attention_{part}"))
         if part == "fwd":  # A at T 65600, p 0
             out["past_dropout_t_limit"] = long["attention"]["long_t"]
+        out["dropout_past_65536"] = long["panels"]["attention"][part]  # p 0.2
         return out
 
     def entry(name, row, source, replaces, n, **extra):
@@ -7666,7 +7993,9 @@ def main() -> None:
               launches_by_path=by_path("mas_width1"),
               device_ms=mas["device_ms"], training_shape=mas["training_shape"],
               long_shapes=dict(long["mas"], launches=long_launches("mas_width1"),
-                               max_text_length=long["long_training"]["mas_max_L"])),
+                               max_text_length=long["long_training"]["mas_max_L"],
+                               panels=dict(long["panels"]["mas"], max_text_length_trained=long[
+                                   "panel_training"]["mas_max_L"]))),
         # the training forward (both chains, one launch) and backward, and the
         # validation forward (the alpha chain alone), at the top bucket; all
         # buckets and (16, 1024, 160) ride along
@@ -7731,7 +8060,8 @@ def main() -> None:
                       "distributed": dist, "data_parallel": dp, "steps_per_call": spc,
                       "wide_heads": {k: wide[k] for k in ("serving", "training", "seconds")},
                       "long_shapes": {k: long[k] for k in ("one_head_serving", "one_head_training",
-                                                           "long_training", "seconds")}}))
+                                                           "long_training", "panel_training",
+                                                           "seconds")}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

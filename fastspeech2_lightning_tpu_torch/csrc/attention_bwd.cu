@@ -305,6 +305,10 @@ __device__ __forceinline__ void bwd_scores(float (&sp)[NB][4], float (&dpt)[NB][
                                            float sm_scale, float log2_T, const Dropout& drop,
                                            int t4) {
   using namespace fs2::tc;
+  // the query tile's part of the dropout hash (common.cuh dropout_bits): the
+  // high halves of its rows and of these keys (a 16-row group)
+  const uint32_t hq = DROP ? fs2::dropout_high(q0, kr[0]) : 0u;
+  const uint32_t kxt[2] = {kx[0] ^ hq, kx[1] ^ hq};
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
 #pragma unroll
@@ -319,7 +323,7 @@ __device__ __forceinline__ void bwd_scores(float (&sp)[NB][4], float (&dpt)[NB][
         p = fast_exp2((x - lq) * kLog2e - (lq < kNoKeyLse ? log2_T : 0.f));
       }
       const bool keep =
-          !DROP || fs2::mix32((static_cast<uint32_t>(qrow) << 16) ^ kx[r]) >= drop.thresh;
+          !DROP || fs2::mix32((static_cast<uint32_t>(qrow) << 16) ^ kxt[r]) >= drop.thresh;
       sp[n][e] = keep ? p * drop.keep_scale : 0.f;
       dpt[n][e] = p * ((keep ? dpt[n][e] * drop.keep_scale : 0.f) - Dt[c]);
     }
@@ -460,7 +464,7 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     kr[r] = k0 + kw * 16 + g + 8 * r;
     kbias[r] = kr[r] < T_len ? key_bias[static_cast<long long>(b) * T_len + kr[r]] : 0.f;
-    kx[r] = static_cast<uint32_t>(kr[r]) ^ key;
+    kx[r] = (static_cast<uint32_t>(kr[r]) & 0xffffu) ^ key;
   }
   const float log2_T = log2f(static_cast<float>(T_len));
 
@@ -738,7 +742,7 @@ attention_bwd_tc_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     kr[r] = k0 + kw * 16 + g + 8 * r;
     kbias[r] = kr[r] < T_len ? key_bias[static_cast<long long>(b) * T_len + kr[r]] : 0.f;
-    kx[r] = static_cast<uint32_t>(kr[r]) ^ key;
+    kx[r] = (static_cast<uint32_t>(kr[r]) & 0xffffu) ^ key;
   }
   const float log2_T = log2f(static_cast<float>(T_len));
 
@@ -885,7 +889,7 @@ attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     kr[r] = k0 + kw * 16 + g + 8 * r;
     kbias[r] = kr[r] < T_len ? key_bias[static_cast<long long>(b) * T_len + kr[r]] : 0.f;
-    kx[r] = static_cast<uint32_t>(kr[r]) ^ key;
+    kx[r] = (static_cast<uint32_t>(kr[r]) & 0xffffu) ^ key;
   }
   const float log2_T = log2f(static_cast<float>(T_len));
 
@@ -1437,8 +1441,7 @@ extern "C" int attention_bwd_column_groups(int dtype, int dh) {
 // and dq_acc are scratch (contiguous) that the pre-pass kernels fill:
 // kv_end[b], D = rowsum(dO * O), and dq_acc zeroed. Launches the two
 // pre-passes and the kernel on `stream`. `seed` may be null when
-// thresh == 0. T is bounded only with dropout (thresh > 0): T <= 65536, as
-// in attention_fwd.cu. Returns a cudaError_t code.
+// thresh == 0. Returns a cudaError_t code.
 extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const void* o, const void* key_bias,
                              void* kv_end, const void* lse, void* dsum, const void* seed,
@@ -1451,8 +1454,8 @@ extern "C" int attention_bwd(int dtype, const void* q, const void* k, const void
                              float sm_scale, long long thresh, float keep_scale,
                              int row_offset, int head_offset, int heads_total,
                              void* stream) {
-  if (B <= 0 || H <= 0 || T_len <= 0 || (thresh > 0 && T_len > fs2::kMaxDropoutT) ||
-      thresh < 0 || thresh > 0xffffffffLL || (thresh > 0 && seed == nullptr) ||
+  if (B <= 0 || H <= 0 || T_len <= 0 || thresh < 0 || thresh > 0xffffffffLL ||
+      (thresh > 0 && seed == nullptr) ||
       kv_end == nullptr || row_offset < 0 || head_offset < 0 || head_offset + H > heads_total)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, o, static_cast<const float*>(key_bias),

@@ -139,9 +139,8 @@
 // its tiles take 214 KB. Above 256, one group of 128 output columns a
 // block, S summed over dh in 64-wide chunks, recomputed in every group.
 //
-// T: a block's rows and keys are ints; only the dropout hash bounds T, at
-// 65536 (common.cuh kMaxDropoutT), and the C entry refuses more only when
-// thresh > 0. At p = 0 no bit is drawn and T may be larger.
+// T: a block's rows and keys are ints, and the dropout hash keys on the
+// full (row, col) (common.cuh dropout_bits), so T is not bounded at any p.
 
 #include <cuda.h>
 #include <math.h>
@@ -194,7 +193,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[tc_fwd::BK / 8][4],
                                              uint32_t (&pa)[tc_fwd::BK / 16][4],
                                              const float* Bt, int k0, int T_len,
                                              float sm_scale, const uint32_t (&rk)[2],
-                                             uint32_t thresh, int t4) {
+                                             int row0, uint32_t thresh, int t4) {
   using namespace fs2::tc;
   constexpr int BK = tc_fwd::BK;
   constexpr int NB_S = BK / 8;  // n-blocks of S
@@ -214,6 +213,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[tc_fwd::BK / 8][4],
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
   }
+  // the tile's part of the dropout hash (common.cuh dropout_bits): the high
+  // halves of its rows and keys, and the low half of its first key
+  const uint32_t hk = DROP ? fs2::dropout_high(row0, k0) : 0u;
+  const uint32_t rkt[2] = {rk[0] ^ hk, rk[1] ^ hk};
+  const uint32_t c_lo = static_cast<uint32_t>(k0) & 0xffffu;
   float alpha[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -233,8 +237,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[tc_fwd::BK / 8][4],
       float p = fast_exp2((s[n][e] - m_run[r]) * kLog2e);
       l_run[r] += p;
       if (DROP) {
-        const uint32_t col = static_cast<uint32_t>(k0 + n * 8 + 2 * t4 + (e & 1));
-        if (fs2::mix32(rk[r] ^ col) < thresh) p = 0.f;
+        const uint32_t col = c_lo + static_cast<uint32_t>(n * 8 + 2 * t4 + (e & 1));
+        if (fs2::mix32(rkt[r] ^ col) < thresh) p = 0.f;
       }
       s[n][e] = p;
     }
@@ -274,10 +278,11 @@ __device__ __forceinline__ void softmax_pv_tile(float (&s)[tc_fwd::BK / 8][4],
                                                 float (&l_run)[2], const float* Bt,
                                                 const bf16* Vt, int k0, int T_len,
                                                 float sm_scale, const uint32_t (&rk)[2],
-                                                uint32_t thresh, int t4) {
+                                                int row0, uint32_t thresh, int t4) {
   using namespace fs2::tc;
   uint32_t pa[tc_fwd::BK / 16][4];
-  softmax_tile<NO, DROP>(s, acc, m_run, l_run, pa, Bt, k0, T_len, sm_scale, rk, thresh, t4);
+  softmax_tile<NO, DROP>(s, acc, m_run, l_run, pa, Bt, k0, T_len, sm_scale, rk, row0, thresh,
+                         t4);
   wgmma_fence();
   issue_pv<NO>(acc, pa, Vt);
   wgmma_commit();
@@ -393,7 +398,7 @@ attention_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_commit();
     wgmma_wait<0>();
 
-    softmax_pv_tile<DH, DROP>(s, acc, m_run, l_run, Bt, Vt, k0, T_len, sm_scale, rk,
+    softmax_pv_tile<DH, DROP>(s, acc, m_run, l_run, Bt, Vt, k0, T_len, sm_scale, rk, row0,
                               drop.thresh, t4);
     __syncthreads();  // stage j & 1 is consumed before tile j + 2 refills it
   }
@@ -613,8 +618,8 @@ attention_fwd_tc_pair(const __grid_constant__ CUtensorMap qmap,
     prefetch_bias(0, b0, b1);
     wgmma_wait<0>();
     release(0, b0, b1);
-    softmax_tile<DH, DROP>(s, acc, m_run, l_run, pa, Bs, 0, T_len, sm_scale, rk, drop.thresh,
-                           t4);
+    softmax_tile<DH, DROP>(s, acc, m_run, l_run, pa, Bs, 0, T_len, sm_scale, rk, row0,
+                           drop.thresh, t4);
   }
   for (int j = 1; j < n_tiles; ++j) {
     float b0 = 0.f, b1 = 0.f;
@@ -632,7 +637,7 @@ attention_fwd_tc_pair(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait<0>();
     release(j, b0, b1);
     softmax_tile<DH, DROP>(s, acc, m_run, l_run, pa, Bs + (j % (2 * S)) * BK, j * BK, T_len,
-                           sm_scale, rk, drop.thresh, t4);
+                           sm_scale, rk, row0, drop.thresh, t4);
   }
   mbar_wait(v_full + (n_tiles - 1) % S, ((n_tiles - 1) / S) & 1);
   wgmma_fence();
@@ -864,7 +869,11 @@ attention_fwd_tc_split(const __grid_constant__ CUtensorMap qmap,
       m_run[r] = m_new;
       l_run[r] *= alpha[r];
     }
-    // kept unnormalized exponentials, bf16, into the P tile
+    // kept unnormalized exponentials, bf16, into the P tile; the hash's
+    // part of this warpgroup's keys as in softmax_tile
+    const uint32_t hk = DROP ? fs2::dropout_high(row0, kw0) : 0u;
+    const uint32_t rkt[2] = {rk[0] ^ hk, rk[1] ^ hk};
+    const uint32_t c_lo = static_cast<uint32_t>(kw0) & 0xffffu;
 #pragma unroll
     for (int n = 0; n < NB_S; ++n) {
 #pragma unroll
@@ -873,8 +882,8 @@ attention_fwd_tc_split(const __grid_constant__ CUtensorMap qmap,
         float p = fast_exp2((s[n][e] - m_run[r]) * kLog2e);
         l_run[r] += p;
         if (DROP) {
-          const uint32_t col = static_cast<uint32_t>(kw0 + n * 8 + 2 * t4 + (e & 1));
-          if (fs2::mix32(rk[r] ^ col) < drop.thresh) p = 0.f;
+          const uint32_t col = c_lo + static_cast<uint32_t>(n * 8 + 2 * t4 + (e & 1));
+          if (fs2::mix32(rkt[r] ^ col) < drop.thresh) p = 0.f;
         }
         s[n][e] = p;
       }
@@ -1033,7 +1042,7 @@ attention_fwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();  // stage st & 1 is consumed before step st + 2 refills it
     }
     softmax_pv_tile<NG, DROP>(s, acc, m_run, l_run, Bs + (j & 1) * BK, Vs + (j & 1) * BK * NG,
-                              j * BK, T_len, sm_scale, rk, drop.thresh, t4);
+                              j * BK, T_len, sm_scale, rk, row0, drop.thresh, t4);
     // the V and bias stage j & 1 is refilled by the load of step (j + 2) * chunks,
     // issued after the next tile's first barrier
   }
@@ -1498,9 +1507,7 @@ extern "C" int attention_fwd_column_groups(int dtype, int dh) {
 // (the wrapper checks). `kv_end` is [B] int32 scratch: a pre-pass kernel on
 // the same stream fills it (attention_common.cuh) and the attention kernel
 // reads it. `lse` may be null (no log-sum-exp output); `seed` may be null
-// when thresh == 0. T is bounded only with dropout (thresh > 0), where the
-// mask hash packs (row, col) into 32 bits: T <= 65536. Returns a
-// cudaError_t code (0 on success).
+// when thresh == 0. Returns a cudaError_t code (0 on success).
 extern "C" int attention_fwd(int dtype, const void* q, const void* k, const void* v,
                              const void* key_bias, void* kv_end, void* o, void* lse,
                              const void* seed, int B, int H, int T_len, int dh,
@@ -1514,8 +1521,8 @@ extern "C" int attention_fwd(int dtype, const void* q, const void* k, const void
   const Strides qs{q_sb, q_sh, q_st}, ks{k_sb, k_sh, k_st};
   const Strides vs{v_sb, v_sh, v_st}, os{o_sb, o_sh, o_st};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || T_len <= 0 || (thresh > 0 && T_len > fs2::kMaxDropoutT) ||
-      thresh < 0 || thresh > 0xffffffffLL || (thresh > 0 && seed == nullptr) ||
+  if (B <= 0 || H <= 0 || T_len <= 0 || thresh < 0 || thresh > 0xffffffffLL ||
+      (thresh > 0 && seed == nullptr) ||
       kv_end == nullptr || row_offset < 0 || head_offset < 0 || head_offset + H > heads_total)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout drop{static_cast<const int*>(seed), static_cast<uint32_t>(thresh), keep_scale,

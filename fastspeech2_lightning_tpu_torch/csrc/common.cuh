@@ -35,10 +35,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // of a distributed step passes where its rows and heads lie in the global
 // batch and draws its block of the one-process mask; (0, 0, H) give b*H + h.
 // An element is kept iff its 32 bits >= threshold
-// (threshold = min(floor(p * 2^32), 2^32 - 1)). Rows and columns < 2^16, so
-// the kernels take T <= kMaxDropoutT when they draw a mask (p > 0); at p = 0
-// no bit is drawn and T is not bounded by it.
-constexpr int kMaxDropoutT = 1 << 16;
+// (threshold = min(floor(p * 2^32), 2^32 - 1)).
+//
+// The bits of (row, col): mix32 of the low 16 bits of each packed into one
+// word, xor the key, xor dropout_high, a mix of their high 16 bits. Since
+// mix32(0) == 0, dropout_high is 0 while row and col are below 2^16, so a
+// mask at T <= 65536 is the one the low packing alone drew; past it every
+// (row, col) below 2^32 keeps a word of its own. A tile of 16 or more rows
+// or columns aligned to its size never crosses a multiple of 2^16, so the
+// kernels that keep `(row << 16) ^ key` a row add dropout_high once a tile
+// and the low 16 bits of the column an element.
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -59,8 +65,14 @@ __device__ __forceinline__ uint32_t dropout_key(int seed, int bh) {
                mix32(static_cast<uint32_t>(bh) * 0x9e3779b9u + 0x632be5abu));
 }
 
+// what rows and columns of 2^16 or more add to the hash: 0 below
+__device__ __forceinline__ uint32_t dropout_high(int row, int col) {
+  return mix32(((static_cast<uint32_t>(row) >> 16) << 16) | (static_cast<uint32_t>(col) >> 16));
+}
+
 __device__ __forceinline__ uint32_t dropout_bits(uint32_t key, int row, int col) {
-  return mix32(((static_cast<uint32_t>(row) << 16) | static_cast<uint32_t>(col)) ^ key);
+  return mix32(((static_cast<uint32_t>(row) << 16) | (static_cast<uint32_t>(col) & 0xffffu)) ^
+               key ^ dropout_high(row, col));
 }
 
 // The max-dynamic-shared-memory opt-in (cudaFuncSetAttribute) is an

@@ -72,9 +72,8 @@
 // subnormal and infinite arguments (bit-equal over [1, 3], the only sums an
 // lse takes) moved nothing, so the chain's latency, not issue, sets the
 // time.
-// Texts past the ring's reach (S > 2047: 1024 symbols or more, up to
-// S = 16383, 8191 symbols, the S that the JAX package's own Pallas gate
-// admits at B 16): a ring of 32 frames over the whole row would take
+// Texts past the ring's reach (S > 2047: 1024 symbols or more): a ring of
+// 32 frames over the whole row would take
 // 32 (L + 1) floats, more shared memory than a block has. There a chain is
 // spread over a thread-block cluster (ctc_chain_cluster_kernel, below the
 // ring kernel's run_chain): each block runs the ring kernel at K = 4 on a
@@ -82,8 +81,11 @@
 // its first warp's halo from the block on its left through distributed
 // shared memory, a wait on an mbarrier of its own instead of a barrier of
 // the cluster. slice_layout picks the blocks a chain (2 to 8) from the
-// waves of clusters the card runs them in and the warps a block takes. The
-// output rows are
+// waves of clusters the card runs them in and the warps a block takes. Past
+// PANEL_S (16383, 8191 symbols, the S that the JAX package's own Pallas gate
+// admits at B 16) a chain's states are cut into panels launched in turn,
+// each such a cluster, whose first block takes its halo from the rows the
+// panel before it stored. The output rows are
 // [B, T, S] f32 (512 MB each at B 16, T 2048, S 4001), as in JAX.
 //
 // Design of the gradient: one warp a (b, t) row over all SMs, the even-state
@@ -99,7 +101,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e15f;
-constexpr int MAX_S = 16383;               // states an item (L <= 8191)
+constexpr int PANEL_S = 16383;             // states a launch's clusters take (L <= 8191)
 constexpr int RING_S = 2047;               // the ring chains' reach (L <= 1023)
 constexpr int HALO_LANES = 4;              // lanes a warp spends on its halo
 constexpr int RING_FRAMES = 32;            // frames the emission ring holds
@@ -347,6 +349,21 @@ __device__ __forceinline__ void run_chain(const float* __restrict__ lp, float* _
 //    chain kept to 40 registers; at S 16383 3.293 and 4.724;
 //  - a wider halo at the block boundary than between warps: the hand-over
 //    rides the warps' own meet every 2 K frames and costs the chain nothing.
+//
+// Past PANEL_S states a chain would need more blocks than a portable
+// cluster holds, so its states are cut into panels of equal layout, each
+// covering `blocks x warps x 112` states of the chain's order from s_base,
+// launched in turn on one stream (alpha and beta side by side, panel for
+// panel). A panel's first block takes its halo at each meet from the rows
+// the panel before it stored, instead of from a courier: the halo states
+// are that panel's owned states, its launch has ended, and what a courier
+// would have handed on is the row of the frame before the meet, read from
+// device memory (for beta, w = beta + the frame's emission, added as the
+// chain adds it). So the rows are still the plain version's to the bit.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 33): at (4,
+// 16384, 12000), S 24001 in two panels of 8 blocks of 14 warps, ctc_alpha
+// 19.77 ms and ctc_alpha_beta 20.09 (its 8 chains still one wave), about
+// 600 ns a frame and panel.
 constexpr int K_SLICE = K_LONG;
 using SliceLayout = Layout<K_SLICE>;
 constexpr int EDGE = HALO_LANES * K_SLICE;          // halo states a block takes from its left
@@ -396,14 +413,14 @@ __device__ __forceinline__ void run_chain_slice(const float* __restrict__ lp,
                                                 float* meet, float (*edge)[EDGE],
                                                 float (*edge_in)[EDGE], uint64_t* full,
                                                 uint64_t* empty, int T, int L, int in_len,
-                                                int out_len, int rank, int size) {
+                                                int out_len, int rank, int size, int s_base) {
   constexpr int K = K_SLICE, CHUNK = SliceLayout::CHUNK, SLOTS = SliceLayout::SLOTS;
   constexpr int OWN = SliceLayout::OWN;
   const int S = 2 * L + 1, Lp1 = L + 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = (blockDim.x >> 5) - SLICE_COPY_WARPS - 1;  // then the copy warps, the courier
   const int n_chunks = (T + CHUNK - 1) / CHUNK;
-  const int W = n_warps * OWN, s0 = rank * W;
+  const int W = n_warps * OWN, s0 = s_base + rank * W;
   const int rf = slice_row(n_warps);
   // the window's first label column: the odd states of this block's lanes
   // (halo included) read columns cw0 .. cw0 + rf - 2; ring slot 0 is the blank
@@ -416,8 +433,14 @@ __device__ __forceinline__ void run_chain_slice(const float* __restrict__ lp,
     // `meet` into the right block's slot after it, so the chain warps never
     // wait on the cluster. A warp of its own: a release waits for its
     // thread's memory operations, which for a copy warp would be cp.async
-    // copies still in flight
+    // copies still in flight. A panel's first block (past the chain's first
+    // state) takes the hand-over from the row the panel before it stored
+    // for the frame before the meet instead: state s0 - EDGE + lane, in the
+    // chain's order
     const bool carries = lane < EDGE;
+    const int sh = s0 - EDGE + lane;            // the halo state this lane carries
+    const int s_real = BETA ? S - 1 - sh : sh;  // its index in the rows
+    const int col = s_real & 1 ? (s_real + 1) >> 1 : 0;  // its emission column
     for (int m = 0; m < n_chunks; ++m) {
       const int slot = (m - 1) % EDGE_SLOTS;
       const uint32_t parity = ((m - 1) / EDGE_SLOTS) & 1;
@@ -425,6 +448,13 @@ __device__ __forceinline__ void run_chain_slice(const float* __restrict__ lp,
         fs2::cluster::wait(&full[slot], parity);
         edge_in[m & 1][lane] = edge[slot][lane];
         fs2::cluster::arrive(fs2::cluster::map(&empty[slot], rank - 1));
+      } else if (carries && m > 0 && s0 > 0) {
+        const int j = m * CHUNK - 1;  // the frame before the meet, in the chain's order
+        const int t = BETA ? T - 1 - j : j;
+        float v = out[static_cast<long long>(t) * S + s_real];
+        if (BETA)  // w = beta + emit, as chain_frame adds it
+          v += t < out_len ? lp[static_cast<long long>(t) * Lp1 + col] : (col ? NEG_INF : 0.f);
+        edge_in[m & 1][lane] = v;
       }
       __syncwarp();
       bar_sync(1, blockDim.x);
@@ -497,7 +527,7 @@ __device__ __forceinline__ void run_chain_slice(const float* __restrict__ lp,
   };
 
   for (int m = 0; m < n_chunks; ++m) {
-    meet_halo<K>(x, meet + (m & 1) * SLICE_WARPS * EDGE, rank > 0 ? edge_in[m & 1] : nullptr,
+    meet_halo<K>(x, meet + (m & 1) * SLICE_WARPS * EDGE, s0 > 0 ? edge_in[m & 1] : nullptr,
                  m, warp, lane);
     const float* rows = ring + (m % SLOTS) * CHUNK * rf;
     const int n = min(CHUNK, T - m * CHUNK);
@@ -512,11 +542,12 @@ __device__ __forceinline__ void run_chain_slice(const float* __restrict__ lp,
 }
 
 // clusters 0 .. B-1: alpha of item b; B .. 2B-1 (when betas is given):
-// beta of item b - B; block `rank` of a cluster runs slice `rank`
+// beta of item b - B; block `rank` of a cluster runs the slice from state
+// s_base + rank x (its states), in the chain's order
 __global__ void __launch_bounds__((SLICE_WARPS + SLICE_COPY_WARPS + 1) * 32)
 ctc_chain_cluster_kernel(const float* __restrict__ logprobs, const int* __restrict__ in_lens,
-                         const int* __restrict__ out_lens, float* __restrict__ alphas,
-                         float* __restrict__ betas, int B, int T, int L) {
+                         const int* __restrict__ out_lens, float* alphas, float* betas, int B,
+                         int T, int L, int s_base) {
   extern __shared__ float ring[];  // [RING_FRAMES][slice_row(n_warps)]
   __shared__ float meet[2 * SLICE_WARPS * EDGE];
   __shared__ float edge[EDGE_SLOTS][EDGE];  // the left block's top states, handed over
@@ -538,10 +569,10 @@ ctc_chain_cluster_kernel(const float* __restrict__ logprobs, const int* __restri
   const float* lp = logprobs + static_cast<long long>(b) * T * (L + 1);
   if (beta)
     run_chain_slice<true>(lp, betas + b * T * S, ring, meet, edge, edge_in, full, empty, T, L,
-                          in_lens[b], out_lens[b], rank, size);
+                          in_lens[b], out_lens[b], rank, size, s_base);
   else
     run_chain_slice<false>(lp, alphas + b * T * S, ring, meet, edge, edge_in, full, empty, T, L,
-                           0, out_lens[b], rank, size);
+                           0, out_lens[b], rank, size, s_base);
   fs2::cluster::sync();  // no block leaves while a neighbour may still touch its shared memory
 }
 
@@ -649,22 +680,41 @@ cudaError_t slice_layout(int chains, int S, int* size, int* warps, int* active) 
   return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
+// The layout of `chains` chains of S states in panels: the panels of
+// equal layout, each at most PANEL_S states, and slice_layout's choice for
+// one of them (`states` of the chain's order each).
+cudaError_t panel_layout(int chains, int S, int* size, int* warps, int* active, int* panels) {
+  const int first = (S + PANEL_S - 1) / PANEL_S;
+  const cudaError_t err = slice_layout(chains, (S + first - 1) / first, size, warps, active);
+  if (err != cudaSuccess) return err;
+  const int states = *size * *warps * SliceLayout::OWN;
+  *panels = (S + states - 1) / states;
+  return cudaSuccess;
+}
+
 cudaError_t launch_slices(const float* logprobs, const int* in_lens, const int* out_lens,
                           float* alphas, float* betas, int B, int T, int L, cudaStream_t stream) {
   const int chains = betas ? 2 * B : B;
-  int size = 0, warps = 0, active = 0;
-  const cudaError_t err = slice_layout(chains, 2 * L + 1, &size, &warps, &active);
+  int size = 0, warps = 0, active = 0, panels = 0;
+  cudaError_t err = panel_layout(chains, 2 * L + 1, &size, &warps, &active, &panels);
   if (err != cudaSuccess) return err;
-  return fs2::cluster::launch(slice_occupancy, ctc_chain_cluster_kernel, chains * size, size,
-                              (warps + SLICE_COPY_WARPS + 1) * 32, slice_smem(warps), stream,
-                              logprobs, in_lens, out_lens, alphas, betas, B, T, L);
+  const int W = warps * SliceLayout::OWN, S = 2 * L + 1;
+  for (int p = 0; p < panels; ++p) {
+    // the last panel takes only the blocks that start below S
+    const int s_base = p * size * W, blocks = min(size, (S - s_base + W - 1) / W);
+    err = fs2::cluster::launch(slice_occupancy, ctc_chain_cluster_kernel, chains * blocks, blocks,
+                               (warps + SLICE_COPY_WARPS + 1) * 32, slice_smem(warps), stream,
+                               logprobs, in_lens, out_lens, alphas, betas, B, T, L, s_base);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // two states a lane up to 8 warps (every training bucket), four up to the
 // ring's reach, then a cluster of blocks a chain
 cudaError_t launch_chains(const void* logprobs, const void* in_lens, const void* out_lens,
                           void* alphas, void* betas, int B, int T, int L, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || L <= 0 || 2 * L + 1 > MAX_S) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || L <= 0) return cudaErrorInvalidValue;
   const auto lp = static_cast<const float*>(logprobs);
   const auto il = static_cast<const int*>(in_lens), ol = static_cast<const int*>(out_lens);
   const auto al = static_cast<float*>(alphas), be = static_cast<float*>(betas);
@@ -679,16 +729,18 @@ cudaError_t launch_chains(const void* logprobs, const void* in_lens, const void*
 FS2_EXPORT_ERROR_STRING
 
 // The slice layout the cluster kernel was built for, as ops/ctc.py names it
-// (WARP_STATES, HALO_STATES, MEET_FRAMES): a launch given another refuses.
-static bool layout_is(int warp_states, int halo, int meet) {
-  return warp_states == SliceLayout::OWN && halo == EDGE && meet == SliceLayout::CHUNK;
+// (WARP_STATES, HALO_STATES, MEET_FRAMES, PANEL_S): a launch given another
+// refuses.
+static bool layout_is(int warp_states, int halo, int meet, int panel) {
+  return warp_states == SliceLayout::OWN && halo == EDGE && meet == SliceLayout::CHUNK &&
+         panel == PANEL_S;
 }
 
 // The alpha chain alone (a forward that needs no gradient). Returns a
 // cudaError_t code (0 on success).
 extern "C" int ctc_alpha(const void* logprobs, const void* out_lens, void* alphas, int B, int T,
-                         int L, int warp_states, int halo, int meet, void* stream) {
-  if (!layout_is(warp_states, halo, meet)) return static_cast<int>(cudaErrorInvalidValue);
+                         int L, int warp_states, int halo, int meet, int panel, void* stream) {
+  if (!layout_is(warp_states, halo, meet, panel)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chains(logprobs, nullptr, out_lens, alphas, nullptr, B, T, L,
                                         static_cast<cudaStream_t>(stream)));
 }
@@ -696,39 +748,40 @@ extern "C" int ctc_alpha(const void* logprobs, const void* out_lens, void* alpha
 // The alpha and beta chains side by side, one launch.
 extern "C" int ctc_alpha_beta(const void* logprobs, const void* in_lens, const void* out_lens,
                               void* alphas, void* betas, int B, int T, int L, int warp_states,
-                              int halo, int meet, void* stream) {
-  if (!betas || !layout_is(warp_states, halo, meet))
+                              int halo, int meet, int panel, void* stream) {
+  if (!betas || !layout_is(warp_states, halo, meet, panel))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_chains(logprobs, in_lens, out_lens, alphas, betas, B, T, L,
                                         static_cast<cudaStream_t>(stream)));
 }
 
 // The layout of a launch of `chains` chains (B for ctc_alpha, 2B for
-// ctc_alpha_beta) at L labels: out[0] blocks a chain (1: the ring kernel),
-// out[1] states a block owns, out[2] its chain warps, out[3] halo states a
-// warp (and a block) takes from its left, out[4] frames between two meets,
-// out[5] the clusters of out[0] blocks the card holds at once (0 for the
-// ring kernel).
+// ctc_alpha_beta) at L labels: out[0] blocks a chain's cluster (1: the
+// ring kernel), out[1] states a block owns, out[2] its chain warps, out[3]
+// halo states a warp (and a block) takes from its left, out[4] frames
+// between two meets, out[5] the clusters of out[0] blocks the card holds
+// at once (0 for the ring kernel), out[6] the panels launched in turn.
 extern "C" int ctc_cluster_layout(int chains, int L, int* out) {
   const int S = 2 * L + 1;
-  if (chains <= 0 || L <= 0 || S > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
+  if (chains <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (S <= RING_S) {
     const int K = S <= SHORT_S ? K_SHORT : K_LONG, own = (32 - HALO_LANES) * K;
     const int warps = (S + own - 1) / own;
     out[0] = 1, out[1] = warps * own, out[2] = warps, out[3] = HALO_LANES * K, out[4] = K * 2;
-    out[5] = 0;
+    out[5] = 0, out[6] = 1;
     return 0;
   }
-  const cudaError_t err = slice_layout(chains, S, &out[0], &out[2], &out[5]);
+  const cudaError_t err = panel_layout(chains, S, &out[0], &out[2], &out[5], &out[6]);
   out[1] = out[2] * SliceLayout::OWN, out[3] = EDGE, out[4] = SliceLayout::CHUNK;
   return static_cast<int>(err);
 }
 
 // The limits the layouts keep to, as ops/ctc.py names them: out[0] RING_S
-// (one block a chain up to here), out[1] MAX_CLUSTER (blocks a chain at
-// most), out[2] SLICE_WARPS (chain warps a block at most).
+// (one block a chain up to here), out[1] MAX_CLUSTER (blocks a cluster at
+// most), out[2] SLICE_WARPS (chain warps a block at most), out[3] PANEL_S
+// (states a panel at most).
 extern "C" int ctc_cluster_limits(int* out) {
-  out[0] = RING_S, out[1] = MAX_CLUSTER, out[2] = SLICE_WARPS;
+  out[0] = RING_S, out[1] = MAX_CLUSTER, out[2] = SLICE_WARPS, out[3] = PANEL_S;
   return 0;
 }
 
@@ -736,8 +789,7 @@ extern "C" int ctc_cluster_limits(int* out) {
 extern "C" int ctc_grad(const void* alphas, const void* betas, const void* out_lens,
                         const void* ll, const void* g, void* grad, int B, int T, int L,
                         void* stream) {
-  if (B <= 0 || T <= 0 || L <= 0 || 2 * L + 1 > MAX_S)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || T <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B * T + GRAD_ROWS - 1) / GRAD_ROWS;
   ctc_grad_kernel<<<blocks, GRAD_ROWS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(alphas), static_cast<const float*>(betas),

@@ -52,11 +52,13 @@
 //  - A warp's 32 move decisions of a row are one ballot word (T*L/8 bytes
 //    per item: the DP table never reaches device memory), and the words of
 //    32 rows leave in one store.
-//  - Texts past the ring's reach (1024 < L <= 8192): a cluster of blocks an
-//    item, each the ring kernel at L 1024 on its own slice of 1024 columns,
-//    the halo across a block boundary handed over through distributed
-//    shared memory (mas_width1_cluster_kernel, at the end of this file,
-//    with its measured times).
+//  - Texts past the ring's reach (L > 1024): a cluster of blocks an item,
+//    each the ring kernel at L 1024 on its own slice of 1024 columns, the
+//    halo across a block boundary handed over through distributed shared
+//    memory; past 8192 columns, panels of eight such blocks launched one
+//    after the other, the halo across a panel boundary through device
+//    memory (mas_width1_cluster_kernel, at the end of this file, with its
+//    measured times).
 //  - Backtrack: warp 0 takes 32 rows at a time. From column c the path falls
 //    by at most one a row, so the 32 rows' decisions all lie in columns
 //    c - 31 .. c: two words a row, loaded by the 32 lanes together and
@@ -74,7 +76,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e9f;
-constexpr int MAX_L = 8192;
 // The ring kernel's reach, and whether the cluster kernel's copy warps
 // stage the rows: macros so that tools/cluster_chain_variants.py can build
 // the source with the cluster kernel from L 513 (one block a cluster) and
@@ -321,6 +322,23 @@ cudaError_t launch(const void* log_attn, const void* in_lens, const void* out_le
 // shared memory) warp 0 of the first block runs the backtrack. The row
 // arithmetic is mas_row's, so the path is the ring kernel's, bit for bit.
 //
+// Past PANEL_L (8192) columns a cluster would need more than the eight
+// blocks a portable cluster holds, so the columns are cut into panels of
+// at most PANEL_L, launched in turn on one stream, each a launch of this
+// kernel over its panel's blocks (block0: the panel's first block in the
+// item). A panel's last block, where the next panel has a live column,
+// writes what its courier would hand on, the last 32 columns at each meet,
+// to `edge_out` ([B][ceil(T / 16)][32] f32, one row a hand-over) instead,
+// and the next panel's first block takes them from there (`edge_in`): the
+// previous launch has ended, so every value is in device memory and no
+// wait is needed. The columns, their halo and their arithmetic are those
+// of one cluster of all the item's blocks, so the path is still bit for
+// bit the ring kernel's. Only the last panel's launch runs the backtrack,
+// over the decision words every panel wrote. Measured (NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py phase 33, tools/panel_timing.py): at (4, 16384,
+// 16384), two panels of one wave of four clusters each, 7.48 ms of device
+// time against a bound of 2.01 (bytes), 228 ns a row and panel.
+//
 // Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md, tools/default_shapes_ab.py):
 // at (16, 2048, 2000) 0.499 ms of device time, 244 ns a row (the ring
 // kernel at L 1000: 197), against 1.135 for the direct kernel it replaced;
@@ -340,6 +358,8 @@ cudaError_t launch(const void* log_attn, const void* in_lens, const void* out_le
 //  - the cluster scheduling policies Spread and LoadBalancing: 0.500 and
 //    0.500 against 0.500 (tools/cluster_chain_variants.py).
 constexpr int SLICE_L = 1024;           // columns a block owns: MAX_WARPS warps of 4 groups
+constexpr int PANEL_BLOCKS = 8;         // blocks a cluster at most (portable clusters)
+constexpr int PANEL_L = PANEL_BLOCKS * SLICE_L;  // columns a launch at most
 constexpr int SLICE_COLS = 4;
 constexpr int EDGE = 32;                // halo columns a block takes from its left neighbour
 constexpr int EDGE_SLOTS = 4;           // hand-overs in flight between two neighbours
@@ -357,15 +377,18 @@ fs2::cluster::Occupancy cluster_occupancy;
 __global__ void __launch_bounds__(CLUSTER_THREADS)
 mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restrict__ in_lens,
                           const int* __restrict__ out_lens, float* __restrict__ hard,
-                          int* __restrict__ durations, uint32_t* bits, int T, int L) {
+                          int* __restrict__ durations, uint32_t* bits,
+                          const float* __restrict__ edge_in_g, float* __restrict__ edge_out_g,
+                          int T, int L, int block0, int backtracks) {
   constexpr int COLS = SLICE_COLS;
   extern __shared__ float ring[];            // [SLOTS * BLOCK][SLICE_ROW]
   __shared__ float halo[2][MAX_WARPS][32];   // each warp's last 32 columns, by block parity
   __shared__ float edge[EDGE_SLOTS][32];     // the left block's last 32 columns, handed over
   __shared__ float edge_in[2][32];           // the same, for warp 0, by block parity
   __shared__ uint64_t full[EDGE_SLOTS], empty[EDGE_SLOTS];
-  const int rank = fs2::cluster::rank();
-  const int b = blockIdx.x / fs2::cluster::size();
+  const int rank = fs2::cluster::rank(), size = fs2::cluster::size();
+  const int grank = block0 + rank;  // this block's slice of the item
+  const int b = blockIdx.x / size;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int in_len = in_lens[b];
   const int n = min(out_lens[b], T);  // rows on the path
@@ -380,7 +403,7 @@ mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restr
     fs2::tc::mbar_init_fence();
   }
   fs2::cluster::sync();  // every block's mbarriers are set before any arrives on them
-  const int c0 = rank * SLICE_L;  // this block's first column
+  const int c0 = grank * SLICE_L;  // this block's first column
   const int n_warps =
       in_len > c0 ? min(MAX_WARPS, (in_len - c0 + 32 * COLS - 1) / (32 * COLS)) : 0;
   const bool feeds = in_len > c0 + SLICE_L;  // the next block has a live column (and all 8 here)
@@ -388,6 +411,8 @@ mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restr
   if (n_warps > 0) {
     const int n_meet = (n_warps + COPY_WARPS + 1) * 32;  // threads at a block's barrier
     const int n_blocks = (n + BLOCK - 1) / BLOCK;         // meets, the first included
+    // hand-overs across a panel boundary: row m - 1 of item b's at meet m
+    const long long edge_row0 = static_cast<long long>(b) * ((T + BLOCK - 1) / BLOCK) - 1;
     const float* la_b = log_attn + static_cast<long long>(b) * T * L;
     if (warp >= MAX_WARPS && warp < COURIER) {
       // copy warps: the rows of block m, columns c0 - 32 .. c0 + 128 n_warps - 1
@@ -444,7 +469,9 @@ mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restr
       // edge_in before the meet, and from the last search warp's `halo` into
       // the right block's slot after it. A warp of its own: a release waits
       // for its thread's memory operations, which for a copy warp would be
-      // cp.async copies still in flight
+      // cp.async copies still in flight. Across a panel boundary the
+      // hand-over goes through device memory (edge_out_g, then edge_in_g of
+      // the next launch)
       for (int m = 0; m < n_blocks; ++m) {
         const int slot = (m - 1) % EDGE_SLOTS;
         const uint32_t parity = ((m - 1) / EDGE_SLOTS) & 1;
@@ -452,18 +479,24 @@ mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restr
           fs2::cluster::wait(&full[slot], parity);
           edge_in[m & 1][lane] = edge[slot][lane];
           fs2::cluster::arrive(fs2::cluster::map(&empty[slot], rank - 1));
+        } else if (m > 0 && grank > 0) {
+          edge_in[m & 1][lane] = edge_in_g[(edge_row0 + m) * EDGE + lane];
         }
         bar_sync(1, n_meet);
         if (m > 0 && feeds) {
           const float v = halo[m & 1][MAX_WARPS - 1][lane];
-          fs2::cluster::wait(&empty[slot], parity ^ 1);  // the right block took the slot's last
-          fs2::cluster::store(fs2::cluster::map(&edge[slot][lane], rank + 1), v);
-          fs2::cluster::arrive(fs2::cluster::map(&full[slot], rank + 1));
+          if (rank + 1 < size) {
+            fs2::cluster::wait(&empty[slot], parity ^ 1);  // the right block took the slot's last
+            fs2::cluster::store(fs2::cluster::map(&edge[slot][lane], rank + 1), v);
+            fs2::cluster::arrive(fs2::cluster::map(&full[slot], rank + 1));
+          } else {
+            edge_out_g[(edge_row0 + m) * EDGE + lane] = v;
+          }
         }
       }
     } else if (warp < n_warps) {
       const int jw = c0 + warp * 32 * COLS + lane;  // columns jw + 32 k, and jw - 32 (halo)
-      const bool has_halo = warp > 0 || rank > 0;
+      const bool has_halo = warp > 0 || grank > 0;
       const int n_groups = min(COLS, (in_len - (jw - lane) + 31) >> 5);  // with a live column
       const int word0 = (c0 >> 5) + warp * COLS;
       float cur[COLS + 1];  // P[i - 1, j] of the halo column and the owned ones
@@ -483,7 +516,7 @@ mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restr
           bar_sync(1, n_meet);
           if (warp > 0)
             cur[0] = halo[block & 1][warp - 1][lane];
-          else if (rank > 0)
+          else if (grank > 0)
             cur[0] = edge_in[block & 1][lane];
         }
         const int last = min(n, i0 + BLOCK);
@@ -499,23 +532,41 @@ mas_width1_cluster_kernel(const float* __restrict__ log_attn, const int* __restr
   // every block's decision words are out before the backtrack reads them,
   // and no block leaves while a neighbour may still touch its shared memory
   fs2::cluster::sync();
-  if (rank != 0 || warp != 0) return;
+  if (rank != 0 || warp != 0 || !backtracks) return;
   __syncwarp();
   backtrack(hard, durations, bits_b, b, T, L, in_len, n, lane);
 }
 
+// The panels of a text of L columns: ceil(L / PANEL_L), each of at most
+// PANEL_BLOCKS blocks.
+int panels(int L) { return (L + PANEL_L - 1) / PANEL_L; }
+
+// The panels in turn on `stream`: panel p reads its hand-overs from half
+// (p - 1) % 2 of `edge` ([2][B][ceil(T / 16)][32] f32; null for one panel)
+// and writes them to half p % 2, which the launch before it read last.
 cudaError_t launch_cluster(const void* log_attn, const void* in_lens, const void* out_lens,
-                           void* hard, void* durations, void* bits, int B, int T, int L,
-                           cudaStream_t stream) {
+                           void* hard, void* durations, void* bits, void* edge, int B, int T,
+                           int L, cudaStream_t stream) {
   const cudaError_t attr = fs2::smem_opt_in(cluster_opt_in, mas_width1_cluster_kernel,
                                             static_cast<int>(CLUSTER_SMEM));
   if (attr != cudaSuccess) return attr;
-  const int size = (L + SLICE_L - 1) / SLICE_L;
-  return fs2::cluster::launch(
-      cluster_occupancy, mas_width1_cluster_kernel, B * size, size, CLUSTER_THREADS, CLUSTER_SMEM,
-      stream, static_cast<const float*>(log_attn), static_cast<const int*>(in_lens),
-      static_cast<const int*>(out_lens), static_cast<float*>(hard), static_cast<int*>(durations),
-      static_cast<uint32_t*>(bits), T, L);
+  const int n_panels = panels(L);
+  if (n_panels > 1 && edge == nullptr) return cudaErrorInvalidValue;
+  const long long half = static_cast<long long>(B) * ((T + BLOCK - 1) / BLOCK) * EDGE;
+  float* const edges = static_cast<float*>(edge);
+  for (int p = 0; p < n_panels; ++p) {
+    const int size = min(PANEL_BLOCKS, (L - p * PANEL_L + SLICE_L - 1) / SLICE_L);
+    const float* from = p > 0 ? edges + ((p - 1) & 1) * half : nullptr;
+    float* to = p + 1 < n_panels ? edges + (p & 1) * half : nullptr;
+    const cudaError_t err = fs2::cluster::launch(
+        cluster_occupancy, mas_width1_cluster_kernel, B * size, size, CLUSTER_THREADS,
+        CLUSTER_SMEM, stream, static_cast<const float*>(log_attn),
+        static_cast<const int*>(in_lens), static_cast<const int*>(out_lens),
+        static_cast<float*>(hard), static_cast<int*>(durations), static_cast<uint32_t*>(bits),
+        from, to, T, L, p * PANEL_BLOCKS, static_cast<int>(p + 1 == n_panels));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -523,47 +574,51 @@ cudaError_t launch_cluster(const void* log_attn, const void* in_lens, const void
 FS2_EXPORT_ERROR_STRING
 
 // The cluster layout the kernel was built for, as ops/mas.py names it
-// (SLICE_L, EDGE, MEET_ROWS): a launch given another refuses.
-static bool layout_is(int slice, int edge, int meet) {
-  return slice == SLICE_L && edge == EDGE && meet == BLOCK;
+// (SLICE_L, EDGE, MEET_ROWS, PANEL_L): a launch given another refuses.
+static bool layout_is(int slice, int edge, int meet, int panel) {
+  return slice == SLICE_L && edge == EDGE && meet == BLOCK && panel == PANEL_L;
 }
 
 // Zeroes hard and durations on `stream`, then launches the search there:
-// the ring kernel up to L 1024, the cluster kernel past it. Returns a
-// cudaError_t code (0 on success).
+// the ring kernel up to L 1024, the cluster kernel past it, in panels past
+// 8192 (`edge`: their hand-overs, [2][B][ceil(T / 16)][32] f32, unread for
+// one panel). Returns a cudaError_t code (0 on success).
 extern "C" int mas_width1(const void* log_attn, const void* in_lens, const void* out_lens,
-                          void* hard, void* durations, void* bits, int B, int T, int L,
-                          int slice, int edge, int meet, void* stream) {
-  if (B <= 0 || T <= 0 || L <= 0 || L > MAX_L || !layout_is(slice, edge, meet))
+                          void* hard, void* durations, void* bits, void* edge, int B, int T,
+                          int L, int slice, int edge_columns, int meet, int panel, void* stream) {
+  if (B <= 0 || T <= 0 || L <= 0 || !layout_is(slice, edge_columns, meet, panel))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(hard, 0, sizeof(float) * B * T * L, st);
+  cudaError_t err =
+      cudaMemsetAsync(hard, 0, sizeof(float) * static_cast<size_t>(B) * T * L, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(durations, 0, sizeof(int) * B * L, st);
+  err = cudaMemsetAsync(durations, 0, sizeof(int) * static_cast<size_t>(B) * L, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 #define FS2_MAS_ARGS log_attn, in_lens, out_lens, hard, durations, bits, B, T, L, st
   if (L <= 32 * MAX_WARPS) return static_cast<int>(launch<1>(FS2_MAS_ARGS));
   if (L <= 64 * MAX_WARPS) return static_cast<int>(launch<2>(FS2_MAS_ARGS));
   if (L <= RING_L) return static_cast<int>(launch<4>(FS2_MAS_ARGS));
-  return static_cast<int>(launch_cluster(FS2_MAS_ARGS));
 #undef FS2_MAS_ARGS
+  return static_cast<int>(
+      launch_cluster(log_attn, in_lens, out_lens, hard, durations, bits, edge, B, T, L, st));
 }
 
-// The layout a launch at text length L takes: out[0] blocks an item (1: the
-// ring kernel), out[1] columns a block owns, out[2] halo columns a block
-// takes from its left neighbour, out[3] rows between two meets, out[4] the
-// clusters of out[0] blocks the card holds at once (0 for the ring kernel).
+// The layout a launch at text length L takes: out[0] blocks a cluster of
+// the first panel (1: the ring kernel), out[1] columns a block owns, out[2]
+// halo columns a block takes from its left neighbour, out[3] rows between
+// two meets, out[4] the clusters of out[0] blocks the card holds at once (0
+// for the ring kernel), out[5] the panels launched in turn.
 extern "C" int mas_width1_cluster_layout(int L, int* out) {
-  if (L <= 0 || L > MAX_L) return static_cast<int>(cudaErrorInvalidValue);
+  if (L <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (L <= RING_L) {
-    out[0] = 1, out[1] = L, out[2] = 32, out[3] = BLOCK, out[4] = 0;
+    out[0] = 1, out[1] = L, out[2] = 32, out[3] = BLOCK, out[4] = 0, out[5] = 1;
     return 0;
   }
   cudaError_t err = fs2::smem_opt_in(cluster_opt_in, mas_width1_cluster_kernel,
                                      static_cast<int>(CLUSTER_SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int size = (L + SLICE_L - 1) / SLICE_L;
-  out[0] = size, out[1] = SLICE_L, out[2] = EDGE, out[3] = BLOCK;
+  const int size = min(PANEL_BLOCKS, (L + SLICE_L - 1) / SLICE_L);
+  out[0] = size, out[1] = SLICE_L, out[2] = EDGE, out[3] = BLOCK, out[5] = panels(L);
   err = fs2::cluster::max_active(cluster_occupancy, mas_width1_cluster_kernel, size,
                                  CLUSTER_THREADS, CLUSTER_SMEM, &out[4]);
   return static_cast<int>(err);

@@ -53,10 +53,10 @@ The dropout mask is a pure function of (seed, (b + row_offset) * heads_total
 + h + head_offset, query row, key column): ``dropout_keep_mask`` computes it
 in int64 tensors exactly as ``csrc/common.cuh`` does in 32-bit arithmetic, so
 the kernels and their plain versions agree at p > 0 element for element.
-The hash packs (query row, key column) into 32 bits, so with dropout T is at
-most 65536 (every entry raises past it, before any work:
-``check_dropout_length``); at p = 0 no bit is drawn and T is not bounded.
-The offsets place a data rank's rows and a model rank's heads in the global
+The hash keys on the full (query row, key column): the low 16 bits of each
+packed into one word, and a mix of their high 16 bits that is 0 below
+65536, so T is not bounded and a mask at T <= 65536 is the one the low
+packing alone draws. The offsets place a data rank's rows and a model rank's heads in the global
 batch of a distributed step (``models/conformer.py``), so each rank draws
 the block of the one-process mask that its rows and heads cover; the
 defaults (0, 0, H) are the mask of one process. They reach the kernels only
@@ -84,7 +84,6 @@ NEG_INF = -1e9
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)  # the widths csrc/attention_*.cu are built for
-_MAX_T = 1 << 16  # with dropout: the mask hash packs (row, col) into 32 bits
 _M32 = 0xFFFFFFFF
 
 
@@ -209,22 +208,38 @@ def _stream_index(B: int, H: int, row_offset: int, head_offset: int,
     return (b * heads_total + h).reshape(-1)
 
 
+def dropout_bits(key, rows, cols):
+    """``csrc/common.cuh`` dropout_bits in int64: the 32 hash bits of every
+    (query row, key column) for each stream key, [len(key), len(rows),
+    len(cols)]. The low 16 bits of row and column packed into one word, xor
+    the key, xor a mix of their high 16 bits (0 below 65536, since
+    mix32(0) = 0)."""
+    rows, cols = rows[:, None], cols[None, :]
+    low = ((rows & 0xFFFF) << 16) | (cols & 0xFFFF)
+    high = _mix32(((rows >> 16) << 16) | (cols >> 16))
+    return _mix32((low ^ high)[None] ^ key[:, None, None])
+
+
 def dropout_keep_mask(seed: int, B: int, H: int, T: int, p: float, device=None,
                       row_offset: int = 0, head_offset: int = 0,
-                      heads_total: Optional[int] = None) -> torch.Tensor:
+                      heads_total: Optional[int] = None, rows: Optional[tuple] = None,
+                      cols: Optional[tuple] = None) -> torch.Tensor:
     """[B, H, T, T] bool keep mask of ``csrc/common.cuh`` (dropout_key,
     dropout_bits) for int32 `seed`: entry (b, h, i, j) depends on nothing
     but (seed, (b + row_offset) * heads_total + h + head_offset, i, j), so
     padding T leaves it unchanged, and a rank's block at its offsets is the
-    block of the global mask."""
-    check_dropout_length("dropout_keep_mask", T, p)
+    block of the global mask. `rows` and `cols` ((start, stop) of query rows
+    and key columns, each within [0, T]) draw that block of it alone."""
     thresh = dropout_threshold(p)
     bh = _stream_index(B, H, row_offset, head_offset, heads_total, device)
     key = _mix32((int(seed) & _M32) ^ _mix32((_mul32(bh, 0x9E3779B9) + 0x632BE5AB) & _M32))
-    pos = torch.arange(T, dtype=torch.int64, device=device)
-    cell = (pos[:, None] << 16) | pos[None, :]
-    bits = _mix32(cell[None] ^ key[:, None, None])
-    return (bits >= thresh).view(B, H, T, T)
+    r0, r1 = rows if rows is not None else (0, T)
+    c0, c1 = cols if cols is not None else (0, T)
+    if not (0 <= r0 <= r1 <= T and 0 <= c0 <= c1 <= T):
+        raise ValueError(f"dropout_keep_mask: rows {rows} and cols {cols} must lie in [0, {T}]")
+    bits = dropout_bits(key, torch.arange(r0, r1, dtype=torch.int64, device=device),
+                        torch.arange(c0, c1, dtype=torch.int64, device=device))
+    return (bits >= thresh).view(B, H, r1 - r0, c1 - c0)
 
 
 def attention_dropout_reference(q, k, v, key_bias, seed, p: float, sm_scale: float,
@@ -248,16 +263,7 @@ def attention_dropout_reference(q, k, v, key_bias, seed, p: float, sm_scale: flo
     return torch.matmul(prob.to(v.dtype), v)
 
 
-def check_dropout_length(name: str, T: int, p: float) -> None:
-    """Raise where dropout at p would draw its mask past T = 65536: the hash
-    packs (query row, key column) into 32 bits (``csrc/common.cuh``
-    dropout_bits). At p = 0 no bit is drawn and T is not bounded."""
-    if p > 0.0 and T > _MAX_T:
-        raise ValueError(f"{name}: attention dropout (p = {p}) takes T <= {_MAX_T}: its mask "
-                         f"hashes (query row, key column) packed into 32 bits; T = {T}")
-
-
-def _check(name: str, q, k, v, key_bias, p: float) -> list:
+def _check(name: str, q, k, v, key_bias) -> list:
     """Raise on what the kernels do not take; return the [B, H, T] strides
     of q, k and v, flat (the C entries' stride arguments)."""
     B, H, T, dh = q.shape
@@ -266,7 +272,6 @@ def _check(name: str, q, k, v, key_bias, p: float) -> list:
                          f"of 128 above them")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
-    check_dropout_length(name, T, p)
     if (k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype
             or k.get_device() != q.get_device() or v.get_device() != q.get_device()):
         raise ValueError(f"{name}: k and v must match q in shape/dtype/device")
@@ -372,7 +377,7 @@ def _launch_fwd(q, k, v, key_bias, sm_scale: float, p: float, seed, with_lse: bo
     """Kernel A: the ctypes launch of ``csrc/attention_fwd.cu`` at a built
     head dim; (o, lse)."""
     thresh = dropout_threshold(p)
-    strides = _check("attention_fwd", q, k, v, key_bias, p)
+    strides = _check("attention_fwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
     offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
@@ -436,7 +441,6 @@ def attention_fwd(q, k, v, key_bias, sm_scale: float, p: float = 0.0, seed=None,
     ``fs2t::attention_fwd``: kernel A on the card, the plain version on the
     CPU, its fake under ``torch.export``."""
     dropout_threshold(p)
-    check_dropout_length("attention_fwd", q.shape[2], p)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     o, lse = _attention_fwd_op(q, k, v, key_bias, float(sm_scale), float(p),
@@ -484,7 +488,6 @@ def attention_bwd(q, k, v, key_bias, seed, p: float, sm_scale: float, o, lse, do
     log-sum-exp `lse` (``attention_fwd(..., with_lse=True)``) and the output
     gradient `do`; the key bias gets none. The offsets are the forward's."""
     thresh = dropout_threshold(p)
-    check_dropout_length("attention_bwd", q.shape[2], p)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, key_bias, seed, p, sm_scale, do,
                                        row_offset, head_offset, heads_total)
@@ -503,7 +506,7 @@ def _launch_bwd(q, k, v, o, do, key_bias, seed, thresh: int, p: float, sm_scale:
     head dim; (dQ, dK, dV) in q's dtype. `flops` is the plain backward's
     count at the caller's true head dim, which the launch adds to
     ``attention_bwd.flops``."""
-    strides = _check("attention_bwd", q, k, v, key_bias, p)
+    strides = _check("attention_bwd", q, k, v, key_bias)
     B, H, T, dh = q.shape
     offsets = _offsets(H, row_offset, head_offset, heads_total)
     device = q.device
@@ -582,7 +585,6 @@ def attention_with_dropout(q, k, v, key_bias, seed, p: float, sm_scale: float,
     a distributed rank's rows and heads; a launch of A at offsets other than
     the defaults bypasses the op, so ``FlopCounterMode`` does not count it
     (no path counts a distributed step's FLOPs)."""
-    check_dropout_length("attention_with_dropout", q.shape[2], p)
     if q.device.type == "cpu":
         return attention_dropout_reference(q, k, v, key_bias, seed, p, sm_scale,
                                            row_offset, head_offset, heads_total)

@@ -12,8 +12,11 @@ its CUDA kernel in ``csrc/ctc_banded_lse.cu`` (which replaces
 raises, and runs its plain version for CPU tensors. Past ``RING_S``
 states a chain is spread over a thread-block cluster, a block a slice of
 whole warps of ``WARP_STATES`` states, each taking the ``HALO_STATES`` left
-of its slice from its neighbour every ``MEET_FRAMES`` frames
-(``cluster_layout`` reads the layout a launch takes). Padded frames
+of its slice from its neighbour every ``MEET_FRAMES`` frames; past
+``PANEL_S`` states the chain's states are cut into panels of such clusters
+launched in turn, each panel's first block taking its halo from the rows
+the panel before it stored (``cluster_layout`` reads the layout a launch
+takes). Every text length runs. Padded frames
 (t >= out_len) emit blank with certainty, so alpha at T-1 equals alpha at
 out_len-1; they get no gradient. Labels are the text positions 1..in_len, so
 every skip transition is legal.
@@ -28,7 +31,6 @@ import torch
 from ..kernels import build
 
 NEG_INF = -1e15
-MAX_S = 16383  # states per item the kernels take: texts up to 8191 symbols
 RING_S = 2047  # one block a chain up to here
 # The cluster layout past RING_S, passed to the C entries (which refuse any
 # other): a block's chain warps own WARP_STATES states each (28 lanes of 4)
@@ -36,13 +38,16 @@ RING_S = 2047  # one block a chain up to here
 # every frame and taken afresh from the block on its left every MEET_FRAMES
 # frames. A halo state stays right two states less a frame (the skip
 # transition), so MEET_FRAMES <= HALO_STATES / 2 keeps every owned state the
-# plain version's. A chain takes at most MAX_CLUSTER blocks of at most
-# SLICE_WARPS warps.
+# plain version's. A cluster takes at most MAX_CLUSTER blocks of at most
+# SLICE_WARPS warps; a launch covers at most PANEL_S states of a chain (texts
+# of 8191 symbols), and longer chains run in panels of equal layout, one
+# launch after another.
 WARP_STATES = 112
 HALO_STATES = 16
 MEET_FRAMES = 8
 MAX_CLUSTER = 8
 SLICE_WARPS = 27
+PANEL_S = 16383
 
 
 def _state_labels(L: int, device) -> torch.Tensor:
@@ -137,35 +142,35 @@ def ctc_grad_reference(alphas, betas, out_lens, ll, g) -> torch.Tensor:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ALPHA_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
-_ALPHA_BETA_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
+_ALPHA_ARGTYPES = [_P] * 3 + [_I] * 7 + [_P]
+_ALPHA_BETA_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 _GRAD_ARGTYPES = [_P] * 6 + [_I] * 3 + [_P]
 _LAYOUT_ARGTYPES = [_I, _I, _P]
 _SIGNATURES = {"ctc_alpha": _ALPHA_ARGTYPES, "ctc_alpha_beta": _ALPHA_BETA_ARGTYPES,
                "ctc_grad": _GRAD_ARGTYPES, "ctc_cluster_layout": _LAYOUT_ARGTYPES,
                "ctc_cluster_limits": [_P]}
-_LAYOUT = (WARP_STATES, HALO_STATES, MEET_FRAMES)
+_LAYOUT = (WARP_STATES, HALO_STATES, MEET_FRAMES, PANEL_S)
 
 
 def cluster_layout(chains: int, L: int) -> dict:
     """The layout the C entries launch `chains` chains (B for ``ctc_alpha``,
-    2B for ``ctc_alpha_beta``) of 2L + 1 states in: blocks a chain (1: the
-    ring kernel), states a block owns and its chain warps, halo states a
-    block takes from its left, frames between two meets, and the clusters of
-    that many blocks the current card holds at once (0 for the ring kernel).
-    Builds the kernel's source on first use, so it needs nvcc and a card."""
+    2B for ``ctc_alpha_beta``) of 2L + 1 states in: blocks a chain's
+    cluster (1: the ring kernel), states a block owns and its chain warps,
+    halo states a block takes from its left, frames between two meets, the
+    clusters of that many blocks the current card holds at once (0 for the
+    ring kernel), and the panels launched in turn (1 up to ``PANEL_S``
+    states). Builds the kernel's source on first use, so it needs nvcc and
+    a card."""
     lib = build.load("ctc_banded_lse", _SIGNATURES)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     build.check(lib, lib.ctc_cluster_layout(chains, L, out), "ctc_cluster_layout")
-    return dict(zip(("blocks", "states", "warps", "halo", "meet", "max_active_clusters"), out))
+    return dict(zip(("blocks", "states", "warps", "halo", "meet", "max_active_clusters",
+                     "panels"), out))
 
 
-def _check(name: str, x, S: int) -> None:
+def _check(name: str, x) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if S > MAX_S:
-        raise ValueError(f"{name}: {S} states > {MAX_S} (texts of more than "
-                         f"{(MAX_S - 1) // 2} symbols)")
 
 
 def _f32(x, dev):
@@ -188,7 +193,7 @@ def ctc_alpha(logprobs, out_lens) -> torch.Tensor:
     if logprobs.device.type == "cpu":
         return ctc_alpha_reference(logprobs, out_lens)
     B, T, Lp1 = logprobs.shape
-    _check("ctc_alpha", logprobs, 2 * Lp1 - 1)
+    _check("ctc_alpha", logprobs)
     dev = logprobs.device
     lp, out_lens = _f32(logprobs, dev), _i32(out_lens, dev)
     alphas = torch.empty((B, T, 2 * Lp1 - 1), dtype=torch.float32, device=dev)
@@ -207,7 +212,7 @@ def ctc_alpha_beta(logprobs, in_lens, out_lens) -> tuple:
         return (ctc_alpha_reference(logprobs, out_lens),
                 ctc_beta_reference(logprobs, in_lens, out_lens))
     B, T, Lp1 = logprobs.shape
-    _check("ctc_alpha_beta", logprobs, 2 * Lp1 - 1)
+    _check("ctc_alpha_beta", logprobs)
     dev = logprobs.device
     lp = _f32(logprobs, dev)
     in_lens, out_lens = _i32(in_lens, dev), _i32(out_lens, dev)
@@ -226,7 +231,7 @@ def ctc_grad(alphas, betas, out_lens, ll, g) -> torch.Tensor:
     if alphas.device.type == "cpu":
         return ctc_grad_reference(alphas, betas, out_lens, ll, g)
     B, T, S = alphas.shape
-    _check("ctc_grad", alphas, S)
+    _check("ctc_grad", alphas)
     if betas.shape != alphas.shape or S % 2 == 0:
         raise ValueError("ctc_grad: alphas and betas must both be [B, T, 2L+1]")
     dev = alphas.device

@@ -8,11 +8,13 @@ CUDA tensor launches ``csrc/mas_width1.cu`` (which replaces
 ``mas_width1_reference``, its plain version. Past ``RING_L`` columns the
 kernel spreads an item over a thread-block cluster: a block a slice of
 ``SLICE_L`` columns, each taking the ``EDGE_COLUMNS`` left of its slice from
-its neighbour every ``MEET_ROWS`` rows (``cluster_layout`` reads the layout
-a launch takes from the C entry). There is no scan fallback: a
-text longer than ``MAX_L`` raises, where the JAX package runs its XLA scan
-(ROADMAP.md lists the difference). The search takes no gradient. The C
-entry zeroes both outputs on the stream before the kernel writes its ones.
+its neighbour every ``MEET_ROWS`` rows; past ``PANEL_L`` columns the
+clusters run in panels of at most ``PANEL_L`` columns launched in turn, the
+halo across a panel boundary handed on through device memory
+(``cluster_layout`` reads the layout a launch takes from the C entry). Every
+text length runs, as the JAX package's scan does. The search takes no
+gradient. The C entry zeroes both outputs on the stream before the kernel
+writes its ones.
 
 Recurrence (``ops/mas.py:30-51``; adds and maxes in one order, exact in f32):
     la     = valid ? max(log_attn, -1e9) : -1e9
@@ -28,17 +30,20 @@ import ctypes
 import torch
 
 NEG_INF = -1e9
-MAX_L = 8192  # eight blocks of SLICE_L columns (csrc/mas_width1.cu)
 RING_L = 1024  # one block an item up to here
 # The cluster layout past RING_L, passed to the C entry (which refuses any
 # other): a block owns SLICE_L columns and carries the EDGE_COLUMNS left of
 # them, recomputed every row and taken afresh from the block on its left
 # every MEET_ROWS rows. A halo column stays right one row less for every
 # column it lies further left, so MEET_ROWS <= EDGE_COLUMNS keeps every
-# owned column the plain version's.
+# owned column the plain version's. A launch takes at most PANEL_L
+# columns (a cluster of eight blocks); a longer text runs in panels, one
+# launch after another, the last EDGE_COLUMNS of a panel at every meet row
+# written to device memory for the next panel's first block.
 SLICE_L = 1024
 EDGE_COLUMNS = 32
 MEET_ROWS = 16
+PANEL_L = 8 * SLICE_L
 
 
 def _masked(log_attn, in_lens, out_lens):
@@ -98,24 +103,24 @@ def backtrack_window(word_hi: int, word_lo: int, c: int) -> int:
     return (((word_hi << 32) | word_lo) >> ((c & 31) + 1)) & 0xFFFFFFFF
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ENTRIES = {"mas_width1": _ARGTYPES,
             "mas_width1_cluster_layout": [ctypes.c_int, ctypes.c_void_p]}
 
 
 def cluster_layout(L: int) -> dict:
-    """The layout the C entry launches text length `L` in: blocks an item
-    (1: the ring kernel), columns a block owns, halo columns a block takes
-    from its left neighbour, rows between two meets, and the clusters of
+    """The layout the C entry launches text length `L` in: blocks an item's
+    cluster (1: the ring kernel), columns a block owns, halo columns a block
+    takes from its left neighbour, rows between two meets, the clusters of
     that many blocks the current card holds at once (0 for the ring
-    kernel). Builds the kernel's source on first use, so it needs nvcc and
-    a card."""
+    kernel), and the panels launched in turn (1 up to ``PANEL_L``). Builds
+    the kernel's source on first use, so it needs nvcc and a card."""
     from ..kernels import build
 
     lib = build.load("mas_width1", _ENTRIES)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     build.check(lib, lib.mas_width1_cluster_layout(L, out), "mas_width1_cluster_layout")
-    return dict(zip(("blocks", "slice", "edge", "meet", "max_active_clusters"), out))
+    return dict(zip(("blocks", "slice", "edge", "meet", "max_active_clusters", "panels"), out))
 
 
 @torch.no_grad()
@@ -126,8 +131,6 @@ def mas_width1(log_attn, in_lens, out_lens):
     if log_attn.device.type != "cuda":
         raise ValueError(f"mas_width1: unsupported device {log_attn.device}")
     B, T, L = log_attn.shape
-    if L > MAX_L:
-        raise ValueError(f"mas_width1: text length {L} > {MAX_L}")
     if in_lens.shape != (B,) or out_lens.shape != (B,):
         raise ValueError("mas_width1: in_lens and out_lens must be [B]")
     dev = log_attn.device
@@ -137,14 +140,19 @@ def mas_width1(log_attn, in_lens, out_lens):
     hard = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     durations = torch.empty((B, L), dtype=torch.int32, device=dev)
     bits = torch.empty((B, (L + 31) // 32, T), dtype=torch.int32, device=dev)
+    # past PANEL_L the panels hand their halos over in [2, B, meets, EDGE_COLUMNS]
+    # (panel p reads half (p - 1) % 2 and writes half p % 2)
+    edges = (torch.empty((2, B, -(-T // MEET_ROWS), EDGE_COLUMNS), dtype=torch.float32,
+                         device=dev) if L > PANEL_L else None)
 
     from ..kernels import build
 
     lib = build.load("mas_width1", _ENTRIES)
     err = build.launch(
         dev, lib.mas_width1, la.data_ptr(), in_lens.data_ptr(), out_lens.data_ptr(),
-        hard.data_ptr(), durations.data_ptr(), bits.data_ptr(), B, T, L, SLICE_L, EDGE_COLUMNS,
-        MEET_ROWS, torch.cuda.current_stream(dev).cuda_stream,
+        hard.data_ptr(), durations.data_ptr(), bits.data_ptr(),
+        None if edges is None else edges.data_ptr(), B, T, L, SLICE_L, EDGE_COLUMNS, MEET_ROWS,
+        PANEL_L, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "mas_width1")
     build.count(mas_width1)

@@ -13,9 +13,13 @@ version on the card by tests/test_torch_kernels.py.
 log-sum-exp; its fake gives the kernel's strides; ``count_flops`` of an eval
 Conformer counts it once, at its formula, for the same total as the plain
 version's products; and the training Function's gradients equal autograd
-through the plain version. With dropout (p > 0) every entry refuses T
-past 65536 before any work (the mask hash packs (row, col) into 32 bits);
-at p 0 the launch's checks take any T."""
+through the plain version. No entry refuses a length, with dropout or
+without: the mask hash keys on the full (query row, key column). At T <=
+65536 its mask equals, cell for cell, the one the hash drew when it packed
+(row, col) into 32 bits (a copy of that formula here); past 65536 the cells
+that packing aliased draw bits of their own, kept at the rate 1 - p;
+``dropout_keep_mask`` draws a block of rows and columns alone, equal to
+that block of the whole mask."""
 
 import jax
 import jax.numpy as jnp
@@ -187,35 +191,98 @@ DROPOUT_ENTRIES = {
 }
 
 
+class WorkStarted(Exception):
+    """Raised by the monkeypatched work: the entry got past its checks."""
+
+
 @pytest.mark.parametrize("entry", list(DROPOUT_ENTRIES))
-def test_dropout_past_65536_keys_raises_before_any_work(entry, monkeypatch):
-    """p > 0 at T 65537: the mask hash packs (query row, key column) into 32
-    bits (``csrc/common.cuh`` dropout_bits), so every entry refuses before it
-    computes anything, with a message that names the limit and its cause."""
-    def no_work(*args, **kwargs):
-        raise AssertionError("work started")
+def test_dropout_past_65536_keys_reaches_its_work(entry, monkeypatch):
+    """p > 0 at T 65537: the mask hash keys on the full (query row, key
+    column) (``csrc/common.cuh`` dropout_bits), so no entry refuses the
+    length; each goes on to its work (monkeypatched here to stop it)."""
+    def work(*args, **kwargs):
+        raise WorkStarted
 
     for name in ("attention_dropout_reference", "attention_bwd_reference", "_mix32"):
-        monkeypatch.setattr(attention, name, no_work)
+        monkeypatch.setattr(attention, name, work)
     T = (1 << 16) + 1
     q = torch.zeros(1, 1, T, 8)
     seed = torch.tensor([1], dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"T <= 65536: its mask hashes \(query row, key column\) "
-                                         r"packed into 32 bits; T = 65537"):
+    with pytest.raises(WorkStarted):
         DROPOUT_ENTRIES[entry](q, torch.zeros(1, T), seed)
 
 
-def test_no_dropout_past_65536_keys_passes_the_wrappers_checks():
-    """At p 0 no bit is drawn, so T is not bounded: the launch's checks pass
-    at T 65537 (what the kernels do there is held on the card,
-    tests/test_torch_kernels.py), and the refusal starts at p > 0 above 65536
-    keys only."""
+def test_dropout_past_65536_keys_passes_the_wrappers_checks():
+    """The launch's checks pass at T 65537 whatever p (what the kernels do
+    there is held on the card, tests/test_torch_kernels.py): no length is
+    refused with dropout or without."""
     T = (1 << 16) + 1
     q = torch.zeros(1, 2, T, 64, dtype=torch.bfloat16)
     bias = torch.zeros(1, T)
-    strides = attention._check("attention_fwd", q, q, q, bias, 0.0)
+    strides = attention._check("attention_fwd", q, q, q, bias)
     assert strides == list(q.stride()[:3]) * 3
-    attention.check_dropout_length("attention_fwd", T, 0.0)
-    attention.check_dropout_length("attention_fwd", 1 << 16, 0.2)
-    with pytest.raises(ValueError, match="T <= 65536"):
-        attention._check("attention_fwd", q, q, q, bias, 0.2)
+    assert not hasattr(attention, "check_dropout_length")
+    assert attention.dropout_threshold(0.2) > 0
+
+
+def _old_keep_mask(seed, B, H, rows, cols, p):
+    """The keep mask of the hash before it keyed on the full (row, col):
+    (row << 16) | col packed into 32 bits, the cells past 65536 wrapping
+    onto others."""
+    bh = attention._stream_index(B, H, 0, 0, None, None)
+    key = attention._mix32((seed & attention._M32) ^ attention._mix32(
+        (attention._mul32(bh, 0x9E3779B9) + 0x632BE5AB) & attention._M32))
+    cell = ((rows[:, None] << 16) | cols[None, :]) & attention._M32
+    bits = attention._mix32(cell[None] ^ key[:, None, None])
+    return (bits >= attention.dropout_threshold(p)).view(B, H, len(rows), len(cols))
+
+
+OLD_HASH_CELLS = {
+    "every_cell_T_300": ((0, 300), (0, 300), 300),
+    "rows_near_65535": ((65280, 65536), (0, 256), 1 << 16),
+    "columns_near_65535": ((0, 256), (65280, 65536), 1 << 16),
+    "both_near_65535": ((65400, 65536), (65400, 65536), 1 << 16),
+}
+
+
+@pytest.mark.parametrize("case", list(OLD_HASH_CELLS))
+def test_dropout_mask_below_65536_equals_the_old_packing(case):
+    """At T <= 65536 the full-(row, col) hash draws the mask the 32-bit
+    packing drew: every cell of T 300, and the blocks next to 65535."""
+    (r0, r1), (c0, c1), T = OLD_HASH_CELLS[case]
+    for seed, p in ((-99, 0.2), (12345, 0.5)):
+        got = attention.dropout_keep_mask(seed, 2, 3, T, p, rows=(r0, r1), cols=(c0, c1))
+        want = _old_keep_mask(seed, 2, 3, torch.arange(r0, r1), torch.arange(c0, c1), p)
+        assert torch.equal(got, want)
+
+
+def test_dropout_mask_past_65536_draws_the_cells_the_packing_aliased():
+    """At T 65600 the rows and columns past 65536, which the 32-bit packing
+    folded onto rows and columns below it (row 65536 + i drew row i's
+    bits), draw bits of their own: a block past 65536 differs from the
+    block it aliased and from the old packing's, and its keep rate is 1 - p
+    within 0.01 (about nine standard deviations of the 4 x 64 x 1000 cells'
+    binomial)."""
+    T, p = 65600, 0.2
+    past = attention.dropout_keep_mask(7, 2, 2, T, p, rows=(65536, T), cols=(0, 1000))
+    aliased = attention.dropout_keep_mask(7, 2, 2, T, p, rows=(0, 64), cols=(0, 1000))
+    old = _old_keep_mask(7, 2, 2, torch.arange(65536, T), torch.arange(0, 1000), p)
+    assert torch.equal(old, aliased)  # the old packing wrapped row 65536 + i onto row i
+    assert not torch.equal(past, aliased)
+    assert abs(float(past.float().mean()) - (1 - p)) <= 0.01
+    cols = attention.dropout_keep_mask(7, 2, 2, T, p, rows=(0, 1000), cols=(65536, T))
+    assert not torch.equal(cols, _old_keep_mask(7, 2, 2, torch.arange(0, 1000),
+                                                torch.arange(65536, T), p))
+    assert abs(float(cols.float().mean()) - (1 - p)) <= 0.01
+
+
+def test_dropout_mask_block_equals_that_block_of_the_whole():
+    """``dropout_keep_mask`` with rows and cols draws that block of the
+    whole [T, T] mask, at a rank's offsets too; a block outside [0, T]
+    raises."""
+    whole = attention.dropout_keep_mask(3, 2, 2, 100, 0.3, row_offset=1, heads_total=4)
+    block = attention.dropout_keep_mask(3, 2, 2, 100, 0.3, row_offset=1, heads_total=4,
+                                        rows=(10, 57), cols=(5, 91))
+    assert torch.equal(block, whole[:, :, 10:57, 5:91])
+    with pytest.raises(ValueError, match="must lie in"):
+        attention.dropout_keep_mask(3, 2, 2, 100, 0.3, rows=(90, 101))

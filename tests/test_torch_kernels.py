@@ -29,9 +29,12 @@ a block a group of output columns), q, k, v as views of the fused
 projection; A's bf16 kernels above dh 128 on full and ragged masks and an
 item with no valid key, at T 1 to 1000 across the 64- and 128-row tiles
 and at a rank's offsets, with its log-sum-exp and A′ fed it, and at p 0
-bit for bit the launch without a seed; A and A′ at T 65600 at p 0 (past
-the dropout hash's 65536, with every key of one item valid; held on slices
-of rows and keys) and their refusal at p 0.2; A′'s dK and dV bit for bit the same over two bf16
+bit for bit the launch without a seed; A and A′ at T 65600 at p 0 (with
+every key of one item valid; held on slices of rows and keys) and at p 0.2
+(held on slices of rows and keys across 65536, the mask of those rows
+alone); the masks A and A′ draw read back bit for bit: at T 65536 equal to
+the old 32-bit (row, col) packing's next to 65535, at T 65600 across 65536
+equal to ``dropout_keep_mask``'s; A′'s dK and dV bit for bit the same over two bf16
 launches at dh 160 to 512, and dQ element by element at most one bf16
 rounding step and what reordering its f32 sum can move it apart;
 NaN keys and values in the tiles past kv_end, which the kernels must not
@@ -51,11 +54,14 @@ an even-k narrow stage past its halo on the per-conv route instead, and
 raising under autograd before it launches;
 MAS exactly, texts of 1025 to 8192 symbols on the cluster kernel included
 (in_len on and one past a slice boundary, B 1 and 16, a log-attention
-that starts 4 bytes past 16), and its layout query against ``ops/mas.py``'s
-constants; CTC loss within relative 1e-5 and its gradient within max-abs
-1e-5, at S 2049 to 16383 on the cluster chains too (B 1 to 16), and their
-layout query against ``ops/ctc.py``'s constants; a launch given another
-layout than the kernels were built for raises; kernel A as the op ``fs2t::attention_fwd`` through
+that starts 4 bytes past 16) and texts of 8193 to 16385 in panels (in_len
+inside the first panel, on a panel boundary and one past it), and its
+layout query against ``ops/mas.py``'s constants; CTC loss within relative
+1e-5 and its gradient within max-abs 1e-5, at S 2049 to 16383 on the
+cluster chains too (B 1 to 16), in panels at S 16385 to 24001 its rows
+and loss bit for bit, and their layout query against ``ops/ctc.py``'s
+constants; a launch given another layout than the kernels were built for
+raises; kernel A as the op ``fs2t::attention_fwd`` through
 ``torch.library.opcheck``, and a one-layer Conformer exported with
 ``torch.export``, saved, loaded and run, launching A and equal to eager;
 A with A' (at dh 128; at 96, 160, 192, 256, 384, 512 and 768 in f32 and
@@ -64,8 +70,8 @@ and replayed on new seeds or inputs, equal to their eager launches (bf16
 dQ element by element as between two launches);
 a tiny f32 train step captured by ``TrainStepGraph`` against the eager
 step. Each counts one launch per kernel launch (a replay its capture's
-launches), and each wrapper raises on a
-shape its kernel does not take. This file imports no JAX, so it also runs on a
+launches), and each wrapper raises on an
+input its kernel does not take. This file imports no JAX, so it also runs on a
 machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
@@ -580,9 +586,8 @@ def test_attention_past_the_dropout_limit_at_p0(cuda, H, dh):
     finite, and they equal the plain version's in f32, A on slices of query
     rows (a row's output depends on its own query alone), A′'s dQ on the
     same rows and its dK, dV on slices of keys against autograd through the
-    plain version over every row, 2048 rows at a time; at p 0.2 both
-    wrappers refuse before they launch, naming the 32-bit (row, col)
-    hash."""
+    plain version over every row, 2048 rows at a time (at p 0.2:
+    ``test_attention_dropout_past_65536_frames``)."""
     T, chunk = 65600, 2048
     g = torch.Generator(device=cuda).manual_seed(dh)
     q, k, v, do = (torch.randn(2, H, T, dh, device=cuda, generator=g).to(torch.bfloat16)
@@ -611,12 +616,115 @@ def test_attention_past_the_dropout_limit_at_p0(cuda, H, dh):
     for a, b in ((0, 256), (32768, 33024), (T - 256, T)):
         assert _rel(dk[:, :, a:b], kf.grad[:, :, a:b]) <= _tol(torch.bfloat16)
         assert _rel(dv[:, :, a:b], vf.grad[:, :, a:b]) <= _tol(torch.bfloat16)
-    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="packed into 32 bits"):
-        attention_fwd(q, k, v, bias, scale, p=0.2, seed=seed)
-    with pytest.raises(ValueError, match="packed into 32 bits"):
-        attention_bwd(q, k, v, bias, seed, 0.2, scale, out, lse, do)
+
+
+def _old_keep_mask(seed, B, H, rows, cols, p):
+    """The keep mask as the hash drew it before it keyed on the full (row,
+    col): (row << 16) | col in 32 bits, for rows and columns below 65536."""
+    key = attention._mix32((seed & attention._M32) ^ attention._mix32(
+        (attention._mul32(attention._stream_index(B, H, 0, 0, None, rows.device), 0x9E3779B9)
+         + 0x632BE5AB) & attention._M32))
+    cell = ((rows[:, None] << 16) | cols[None, :]) & attention._M32
+    return (attention._mix32(cell[None] ^ key[:, None, None])
+            >= attention.dropout_threshold(p)).view(B, H, len(rows), len(cols))
+
+
+def _window_masks(cuda, T, c0, i0, p, dtype=torch.bfloat16):
+    """The keep mask A and A′ draw, read back bit for bit at T: with q = k =
+    0, keys [c0, c0 + 128) the only valid ones and V one-hot over them, A's
+    output is the mask on those columns for every row; with dO one-hot over
+    rows [i0, i0 + 128), A′'s dV is the mask on those rows for every valid
+    key. Returns (A's [B, H, T, 128] != 0, A′'s [B, H, 128 rows, T keys]
+    != 0 on the valid keys)."""
+    B, H, W = 1, 2, 128
+    seed = torch.tensor([-99], dtype=torch.int32, device=cuda)
+    zero = torch.zeros(B, H, T, W, device=cuda, dtype=dtype)
+    onehot = torch.zeros(B, H, T, W, device=cuda, dtype=dtype)
+    onehot[:, :, c0:c0 + W] = torch.eye(W, device=cuda, dtype=dtype)
+    bias = torch.full((B, T), attention.NEG_INF, device=cuda)
+    bias[:, c0:c0 + W] = 0.0
+    o, lse = attention_fwd(zero, zero, onehot, bias, 0.125, p=p, seed=seed, with_lse=True)
+    do = torch.zeros(B, H, T, W, device=cuda, dtype=dtype)
+    do[:, :, i0:i0 + W] = torch.eye(W, device=cuda, dtype=dtype)
+    _, _, dv = attention_bwd(zero, zero, onehot, bias, seed, p, 0.125, o, lse, do)
+    torch.cuda.synchronize()
+    return o != 0, (dv[:, :, c0:c0 + W] != 0).transpose(-1, -2)
+
+
+@pytest.mark.gpu
+def test_dropout_masks_below_65536_frames_keep_the_old_hash(cuda):
+    """At T 65536 the masks A and A′ draw equal, bit for bit, those of the
+    hash as it was before it keyed on the full (row, col) (a copy of the
+    old formula), on the key columns and query rows next to 65535 and at
+    the start; at T 65600 the columns and rows across 65536 equal
+    ``dropout_keep_mask``'s, and differ from the old formula's wrapped
+    cells."""
+    T, W, p = 1 << 16, 128, 0.2
+    dev_rows = torch.arange(T, dtype=torch.int64, device=cuda)
+    for c0 in (0, T - W):
+        cols = torch.arange(c0, c0 + W, dtype=torch.int64, device=cuda)
+        fwd, bwd = _window_masks(cuda, T, c0, c0, p)
+        assert torch.equal(fwd, _old_keep_mask(-99, 1, 2, dev_rows, cols, p))
+        assert torch.equal(bwd, _old_keep_mask(-99, 1, 2, cols, cols, p))
+    T = 65600
+    c0 = (1 << 16) - 64  # the window crosses 65536
+    fwd, bwd = _window_masks(cuda, T, c0, c0, p)
+    assert torch.equal(fwd, dropout_keep_mask(-99, 1, 2, T, p, device=cuda, cols=(c0, c0 + W)))
+    assert torch.equal(bwd, dropout_keep_mask(-99, 1, 2, T, p, device=cuda, rows=(c0, c0 + W),
+                                              cols=(c0, c0 + W)))
+    # the old packing's cells past 65536 wrapped onto others
+    old = _old_keep_mask(-99, 1, 2, torch.arange(T, dtype=torch.int64, device=cuda),
+                         torch.arange(c0, c0 + W, dtype=torch.int64, device=cuda), p)
+    assert not torch.equal(fwd[:, :, (1 << 16):], old[:, :, (1 << 16):])
+
+
+def _dropout_rows(q, k, v, bias, seed, p, scale, r0):
+    """The plain version with dropout on query rows [r0, r0 + rows) of q's
+    slice `q` against every key (rows are independent): f32."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    prob = torch.softmax(s, dim=-1)
+    B, H, n, T = prob.shape
+    keep = dropout_keep_mask(int(seed), B, H, T, p, device=q.device, rows=(r0, r0 + n))
+    return torch.matmul(torch.where(keep, prob / (1.0 - p), 0.0), v)
+
+
+@pytest.mark.gpu
+def test_attention_dropout_past_65536_frames(cuda):
+    """A and A′ at (1, 2, 65600, 128), p 0.2, every key valid: one launch
+    each, finite, and against the plain version in f32 (``_dropout_rows``,
+    2048 query rows at a time through autograd) on slices of query rows
+    (A's output and A′'s dQ) and of keys (dK, dV) at the start, across
+    65536 and at the end, within the bf16 tolerance of the other dropout
+    holds."""
+    T, dh, p = 65600, 128, 0.2
+    g = torch.Generator(device=cuda).manual_seed(65)
+    q, k, v, do = (torch.randn(1, 2, T, dh, device=cuda, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.zeros(1, T, device=cuda)
+    seed = torch.tensor([2023], dtype=torch.int32, device=cuda)
+    scale = 1.0 / math.sqrt(dh)
+    before = attention_fwd.launches, attention_bwd.launches
+    out, lse = attention_fwd(q, k, v, bias, scale, p=p, seed=seed, with_lse=True)
+    dq, dk, dv = attention_bwd(q, k, v, bias, seed, p, scale, out, lse, do)
+    torch.cuda.synchronize()
     assert (attention_fwd.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+    kf, vf = (t.float().requires_grad_(True) for t in (k, v))
+    spans = ((0, 256), (65472, 65600), (65536 - 128, 65536 + 64))
+    bounds = list(range(0, 65408, 2048)) + [65408, T]  # each span within one chunk
+    for r0, r1 in zip(bounds, bounds[1:]):
+        qc = q[:, :, r0:r1].float().requires_grad_(True)
+        want = _dropout_rows(qc, kf, vf, bias, 2023, p, scale, r0)
+        want.backward(do[:, :, r0:r1].float())
+        want = want.detach()
+        for a, b in spans:
+            if r0 <= a and b <= r1:
+                assert _rel(out[:, :, a:b], want[:, :, a - r0:b - r0]) <= _tol(torch.bfloat16)
+                assert _rel(dq[:, :, a:b], qc.grad[:, :, a - r0:b - r0]) <= _tol(torch.bfloat16)
+        del qc, want
+    for a, b in spans:
+        assert _rel(dk[:, :, a:b], kf.grad[:, :, a:b]) <= _tol(torch.bfloat16)
+        assert _rel(dv[:, :, a:b], vf.grad[:, :, a:b]) <= _tol(torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -1341,6 +1449,33 @@ def test_mas_kernel_at_slice_boundaries(cuda, monkeypatch, L):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T,L", [(300, 8193), (1100, 12000), (700, 16385)])
+def test_mas_kernel_in_panels(cuda, monkeypatch, T, L):
+    """Past PANEL_L columns the clusters run in panels launched in turn, the
+    halo across a panel boundary through device memory: one launch counted,
+    and bit for bit the plain version's with in_len inside the first panel,
+    on a panel boundary and one past it, at L, on the edges of a slice of
+    the next panel, and lengths outside [1, L]."""
+    P = mas.PANEL_L
+    in_lens = torch.tensor([P // 2, P, P + 1, L, L - 1, P + 1024, 2 * P, 0, L + 1],
+                           device=cuda).clamp(max=L + 1)
+    out_lens = torch.tensor([T, T - 1, T, T, 17, T - 15, T, T, T], device=cuda)
+    B = len(in_lens)
+    g = torch.Generator(device=cuda).manual_seed(L)
+    la = torch.log_softmax(torch.randn(B, T, L, device=cuda, generator=g), -1)
+    la[0, :, 1::3] = la[0, :, :1]  # exact ties between neighbours
+    want_hard, want_dur = mas_width1_reference(la, in_lens, out_lens)
+    _poisoned_outputs(monkeypatch)
+    before = mas_width1.launches
+    hard, dur = mas_width1(la, in_lens, out_lens)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert mas_width1.launches == before + 1
+    assert torch.equal(hard, want_hard) and torch.equal(dur, want_dur)
+    assert not hard[-2:].any() and not dur[-2:].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("L", [64, 1000, 2048])
 def test_mas_kernel_takes_a_log_attention_off_16_bytes(cuda, L):
     """A contiguous view starting 4 bytes past a 16-byte boundary: the copy
@@ -1359,16 +1494,18 @@ def test_mas_kernel_takes_a_log_attention_off_16_bytes(cuda, L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L", [1, 1024, 1025, 2000, 4096, 8192])
+@pytest.mark.parametrize("L", [1, 1024, 1025, 2000, 4096, 8192, 8193, 16385, 30000])
 def test_mas_cluster_layout_follows_the_python_constants(cuda, L):
     """The layout the C entry reports: one block up to RING_L, past it
-    ceil(L / SLICE_L) blocks of SLICE_L columns taking EDGE_COLUMNS from the
-    left every MEET_ROWS rows, of which the card holds a cluster at least."""
+    ceil(L / SLICE_L) blocks of SLICE_L columns, eight at most a cluster,
+    in ceil(L / PANEL_L) panels, taking EDGE_COLUMNS from the left every
+    MEET_ROWS rows, of which the card holds a cluster at least."""
     got = mas.cluster_layout(L)
+    assert got["panels"] == -(-L // mas.PANEL_L)
     if L <= mas.RING_L:
         assert got["blocks"] == 1 and got["max_active_clusters"] == 0
         return
-    assert got["blocks"] == -(-L // mas.SLICE_L) <= 8
+    assert got["blocks"] == min(-(-L // mas.SLICE_L), mas.PANEL_L // mas.SLICE_L)
     assert (got["slice"], got["edge"], got["meet"]) == (mas.SLICE_L, mas.EDGE_COLUMNS,
                                                        mas.MEET_ROWS)
     assert got["max_active_clusters"] >= 1
@@ -1462,26 +1599,93 @@ def test_ctc_kernels_match_plain_version(cuda, monkeypatch, B, T, L):
         assert float(ll[3]) < 1e-3 * ctc.NEG_INF  # infeasible: ll on the NEG_INF scale
 
 
+def _feasible_ctc_inputs(dev, T, L, lens, seed=7):
+    """Log-probabilities [B, T, L+1] over random logits, the columns past
+    in_len at NEG_INF, for the (in_len, out_len) pairs `lens`."""
+    in_lens = torch.tensor([a for a, _ in lens], device=dev)
+    out_lens = torch.tensor([b for _, b in lens], device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(len(lens), T, L + 1, device=dev, generator=g)
+    logits = torch.where(torch.arange(L + 1, device=dev) > in_lens[:, None, None],
+                         ctc.NEG_INF, logits)
+    return torch.log_softmax(logits, -1), in_lens, out_lens
+
+
+CTC_PANELS = {
+    "S_16385_edges": (300, 8192, None),
+    "S_16387": (8300, 8193, [(8193, 8300), (8100, 8250)]),
+    "S_24001": (12100, 12000, [(12000, 12100), (8192, 12000), (8191, 9000)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CTC_PANELS))
+def test_ctc_kernels_in_panels(cuda, monkeypatch, case):
+    """Past PANEL_S states a chain runs in panels launched in turn, each
+    panel's first block taking its halo from the rows the panel before it
+    stored: one launch of each entry counted, every row written, both
+    chains' rows and the loss bit for bit the plain version's and the
+    gradient within max-abs 1e-5 of it, on the edge items of
+    ``_ctc_inputs`` and on items whose texts end in either panel."""
+    T, L, lens = CTC_PANELS[case]
+    if lens is None:
+        lp, in_lens, out_lens = _ctc_inputs(cuda, 2, T, L)
+    else:
+        lp, in_lens, out_lens = _feasible_ctc_inputs(cuda, T, L, lens)
+    assert ctc.cluster_layout(2 * len(in_lens), L)["panels"] >= 2
+    g = torch.Generator(device=cuda).manual_seed(5)
+    gvec = torch.rand(len(in_lens), device=cuda, generator=g)
+    want_alphas = ctc_alpha_reference(lp, out_lens)
+    want_betas = ctc_beta_reference(lp, in_lens, out_lens)
+    want_ll = ctc._final_ll(want_alphas[:, -1], in_lens)
+    _poisoned_outputs(monkeypatch)
+    a0, ab0, g0 = ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches
+    alphas_only = ctc_alpha(lp, out_lens)
+    alphas, betas = ctc_alpha_beta(lp, in_lens, out_lens)
+    ll = ctc._final_ll(alphas[:, -1], in_lens)
+    grad = ctc_grad(alphas, betas, out_lens, ll, gvec)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert (ctc_alpha.launches, ctc_alpha_beta.launches, ctc_grad.launches) == (
+        a0 + 1, ab0 + 1, g0 + 1)
+    for t in (alphas_only, alphas, betas, grad):
+        assert not t.isnan().any()
+    assert torch.equal(alphas_only, want_alphas) and torch.equal(alphas, want_alphas)
+    assert torch.equal(betas, want_betas) and torch.equal(ll, want_ll)
+    want_grad = ctc_grad_reference(want_alphas, want_betas, out_lens, want_ll, gvec)
+    assert float((grad - want_grad).abs().max()) <= 1e-5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("chains,L", [(1, 1023), (1, 1024), (4, 1100), (16, 2000), (32, 2000),
-                                      (32, 2048), (1, 8191), (16, 8191), (32, 8191), (2, 500)])
+                                      (32, 2048), (1, 8191), (16, 8191), (32, 8191), (2, 500),
+                                      (2, 8192), (4, 12000), (1, 20000)])
 def test_ctc_cluster_layout_follows_the_python_constants(cuda, chains, L):
     """The limits the C entries keep to are ops/ctc.py's (RING_S,
-    MAX_CLUSTER, SLICE_WARPS), and the layout they report: one block a chain
-    up to RING_S; past it at most MAX_CLUSTER blocks of at most SLICE_WARPS
-    warps of WARP_STATES states that hold S between them, taking HALO_STATES
-    from the left every MEET_FRAMES frames; one chain in the narrowest
-    slices MAX_CLUSTER blocks allow (it takes one wave at any size); the
-    chains' clusters all on the card at once where the fewest blocks that
-    hold S take at most 64 SMs in all."""
-    limits = (ctypes.c_int * 3)()
+    MAX_CLUSTER, SLICE_WARPS, PANEL_S), and the layout they report: one
+    block a chain up to RING_S; past it at most MAX_CLUSTER blocks of at
+    most SLICE_WARPS warps of WARP_STATES states that hold S between them
+    (a panel's share of it past PANEL_S: ceil(S / PANEL_S) panels or one
+    more, of equal layout), taking HALO_STATES from the left every
+    MEET_FRAMES frames; one chain in the narrowest slices MAX_CLUSTER blocks
+    allow (it takes one wave at any size); the chains' clusters all on the
+    card at once where the fewest blocks that hold S take at most 64 SMs in
+    all."""
+    limits = (ctypes.c_int * 4)()
     lib = build.load("ctc_banded_lse", ctc._SIGNATURES)
     assert lib.ctc_cluster_limits(limits) == 0
-    assert tuple(limits) == (ctc.RING_S, ctc.MAX_CLUSTER, ctc.SLICE_WARPS)
+    assert tuple(limits) == (ctc.RING_S, ctc.MAX_CLUSTER, ctc.SLICE_WARPS, ctc.PANEL_S)
     S = 2 * L + 1
     got = ctc.cluster_layout(chains, L)
     if S <= ctc.RING_S:
-        assert got["blocks"] == 1 and got["max_active_clusters"] == 0
+        assert got["blocks"] == 1 and got["max_active_clusters"] == 0 and got["panels"] == 1
+        return
+    first = -(-S // ctc.PANEL_S)
+    assert got["panels"] in (first, first + 1)
+    assert got["panels"] * got["blocks"] * got["states"] >= S
+    assert (got["panels"] - 1) * got["blocks"] * got["states"] < S
+    if got["panels"] > 1:
+        assert got["max_active_clusters"] >= 1
         return
     if chains == 1:
         warps = -(-(-(-S // ctc.MAX_CLUSTER)) // ctc.WARP_STATES)
@@ -1505,11 +1709,17 @@ def test_kernels_refuse_another_cluster_layout(cuda, monkeypatch):
     monkeypatch.setattr(mas, "SLICE_L", 512)
     with pytest.raises(RuntimeError, match="mas_width1"):
         mas_width1(la, lens, lens)
-    monkeypatch.setattr(ctc, "_LAYOUT", (ctc.WARP_STATES, ctc.HALO_STATES, 2 * ctc.MEET_FRAMES))
-    with pytest.raises(RuntimeError, match="ctc_alpha"):
-        ctc_alpha(lp, out_lens)
-    with pytest.raises(RuntimeError, match="ctc_alpha_beta"):
-        ctc_alpha_beta(lp, in_lens, out_lens)
+    monkeypatch.undo()
+    monkeypatch.setattr(mas, "PANEL_L", 4096)
+    with pytest.raises(RuntimeError, match="mas_width1"):
+        mas_width1(la, lens, lens)
+    for drifted in ((ctc.WARP_STATES, ctc.HALO_STATES, 2 * ctc.MEET_FRAMES, ctc.PANEL_S),
+                    (ctc.WARP_STATES, ctc.HALO_STATES, ctc.MEET_FRAMES, 2 * ctc.PANEL_S)):
+        monkeypatch.setattr(ctc, "_LAYOUT", drifted)
+        with pytest.raises(RuntimeError, match="ctc_alpha"):
+            ctc_alpha(lp, out_lens)
+        with pytest.raises(RuntimeError, match="ctc_alpha_beta"):
+            ctc_alpha_beta(lp, in_lens, out_lens)
 
 
 @pytest.mark.gpu
@@ -1537,9 +1747,10 @@ def test_ctc_forward_sum_runs_the_beta_chain_only_for_a_gradient(cuda):
 
 @pytest.mark.gpu
 def test_wrappers_raise_on_shapes_their_kernels_do_not_take(cuda):
-    """dh 320, L 1025 and S 2051, past the kernels' earlier reach, compute
-    and agree with the plain versions; a text past 8192 symbols (MAS) or
-    8191 (CTC, S 16385) raises."""
+    """dh 320, L 1025 and S 2051, past the kernels' earlier reach, and texts
+    past 8192 symbols (MAS) and 8191 (CTC, S 16387), past the reach of one
+    cluster, compute and agree with the plain versions; what is left to
+    refuse is lengths that are not [B] and rows that are not [B, T, 2L+1]."""
     q = torch.randn(1, 2, 16, 320, device=cuda)
     seed = torch.zeros(1, dtype=torch.int32, device=cuda)
     bias = torch.zeros(1, 16, device=cuda)
@@ -1551,10 +1762,16 @@ def test_wrappers_raise_on_shapes_their_kernels_do_not_take(cuda):
                zip(mas_width1(la, lens, lens), mas_width1_reference(la, lens, lens)))
     lp, in_lens, out_lens = _ctc_inputs(cuda, 1, 8, 1025)
     _rows_agree(ctc_alpha(lp, out_lens), ctc_alpha_reference(lp, out_lens))
-    with pytest.raises(ValueError, match="text length"):
-        mas_width1(torch.zeros(1, 4, 8193, device=cuda), lens, lens)
-    with pytest.raises(ValueError, match="states"):
-        ctc_alpha(torch.zeros(1, 4, 8193, device=cuda), lens)
+    la = torch.log_softmax(torch.randn(1, 4, 8193, device=cuda), -1)
+    assert all(torch.equal(a, b) for a, b in
+               zip(mas_width1(la, lens, lens), mas_width1_reference(la, lens, lens)))
+    lp, in_lens, out_lens = _ctc_inputs(cuda, 1, 8, 8193)
+    assert torch.equal(ctc_alpha(lp, out_lens), ctc_alpha_reference(lp, out_lens))
+    with pytest.raises(ValueError, match="must be \\[B\\]"):
+        mas_width1(la, lens[None], lens)
+    alphas = ctc_alpha(lp, out_lens)
+    with pytest.raises(ValueError, match="both be"):
+        ctc_grad(alphas, alphas[:, :, 1:], out_lens, out_lens.float(), out_lens.float())
 
 
 THREAD_DEVICES = {"one_card": ("cuda:0", "cuda:0"), "two_cards": ("cuda:0", "cuda:1")}

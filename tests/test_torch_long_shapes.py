@@ -18,7 +18,9 @@
   against JAX's ``ctc_forward_sum`` at S 2061 and 4101, on alignment-shaped
   scores: loss within relative 1e-5 and gradient within max-abs 1e-5
   (``test_torch_train_ops.py``'s tolerance; the test says why not on
-  uniformly drawn scores).
+  uniformly drawn scores). Both again at L 8193 over 8200 frames, B 1: a
+  text past one cluster's reach, which the kernels run in panels (about
+  50 s and 6 GB together).
 - A tiny-config training step at ``model.max_length`` 1100 on texts of
   1030 and 1100 symbols against JAX's, under a narrow diagonal prior (the
   test says why): MAS durations equal, the port's MAS on JAX's soft
@@ -375,6 +377,54 @@ def test_ctc_forward_sum_and_gradient_match_jax_at_long_texts(L, T):
     assert bool(torch.isfinite(loss.detach()).all()) and float(loss.detach().min()) > 0
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(j_loss), rtol=1e-5)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(j_grad), rtol=0, atol=1e-5)
+
+
+PAST_ONE_CLUSTER = (8193, 8200)  # (L, T): past PANEL_L (MAS) and PANEL_S (CTC, S 16387)
+
+
+def test_mas_reference_equals_jax_past_one_cluster():
+    """B 1 at L 8193, T 8200: the plain version the panels are held to on
+    the card against JAX's scan, bit for bit."""
+    L, T = PAST_ONE_CLUSTER
+    rng = np.random.default_rng(L)
+    x = rng.standard_normal((1, T, L)).astype(np.float32)
+    la = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    in_lens, out_lens = np.array([L], np.int32), np.array([T], np.int32)
+    _, want_dur = jmas.mas_width1_batched(jnp.asarray(la), jnp.asarray(in_lens),
+                                          jnp.asarray(out_lens))
+    want_dur = np.asarray(want_dur)
+    hard, dur = mas_width1_reference(torch.from_numpy(la), torch.from_numpy(in_lens),
+                                     torch.from_numpy(out_lens))
+    np.testing.assert_array_equal(dur.numpy(), want_dur)
+    cols = np.repeat(np.arange(L), want_dur[0])  # JAX's path, row by row
+    assert torch.equal(hard[0].argmax(1), torch.from_numpy(cols))
+    assert float(hard.sum()) == T
+
+
+def test_ctc_forward_sum_and_gradient_match_jax_past_one_cluster():
+    """B 1 at L 8193 (S 16387), T 8200, on alignment-shaped scores: the
+    loss within relative 1e-5 and the gradient within max-abs 1e-5 of JAX's,
+    as at L 1030 and 2050."""
+    L, T = PAST_ONE_CLUSTER
+    in_lens, out_lens = np.array([L], np.int32), np.array([T], np.int32)
+    rng = np.random.default_rng(L)
+    attn = 0.5 * rng.standard_normal((1, T, L))
+    centers = np.arange(T) / (T - 1) * (L - 1)
+    attn[0] -= (np.arange(L)[None] - centers[:, None]) ** 2 / (2 * 2.0 ** 2)
+    logits = np.concatenate([np.full((1, T, 1), -1.0, np.float32), attn.astype(np.float32)], -1)
+    lp = np.array(jax.nn.log_softmax(jnp.asarray(logits), axis=-1))
+    del attn, logits
+    w = np.array([0.7], np.float32)
+    j_loss = np.asarray(jctc.ctc_forward_sum(jnp.asarray(lp), jnp.asarray(in_lens),
+                                             jnp.asarray(out_lens)))
+    j_grad = np.asarray(jax.grad(lambda x: jnp.sum(jctc.ctc_forward_sum(
+        x, jnp.asarray(in_lens), jnp.asarray(out_lens)) * w))(jnp.asarray(lp)))
+    x = torch.from_numpy(lp).requires_grad_(True)
+    loss = tctc.ctc_forward_sum(x, torch.from_numpy(in_lens), torch.from_numpy(out_lens))
+    (loss * torch.from_numpy(w)).sum().backward()
+    assert bool(torch.isfinite(loss.detach()).all()) and float(loss.detach().min()) > 0
+    np.testing.assert_allclose(loss.detach().numpy(), j_loss, rtol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), j_grad, rtol=0, atol=1e-5)
 
 
 # -- a training step on texts of more than 1024 symbols -------------------------------

@@ -8,7 +8,9 @@ kernels A and A' at dh 257 to 768 and timed at dh 384 and 512, B at L 1025
 to 8191 and C at S 2049 to 16383 against their plain versions and timed at
 (16, 2048, 2000), the d-384 model at one head served over HTTP and trained
 2 steps, and the default model trained 2 steps and validated at
-``max_length`` 2048.
+``max_length`` 2048 and at 9000; B at L 8193 to 16385 and C at S 16385 and
+24001 (in panels) held and timed alone, and A and A' with dropout at T
+65600.
 
 Run it from the root of a checkout:
 
