@@ -1,0 +1,8 @@
+"""The share of the traced window in which no device operation ran (``common.readers.idle``)."""
+
+from benchmark.common import readers
+
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = "serve_p95_ms"
+read = readers.idle
